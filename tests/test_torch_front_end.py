@@ -2,8 +2,10 @@
 device image out.
 
 Loader -> Validator -> instantiate -> build_device_image in both packages
-over the workloads and a module with call_indirect, globals, a table and
-a data segment; every numpy field of the port's DeviceImage must equal
+over the workloads, a module with call_indirect, globals, a table and
+a data segment, and modules that import WASI or Python host functions
+(their HOSTCALL/RETURN stubs) or use memory.fill and memory.copy; every
+numpy field of the port's DeviceImage must equal
 the reference's field of the same name, bit for bit, and the handler-id
 plane must equal the Pallas engine's.
 """
@@ -19,29 +21,50 @@ from wasmedge_tpu_torch.batch.engine import BatchEngine, _table_snapshot
 from wasmedge_tpu_torch.batch.image import DeviceImage, build_device_image
 from wasmedge_tpu_torch.batch.interp import hid_plane
 from wasmedge_tpu_torch.common.configure import Configure
-from wasmedge_tpu_torch.executor.instantiate import instantiate
+from wasmedge_tpu_torch.common.errors import ErrCode, InstantiationError
+from wasmedge_tpu_torch.executor.instantiate import (
+    instantiate, register_import_object)
+from wasmedge_tpu_torch.host.wasi import WasiModule
 from wasmedge_tpu_torch.loader import Loader
 from wasmedge_tpu_torch.models import (
-    build_coremark_kernel, build_fac, build_fib, build_loop_sum,
-    build_memory_workload)
-from wasmedge_tpu_torch.models.fixtures import build_alu_edge, build_trap_zoo
+    build_bulk_workload, build_coremark_kernel, build_echo, build_fac,
+    build_fib, build_loop_sum, build_memory_workload, build_wasi_hello)
+from wasmedge_tpu_torch.models.fixtures import (
+    build_alu_edge, build_bulk_zoo, build_host_grow, build_host_poke,
+    build_trap_zoo)
 from wasmedge_tpu_torch.runtime.store import StoreManager
 from wasmedge_tpu_torch.utils.builder import ModuleBuilder
 from wasmedge_tpu_torch.validator import Validator
+from wasmedge_tpu.host.wasi import WasiModule as RefWasiModule
 from tests.helpers import instantiate as ref_instantiate
+from tests.test_torch_hostcall import _env_import
 
 MODULES = {
     "fib": build_fib, "fac": build_fac, "loop_sum": build_loop_sum,
     "mem_checksum": build_memory_workload, "coremark": build_coremark_kernel,
     "call_indirect_globals_table_data": build_trap_zoo,
     "alu_edge": build_alu_edge,
+    "wasi_echo": build_echo, "wasi_hello": build_wasi_hello,
+    "host_poke": build_host_poke, "host_grow": build_host_grow,
+    "bulk_zoo": build_bulk_zoo, "bulk_workload": build_bulk_workload,
 }
 
 
-def _port_inst(data, conf=None):
+def _imports(name, pkg):
+    """The host modules a fixture imports, from either package."""
+    if name.startswith("wasi_"):
+        return [RefWasiModule() if pkg == "ref" else WasiModule()]
+    if name.startswith("host_"):
+        return [_env_import(pkg)]
+    return []
+
+
+def _port_inst(data, conf=None, imports=()):
     conf = conf or Configure()
     mod = Validator(conf).validate(Loader(conf).parse_module(data))
     store = StoreManager()
+    for imp in imports:
+        register_import_object(store, imp)
     return store, instantiate(store, mod, conf)
 
 
@@ -58,12 +81,12 @@ def _assert_same(img, ref):
 @pytest.mark.parametrize("name", list(MODULES))
 def test_device_image_equals_reference(name):
     data = MODULES[name]()
-    _, rstore, rinst = ref_instantiate(data)
+    _, rstore, rinst = ref_instantiate(data, imports=_imports(name, "ref"))
     ref = ref_build(rinst.lowered, memories=rinst.memories,
                     globals_=rinst.globals,
                     table0=RefEngine._table_snapshot(rinst, rstore),
                     mod=rinst.ast)
-    store, inst = _port_inst(data)
+    store, inst = _port_inst(data, imports=_imports(name, "port"))
     img = build_device_image(inst.lowered, memories=inst.memories,
                              globals_=inst.globals,
                              table0=_table_snapshot(inst, store),
@@ -89,10 +112,13 @@ def test_engine_image_clamps_pages_like_reference(name):
     assert img.mem_pages_max == 2
 
 
-def _refused(body, memory=True, table=False):
+def _refused(body, memory=True, table=False, passive=None):
     b = ModuleBuilder()
     if memory:
         b.add_memory(1, 1)
+    if passive is not None:
+        b.add_passive_data(passive)
+        b.data_count = 1
     if table:
         b.add_table("funcref", 1)
     b.add_function([], [], [], body, export="f")
@@ -101,9 +127,9 @@ def _refused(body, memory=True, table=False):
 
 
 def test_classes_outside_the_slice_are_refused_by_name():
-    make = _refused([("i32.const", 0), ("i32.const", 0), ("i32.const", 4),
-                     "memory.fill"])
-    with pytest.raises(NotImplementedError, match="CLS_MEMFILL"):
+    make = _refused([("i32.const", 0), ("i32.const", 0), ("i32.const", 2),
+                     ("memory.init", 0, 0)], passive=b"ab")
+    with pytest.raises(NotImplementedError, match="CLS_MEMINIT"):
         make()
     make = _refused([("table.size", 0), "drop"], memory=False, table=True)
     with pytest.raises(NotImplementedError, match="CLS_TABLE_SIZE"):
@@ -111,11 +137,21 @@ def test_classes_outside_the_slice_are_refused_by_name():
 
 
 def test_imports_and_start_functions_are_refused():
+    """Function imports resolve against registered host modules (an
+    unknown one is the reference's UnknownImport); imported memories,
+    tables and globals and start functions are refused by name."""
     b = ModuleBuilder()
     b.import_func("env", "f", [], [])
     b.add_function([], [], [], [("call", 0)], export="g")
     mod = Validator().validate(Loader().parse_module(b.build()))
-    with pytest.raises(NotImplementedError, match="env.f"):
+    with pytest.raises(InstantiationError) as err:
+        instantiate(StoreManager(), mod)
+    assert err.value.code == ErrCode.UnknownImport
+    b = ModuleBuilder()
+    b.import_memory("env", "mem", 1, 1)
+    b.add_function([], [], [], [], export="g")
+    mod = Validator().validate(Loader().parse_module(b.build()))
+    with pytest.raises(NotImplementedError, match="memory env.mem"):
         instantiate(StoreManager(), mod)
     b = ModuleBuilder()
     b.add_function([], [], [], [])

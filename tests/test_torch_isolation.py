@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under wasmedge_tpu_torch/ and nothing
-in chip_smoke.py imports JAX or the JAX package, no entry point defaults
+"""The port stands alone: nothing under wasmedge_tpu_torch/ (its host
+modules under host/ and runtime/hostfunc.py included) and nothing in
+chip_smoke.py imports JAX or the JAX package, no entry point defaults
 to the CPU, and the CUDA source's ids and trap codes equal the Python
 package's."""
 
@@ -23,6 +24,15 @@ def _sources():
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top in ("jax", "jaxlib", "wasmedge_tpu")
+
+
+def test_source_walk_covers_the_host_modules():
+    rel = {os.path.relpath(p, PKG) for p in _sources()}
+    for f in ("runtime/hostfunc.py", "batch/hostcall.py",
+              "host/wasi/__init__.py", "host/wasi/environ.py",
+              "host/wasi/wasi_abi.py", "host/wasi/wasifunc.py",
+              "host/wasi/vectorized.py"):
+        assert f in rel, f
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -82,3 +92,4 @@ def test_cuda_source_constants_match_python():
     for c, e in codes.items():
         assert consts[c] == int(getattr(ErrCode, e)), c
     assert consts["TRAP_DONE"] == interp.TRAP_DONE
+    assert consts["TRAP_HOSTCALL"] == interp.TRAP_HOSTCALL

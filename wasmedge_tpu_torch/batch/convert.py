@@ -19,7 +19,10 @@ from wasmedge_tpu_torch.batch.image import DeviceImage
 def image_from_reference(planes: dict, scalars: dict) -> DeviceImage:
     """`planes`: the reference image's numpy fields by name
     (DeviceImage.NUMPY_FIELDS); `scalars`: its mem_pages_init,
-    mem_pages_max, has_memory, max_local_zeros and code_len."""
+    mem_pages_max, has_memory, max_local_zeros and code_len.  An image
+    with import stubs comes across whole (code_len counts the stubs);
+    the reference's tier-0 `t0kind` plane is not a field here and is
+    ignored, since this port parks every host call at its stub."""
     kw = {}
     for f in DeviceImage.NUMPY_FIELDS:
         kw[f] = np.ascontiguousarray(planes[f], np.int32).copy()

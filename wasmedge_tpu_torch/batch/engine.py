@@ -2,9 +2,10 @@
 
 Counterpart of `wasmedge_tpu/batch/engine.py` (`BatchState`,
 `BatchResult`, `pack_lane_args`, `check_batch_entry`, `initial_state`) and
-of the host launch loop of `UniformBatchEngine.run` /
-`PallasUniformEngine` (`wasmedge_tpu/batch/uniform.py:983-1097`): launch
-chunks of `steps_per_launch` instructions until every lane has stopped or
+of the reference's host launch loop (`BatchEngine.run_from_state`,
+`wasmedge_tpu/batch/engine.py:2414-2527`): launch chunks of
+`steps_per_launch` instructions, serve the lanes parked at host calls
+between launches (batch/hostcall.py), until every lane has stopped or
 `max_steps` is reached, then collect per-lane results.
 
 State layout is the reference's, lane fastest: value stacks
@@ -21,8 +22,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from wasmedge_tpu_torch.batch.hostcall import serve_batch_state
 from wasmedge_tpu_torch.batch.image import (
-    TRAP_DONE, batchability, build_device_image, slice_refusal)
+    TRAP_DONE, TRAP_HOSTCALL, batchability, build_device_image,
+    slice_refusal)
 from wasmedge_tpu_torch.batch.interp import device_tables, run_chunk
 from wasmedge_tpu_torch.common.configure import Configure
 from wasmedge_tpu_torch.common.types import ValType
@@ -151,7 +154,9 @@ class BatchEngine:
         self.lanes = lanes or self.cfg.lanes
         self.inst = inst
         self.device = resolve_device(device)
-        reason = batchability(inst.lowered,
+        host_imports = {i for i, f in enumerate(inst.funcs)
+                        if f.kind == "host"}
+        reason = batchability(inst.lowered, host_imports=host_imports,
                               n_memories=len(inst.memories or ()))
         if reason is not None:
             raise ValueError(f"module not batchable: {reason}")
@@ -174,6 +179,15 @@ class BatchEngine:
             raise NotImplementedError(reason)
         self.img = img
         self.tables = device_tables(img, self.device)
+        # serve rounds, lanes served, lanes served by a vectorized WASI
+        # implementation, and host seconds spent in serve rounds
+        # (batch/hostcall.py)
+        self.hostcall_stats = {"serve_rounds": 0, "tier1_calls": 0,
+                               "tier1_vectorized": 0, "serve_s": 0.0}
+
+    def resolve_func(self, k: int):
+        """Function index of a HOSTCALL stub -> its FunctionInstance."""
+        return self.inst.funcs[k]
 
     # -- state -------------------------------------------------------------
     def initial_state(self, func_idx: int, args_lanes) -> BatchState:
@@ -227,9 +241,12 @@ class BatchEngine:
 
     def run_from_state(self, state: BatchState, total: int, max_steps: int):
         """Launch loop from any state: each launch runs every live lane for
-        up to `steps_per_launch` instructions; the loop ends when no lane
-        is live or `max_steps` is reached (checked before each launch, as
-        the reference's loop does)."""
+        up to `steps_per_launch` instructions; after a launch in which a
+        lane parked at a host call, the parked lanes are served and the
+        loop goes on.  It ends when no lane is live or `max_steps` is
+        reached (checked before each launch, as the reference's loop
+        does); lanes still parked then are served once, so TRAP_HOSTCALL
+        never reaches the caller."""
         chunk = self.cfg.steps_per_launch
         fuel_on = self.cfg.fuel_per_launch is not None
         while total < max_steps:
@@ -237,8 +254,13 @@ class BatchEngine:
             run_chunk(self.tables, state, chunk, fuel_on)
             done = int((state.retired - before).max().item())
             total += done
-            if done == 0 or not bool((state.trap == 0).any().item()):
+            trap = state.trap.cpu().numpy()
+            if (trap == TRAP_HOSTCALL).any():
+                serve_batch_state(self, state)
+                continue
+            if done == 0 or not (trap == 0).any():
                 break
+        serve_batch_state(self, state)
         return state, total
 
 

@@ -1,0 +1,361 @@
+"""Device -> host outcall channel: serve the lanes parked at host calls.
+
+A trimmed copy of `wasmedge_tpu/batch/hostcall.py` `serve_batch_state`
+over torch tensors, and the host half of the TPU kernel's `h_hostcall`
+(`wasmedge_tpu/batch/pallas_engine.py` `_serve_hostcalls`, :4538, in the
+per-lane form of the SIMT engine).  A lane that calls an imported
+function parks at its HOSTCALL stub (trap = TRAP_HOSTCALL, frame pushed,
+arguments at stack[fp ...]); between launches the engine calls
+`serve_batch_state`, which runs every parked lane's host function and
+re-arms it at the stub's RETURN with the results at stack[opbase ...].
+
+Lanes are grouped by imported function, in ascending function index.
+A group whose WASI function has a vectorized implementation
+(host/wasi/vectorized.py) is served by one call over all its lanes; any
+other group lane by lane in ascending lane order, through the same
+host-function layer (runtime/hostfunc.py) the scalar engine calls.
+
+Transfers: the argument rows come down as one slab; guest memory as
+4 KiB-row chunks of all lanes, each fetched once when first touched and
+written back once if dirty; results, pc, sp and trap as row or vector
+updates.  No per-lane transfer and no whole-plane round trip.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from wasmedge_tpu_torch.batch.image import TRAP_HOSTCALL
+from wasmedge_tpu_torch.common.errors import ErrCode, TrapError
+from wasmedge_tpu_torch.host.wasi.environ import WasiExit
+from wasmedge_tpu_torch.host.wasi.vectorized import (
+    VEC_WASI, MemView, NotVectorizable)
+from wasmedge_tpu_torch.runtime.instance import MemoryInstance
+
+MASK32 = 0xFFFFFFFF
+PAGE_WORDS = 65536 // 4
+
+
+def serve_one(fi, args_cells: List[int],
+              lane_mem: Optional[MemoryInstance]) -> Tuple[List[int], int]:
+    """Run one lane's host call.  Returns (result_cells, trap_code)."""
+    if fi.kind != "host":
+        return [], int(ErrCode.ExecutionFailed)
+    try:
+        return fi.host.run(lane_mem, list(args_cells)), 0
+    except TrapError as te:
+        return [], int(te.code)
+    except WasiExit:
+        # proc_exit through the per-lane path: the lane terminates
+        return [], int(ErrCode.Terminated)
+
+
+def vec_impl_for(fi):
+    """(vectorized_fn, environ) for a WASI host function with a
+    vectorized implementation, else (None, None)."""
+    host = getattr(fi, "host", None)
+    env = getattr(host, "_env", None)
+    if env is None or not hasattr(env, "get_fd"):
+        return None, None
+    return VEC_WASI.get(getattr(host, "name", None)), env
+
+
+def gather_arg_cells(stack_lo, stack_hi, fp, lanes, nargs) -> np.ndarray:
+    """Raw 64-bit argument cells [nargs, n] for a lane group (one fancy
+    gather over the downloaded slab, no per-lane loop)."""
+    n = int(lanes.size)
+    if nargs == 0:
+        return np.zeros((0, n), np.int64)
+    rows = np.asarray(fp[lanes], np.int64)[None, :] + \
+        np.arange(nargs, dtype=np.int64)[:, None]
+    lo = stack_lo[rows, lanes[None, :]].view(np.uint32).astype(np.uint64)
+    hi = stack_hi[rows, lanes[None, :]].view(np.uint32).astype(np.uint64)
+    return (lo | (hi << np.uint64(32))).view(np.int64)
+
+
+def _cells_to_planes(cells: np.ndarray):
+    cu = cells.astype(np.uint64)
+    lo = (cu & np.uint64(MASK32)).astype(np.uint32).view(np.int32)
+    hi = (cu >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    return lo, hi
+
+
+def serve_batch_state(engine, state) -> int:
+    """Serve every lane of `state` (a batch.engine.BatchState) parked at
+    TRAP_HOSTCALL, updating the state in place.  Returns the number of
+    lanes served (0 when none was parked)."""
+    trap = state.trap.cpu().numpy()
+    waiting = np.nonzero(trap == TRAP_HOSTCALL)[0]
+    if waiting.size == 0:
+        return 0
+    t0 = time.perf_counter()
+    img = engine.img
+    stats = engine.hostcall_stats
+    stats["serve_rounds"] += 1
+    stats["tier1_calls"] += int(waiting.size)
+    pc = state.pc.cpu().numpy()
+    fp = state.fp.cpu().numpy()
+    opbase = state.opbase.cpu().numpy()
+    sp = state.sp.cpu().numpy().copy()
+    pages = state.mem_pages.cpu().numpy().copy()
+    has_mem = img.has_memory
+    cache = PlaneMemoryCache(state.mem) if has_mem else None
+    plane_cap = int(state.mem.shape[0]) // PAGE_WORDS if has_mem else 0
+    max_pages = img.mem_pages_max if img.mem_pages_max > 0 else None
+    new_trap = trap.copy()
+    new_pc = pc.copy()
+    use_vec = bool(engine.cfg.vectorized_hostcalls)
+
+    ks = img.a[pc[waiting]]
+    nargs_by_k = {int(k): len(engine.resolve_func(int(k)).functype.params)
+                  for k in np.unique(ks)}
+    nargs_arr = np.array([nargs_by_k[int(k)] for k in ks], np.int64)
+    max_row = int((fp[waiting] + nargs_arr).max(initial=0))
+    slab_lo = state.stack_lo[:max_row].cpu().numpy()
+    slab_hi = state.stack_hi[:max_row].cpu().numpy()
+
+    stack_sets = []  # (rows [nres, n], lanes [n], lo [nres, n], hi)
+    for k in np.unique(ks):
+        lanes = waiting[ks == k]
+        fi = engine.resolve_func(int(k))
+        nargs = nargs_by_k[int(k)]
+        cells = codes = None
+        if use_vec and has_mem and fi.kind == "host":
+            vecfn, env = vec_impl_for(fi)
+            if vecfn is not None:
+                args = gather_arg_cells(slab_lo, slab_hi, fp, lanes, nargs)
+                view = make_cached_view(cache, lanes, pages[lanes])
+                try:
+                    cells, codes = vecfn(env, view, args)
+                except NotVectorizable:
+                    cells = codes = None
+        if cells is not None:
+            stats["tier1_vectorized"] += int(lanes.size)
+            ok = codes == 0
+            okl = lanes[ok]
+            nres = cells.shape[0]
+            if okl.size and nres:
+                rows = np.asarray(opbase[okl], np.int64)[None, :] + \
+                    np.arange(nres, dtype=np.int64)[:, None]
+                lo, hi = _cells_to_planes(cells[:, ok])
+                stack_sets.append((rows, okl, lo, hi))
+            sp[okl] = opbase[okl] + nres
+            new_trap[lanes] = np.where(ok, 0, codes)
+            new_pc[okl] = pc[okl] + 1  # resume at the stub's RETURN
+            continue
+        # per-lane fallback over chunk-cached lane memory views
+        g_rows, g_lanes, g_cells = [], [], []
+        for lane in lanes:
+            base = int(fp[lane])
+            args1 = []
+            for i in range(nargs):
+                lo = int(np.uint32(slab_lo[base + i, lane]))
+                hi = int(np.uint32(slab_hi[base + i, lane]))
+                args1.append(lo | (hi << 32))
+            lane_mem = None
+            if has_mem:
+                lane_mem = _CachedLaneMemory(cache, int(lane), int(pages[lane]),
+                                             max_pages, plane_cap)
+            out, code = serve_one(fi, args1, lane_mem)
+            if code:
+                new_trap[lane] = code
+                continue
+            ob = int(opbase[lane])
+            for i, cell in enumerate(out):
+                g_rows.append(ob + i)
+                g_lanes.append(int(lane))
+                g_cells.append(cell & 0xFFFFFFFFFFFFFFFF)
+            sp[lane] = ob + len(out)
+            if has_mem:
+                pages[lane] = lane_mem.pages  # the host may have grown it
+            new_trap[lane] = 0
+            new_pc[lane] = pc[lane] + 1  # resume at the stub's RETURN
+        if g_rows:
+            lo, hi = _cells_to_planes(np.asarray(g_cells, np.uint64))
+            stack_sets.append((np.asarray(g_rows, np.int64)[None, :],
+                               np.asarray(g_lanes, np.int64),
+                               lo[None, :], hi[None, :]))
+
+    dev = state.trap.device
+    for rows, lanes_w, lo, hi in stack_sets:
+        r = torch.as_tensor(rows, device=dev)
+        c = torch.as_tensor(np.broadcast_to(lanes_w[None, :], rows.shape)
+                            .copy(), device=dev)
+        state.stack_lo[r, c] = torch.as_tensor(lo, device=dev)
+        state.stack_hi[r, c] = torch.as_tensor(hi, device=dev)
+    state.pc.copy_(torch.from_numpy(new_pc))
+    state.sp.copy_(torch.from_numpy(sp))
+    state.trap.copy_(torch.from_numpy(new_trap))
+    if has_mem:
+        cache.flush()  # dirty chunks only
+        state.mem_pages.copy_(torch.from_numpy(pages))
+    stats["serve_s"] += time.perf_counter() - t0
+    return int(waiting.size)
+
+
+# ---------------------------------------------------------------------------
+# round-cached serving: memory views over the device plane
+# ---------------------------------------------------------------------------
+class PlaneMemoryCache:
+    """Row-chunked host cache over a [W, lanes] memory plane for one serve
+    round: a chunk of guest memory comes down for ALL lanes at once (one
+    transfer per touched 4 KiB window, however many lanes read it),
+    per-lane views slice columns out of the cached chunks, and each dirty
+    chunk goes back in one copy at flush.  A round that only reads guest
+    memory uploads nothing."""
+
+    CHUNK_ROWS = 1024  # 4 KiB of guest memory per chunk
+
+    def __init__(self, mem_dev: torch.Tensor):
+        self.dev = mem_dev
+        self.W = int(mem_dev.shape[0])
+        self.L = int(mem_dev.shape[1])
+        self._chunks = {}
+        self._dirty = set()
+
+    def _chunk(self, ci: int) -> np.ndarray:
+        c = self._chunks.get(ci)
+        if c is None:
+            lo = ci * self.CHUNK_ROWS
+            hi = min(lo + self.CHUNK_ROWS, self.W)
+            c = self.dev[lo:hi].to("cpu", copy=True).numpy()  # all lanes
+            self._chunks[ci] = c
+        return c
+
+    def read_bytes(self, lane: int, off: int, n: int) -> bytes:
+        if n == 0:
+            return b""
+        w0 = off // 4
+        w1 = (off + n - 1) // 4
+        words = np.empty(w1 - w0 + 1, np.int32)
+        w = w0
+        while w <= w1:
+            ci = w // self.CHUNK_ROWS
+            base = ci * self.CHUNK_ROWS
+            chunk = self._chunk(ci)
+            upto = min(w1 + 1, base + chunk.shape[0])
+            words[w - w0:upto - w0] = chunk[w - base:upto - base, lane]
+            w = upto
+        raw = words.tobytes()
+        start = off - w0 * 4
+        return raw[start:start + n]
+
+    def write_bytes(self, lane: int, off: int, data: bytes):
+        n = len(data)
+        if n == 0:
+            return
+        w0 = off // 4
+        w1 = (off + n - 1) // 4
+        cur = bytearray(self.read_bytes(lane, w0 * 4, (w1 - w0 + 1) * 4))
+        start = off - w0 * 4
+        cur[start:start + n] = data
+        words = np.frombuffer(bytes(cur), dtype=np.int32)
+        w = w0
+        while w <= w1:
+            ci = w // self.CHUNK_ROWS
+            base = ci * self.CHUNK_ROWS
+            chunk = self._chunk(ci)
+            upto = min(w1 + 1, base + chunk.shape[0])
+            chunk[w - base:upto - base, lane] = words[w - w0:upto - w0]
+            self._dirty.add(ci)
+            w = upto
+
+    def flush(self):
+        """Write the dirty chunks back to the device plane, one copy each."""
+        for ci in sorted(self._dirty):
+            lo = ci * self.CHUNK_ROWS
+            chunk = self._chunks[ci]
+            self.dev[lo:lo + chunk.shape[0]].copy_(torch.from_numpy(chunk))
+        self._dirty.clear()
+
+
+class _CachedLaneMemory(MemoryInstance):
+    """MemoryInstance view over one lane's column of a PlaneMemoryCache.
+    `page_limit` is the plane's row capacity, so growth by a host
+    function stays inside the allocation (rows beyond the current page
+    count are zero)."""
+
+    def __init__(self, cache: PlaneMemoryCache, lane: int, pages: int,
+                 max_pages: Optional[int], page_limit: int):
+        self._cache = cache
+        self._lane = lane
+        self._pages = pages
+        self.min = pages
+        self.max = max_pages
+        self.page_limit = page_limit
+
+    @property
+    def pages(self) -> int:
+        return self._pages
+
+    def _nbytes(self) -> int:
+        return self._pages * 65536
+
+    def check_bounds(self, off: int, length: int):
+        if off < 0 or off + length > self._nbytes():
+            raise TrapError(ErrCode.MemoryOutOfBounds)
+
+    def grow(self, delta: int) -> int:
+        old = self._pages
+        new = old + delta
+        limit = self.page_limit
+        if self.max is not None:
+            limit = min(limit, self.max)
+        if delta < 0 or new > limit or new > 65536:
+            return -1
+        self._pages = new
+        return old
+
+    def load(self, off: int, nbytes: int, signed: bool) -> int:
+        self.check_bounds(off, nbytes)
+        return int.from_bytes(
+            self._cache.read_bytes(self._lane, off, nbytes), "little",
+            signed=signed)
+
+    def store(self, off: int, nbytes: int, value: int):
+        self.check_bounds(off, nbytes)
+        self._cache.write_bytes(
+            self._lane, off,
+            (value & ((1 << (8 * nbytes)) - 1)).to_bytes(nbytes, "little"))
+
+    def load_bytes(self, off: int, n: int) -> bytes:
+        self.check_bounds(off, n)
+        return self._cache.read_bytes(self._lane, off, n)
+
+    def store_bytes(self, off: int, data: bytes):
+        self.check_bounds(off, len(data))
+        self._cache.write_bytes(self._lane, off, bytes(data))
+
+    def as_numpy(self) -> np.ndarray:
+        return np.frombuffer(
+            self._cache.read_bytes(self._lane, 0, self._nbytes()),
+            dtype=np.uint8)
+
+
+def make_cached_view(cache: PlaneMemoryCache, lanes, pages) -> MemView:
+    """MemView over a PlaneMemoryCache: word gathers assemble from the
+    cache's all-lane chunks (fetched on first touch); byte stores go
+    through cache.write_bytes so dirty chunks are flushed."""
+
+    class _CachedPlaneView(MemView):
+        def _words(self, widx):
+            widx = np.clip(np.asarray(widx, np.int64), 0, cache.W - 1)
+            out = np.empty(widx.shape, np.int32)
+            cr = PlaneMemoryCache.CHUNK_ROWS
+            cis = widx // cr
+            cols = np.broadcast_to(self.lanes[None, :], widx.shape) \
+                if widx.ndim == 2 else self.lanes
+            for ci in np.unique(cis):
+                chunk = cache._chunk(int(ci))
+                m = cis == ci
+                out[m] = chunk[widx[m] - int(ci) * cr, cols[m]]
+            return out
+
+        def _store_bytes_one(self, i, off, data):
+            cache.write_bytes(int(self.lanes[i]), off, bytes(data))
+
+    return _CachedPlaneView(lanes, pages)

@@ -6,10 +6,17 @@ handler of the warp-interpreter and `sub` an ALU operation.  The class
 and sub numbering is the reference's, bit for bit, so the two packages
 build identical planes from the same module (tests/test_torch_front_end.py).
 
+Every imported function gets a two-instruction stub after the module
+code, HOSTCALL (`a` = function index) then RETURN (`b` = nresults), and
+`f_entry` points the import at its stub: a lane that calls it parks at
+the HOSTCALL with its frame pushed, the host serves it
+(batch/hostcall.py) and re-arms it at the RETURN.
+
 `batchability()` is the module-level gate; `slice_refusal()` is the
 port's own gate over a built image: classes that later slices of the
-port bring (host calls, bulk memory, v128, tables, segments, tail
-calls) are refused up front with an error that names the class.
+port bring (v128, tables, segments, tail calls) are refused up front
+with an error that names the class.  The reference's tier-0 `t0kind`
+plane is not built: this port parks every host call.
 """
 
 from __future__ import annotations
@@ -66,7 +73,6 @@ CLS_RETCALL_INDIRECT = 49
 CLS_REFFUNC = 50
 
 CLASS_NAMES = {
-    CLS_HOSTCALL: "HOSTCALL", CLS_MEMFILL: "MEMFILL", CLS_MEMCOPY: "MEMCOPY",
     CLS_TABLE_GET: "TABLE_GET", CLS_TABLE_SET: "TABLE_SET",
     CLS_TABLE_SIZE: "TABLE_SIZE", CLS_TABLE_GROW: "TABLE_GROW",
     CLS_TABLE_FILL: "TABLE_FILL", CLS_TABLE_COPY: "TABLE_COPY",
@@ -76,9 +82,10 @@ CLASS_NAMES = {
     CLS_REFFUNC: "REFFUNC",
 }
 
-# Classes the CUDA warp-interpreter of this slice executes: NOP..TRAP
-# (which includes ALU1/ALU2, CALL_INDIRECT, LOAD/STORE, MEMSIZE/MEMGROW).
-SLICE_MAX_CLASS = CLS_TRAP
+# Classes the CUDA warp-interpreter executes: NOP..MEMCOPY (which
+# includes ALU1/ALU2, CALL_INDIRECT, LOAD/STORE, MEMSIZE/MEMGROW, TRAP,
+# HOSTCALL, MEMFILL).
+SLICE_MAX_CLASS = CLS_MEMCOPY
 
 # -- ALU2 sub-ops (binary: pop2 push1) --------------------------------------
 _I32_BIN = ["add", "sub", "mul", "div_s", "div_u", "rem_s", "rem_u", "and",
@@ -148,6 +155,7 @@ _TABLE0_OPS = {"table.get", "table.set", "table.size", "table.grow",
                "table.fill"}
 
 TRAP_DONE = -1  # lane finished normally (trap plane sentinel)
+TRAP_HOSTCALL = -2  # lane parked at a HOSTCALL stub, waiting on the host
 
 
 def _i32(v: int) -> np.int32:
@@ -156,15 +164,19 @@ def _i32(v: int) -> np.int32:
     return np.int32(v - (1 << 32) if v >= (1 << 31) else v)
 
 
-def batchability(image: LoweredModule, n_memories: int = 1) -> Optional[str]:
+def batchability(image: LoweredModule, host_imports: Optional[set] = None,
+                 n_memories: int = 1) -> Optional[str]:
     """None if the lowered module can run on the batch engine, else why.
 
-    The reference's gate (`wasmedge_tpu/batch/image.py`) with no host
-    imports servable and no v128 op at all: both arrive in later slices."""
+    The reference's gate (`wasmedge_tpu/batch/image.py`) with no v128 op
+    at all (v128 arrives in a later slice).  host_imports: function
+    indices backed by host functions the engine can serve; any other
+    import is unbatchable."""
     if n_memories > 1:
         return "multiple memories"
-    for fn in image.funcs:
-        if fn.is_import:
+    for idx, fn in enumerate(image.funcs):
+        if fn.is_import and (host_imports is None
+                             or idx not in host_imports):
             return (f"unservable imported function "
                     f"{fn.import_module}.{fn.import_name}")
         if fn.nresults > 1:
@@ -252,7 +264,8 @@ class DeviceImage:
 
 def build_device_image(image: LoweredModule, memories=None, globals_=None,
                        table0=None, mod=None) -> DeviceImage:
-    n = image.code_len
+    imports = [i for i, fn in enumerate(image.funcs) if fn.is_import]
+    n = image.code_len + 2 * len(imports)
     cls = np.zeros(n, np.int32)
     sub = np.zeros(n, np.int32)
     a = np.zeros(n, np.int32)
@@ -299,9 +312,17 @@ def build_device_image(image: LoweredModule, memories=None, globals_=None,
                  Op.table_size: CLS_TABLE_SIZE, Op.table_grow: CLS_TABLE_GROW,
                  Op.table_fill: CLS_TABLE_FILL, Op.table_copy: CLS_TABLE_COPY}
 
-    op_id = np.asarray(image.op[:n], np.int32).copy()
+    op_id = np.full(n, int(Op.nop), np.int32)
+    op_id[:image.code_len] = np.asarray(image.op[:image.code_len], np.int32)
 
-    for pc in range(n):
+    stub_pc = {}
+    for si, k in enumerate(imports):
+        at = image.code_len + 2 * si
+        stub_pc[k] = at
+        cls[at], a[at] = CLS_HOSTCALL, k
+        cls[at + 1], b[at + 1] = CLS_RETURN, image.funcs[k].nresults
+
+    for pc in range(image.code_len):
         op = image.op[pc]
         ia, ib, ic, imm = image.a[pc], image.b[pc], image.c[pc], image.imm[pc]
         if op == LOP_BR:
@@ -402,6 +423,14 @@ def build_device_image(image: LoweredModule, memories=None, globals_=None,
     f_type = np.zeros(nf, np.int32)
     max_zeros = 0
     for i, fn in enumerate(image.funcs):
+        if fn.is_import:
+            f_entry[i] = stub_pc[i]
+            f_nparams[i] = fn.nparams
+            f_nlocals[i] = fn.nparams
+            f_nresults[i] = fn.nresults
+            f_frame_top[i] = fn.nparams + max(fn.nresults, 1)
+            f_type[i] = _dense_type(fn.type_idx)
+            continue
         f_entry[i] = fn.entry_pc
         f_nparams[i] = fn.nparams
         f_nlocals[i] = fn.nlocals

@@ -32,9 +32,10 @@ import torch
 from wasmedge_tpu_torch.batch.image import (
     CLS_ALU1, CLS_ALU2, CLS_BR, CLS_BR_TABLE, CLS_BRNZ, CLS_BRZ, CLS_CALL,
     CLS_CALL_INDIRECT, CLS_CONST, CLS_DROP, CLS_GLOBAL_GET, CLS_GLOBAL_SET,
-    CLS_LOAD, CLS_LOCAL_GET, CLS_LOCAL_SET, CLS_LOCAL_TEE, CLS_MEMGROW,
-    CLS_MEMSIZE, CLS_NOP, CLS_RETURN, CLS_SELECT, CLS_STORE, CLS_TRAP,
-    NUM_ALU1, NUM_ALU2, DeviceImage, TRAP_DONE)
+    CLS_HOSTCALL, CLS_LOAD, CLS_LOCAL_GET, CLS_LOCAL_SET, CLS_LOCAL_TEE,
+    CLS_MEMCOPY, CLS_MEMFILL, CLS_MEMGROW, CLS_MEMSIZE, CLS_NOP, CLS_RETURN,
+    CLS_SELECT, CLS_STORE, CLS_TRAP, NUM_ALU1, NUM_ALU2, DeviceImage,
+    TRAP_DONE, TRAP_HOSTCALL)
 
 # ---------------------------------------------------------------------------
 # Flat handler-id space (numbering shared with pallas_engine.py :103-185)
@@ -82,14 +83,15 @@ _CLS_TO_HID = {
     CLS_BRNZ: H_BRNZ, CLS_BR_TABLE: H_BR_TABLE, CLS_RETURN: H_RETURN,
     CLS_CALL: H_CALL, CLS_CALL_INDIRECT: H_CALL_INDIRECT,
     CLS_MEMSIZE: H_MEMSIZE, CLS_MEMGROW: H_MEMGROW, CLS_TRAP: H_TRAP,
-    CLS_LOAD: H_LOAD, CLS_STORE: H_STORE,
+    CLS_LOAD: H_LOAD, CLS_STORE: H_STORE, CLS_HOSTCALL: H_HOSTCALL,
+    CLS_MEMFILL: H_MEMFILL, CLS_MEMCOPY: H_MEMCOPY,
 }
 
 # The reference kernel reports per lane block through the ST_* status of
 # its ctrl row (pallas_engine.py :209-224).  The per-lane CUDA kernel
 # reports through the trap plane alone: a lane is running (0), done
-# (TRAP_DONE) or trapped (its ErrCode); ST_DIVERGED, ST_REGROW and
-# ST_RECHECK have no counterpart.
+# (TRAP_DONE), parked at a host call (TRAP_HOSTCALL) or trapped (its
+# ErrCode); ST_DIVERGED, ST_REGROW and ST_RECHECK have no counterpart.
 
 
 def hid_plane(img: DeviceImage) -> np.ndarray:
@@ -136,6 +138,8 @@ class Tables:
     tbl: torch.Tensor      # table 0: funcidx + 1, 0 = null
     max_local_zeros: int
     mem_pages_max: int
+    has_bulk: bool = False      # the code holds memory.fill / memory.copy
+    has_hostcall: bool = False  # the code holds HOSTCALL stubs
 
 
 def device_tables(img: DeviceImage, device) -> Tables:
@@ -143,13 +147,16 @@ def device_tables(img: DeviceImage, device) -> Tables:
         return torch.as_tensor(np.ascontiguousarray(x, np.int32).ravel(),
                                device=device)
 
+    hid = hid_plane(img)
     return Tables(
-        hid=t(hid_plane(img)), a=t(img.a), b=t(img.b), c=t(img.c),
+        hid=t(hid), a=t(img.a), b=t(img.b), c=t(img.c),
         ilo=t(img.imm_lo), ihi=t(img.imm_hi), fent=t(img.f_entry),
         fnpar=t(img.f_nparams), fnloc=t(img.f_nlocals),
         ftop=t(img.f_frame_top), ftyp=t(img.f_type), brt=t(img.br_table),
         tbl=t(img.table0), max_local_zeros=int(img.max_local_zeros),
-        mem_pages_max=int(img.mem_pages_max))
+        mem_pages_max=int(img.mem_pages_max),
+        has_bulk=bool(np.isin(hid, (H_MEMFILL, H_MEMCOPY)).any()),
+        has_hostcall=bool((hid == H_HOSTCALL).any()))
 
 
 # ---------------------------------------------------------------------------
@@ -164,8 +171,10 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-ftz=false", "-shared", "-Xcompiler", "-fPIC")
 
 # Launches of the CUDA kernel since the count was last set to 0 (the
-# plain version never counts).
-LAUNCHES = {"interp": 0}
+# plain version never counts): all of them, those whose code holds the
+# bulk-memory cases (h_memfill / h_memcopy) and those whose code holds
+# host-call stubs (h_hostcall).
+LAUNCHES = {"interp": 0, "bulk": 0, "hostcall": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -221,8 +230,9 @@ _STATE_FIELDS = ("pc", "sp", "fp", "opbase", "call_depth", "trap", "retired",
                  "fr_fp", "fr_opbase", "glob_lo", "glob_hi", "mem")
 _N_PTRS = len(_TABLE_FIELDS) + len(_STATE_FIELDS)
 # code_len, nf, n_brt, tsize, L, D, CD, NG, W, chunk, fuel_on,
-# max_local_zeros, mem_pages_max
-_N_INTS = 13
+# max_local_zeros, mem_pages_max, bulk (the kernel instantiation with the
+# memory.fill / memory.copy cases)
+_N_INTS = 14
 
 
 def _check(name, t, device, shape):
@@ -271,10 +281,13 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool) -> None:
         [getattr(st, f).data_ptr() for f in _STATE_FIELDS]
     ints = [n, tables.fent.shape[0], tables.brt.shape[0] // 3,
             tables.tbl.shape[0], L, D, CD, NG, W, int(chunk), int(fuel_on),
-            tables.max_local_zeros, tables.mem_pages_max]
+            tables.max_local_zeros, tables.mem_pages_max,
+            int(tables.has_bulk)]
     with torch.cuda.device(device):
         err = lib.wasm_interp_launch(*ptrs, *ints, stream)
     if err != 0:
         raise RuntimeError(f"interpreter kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["interp"] += 1
+    LAUNCHES["bulk"] += tables.has_bulk
+    LAUNCHES["hostcall"] += tables.has_hostcall

@@ -12,7 +12,13 @@ corner cases:
     instruction on the stack, frames, globals, memory and page count but
     not its pc/sp/fp/operand base/call depth;
   - a return from depth 0 sets trap = TRAP_DONE and sp = fp + nresults;
-  - stack, frame and memory rows are clamped into their planes.
+  - stack, frame and memory rows are clamped into their planes;
+  - a host call parks the lane (trap = TRAP_HOSTCALL) at its stub with
+    the instruction retired and its fuel charged;
+  - memory.fill / memory.copy check both ranges first, write nothing on
+    a trap, and read copy sources from the unmodified plane (memmove),
+    as `laneops.plane_fill_copy` does; one instruction and one fuel unit
+    however long.
 
 Vectorised over lanes: each step groups the live lanes by the handler id
 at their pc and applies one handler per group.  It is the reference the
@@ -25,13 +31,13 @@ from __future__ import annotations
 import torch
 
 from wasmedge_tpu_torch.batch import laneops as ops
-from wasmedge_tpu_torch.batch.image import ALU1_SUB, TRAP_DONE
+from wasmedge_tpu_torch.batch.image import ALU1_SUB, TRAP_DONE, TRAP_HOSTCALL
 from wasmedge_tpu_torch.batch.interp import (
     H_ALU1_BASE, H_ALU2_BASE, H_BR, H_BR_TABLE, H_BRNZ, H_BRZ, H_CALL,
-    H_CALL_INDIRECT, H_CONST, H_DROP, H_GLOBAL_GET, H_GLOBAL_SET, H_LOAD,
-    H_LOAD_D, H_LOAD_W, H_LOCAL_GET, H_LOCAL_SET, H_LOCAL_TEE, H_MEMGROW,
-    H_MEMSIZE, H_NOP, H_RETURN, H_SELECT, H_STORE, H_STORE_D, H_STORE_W,
-    H_TRAP, Tables)
+    H_CALL_INDIRECT, H_CONST, H_DROP, H_GLOBAL_GET, H_GLOBAL_SET,
+    H_HOSTCALL, H_LOAD, H_LOAD_D, H_LOAD_W, H_LOCAL_GET, H_LOCAL_SET,
+    H_LOCAL_TEE, H_MEMCOPY, H_MEMFILL, H_MEMGROW, H_MEMSIZE, H_NOP,
+    H_RETURN, H_SELECT, H_STORE, H_STORE_D, H_STORE_W, H_TRAP, Tables)
 from wasmedge_tpu_torch.common.errors import ErrCode
 
 I32 = torch.int32
@@ -385,6 +391,39 @@ class _Group:
     def trap_op(self):
         self.trap = self.a.clone()
 
+    # -- host calls and bulk memory --------------------------------------------
+    def hostcall(self):
+        # park at the stub; the host re-arms the lane at pc + 1
+        self.trap = torch.full_like(self.trap, TRAP_HOSTCALL)
+
+    def memfill(self):
+        self._bulk(copy=False)
+
+    def memcopy(self):
+        self._bulk(copy=True)
+
+    def _bulk(self, copy):
+        """Operands (top of stack): n, then the fill value or copy source,
+        then dst.  Unsigned bounds in exact int64 arithmetic."""
+        n = ops.u32(self.cell(self.sp - 1)[0])
+        val_or_src = ops.u32(self.cell(self.sp - 2)[0])
+        dst = ops.u32(self.cell(self.sp - 3)[0])
+        pages = self.st.mem_pages[self.lanes].to(torch.int64)
+        mem_bytes = (pages * 65536) & 0xFFFFFFFF
+        end = dst + n
+        oob = (end > 0xFFFFFFFF) | (end > mem_bytes)
+        if copy:
+            send = val_or_src + n
+            oob = oob | (send > 0xFFFFFFFF) | (send > mem_bytes)
+        self.trap = torch.where(
+            oob, torch.full_like(self.trap, int(ErrCode.MemoryOutOfBounds)),
+            self.trap)
+        self.new_sp = self.sp - 3
+        go = ~oob & (n != 0)
+        if bool(go.any()):
+            _fill_copy(self.st.mem, self.lanes[go], dst[go], end[go],
+                       val_or_src[go], copy)
+
     # -- ALU -------------------------------------------------------------------
     def alu2(self, sub):
         y_lo, y_hi = self.cell(self.sp - 1)
@@ -415,4 +454,48 @@ _BASE = {
     H_RETURN: _Group.ret, H_CALL: _Group.call,
     H_CALL_INDIRECT: _Group.call_indirect, H_MEMSIZE: _Group.memsize,
     H_MEMGROW: _Group.memgrow, H_TRAP: _Group.trap_op,
+    H_HOSTCALL: _Group.hostcall, H_MEMFILL: _Group.memfill,
+    H_MEMCOPY: _Group.memcopy,
 }
+
+
+_BYTE_MASKS = (0xFF, 0xFF00, 0xFF0000, 0xFF000000)
+
+
+def _fill_copy(mem, lanes, dst, end, val_or_src, copy):
+    """Bytes [dst, end) of each lane's column of the [W, L] memory plane
+    get the fill byte, or the bytes at the same offsets from the copy
+    source read from the plane before any write (memmove).  Word masks
+    cover the byte edges; rows outside the plane are not written (the
+    reference's `laneops.plane_fill_copy`, restricted to the rows the
+    lanes touch)."""
+    W = mem.shape[0]
+    r0 = int((dst >> 2).min())
+    r1 = min(int(((end - 1) >> 2).max()), W - 1)
+    if r0 > r1:
+        return
+    rows = torch.arange(r0, r1 + 1, dtype=torch.int64,
+                        device=mem.device)[:, None]
+    byte0 = rows * 4
+    mask = torch.zeros((rows.shape[0], lanes.shape[0]), dtype=torch.int64,
+                       device=mem.device)
+    for bpos, bm in enumerate(_BYTE_MASKS):
+        ba = byte0 + bpos
+        inr = (ba >= dst[None, :]) & (ba < end[None, :])
+        mask = mask | torch.where(inr, bm, 0)
+    cols = lanes[None, :]
+    old = ops.u32(mem[rows, cols])
+    if copy:
+        # source word for each destination word, assembled from two
+        # shifted words when src - dst is not a multiple of 4
+        a0 = byte0 + (val_or_src - dst)[None, :]
+        swi = a0 >> 2  # arithmetic: rounds toward -inf
+        sh = (a0 & 3) * 8
+        s0 = ops.u32(mem[swi.clamp(0, W - 1), cols])
+        s1 = ops.u32(mem[(swi + 1).clamp(0, W - 1), cols])
+        new = torch.where(sh == 0, s0,
+                          ((s0 >> sh) | (s1 << (32 - sh))) & 0xFFFFFFFF)
+    else:
+        new = ((val_or_src & 0xFF) * 0x01010101)[None, :]
+    mem[rows, cols] = ops.wrap32((old & ~mask) | (new & mask))
+

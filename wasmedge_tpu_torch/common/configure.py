@@ -1,9 +1,10 @@
 """Configure: proposal set, runtime limits and the batch knobs of the port.
 
 A trimmed copy of `wasmedge_tpu/common/configure.py`: the proposal set
-the loader and validator gate opcodes on, the runtime memory-page limit
-the validator reads, and the `BatchConfigure` knobs the CUDA
-warp-interpreter and its host launch loop read.
+the loader and validator gate opcodes on, the host modules a VM
+registers, the runtime memory-page limit the validator reads, and the
+`BatchConfigure` knobs the CUDA warp-interpreter and its host launch
+loop read.
 """
 
 from __future__ import annotations
@@ -48,6 +49,13 @@ DEFAULT_PROPOSALS = frozenset(
 )
 
 
+class HostRegistration(enum.Enum):
+    """Host modules a VM registers before instantiation (the WASI one
+    is in the port; the reference's wasmedge_process is not)."""
+
+    Wasi = "wasi"
+
+
 @dataclasses.dataclass
 class RuntimeConfigure:
     max_memory_pages: int = 65536
@@ -63,12 +71,16 @@ class BatchConfigure:
     memory_pages_per_lane: int = 1  # 64 KiB pages of linear memory per lane
     steps_per_launch: int = 1024  # interpreter steps per kernel launch
     fuel_per_launch: Optional[int] = None  # per-lane fuel budget (gas analog)
+    # serve parked host calls by groups through the SoA-vectorized WASI
+    # implementations (host/wasi/vectorized.py) instead of lane by lane
+    vectorized_hostcalls: bool = True
 
 
 @dataclasses.dataclass
 class Configure:
     proposals: set = dataclasses.field(
         default_factory=lambda: set(DEFAULT_PROPOSALS))
+    host_registrations: set = dataclasses.field(default_factory=set)
     runtime: RuntimeConfigure = dataclasses.field(
         default_factory=RuntimeConfigure)
     batch: BatchConfigure = dataclasses.field(default_factory=BatchConfigure)

@@ -167,3 +167,7 @@ class InstantiationError(WasmError):
 
 class TrapError(WasmError):
     """Runtime trap: unwinds execution, maps 1:1 to a per-lane trap code."""
+
+
+def trap(code: ErrCode, msg: str = ""):
+    raise TrapError(code, msg)

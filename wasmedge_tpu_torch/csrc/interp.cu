@@ -3,13 +3,15 @@
 // Replaces the TPU kernel `_build_kernel` in
 // wasmedge_tpu/batch/pallas_engine.py (the one pl.pallas_call, :3825): its
 // dispatch loop (:3557-3651), base handlers (:1082-1388), ALU makers
-// (:2653, :2715), loads/stores (:1549-1700) and fuel (:3695-3711).  The
-// Pallas kernel keeps one scalar pc per lane block, because the TPU runs
-// one instruction stream per VMEM block, and hands divergent blocks to a
-// scheduler and a SIMT engine.  An H100 runs one pc per thread, so here
-// every lane carries its own pc, sp, fp, operand base, call depth, page
-// count, fuel and retired count in registers for the whole launch, and
-// warp divergence is left to the hardware.  The per-lane results equal
+// (:2653, :2715), loads/stores (:1549-1700), fuel (:3695-3711), the host
+// call park `h_hostcall` (:1520) and bulk memory `h_memfill` (:1389) and
+// `h_memcopy` (:1441).  The Pallas kernel keeps one scalar pc per lane
+// block, because the TPU runs one instruction stream per VMEM block, and
+// hands divergent blocks to a scheduler and a SIMT engine.  An H100 runs
+// one pc per thread, so here every lane carries its own pc, sp, fp,
+// operand base, call depth, page count, fuel and retired count in
+// registers for the whole launch, and warp divergence is left to the
+// hardware.  The per-lane results equal
 // what the Pallas kernel, the block scheduler and the SIMT residue give
 // together; per-instruction semantics are those of the reference SIMT
 // step (wasmedge_tpu/batch/engine.py _make_step), bit for bit, and
@@ -22,6 +24,20 @@
 // accesses each instruction makes (handler id, operands, result), not
 // bandwidth: with 4096 lanes there are only 128 warps.  Keeping stack and
 // memory windows in shared memory is later work.
+//
+// Host calls: a lane at a HOSTCALL stub parks (trap = TRAP_HOSTCALL, pc
+// left at the stub); the host serves it between launches and re-arms it
+// at the stub's RETURN, so the kernel itself never leaves the card.
+//
+// memory.fill / memory.copy run one lane per thread over the lane's own
+// column of mem[W, L], a word per step, so the lanes of a converged warp
+// write one 128-byte row per step.  The work is bounded by bytes (each
+// byte filled is written once, each byte copied read and written once),
+// but with one thread per lane 4096 lanes make about one warp per SM, so
+// the loop runs far above that bound (PERF.md).  It keeps eight words in
+// flight per thread, reading all eight sources before it writes, which
+// is safe for memmove because a copy walks away from the bytes it has
+// not read yet (backward when dst > src).
 //
 // Numerics are IEEE-strict: build with -fmad=false and without -ftz or
 // --use_fast_math; every float op uses an _rn intrinsic and NaNs are
@@ -41,6 +57,7 @@ typedef uint64_t u64;
 
 // Trap codes (wasmedge_tpu/common/errors.py ErrCode, compared bit for bit).
 constexpr int TRAP_DONE = -1;
+constexpr int TRAP_HOSTCALL = -2;
 constexpr int E_DIV_ZERO = 0x84;
 constexpr int E_INT_OVERFLOW = 0x85;
 constexpr int E_INVALID_CONV = 0x86;
@@ -75,6 +92,9 @@ constexpr int H_MEMGROW = 17;
 constexpr int H_TRAP = 18;
 constexpr int H_LOAD = 19;
 constexpr int H_STORE = 20;
+constexpr int H_HOSTCALL = 21;
+constexpr int H_MEMFILL = 22;
+constexpr int H_MEMCOPY = 23;
 constexpr int H_ALU2_BASE = 24;
 constexpr int NUM_ALU2 = 76;
 constexpr int H_ALU1_BASE = 100;
@@ -517,6 +537,72 @@ struct Lane {
   }
 };
 
+// memory.fill (copy = false, v = the fill byte) or memory.copy (copy =
+// true, v = the source address) of bytes [dst, end) in one lane's column,
+// end > dst, both ranges already bounds-checked.  Words are masked at the
+// two byte edges; rows beyond the plane are not written and source rows
+// are clamped into it, as laneops.plane_fill_copy does.  Each group of up
+// to BULK_GROUP words reads every source word before it writes any: a
+// forward copy (src > dst) reads words at or above the ones it writes, a
+// backward copy (dst > src) words at or below them, and words already
+// written lie behind the walk, so every source byte is read before it is
+// overwritten (memmove).
+constexpr int BULK_GROUP = 8;
+
+__device__ void bulk_fill_copy(i32* mem, int L, int W, int lane, u32 dst,
+                               u32 end, u32 v, bool copy) {
+  const int w0 = (int)(dst >> 2), w1 = (int)((end - 1u) >> 2);
+  const int wlast = w1 < W - 1 ? w1 : W - 1;
+  if (w0 > wlast) return;
+  const u32 head = 0xFFFFFFFFu << ((dst & 3u) * 8u);
+  const u32 tail = 0xFFFFFFFFu >> ((3u - ((end - 1u) & 3u)) * 8u);
+  const u32 fill = (v & 0xFFu) * 0x01010101u;
+  const i32 delta = (i32)(v - dst);
+  const bool backward = copy && delta < 0;
+  const int nwords = wlast - w0 + 1;
+  for (int done = 0; done < nwords; done += BULK_GROUP) {
+    u32 val[BULK_GROUP];
+#pragma unroll
+    for (int j = 0; j < BULK_GROUP; ++j) {
+      const int k = done + j;
+      val[j] = fill;
+      if (copy && k < nwords) {
+        const int w = backward ? wlast - k : w0 + k;
+        const i32 a0 = (i32)((u32)w * 4u + (u32)delta);
+        const int swi = a0 >> 2;  // arithmetic: rounds toward -inf
+        const u32 sh = (u32)(a0 & 3) * 8u;
+        const u32 s0 = (u32)mem[(size_t)clampi(swi, 0, W - 1) * L + lane];
+        if (sh == 0) {
+          val[j] = s0;
+        } else {
+          const u32 s1 = (u32)mem[(size_t)clampi(swi + 1, 0, W - 1) * L + lane];
+          val[j] = (s0 >> sh) | (s1 << (32u - sh));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BULK_GROUP; ++j) {
+      const int k = done + j;
+      if (k >= nwords) break;
+      const int w = backward ? wlast - k : w0 + k;
+      u32 m = 0xFFFFFFFFu;
+      if (w == w0) m &= head;
+      if (w == w1) m &= tail;
+      i32* cell = &mem[(size_t)w * L + lane];
+      *cell = m == 0xFFFFFFFFu ? (i32)val[j]
+                               : (i32)(((u32)*cell & ~m) | (val[j] & m));
+    }
+  }
+}
+
+// kBulk: the image holds memory.fill / memory.copy.  An image without
+// them runs the instantiation that has no bulk loop, as the reference
+// SIMT step compiles its bulk path only for such images (HAS_BULK,
+// engine.py:1007): compiled into the dispatch loop, the bulk loop raised
+// the kernel from 40 to 48 registers and slowed fib(30) x 4096 on an
+// H100 by 6 %, and out of line (__noinline__) it still cost 1-2 %
+// (PERF.md).
+template <bool kBulk>
 __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.L) return;
@@ -746,7 +832,37 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
           break;
         }
         default:
-          ntrap = E_EXEC_FAILED;  // the engine refuses such images up front
+          // The host-call park and bulk memory sit here, not under case
+          // labels of their own: as cases they slowed fib(30) x 4096, which
+          // runs neither, by 1.5 % on an H100 (PERF.md).
+          if (h == H_HOSTCALL) {
+            // park: retired and charged like any instruction; the halt
+            // path below keeps pc at the stub and sp as it is
+            ntrap = TRAP_HOSTCALL;
+            break;
+          }
+          if (!kBulk || (h != H_MEMFILL && h != H_MEMCOPY)) {
+            ntrap = E_EXEC_FAILED;  // the engine refuses such images up front
+            break;
+          }
+          {
+            // memory.fill / memory.copy; stack: dst, fill value or
+            // source, n (top)
+            const bool copy = h == H_MEMCOPY;
+            const u32 n = (u32)s.get(sp - 1), v = (u32)s.get(sp - 2);
+            const u32 dst = (u32)s.get(sp - 3);
+            const u32 mem_bytes = (u32)pages * 65536u;
+            const u32 end = dst + n;
+            bool oob = end < dst || mem_bytes < end;
+            if (copy) oob = oob || v + n < v || mem_bytes < v + n;
+            if (oob) {
+              ntrap = E_MEM_OOB;  // nothing written
+              break;
+            }
+            if (n != 0)
+              bulk_fill_copy(p.mem, p.L, p.W, lane, dst, end, v, copy);
+            new_sp = sp - 3;
+          }
           break;
       }
     }
@@ -791,7 +907,7 @@ extern "C" int wasm_interp_launch(
     int* fr_ret_pc, int* fr_fp, int* fr_opbase, int* glob_lo, int* glob_hi,
     int* mem, int code_len, int nf, int n_brt, int tsize, int L, int D, int CD,
     int NG, int W, int chunk, int fuel_on, int max_local_zeros,
-    int mem_pages_max, void* stream) {
+    int mem_pages_max, int bulk, void* stream) {
   Params p{hid, a, b, c, ilo, ihi, fent, fnpar, fnloc, ftop, ftyp, brt, tbl,
            pc, sp, fp, opbase, call_depth, trap, retired, fuel, mem_pages,
            stack_lo, stack_hi, fr_ret_pc, fr_fp, fr_opbase, glob_lo, glob_hi,
@@ -799,7 +915,11 @@ extern "C" int wasm_interp_launch(
            max_local_zeros, mem_pages_max};
   const int threads = 128;
   const int blocks = (L + threads - 1) / threads;
-  if (blocks > 0)
-    interp_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(p);
+  if (blocks > 0) {
+    if (bulk)
+      interp_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(p);
+    else
+      interp_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(p);
+  }
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,12 @@
 """Module instantiation: a validated AST -> a ModuleInstance in a store.
 
-A trimmed copy of `wasmedge_tpu/executor/executor.py` `Executor.instantiate`
-(global init expressions, active data segments into the memory snapshot,
-active element segments into table 0).  The port has no scalar engine and
-no host functions yet, so a module that imports anything or names a
-start function is refused: imports arrive with the WASI/hostcall slice.
+A trimmed copy of `wasmedge_tpu/executor/executor.py`:
+`register_import_object` (a host module becomes a named instance) and
+`Executor.instantiate` (function imports resolved against the store's
+named modules, global init expressions, active data segments into the
+memory snapshot, active element segments into table 0).  The port has no
+scalar engine, so a start function is refused, and imported tables,
+memories and globals are refused until the slice that carries them.
 """
 
 from __future__ import annotations
@@ -16,10 +18,34 @@ from wasmedge_tpu_torch.common.errors import (
     ErrCode, InstantiationError, WasmError)
 from wasmedge_tpu_torch.common.opcodes import Op
 from wasmedge_tpu_torch.loader import ast
+from wasmedge_tpu_torch.runtime.hostfunc import ImportObject
 from wasmedge_tpu_torch.runtime.instance import (
     DataInstance, ElementInstance, FunctionInstance, GlobalInstance,
     MemoryInstance, ModuleInstance, TableInstance)
 from wasmedge_tpu_torch.runtime.store import StoreManager
+
+
+_IMPORT_KINDS = {1: "table", 2: "memory", 3: "global"}
+
+
+def register_import_object(store: StoreManager,
+                           impobj: ImportObject) -> ModuleInstance:
+    """Host module -> named ModuleInstance whose exports are its host
+    functions (reference: executor.py register_import_object)."""
+    if impobj.tables or impobj.memories or impobj.globals:
+        raise NotImplementedError(
+            f"host module {impobj.name} exports tables, memories or globals: "
+            "imported tables, memories and globals come with a later slice "
+            "of the port")
+    mod = ast.Module()
+    mod.validated = True
+    inst = ModuleInstance(impobj.name, mod)
+    for fname, hf in impobj.funcs.items():
+        inst.exports[fname] = (0, len(inst.funcs))
+        inst.funcs.append(FunctionInstance("host", hf.functype,
+                                           module=inst, host=hf))
+    store.register_named(inst)
+    return inst
 
 
 def instantiate(store: StoreManager, mod: ast.Module,
@@ -27,12 +53,6 @@ def instantiate(store: StoreManager, mod: ast.Module,
                 name: str = "") -> ModuleInstance:
     if not mod.validated or mod.lowered is None:
         raise WasmError(ErrCode.NotValidated, "module not validated")
-    if mod.imports:
-        im = mod.imports[0]
-        raise NotImplementedError(
-            f"module imports {im.module}.{im.name}: imported functions, "
-            "tables, memories and globals come with the WASI/hostcall "
-            "slice of the port")
     if mod.start is not None:
         raise NotImplementedError(
             "module has a start function: running code at instantiation "
@@ -40,9 +60,32 @@ def instantiate(store: StoreManager, mod: ast.Module,
     conf = conf or Configure()
     inst = ModuleInstance(name, mod)
 
+    # Function imports (reference: executor.py instantiate, import loop)
+    for im in mod.imports:
+        if im.kind != 0:
+            raise NotImplementedError(
+                f"module imports {_IMPORT_KINDS[im.kind]} "
+                f"{im.module}.{im.name}: imported tables, memories and "
+                "globals come with a later slice of the port")
+        src = store.find_module(im.module)
+        if src is None:
+            raise InstantiationError(ErrCode.UnknownImport,
+                                     f"{im.module}.{im.name}: unknown module")
+        ex = src.exports.get(im.name)
+        if ex is None or ex[0] != im.kind:
+            raise InstantiationError(ErrCode.UnknownImport,
+                                     f"{im.module}.{im.name}")
+        fi = src.funcs[ex[1]]
+        if fi.functype != mod.types[im.type_idx]:
+            raise InstantiationError(ErrCode.IncompatibleImportType,
+                                     f"{im.module}.{im.name}")
+        inst.funcs.append(fi)
+
+    nimp = mod.num_imported_funcs
     for li in range(len(mod.functions)):
         inst.funcs.append(FunctionInstance(
-            "wasm", mod.func_type_of(li), module=inst, func_idx=li))
+            "wasm", mod.func_type_of(nimp + li), module=inst,
+            func_idx=nimp + li))
     for tt in mod.tables:
         inst.tables.append(TableInstance(tt))
     for mt in mod.memories:

@@ -1,13 +1,17 @@
 """Workloads the port's checks drive, built programmatically (no
-wat2wasm): fib (the flagship), fac, loop_sum, mem_checksum and the
-CoreMark-style kernel."""
+wat2wasm): fib (the flagship), fac, loop_sum, mem_checksum, the
+CoreMark-style kernel, the WASI echo and hello programs and the
+bulk-memory workload."""
 
 from wasmedge_tpu_torch.models.programs import (
+    build_bulk_workload,
     build_coremark_kernel,
+    build_echo,
     build_fac,
     build_fib,
     build_loop_sum,
     build_memory_workload,
+    build_wasi_hello,
 )
 
 __all__ = [
@@ -16,4 +20,7 @@ __all__ = [
     "build_loop_sum",
     "build_memory_workload",
     "build_coremark_kernel",
+    "build_echo",
+    "build_wasi_hello",
+    "build_bulk_workload",
 ]

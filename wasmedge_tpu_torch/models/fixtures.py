@@ -5,8 +5,11 @@ interpreter raises, to memory.grow up to and past the page ceiling, to a
 memory/global/branch mix, and to call_indirect; `build_alu_edge` folds
 every ALU2 and ALU1 operation of the batch encoding into one i64
 accumulator (`alu`), with the trapping ones in a second export
-(`alu_traps`).  The tests and `chip_smoke.py` use them with lane inputs
-made from a seed.
+(`alu_traps`).  `build_bulk_zoo` runs one memory.fill or memory.copy per
+lane over a patterned page with per-lane operands (unaligned, overlapping
+both ways, zero-length at and past the end, out of bounds) and
+`build_bulk_pair` one fill and one copy; the `build_host_*` modules
+import the host functions of `host_env_funcs`.  The tests and `chip_smoke.py` use them with lane inputs made from a seed.
 """
 
 from __future__ import annotations
@@ -254,3 +257,179 @@ def alu_args(lanes: int, seed: int = 0, subnormals: bool = True):
         out.append(np.where(pick < len(pool),
                             pool[np.minimum(pick, len(pool) - 1)], rnd))
     return out
+
+
+# -- host-function modules -----------------------------------------------------
+
+HOST_MODULE = "env"
+
+
+def host_env_funcs(raise_trap):
+    """name -> (callable, params, results) of the "env" host module the
+    build_host_* modules import.  `raise_trap()` raises the host package's
+    trap (ExecutionFailed), so one set of bodies serves both packages'
+    PyHostFunction."""
+
+    def double(mem, x):
+        return x * 2
+
+    def poke(mem, addr, val):
+        mem.store(addr, 4, val & 0xFFFFFFFF)
+        return val + 1
+
+    def id_or_trap(mem, x):
+        if x == 3:
+            raise_trap()
+        return x
+
+    def grow(mem, delta):
+        return mem.grow(delta)
+
+    return {"double": (double, ["i32"], ["i32"]),
+            "poke": (poke, ["i32", "i32"], ["i32"]),
+            "id_or_trap": (id_or_trap, ["i32"], ["i32"]),
+            "grow": (grow, ["i32"], ["i32"])}
+
+
+def build_host_double() -> bytes:
+    """f(x) = env.double(x) + 1."""
+    b = ModuleBuilder()
+    b.import_func(HOST_MODULE, "double", ["i32"], ["i32"])
+    b.add_function(["i32"], ["i32"], [], [
+        ("local.get", 0), ("call", 0), ("i32.const", 1), "i32.add",
+    ], export="f")
+    return b.build()
+
+
+def build_host_poke() -> bytes:
+    """f(v): env.poke stores v at 64 and returns v + 1; f returns that
+    plus the word loaded back from 64 (2v + 1)."""
+    b = ModuleBuilder()
+    b.import_func(HOST_MODULE, "poke", ["i32", "i32"], ["i32"])
+    b.add_memory(1, 1)
+    b.add_function(["i32"], ["i32"], [], [
+        ("i32.const", 64), ("local.get", 0), ("call", 0),
+        ("i32.const", 64), ("i32.load", 2, 0), "i32.add",
+    ], export="f")
+    return b.build()
+
+
+def build_host_trap() -> bytes:
+    """f(x) = env.id_or_trap(x), which traps for x == 3."""
+    b = ModuleBuilder()
+    b.import_func(HOST_MODULE, "id_or_trap", ["i32"], ["i32"])
+    b.add_function(["i32"], ["i32"], [], [
+        ("local.get", 0), ("call", 0),
+    ], export="f")
+    return b.build()
+
+
+def build_host_grow() -> bytes:
+    """f(delta): env.grow grows memory by delta pages (declared max 4)
+    and returns the old size or -1; f then stores 0x5A5A at byte 12 of
+    the last page and returns old * 1000 + pages * 10 + (the word loaded
+    back == 0x5A5A)."""
+    b = ModuleBuilder()
+    b.import_func(HOST_MODULE, "grow", ["i32"], ["i32"])
+    b.add_memory(1, 4)
+
+    def last_page_word():
+        return ["memory.size", ("i32.const", 1), "i32.sub",
+                ("i32.const", 65536), "i32.mul", ("i32.const", 12), "i32.add"]
+
+    b.add_function(["i32"], ["i32"], [], [
+        ("local.get", 0), ("call", 0), ("i32.const", 1000), "i32.mul",
+        "memory.size", ("i32.const", 10), "i32.mul", "i32.add",
+        *last_page_word(), ("i32.const", 0x5A5A), ("i32.store", 2, 0),
+        *last_page_word(), ("i32.load", 2, 0), ("i32.const", 0x5A5A),
+        "i32.eq", "i32.add",
+    ], export="f")
+    return b.build()
+
+
+# -- bulk memory ---------------------------------------------------------------
+
+BULK_PATTERN_BYTES = 1024  # patterned bytes at the start of the page
+BULK_TAIL = 65520  # 16 patterned bytes at the page's end
+
+
+def _bulk_pattern(n: int, salt: int) -> bytes:
+    return bytes(((k * 73 + salt) ^ (k >> 3)) & 0xFF for k in range(n))
+
+
+def _bulk_op(op: str):
+    """fill or copy (dst, b, n), then an i64 checksum of the first
+    BULK_PATTERN_BYTES bytes and of the 16 bytes at the page's end."""
+    fold = [
+        ("block", None), ("loop", None),
+        ("local.get", 3), ("i32.const", BULK_PATTERN_BYTES), "i32.ge_u",
+        ("br_if", 1),
+        ("local.get", 4), ("i64.const", 5), "i64.rotl",
+        ("local.get", 3), ("i64.load", 3, 0), "i64.xor", ("local.set", 4),
+        ("local.get", 3), ("i32.const", 8), "i32.add", ("local.set", 3),
+        ("br", 0), "end", "end",
+        ("local.get", 4),
+        ("i32.const", BULK_TAIL), ("i64.load", 3, 0), "i64.xor",
+        ("i32.const", BULK_TAIL), ("i64.load", 3, 8), "i64.add",
+    ]
+    return [("local.get", 0), ("local.get", 1), ("local.get", 2), op] + fold
+
+
+def build_bulk_zoo() -> bytes:
+    """Exports fill(dst, val, n) and copy(dst, src, n) over a page whose
+    first BULK_PATTERN_BYTES bytes and last 16 bytes carry a byte pattern
+    (data segments); each returns the i64 checksum of _bulk_op."""
+    b = ModuleBuilder()
+    b.add_memory(1, 1)
+    b.add_active_data(0, [("i32.const", 0)],
+                      _bulk_pattern(BULK_PATTERN_BYTES, 0x3C))
+    b.add_active_data(0, [("i32.const", BULK_TAIL)], _bulk_pattern(16, 0x88))
+    for op, name in (("memory.fill", "fill"), ("memory.copy", "copy")):
+        b.add_function(["i32", "i32", "i32"], ["i64"], ["i32", "i64"],
+                       _bulk_op(op), export=name)
+    return b.build()
+
+
+def build_bulk_pair() -> bytes:
+    """pair(fdst, fval, fn, cdst, csrc, cn): one memory.fill, then one
+    memory.copy, on one 64 KiB page; the launch chip_smoke.py times."""
+    b = ModuleBuilder()
+    b.add_memory(1, 1)
+    b.add_function(["i32"] * 6, [], [], [
+        ("local.get", 0), ("local.get", 1), ("local.get", 2), "memory.fill",
+        ("local.get", 3), ("local.get", 4), ("local.get", 5), "memory.copy",
+    ], export="pair")
+    return b.build()
+
+
+# (dst, n) edge cases every bulk zoo run includes: aligned and unaligned,
+# n == 0 at the end and past it, out of bounds at the end, wrapping
+_BULK_EDGES = [(0, 64), (64, 7), (1, 300), (3, 1), (65536, 0), (65537, 0),
+               (65530, 10), (65520, 16), (0xFFFFFFF0, 32), (130, 0)]
+# copy src - dst: backward overlap (-5, -1), forward overlap (1, 3, 6),
+# aligned moves and far sources
+_BULK_DELTAS = [-5, -1, 1, 3, 6, 0, 4, -8, 200, -200]
+
+
+def bulk_zoo_args(lanes: int, op: str, seed: int = 0):
+    """Per-lane (dst, val-or-src, n) for build_bulk_zoo's `op` export:
+    the edge cases first, then seeded lane-dependent offsets and lengths
+    (copy sources at the deltas above, some source ranges out of
+    bounds)."""
+    rng = np.random.default_rng(seed)
+    dst = rng.integers(0, 900, lanes).astype(np.int64)
+    n = rng.integers(1, 120, lanes).astype(np.int64)
+    k = min(lanes, len(_BULK_EDGES))
+    dst[:k] = [d for d, _ in _BULK_EDGES[:k]]
+    n[:k] = [m for _, m in _BULK_EDGES[:k]]
+    if op == "fill":
+        val = rng.integers(0, 1 << 16, lanes).astype(np.int64)
+        return [dst, val, n]
+    delta = np.array(_BULK_DELTAS, np.int64)[np.arange(lanes) % len(
+        _BULK_DELTAS)]
+    src = dst + delta
+    src[src < 0] = 0
+    # a few copies whose source range ends past the page
+    far = np.arange(lanes) % 11 == 7
+    src[far] = 65536 - n[far] + 3
+    return [dst & 0xFFFFFFFF, src & 0xFFFFFFFF, n]

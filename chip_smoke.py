@@ -18,6 +18,13 @@ Phases:
                memory.fill + memory.copy launch (kernel, plain version and
                the same fill and copy as PyTorch tensor calls), each with
                its bound;
+     Then the v128 fixtures (every batchable v128 op in sweep modules
+               with random and corner-byte operands, vmix, vloop, the v128
+               memory zoo, the v128 control module, fuel running out on a
+               v128 op and on a v128.store) kernel against plain version
+               after every launch, all four stack planes included, a host
+               import under v128 words with the host-call fixtures, and
+               one timed 256-step vloop launch x 4096 with its bound;
   3. main    - VM.execute_batch at full size: fib(30) x 4096 lanes, a
                divergent fib mix x 4096, CoreMark(200) and CoreMark(4096)
                x 4096 with one 64 KiB page per lane, each checked against
@@ -27,11 +34,16 @@ Phases:
                for byte, serve rounds and serve time against kernel time
                under torch.profiler), WASI hello x 4096 (proc_exit codes)
                and the bulk-memory workload x 4096 (checked against a
-               bytearray model, instr/s over kernel time);
+               bytearray model, instr/s over kernel time); the SIMD spec
+               corpus (tests/spec/simd.wast, BASELINE config 3) through
+               run_corpus_batched on the card, strict; vloop(1,000,000) x
+               4096 (bench_simd.py's shape), every lane's result and
+               retired count checked, once more under torch.profiler;
   4. report  - phase times, kernel times (CUDA events), retired
-               instructions and instructions per second, the card's name
-               and power limit, one JSON line of kernel records, and last
-               the device JSON line.
+               instructions and instructions per second, registers and
+               spills of each kernel instantiation, the card's name and
+               power limit, one JSON line of kernel records, and last the
+               device JSON line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.  Imports nothing of JAX or of the JAX package.
@@ -41,6 +53,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -64,6 +77,9 @@ ECHO_ITERS = 4  # bench_echo.py's ITERS: 8 fd_write calls per lane
 BULK_ITERS = 16
 WASI_ARGS = ["alpha", "be"]
 SMALL_BULK = dict(fill_bytes=700, copy_bytes=300, fold_words=300)
+SIMD_N = 1_000_000  # bench_simd.py's N_ITERS
+SIMD_WAST = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests", "spec", "simd.wast")
 
 
 def fail(msg: str) -> None:
@@ -103,19 +119,54 @@ def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
 
 
 def max_abs_err(a, b) -> int:
-    from wasmedge_tpu_torch.batch.engine import BatchState
-
+    """Largest difference over every plane of two states (stack_e2 and
+    stack_e3 included where the image has v128 ops)."""
+    pa, pb = a.planes(), b.planes()
+    if pa.keys() != pb.keys():
+        fail(f"states with different planes: {sorted(pa)} / {sorted(pb)}")
     err = 0
-    for f in BatchState.FIELDS:
-        d = (getattr(a, f).to(torch.int64) - getattr(b, f).to(torch.int64))
+    for f in pa:
+        d = pa[f].to(torch.int64) - pb[f].to(torch.int64)
         err = max(err, int(d.abs().max().item()))
     return err
+
+
+def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs) -> int:
+    """One fixture at KERNEL_LANES lanes: kernel and plain version from
+    the same CUDA state, launch by launch, every plane equal.  Returns the
+    max abs err."""
+    from wasmedge_tpu_torch.batch import interp, interp_ref
+
+    t0 = time.perf_counter()
+    eng, inst = make_engine(data, KERNEL_LANES, fuel_per_launch=fuel,
+                            **knobs)
+    st = eng.initial_state(inst.exports[func][1], args)
+    ref = st.clone()
+    launches = worst = 0
+    while True:
+        interp.run_chunk(eng.tables, st, chunk, fuel is not None)
+        interp_ref.run_chunk(eng.tables, ref, chunk, fuel is not None)
+        torch.cuda.synchronize()
+        launches += 1
+        err = max_abs_err(st, ref)
+        worst = max(worst, err)
+        if err != 0:
+            fail(f"kernel != plain on {name} after launch {launches}: "
+                 f"max abs err {err}")
+        if not bool((st.trap == 0).any()):
+            break
+        if launches == 200:
+            fail(f"{name}: lanes still running after {launches} launches")
+    traps = sorted(set(st.trap.cpu().tolist()))
+    print(f"kernel_vs_plain {name}: {launches} launches equal, "
+          f"traps {traps}, retired {int(st.retired.sum())}, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return worst
 
 
 def phase_kernel_vs_plain() -> int:
     """Every fixture at KERNEL_LANES lanes: kernel and plain version from
     the same CUDA state, launch by launch, all planes equal."""
-    from wasmedge_tpu_torch.batch import interp, interp_ref
     from wasmedge_tpu_torch.models import (
         build_bulk_workload, build_coremark_kernel, build_fib,
         build_memory_workload)
@@ -149,32 +200,65 @@ def phase_kernel_vs_plain() -> int:
         ("bulk_workload", build_bulk_workload(**SMALL_BULK), "bulk",
          [np.arange(L) * 37 + 5, 3], 256, None),
     ]
-    worst = 0
-    for name, data, func, args, chunk, fuel in fixtures:
-        t0 = time.perf_counter()
-        eng, inst = make_engine(data, L, fuel_per_launch=fuel, **knobs)
-        st = eng.initial_state(inst.exports[func][1], args)
-        ref = st.clone()
-        launches = 0
-        while True:
-            interp.run_chunk(eng.tables, st, chunk, fuel is not None)
-            interp_ref.run_chunk(eng.tables, ref, chunk, fuel is not None)
-            torch.cuda.synchronize()
-            launches += 1
-            err = max_abs_err(st, ref)
-            worst = max(worst, err)
-            if err != 0:
-                fail(f"kernel != plain on {name} after launch {launches}: "
-                     f"max abs err {err}")
-            if not bool((st.trap == 0).any()):
-                break
-            if launches == 200:
-                fail(f"{name}: lanes still running after {launches} launches")
-        traps = sorted(set(st.trap.cpu().tolist()))
-        print(f"kernel_vs_plain {name}: {launches} launches equal, "
-              f"traps {traps}, retired {int(st.retired.sum())}, "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
-    return worst
+    return max(kernel_vs_plain(name, data, func, args, chunk, fuel, knobs)
+               for name, data, func, args, chunk, fuel in fixtures)
+
+
+def first_step_at(data, func, args, hid, knobs) -> int:
+    """Steps before lane 0 first sits at handler `hid` (plain version)."""
+    from wasmedge_tpu_torch.batch import interp_ref
+
+    eng, inst = make_engine(data, len(args[0]), **knobs)
+    st = eng.initial_state(inst.exports[func][1], args)
+    for step in range(10_000):
+        if int(eng.tables.hid[int(st.pc[0])]) == hid:
+            return step
+        interp_ref.run_chunk(eng.tables, st, 1, False)
+    fail(f"{func}: handler {hid} never reached")
+
+
+def phase_simd_kernel_vs_plain() -> int:
+    """The v128 fixtures at KERNEL_LANES lanes through the kernel's kSimd
+    instantiations and the plain version, every plane (stack_e2 and
+    stack_e3 included) equal after every launch."""
+    from wasmedge_tpu_torch.batch.interp import H_VSTORE
+    from wasmedge_tpu_torch.models import build_simd_loop
+    from wasmedge_tpu_torch.models.fixtures import (
+        build_simd_sweep, build_v128_control, build_v128_mem_zoo, build_vmix,
+        simd_sweep_args, simd_sweeps, v128_zoo_args)
+
+    L = KERNEL_LANES
+    knobs = dict(value_stack_depth=64, call_stack_depth=16,
+                 memory_pages_per_lane=1)
+    fixtures = []
+    for i, (k, bodies) in enumerate(simd_sweeps().items()):
+        for corners in (False, True):
+            fixtures.append((f"sweep_{k}{'_corners' if corners else ''}",
+                             build_simd_sweep(bodies), "f",
+                             simd_sweep_args(L, SEED + i, corners), 64, None))
+    zoo = v128_zoo_args(L, SEED)
+    store_fuel = first_step_at(build_v128_mem_zoo(), "rw", zoo, H_VSTORE,
+                               knobs) + 1
+    fixtures += [
+        ("vmix", build_vmix(), "vmix", [np.arange(L) % 13 + 3], 64, None),
+        ("vloop", build_simd_loop(), "vloop", [np.arange(L) % 40], 256,
+         None),
+        ("v128_mem_zoo", build_v128_mem_zoo(), "rw", zoo, 64, None),
+        ("v128_mem_carry", build_v128_mem_zoo(), "wrap",
+         [np.resize(np.array([0, 4, 7, 8, 9, 16, 0x20, -16]), L),
+          np.arange(L)], 64, None),
+        ("v128_control", build_v128_control(), "ctl",
+         [np.arange(L, dtype=np.int64) * 0x123456789 - 7,
+          np.arange(L) * 5 + 3], 64, None),
+        # fuel runs out on the first instruction (v128.const) and on the
+        # zoo's first v128.store
+        ("vmix_fuel_v128_const", build_vmix(), "vmix",
+         [np.arange(L) % 13 + 3], 64, 1),
+        ("v128_zoo_fuel_store", build_v128_mem_zoo(), "rw", zoo, 64,
+         store_fuel),
+    ]
+    return max(kernel_vs_plain(name, data, func, args, chunk, fuel, knobs)
+               for name, data, func, args, chunk, fuel in fixtures)
 
 
 def env_import():
@@ -220,7 +304,7 @@ def phase_hostcalls_kernel_vs_plain() -> int:
     from wasmedge_tpu_torch.models import build_echo, build_wasi_hello
     from wasmedge_tpu_torch.models.fixtures import (
         build_host_double, build_host_grow, build_host_poke,
-        build_host_trap)
+        build_host_trap, build_simd_host)
     from wasmedge_tpu_torch.models.programs import ECHO_MESSAGE
 
     L = KERNEL_LANES
@@ -233,6 +317,9 @@ def phase_hostcalls_kernel_vs_plain() -> int:
         ("env.poke", build_host_poke(), "f", [np.arange(L) * 3 + 100], None),
         ("env.id_or_trap", build_host_trap(), "f", [np.arange(L) % 8], None),
         ("env.grow", build_host_grow(), "f", [np.arange(L) % 5], None),
+        # v128 words in the rows under env.double's frame (kSimd)
+        ("env.double_v128", build_simd_host(), "f", [np.arange(L) * 9 - 20],
+         None),
         ("wasi_echo", build_echo(), "echo", [np.full(L, 2)],
          ECHO_MESSAGE * (4 * L)),
         ("wasi_hello", build_wasi_hello(), "hello", [hello_codes],
@@ -426,6 +513,75 @@ def phase_time_one_launch():
                 touched_state_bytes=touched)
 
 
+def phase_time_simd_launch():
+    """One launch of TIMED_STEPS steps of vloop(SIMD_N) x MAIN_LANES from
+    its initial state, kernel and plain version, same inputs, and its
+    bound from the rows that launch touches."""
+    from wasmedge_tpu_torch.batch import interp, interp_ref
+    from wasmedge_tpu_torch.batch.engine import CONTROL_FIELDS
+    from wasmedge_tpu_torch.batch import interp as I
+    from wasmedge_tpu_torch.models import build_simd_loop
+
+    chunk, L = TIMED_STEPS, MAIN_LANES
+    eng, inst = make_engine(build_simd_loop(), L, value_stack_depth=64,
+                            call_stack_depth=16, memory_pages_per_lane=1)
+    tb = eng.tables
+    st0 = eng.initial_state(inst.exports["vloop"][1], [np.full(L, SIMD_N)])
+    kernel = lambda s: interp.run_chunk(tb, s, chunk, False)
+    plain = lambda s: interp_ref.run_chunk(tb, s, chunk, False)
+    kernel(st0.clone())  # warm-up
+    torch.cuda.synchronize()
+    ms, k25, k75, out_k = time_launch(kernel, st0, 21)
+    plain_ms, p25, p75, out_p = time_launch(plain, st0, 3)
+    err = max_abs_err(out_k, out_p)
+    if err != 0:
+        fail(f"kernel != plain on the vloop launch: max abs err {err}")
+    retired = int(out_k.retired.sum())
+    counts, max_sp, max_cd = launch_mix(tb, st0, chunk)
+    hid = tb.hid.cpu().numpy()
+    mem_hids = {I.H_LOAD, I.H_STORE, I.H_LOAD_W, I.H_LOAD_D, I.H_STORE_W,
+                I.H_STORE_D, I.H_MEMFILL, I.H_MEMCOPY, I.H_VLOAD,
+                I.H_VSTORE}
+    mem_ops = sum(int(c) for pc, c in enumerate(counts)
+                  if hid[pc] in mem_hids)
+    if mem_ops:
+        fail(f"the timed vloop launch ran {mem_ops} memory instructions; "
+             f"its bound counts no memory rows")
+    # Least bytes: the four stack planes' rows below the deepest sp, the
+    # frame rows below the deepest call depth and the control planes,
+    # each read once and written once (the launch reads or writes no
+    # memory row: checked above), and the code tables read once.
+    touched = 4 * L * (4 * max_sp + 3 * max_cd + len(CONTROL_FIELDS))
+    table_bytes = sum(4 * t.numel() for t in vars(tb).values()
+                      if isinstance(t, torch.Tensor))
+    bytes_ = 2 * touched + table_bytes
+    bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    # operations: one per scalar instruction, one per 32-bit word of a
+    # v128 instruction
+    ops = sum(int(c) * (4 if hid[pc] >= I.H_VCONST else 1)
+              for pc, c in enumerate(counts))
+    bound_ops_ms = ops / OPS_PER_S * 1e3
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    v128_share = sum(int(c) for pc, c in enumerate(counts)
+                     if hid[pc] >= I.H_VCONST) / retired
+    print(f"one launch of {chunk} steps x {L} lanes (vloop({SIMD_N})): "
+          f"kernel median {ms:.4f} ms (q25 {k25:.4f}, q75 {k75:.4f}, 21 "
+          f"runs), plain median {plain_ms:.2f} ms (q25 {p25:.2f}, q75 "
+          f"{p75:.2f}, 3 runs), retired {retired}, v128 share "
+          f"{v128_share:.3f}", flush=True)
+    print(f"  bound {bound_ms:.6f} ms by "
+          f"{'bytes' if bound_bytes_ms >= bound_ops_ms else 'operations'}: "
+          f"bytes {bytes_} B (4 stack planes x {max_sp} rows, frame rows "
+          f"{max_cd}, code tables {table_bytes} B) / {HBM_BYTES_PER_S:.3g} "
+          f"B/s = {bound_bytes_ms:.6f} ms; operations {ops} / "
+          f"{OPS_PER_S:.3g} /s = {bound_ops_ms:.6f} ms", flush=True)
+    return dict(ms=ms, q25=k25, q75=k75, plain_ms=plain_ms,
+                bound_ms=bound_ms,
+                bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
+                else "operations", max_abs_err=err, retired=retired,
+                bound_bytes=bytes_, bound_ops=ops, v128_share=v128_share)
+
+
 def fib_py(n: int) -> int:
     a, b = 0, 1
     for _ in range(n):
@@ -476,8 +632,11 @@ def phase_main():
     vm.validate()
     vm.instantiate()
 
-    res, launches, wall, ev_ms, _ = run_main(vm, "fib", [np.full(L, 30)],
-                                          1 << 20)
+    res, launches, wall, ev_ms, counts = run_main(
+        vm, "fib", [np.full(L, 30)], 1 << 20)
+    if counts["simd"] or counts["bulk"]:
+        fail(f"fib(30) ran a kernel instantiation with bulk or v128 cases: "
+             f"{counts}")
     if not (res.trap == -1).all() or not (res.results[0] == 832040).all():
         fail(f"fib(30) x {L}: traps {np.unique(res.trap)}, results "
              f"{np.unique(res.results[0])[:5]}")
@@ -773,6 +932,94 @@ def phase_main_bulk():
     return out
 
 
+def phase_simd_corpus():
+    """BASELINE config 3: tests/spec/simd.wast through the port's batched
+    corpus runner on the card, strict matching, every assertion a lane."""
+    from wasmedge_tpu_torch.batch import interp
+    from wasmedge_tpu_torch.spec import run_corpus_batched
+
+    torch.cuda.synchronize()
+    for k in interp.LAUNCHES:
+        interp.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    rep = run_corpus_batched([SIMD_WAST], device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(interp.LAUNCHES)
+    for f in rep.failures[:10]:
+        print(f"  {f}", flush=True)
+    if rep.failed or not rep.passed:
+        fail(f"simd.wast on the card: {rep.passed} passed, {rep.failed} "
+             f"failed, {rep.skipped} skipped")
+    if counts["simd"] == 0:
+        fail("simd.wast never launched the kernel's v128 instantiation")
+    print(f"spec simd.wast on the card (strict): {rep.passed} passed, "
+          f"{rep.failed} failed, {rep.skipped} skipped, {counts['simd']} "
+          f"v128 launches, wall {wall:.3f} s", flush=True)
+    return dict(passed=rep.passed, failed=rep.failed, skipped=rep.skipped,
+                launches=counts["simd"], wall_s=wall)
+
+
+def simd_retired_model(vm, n_small=(1, 2)):
+    """Instructions vloop(n) retires per lane, base + per * n, from two
+    small runs of the plain version on the CPU."""
+    counts = []
+    for n in (0,) + tuple(n_small):
+        res = vm.execute_batch("vloop", [np.full(1, n)], lanes=1,
+                               max_steps=10**6, device="cpu")
+        counts.append(int(res.retired[0]))
+    base, per = counts[0], counts[1] - counts[0]
+    if counts[2] - counts[1] != per:
+        fail(f"vloop's retired count is not linear in n: {counts}")
+    return base, per
+
+
+def phase_main_simd():
+    """BASELINE config 3's workload through VM.execute_batch at full size:
+    vloop(SIMD_N) x MAIN_LANES (bench_simd.py's shape), every lane's
+    result against the Python model and its retired count against the
+    plain version's linear count; then once more under torch.profiler."""
+    from wasmedge_tpu_torch.common.configure import Configure
+    from wasmedge_tpu_torch.models import build_simd_loop
+    from wasmedge_tpu_torch.models.programs import simd_loop_model
+    from wasmedge_tpu_torch.vm.vm import VM
+
+    L = MAIN_LANES
+    conf = Configure()
+    conf.batch.lanes = L
+    conf.batch.value_stack_depth = 64
+    conf.batch.call_stack_depth = 16
+    conf.batch.memory_pages_per_lane = 1
+    vm = VM(conf)
+    vm.load_wasm(build_simd_loop())
+    vm.validate()
+    vm.instantiate()
+    base, per = simd_retired_model(vm)
+    want_retired = base + per * SIMD_N
+    want = simd_loop_model(SIMD_N)
+    res, launches, wall, ev_ms, counts = run_main(
+        vm, "vloop", [np.full(L, SIMD_N)], 1 << 20, need=("interp", "simd"))
+    if not (res.trap == -1).all() or \
+            not ((res.results[0] & 0xFFFFFFFF) == want).all():
+        fail(f"vloop({SIMD_N}) x {L}: traps {np.unique(res.trap)}, results "
+             f"{np.unique(res.results[0])[:5]}, model {want}")
+    if not (res.retired.astype(np.int64) == want_retired).all():
+        fail(f"vloop({SIMD_N}) x {L}: retired {np.unique(res.retired)[:5]}, "
+             f"expected {want_retired} per lane")
+    retired = int(res.retired.astype(np.int64).sum())
+    out = dict(n=SIMD_N, launches=launches, simd_launches=counts["simd"],
+               wall_s=wall, event_ms=ev_ms, retired=retired,
+               instr_per_s_wall=retired / wall,
+               retired_per_lane=want_retired, per_iteration=per)
+    print(f"main vloop({SIMD_N}) x {L}: every lane {want} (the model), "
+          f"retired {want_retired} per lane ({base} + {per} per "
+          f"iteration), {launches} launches, wall {wall:.3f} s, kernel "
+          f"(events) {ev_ms:.1f} ms, {retired / wall:.4g} wasm instr/s over "
+          f"wall", flush=True)
+    out["profile"] = profile_run(vm, "vloop", [np.full(L, SIMD_N)], retired)
+    return out
+
+
 def phase_time_bulk():
     """One launch of the converged bulk pair at MAIN_LANES lanes: every
     lane fills 32 KiB at 0 and copies 16 KiB from 0 to 32 KiB, word
@@ -844,6 +1091,36 @@ def phase_time_bulk():
     return dict(out, library_ms=lib_ms, bound_ms=bound_ms, bound_bytes=nbytes)
 
 
+def kernel_registers() -> dict:
+    """Registers, stack frame and spills of each compiled kernel
+    instantiation and out-of-line device function, from ptxas -v."""
+    from wasmedge_tpu_torch.batch import interp
+
+    rows, cur = {}, None
+    for line in interp.BUILD_INFO.get("ptxas", "").splitlines():
+        m = re.search(r"(?:entry function|Function properties for) "
+                      r"'?([\w$.]+)", line)
+        if m:
+            mangled = m.group(1)
+            inst = re.search(r"interp_kernelILb(\d)ELb(\d)E", mangled)
+            fn = re.search(r"(v[12]_op|alu[12]\w*|bulk_fill_copy)", mangled)
+            cur = (f"interp_kernel<kBulk={inst.group(1)}, "
+                   f"kSimd={inst.group(2)}>" if inst
+                   else fn.group(1) if fn else mangled)
+            rows.setdefault(cur, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            rows[cur].update(stack_bytes=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            rows[cur]["registers"] = int(m.group(1))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -860,22 +1137,34 @@ def main() -> int:
     t_build = time.perf_counter() - t0
     print(f"phase build: {t_build:.2f} s (nvcc {interp.BUILD_INFO.get('seconds', 0):.2f} s)",
           flush=True)
-    for line in interp.BUILD_INFO.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    regs = kernel_registers()
+    for name, r in regs.items():
+        print(f"  ptxas: {name}: {r.get('registers', '-')} registers, "
+              f"{r.get('stack_bytes', 0)} B stack frame, "
+              f"{r.get('spill_stores', 0)} B spill stores, "
+              f"{r.get('spill_loads', 0)} B spill loads", flush=True)
 
     t0 = time.perf_counter()
     worst = max(phase_kernel_vs_plain(), phase_hostcalls_kernel_vs_plain())
+    simd_worst = phase_simd_kernel_vs_plain()
     timing = phase_time_one_launch()
     bulk_timing = phase_time_bulk()
+    simd_timing = phase_time_simd_launch()
     t_kernel = time.perf_counter() - t0
-    print(f"phase kernel_vs_plain: {t_kernel:.2f} s, max abs err {worst}",
-          flush=True)
+    print(f"phase kernel_vs_plain: {t_kernel:.2f} s, max abs err "
+          f"{max(worst, simd_worst)}", flush=True)
 
     t0 = time.perf_counter()
     main_out = phase_main()
+    scalar = regs.get("interp_kernel<kBulk=0, kSimd=0>", {})
+    print(f"fib(30) x {MAIN_LANES} ran interp_kernel<kBulk=0, kSimd=0> "
+          f"({scalar.get('registers')} registers, "
+          f"{scalar.get('spill_stores', 0)} B spill stores): wall "
+          f"{main_out['fib30']['wall_s']:.3f} s", flush=True)
     main_out.update(phase_main_wasi())
     main_out["bulk"] = phase_main_bulk()
+    main_out["simd_corpus"] = phase_simd_corpus()
+    main_out["vloop"] = phase_main_simd()
     t_main = time.perf_counter() - t0
     print(f"phase main: {t_main:.2f} s", flush=True)
 
@@ -921,11 +1210,35 @@ def main() -> int:
         "library_ms": bulk_timing["library_ms"],
         "unaligned_ms": bulk_timing["unaligned"]["ms"],
     }
+    # the B7 cases of the same kernel (its kSimd instantiations): "ms",
+    # "plain_ms" and "bound_ms" are for one launch of TIMED_STEPS steps of
+    # vloop(SIMD_N) x MAIN_LANES; "launches" counts the main path's
+    # vloop launches, "main_ms_per_launch" is their device time per launch
+    vloop_prof = main_out["vloop"]["profile"]
+    simd_record = {
+        "name": "v128",
+        "route": "cuda",
+        "source": "wasmedge_tpu_torch/csrc/interp.cu",
+        "replaces": "wasmedge_tpu/batch/pallas_engine.py:3203",
+        "launches": main_out["vloop"]["simd_launches"],
+        "max_abs_err": max(simd_worst, simd_timing["max_abs_err"]),
+        "ms": simd_timing["ms"],
+        "plain_ms": simd_timing["plain_ms"],
+        "bound_ms": simd_timing["bound_ms"],
+        "bound_by": simd_timing["bound_by"],
+        "library_ms": None,
+        "timed_launch": {"workload": f"vloop({SIMD_N})",
+                         "lanes": MAIN_LANES, "steps": TIMED_STEPS,
+                         "retired": simd_timing["retired"]},
+        "main_ms_per_launch": vloop_prof["kernel_ms"] / vloop_prof["launches"],
+    }
     print(json.dumps({"phases_s": {"build": t_build, "kernel": t_kernel,
                                    "main": t_main},
-                      "bulk_pair": bulk_timing, "main": main_out}),
+                      "registers": regs, "bulk_pair": bulk_timing,
+                      "simd_launch": simd_timing, "main": main_out}),
           flush=True)
-    print(json.dumps({"kernels": [record, bulk_record]}), flush=True)
+    print(json.dumps({"kernels": [record, bulk_record, simd_record]}),
+          flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

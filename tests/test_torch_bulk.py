@@ -25,7 +25,7 @@ from wasmedge_tpu.common.configure import Configure as RefConfigure
 from wasmedge_tpu.common.errors import TrapError
 from wasmedge_tpu.common.types import typed_to_bits
 from wasmedge_tpu_torch.batch import interp_ref
-from wasmedge_tpu_torch.batch.engine import BatchEngine, BatchState
+from wasmedge_tpu_torch.batch.engine import BatchEngine
 from wasmedge_tpu_torch.batch.interp import run_chunk
 from wasmedge_tpu_torch.common.configure import Configure
 from wasmedge_tpu_torch.common.errors import ErrCode
@@ -38,7 +38,8 @@ from wasmedge_tpu_torch.runtime.store import StoreManager
 from wasmedge_tpu_torch.utils.builder import ModuleBuilder
 from wasmedge_tpu_torch.validator import Validator
 from tests.helpers import instantiate as ref_instantiate
-from tests.test_torch_interp import _pallas_run, _per_launch, _port_run
+from tests.test_torch_interp import (
+    _assert_same_state, _pallas_run, _per_launch, _port_run)
 
 LANES = 8
 
@@ -205,7 +206,6 @@ def test_cuda_kernel_matches_plain_interpreter_every_launch(case):
     for _ in range(100):
         run_chunk(eng.tables, st, 64, fuel is not None)
         interp_ref.run_chunk(eng.tables, ref, 64, fuel is not None)
-        for f in BatchState.FIELDS:
-            assert torch.equal(getattr(st, f), getattr(ref, f)), f
+        _assert_same_state(st, ref)
         if not bool((st.trap == 0).any()):
             break

@@ -4,10 +4,12 @@ device image out.
 Loader -> Validator -> instantiate -> build_device_image in both packages
 over the workloads, a module with call_indirect, globals, a table and
 a data segment, and modules that import WASI or Python host functions
-(their HOSTCALL/RETURN stubs) or use memory.fill and memory.copy; every
-numpy field of the port's DeviceImage must equal
-the reference's field of the same name, bit for bit, and the handler-id
-plane must equal the Pallas engine's.
+(their HOSTCALL/RETURN stubs), use memory.fill and memory.copy or use
+v128 ops (constants and shuffle masks in the `v128` table); every numpy
+field of the port's DeviceImage (the `v128` table included) and every
+scalar field (`has_simd` included) must equal the reference's field of
+the same name, bit for bit, and the handler-id plane must equal the
+Pallas engine's.
 """
 
 import numpy as np
@@ -31,7 +33,9 @@ from wasmedge_tpu_torch.models import (
     build_fib, build_loop_sum, build_memory_workload, build_wasi_hello)
 from wasmedge_tpu_torch.models.fixtures import (
     build_alu_edge, build_bulk_zoo, build_host_grow, build_host_poke,
-    build_trap_zoo)
+    build_simd_host, build_simd_sweep, build_trap_zoo, build_v128_mem_zoo,
+    build_vmix, simd_sweeps)
+from wasmedge_tpu_torch.models.programs import build_simd_loop
 from wasmedge_tpu_torch.runtime.store import StoreManager
 from wasmedge_tpu_torch.utils.builder import ModuleBuilder
 from wasmedge_tpu_torch.validator import Validator
@@ -47,6 +51,9 @@ MODULES = {
     "wasi_echo": build_echo, "wasi_hello": build_wasi_hello,
     "host_poke": build_host_poke, "host_grow": build_host_grow,
     "bulk_zoo": build_bulk_zoo, "bulk_workload": build_bulk_workload,
+    "vmix": build_vmix, "vloop": build_simd_loop,
+    "simd_sweep_lanes": lambda: build_simd_sweep(simd_sweeps()["lanes_0"]),
+    "v128_mem_zoo": build_v128_mem_zoo, "host_simd": build_simd_host,
 }
 
 
@@ -162,6 +169,11 @@ def test_imports_and_start_functions_are_refused():
 
 
 def test_v128_ops_are_refused():
-    make = _refused([("v128.const", 0), "drop"], memory=False)
-    with pytest.raises(ValueError, match="v128"):
-        make()
+    """The batchable v128 set is admitted; the v128 forms the reference
+    does not batch (load-extend, load-splat, load-zero) are refused by
+    name."""
+    _refused([("v128.const", 0), "drop"], memory=False)()
+    for op in ("v128.load8x8_s", "v128.load32_splat", "v128.load32_zero"):
+        make = _refused([("i32.const", 0), (op, 0, 0), "drop"])
+        with pytest.raises(ValueError, match=f"unsupported op {op}"):
+            make()

@@ -36,7 +36,7 @@ from wasmedge_tpu.runtime.hostfunc import ImportObject as RefImportObject
 from wasmedge_tpu.runtime.hostfunc import PyHostFunction as RefPyHostFunction
 from wasmedge_tpu_torch.batch import interp_ref
 from wasmedge_tpu_torch.batch.convert import state_from_reference
-from wasmedge_tpu_torch.batch.engine import BatchEngine, BatchState
+from wasmedge_tpu_torch.batch.engine import BatchEngine
 from wasmedge_tpu_torch.batch.hostcall import serve_batch_state
 from wasmedge_tpu_torch.batch.image import TRAP_HOSTCALL
 from wasmedge_tpu_torch.batch.interp import device_tables, run_chunk
@@ -58,7 +58,8 @@ from wasmedge_tpu_torch.utils.builder import ModuleBuilder
 from wasmedge_tpu_torch.validator import Validator
 from wasmedge_tpu_torch.vm.vm import VM
 from tests.helpers import instantiate as ref_instantiate
-from tests.test_torch_interp import _image_of, _ref_planes
+from tests.test_torch_interp import (
+    _assert_planes, _assert_same_state, _image_of, _ref_planes)
 
 CHUNK = 64
 D, CD, PAGES = 64, 16, 3
@@ -136,9 +137,7 @@ def _per_launch(data, func, args, lanes, ref_imports, port_imports,
         port, total_port = eng.run_from_state(port, total, total + 1)
         assert total_port == total_ref, f"call {call}"
         want, got = _ref_planes(st), port.to_numpy()
-        for f in BatchState.FIELDS:
-            np.testing.assert_array_equal(
-                got[f], want[f], err_msg=f"plane {f}, call {call}")
+        _assert_planes(got, want, f"call {call}")
         assert not (got["trap"] == TRAP_HOSTCALL).any()
         total = total_ref
         if not (want["trap"] == 0).any():
@@ -464,12 +463,10 @@ def test_cuda_kernel_matches_plain_version_with_serve_rounds(tmp_path, case):
         for _ in range(50):
             run_chunk(engs[0].tables, st, CHUNK, False)
             interp_ref.run_chunk(engs[0].tables, ref, CHUNK, False)
-            for f in BatchState.FIELDS:
-                assert torch.equal(getattr(st, f), getattr(ref, f)), f
+            _assert_same_state(st, ref)
             serve_batch_state(engs[0], st)
             serve_batch_state(engs[1], ref)
-            for f in BatchState.FIELDS:
-                assert torch.equal(getattr(st, f), getattr(ref, f)), f
+            _assert_same_state(st, ref)
             if not bool((st.trap == 0).any()):
                 break
     finally:

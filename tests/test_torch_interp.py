@@ -66,7 +66,28 @@ def _image_of(ref_img) -> DeviceImage:
 
 
 def _ref_planes(st) -> dict:
-    return {f: np.asarray(getattr(st, f)) for f in BatchState.FIELDS}
+    """The reference state's planes as numpy (None where it has none:
+    stack_e2 / stack_e3 of an image without v128 ops)."""
+    return {f: None if getattr(st, f) is None else np.asarray(getattr(st, f))
+            for f in BatchState.FIELDS}
+
+
+def _assert_planes(got: dict, want: dict, where: str):
+    """Every plane equal, and the optional planes absent on both sides
+    alike."""
+    for f in BatchState.FIELDS:
+        assert (got[f] is None) == (want[f] is None), f"plane {f}, {where}"
+        if want[f] is not None:
+            np.testing.assert_array_equal(got[f], want[f],
+                                          err_msg=f"plane {f}, {where}")
+
+
+def _assert_same_state(a, b):
+    """Two port states (on any device) equal plane by plane."""
+    pa, pb = a.planes(), b.planes()
+    assert pa.keys() == pb.keys()
+    for f in pa:
+        assert torch.equal(pa[f], pb[f]), f
 
 
 def _per_launch(data, func, args, lanes, fuel=None, max_launches=400):
@@ -83,10 +104,8 @@ def _per_launch(data, func, args, lanes, fuel=None, max_launches=400):
     for launch in range(max_launches):
         st, new_total = ref.run_from_state(st, total, total + CHUNK)
         run_chunk(tables, port, CHUNK, fuel is not None)
-        want, got = _ref_planes(st), port.to_numpy()
-        for f in BatchState.FIELDS:
-            np.testing.assert_array_equal(
-                got[f], want[f], err_msg=f"plane {f}, launch {launch}")
+        _assert_planes(port.to_numpy(), _ref_planes(st), f"launch {launch}")
+        want = _ref_planes(st)
         if new_total - total < CHUNK or not (want["trap"] == 0).any():
             return port, launch + 1
         total = new_total
@@ -247,7 +266,6 @@ def test_cuda_kernel_matches_plain_interpreter_every_launch():
     for _ in range(50):
         run_chunk(eng.tables, st, CHUNK, False)
         interp_ref.run_chunk(eng.tables, ref, CHUNK, False)
-        for f in BatchState.FIELDS:
-            assert torch.equal(getattr(st, f), getattr(ref, f)), f
+        _assert_same_state(st, ref)
         if not bool((st.trap == 0).any()):
             break

@@ -1,8 +1,9 @@
 """The port stands alone: nothing under wasmedge_tpu_torch/ (its host
-modules under host/ and runtime/hostfunc.py included) and nothing in
-chip_smoke.py imports JAX or the JAX package, no entry point defaults
-to the CPU, and the CUDA source's ids and trap codes equal the Python
-package's."""
+modules under host/ and runtime/hostfunc.py, the v128 ops, the text
+front-end and the corpus runner included) and nothing in chip_smoke.py
+imports JAX or the JAX package, no entry point defaults to the CPU, and
+the CUDA source's ids, v128 family offsets and trap codes equal the
+Python package's."""
 
 import ast
 import os
@@ -31,7 +32,8 @@ def test_source_walk_covers_the_host_modules():
     for f in ("runtime/hostfunc.py", "batch/hostcall.py",
               "host/wasi/__init__.py", "host/wasi/environ.py",
               "host/wasi/wasi_abi.py", "host/wasi/wasifunc.py",
-              "host/wasi/vectorized.py"):
+              "host/wasi/vectorized.py", "batch/simdops.py", "utils/wat.py",
+              "spec/__init__.py"):
         assert f in rel, f
 
 
@@ -79,6 +81,21 @@ def test_cuda_source_constants_match_python():
         if name.startswith("H_"):
             assert getattr(interp, name) == val, name
     assert consts["NUM_ALU1"] == NUM_ALU1 and consts["NUM_ALU2"] == NUM_ALU2
+    assert consts["NUM_HANDLERS"] == interp.NUM_HANDLERS
+    from wasmedge_tpu_torch.batch.simdops import V1_SUB, V2_SUB
+
+    first = {"V2_I8X16": "i8x16.add", "V2_I16X8": "i16x8.add",
+             "V2_I32X4": "i32x4.add", "V2_I64X2": "i64x2.add",
+             "V2_F32X4": "f32x4.add", "V2_F64X2": "f64x2.add",
+             "V2_NARROW": "i8x16.narrow_i16x8_s",
+             "V2_EXTMUL": "i16x8.extmul_low_i8x16_s",
+             "V1_F32X4": "f32x4.abs", "V1_F64X2": "f64x2.abs",
+             "V1_CONVERT": "i32x4.trunc_sat_f32x4_s",
+             "V1_EXTEND": "i16x8.extend_low_i8x16_s",
+             "V1_EXTADD": "i16x8.extadd_pairwise_i8x16_s"}
+    for name, op in first.items():
+        table = V2_SUB if name.startswith("V2") else V1_SUB
+        assert consts[name] == table[op], name
     codes = {"E_DIV_ZERO": "DivideByZero", "E_INT_OVERFLOW": "IntegerOverflow",
              "E_INVALID_CONV": "InvalidConvToInt",
              "E_MEM_OOB": "MemoryOutOfBounds",

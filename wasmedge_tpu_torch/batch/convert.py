@@ -12,14 +12,16 @@ from __future__ import annotations
 
 import numpy as np
 
-from wasmedge_tpu_torch.batch.engine import BatchState, resolve_device
+from wasmedge_tpu_torch.batch.engine import (
+    SIMD_FIELDS, BatchState, resolve_device)
 from wasmedge_tpu_torch.batch.image import DeviceImage
 
 
 def image_from_reference(planes: dict, scalars: dict) -> DeviceImage:
     """`planes`: the reference image's numpy fields by name
-    (DeviceImage.NUMPY_FIELDS); `scalars`: its mem_pages_init,
-    mem_pages_max, has_memory, max_local_zeros and code_len.  An image
+    (DeviceImage.NUMPY_FIELDS, the `v128` table included); `scalars`: its
+    mem_pages_init, mem_pages_max, has_memory, max_local_zeros, code_len
+    and has_simd.  An image
     with import stubs comes across whole (code_len counts the stubs);
     the reference's tier-0 `t0kind` plane is not a field here and is
     ignored, since this port parks every host call at its stub."""
@@ -27,9 +29,10 @@ def image_from_reference(planes: dict, scalars: dict) -> DeviceImage:
     for f in DeviceImage.NUMPY_FIELDS:
         kw[f] = np.ascontiguousarray(planes[f], np.int32).copy()
     kw["br_table"] = kw["br_table"].reshape(-1, 3)
+    kw["v128"] = kw["v128"].reshape(-1, 4)
     for f in DeviceImage.SCALAR_FIELDS:
         v = scalars[f]
-        kw[f] = bool(v) if f == "has_memory" else int(v)
+        kw[f] = bool(v) if f in ("has_memory", "has_simd") else int(v)
     if kw["code_len"] != kw["cls"].shape[0]:
         raise ValueError(f"code_len {kw['code_len']} != "
                          f"{kw['cls'].shape[0]} code cells")
@@ -38,13 +41,18 @@ def image_from_reference(planes: dict, scalars: dict) -> DeviceImage:
 
 def state_from_reference(planes: dict, device="cuda") -> BatchState:
     """`planes`: the reference BatchState's fields as numpy arrays (at
-    least BatchState.FIELDS; optional planes this slice does not use
-    must be absent or None)."""
+    least BatchState.FIELDS; `stack_e2` / `stack_e3` are None or absent
+    for images without v128 ops, and optional planes this slice does not
+    use must be absent or None)."""
     for f, v in planes.items():
         if f not in BatchState.FIELDS and v is not None:
             raise ValueError(f"state plane {f} is not used by this slice")
     L = np.asarray(planes["pc"]).shape[0]
     for f in BatchState.FIELDS:
+        if planes.get(f) is None:
+            if f in SIMD_FIELDS:
+                continue
+            raise ValueError(f"state plane {f} is missing")
         p = np.asarray(planes[f])
         if p.shape[-1] != L:
             raise ValueError(f"{f} has {p.shape[-1]} lanes, expected {L}")

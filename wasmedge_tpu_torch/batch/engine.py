@@ -9,7 +9,9 @@ between launches (batch/hostcall.py), until every lane has stopped or
 `max_steps` is reached, then collect per-lane results.
 
 State layout is the reference's, lane fastest: value stacks
-`[value_stack_depth, lanes]`, frames `[call_stack_depth, lanes]`, globals
+`[value_stack_depth, lanes]` (two planes, lo and hi, and two more, e2
+and e3, when the image holds v128 ops), frames `[call_stack_depth,
+lanes]`, globals
 `[n_globals, lanes]`, memory `[words, lanes]` and the per-lane control
 planes `[lanes]`, all int32.  The kernel updates them in place.
 """
@@ -36,12 +38,16 @@ CONTROL_FIELDS = ("pc", "sp", "fp", "opbase", "call_depth", "trap",
                   "retired", "fuel", "mem_pages")
 PLANE_FIELDS = ("stack_lo", "stack_hi", "fr_ret_pc", "fr_fp", "fr_opbase",
                 "glob_lo", "glob_hi", "mem")
+# the upper two words of a v128 cell: [D, L] for images with v128 ops,
+# None otherwise (the reference BatchState's stack_e2 / stack_e3)
+SIMD_FIELDS = ("stack_e2", "stack_e3")
 
 
 @dataclasses.dataclass
 class BatchState:
     """Per-lane interpreter state (the reference BatchState's fields that
-    this slice uses), int32 tensors on one device."""
+    this slice uses), int32 tensors on one device; `stack_e2` and
+    `stack_e3` are None unless the image holds v128 ops."""
 
     pc: torch.Tensor
     sp: torch.Tensor
@@ -60,21 +66,29 @@ class BatchState:
     glob_lo: torch.Tensor
     glob_hi: torch.Tensor
     mem: torch.Tensor
+    stack_e2: Optional[torch.Tensor] = None
+    stack_e3: Optional[torch.Tensor] = None
 
-    FIELDS = CONTROL_FIELDS + PLANE_FIELDS
+    FIELDS = CONTROL_FIELDS + PLANE_FIELDS + SIMD_FIELDS
 
     @classmethod
     def from_numpy(cls, planes: dict, device) -> "BatchState":
-        return cls(**{f: torch.as_tensor(
+        return cls(**{f: None if planes.get(f) is None else torch.as_tensor(
             np.array(planes[f], np.int32), device=device)
             for f in cls.FIELDS})
 
     def to_numpy(self) -> dict:
-        return {f: getattr(self, f).cpu().numpy() for f in self.FIELDS}
+        return {f: None if getattr(self, f) is None
+                else getattr(self, f).cpu().numpy() for f in self.FIELDS}
 
     def clone(self) -> "BatchState":
-        return BatchState(**{f: getattr(self, f).clone()
-                             for f in self.FIELDS})
+        return BatchState(**self.planes(clone=True))
+
+    def planes(self, clone: bool = False) -> dict:
+        """Field name -> tensor (a copy with clone) of the planes this
+        state has."""
+        return {f: getattr(self, f).clone() if clone else getattr(self, f)
+                for f in self.FIELDS if getattr(self, f) is not None}
 
 
 @dataclasses.dataclass
@@ -210,6 +224,8 @@ class BatchEngine:
         def planes(rows):
             return torch.zeros((rows, L), dtype=torch.int32, device=dev)
 
+        e2, e3 = (planes(D), planes(D)) if img.has_simd else (None, None)
+
         def glob(v):
             return torch.as_tensor(v, device=dev)[:, None].repeat(1, L) \
                 .contiguous()
@@ -223,7 +239,7 @@ class BatchEngine:
             stack_hi=torch.as_tensor(stack_hi, device=dev),
             fr_ret_pc=planes(CD), fr_fp=planes(CD), fr_opbase=planes(CD),
             glob_lo=glob(img.globals_lo), glob_hi=glob(img.globals_hi),
-            mem=mem)
+            mem=mem, stack_e2=e2, stack_e3=e3)
 
     # -- execution ---------------------------------------------------------
     def run(self, func_name: str, args_lanes,

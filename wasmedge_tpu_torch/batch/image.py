@@ -12,10 +12,15 @@ code, HOSTCALL (`a` = function index) then RETURN (`b` = nresults), and
 the HOSTCALL with its frame pushed, the host serves it
 (batch/hostcall.py) and re-arms it at the RETURN.
 
+v128 instructions (classes VCONST..VSTORE, op tables in
+`batch/simdops.py`) keep 128-bit constants and shuffle masks in the
+`v128` table `[n, 4]`, indexed by `a`; `has_simd` says whether the code
+holds any, and the engine gives such images two more stack planes.
+
 `batchability()` is the module-level gate; `slice_refusal()` is the
 port's own gate over a built image: classes that later slices of the
-port bring (v128, tables, segments, tail calls) are refused up front
-with an error that names the class.  The reference's tier-0 `t0kind`
+port bring (tables, segments, tail calls) are refused up front with an
+error that names the class.  The reference's tier-0 `t0kind`
 plane is not built: this port parks every host call.
 """
 
@@ -58,6 +63,19 @@ CLS_TRAP = 22
 CLS_HOSTCALL = 23
 CLS_MEMFILL = 24
 CLS_MEMCOPY = 25
+# v128 (4x int32 planes per cell; op tables in batch/simdops.py)
+CLS_VCONST = 26    # a = v128 table idx -> push
+CLS_V2 = 27        # sub = V2_SUB id: pop2 push1
+CLS_V1 = 28        # sub = V1_SUB id: pop1 push1
+CLS_VTEST = 29     # sub = VTEST_SUB id: pop v128 push i32
+CLS_VSHIFT = 30    # sub = VSHIFT_SUB id: pop (v128, i32) push v128
+CLS_VSPLAT = 31    # sub = VSPLAT_SUB id: pop scalar push v128
+CLS_VEXTRACT = 32  # sub = VEXTRACT_SUB id, a = lane: pop v128 push scalar
+CLS_VREPLACE = 33  # sub = VREPLACE_SUB id, a = lane: pop2 push v128
+CLS_VSHUFFLE = 34  # a = v128 table idx (16-byte mask): pop2 push1
+CLS_VBITSEL = 35   # pop3 push1
+CLS_VLOAD = 36     # a = offset: pop addr push v128
+CLS_VSTORE = 37    # a = offset: pop (addr, v128)
 CLS_TABLE_GET = 38
 CLS_TABLE_SET = 39
 CLS_TABLE_SIZE = 40
@@ -82,10 +100,10 @@ CLASS_NAMES = {
     CLS_REFFUNC: "REFFUNC",
 }
 
-# Classes the CUDA warp-interpreter executes: NOP..MEMCOPY (which
+# Classes the CUDA warp-interpreter executes: NOP..VSTORE (which
 # includes ALU1/ALU2, CALL_INDIRECT, LOAD/STORE, MEMSIZE/MEMGROW, TRAP,
-# HOSTCALL, MEMFILL).
-SLICE_MAX_CLASS = CLS_MEMCOPY
+# HOSTCALL, MEMFILL/MEMCOPY and the v128 classes).
+SLICE_MAX_CLASS = CLS_VSTORE
 
 # -- ALU2 sub-ops (binary: pop2 push1) --------------------------------------
 _I32_BIN = ["add", "sub", "mul", "div_s", "div_u", "rem_s", "rem_u", "and",
@@ -168,10 +186,11 @@ def batchability(image: LoweredModule, host_imports: Optional[set] = None,
                  n_memories: int = 1) -> Optional[str]:
     """None if the lowered module can run on the batch engine, else why.
 
-    The reference's gate (`wasmedge_tpu/batch/image.py`) with no v128 op
-    at all (v128 arrives in a later slice).  host_imports: function
-    indices backed by host functions the engine can serve; any other
-    import is unbatchable."""
+    The reference's gate (`wasmedge_tpu/batch/image.py`): v128 ops
+    outside `simdops.SUPPORTED_V128` (the load-extend, load-splat,
+    load-zero and lane load/store forms) are refused by name.
+    host_imports: function indices backed by host functions the engine
+    can serve; any other import is unbatchable."""
     if n_memories > 1:
         return "multiple memories"
     for idx, fn in enumerate(image.funcs):
@@ -197,7 +216,10 @@ def batchability(image: LoweredModule, host_imports: Optional[set] = None,
         if name == "return" and image.b[pc] > 1:
             return "multi-value results"
         if name.startswith(_V128_PREFIXES):
-            return f"unsupported op {name} (v128 comes with the SIMD slice)"
+            from wasmedge_tpu_torch.batch.simdops import SUPPORTED_V128
+
+            if name not in SUPPORTED_V128:
+                return f"unsupported op {name}"
         if name in _TABLE0_OPS and image.a[pc] != 0:
             return f"{name} on table != 0"
         if name == "table.copy" and (image.a[pc] != 0 or image.b[pc] != 0):
@@ -253,13 +275,15 @@ class DeviceImage:
     has_memory: bool
     max_local_zeros: int  # max (nlocals - nparams) over funcs
     code_len: int
+    v128: np.ndarray  # [n, 4] int32: v128.const values and shuffle masks
+    has_simd: bool  # the code holds a v128 class
 
     NUMPY_FIELDS = ("cls", "sub", "a", "b", "c", "imm_lo", "imm_hi",
                     "br_table", "f_entry", "f_nparams", "f_nlocals",
                     "f_nresults", "f_frame_top", "f_type", "table0",
-                    "globals_lo", "globals_hi", "mem_init", "op_id")
+                    "globals_lo", "globals_hi", "mem_init", "op_id", "v128")
     SCALAR_FIELDS = ("mem_pages_init", "mem_pages_max", "has_memory",
-                     "max_local_zeros", "code_len")
+                     "max_local_zeros", "code_len", "has_simd")
 
 
 def build_device_image(image: LoweredModule, memories=None, globals_=None,
@@ -304,6 +328,26 @@ def build_device_image(image: LoweredModule, memories=None, globals_=None,
     f64_bin = {NAME_TO_ID[f"f64.{s}"]: ALU2_F64_BASE + i
                for i, s in enumerate(_F64_BIN)}
     alu1 = {NAME_TO_ID[nm]: s for nm, s in ALU1_SUB.items()}
+    from wasmedge_tpu_torch.batch.simdops import (
+        V1_SUB, V2_SUB, VEXTRACT_SUB, VREPLACE_SUB, VSHIFT_SUB, VSPLAT_SUB,
+        VTEST_SUB)
+
+    # sub-indexed v128 classes: opcode id -> (class, sub, takes lane imm)
+    vsubs = {}
+    for vcls, table, lane in (
+            (CLS_V2, V2_SUB, False), (CLS_V1, V1_SUB, False),
+            (CLS_VTEST, VTEST_SUB, False), (CLS_VSHIFT, VSHIFT_SUB, False),
+            (CLS_VSPLAT, VSPLAT_SUB, False),
+            (CLS_VEXTRACT, VEXTRACT_SUB, True),
+            (CLS_VREPLACE, VREPLACE_SUB, True)):
+        for nm, sid in table.items():
+            vsubs[NAME_TO_ID[nm]] = (vcls, sid, lane)
+    # v128 table index (a), or the memarg offset (imm)
+    vplain = {NAME_TO_ID["v128.const"]: (CLS_VCONST, False),
+              NAME_TO_ID["i8x16.shuffle"]: (CLS_VSHUFFLE, False),
+              NAME_TO_ID["v128.bitselect"]: (CLS_VBITSEL, False),
+              NAME_TO_ID["v128.load"]: (CLS_VLOAD, True),
+              NAME_TO_ID["v128.store"]: (CLS_VSTORE, True)}
     loads = {NAME_TO_ID[nm]: v for nm, v in _LOADS.items()}
     stores = {NAME_TO_ID[nm]: v for nm, v in _STORES.items()}
     consts = {Op.i32_const, Op.i64_const, Op.f32_const, Op.f64_const}
@@ -377,6 +421,14 @@ def build_device_image(image: LoweredModule, memories=None, globals_=None,
             cls[pc] = CLS_STORE
             a[pc] = _i32(imm)
             b[pc] = stores[op]
+        elif op in vplain:
+            vcls, is_mem = vplain[op]
+            cls[pc], a[pc] = vcls, _i32(imm) if is_mem else ia
+        elif op in vsubs:
+            vcls, sid, lane = vsubs[op]
+            cls[pc], sub[pc] = vcls, sid
+            if lane:
+                a[pc] = ia
         elif op == Op.memory_fill:
             cls[pc] = CLS_MEMFILL
         elif op == Op.memory_copy:
@@ -461,6 +513,12 @@ def build_device_image(image: LoweredModule, memories=None, globals_=None,
         pages_init = 0
         pages_max = 0
 
+    v_lo, v_hi = image.arrays["v128_lo"], image.arrays["v128_hi"]
+    v128 = np.zeros((max(len(v_lo), 1), 4), np.int32)
+    for i in range(len(v_lo)):
+        lo, hi = int(v_lo[i]), int(v_hi[i])
+        v128[i] = (_i32(lo), _i32(lo >> 32), _i32(hi), _i32(hi >> 32))
+
     return DeviceImage(
         cls=cls, sub=sub, a=a, b=b, c=c, imm_lo=imm_lo, imm_hi=imm_hi,
         br_table=np.asarray(image.arrays["br_table"], np.int32),
@@ -468,4 +526,6 @@ def build_device_image(image: LoweredModule, memories=None, globals_=None,
         f_nresults=f_nresults, f_frame_top=f_frame_top, f_type=f_type,
         table0=table0, globals_lo=g_lo, globals_hi=g_hi, mem_init=mem_init,
         op_id=op_id, mem_pages_init=pages_init, mem_pages_max=pages_max,
-        has_memory=bool(memories), max_local_zeros=max_zeros, code_len=n)
+        has_memory=bool(memories), max_local_zeros=max_zeros, code_len=n,
+        v128=v128,
+        has_simd=bool(((cls >= CLS_VCONST) & (cls <= CLS_VSTORE)).any()))

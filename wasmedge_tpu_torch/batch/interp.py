@@ -34,8 +34,13 @@ from wasmedge_tpu_torch.batch.image import (
     CLS_CALL_INDIRECT, CLS_CONST, CLS_DROP, CLS_GLOBAL_GET, CLS_GLOBAL_SET,
     CLS_HOSTCALL, CLS_LOAD, CLS_LOCAL_GET, CLS_LOCAL_SET, CLS_LOCAL_TEE,
     CLS_MEMCOPY, CLS_MEMFILL, CLS_MEMGROW, CLS_MEMSIZE, CLS_NOP, CLS_RETURN,
-    CLS_SELECT, CLS_STORE, CLS_TRAP, NUM_ALU1, NUM_ALU2, DeviceImage,
-    TRAP_DONE, TRAP_HOSTCALL)
+    CLS_SELECT, CLS_STORE, CLS_TRAP, CLS_V1, CLS_V2, CLS_VBITSEL,
+    CLS_VCONST, CLS_VEXTRACT, CLS_VLOAD, CLS_VREPLACE, CLS_VSHIFT,
+    CLS_VSHUFFLE, CLS_VSPLAT, CLS_VSTORE, CLS_VTEST, NUM_ALU1, NUM_ALU2,
+    DeviceImage, TRAP_DONE, TRAP_HOSTCALL)
+from wasmedge_tpu_torch.batch.simdops import (
+    V1_NAMES, V2_NAMES, VEXTRACT_NAMES, VREPLACE_NAMES, VSHIFT_NAMES,
+    VSPLAT_NAMES, VTEST_NAMES)
 
 # ---------------------------------------------------------------------------
 # Flat handler-id space (numbering shared with pallas_engine.py :103-185)
@@ -74,6 +79,21 @@ H_LOAD_W = H_FUSE_GBR + 1    # i32.load / f32.load / i64.load32_u
 H_LOAD_D = H_FUSE_GBR + 2    # i64.load / f64.load
 H_STORE_W = H_FUSE_GBR + 3   # i32.store / f32.store / i64.store32
 H_STORE_D = H_FUSE_GBR + 4   # i64.store / f64.store
+# v128 (pallas_engine.py :160-185): cells are four int32 planes (lo, hi,
+# e2, e3); the sub-indexed families get one id per op, numbered densely
+H_VCONST = H_STORE_D + 1
+H_VSHUFFLE = H_VCONST + 1
+H_VBITSEL = H_VSHUFFLE + 1
+H_VLOAD = H_VBITSEL + 1
+H_VSTORE = H_VLOAD + 1
+H_V2_BASE = H_VSTORE + 1
+H_V1_BASE = H_V2_BASE + len(V2_NAMES)
+H_VTEST_BASE = H_V1_BASE + len(V1_NAMES)
+H_VSHIFT_BASE = H_VTEST_BASE + len(VTEST_NAMES)
+H_VSPLAT_BASE = H_VSHIFT_BASE + len(VSHIFT_NAMES)
+H_VEXTRACT_BASE = H_VSPLAT_BASE + len(VSPLAT_NAMES)
+H_VREPLACE_BASE = H_VEXTRACT_BASE + len(VEXTRACT_NAMES)
+NUM_HANDLERS = H_VREPLACE_BASE + len(VREPLACE_NAMES)
 
 _CLS_TO_HID = {
     CLS_NOP: H_NOP, CLS_CONST: H_CONST, CLS_LOCAL_GET: H_LOCAL_GET,
@@ -85,6 +105,15 @@ _CLS_TO_HID = {
     CLS_MEMSIZE: H_MEMSIZE, CLS_MEMGROW: H_MEMGROW, CLS_TRAP: H_TRAP,
     CLS_LOAD: H_LOAD, CLS_STORE: H_STORE, CLS_HOSTCALL: H_HOSTCALL,
     CLS_MEMFILL: H_MEMFILL, CLS_MEMCOPY: H_MEMCOPY,
+    CLS_VCONST: H_VCONST, CLS_VSHUFFLE: H_VSHUFFLE,
+    CLS_VBITSEL: H_VBITSEL, CLS_VLOAD: H_VLOAD, CLS_VSTORE: H_VSTORE,
+}
+
+# sub-indexed v128 classes -> handler base id
+_VCLS_TO_BASE = {
+    CLS_V2: H_V2_BASE, CLS_V1: H_V1_BASE, CLS_VTEST: H_VTEST_BASE,
+    CLS_VSHIFT: H_VSHIFT_BASE, CLS_VSPLAT: H_VSPLAT_BASE,
+    CLS_VEXTRACT: H_VEXTRACT_BASE, CLS_VREPLACE: H_VREPLACE_BASE,
 }
 
 # The reference kernel reports per lane block through the ST_* status of
@@ -96,7 +125,7 @@ _CLS_TO_HID = {
 
 def hid_plane(img: DeviceImage) -> np.ndarray:
     """Per-pc flat handler id from the (class, sub) encoding
-    (pallas_engine.py :598, without the v128 families)."""
+    (pallas_engine.py :598)."""
     hid = np.zeros(img.code_len, np.int32)
     for pc in range(img.code_len):
         c = int(img.cls[pc])
@@ -104,6 +133,8 @@ def hid_plane(img: DeviceImage) -> np.ndarray:
             hid[pc] = H_ALU2_BASE + int(img.sub[pc])
         elif c == CLS_ALU1:
             hid[pc] = H_ALU1_BASE + int(img.sub[pc])
+        elif c in _VCLS_TO_BASE:
+            hid[pc] = _VCLS_TO_BASE[c] + int(img.sub[pc])
         elif c == CLS_LOAD and int(img.b[pc]) == 4 \
                 and int(img.c[pc]) in (0, 2):
             hid[pc] = H_LOAD_W
@@ -136,10 +167,12 @@ class Tables:
     ftyp: torch.Tensor
     brt: torch.Tensor      # flat [3 * n_entries]: (target, keep, pop)
     tbl: torch.Tensor      # table 0: funcidx + 1, 0 = null
+    v128: torch.Tensor     # flat [4 * n]: v128.const values, shuffle masks
     max_local_zeros: int
     mem_pages_max: int
     has_bulk: bool = False      # the code holds memory.fill / memory.copy
     has_hostcall: bool = False  # the code holds HOSTCALL stubs
+    has_simd: bool = False      # the code holds v128 ops (4-word cells)
 
 
 def device_tables(img: DeviceImage, device) -> Tables:
@@ -153,10 +186,12 @@ def device_tables(img: DeviceImage, device) -> Tables:
         ilo=t(img.imm_lo), ihi=t(img.imm_hi), fent=t(img.f_entry),
         fnpar=t(img.f_nparams), fnloc=t(img.f_nlocals),
         ftop=t(img.f_frame_top), ftyp=t(img.f_type), brt=t(img.br_table),
-        tbl=t(img.table0), max_local_zeros=int(img.max_local_zeros),
+        tbl=t(img.table0), v128=t(img.v128),
+        max_local_zeros=int(img.max_local_zeros),
         mem_pages_max=int(img.mem_pages_max),
         has_bulk=bool(np.isin(hid, (H_MEMFILL, H_MEMCOPY)).any()),
-        has_hostcall=bool((hid == H_HOSTCALL).any()))
+        has_hostcall=bool((hid == H_HOSTCALL).any()),
+        has_simd=bool(img.has_simd))
 
 
 # ---------------------------------------------------------------------------
@@ -172,9 +207,10 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Launches of the CUDA kernel since the count was last set to 0 (the
 # plain version never counts): all of them, those whose code holds the
-# bulk-memory cases (h_memfill / h_memcopy) and those whose code holds
-# host-call stubs (h_hostcall).
-LAUNCHES = {"interp": 0, "bulk": 0, "hostcall": 0}
+# bulk-memory cases (h_memfill / h_memcopy), those whose code holds
+# host-call stubs (h_hostcall) and those whose code holds v128 ops (the
+# B7 handlers).
+LAUNCHES = {"interp": 0, "bulk": 0, "hostcall": 0, "simd": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -224,15 +260,17 @@ def build_kernel():
 
 # Pointer arguments, in the order of wasm_interp_launch's signature.
 _TABLE_FIELDS = ("hid", "a", "b", "c", "ilo", "ihi", "fent", "fnpar",
-                 "fnloc", "ftop", "ftyp", "brt", "tbl")
+                 "fnloc", "ftop", "ftyp", "brt", "tbl", "v128")
 _STATE_FIELDS = ("pc", "sp", "fp", "opbase", "call_depth", "trap", "retired",
-                 "fuel", "mem_pages", "stack_lo", "stack_hi", "fr_ret_pc",
-                 "fr_fp", "fr_opbase", "glob_lo", "glob_hi", "mem")
+                 "fuel", "mem_pages", "stack_lo", "stack_hi", "stack_e2",
+                 "stack_e3", "fr_ret_pc", "fr_fp", "fr_opbase", "glob_lo",
+                 "glob_hi", "mem")
 _N_PTRS = len(_TABLE_FIELDS) + len(_STATE_FIELDS)
-# code_len, nf, n_brt, tsize, L, D, CD, NG, W, chunk, fuel_on,
-# max_local_zeros, mem_pages_max, bulk (the kernel instantiation with the
-# memory.fill / memory.copy cases)
-_N_INTS = 14
+# code_len, nf, n_brt, tsize, nv (v128 table rows), L, D, CD, NG, W,
+# chunk, fuel_on, max_local_zeros, mem_pages_max, bulk and simd (the kernel
+# instantiations with the memory.fill / memory.copy cases and with the
+# v128 handlers)
+_N_INTS = 16
 
 
 def _check(name, t, device, shape):
@@ -269,20 +307,28 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool) -> None:
         _check(f, getattr(tables, f), device, None)
     for f in ("a", "b", "c", "ilo", "ihi"):
         _check(f, getattr(tables, f), device, (n,))
+    simd = tables.has_simd
+    if (st.stack_e2 is not None) != simd or (st.stack_e3 is not None) != simd:
+        raise ValueError("stack_e2 / stack_e3 must be given exactly when the "
+                         "code holds v128 ops")
     for f in _STATE_FIELDS:
         p = getattr(st, f)
-        rows = {"stack_lo": D, "stack_hi": D, "fr_ret_pc": CD,
-                "fr_fp": CD, "fr_opbase": CD, "glob_lo": NG,
+        if p is None:
+            continue
+        rows = {"stack_lo": D, "stack_hi": D, "stack_e2": D, "stack_e3": D,
+                "fr_ret_pc": CD, "fr_fp": CD, "fr_opbase": CD, "glob_lo": NG,
                 "glob_hi": NG, "mem": W}.get(f)
         _check(f, p, device, (L,) if rows is None else (rows, L))
     lib = build_kernel()
     stream = torch.cuda.current_stream(device).cuda_stream
     ptrs = [getattr(tables, f).data_ptr() for f in _TABLE_FIELDS] + \
-        [getattr(st, f).data_ptr() for f in _STATE_FIELDS]
+        [None if getattr(st, f) is None else getattr(st, f).data_ptr()
+         for f in _STATE_FIELDS]
     ints = [n, tables.fent.shape[0], tables.brt.shape[0] // 3,
-            tables.tbl.shape[0], L, D, CD, NG, W, int(chunk), int(fuel_on),
+            tables.tbl.shape[0], tables.v128.shape[0] // 4, L, D, CD, NG, W,
+            int(chunk), int(fuel_on),
             tables.max_local_zeros, tables.mem_pages_max,
-            int(tables.has_bulk)]
+            int(tables.has_bulk), int(simd)]
     with torch.cuda.device(device):
         err = lib.wasm_interp_launch(*ptrs, *ints, stream)
     if err != 0:
@@ -291,3 +337,4 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool) -> None:
     LAUNCHES["interp"] += 1
     LAUNCHES["bulk"] += tables.has_bulk
     LAUNCHES["hostcall"] += tables.has_hostcall
+    LAUNCHES["simd"] += simd

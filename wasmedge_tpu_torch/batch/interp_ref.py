@@ -18,7 +18,14 @@ corner cases:
   - memory.fill / memory.copy check both ranges first, write nothing on
     a trap, and read copy sources from the unmodified plane (memmove),
     as `laneops.plane_fill_copy` does; one instruction and one fuel unit
-    however long.
+    however long;
+  - when the image holds v128 ops the stack has four planes (lo, hi, e2,
+    e3): moves (local.get/set/tee, select, a kept branch value, return)
+    carry all four words, every scalar write (const, global.get,
+    memory.size/grow, ALU, load, the callee's zeroed locals, vextract,
+    vtest) zeroes e2 and e3 at its row, and v128 ops (B7, through
+    `batch/simdops.py`) read and write whole cells; a trapping
+    v128.load / v128.store writes nothing.
 
 Vectorised over lanes: each step groups the live lanes by the handler id
 at their pc and applies one handler per group.  It is the reference the
@@ -31,13 +38,17 @@ from __future__ import annotations
 import torch
 
 from wasmedge_tpu_torch.batch import laneops as ops
+from wasmedge_tpu_torch.batch import simdops as sops
 from wasmedge_tpu_torch.batch.image import ALU1_SUB, TRAP_DONE, TRAP_HOSTCALL
 from wasmedge_tpu_torch.batch.interp import (
     H_ALU1_BASE, H_ALU2_BASE, H_BR, H_BR_TABLE, H_BRNZ, H_BRZ, H_CALL,
     H_CALL_INDIRECT, H_CONST, H_DROP, H_GLOBAL_GET, H_GLOBAL_SET,
     H_HOSTCALL, H_LOAD, H_LOAD_D, H_LOAD_W, H_LOCAL_GET, H_LOCAL_SET,
     H_LOCAL_TEE, H_MEMCOPY, H_MEMFILL, H_MEMGROW, H_MEMSIZE, H_NOP,
-    H_RETURN, H_SELECT, H_STORE, H_STORE_D, H_STORE_W, H_TRAP, Tables)
+    H_RETURN, H_SELECT, H_STORE, H_STORE_D, H_STORE_W, H_TRAP, H_V1_BASE,
+    H_V2_BASE, H_VBITSEL, H_VCONST, H_VEXTRACT_BASE, H_VLOAD,
+    H_VREPLACE_BASE, H_VSHIFT_BASE, H_VSHUFFLE, H_VSPLAT_BASE, H_VSTORE,
+    H_VTEST_BASE, NUM_HANDLERS, Tables)
 from wasmedge_tpu_torch.common.errors import ErrCode
 
 I32 = torch.int32
@@ -69,6 +80,7 @@ class _Group:
         self.t, self.st, self.lanes, self.pc = t, st, lanes, pc
         self.fuel_on = fuel_on
         self.D = st.stack_lo.shape[0]
+        self.simd = st.stack_e2 is not None
         pcl = pc.long()
         self.a, self.b, self.c = t.a[pcl], t.b[pcl], t.c[pcl]
         self.sp = st.sp[lanes]
@@ -102,8 +114,24 @@ class _Group:
                 self.gat(self.st.stack_hi, rows))
 
     def put(self, rows, lo, hi, mask=None):
-        self.scat(self.st.stack_lo, rows, lo, mask)
-        self.scat(self.st.stack_hi, rows, hi, mask)
+        """A scalar write: with four planes it zeroes e2 and e3."""
+        z = torch.zeros_like(lo) if self.simd else None
+        self.put4(rows, (lo, hi, z, z), mask)
+
+    def cell4(self, rows):
+        """The whole cell: (lo, hi, e2, e3), e2 and e3 None when the
+        stack has two planes."""
+        st = self.st
+        ext = (self.gat(st.stack_e2, rows), self.gat(st.stack_e3, rows)) \
+            if self.simd else (None, None)
+        return (*self.cell(rows), *ext)
+
+    def put4(self, rows, v4, mask=None):
+        st = self.st
+        planes = (st.stack_lo, st.stack_hi) + \
+            ((st.stack_e2, st.stack_e3) if self.simd else ())
+        for plane, v in zip(planes, v4):
+            self.scat(plane, rows, v, mask)
 
     # -- dispatch ------------------------------------------------------------
     def run(self, h):
@@ -115,6 +143,8 @@ class _Group:
             self.load()
         elif h in (H_STORE, H_STORE_W, H_STORE_D):
             self.store()
+        elif h >= H_V2_BASE and h < NUM_HANDLERS:
+            self.v128_family(h)
         else:
             handler = _BASE.get(h)
             if handler is None:
@@ -153,18 +183,15 @@ class _Group:
         self.new_sp = self.sp + 1
 
     def local_get(self):
-        lo, hi = self.cell(self.fp + self.a)
-        self.put(self.sp, lo, hi)
+        self.put4(self.sp, self.cell4(self.fp + self.a))
         self.new_sp = self.sp + 1
 
     def local_set(self):
-        lo, hi = self.cell(self.sp - 1)
-        self.put(self.fp + self.a, lo, hi)
+        self.put4(self.fp + self.a, self.cell4(self.sp - 1))
         self.new_sp = self.sp - 1
 
     def local_tee(self):
-        lo, hi = self.cell(self.sp - 1)
-        self.put(self.fp + self.a, lo, hi)
+        self.put4(self.fp + self.a, self.cell4(self.sp - 1))
 
     def global_get(self):
         g = self.a.clamp(0, self.st.glob_lo.shape[0] - 1)
@@ -185,20 +212,17 @@ class _Group:
 
     def select(self):
         c_lo, _ = self.cell(self.sp - 1)
-        v1_lo, v1_hi = self.cell(self.sp - 2)
-        v2_lo, v2_hi = self.cell(self.sp - 3)
+        v1 = self.cell4(self.sp - 2)
+        v2 = self.cell4(self.sp - 3)
         z = c_lo == 0
-        self.put(self.sp - 3, torch.where(z, v1_lo, v2_lo),
-                 torch.where(z, v1_hi, v2_hi))
+        self.put4(self.sp - 3, tuple(
+            None if a is None else torch.where(z, a, b)
+            for a, b in zip(v1, v2)))
         self.new_sp = self.sp - 2
 
     # -- branches --------------------------------------------------------------
-    def _keep_to(self, rows, lo, hi, keep):
-        self.put(rows, lo, hi, keep == 1)
-
     def br(self):
-        v_lo, v_hi = self.cell(self.sp - 1)
-        self._keep_to(self.ob + self.c, v_lo, v_hi, self.b)
+        self.put4(self.ob + self.c, self.cell4(self.sp - 1), self.b == 1)
         self.new_sp = self.ob + self.c + self.b
         self.new_pc = self.a
 
@@ -209,21 +233,20 @@ class _Group:
 
     def brnz(self):
         c_lo, _ = self.cell(self.sp - 1)
-        v_lo, v_hi = self.cell(self.sp - 2)
         taken = c_lo != 0
-        self.put(self.ob + self.c, v_lo, v_hi, taken & (self.b == 1))
+        self.put4(self.ob + self.c, self.cell4(self.sp - 2),
+                  taken & (self.b == 1))
         self.new_sp = torch.where(taken, self.ob + self.c + self.b,
                                   self.sp - 1)
         self.new_pc = torch.where(taken, self.a, self.pc + 1)
 
     def br_table(self):
         i_lo, _ = self.cell(self.sp - 1)
-        v_lo, v_hi = self.cell(self.sp - 2)
         idx = torch.where(ops.u_lt(self.b, i_lo), self.b, i_lo)
         n = self.t.brt.shape[0] // 3
         e = (self.a + idx).clamp(0, n - 1).long() * 3
         tgt, keep, pop = self.t.brt[e], self.t.brt[e + 1], self.t.brt[e + 2]
-        self.put(self.ob + pop, v_lo, v_hi, keep == 1)
+        self.put4(self.ob + pop, self.cell4(self.sp - 2), keep == 1)
         self.new_sp = self.ob + pop + keep
         self.new_pc = tgt
 
@@ -231,8 +254,7 @@ class _Group:
     def ret(self):
         st = self.st
         nres = self.b
-        v_lo, v_hi = self.cell(self.sp - 1)
-        self.put(self.fp, v_lo, v_hi, nres == 1)
+        self.put4(self.fp, self.cell4(self.sp - 1), nres == 1)
         done = self.cd == 0
         CD = st.fr_ret_pc.shape[0]
         rd = (self.cd - 1).clamp(0, CD - 1)
@@ -300,12 +322,13 @@ class _Group:
         self.new_cd = self.cd + 1
 
     # -- memory ----------------------------------------------------------------
-    def _ea(self, base):
+    def _ea(self, base, nbytes):
+        """Effective address of an access of nbytes at base + offset,
+        bounds in u32 with the carry, its first word and bit shift."""
         ea = ops.wrap32(base.to(torch.int64) + self.a.to(torch.int64))
-        nbytes = self.b
         pages = self.st.mem_pages[self.lanes]
         mem_bytes = ops.wrap32(pages.to(torch.int64) * 65536)
-        end = ops.wrap32(ea.to(torch.int64) + nbytes.to(torch.int64))
+        end = ops.wrap32(ea.to(torch.int64) + nbytes)
         carry = ops.u_lt(ea, base) | ops.u_lt(ea, self.a)
         oob = carry | ops.u_lt(end, ea) | ops.u_lt(mem_bytes, end)
         widx = (ops.u32(ea) >> 2).to(I32)
@@ -318,7 +341,7 @@ class _Group:
 
     def load(self):
         base, _ = self.cell(self.sp - 1)
-        _, oob, widx, sh = self._ea(base)
+        _, oob, widx, sh = self._ea(base, self.b.to(torch.int64))
         w0, w1, w2 = (ops.u32(w) for w in self._words(widx))
         sh64 = sh.to(torch.int64)
         raw_lo = ops.wrap32(ops.shr_u64(w0 | (w1 << 32), sh64))
@@ -343,7 +366,7 @@ class _Group:
     def store(self):
         v_lo, v_hi = self.cell(self.sp - 1)
         base, _ = self.cell(self.sp - 2)
-        _, oob, widx, sh = self._ea(base)
+        _, oob, widx, sh = self._ea(base, self.b.to(torch.int64))
         words = self._words(widx)
         nbytes = self.b
         sh64 = sh.to(torch.int64)
@@ -444,6 +467,95 @@ class _Group:
                 lo = torch.where(self.trap != 0, torch.zeros_like(lo), lo)
         self.put(self.sp - 1, lo, hi)
 
+    # -- v128 (B7) -------------------------------------------------------------
+    def _v128_row(self):
+        n = self.t.v128.shape[0] // 4
+        base = self.a.clamp(0, n - 1).long() * 4
+        return tuple(self.t.v128[base + k] for k in range(4))
+
+    def vconst(self):
+        self.put4(self.sp, self._v128_row())
+        self.new_sp = self.sp + 1
+
+    def vshuffle(self):
+        x4, y4 = self.cell4(self.sp - 2), self.cell4(self.sp - 1)
+        self.put4(self.sp - 2, sops.vshuffle_dyn(x4, y4, self._v128_row()))
+        self.new_sp = self.sp - 1
+
+    def vbitsel(self):
+        # operands (v1, v2, mask) from the third cell down to the top
+        w4, x4, y4 = (self.cell4(self.sp - k) for k in (3, 2, 1))
+        self.put4(self.sp - 3, sops.vbitselect(w4, x4, y4))
+        self.new_sp = self.sp - 2
+
+    def v128_family(self, h):
+        """The sub-indexed families: binary, unary, test, shift, splat,
+        extract and replace."""
+        sp = self.sp
+        if h < H_V1_BASE:
+            r = sops.v2_fn(h - H_V2_BASE)(self.cell4(sp - 2),
+                                          self.cell4(sp - 1))
+            self.put4(sp - 2, r)
+            self.new_sp = sp - 1
+        elif h < H_VTEST_BASE:
+            self.put4(sp - 1, sops.v1_fn(h - H_V1_BASE)(self.cell4(sp - 1)))
+        elif h < H_VSHIFT_BASE:
+            r = sops.vtest_fn(h - H_VTEST_BASE)(self.cell4(sp - 1))
+            self.put(sp - 1, r, torch.zeros_like(r))
+        elif h < H_VSPLAT_BASE:
+            n, _ = self.cell(sp - 1)
+            self.put4(sp - 2, sops.vshift_fn(h - H_VSHIFT_BASE)(
+                self.cell4(sp - 2), n))
+            self.new_sp = sp - 1
+        elif h < H_VEXTRACT_BASE:
+            self.put4(sp - 1, sops.vsplat_fn(h - H_VSPLAT_BASE)(
+                *self.cell(sp - 1)))
+        elif h < H_VREPLACE_BASE:
+            self.put(sp - 1, *sops.vextract_dyn(h - H_VEXTRACT_BASE)(
+                self.cell4(sp - 1), self.a))
+        else:
+            lo, hi = self.cell(sp - 1)
+            self.put4(sp - 2, sops.vreplace_dyn(h - H_VREPLACE_BASE)(
+                self.cell4(sp - 2), self.a, lo, hi))
+            self.new_sp = sp - 1
+
+    def _v128_ea(self, base):
+        """A 16-byte access: trap if out of bounds; the first of the five
+        words it spans, the bit shift and the five words."""
+        _, oob, widx, sh = self._ea(base, 16)
+        self.trap = torch.where(
+            oob, torch.full_like(self.trap, int(ErrCode.MemoryOutOfBounds)),
+            self.trap)
+        words = [ops.u32(self.gat(self.st.mem, widx + k)) for k in range(5)]
+        return oob, widx, sh.to(torch.int64), words
+
+    def vload(self):
+        base, _ = self.cell(self.sp - 1)
+        oob, _, sh, w = self._v128_ea(base)
+        r = tuple(ops.wrap32(torch.where(
+            sh == 0, w[k], (w[k] >> sh) | (w[k + 1] << (32 - sh))))
+            for k in range(4))
+        self.put4(self.sp - 1, r, ~oob)
+
+    def vstore(self):
+        base, _ = self.cell(self.sp - 2)
+        val = [ops.u32(v) for v in self.cell4(self.sp - 1)]
+        oob, widx, sh, w = self._v128_ea(base)
+        full = torch.full_like(sh, 0xFFFFFFFF)
+        zero = torch.zeros_like(sh)
+        masks = [(full << sh) & 0xFFFFFFFF, full, full, full,
+                 torch.where(sh == 0, zero, full >> (32 - sh))]
+        prev = [zero] + val
+        vals = [((prev[k + 1] if k < 4 else zero) << sh)
+                | torch.where(sh == 0, zero, prev[k] >> (32 - sh))
+                for k in range(5)]
+        ok = ~oob
+        for k in range(5):
+            m = masks[k]
+            new = (w[k] & ~m) | (vals[k] & m)
+            self.scat(self.st.mem, widx + k, ops.wrap32(new), ok & (m != 0))
+        self.new_sp = self.sp - 2
+
 
 _BASE = {
     H_NOP: _Group.nop, H_CONST: _Group.const, H_LOCAL_GET: _Group.local_get,
@@ -456,6 +568,9 @@ _BASE = {
     H_MEMGROW: _Group.memgrow, H_TRAP: _Group.trap_op,
     H_HOSTCALL: _Group.hostcall, H_MEMFILL: _Group.memfill,
     H_MEMCOPY: _Group.memcopy,
+    H_VCONST: _Group.vconst, H_VSHUFFLE: _Group.vshuffle,
+    H_VBITSEL: _Group.vbitsel, H_VLOAD: _Group.vload,
+    H_VSTORE: _Group.vstore,
 }
 
 

@@ -29,6 +29,20 @@
 // left at the stub); the host serves it between launches and re-arms it
 // at the stub's RETURN, so the kernel itself never leaves the card.
 //
+// v128 (B7, `h_vconst` ... `h_vstore`, pallas_engine.py :3203-3520): a
+// v128 cell is four words, kept in four stack planes (lo, hi, e2, e3).
+// Only images that hold v128 ops run the kSimd instantiations, which have
+// the four-word cells and the 216 handlers; everything else runs the
+// instantiations without them, as the reference SIMT step compiles its
+// v128 section only for such images (HAS_SIMD).  Under kSimd a move
+// (local.get/set/tee, select, a kept branch value, return) carries all
+// four words and every scalar write zeroes e2/e3 at its row, as the SIMT
+// step does (engine.py:1536-1637).  Integer lane ops use the
+// SIMD-in-a-word intrinsics (__vadd4, __vcmpeq2, ...) and __byte_perm for
+// shuffles; float lanes call the scalar float functions below, so vector
+// and scalar floats give the same bits.  v128.load / v128.store read a
+// five-word window of the lane's memory column shifted by (ea & 3) * 8.
+//
 // memory.fill / memory.copy run one lane per thread over the lane's own
 // column of mem[W, L], a word per step, so the lanes of a converged warp
 // write one 128-byte row per step.  The work is bounded by bytes (each
@@ -47,6 +61,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -103,6 +119,35 @@ constexpr int H_LOAD_W = 846;
 constexpr int H_LOAD_D = 847;
 constexpr int H_STORE_W = 848;
 constexpr int H_STORE_D = 849;
+constexpr int H_VCONST = 850;
+constexpr int H_VSHUFFLE = 851;
+constexpr int H_VBITSEL = 852;
+constexpr int H_VLOAD = 853;
+constexpr int H_VSTORE = 854;
+constexpr int H_V2_BASE = 855;
+constexpr int H_V1_BASE = 975;
+constexpr int H_VTEST_BASE = 1025;
+constexpr int H_VSHIFT_BASE = 1034;
+constexpr int H_VSPLAT_BASE = 1046;
+constexpr int H_VEXTRACT_BASE = 1052;
+constexpr int H_VREPLACE_BASE = 1060;
+constexpr int NUM_HANDLERS = 1066;
+
+// First sub id of each family in batch/simdops.py's V2_NAMES / V1_NAMES
+// (the ops of a family follow in the order of its name list there).
+constexpr int V2_I8X16 = 4;     // i8x16.add
+constexpr int V2_I16X8 = 26;    // i16x8.add
+constexpr int V2_I32X4 = 48;    // i32x4.add
+constexpr int V2_I64X2 = 65;    // i64x2.add
+constexpr int V2_F32X4 = 74;    // f32x4.add
+constexpr int V2_F64X2 = 88;    // f64x2.add
+constexpr int V2_NARROW = 102;  // i8x16.narrow_i16x8_s
+constexpr int V2_EXTMUL = 108;  // i16x8.extmul_low_i8x16_s
+constexpr int V1_F32X4 = 10;    // f32x4.abs
+constexpr int V1_F64X2 = 17;    // f64x2.abs
+constexpr int V1_CONVERT = 24;  // i32x4.trunc_sat_f32x4_s
+constexpr int V1_EXTEND = 34;   // i16x8.extend_low_i8x16_s
+constexpr int V1_EXTADD = 46;   // i16x8.extadd_pairwise_i8x16_s
 
 constexpr u32 SIGN32 = 0x80000000u;
 constexpr u32 F32_CANON_NAN = 0x7FC00000u;
@@ -144,6 +189,11 @@ struct Params {
   i32* mem;
   int code_len, nf, n_brt, tsize, L, D, CD, NG, W, chunk, fuel_on,
       max_local_zeros, mem_pages_max;
+  // v128 (kSimd): appended, so that the fields above keep their places
+  const i32* __restrict__ v128;  // [nv, 4]: v128.const values, masks
+  i32* stack_e2;                 // null unless the image holds v128 ops
+  i32* stack_e3;
+  int nv;
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -513,16 +563,530 @@ __device__ u64 alu1(int sub, u64 w, int& trap) {
 }
 
 // ---------------------------------------------------------------------------
+// v128 (B7): batch/simdops.py's ops on four-word cells
+// ---------------------------------------------------------------------------
+struct V4 {
+  u32 w[4];
+};
+
+__device__ __forceinline__ u64 pair64(const V4& x, int k) {
+  return ((u64)x.w[k + 1] << 32) | x.w[k];
+}
+__device__ __forceinline__ void set_pair(V4& r, int k, u64 v) {
+  r.w[k] = (u32)v;
+  r.w[k + 1] = (u32)(v >> 32);
+}
+// word k of x for a lane index known only at run time (a select chain,
+// so that x stays in registers)
+__device__ __forceinline__ u32 pick(const V4& x, int k) {
+  return k == 3 ? x.w[3] : k == 2 ? x.w[2] : k == 1 ? x.w[1] : x.w[0];
+}
+// element e of a word: byte (bits 8) or half (bits 16), sign-extended or not
+__device__ __forceinline__ i32 elem(u32 w, int bits, int e, bool sgn) {
+  const u32 v = (w >> (bits * e)) & ((1u << bits) - 1u);
+  return sgn ? (i32)sext(v, bits) : (i32)v;
+}
+__device__ __forceinline__ i32 sat(i32 v, i32 lo, i32 hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+// 0/1 -> an all-ones 32-bit element mask
+__device__ __forceinline__ u32 mask32(bool c) { return c ? 0xFFFFFFFFu : 0u; }
+
+// A 16-byte select from the 32 bytes of (x, y) (or the 16 of x when
+// `swz`): output byte j of word k is source byte m_j, the j-th byte of
+// mask word mk, and 0 when m_j is out of range.  __byte_perm picks from
+// each aligned 8-byte pair with the selectors' low 3 bits; the pair a
+// byte comes from is m_j >> 3.
+__device__ __forceinline__ u32 shuffle_word(const V4& x, const V4& y, u32 mk,
+                                            bool swz) {
+  const u32 nib = (mk & 7u) | ((mk >> 4) & 0x70u) | ((mk >> 8) & 0x700u) |
+                  ((mk >> 12) & 0x7000u);
+  const u32 q = (mk >> 3) & 0x1F1F1F1Fu;
+  u32 r = (__byte_perm(x.w[0], x.w[1], nib) & __vcmpeq4(q, 0u)) |
+          (__byte_perm(x.w[2], x.w[3], nib) & __vcmpeq4(q, 0x01010101u));
+  if (!swz)
+    r |= (__byte_perm(y.w[0], y.w[1], nib) & __vcmpeq4(q, 0x02020202u)) |
+         (__byte_perm(y.w[2], y.w[3], nib) & __vcmpeq4(q, 0x03030303u));
+  return r;
+}
+
+// The ten integer comparisons of a family (eq ne lt_s lt_u gt_s gt_u le_s
+// le_u ge_s ge_u) on a word of bytes or halves: an all-ones mask per true
+// element.
+__device__ __forceinline__ u32 cmp4(int c, u32 a, u32 b) {
+  switch (c) {
+    case 0: return __vcmpeq4(a, b);
+    case 1: return __vcmpne4(a, b);
+    case 2: return __vcmplts4(a, b);
+    case 3: return __vcmpltu4(a, b);
+    case 4: return __vcmpgts4(a, b);
+    case 5: return __vcmpgtu4(a, b);
+    case 6: return __vcmples4(a, b);
+    case 7: return __vcmpleu4(a, b);
+    case 8: return __vcmpges4(a, b);
+    default: return __vcmpgeu4(a, b);
+  }
+}
+__device__ __forceinline__ u32 cmp2(int c, u32 a, u32 b) {
+  switch (c) {
+    case 0: return __vcmpeq2(a, b);
+    case 1: return __vcmpne2(a, b);
+    case 2: return __vcmplts2(a, b);
+    case 3: return __vcmpltu2(a, b);
+    case 4: return __vcmpgts2(a, b);
+    case 5: return __vcmpgtu2(a, b);
+    case 6: return __vcmples2(a, b);
+    case 7: return __vcmpleu2(a, b);
+    case 8: return __vcmpges2(a, b);
+    default: return __vcmpgeu2(a, b);
+  }
+}
+__device__ __forceinline__ u32 cmp1(int c, u32 a, u32 b) {
+  const i32 x = (i32)a, y = (i32)b;
+  switch (c) {
+    case 0: return mask32(a == b);
+    case 1: return mask32(a != b);
+    case 2: return mask32(x < y);
+    case 3: return mask32(a < b);
+    case 4: return mask32(x > y);
+    case 5: return mask32(a > b);
+    case 6: return mask32(x <= y);
+    case 7: return mask32(a <= b);
+    case 8: return mask32(x >= y);
+    default: return mask32(a >= b);
+  }
+}
+
+// one word of an i8x16 (bits 8) or i16x8 (bits 16) binary op, op being
+// the offset in the family's list (add sub [mul] add_sat_s add_sat_u
+// sub_sat_s sub_sat_u min_s min_u max_s max_u avgr_u, then i8x16's
+// swizzle, then the comparisons)
+__device__ __forceinline__ u32 v2_small(int op, u32 a, u32 b, bool i8) {
+  if (i8) {
+    switch (op) {
+      case 0: return __vadd4(a, b);
+      case 1: return __vsub4(a, b);
+      case 2: return __vaddss4(a, b);
+      case 3: return __vaddus4(a, b);
+      case 4: return __vsubss4(a, b);
+      case 5: return __vsubus4(a, b);
+      case 6: return __vmins4(a, b);
+      case 7: return __vminu4(a, b);
+      case 8: return __vmaxs4(a, b);
+      case 9: return __vmaxu4(a, b);
+      case 10: return __vavgu4(a, b);
+      default: return cmp4(op - 12, a, b);  // 11 (swizzle) is not per word
+    }
+  }
+  switch (op) {
+    case 0: return __vadd2(a, b);
+    case 1: return __vsub2(a, b);
+    case 2: return ((a * b) & 0xFFFFu) | (((a >> 16) * (b >> 16)) << 16);
+    case 3: return __vaddss2(a, b);
+    case 4: return __vaddus2(a, b);
+    case 5: return __vsubss2(a, b);
+    case 6: return __vsubus2(a, b);
+    case 7: return __vmins2(a, b);
+    case 8: return __vminu2(a, b);
+    case 9: return __vmaxs2(a, b);
+    case 10: return __vmaxu2(a, b);
+    case 11: return __vavgu2(a, b);
+    default: return cmp2(op - 12, a, b);
+  }
+}
+
+__device__ __forceinline__ u32 v2_i32(int op, u32 a, u32 b) {
+  switch (op) {
+    case 0: return a + b;
+    case 1: return a - b;
+    case 2: return a * b;
+    case 3: return (i32)a < (i32)b ? a : b;
+    case 4: return a < b ? a : b;
+    case 5: return (i32)a > (i32)b ? a : b;
+    case 6: return a > b ? a : b;
+    default: return cmp1(op - 7, a, b);
+  }
+}
+
+__device__ __forceinline__ u64 v2_i64(int op, u64 a, u64 b) {
+  const i64 x = (i64)a, y = (i64)b;
+  switch (op) {
+    case 0: return a + b;
+    case 1: return a - b;
+    case 2: return a * b;
+    case 3: return a == b ? ~0ull : 0ull;
+    case 4: return a != b ? ~0ull : 0ull;
+    case 5: return x < y ? ~0ull : 0ull;
+    case 6: return x > y ? ~0ull : 0ull;
+    case 7: return x <= y ? ~0ull : 0ull;
+    default: return x >= y ? ~0ull : 0ull;
+  }
+}
+
+// f32x4 / f64x2: op is the offset in add sub mul div min max pmin pmax eq
+// ne lt gt le ge; the scalar ALU numbers the same ops without pmin/pmax.
+__device__ __forceinline__ u32 v2_f32(int op, u32 a, u32 b) {
+  if (op == 6) return (u32)alu2_f32(9, b, a) ? b : a;  // pmin: b < a ? b : a
+  if (op == 7) return (u32)alu2_f32(9, a, b) ? b : a;  // pmax: a < b ? b : a
+  if (op < 6) return (u32)alu2_f32(op, a, b);
+  return mask32(alu2_f32(op - 1, a, b) != 0);
+}
+__device__ __forceinline__ u64 v2_f64(int op, u64 a, u64 b) {
+  if (op == 6) return alu2_f64(9, b, a) ? b : a;
+  if (op == 7) return alu2_f64(9, a, b) ? b : a;
+  if (op < 6) return alu2_f64(op, a, b);
+  return alu2_f64(op - 1, a, b) != 0 ? ~0ull : 0ull;
+}
+
+// Binary v128 ops: x is the cell below the top, y the top.
+__device__ __noinline__ V4 v2_op(int sub, V4 x, V4 y) {
+  V4 r;
+  if (sub < V2_I8X16) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const u32 a = x.w[k], b = y.w[k];
+      r.w[k] = sub == 0 ? a & b : sub == 1 ? a | b : sub == 2 ? a ^ b : a & ~b;
+    }
+  } else if (sub < V2_I32X4) {
+    const bool i8 = sub < V2_I16X8;
+    const int op = sub - (i8 ? V2_I8X16 : V2_I16X8);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      r.w[k] = i8 && op == 11 ? shuffle_word(x, x, y.w[k], true)
+                              : v2_small(op, x.w[k], y.w[k], i8);
+  } else if (sub < V2_I64X2) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      r.w[k] = v2_i32(sub - V2_I32X4, x.w[k], y.w[k]);
+  } else if (sub < V2_F32X4) {
+    set_pair(r, 0, v2_i64(sub - V2_I64X2, pair64(x, 0), pair64(y, 0)));
+    set_pair(r, 2, v2_i64(sub - V2_I64X2, pair64(x, 2), pair64(y, 2)));
+  } else if (sub < V2_F64X2) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      r.w[k] = v2_f32(sub - V2_F32X4, x.w[k], y.w[k]);
+  } else if (sub < V2_NARROW) {
+    set_pair(r, 0, v2_f64(sub - V2_F64X2, pair64(x, 0), pair64(y, 0)));
+    set_pair(r, 2, v2_f64(sub - V2_F64X2, pair64(x, 2), pair64(y, 2)));
+  } else if (sub < V2_NARROW + 2) {
+    // i8x16.narrow_i16x8_{s,u}: the 16 signed halves of x then y,
+    // saturated into bytes
+    const bool sg = sub == V2_NARROW;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const u32 w0 = k < 2 ? x.w[2 * k] : y.w[2 * k - 4];
+      const u32 w1 = k < 2 ? x.w[2 * k + 1] : y.w[2 * k - 3];
+      u32 v = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const i32 h = elem(e < 2 ? w0 : w1, 16, e & 1, true);
+        v |= ((u32)sat(h, sg ? -128 : 0, sg ? 127 : 255) & 0xFFu) << (8 * e);
+      }
+      r.w[k] = v;
+    }
+  } else if (sub < V2_NARROW + 4) {
+    // i16x8.narrow_i32x4_{s,u}: the 8 words of x then y into halves
+    const bool sg = sub == V2_NARROW + 2;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const u32 w0 = k < 2 ? x.w[2 * k] : y.w[2 * k - 4];
+      const u32 w1 = k < 2 ? x.w[2 * k + 1] : y.w[2 * k - 3];
+      const i32 lo = sg ? -32768 : 0, hi = sg ? 32767 : 65535;
+      r.w[k] = ((u32)sat((i32)w0, lo, hi) & 0xFFFFu) |
+               ((u32)sat((i32)w1, lo, hi) << 16);
+    }
+  } else if (sub == V2_NARROW + 4) {
+    // i16x8.q15mulr_sat_s
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      u32 v = 0;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const i32 p = elem(x.w[k], 16, e, true) * elem(y.w[k], 16, e, true);
+        v |= ((u32)sat((p + 0x4000) >> 15, -32768, 32767) & 0xFFFFu)
+             << (16 * e);
+      }
+      r.w[k] = v;
+    }
+  } else if (sub == V2_NARROW + 5) {
+    // i32x4.dot_i16x8_s (the sum wraps)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      r.w[k] = (u32)(elem(x.w[k], 16, 0, true) * elem(y.w[k], 16, 0, true)) +
+               (u32)(elem(x.w[k], 16, 1, true) * elem(y.w[k], 16, 1, true));
+  } else {
+    // extended multiplies: low or high half of the source elements
+    const int op = sub - V2_EXTMUL;  // family * 4 + high * 2 + unsigned
+    const bool sg = (op & 1) == 0, high = (op & 2) != 0;
+    const int fam = op >> 2;  // 0: i16x8 <- i8, 1: i32x4 <- i16, 2: i64x2
+    if (fam == 0) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        // result halves 2k, 2k + 1 <- source bytes 2k, 2k + 1 of the half
+        const int src = (high ? 2 : 0) + (k >> 1), e0 = (k & 1) * 2;
+        u32 v = 0;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          v |= ((u32)(elem(x.w[src], 8, e0 + e, sg) *
+                      elem(y.w[src], 8, e0 + e, sg)) & 0xFFFFu) << (16 * e);
+        r.w[k] = v;
+      }
+    } else if (fam == 1) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int src = (high ? 2 : 0) + (k >> 1);
+        r.w[k] = (u32)elem(x.w[src], 16, k & 1, sg) *
+                 (u32)elem(y.w[src], 16, k & 1, sg);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const u32 a = x.w[(high ? 2 : 0) + k], b = y.w[(high ? 2 : 0) + k];
+        const u64 a64 = sg ? (u64)(i64)(i32)a : (u64)a;
+        const u64 b64 = sg ? (u64)(i64)(i32)b : (u64)b;
+        set_pair(r, 2 * k, a64 * b64);
+      }
+    }
+  }
+  return r;
+}
+
+// The ALU1 sub (image.py ALU1_SUB) of f32x4 / f64x2 op `op` of abs neg
+// sqrt ceil floor trunc nearest.
+__device__ __forceinline__ int a1_f32(int op) {
+  return op == 0 ? 13 : op == 1 ? 14 : op == 2 ? 19 : 12 + op;
+}
+__device__ __forceinline__ int a1_f64(int op) {
+  return op == 0 ? 32 : op == 1 ? 33 : op == 2 ? 38 : 31 + op;
+}
+
+// Unary v128 ops.
+__device__ __noinline__ V4 v1_op(int sub, V4 x) {
+  V4 r;
+  int trap = 0;  // no op of this set traps
+  if (sub == 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) r.w[k] = ~x.w[k];
+  } else if (sub < 8) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const u32 a = x.w[k];
+      switch (sub) {
+        case 1: r.w[k] = __vabs4(a); break;  // wraps: 0x80 stays 0x80
+        case 2: r.w[k] = __vneg4(a); break;
+        case 3: {
+          u32 v = a - ((a >> 1) & 0x55555555u);
+          v = (v & 0x33333333u) + ((v >> 2) & 0x33333333u);
+          r.w[k] = (v + (v >> 4)) & 0x0F0F0F0Fu;
+          break;
+        }
+        case 4: r.w[k] = __vabs2(a); break;
+        case 5: r.w[k] = __vneg2(a); break;
+        case 6: r.w[k] = (i32)a < 0 ? 0u - a : a; break;
+        default: r.w[k] = 0u - a; break;
+      }
+    }
+  } else if (sub < V1_F32X4) {
+#pragma unroll
+    for (int k = 0; k < 4; k += 2) {
+      const u64 v = pair64(x, k);
+      set_pair(r, k, sub == 9 || (i64)v < 0 ? (u64)0 - v : v);
+    }
+  } else if (sub < V1_F64X2) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      r.w[k] = (u32)alu1(a1_f32(sub - V1_F32X4), x.w[k], trap);
+  } else if (sub < V1_CONVERT) {
+#pragma unroll
+    for (int k = 0; k < 4; k += 2)
+      set_pair(r, k, alu1(a1_f64(sub - V1_F64X2), pair64(x, k), trap));
+  } else if (sub < V1_CONVERT + 4) {
+    // i32x4.trunc_sat_f32x4_{s,u}, f32x4.convert_i32x4_{s,u}: per word
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      r.w[k] = (u32)alu1(25 + sub - V1_CONVERT, x.w[k], trap);
+  } else if (sub < V1_CONVERT + 6 || sub == V1_CONVERT + 8) {
+    // i32x4.trunc_sat_f64x2_{s,u}_zero, f32x4.demote_f64x2_zero
+    const int a1 = sub == V1_CONVERT + 8 ? 39 : 55 + sub - (V1_CONVERT + 4);
+    r.w[0] = (u32)alu1(a1, pair64(x, 0), trap);
+    r.w[1] = (u32)alu1(a1, pair64(x, 2), trap);
+    r.w[2] = r.w[3] = 0;
+  } else if (sub < V1_EXTEND) {
+    // f64x2.convert_low_i32x4_{s,u}, f64x2.promote_low_f32x4
+    const int a1 = sub == V1_CONVERT + 9 ? 40 : 43 + sub - (V1_CONVERT + 6);
+    set_pair(r, 0, alu1(a1, x.w[0], trap));
+    set_pair(r, 2, alu1(a1, x.w[1], trap));
+  } else if (sub < V1_EXTADD) {
+    // extend_{low,high}_*_{s,u}: family * 4 + high * 2 + unsigned
+    const int op = sub - V1_EXTEND;
+    const bool sg = (op & 1) == 0, high = (op & 2) != 0;
+    const int fam = op >> 2;
+    const int base = high ? 2 : 0;
+    if (fam == 0) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const u32 w = x.w[base + (k >> 1)];
+        const int e0 = (k & 1) * 2;
+        r.w[k] = ((u32)elem(w, 8, e0, sg) & 0xFFFFu) |
+                 ((u32)elem(w, 8, e0 + 1, sg) << 16);
+      }
+    } else if (fam == 1) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        r.w[k] = (u32)elem(x.w[base + (k >> 1)], 16, k & 1, sg);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const u32 w = x.w[base + k];
+        r.w[2 * k] = w;
+        r.w[2 * k + 1] = sg ? (u32)((i32)w >> 31) : 0u;
+      }
+    }
+  } else {
+    // extadd_pairwise: i16x8 <- byte pairs, i32x4 <- half pairs
+    const int op = sub - V1_EXTADD;
+    const bool sg = (op & 1) == 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const u32 w = x.w[k];
+      if (op < 2)
+        r.w[k] = ((u32)(elem(w, 8, 0, sg) + elem(w, 8, 1, sg)) & 0xFFFFu) |
+                 ((u32)(elem(w, 8, 2, sg) + elem(w, 8, 3, sg)) << 16);
+      else
+        r.w[k] = (u32)(elem(w, 16, 0, sg) + elem(w, 16, 1, sg));
+    }
+  }
+  return r;
+}
+
+// any_true, all_true (i8x16 i16x8 i32x4 i64x2), bitmask (the same four)
+__device__ __forceinline__ u32 vtest_op(int sub, const V4& x) {
+  const u32 a = x.w[0], b = x.w[1], c = x.w[2], d = x.w[3];
+  switch (sub) {
+    case 0: return (a | b | c | d) != 0;
+    case 1:
+      return (__vcmpeq4(a, 0u) | __vcmpeq4(b, 0u) | __vcmpeq4(c, 0u) |
+              __vcmpeq4(d, 0u)) == 0;
+    case 2:
+      return (__vcmpeq2(a, 0u) | __vcmpeq2(b, 0u) | __vcmpeq2(c, 0u) |
+              __vcmpeq2(d, 0u)) == 0;
+    case 3: return a != 0 && b != 0 && c != 0 && d != 0;
+    case 4: return (a | b) != 0 && (c | d) != 0;
+    case 5: {
+      u32 m = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          m |= ((x.w[k] >> (8 * e + 7)) & 1u) << (4 * k + e);
+      return m;
+    }
+    case 6: {
+      u32 m = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        m |= (((x.w[k] >> 15) & 1u) << (2 * k)) |
+             (((x.w[k] >> 31) & 1u) << (2 * k + 1));
+      return m;
+    }
+    case 7:
+      return (a >> 31) | ((b >> 31) << 1) | ((c >> 31) << 2) |
+             ((d >> 31) << 3);
+    default: return (b >> 31) | ((d >> 31) << 1);
+  }
+}
+
+// shl, shr_s, shr_u of i8x16 i16x8 i32x4 i64x2 by n mod the element width
+__device__ __forceinline__ V4 vshift_op(int sub, const V4& x, u32 n) {
+  V4 r;
+  const int fam = sub / 3, op = sub % 3;
+  if (fam == 3) {
+    const u32 c = n & 63;
+#pragma unroll
+    for (int k = 0; k < 4; k += 2) {
+      const u64 v = pair64(x, k);
+      set_pair(r, k, op == 0 ? v << c : op == 1 ? (u64)((i64)v >> c) : v >> c);
+    }
+    return r;
+  }
+  const int bits = 8 << fam;
+  const u32 c = n & (bits - 1);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const u32 w = x.w[k];
+    if (fam == 2) {
+      r.w[k] = op == 0 ? w << c : op == 1 ? (u32)((i32)w >> c) : w >> c;
+      continue;
+    }
+    u32 v = 0;
+    const u32 m = (1u << bits) - 1u;
+    for (int e = 0; e < 32 / bits; ++e) {
+      const u32 u = (w >> (bits * e)) & m;
+      const u32 s = op == 0 ? u << c
+                  : op == 1 ? (u32)((i32)sext(u, bits) >> c) : u >> c;
+      v |= (s & m) << (bits * e);
+    }
+    r.w[k] = v;
+  }
+  return r;
+}
+
+// i8x16 i16x8 i32x4 i64x2 f32x4 f64x2 .splat of the scalar cell v
+__device__ __forceinline__ V4 vsplat_op(int sub, u64 v) {
+  const u32 lo = (u32)v, hi = (u32)(v >> 32);
+  if (sub == 3 || sub == 5) return V4{{lo, hi, lo, hi}};
+  const u32 w = sub == 0 ? (lo & 0xFFu) * 0x01010101u
+              : sub == 1 ? (lo & 0xFFFFu) * 0x00010001u : lo;
+  return V4{{w, w, w, w}};
+}
+
+// i8x16 s/u, i16x8 s/u, i32x4, i64x2, f32x4, f64x2 .extract_lane
+__device__ __forceinline__ u64 vextract_op(int sub, const V4& x, int lane) {
+  if (sub < 4) {
+    const int bits = sub < 2 ? 8 : 16, per = 32 / bits;
+    return cell32((u32)elem(pick(x, lane / per), bits, lane % per,
+                            (sub & 1) == 0));
+  }
+  if (sub == 4 || sub == 6) return cell32(pick(x, lane));
+  return lane == 0 ? pair64(x, 0) : pair64(x, 2);
+}
+
+// i8x16 i16x8 i32x4 i64x2 f32x4 f64x2 .replace_lane with the scalar v
+__device__ __forceinline__ V4 vreplace_op(int sub, const V4& x, int lane,
+                                          u64 v) {
+  V4 r = x;
+  if (sub == 3 || sub == 5) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (lane == k) set_pair(r, 2 * k, v);
+    return r;
+  }
+  const int bits = sub == 0 ? 8 : sub == 1 ? 16 : 32, per = 32 / bits;
+  const u32 sh = (u32)(bits * (lane % per));
+  const u32 m = (bits == 32 ? 0xFFFFFFFFu : (1u << bits) - 1u) << sh;
+  const u32 val = ((u32)v << sh) & m;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (lane / per == k) r.w[k] = (x.w[k] & ~m) | val;
+  return r;
+}
+
+// ---------------------------------------------------------------------------
 // The interpreter
 // ---------------------------------------------------------------------------
 // Access to one lane's column of the [rows, L] planes, rows clamped into
 // the plane as the reference's gathers and scatters clamp them.  Holds
 // copies of the pointers (never a reference to the kernel parameters, so
-// they stay in the constant bank).
+// they stay in the constant bank).  With kSimd a stack cell is four words
+// (lo, hi, e2, e3) and `Cell` is the whole cell; without it, 64 bits.
+template <bool kSimd>
 struct Lane {
   i32* lo;
   i32* hi;
+  i32* e2;
+  i32* e3;
   int L, D, lane;
+  using Cell = typename std::conditional<kSimd, V4, u64>::type;
   __device__ __forceinline__ size_t at(int row, int rows) const {
     return (size_t)clampi(row, 0, rows - 1) * (size_t)L + (size_t)lane;
   }
@@ -530,10 +1094,33 @@ struct Lane {
     const size_t i = at(row, D);
     return pack(lo[i], hi[i]);
   }
+  // a scalar write: zeroes e2 and e3 of a four-word cell
   __device__ __forceinline__ void put(int row, u64 v) const {
     const size_t i = at(row, D);
     lo[i] = lo32(v);
     hi[i] = hi32(v);
+    if constexpr (kSimd) {
+      e2[i] = 0;
+      e3[i] = 0;
+    }
+  }
+  __device__ __forceinline__ V4 get4(int row) const {
+    const size_t i = at(row, D);
+    return V4{{(u32)lo[i], (u32)hi[i], (u32)e2[i], (u32)e3[i]}};
+  }
+  __device__ __forceinline__ void put4(int row, const V4& v) const {
+    const size_t i = at(row, D);
+    lo[i] = (i32)v.w[0];
+    hi[i] = (i32)v.w[1];
+    e2[i] = (i32)v.w[2];
+    e3[i] = (i32)v.w[3];
+  }
+  // moves: the whole cell
+  __device__ __forceinline__ Cell getc(int row) const {
+    if constexpr (kSimd) return get4(row); else return get(row);
+  }
+  __device__ __forceinline__ void putc(int row, const Cell& v) const {
+    if constexpr (kSimd) put4(row, v); else put(row, v);
   }
 };
 
@@ -595,19 +1182,124 @@ __device__ void bulk_fill_copy(i32* mem, int L, int W, int lane, u32 dst,
   }
 }
 
+// One v128 instruction, handler h >= H_VCONST at pcc (kSimd only).
+// Returns its trap code: a v128.load / v128.store out of bounds writes
+// nothing.
+template <bool kSimd>
+__device__ __forceinline__ int simd_step(const Params& p,
+                                         const Lane<kSimd>& s, int h,
+                                         int pcc, int sp, int pages,
+                                         int& new_sp) {
+  if (h >= H_V2_BASE) {
+    if (h < H_V1_BASE) {
+      s.put4(sp - 2, v2_op(h - H_V2_BASE, s.get4(sp - 2), s.get4(sp - 1)));
+      new_sp = sp - 1;
+    } else if (h < H_VTEST_BASE) {
+      s.put4(sp - 1, v1_op(h - H_V1_BASE, s.get4(sp - 1)));
+    } else if (h < H_VSHIFT_BASE) {
+      s.put(sp - 1, vtest_op(h - H_VTEST_BASE, s.get4(sp - 1)));
+    } else if (h < H_VSPLAT_BASE) {
+      s.put4(sp - 2, vshift_op(h - H_VSHIFT_BASE, s.get4(sp - 2),
+                               (u32)s.get(sp - 1)));
+      new_sp = sp - 1;
+    } else if (h < H_VEXTRACT_BASE) {
+      s.put4(sp - 1, vsplat_op(h - H_VSPLAT_BASE, s.get(sp - 1)));
+    } else if (h < H_VREPLACE_BASE) {
+      s.put(sp - 1, vextract_op(h - H_VEXTRACT_BASE, s.get4(sp - 1),
+                                __ldg(&p.a[pcc])));
+    } else {
+      s.put4(sp - 2, vreplace_op(h - H_VREPLACE_BASE, s.get4(sp - 2),
+                                 __ldg(&p.a[pcc]), s.get(sp - 1)));
+      new_sp = sp - 1;
+    }
+    return 0;
+  }
+  if (h == H_VCONST || h == H_VSHUFFLE) {
+    // the v128 table row a: the constant, or the shuffle's byte selectors
+    const int row = clampi(__ldg(&p.a[pcc]), 0, p.nv - 1) * 4;
+    const V4 c{{(u32)__ldg(&p.v128[row]), (u32)__ldg(&p.v128[row + 1]),
+                (u32)__ldg(&p.v128[row + 2]), (u32)__ldg(&p.v128[row + 3])}};
+    if (h == H_VCONST) {
+      s.put4(sp, c);
+      new_sp = sp + 1;
+      return 0;
+    }
+    const V4 x = s.get4(sp - 2), y = s.get4(sp - 1);
+    V4 r;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) r.w[k] = shuffle_word(x, y, c.w[k], false);
+    s.put4(sp - 2, r);
+    new_sp = sp - 1;
+    return 0;
+  }
+  if (h == H_VBITSEL) {
+    // operands (v1, v2, mask) from the third cell down to the top
+    const V4 a = s.get4(sp - 3), b = s.get4(sp - 2), m = s.get4(sp - 1);
+    V4 r;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      r.w[k] = (a.w[k] & m.w[k]) | (b.w[k] & ~m.w[k]);
+    s.put4(sp - 3, r);
+    new_sp = sp - 2;
+    return 0;
+  }
+  // v128.load (address on top) / v128.store (address, then the value)
+  const bool store = h == H_VSTORE;
+  const u32 off = (u32)__ldg(&p.a[pcc]);
+  const u32 base = (u32)s.get(store ? sp - 2 : sp - 1);
+  const u32 ea = base + off, end = ea + 16u;
+  const u32 mem_bytes = (u32)pages * 65536u;
+  if (ea < base || ea < off || end < ea || mem_bytes < end) return E_MEM_OOB;
+  const int widx = (int)(ea >> 2);
+  const u32 sh = (ea & 3u) * 8u;
+  if (!store) {
+    u32 w[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      w[k] = k < 4 || sh ? (u32)p.mem[s.at(widx + k, p.W)] : 0u;
+    V4 r;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      r.w[k] = sh ? (w[k] >> sh) | (w[k + 1] << (32u - sh)) : w[k];
+    s.put4(sp - 1, r);
+    return 0;
+  }
+  const V4 v = s.get4(sp - 1);
+  new_sp = sp - 2;
+  if (sh == 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) p.mem[s.at(widx + k, p.W)] = (i32)v.w[k];
+    return 0;
+  }
+  // the 16 bytes span five words: keep the bytes below ea in the first
+  // and those from ea + 16 on in the last
+  const u32 keep = 0xFFFFFFFFu << sh;
+  i32* w0 = &p.mem[s.at(widx, p.W)];
+  i32* w4 = &p.mem[s.at(widx + 4, p.W)];
+  *w0 = (i32)(((u32)*w0 & ~keep) | (v.w[0] << sh));
+#pragma unroll
+  for (int k = 1; k < 4; ++k)
+    p.mem[s.at(widx + k, p.W)] =
+        (i32)((v.w[k] << sh) | (v.w[k - 1] >> (32u - sh)));
+  *w4 = (i32)(((u32)*w4 & keep) | (v.w[3] >> (32u - sh)));
+  return 0;
+}
+
 // kBulk: the image holds memory.fill / memory.copy.  An image without
 // them runs the instantiation that has no bulk loop, as the reference
 // SIMT step compiles its bulk path only for such images (HAS_BULK,
 // engine.py:1007): compiled into the dispatch loop, the bulk loop raised
 // the kernel from 40 to 48 registers and slowed fib(30) x 4096 on an
 // H100 by 6 %, and out of line (__noinline__) it still cost 1-2 %
-// (PERF.md).
-template <bool kBulk>
+// (PERF.md).  kSimd: the image holds v128 ops (four-word cells and the
+// B7 handlers, above); without them nothing of v128 is compiled in.
+template <bool kBulk, bool kSimd>
 __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.L) return;
   if (p.trap[lane] != 0) return;
-  const Lane s{p.stack_lo, p.stack_hi, p.L, p.D, lane};
+  const Lane<kSimd> s{p.stack_lo, p.stack_hi, p.stack_e2, p.stack_e3,
+                      p.L,        p.D,        lane};
   int pc = p.pc[lane], sp = p.sp[lane], fp = p.fp[lane], ob = p.opbase[lane];
   int cd = p.call_depth[lane], retired = p.retired[lane], fuel = p.fuel[lane];
   int pages = p.mem_pages[lane];
@@ -629,6 +1321,8 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
       u64 r = alu1(sub, s.get(sp - 1), ntrap);
       if (ntrap != 0 && (sub == 23 || sub == 24)) r = 0;  // f32 -> i32 trap writes 0
       s.put(sp - 1, r);
+    } else if (kSimd && h >= H_VCONST) {
+      ntrap = simd_step<kSimd>(p, s, h, pcc, sp, pages, new_sp);
     } else {
       switch (h) {
         case H_NOP:
@@ -638,15 +1332,15 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
           new_sp = sp + 1;
           break;
         case H_LOCAL_GET:
-          s.put(sp, s.get(fp + __ldg(&p.a[pcc])));
+          s.putc(sp, s.getc(fp + __ldg(&p.a[pcc])));
           new_sp = sp + 1;
           break;
         case H_LOCAL_SET:
-          s.put(fp + __ldg(&p.a[pcc]), s.get(sp - 1));
+          s.putc(fp + __ldg(&p.a[pcc]), s.getc(sp - 1));
           new_sp = sp - 1;
           break;
         case H_LOCAL_TEE:
-          s.put(fp + __ldg(&p.a[pcc]), s.get(sp - 1));
+          s.putc(fp + __ldg(&p.a[pcc]), s.getc(sp - 1));
           break;
         case H_GLOBAL_GET: {
           const size_t g = s.at(__ldg(&p.a[pcc]), p.NG);
@@ -667,14 +1361,14 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
           break;
         case H_SELECT: {
           const u32 cond = (u32)s.get(sp - 1);
-          const u64 v1 = s.get(sp - 2), v2 = s.get(sp - 3);
-          s.put(sp - 3, cond == 0 ? v1 : v2);
+          const auto v1 = s.getc(sp - 2), v2 = s.getc(sp - 3);
+          s.putc(sp - 3, cond == 0 ? v1 : v2);
           new_sp = sp - 2;
           break;
         }
         case H_BR: {
           const int a = __ldg(&p.a[pcc]), b = __ldg(&p.b[pcc]), c = __ldg(&p.c[pcc]);
-          if (b == 1) s.put(ob + c, s.get(sp - 1));
+          if (b == 1) s.putc(ob + c, s.getc(sp - 1));
           new_sp = ob + c + b;
           new_pc = a;
           break;
@@ -686,7 +1380,7 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
         case H_BRNZ: {
           if ((u32)s.get(sp - 1) != 0) {
             const int a = __ldg(&p.a[pcc]), b = __ldg(&p.b[pcc]), c = __ldg(&p.c[pcc]);
-            if (b == 1) s.put(ob + c, s.get(sp - 2));
+            if (b == 1) s.putc(ob + c, s.getc(sp - 2));
             new_sp = ob + c + b;
             new_pc = a;
           } else {
@@ -701,14 +1395,14 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
           const int e = clampi(a + i, 0, p.n_brt - 1) * 3;
           const int tgt = __ldg(&p.brt[e]), keep = __ldg(&p.brt[e + 1]);
           const int pop = __ldg(&p.brt[e + 2]);
-          if (keep == 1) s.put(ob + pop, s.get(sp - 2));
+          if (keep == 1) s.putc(ob + pop, s.getc(sp - 2));
           new_sp = ob + pop + keep;
           new_pc = tgt;
           break;
         }
         case H_RETURN: {
           const int nres = __ldg(&p.b[pcc]);
-          if (nres == 1) s.put(fp, s.get(sp - 1));
+          if (nres == 1) s.putc(fp, s.getc(sp - 1));
           new_sp = fp + nres;
           if (cd == 0) {
             ntrap = TRAP_DONE;
@@ -902,24 +1596,32 @@ extern "C" int wasm_interp_launch(
     const int* hid, const int* a, const int* b, const int* c, const int* ilo,
     const int* ihi, const int* fent, const int* fnpar, const int* fnloc,
     const int* ftop, const int* ftyp, const int* brt, const int* tbl,
-    int* pc, int* sp, int* fp, int* opbase, int* call_depth, int* trap,
-    int* retired, int* fuel, int* mem_pages, int* stack_lo, int* stack_hi,
-    int* fr_ret_pc, int* fr_fp, int* fr_opbase, int* glob_lo, int* glob_hi,
-    int* mem, int code_len, int nf, int n_brt, int tsize, int L, int D, int CD,
-    int NG, int W, int chunk, int fuel_on, int max_local_zeros,
-    int mem_pages_max, int bulk, void* stream) {
+    const int* v128, int* pc, int* sp, int* fp, int* opbase, int* call_depth,
+    int* trap, int* retired, int* fuel, int* mem_pages, int* stack_lo,
+    int* stack_hi, int* stack_e2, int* stack_e3, int* fr_ret_pc, int* fr_fp,
+    int* fr_opbase, int* glob_lo, int* glob_hi, int* mem, int code_len,
+    int nf, int n_brt, int tsize, int nv, int L, int D, int CD, int NG, int W,
+    int chunk, int fuel_on, int max_local_zeros, int mem_pages_max,
+    int bulk, int simd, void* stream) {
   Params p{hid, a, b, c, ilo, ihi, fent, fnpar, fnloc, ftop, ftyp, brt, tbl,
            pc, sp, fp, opbase, call_depth, trap, retired, fuel, mem_pages,
            stack_lo, stack_hi, fr_ret_pc, fr_fp, fr_opbase, glob_lo, glob_hi,
            mem, code_len, nf, n_brt, tsize, L, D, CD, NG, W, chunk, fuel_on,
-           max_local_zeros, mem_pages_max};
+           max_local_zeros, mem_pages_max, v128, stack_e2, stack_e3, nv};
   const int threads = 128;
   const int blocks = (L + threads - 1) / threads;
+  cudaStream_t st = (cudaStream_t)stream;
   if (blocks > 0) {
-    if (bulk)
-      interp_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(p);
+    if (simd && (stack_e2 == nullptr || stack_e3 == nullptr))
+      return (int)cudaErrorInvalidValue;
+    if (bulk && simd)
+      interp_kernel<true, true><<<blocks, threads, 0, st>>>(p);
+    else if (bulk)
+      interp_kernel<true, false><<<blocks, threads, 0, st>>>(p);
+    else if (simd)
+      interp_kernel<false, true><<<blocks, threads, 0, st>>>(p);
     else
-      interp_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(p);
+      interp_kernel<false, false><<<blocks, threads, 0, st>>>(p);
   }
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,17 @@ accumulator (`alu`), with the trapping ones in a second export
 lane over a patterned page with per-lane operands (unaligned, overlapping
 both ways, zero-length at and past the end, out of bounds) and
 `build_bulk_pair` one fill and one copy; the `build_host_*` modules
-import the host functions of `host_env_funcs`.  The tests and `chip_smoke.py` use them with lane inputs made from a seed.
+import the host functions of `host_env_funcs`.  The v128 fixtures:
+`build_simd_sweep` chains op bodies over v128 locals and folds each
+result into an i64 (`simd_sweeps` covers every batchable v128 op),
+`build_vmix` mixes i32x4 math, a shuffle, an unaligned store and load and
+bitselect, `build_v128_mem_zoo` loads and stores at every alignment, at
+the end of memory, out of bounds and with a carry in addr + offset,
+`build_v128_control` moves v128 values through select, branches with a
+kept value, return, calls with v128 parameters and zeroed v128 locals
+and local.tee, and `build_simd_host` leaves v128 words where a host
+call's result lands.  The tests and `chip_smoke.py` use them with lane
+inputs made from a seed.
 """
 
 from __future__ import annotations
@@ -17,7 +27,11 @@ from __future__ import annotations
 import numpy as np
 
 from wasmedge_tpu_torch.batch.image import ALU1_SUB, _F32_BIN, _I32_BIN
+from wasmedge_tpu_torch.batch.simdops import (
+    V1_NAMES, V2_NAMES, VEXTRACT_NAMES, VSHIFT_NAMES, VSPLAT_NAMES,
+    VTEST_NAMES)
 from wasmedge_tpu_torch.utils.builder import ModuleBuilder
+from wasmedge_tpu_torch.utils.wat import parse_wat
 
 ZOO_CASES = 13  # selector k = 0..11 picks a case, anything else the default
 ZOO_MEM_PAGES = (1, 3)  # the zoo's memory: min and declared max pages
@@ -433,3 +447,277 @@ def bulk_zoo_args(lanes: int, op: str, seed: int = 0):
     far = np.arange(lanes) % 11 == 7
     src[far] = 65536 - n[far] + 3
     return [dst & 0xFFFFFFFF, src & 0xFFFFFFFF, n]
+
+
+# -- v128 ---------------------------------------------------------------------
+
+def _simd_fold(acc_local, body):
+    """acc ^= e0 ^ (e1 * 3) of the v128 that `body` leaves on the stack."""
+    return body + [
+        ("local.tee", 3),
+        ("i64x2.extract_lane", 0),
+        ("local.get", acc_local), "i64.xor",
+        ("local.get", 3), ("i64x2.extract_lane", 1),
+        ("i64.const", 3), "i64.mul", "i64.xor",
+        ("local.set", acc_local),
+    ]
+
+
+def build_simd_sweep(op_bodies) -> bytes:
+    """f(x: i64, y: i64) -> i64 chaining per-op bodies over v128 locals
+    (the reference's tests/test_batch_simd.py build_sweep).
+
+    locals: 2 = a (v128 from x), 3 = scratch v128, 4 = acc (i64),
+    5 = b (v128 from y)"""
+    b = ModuleBuilder()
+    body = [
+        ("local.get", 0), "i64x2.splat",
+        ("local.get", 0), ("i64.const", 0x9E3779B97F4A7C15 - 2**64),
+        "i64.mul", ("i64x2.replace_lane", 1),
+        ("local.set", 2),
+        ("local.get", 1), "i64x2.splat",
+        ("local.get", 1), ("i64.const", 0xC2B2AE3D27D4EB4F - 2**64),
+        "i64.xor", ("i64x2.replace_lane", 1),
+        ("local.set", 5),
+    ]
+    for op_body in op_bodies:
+        body += _simd_fold(4, op_body)
+    body += [("local.get", 4)]
+    b.add_function(["i64", "i64"], ["i64"], ["v128", "v128", "i64", "v128"],
+                   body, export="f")
+    return b.build()
+
+
+SWEEP_CHUNK = 20  # ops per sweep module
+
+
+def _lane_bodies():
+    """Shuffle, swizzle, bitselect, const, and extract / replace of every
+    shape at several lanes."""
+    k1 = int.from_bytes(bytes(range(16)), "little")
+    shuf = [0, 17, 2, 19, 4, 21, 6, 23, 8, 25, 10, 27, 12, 29, 14, 31]
+    rev = list(range(31, 15, -1))
+    out = [
+        [("local.get", 2), ("local.get", 5), ("v128.const", k1),
+         "v128.bitselect"],
+        [("local.get", 2), ("local.get", 5), ("i8x16.shuffle", shuf)],
+        [("local.get", 5), ("local.get", 2), ("i8x16.shuffle", rev)],
+        [("local.get", 2), ("local.get", 5), "i8x16.swizzle"],
+        [("local.get", 2), ("v128.const", k1 ^ 0x0F1E2D3C4B5A6978),
+         "i8x16.swizzle"],
+        [("v128.const", k1)],
+    ]
+    to_scalar = {"i8x16": [], "i16x8": [], "i32x4": [],
+                 "i64x2": ["i32.wrap_i64"],
+                 "f32x4": ["i32.reinterpret_f32"],
+                 "f64x2": ["i64.reinterpret_f64", "i32.wrap_i64"]}
+    from_i32 = {"i8x16": [], "i16x8": [], "i32x4": [],
+                "i64x2": ["i64.extend_i32_s"],
+                "f32x4": ["f32.reinterpret_i32"],
+                "f64x2": ["i64.extend_i32_u", ("i64.const", 0x3FF0 << 48),
+                          "i64.or", "f64.reinterpret_i64"]}
+    lanes = {"i8x16": 16, "i16x8": 8, "i32x4": 4, "i64x2": 2, "f32x4": 4,
+             "f64x2": 2}
+    for i, ex in enumerate(VEXTRACT_NAMES):
+        shape = ex.split(".")[0]
+        rp = f"{shape}.replace_lane"
+        for lane in sorted({0, lanes[shape] - 1, (i * 5) % lanes[shape]}):
+            # extract a lane of b, replace a lane of a with it
+            out.append([("local.get", 2), ("local.get", 5), (ex, lane)]
+                       + to_scalar[shape] + [("i32.const", i + 1), "i32.add"]
+                       + from_i32[shape]
+                       + [(rp, (lane * 3 + 1) % lanes[shape])])
+    return out
+
+
+def simd_sweeps() -> dict:
+    """name -> op bodies of one sweep module; together they run every
+    batchable v128 op (v128.load / v128.store: build_v128_mem_zoo)."""
+    sweeps = {}
+
+    def add(prefix, bodies):
+        for i in range(0, len(bodies), SWEEP_CHUNK):
+            sweeps[f"{prefix}_{i // SWEEP_CHUNK}"] = bodies[i:i + SWEEP_CHUNK]
+
+    add("v2", [[("local.get", 2), ("local.get", 5), op] for op in V2_NAMES])
+    add("v1", [[("local.get", 2), op] for op in V1_NAMES])
+    # tests give an i32: splat it back into a v128 for the fold
+    sweeps["vtest"] = [[("local.get", w), op, "i32x4.splat"]
+                       for w in (2, 5) for op in VTEST_NAMES]
+    shift_splat = []
+    for i, op in enumerate(VSHIFT_NAMES):
+        shift_splat.append([("local.get", 2), ("local.get", 1),
+                            "i32.wrap_i64", ("i32.const", i), "i32.add", op])
+    for op in VSPLAT_NAMES:
+        conv = {"i64x2": [], "f64x2": ["f64.reinterpret_i64"],
+                "f32x4": ["i32.wrap_i64", "f32.reinterpret_i32"]}.get(
+                    op.split(".")[0], ["i32.wrap_i64"])
+        shift_splat.append([("local.get", 0)] + conv + [op])
+    sweeps["shift_splat"] = shift_splat
+    add("lanes", _lane_bodies())
+    return sweeps
+
+
+def simd_sweep_args(lanes: int, seed: int = 0, corners: bool = False):
+    """Seeded (x, y) i64 lane operands: random bits, or (corners) words
+    built from the bytes 0x00, 0x01, 0x7F, 0x80, 0xFE and 0xFF."""
+    rng = np.random.default_rng(seed)
+    if not corners:
+        return [rng.integers(-2**63, 2**63 - 1, lanes, np.int64,
+                             endpoint=True) for _ in range(2)]
+    pick = np.array([0x00, 0x01, 0x7F, 0x80, 0xFE, 0xFF], np.uint8)
+    raw = pick[rng.integers(0, len(pick), (2, lanes, 8))]
+    return [raw[k].view(np.int64)[:, 0].copy() for k in range(2)]
+
+
+VMIX_WAT = """
+(module
+  (memory 1)
+  (func (export "vmix") (param i32) (result i32)
+    (local $acc v128)
+    (local $i i32)
+    (local.set $acc (v128.const i32x4 1 2 3 4))
+    (block (loop
+      (br_if 1 (i32.ge_u (local.get $i) (local.get 0)))
+      (local.set $acc
+        (i32x4.add (local.get $acc) (i32x4.splat (local.get $i))))
+      (local.set $acc
+        (v128.xor (local.get $acc)
+                  (i8x16.shuffle 4 5 6 7 0 1 2 3 12 13 14 15 8 9 10 11
+                                 (local.get $acc) (local.get $acc))))
+      (local.set $i (i32.add (local.get $i) (i32.const 1)))
+      (br 0)))
+    ;; unaligned v128 store + load round-trip
+    (v128.store offset=3 (i32.const 64) (local.get $acc))
+    (local.set $acc (v128.load offset=3 (i32.const 64)))
+    (i32.add
+      (i32x4.extract_lane 1 (local.get $acc))
+      (i32.add
+        (i32x4.extract_lane 2
+          (v128.bitselect (local.get $acc)
+                          (v128.const i32x4 -1 -1 -1 -1)
+                          (v128.const i32x4 0xFF00FF00 0x00FF00FF
+                                            0xF0F0F0F0 0x0F0F0F0F)))
+        (i32x4.extract_lane 3 (local.get $acc))))))
+"""
+
+
+def build_vmix() -> bytes:
+    """vmix(n): the reference's v128 Pallas fixture
+    (tests/test_pallas_engine.py _simd_wat_module)."""
+    return parse_wat(VMIX_WAT)
+
+
+_PATTERN = "".join(f"\\{(i * 37 + 11) & 0xFF:02x}" for i in range(64))
+_TAIL = "".join(f"\\{(i * 91 + 5) & 0xFF:02x}" for i in range(16))
+
+V128_MEM_ZOO_WAT = f"""
+(module
+  (memory 1 1)
+  (data (i32.const 0) "{_PATTERN}")
+  (data (i32.const 65520) "{_TAIL}")
+  (func $mk (param $x i64) (result v128)
+    (i64x2.replace_lane 1 (i64x2.splat (local.get $x))
+      (i64.mul (local.get $x) (i64.const 0x9E3779B97F4A7C15))))
+  (func $fold (param $v v128) (result i64)
+    (i64.xor (i64x2.extract_lane 0 (local.get $v))
+             (i64.mul (i64x2.extract_lane 1 (local.get $v)) (i64.const 3))))
+  ;; loads see the data, two overlapping stores at other alignments, a
+  ;; load across both, and the words around them read back as i64
+  (func (export "rw") (param $a i32) (param $x i64) (result i64)
+    (local $v v128)
+    (local.set $v (v128.xor (call $mk (local.get $x))
+                            (v128.load offset=3 (local.get $a))))
+    (v128.store offset=1 (local.get $a) (local.get $v))
+    (v128.store offset=6 (local.get $a) (v128.not (local.get $v)))
+    (local.set $v (i8x16.add (local.get $v) (v128.load (local.get $a))))
+    (i64.add (call $fold (local.get $v))
+      (i64.xor (i64.load (local.get $a))
+               (i64.load offset=8 (local.get $a)))))
+  ;; offsets near 2^32: addr + offset carries, or the end wraps
+  (func (export "wrap") (param $a i32) (param $x i64) (result i64)
+    (v128.store offset=0xFFFFFFF8 (local.get $a) (call $mk (local.get $x)))
+    (call $fold (v128.load offset=0xFFFFFFF0 (local.get $a))))
+)
+"""
+
+# addresses for rw: every addr & 3 at the start, in the middle and at the
+# end of the page (65514 is the last address whose accesses all fit),
+# then out of bounds on the second store, on the first load, and with a
+# carry in addr + offset
+V128_ZOO_ADDRS = [0, 1, 2, 3, 17, 102, 1023, 4093, 65496, 65501, 65510,
+                  65514, 65515, 65520, 65530, 65533, -1, -8]
+
+
+def build_v128_mem_zoo() -> bytes:
+    return parse_wat(V128_MEM_ZOO_WAT)
+
+
+def v128_zoo_args(lanes: int, seed: int = 0):
+    """(a, x) lane operands for the memory zoo: the addresses above in
+    turn and seeded x."""
+    rng = np.random.default_rng(seed)
+    addrs = np.resize(np.array(V128_ZOO_ADDRS, np.int64), lanes)
+    return [addrs, rng.integers(-2**63, 2**63 - 1, lanes, np.int64,
+                                endpoint=True)]
+
+
+V128_CONTROL_WAT = """
+(module
+  (func $mix (param $a v128) (param $b v128) (param $k i32) (result v128)
+    (local $t v128) (local $z v128)
+    ;; $z is a zeroed v128 local
+    (local.set $t (i32x4.add (local.get $a) (local.get $z)))
+    (if (i32.eqz (i32.and (local.get $k) (i32.const 7)))
+      (then (return (v128.xor (local.get $t) (local.get $b)))))
+    (block $out (result v128)
+      (block $two (result v128)
+        (block $one (result v128)
+          (br_table $one $two $out
+            (local.tee $t (i8x16.sub (local.get $t) (local.get $b)))
+            (i32.rem_u (local.get $k) (i32.const 4))))
+        (local.set $t)
+        (br $out (i16x8.add (local.get $t) (local.get $a))))
+      (local.set $t)
+      (drop (br_if $out (v128.not (local.get $t))
+                        (i32.and (local.get $k) (i32.const 8))))
+      (i64x2.add (local.get $t) (local.get $b))))
+  (func (export "ctl") (param $x i64) (param $k i32) (result i64)
+    (local $v v128) (local $w v128)
+    (local.set $v (i64x2.replace_lane 1 (i64x2.splat (local.get $x))
+                    (i64.rotl (local.get $x) (i64.const 17))))
+    (local.set $w (select (local.get $v) (v128.not (local.get $v))
+                          (i32.and (local.get $k) (i32.const 16))))
+    (local.set $v (call $mix (local.get $v) (local.get $w) (local.get $k)))
+    (i64.xor (i64x2.extract_lane 0 (local.get $v))
+             (i64.mul (i64x2.extract_lane 1 (local.get $v)) (i64.const 5))))
+)
+"""
+
+
+def build_v128_control() -> bytes:
+    return parse_wat(V128_CONTROL_WAT)
+
+
+V128_HOST_WAT = """
+(module
+  (import "env" "double" (func $double (param i32) (result i32)))
+  ;; two v128 values pushed and dropped leave their words in the rows
+  ;; where the call's argument and its result land: the host writes the
+  ;; result's low words only, and return moves all four
+  (func (export "f") (param $x i32) (result i64)
+    (local $r i32)
+    (drop (i32x4.splat (i32.add (local.get $x) (i32.const 7))))
+    (drop (i32x4.splat (i32.mul (local.get $x) (i32.const 3))))
+    (local.set $r (call $double (local.get $x)))
+    (i64x2.extract_lane 1
+      (i64x2.add (i64x2.splat (i64.extend_i32_u (local.get $r)))
+                 (i32x4.splat (local.get $x)))))
+)
+"""
+
+
+def build_simd_host() -> bytes:
+    """f(x): v128 residue under env.double(x)'s frame, then v128 math on
+    the result."""
+    return parse_wat(V128_HOST_WAT)

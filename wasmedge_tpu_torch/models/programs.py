@@ -341,3 +341,56 @@ def bulk_workload_model(seeds, iters: int, fill_bytes: int = BULK_FILL_BYTES,
     for k in range(fold_words):
         accs = (accs * np.uint64(31) + words[:, k]) & np.uint64(M)
     return accs.astype(np.uint32), pages
+
+
+# BASELINE config 3's workload (bench_simd.py): an i32x4 multiply-add and
+# splat loop with a byte shuffle, then an unaligned v128 store and load.
+SIMD_LOOP_WAT = """
+(module
+  (memory 1)
+  (func (export "vloop") (param i32) (result i32)
+    (local $acc v128)
+    (local $mul v128)
+    (local $i i32)
+    (local.set $acc (v128.const i32x4 1 2 3 4))
+    (local.set $mul (v128.const i32x4 3 5 7 11))
+    (block (loop
+      (br_if 1 (i32.ge_u (local.get $i) (local.get 0)))
+      (local.set $acc
+        (i32x4.add
+          (i32x4.mul (local.get $acc) (local.get $mul))
+          (i32x4.splat (local.get $i))))
+      (local.set $acc
+        (v128.xor (local.get $acc)
+                  (i8x16.shuffle 4 5 6 7 0 1 2 3 12 13 14 15 8 9 10 11
+                                 (local.get $acc) (local.get $acc))))
+      (local.set $i (i32.add (local.get $i) (i32.const 1)))
+      (br 0)))
+    (v128.store offset=5 (i32.const 32) (local.get $acc))
+    (local.set $acc (v128.load offset=5 (i32.const 32)))
+    (i32.add
+      (i32x4.extract_lane 0 (local.get $acc))
+      (i32.add (i32x4.extract_lane 1 (local.get $acc))
+               (i32.add (i32x4.extract_lane 2 (local.get $acc))
+                        (i32x4.extract_lane 3 (local.get $acc)))))))
+"""
+
+
+def build_simd_loop() -> bytes:
+    """vloop(n) of bench_simd.py: BASELINE config 3, v128 lane math."""
+    from wasmedge_tpu_torch.utils.wat import parse_wat
+
+    return parse_wat(SIMD_LOOP_WAT)
+
+
+def simd_loop_model(n: int) -> int:
+    """What vloop(n) returns (an i32, as its unsigned value)."""
+    M = 0xFFFFFFFF
+    a0, a1, a2, a3 = 1, 2, 3, 4
+    for i in range(n):
+        a0, a1 = (a0 * 3 + i) & M, (a1 * 5 + i) & M
+        a2, a3 = (a2 * 7 + i) & M, (a3 * 11 + i) & M
+        # the shuffle swaps the words of each pair: acc ^= that
+        a0 = a1 = a0 ^ a1
+        a2 = a3 = a2 ^ a3
+    return (a0 + a1 + a2 + a3) & M

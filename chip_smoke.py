@@ -3,47 +3,57 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases:
-  1. build   - compile the CUDA warp-interpreter (csrc/interp.cu) with nvcc;
-  2. kernel  - run the fixture modules (ALU edge values, traps, divergent
-               fib, memory ops, fuel, memory.fill / memory.copy edge cases
-               and a small bulk workload) at 256 lanes through the kernel
-               and through its plain PyTorch version on the same CUDA
-               tensors, comparing every state plane after every launch
-               (tolerance 0); then the host-call fixtures (env.double,
-               env.poke, a host trap, a host memory.grow, WASI echo and
-               WASI hello), kernel state and plain state each with its own
-               serve round after every launch, planes compared before and
-               after it and the two stdout files byte for byte; then time
-               one launch of both at the flagship shape and one converged
+  1. build   - compile every kernel the script runs, one nvcc process per
+               source, all started together: the per-op warp-interpreter
+               (csrc/interp.cu, four instantiations) and, per module and
+               encoding, the fused kernel (csrc/interp.cu + csrc/fused.cuh
+               + the dispatch batch/fusegen.py generates for its B2 block
+               shapes or B6 superinstructions); print each build's seconds,
+               shapes, mean shape length, registers and spills;
+  2. kernel  - the per-op kernel ("none" encoding) on the fixture modules
+               (ALU edge values, traps, divergent fib, memory ops, fuel,
+               memory.fill / memory.copy edge cases, a small bulk
+               workload) at 256 lanes against its plain PyTorch version on
+               the same CUDA tensors, every state plane after every launch
+               (tolerance 0); the host-call fixtures (env.double, env.poke,
+               a host trap, a host memory.grow, WASI echo and WASI hello),
+               each side with its own serve round after every launch,
+               planes compared before and after it and the two stdout
+               files byte for byte; the v128 fixtures (every batchable
+               v128 op in sweep modules with random and corner-byte
+               operands, vmix, vloop, the v128 memory zoo, the v128 control
+               module, fuel on a v128 op and on a v128.store), all four
+               stack planes; then the fused kernels, "blocks" on fib (256
+               and 13 steps per launch, fuel), fac, loop_sum, mem_checksum,
+               coremark (and with fuel), the trap zoo, the guard and OOB
+               modules, the small bulk workload, vmix (and with fuel),
+               vloop, env.double and WASI echo, and "super" on the ones
+               without v128 ops, every plane and every stack row after
+               every launch; then one 256-step launch of fib(30) x 4096 in
+               each encoding (kernel, plain version, bound), one converged
                memory.fill + memory.copy launch (kernel, plain version and
-               the same fill and copy as PyTorch tensor calls), each with
-               its bound;
-     Then the v128 fixtures (every batchable v128 op in sweep modules
-               with random and corner-byte operands, vmix, vloop, the v128
-               memory zoo, the v128 control module, fuel running out on a
-               v128 op and on a v128.store) kernel against plain version
-               after every launch, all four stack planes included, a host
-               import under v128 words with the host-call fixtures, and
-               one timed 256-step vloop launch x 4096 with its bound;
-  3. main    - VM.execute_batch at full size: fib(30) x 4096 lanes, a
-               divergent fib mix x 4096, CoreMark(200) and CoreMark(4096)
-               x 4096 with one 64 KiB page per lane, each checked against
-               its reference; fib(30) and CoreMark(4096) once more under
-               torch.profiler, splitting kernel time from set-up; then
-               WASI echo x 4096 (32,768 fd_write calls, output checked byte
-               for byte, serve rounds and serve time against kernel time
-               under torch.profiler), WASI hello x 4096 (proc_exit codes)
-               and the bulk-memory workload x 4096 (checked against a
-               bytearray model, instr/s over kernel time); the SIMD spec
-               corpus (tests/spec/simd.wast, BASELINE config 3) through
+               the same fill and copy as PyTorch tensor calls) and one
+               256-step vloop launch x 4096, each with its bound;
+  3. main    - at full size: fib(30) x 4096 through VM.execute_batch in the
+               default encoding (B2 blocks), then per-op ("none") and with
+               block_fusion False (B6), each once more under
+               torch.profiler; a divergent fib mix x 4096; CoreMark(200)
+               and CoreMark(4096) x 4096 with one 64 KiB page per lane
+               (CoreMark(4096) in blocks and per-op, profiled); WASI echo x
+               4096 (32,768 fd_write calls, output checked byte for byte,
+               serve rounds and serve time against kernel time under
+               torch.profiler), WASI hello x 4096 (proc_exit codes), the
+               bulk-memory workload x 4096 (checked against a bytearray
+               model); the SIMD spec corpus (tests/spec/simd.wast) through
                run_corpus_batched on the card, strict; vloop(1,000,000) x
-               4096 (bench_simd.py's shape), every lane's result and
-               retired count checked, once more under torch.profiler;
+               4096 (bench_simd.py's shape) in blocks and with
+               block_fusion False (per-op), every lane's result and retired
+               count checked, each profiled.  Every run sets the launch
+               counts to 0 before it and fails unless its kernels launched;
   4. report  - phase times, kernel times (CUDA events), retired
                instructions and instructions per second, registers and
-               spills of each kernel instantiation, the card's name and
-               power limit, one JSON line of kernel records, and last the
-               device JSON line.
+               spills of each build, the card's name and power limit, one
+               JSON line of kernel records, and last the device JSON line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.  Imports nothing of JAX or of the JAX package.
@@ -97,8 +107,11 @@ def gpu_name_and_power() -> str:
 
 
 def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
-                **knobs):
+                fusion=None, **knobs):
+    """A BatchEngine for `data`; `fusion` ("none", "blocks", "super")
+    replaces the encoding the engine chose from `block_fusion`."""
     from wasmedge_tpu_torch.batch.engine import BatchEngine
+    from wasmedge_tpu_torch.batch.interp import device_tables
     from wasmedge_tpu_torch.common.configure import Configure
     from wasmedge_tpu_torch.executor.instantiate import (
         instantiate, register_import_object)
@@ -114,8 +127,12 @@ def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
     for imp in imports:
         register_import_object(store, imp)
     inst = instantiate(store, mod, conf)
-    return BatchEngine(inst, store=store, conf=conf, lanes=lanes,
-                       device=device), inst
+    eng = BatchEngine(inst, store=store, conf=conf, lanes=lanes,
+                      device=device)
+    if fusion is not None:
+        eng.fusion = fusion
+        eng.tables = device_tables(eng.img, eng.device, fusion)
+    return eng, inst
 
 
 def max_abs_err(a, b) -> int:
@@ -131,15 +148,16 @@ def max_abs_err(a, b) -> int:
     return err
 
 
-def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs) -> int:
-    """One fixture at KERNEL_LANES lanes: kernel and plain version from
-    the same CUDA state, launch by launch, every plane equal.  Returns the
-    max abs err."""
+def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs,
+                    fusion="none") -> int:
+    """One fixture at KERNEL_LANES lanes in the encoding `fusion`: kernel
+    and plain version from the same CUDA state, launch by launch, every
+    plane (every stack row) equal.  Returns the max abs err."""
     from wasmedge_tpu_torch.batch import interp, interp_ref
 
     t0 = time.perf_counter()
     eng, inst = make_engine(data, KERNEL_LANES, fuel_per_launch=fuel,
-                            **knobs)
+                            fusion=fusion, **knobs)
     st = eng.initial_state(inst.exports[func][1], args)
     ref = st.clone()
     launches = worst = 0
@@ -158,7 +176,8 @@ def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs) -> int:
         if launches == 200:
             fail(f"{name}: lanes still running after {launches} launches")
     traps = sorted(set(st.trap.cpu().tolist()))
-    print(f"kernel_vs_plain {name}: {launches} launches equal, "
+    tag = "" if fusion == "none" else f" [{fusion}]"
+    print(f"kernel_vs_plain {name}{tag}: {launches} launches equal, "
           f"traps {traps}, retired {int(st.retired.sum())}, "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     return worst
@@ -204,11 +223,75 @@ def phase_kernel_vs_plain() -> int:
                for name, data, func, args, chunk, fuel in fixtures)
 
 
+def fused_fixtures(L: int):
+    """(name, module, export, args, steps per launch, fuel, knobs, simd)
+    of the fused kernels' fixtures at L lanes."""
+    from wasmedge_tpu_torch.models import (
+        build_bulk_workload, build_coremark_kernel, build_fac, build_fib,
+        build_loop_sum, build_memory_workload, build_simd_loop)
+    from wasmedge_tpu_torch.models.fixtures import (
+        build_guard_mix, build_oob_mix, build_trap_zoo, build_vmix, oob_args,
+        zoo_args)
+
+    kn = dict(value_stack_depth=64, call_stack_depth=32,
+              memory_pages_per_lane=3)
+    kv = dict(value_stack_depth=64, call_stack_depth=16,
+              memory_pages_per_lane=1)
+    return [
+        ("fib_divergent", build_fib(), "fib", [np.arange(L) % 9 + 3], 256,
+         None, kn, False),
+        ("fib_mix_13", build_fib(), "fib", [np.arange(L) % 7 + 2], 13, None,
+         kn, False),
+        ("fib_fuel", build_fib(), "fib", [np.arange(L) % 9 + 3], 256, 700,
+         kn, False),
+        ("fac", build_fac(), "fac", [np.arange(L) * 3], 13, None, kn, False),
+        ("loop_sum", build_loop_sum(), "loop_sum", [np.arange(L) % 50 * 7],
+         256, None, kn, False),
+        ("mem_checksum", build_memory_workload(), "mem_checksum",
+         [np.arange(L) % 30 + 1], 256, None, kn, False),
+        ("coremark", build_coremark_kernel(), "coremark",
+         [np.arange(L) % 20 + 1], 256, None, kn, False),
+        ("coremark_fuel", build_coremark_kernel(), "coremark",
+         [np.arange(L) % 20 + 1], 13, 501, kn, False),
+        ("traps_grow_memory", build_trap_zoo(), "zoo", zoo_args(L, SEED),
+         64, None, kn, False),
+        ("guard_mix", build_guard_mix(), "guard",
+         [np.arange(L) * 5 - 3, np.arange(L) % 7 + 1], 13, None, kn, False),
+        ("oob_mix", build_oob_mix(), "oob", oob_args(L, SEED), 13, None, kn,
+         False),
+        ("bulk_workload", build_bulk_workload(**SMALL_BULK), "bulk",
+         [np.arange(L) * 37 + 5, 3], 256, None, kn, False),
+        ("vmix", build_vmix(), "vmix", [np.arange(L) % 13 + 3], 64, None, kv,
+         True),
+        ("vmix_fuel", build_vmix(), "vmix", [np.arange(L) % 13 + 3], 13, 40,
+         kv, True),
+        ("vloop", build_simd_loop(), "vloop", [np.arange(L) % 40], 256, None,
+         kv, True),
+    ]
+
+
+def phase_fused_kernel_vs_plain() -> int:
+    """The B2 ("blocks") and B6 ("super", modules without v128 ops) fused
+    kernels against their plain versions at KERNEL_LANES lanes, every
+    launch, every plane and every stack row; WASI echo with its serve
+    rounds in both encodings."""
+    worst = 0
+    for name, data, func, args, chunk, fuel, knobs, simd in \
+            fused_fixtures(KERNEL_LANES):
+        for fusion in ("blocks",) if simd else ("blocks", "super"):
+            worst = max(worst, kernel_vs_plain(name, data, func, args, chunk,
+                                               fuel, knobs, fusion))
+    for fusion in ("blocks", "super"):
+        worst = max(worst, phase_hostcalls_kernel_vs_plain(
+            fusion, only=("env.double", "wasi_echo")))
+    return worst
+
+
 def first_step_at(data, func, args, hid, knobs) -> int:
     """Steps before lane 0 first sits at handler `hid` (plain version)."""
     from wasmedge_tpu_torch.batch import interp_ref
 
-    eng, inst = make_engine(data, len(args[0]), **knobs)
+    eng, inst = make_engine(data, len(args[0]), fusion="none", **knobs)
     st = eng.initial_state(inst.exports[func][1], args)
     for step in range(10_000):
         if int(eng.tables.hid[int(st.pc[0])]) == hid:
@@ -292,11 +375,12 @@ def hello_output(codes) -> bytes:
                     for c in codes)
 
 
-def phase_hostcalls_kernel_vs_plain() -> int:
-    """The host-call fixtures at KERNEL_LANES lanes: kernel and plain
-    version from the same CUDA state, each state with its own engine,
-    host modules and serve round after every launch; every plane equal
-    before and after each serve round, and the kernel side's stdout file
+def phase_hostcalls_kernel_vs_plain(fusion="none", only=None) -> int:
+    """The host-call fixtures (those named in `only`, or all) at
+    KERNEL_LANES lanes in the encoding `fusion`: kernel and plain version
+    from the same CUDA state, each state with its own engine, host
+    modules and serve round after every launch; every plane equal before
+    and after each serve round, and the kernel side's stdout file
     byte-identical to the plain side's."""
     from wasmedge_tpu_torch.batch import interp, interp_ref
     from wasmedge_tpu_torch.batch.hostcall import serve_batch_state
@@ -327,6 +411,8 @@ def phase_hostcalls_kernel_vs_plain() -> int:
     ]
     worst = 0
     for name, data, func, args, want_out in fixtures:
+        if only is not None and name not in only:
+            continue
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as td:
             paths = [os.path.join(td, k) for k in ("kernel", "plain")]
@@ -335,7 +421,8 @@ def phase_hostcalls_kernel_vs_plain() -> int:
             try:
                 engs = [make_engine(data, L, imports=[
                     wasi_import(fd) if want_out is not None
-                    else env_import()], **knobs)[0] for fd in fds]
+                    else env_import()], fusion=fusion, **knobs)[0]
+                    for fd in fds]
                 inst = engs[0].inst
                 st = engs[0].initial_state(inst.exports[func][1], args)
                 ref = st.clone()
@@ -377,7 +464,8 @@ def phase_hostcalls_kernel_vs_plain() -> int:
             if not (trap == int(ErrCode.Terminated)).all() or \
                     not (codes == hello_codes).all():
                 fail("wasi_hello: lanes did not exit with their codes")
-        print(f"kernel_vs_plain {name}: {launches} launches and {rounds} "
+        tag = "" if fusion == "none" else f" [{fusion}]"
+        print(f"kernel_vs_plain {name}{tag}: {launches} launches and {rounds} "
               f"serve rounds equal, traps {sorted(set(trap.tolist()))}, "
               f"stdout {len(outs[0])} B identical, "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -447,17 +535,19 @@ def launch_mix(tables, st0, steps: int):
     return counts.cpu().numpy(), int(max_sp), int(max_cd)
 
 
-def phase_time_one_launch():
+def phase_time_one_launch(fusion="none"):
     """One launch of TIMED_STEPS steps from the flagship's initial state
-    (fib(30) x 4096), kernel and plain version, same inputs, and its
-    bound from the state that launch touches and its instruction mix."""
+    (fib(30) x 4096) in the encoding `fusion`, kernel and plain version,
+    same inputs, and its bound from the state that launch touches and its
+    instruction mix (the same for every encoding: the launch retires the
+    same instructions)."""
     from wasmedge_tpu_torch.batch import interp, interp_ref
     from wasmedge_tpu_torch.batch.engine import CONTROL_FIELDS
     from wasmedge_tpu_torch.models import build_fib
 
     chunk, L = TIMED_STEPS, MAIN_LANES
     eng, inst = make_engine(build_fib(), L, value_stack_depth=256,
-                            call_stack_depth=256)
+                            call_stack_depth=256, fusion=fusion)
     tb = eng.tables
     st0 = eng.initial_state(inst.exports["fib"][1], [np.full(L, 30)])
     kernel = lambda s: interp.run_chunk(tb, s, chunk, False)
@@ -471,6 +561,8 @@ def phase_time_one_launch():
         fail(f"kernel != plain at the flagship shape: max abs err {err}")
     retired = int(out_k.retired.sum())
 
+    # one step at a time: a fused dispatch never fits, so the plain
+    # version retires each op on its own and counts it at its pc
     counts, max_sp, max_cd = launch_mix(tb, st0, chunk)
     if int(counts.sum()) != retired:
         fail(f"instruction mix counts {int(counts.sum())} instructions, "
@@ -487,10 +579,12 @@ def phase_time_one_launch():
     bound_ms = max(bound_bytes_ms, bound_ops_ms)
     # What this kernel's handlers move through the state planes for the
     # same instructions (a stack cell is read and written again and again)
-    hid, b = tb.hid.cpu().numpy(), tb.b.cpu().numpy()
+    hid0 = tb.hid if tb.hid0 is None else tb.hid0
+    hid, b = hid0.cpu().numpy(), tb.b.cpu().numpy()
     traffic = sum(int(c) * handler_bytes(int(hid[pc]), int(b[pc]))
                   for pc, c in enumerate(counts) if c)
-    print(f"one launch of {chunk} steps x {L} lanes (fib(30)): kernel "
+    print(f"one launch of {chunk} steps x {L} lanes (fib(30), {fusion}): "
+          f"kernel "
           f"median {ms:.4f} ms (q25 {k25:.4f}, q75 {k75:.4f}, 21 runs), "
           f"plain median {plain_ms:.2f} ms (q25 {p25:.2f}, q75 {p75:.2f}, "
           f"3 runs), retired {retired}", flush=True)
@@ -501,12 +595,13 @@ def phase_time_one_launch():
           f"{bound_bytes_ms:.6f} ms; operations {retired} x "
           f"{OPS_PER_INSTR} / {OPS_PER_S:.3g} /s = {bound_ops_ms:.6f} ms",
           flush=True)
-    print(f"  handler traffic {traffic} B ({traffic / retired:.2f} B per "
-          f"instruction), {traffic / HBM_BYTES_PER_S * 1e3:.6f} ms at the "
-          f"HBM rate; touched state {touched} B, "
+    print(f"  per-op handler traffic {traffic} B ({traffic / retired:.2f} "
+          f"B per instruction), {traffic / HBM_BYTES_PER_S * 1e3:.6f} ms at "
+          f"the HBM rate; touched state {touched} B, "
           f"{'within' if touched <= L2_BYTES else 'beyond'} the "
           f"{L2_BYTES:.3g} B L2", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    return dict(ms=ms, q25=k25, q75=k75, plain_ms=plain_ms,
+                bound_ms=bound_ms,
                 bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
                 else "operations", max_abs_err=err, retired=retired,
                 bound_bytes=bytes_, handler_traffic_bytes=traffic,
@@ -524,7 +619,8 @@ def phase_time_simd_launch():
 
     chunk, L = TIMED_STEPS, MAIN_LANES
     eng, inst = make_engine(build_simd_loop(), L, value_stack_depth=64,
-                            call_stack_depth=16, memory_pages_per_lane=1)
+                            call_stack_depth=16, memory_pages_per_lane=1,
+                            fusion="none")
     tb = eng.tables
     st0 = eng.initial_state(inst.exports["vloop"][1], [np.full(L, SIMD_N)])
     kernel = lambda s: interp.run_chunk(tb, s, chunk, False)
@@ -589,10 +685,39 @@ def fib_py(n: int) -> int:
     return a
 
 
-def run_main(vm, func, args, steps_per_launch, need=("interp",)):
-    """One execute_batch through the VM with every launch count set to 0
-    before and read after; fails unless the kinds of launch in `need`
-    happened.  Returns (result, launches, wall s, event ms, counts)."""
+def run_vm(vm, func, args, fusion=None):
+    """VM.execute_batch (fusion None: the encoding the VM's engine picks
+    from block_fusion), or the same engine with its encoding replaced by
+    `fusion` (BatchEngine and device_tables, the layer below).  Returns
+    (result, engine)."""
+    if fusion is None:
+        return vm.execute_batch(func, args, max_steps=10**9), vm.last_engine
+    from wasmedge_tpu_torch.batch.interp import device_tables
+    from wasmedge_tpu_torch.vm.vm import make_engine as vm_engine
+
+    eng = vm_engine(vm._active, vm.store, vm.conf, device="cuda")
+    eng.fusion = fusion
+    eng.tables = device_tables(eng.img, eng.device, fusion)
+    return eng.run(func, list(args), max_steps=10**9), eng
+
+
+def fused_build(tables) -> dict:
+    """Shapes, mean shape length and build seconds of the fused kernel of
+    `tables` (empty for the per-op encoding)."""
+    from wasmedge_tpu_torch.batch import interp
+
+    if tables.fusion == "none":
+        return {}
+    info = interp.BUILD_INFO["fused"].get(interp.fused_kernel_key(tables), {})
+    return {k: info.get(k) for k in ("fusion", "shapes", "mean_len",
+                                     "seconds")}
+
+
+def run_main(vm, func, args, steps_per_launch, need=("interp",),
+             fusion=None):
+    """One run (run_vm) with every launch count set to 0 before and read
+    after; fails unless the kinds of launch in `need` happened.  Returns
+    (result, launches, wall s, event ms, counts)."""
     from wasmedge_tpu_torch.batch import interp
 
     vm.conf.batch.steps_per_launch = steps_per_launch
@@ -603,16 +728,47 @@ def run_main(vm, func, args, steps_per_launch, need=("interp",)):
     e1 = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     e0.record()
-    res = vm.execute_batch(func, args, max_steps=10**9)
+    res, eng = run_vm(vm, func, args, fusion)
     e1.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(interp.LAUNCHES)
+    counts["op"] = counts["interp"] - counts["block"] - counts["super"]
     for k in need:
         if counts[k] == 0:
             fail(f"main path {func} never launched the CUDA kernel "
                  f"({k} launches: 0)")
+    counts["encoding"] = eng.tables.fusion
+    counts["build"] = fused_build(eng.tables)
     return res, counts["interp"], wall, e0.elapsed_time(e1), counts
+
+
+def report_main(label, res_launches_wall_ev_counts, retired) -> dict:
+    """Print one main-path run and return its record."""
+    _, launches, wall, ev_ms, counts = res_launches_wall_ev_counts
+    build = counts["build"]
+    shape = (f", {build['shapes']} block shapes of mean length "
+             f"{build['mean_len']:.2f}" if build.get("shapes") else "")
+    if build:
+        shape += f", built in {build['seconds'] or 0:.1f} s"
+    print(f"main {label} [{counts['encoding']}]: {launches} launches "
+          f"(block {counts['block']}, super {counts['super']}, per-op "
+          f"{counts['op']}), wall {wall:.3f} s, {retired / wall:.4g} wasm "
+          f"instr/s over wall, events {ev_ms:.1f} ms, retired "
+          f"{retired}{shape}", flush=True)
+    return dict(encoding=counts["encoding"], launches=launches,
+                block_launches=counts["block"],
+                super_launches=counts["super"], op_launches=counts["op"],
+                wall_s=wall, event_ms=ev_ms, retired=retired,
+                instr_per_s_wall=retired / wall, build=build)
+
+
+# The encodings a main-path workload runs in: (record suffix, fusion
+# replacing the engine's choice or None, block_fusion, launch kinds that
+# must happen).  The first is the VM's default.
+ENCODINGS = (("", None, None, ("interp", "block")),
+             ("_none", "none", None, ("interp", "op")),
+             ("_super", None, False, ("interp", "super")))
 
 
 def phase_main():
@@ -632,34 +788,35 @@ def phase_main():
     vm.validate()
     vm.instantiate()
 
-    res, launches, wall, ev_ms, counts = run_main(
-        vm, "fib", [np.full(L, 30)], 1 << 20)
-    if counts["simd"] or counts["bulk"]:
-        fail(f"fib(30) ran a kernel instantiation with bulk or v128 cases: "
-             f"{counts}")
-    if not (res.trap == -1).all() or not (res.results[0] == 832040).all():
-        fail(f"fib(30) x {L}: traps {np.unique(res.trap)}, results "
-             f"{np.unique(res.results[0])[:5]}")
-    retired = int(res.retired.astype(np.int64).sum())
-    out["fib30"] = dict(launches=launches, wall_s=wall, event_ms=ev_ms,
-                        retired=retired)
-    print(f"main fib(30) x {L}: all 832040, {launches} launches, "
-          f"wall {wall:.3f} s, kernel (events) {ev_ms:.1f} ms, retired "
-          f"{retired}, {retired / (ev_ms / 1e3):.4g} wasm instr/s",
-          flush=True)
+    # fib(30): B2 blocks (the default), the per-op kernel, B6
+    for suffix, fusion, bf, need in ENCODINGS:
+        vm.conf.batch.block_fusion = bf
+        run = run_main(vm, "fib", [np.full(L, 30)], 1 << 20, need, fusion)
+        res, counts = run[0], run[4]
+        if counts["simd"] or counts["bulk"]:
+            fail(f"fib(30) ran a kernel instantiation with bulk or v128 "
+                 f"cases: {counts}")
+        if not (res.trap == -1).all() or \
+                not (res.results[0] == 832040).all():
+            fail(f"fib(30) x {L} [{counts['encoding']}]: traps "
+                 f"{np.unique(res.trap)}, results "
+                 f"{np.unique(res.results[0])[:5]}")
+        retired = int(res.retired.astype(np.int64).sum())
+        key = "fib30" + suffix
+        out[key] = report_main(f"fib(30) x {L}, all 832040", run, retired)
+        out[key]["profile"] = profile_run(vm, "fib", [np.full(L, 30)],
+                                          retired, fusion)
+    vm.conf.batch.block_fusion = None
 
     ns = 20 + np.arange(L) % 11
-    res, launches, wall, ev_ms, _ = run_main(vm, "fib", [ns], 1 << 20)
+    run = run_main(vm, "fib", [ns], 1 << 20, ("interp", "block"))
+    res = run[0]
     want = np.array([fib_py(int(n)) for n in ns])
     if not (res.trap == -1).all() or not (res.results[0] == want).all():
         fail("divergent fib mix disagrees with the Python fib table")
-    retired = int(res.retired.astype(np.int64).sum())
-    out["fib_mix"] = dict(launches=launches, wall_s=wall, event_ms=ev_ms,
-                          retired=retired)
-    print(f"main fib(20 + lane % 11) x {L}: matches, {launches} launches, "
-          f"wall {wall:.3f} s, kernel (events) {ev_ms:.1f} ms, retired "
-          f"{retired}, {retired / (ev_ms / 1e3):.4g} wasm instr/s",
-          flush=True)
+    out["fib_mix"] = report_main(
+        f"fib(20 + lane % 11) x {L}, matches", run,
+        int(res.retired.astype(np.int64).sum()))
 
     conf_cm = Configure()
     conf_cm.batch.lanes = L
@@ -670,8 +827,9 @@ def phase_main():
     vm_cm.load_wasm(build_coremark_kernel())
     vm_cm.validate()
     vm_cm.instantiate()
-    res, launches, wall, ev_ms, _ = run_main(vm_cm, "coremark",
-                                          [np.full(L, 200)], 1 << 20)
+    run = run_main(vm_cm, "coremark", [np.full(L, 200)], 1 << 20,
+                   ("interp", "block"))
+    res = run[0]
     # the reference: the plain interpreter on the CPU for 32 lanes
     cpu = BatchEngine(vm_cm._active, store=vm_cm.store, conf=conf_cm,
                       lanes=32, device="cpu").run("coremark",
@@ -681,33 +839,26 @@ def phase_main():
     if not (res.trap == -1).all() or \
             not (res.results[0] == cpu.results[0][0]).all():
         fail("CoreMark x 4096 disagrees with the CPU plain interpreter")
-    retired = int(res.retired.astype(np.int64).sum())
-    out["coremark200"] = dict(launches=launches, wall_s=wall, event_ms=ev_ms,
-                              retired=retired)
-    print(f"main coremark(200) x {L} (1 page/lane, 256 MiB memory plane): "
-          f"all {int(cpu.results[0][0])}, {launches} launches, wall "
-          f"{wall:.3f} s, events around execute_batch {ev_ms:.1f} ms "
-          f"(mostly set-up), retired {retired}", flush=True)
+    out["coremark200"] = report_main(
+        f"coremark(200) x {L}, all {int(cpu.results[0][0])} (1 page/lane, "
+        f"256 MiB plane; mostly set-up)", run,
+        int(res.retired.astype(np.int64).sum()))
 
-    res, launches, wall, ev_ms, _ = run_main(vm_cm, "coremark",
-                                          [np.full(L, COREMARK_N)], 1 << 20)
     want = coremark_py(COREMARK_N)
-    if not (res.trap == -1).all() or \
-            not ((res.results[0] & 0xFFFFFFFF) == want).all():
-        fail(f"coremark({COREMARK_N}) x {L} disagrees with the Python "
-             f"reference {want}")
-    retired = int(res.retired.astype(np.int64).sum())
-    out["coremark"] = dict(launches=launches, wall_s=wall, event_ms=ev_ms,
-                           retired=retired)
-    print(f"main coremark({COREMARK_N}) x {L}: all {want}, {launches} "
-          f"launches, wall {wall:.3f} s, events around execute_batch "
-          f"{ev_ms:.1f} ms, retired {retired}", flush=True)
-
-    out["fib30"]["profile"] = profile_run(vm, "fib", [np.full(L, 30)],
-                                          out["fib30"]["retired"])
-    out["coremark"]["profile"] = profile_run(
-        vm_cm, "coremark", [np.full(L, COREMARK_N)],
-        out["coremark"]["retired"])
+    for suffix, fusion, bf, need in ENCODINGS[:2]:
+        run = run_main(vm_cm, "coremark", [np.full(L, COREMARK_N)], 1 << 20,
+                       need, fusion)
+        res = run[0]
+        if not (res.trap == -1).all() or \
+                not ((res.results[0] & 0xFFFFFFFF) == want).all():
+            fail(f"coremark({COREMARK_N}) x {L} disagrees with the Python "
+                 f"reference {want}")
+        retired = int(res.retired.astype(np.int64).sum())
+        key = "coremark" + suffix
+        out[key] = report_main(f"coremark({COREMARK_N}) x {L}, all {want}",
+                               run, retired)
+        out[key]["profile"] = profile_run(
+            vm_cm, "coremark", [np.full(L, COREMARK_N)], retired, fusion)
     return out
 
 
@@ -723,8 +874,8 @@ def coremark_py(n: int) -> int:
     return crc ^ acc
 
 
-def profile_run(vm, func, args, retired: int):
-    """One more execute_batch under torch.profiler: the kernel's device
+def profile_run(vm, func, args, retired: int, fusion=None):
+    """One more run (run_vm) under torch.profiler: the kernel's device
     time and launches, the set-up and host time around them (wall minus
     kernel) and, of that, the host time in serve rounds, the card's idle
     share, and instr/s over the kernel time."""
@@ -734,7 +885,7 @@ def profile_run(vm, func, args, retired: int):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        vm.execute_batch(func, args, max_steps=10**9)
+        _, eng = run_vm(vm, func, args, fusion)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = [e for e in prof.key_averages() if "interp_kernel" in e.key]
@@ -749,9 +900,10 @@ def profile_run(vm, func, args, retired: int):
     copy_s = sum(getattr(e, "device_time_total", 0) or
                  getattr(e, "cuda_time_total", 0)
                  for e in prof.key_averages() if "Memcpy" in e.key) / 1e6
-    stats = vm.last_engine.hostcall_stats
+    stats = eng.hostcall_stats
     serve_s = stats["serve_s"]
-    print(f"profile {func} x {MAIN_LANES}: kernel device time "
+    print(f"profile {func} x {MAIN_LANES} [{eng.tables.fusion}]: kernel "
+          f"device time "
           f"{kernel_s * 1e3:.3f} ms over {count} launches "
           f"({kernel_s * 1e3 / count:.3f} ms per launch), wall "
           f"{wall * 1e3:.3f} ms, set-up and host {(wall - kernel_s) * 1e3:.3f}"
@@ -761,7 +913,8 @@ def profile_run(vm, func, args, retired: int):
           f"{1.0 - kernel_s / wall:.4f}, "
           f"{retired / kernel_s:.4g} wasm instr/s over kernel time",
           flush=True)
-    return dict(kernel_ms=kernel_s * 1e3, launches=count, wall_s=wall,
+    return dict(encoding=eng.tables.fusion, kernel_ms=kernel_s * 1e3,
+                launches=count, wall_s=wall,
                 setup_host_ms=(wall - kernel_s) * 1e3,
                 serve_rounds=stats["serve_rounds"], serve_ms=serve_s * 1e3,
                 copy_ms=copy_s * 1e3, idle_share=1.0 - kernel_s / wall,
@@ -808,7 +961,8 @@ def phase_main_wasi():
         try:
             vm = wasi_vm(build_echo(), fds[0])
             res, launches, wall, ev_ms, counts = run_main(
-                vm, "echo", [ECHO_ITERS], 1 << 20, need=("interp", "hostcall"))
+                vm, "echo", [ECHO_ITERS], 1 << 20,
+                need=("interp", "hostcall", "block"))
             stats = dict(vm.last_engine.hostcall_stats)
             retired = int(res.retired.astype(np.int64).sum())
             prof = profile_run(wasi_vm(build_echo(), fds[1]), "echo",
@@ -854,7 +1008,8 @@ def phase_main_wasi():
         try:
             vm = wasi_vm(build_wasi_hello(), fd)
             res, launches, wall, ev_ms, counts = run_main(
-                vm, "hello", [codes], 1 << 20, need=("interp", "hostcall"))
+                vm, "hello", [codes], 1 << 20,
+                need=("interp", "hostcall", "block"))
             eng = vm.last_engine
             rounds = eng.hostcall_stats["serve_rounds"]
             # the exit codes: proc_exit's argument in each parked frame
@@ -904,7 +1059,7 @@ def phase_main_bulk():
     seeds = (np.random.default_rng(SEED).integers(0, 1 << 31, L))
     args = [seeds, BULK_ITERS]
     res, launches, wall, ev_ms, counts = run_main(
-        vm, "bulk", args, 1 << 20, need=("interp", "bulk"))
+        vm, "bulk", args, 1 << 20, need=("interp", "bulk", "block"))
     t0 = time.perf_counter()
     want, _ = bulk_workload_model(seeds, BULK_ITERS)
     t_model = time.perf_counter() - t0
@@ -997,26 +1152,32 @@ def phase_main_simd():
     base, per = simd_retired_model(vm)
     want_retired = base + per * SIMD_N
     want = simd_loop_model(SIMD_N)
-    res, launches, wall, ev_ms, counts = run_main(
-        vm, "vloop", [np.full(L, SIMD_N)], 1 << 20, need=("interp", "simd"))
-    if not (res.trap == -1).all() or \
-            not ((res.results[0] & 0xFFFFFFFF) == want).all():
-        fail(f"vloop({SIMD_N}) x {L}: traps {np.unique(res.trap)}, results "
-             f"{np.unique(res.results[0])[:5]}, model {want}")
-    if not (res.retired.astype(np.int64) == want_retired).all():
-        fail(f"vloop({SIMD_N}) x {L}: retired {np.unique(res.retired)[:5]}, "
-             f"expected {want_retired} per lane")
-    retired = int(res.retired.astype(np.int64).sum())
-    out = dict(n=SIMD_N, launches=launches, simd_launches=counts["simd"],
-               wall_s=wall, event_ms=ev_ms, retired=retired,
-               instr_per_s_wall=retired / wall,
-               retired_per_lane=want_retired, per_iteration=per)
-    print(f"main vloop({SIMD_N}) x {L}: every lane {want} (the model), "
-          f"retired {want_retired} per lane ({base} + {per} per "
-          f"iteration), {launches} launches, wall {wall:.3f} s, kernel "
-          f"(events) {ev_ms:.1f} ms, {retired / wall:.4g} wasm instr/s over "
-          f"wall", flush=True)
-    out["profile"] = profile_run(vm, "vloop", [np.full(L, SIMD_N)], retired)
+    out = dict(n=SIMD_N, retired_per_lane=want_retired, per_iteration=per)
+    # B2 blocks (the default) and, with block_fusion False, the per-op
+    # kernel (a module with v128 ops runs no superinstructions)
+    for suffix, bf, need in (("", None, ("interp", "simd", "block")),
+                             ("_none", False, ("interp", "simd", "op"))):
+        vm.conf.batch.block_fusion = bf
+        run = run_main(vm, "vloop", [np.full(L, SIMD_N)], 1 << 20, need)
+        res, counts = run[0], run[4]
+        if not (res.trap == -1).all() or \
+                not ((res.results[0] & 0xFFFFFFFF) == want).all():
+            fail(f"vloop({SIMD_N}) x {L}: traps {np.unique(res.trap)}, "
+                 f"results {np.unique(res.results[0])[:5]}, model {want}")
+        if not (res.retired.astype(np.int64) == want_retired).all():
+            fail(f"vloop({SIMD_N}) x {L}: retired "
+                 f"{np.unique(res.retired)[:5]}, expected {want_retired} "
+                 f"per lane")
+        retired = int(res.retired.astype(np.int64).sum())
+        rec = report_main(
+            f"vloop({SIMD_N}) x {L}, every lane {want} (the model), retired "
+            f"{want_retired} per lane ({base} + {per} per iteration)", run,
+            retired)
+        rec["simd_launches"] = counts["simd"]
+        rec["profile"] = profile_run(vm, "vloop", [np.full(L, SIMD_N)],
+                                     retired)
+        out["none" if suffix else "blocks"] = rec
+    vm.conf.batch.block_fusion = None
     return out
 
 
@@ -1032,7 +1193,8 @@ def phase_time_bulk():
     L = MAIN_LANES
     fill_n, copy_n, val = 32768, 16384, 0x5A
     eng, inst = make_engine(build_bulk_pair(), L, value_stack_depth=64,
-                            call_stack_depth=16, memory_pages_per_lane=1)
+                            call_stack_depth=16, memory_pages_per_lane=1,
+                            fusion="none")
     tb = eng.tables
     pair = inst.exports["pair"][1]
     chunk = 8  # 3 operands + fill, 3 operands + copy: 8 instructions
@@ -1091,22 +1253,21 @@ def phase_time_bulk():
     return dict(out, library_ms=lib_ms, bound_ms=bound_ms, bound_bytes=nbytes)
 
 
-def kernel_registers() -> dict:
-    """Registers, stack frame and spills of each compiled kernel
-    instantiation and out-of-line device function, from ptxas -v."""
-    from wasmedge_tpu_torch.batch import interp
-
+def parse_ptxas(text: str) -> dict:
+    """Registers, stack frame and spills of each kernel instantiation and
+    out-of-line device function in `ptxas -v` output."""
     rows, cur = {}, None
-    for line in interp.BUILD_INFO.get("ptxas", "").splitlines():
+    for line in text.splitlines():
         m = re.search(r"(?:entry function|Function properties for) "
                       r"'?([\w$.]+)", line)
         if m:
             mangled = m.group(1)
             inst = re.search(r"interp_kernelILb(\d)ELb(\d)E", mangled)
             fn = re.search(r"(v[12]_op|alu[12]\w*|bulk_fill_copy)", mangled)
+            fused = "5Fused" in mangled
             cur = (f"interp_kernel<kBulk={inst.group(1)}, "
-                   f"kSimd={inst.group(2)}>" if inst
-                   else fn.group(1) if fn else mangled)
+                   f"kSimd={inst.group(2)}{', Fused' if fused else ''}>"
+                   if inst else fn.group(1) if fn else mangled)
             rows.setdefault(cur, {})
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -1121,6 +1282,67 @@ def kernel_registers() -> dict:
     return rows
 
 
+def kernel_registers() -> dict:
+    """parse_ptxas of the per-op build."""
+    from wasmedge_tpu_torch.batch import interp
+
+    return parse_ptxas(interp.BUILD_INFO.get("ptxas", ""))
+
+
+def print_registers(label: str, rows: dict) -> None:
+    for name, r in rows.items():
+        print(f"  ptxas {label}: {name}: {r.get('registers', '-')} registers, "
+              f"{r.get('stack_bytes', 0)} B stack frame, "
+              f"{r.get('spill_stores', 0)} B spill stores, "
+              f"{r.get('spill_loads', 0)} B spill loads", flush=True)
+
+
+def prebuild() -> dict:
+    """Build every kernel the script runs, all nvcc processes at once:
+    the per-op kernel and the fused kernel of each module and encoding
+    (the fused fixtures, the main-path modules, the SIMD corpus module).
+    The generated source depends only on the module and the encoding, so
+    tables made on the CPU name the same builds as the card's."""
+    from wasmedge_tpu_torch.batch import interp
+    from wasmedge_tpu_torch.models import (
+        build_bulk_workload, build_coremark_kernel, build_echo, build_fib,
+        build_simd_loop, build_wasi_hello)
+    from wasmedge_tpu_torch.models.fixtures import build_host_double
+    from wasmedge_tpu_torch.spec import corpus_tables
+
+    mods = [(data, simd, ()) for _, data, _, _, _, _, _, simd in
+            fused_fixtures(2)]
+    mods += [(build_fib(), False, ()), (build_coremark_kernel(), False, ()),
+             (build_simd_loop(), True, ()), (build_bulk_workload(), False, ()),
+             (build_host_double(), False, (env_import,)),
+             (build_echo(), False, (lambda: wasi_import(1),)),
+             (build_wasi_hello(), False, (lambda: wasi_import(1),))]
+    tables = []
+    for data, simd, imports in mods:
+        for fusion in ("blocks",) if simd else ("blocks", "super"):
+            eng, _ = make_engine(data, 2, device="cpu",
+                                 imports=[f() for f in imports],
+                                 fusion=fusion)
+            tables.append(eng.tables)
+    tables += corpus_tables([SIMD_WAST])
+    t0 = time.perf_counter()
+    interp.build_kernels(tables)
+    wall = time.perf_counter() - t0
+    builds = {}
+    for key, info in interp.BUILD_INFO["fused"].items():
+        rows = parse_ptxas(info.get("ptxas", ""))
+        builds[key] = dict(fusion=info.get("fusion"),
+                           shapes=info.get("shapes"),
+                           mean_len=info.get("mean_len"),
+                           seconds=info.get("seconds"), ptxas=rows)
+        print(f"  fused build {key} [{info.get('fusion')}]: "
+              f"{info.get('shapes')} block shapes, mean length "
+              f"{info.get('mean_len') or 0:.2f}, nvcc "
+              f"{info.get('seconds') or 0:.1f} s", flush=True)
+        print_registers(key, rows)
+    return dict(wall_s=wall, n_fused=len(builds), fused=builds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1133,34 +1355,34 @@ def main() -> int:
           f"cuda {torch.version.cuda}, card: {card}", flush=True)
 
     t0 = time.perf_counter()
-    interp.build_kernel()
+    builds = prebuild()
     t_build = time.perf_counter() - t0
-    print(f"phase build: {t_build:.2f} s (nvcc {interp.BUILD_INFO.get('seconds', 0):.2f} s)",
-          flush=True)
+    print(f"phase build: {t_build:.2f} s (per-op nvcc "
+          f"{interp.BUILD_INFO.get('seconds', 0):.2f} s, {builds['n_fused']} "
+          f"fused builds, all at once)", flush=True)
     regs = kernel_registers()
-    for name, r in regs.items():
-        print(f"  ptxas: {name}: {r.get('registers', '-')} registers, "
-              f"{r.get('stack_bytes', 0)} B stack frame, "
-              f"{r.get('spill_stores', 0)} B spill stores, "
-              f"{r.get('spill_loads', 0)} B spill loads", flush=True)
+    print_registers("per-op", regs)
 
     t0 = time.perf_counter()
     worst = max(phase_kernel_vs_plain(), phase_hostcalls_kernel_vs_plain())
     simd_worst = phase_simd_kernel_vs_plain()
-    timing = phase_time_one_launch()
+    fused_worst = phase_fused_kernel_vs_plain()
+    timing = {f: phase_time_one_launch(f) for f in ("none", "blocks", "super")}
     bulk_timing = phase_time_bulk()
     simd_timing = phase_time_simd_launch()
     t_kernel = time.perf_counter() - t0
     print(f"phase kernel_vs_plain: {t_kernel:.2f} s, max abs err "
-          f"{max(worst, simd_worst)}", flush=True)
+          f"{max(worst, simd_worst, fused_worst)}", flush=True)
 
     t0 = time.perf_counter()
     main_out = phase_main()
     scalar = regs.get("interp_kernel<kBulk=0, kSimd=0>", {})
-    print(f"fib(30) x {MAIN_LANES} ran interp_kernel<kBulk=0, kSimd=0> "
-          f"({scalar.get('registers')} registers, "
+    print(f"fib(30) x {MAIN_LANES} per-op ran interp_kernel<kBulk=0, "
+          f"kSimd=0> ({scalar.get('registers')} registers, "
           f"{scalar.get('spill_stores', 0)} B spill stores): wall "
-          f"{main_out['fib30']['wall_s']:.3f} s", flush=True)
+          f"{main_out['fib30_none']['wall_s']:.3f} s; blocks "
+          f"{main_out['fib30']['wall_s']:.3f} s, super "
+          f"{main_out['fib30_super']['wall_s']:.3f} s", flush=True)
     main_out.update(phase_main_wasi())
     main_out["bulk"] = phase_main_bulk()
     main_out["simd_corpus"] = phase_simd_corpus()
@@ -1168,28 +1390,46 @@ def main() -> int:
     t_main = time.perf_counter() - t0
     print(f"phase main: {t_main:.2f} s", flush=True)
 
-    fib_prof = main_out["fib30"]["profile"]
-    # "ms", "plain_ms" and "bound_ms" are for one launch of TIMED_STEPS
-    # steps (the plain version cannot run a main-path launch in the time
-    # limit); "main_ms_per_launch" is the kernel's device time per launch
-    # of the main path's fib(30) run, whose launches "launches" counts.
-    record = {
-        "name": "wasm_interp",
-        "route": "cuda",
-        "source": "wasmedge_tpu_torch/csrc/interp.cu",
-        "replaces": "wasmedge_tpu/batch/pallas_engine.py:3825",
-        "launches": main_out["fib30"]["launches"],
-        "max_abs_err": max(worst, timing["max_abs_err"]),
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": None,
-        "timed_launch": {"workload": "fib(30)", "lanes": MAIN_LANES,
-                         "steps": TIMED_STEPS,
-                         "retired": timing["retired"]},
-        "main_ms_per_launch": fib_prof["kernel_ms"] / fib_prof["launches"],
-    }
+    def launch_record(name, source, replaces, launches, t, worst_err,
+                      prof, **extra):
+        # "ms", "plain_ms" and "bound_ms" are for one launch of
+        # TIMED_STEPS steps (the plain version cannot run a main-path
+        # launch in the time limit); "main_ms_per_launch" is the kernel's
+        # device time per launch of the main-path run whose launches
+        # "launches" counts.
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(worst_err, t["max_abs_err"]),
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None, **extra,
+                "main_ms_per_launch": prof["kernel_ms"] / prof["launches"]}
+
+    fib_launch = {"workload": "fib(30)", "lanes": MAIN_LANES,
+                  "steps": TIMED_STEPS}
+    record = launch_record(
+        "wasm_interp", "wasmedge_tpu_torch/csrc/interp.cu",
+        "wasmedge_tpu/batch/pallas_engine.py:3825",
+        main_out["fib30_none"]["op_launches"], timing["none"], worst,
+        main_out["fib30_none"]["profile"],
+        timed_launch=dict(fib_launch, retired=timing["none"]["retired"]))
+    # B2 and B6: the fused kernel of fib's module, its launches in the
+    # main path's fib(30) run with block_fusion None (blocks) and False
+    # (superinstructions)
+    block_record = launch_record(
+        "block", "wasmedge_tpu_torch/csrc/fused.cuh",
+        "wasmedge_tpu/batch/pallas_engine.py:2758",
+        main_out["fib30"]["block_launches"], timing["blocks"], fused_worst,
+        main_out["fib30"]["profile"],
+        timed_launch=dict(fib_launch, retired=timing["blocks"]["retired"]),
+        generator="wasmedge_tpu_torch/batch/fusegen.py")
+    super_record = launch_record(
+        "super", "wasmedge_tpu_torch/csrc/fused.cuh",
+        "wasmedge_tpu/batch/pallas_engine.py:2472",
+        main_out["fib30_super"]["super_launches"], timing["super"],
+        fused_worst, main_out["fib30_super"]["profile"],
+        timed_launch=dict(fib_launch, retired=timing["super"]["retired"]),
+        generator="wasmedge_tpu_torch/batch/fusegen.py")
     # h_memfill / h_memcopy are cases of the same kernel: "ms",
     # "plain_ms", "bound_ms" and "library_ms" are for one launch of the
     # converged bulk pair (fill 32 KiB, copy 16 KiB, every lane);
@@ -1210,35 +1450,27 @@ def main() -> int:
         "library_ms": bulk_timing["library_ms"],
         "unaligned_ms": bulk_timing["unaligned"]["ms"],
     }
-    # the B7 cases of the same kernel (its kSimd instantiations): "ms",
-    # "plain_ms" and "bound_ms" are for one launch of TIMED_STEPS steps of
-    # vloop(SIMD_N) x MAIN_LANES; "launches" counts the main path's
-    # vloop launches, "main_ms_per_launch" is their device time per launch
-    vloop_prof = main_out["vloop"]["profile"]
-    simd_record = {
-        "name": "v128",
-        "route": "cuda",
-        "source": "wasmedge_tpu_torch/csrc/interp.cu",
-        "replaces": "wasmedge_tpu/batch/pallas_engine.py:3203",
-        "launches": main_out["vloop"]["simd_launches"],
-        "max_abs_err": max(simd_worst, simd_timing["max_abs_err"]),
-        "ms": simd_timing["ms"],
-        "plain_ms": simd_timing["plain_ms"],
-        "bound_ms": simd_timing["bound_ms"],
-        "bound_by": simd_timing["bound_by"],
-        "library_ms": None,
-        "timed_launch": {"workload": f"vloop({SIMD_N})",
-                         "lanes": MAIN_LANES, "steps": TIMED_STEPS,
-                         "retired": simd_timing["retired"]},
-        "main_ms_per_launch": vloop_prof["kernel_ms"] / vloop_prof["launches"],
-    }
+    # the B7 cases of the per-op kernel (its kSimd instantiations): one
+    # launch of TIMED_STEPS steps of vloop(SIMD_N) x MAIN_LANES;
+    # "launches" counts the main path's vloop launches with block_fusion
+    # False (the per-op kernel; the fused kernel runs the same B7 device
+    # functions)
+    simd_record = launch_record(
+        "v128", "wasmedge_tpu_torch/csrc/interp.cu",
+        "wasmedge_tpu/batch/pallas_engine.py:3203",
+        main_out["vloop"]["none"]["simd_launches"], simd_timing, simd_worst,
+        main_out["vloop"]["none"]["profile"],
+        timed_launch={"workload": f"vloop({SIMD_N})", "lanes": MAIN_LANES,
+                      "steps": TIMED_STEPS,
+                      "retired": simd_timing["retired"]})
     print(json.dumps({"phases_s": {"build": t_build, "kernel": t_kernel,
                                    "main": t_main},
-                      "registers": regs, "bulk_pair": bulk_timing,
+                      "registers": regs, "builds": builds,
+                      "one_launch": timing, "bulk_pair": bulk_timing,
                       "simd_launch": simd_timing, "main": main_out}),
           flush=True)
-    print(json.dumps({"kernels": [record, bulk_record, simd_record]}),
-          flush=True)
+    print(json.dumps({"kernels": [record, block_record, super_record,
+                                  bulk_record, simd_record]}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

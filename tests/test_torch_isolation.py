@@ -3,7 +3,8 @@ modules under host/ and runtime/hostfunc.py, the v128 ops, the text
 front-end and the corpus runner included) and nothing in chip_smoke.py
 imports JAX or the JAX package, no entry point defaults to the CPU, and
 the CUDA source's ids, v128 family offsets and trap codes equal the
-Python package's."""
+Python package's, and no generated fused-kernel source is kept outside
+the build directory."""
 
 import ast
 import os
@@ -33,8 +34,36 @@ def test_source_walk_covers_the_host_modules():
               "host/wasi/__init__.py", "host/wasi/environ.py",
               "host/wasi/wasi_abi.py", "host/wasi/wasifunc.py",
               "host/wasi/vectorized.py", "batch/simdops.py", "utils/wat.py",
-              "spec/__init__.py"):
+              "spec/__init__.py", "batch/fusion.py", "batch/fusegen.py"):
         assert f in rel, f
+
+
+def test_no_generated_cuda_source_outside_the_build_dir():
+    """The fused kernels' sources are generated per module into _build/
+    (ignored by git); none is kept beside the repository's sources."""
+    from wasmedge_tpu_torch.batch import fusegen
+
+    mark = fusegen._HEAD.splitlines()[0]
+    # the directories git ignores (build outputs, caches) and .git
+    with open(os.path.join(ROOT, ".gitignore")) as fh:
+        ignored = {ln.strip().rstrip("/") for ln in fh
+                   if ln.strip().endswith("/")}
+    found = []
+    for d, dirs, files in os.walk(ROOT):
+        rel = os.path.relpath(d, ROOT)
+        dirs[:] = [x for x in dirs if x != ".git" and x not in ignored
+                   and os.path.normpath(os.path.join(rel, x)) not in ignored]
+        for f in files:
+            if f.endswith((".cu", ".cuh", ".cpp", ".h")):
+                with open(os.path.join(d, f), errors="replace") as fh:
+                    if fh.readline().rstrip("\n") == mark:
+                        found.append(os.path.relpath(os.path.join(d, f),
+                                                     ROOT))
+    assert not found, found
+    src = fusegen.cuda_source([], (), False, False)
+    assert src.splitlines()[0] == mark
+    with open(os.path.join(ROOT, ".gitignore")) as fh:
+        assert "wasmedge_tpu_torch/_build/" in fh.read().split()
 
 
 @pytest.mark.parametrize("path", _sources(),

@@ -192,7 +192,8 @@ class BatchEngine:
         if reason is not None:
             raise NotImplementedError(reason)
         self.img = img
-        self.tables = device_tables(img, self.device)
+        self.fusion = fusion_of(self.cfg.block_fusion, img.has_simd)
+        self.tables = device_tables(img, self.device, fusion=self.fusion)
         # serve rounds, lanes served, lanes served by a vectorized WASI
         # implementation, and host seconds spent in serve rounds
         # (batch/hostcall.py)
@@ -278,6 +279,17 @@ class BatchEngine:
                 break
         serve_batch_state(self, state)
         return state, total
+
+
+def fusion_of(block_fusion: Optional[bool], has_simd: bool) -> str:
+    """The code encoding the interpreter runs, chosen as the Pallas
+    kernel chooses it (pallas_engine.py :4051-4062): fused basic blocks
+    unless `block_fusion` is False; then superinstructions, which move
+    two-word cells, for images without v128 ops, and one op per dispatch
+    for images with them."""
+    if block_fusion is None or block_fusion:
+        return "blocks"
+    return "none" if has_simd else "super"
 
 
 def _table_snapshot(inst, store):

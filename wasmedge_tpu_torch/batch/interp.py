@@ -11,6 +11,13 @@ lane its own pc, sp, fp, operand base, call depth, page count, fuel and
 retired count in registers, and the per-lane results equal what the
 Pallas kernel, the block scheduler and the SIMT residue give together.
 
+The code tables come in three encodings (`device_tables`): one op per
+dispatch ("none"), B2 fused basic blocks ("blocks") and B6 peephole
+superinstructions ("super"), planned by `batch/fusion.py` as the Pallas
+kernel plans them.  The per-op encoding runs the shared kernel build; a
+fused encoding runs a kernel built for its module, `csrc/interp.cu` with
+the dispatch that `batch/fusegen.py` generates for its shapes.
+
 `run_chunk()` is the one entry: on CUDA tensors it launches the kernel
 (built from the repository's sources on first use), on CPU tensors it
 runs the plain PyTorch interpreter of `batch/interp_ref.py`.
@@ -25,6 +32,7 @@ import os
 import subprocess
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -71,10 +79,28 @@ H_MEMFILL = 22
 H_MEMCOPY = 23
 H_ALU2_BASE = 24                      # + ALU2 sub id
 H_ALU1_BASE = H_ALU2_BASE + NUM_ALU2  # + ALU1 sub id
-# The reference reserves the next nine ranges of NUM_ALU2 ids (its
-# peephole superinstruction families) and one id for GBR; the port has
-# no peephole fusion yet, but keeps the numbering so handler ids agree.
-H_FUSE_GBR = H_ALU1_BASE + NUM_ALU1 + 9 * NUM_ALU2
+# Peephole superinstructions (B6, pallas_engine.py :129-152; planner
+# batch/fusion.py fuse_image), each family one id per ALU2 sub:
+#   GCA:   local.get a; const imm; alu2            -> pc += 3
+#   GCB:   local.get a; const imm; alu2; brz b     -> pc += 4
+#   A2R:   alu2; return (one result)               -> pc += 2
+#   GCC:   local.get a; const imm; alu2; call b    -> pc += 4
+#   GCS:   local.get a; const imm; alu2; local.set b
+#   GGA:   local.get a; local.get c; alu2          -> pc += 3
+#   GGS:   local.get a; local.get c; alu2; local.set b
+#   GGBZ:  local.get ilo; local.get ihi; alu2; brz a
+#   GGBNZ: local.get ilo; local.get ihi; alu2; brnz a, b, c
+#   GBR:   local.get ilo; br a, b, c               -> pc += 2
+H_FUSE_GCA_BASE = H_ALU1_BASE + NUM_ALU1
+H_FUSE_GCB_BASE = H_FUSE_GCA_BASE + NUM_ALU2
+H_FUSE_A2R_BASE = H_FUSE_GCB_BASE + NUM_ALU2
+H_FUSE_GCC_BASE = H_FUSE_A2R_BASE + NUM_ALU2
+H_FUSE_GCS_BASE = H_FUSE_GCC_BASE + NUM_ALU2
+H_FUSE_GGA_BASE = H_FUSE_GCS_BASE + NUM_ALU2
+H_FUSE_GGS_BASE = H_FUSE_GGA_BASE + NUM_ALU2
+H_FUSE_GGBZ_BASE = H_FUSE_GGS_BASE + NUM_ALU2
+H_FUSE_GGBNZ_BASE = H_FUSE_GGBZ_BASE + NUM_ALU2
+H_FUSE_GBR = H_FUSE_GGBNZ_BASE + NUM_ALU2
 H_LOAD_W = H_FUSE_GBR + 1    # i32.load / f32.load / i64.load32_u
 H_LOAD_D = H_FUSE_GBR + 2    # i64.load / f64.load
 H_STORE_W = H_FUSE_GBR + 3   # i32.store / f32.store / i64.store32
@@ -149,10 +175,22 @@ def hid_plane(img: DeviceImage) -> np.ndarray:
     return hid
 
 
+FUSIONS = ("none", "blocks", "super")
+
+
 @dataclasses.dataclass
 class Tables:
     """Read-only int32 code tables on one device, plus the geometry the
-    interpreter needs."""
+    interpreter needs.
+
+    `a`, `b`, `c`, `ilo` and `ihi` are the planes every op read one at a
+    time uses.  With a fused encoding (`fusion` "blocks" or "super") `hid`
+    holds the fused ids at the head slots, `hid0` the original hid plane
+    (a head slot whose fused dispatch does not fit the lane's budget runs
+    its original op), `flen` the instructions a fused dispatch retires in
+    full (0 at other slots), `shapes` the block shapes, and, for "super",
+    `fa` ... `fihi` the rewritten operand planes that the superinstruction
+    handlers read at their head slots."""
 
     hid: torch.Tensor
     a: torch.Tensor
@@ -173,15 +211,35 @@ class Tables:
     has_bulk: bool = False      # the code holds memory.fill / memory.copy
     has_hostcall: bool = False  # the code holds HOSTCALL stubs
     has_simd: bool = False      # the code holds v128 ops (4-word cells)
+    fusion: str = "none"
+    hid0: Optional[torch.Tensor] = None
+    flen: Optional[torch.Tensor] = None
+    fa: Optional[torch.Tensor] = None
+    fb: Optional[torch.Tensor] = None
+    fc: Optional[torch.Tensor] = None
+    filo: Optional[torch.Tensor] = None
+    fihi: Optional[torch.Tensor] = None
+    shapes: tuple = ()
+    fused_source: str = ""  # the generated CUDA of the fused dispatch
 
 
-def device_tables(img: DeviceImage, device) -> Tables:
+def device_tables(img: DeviceImage, device, fusion: str = "none") -> Tables:
+    """The image's code tables on `device` in the encoding `fusion`:
+    "none" (one op per dispatch), "blocks" (B2 fused basic blocks) or
+    "super" (B6 superinstructions; images without v128 ops only)."""
+    from wasmedge_tpu_torch.batch import fusegen
+    from wasmedge_tpu_torch.batch.fusion import (
+        fuse_blocks, fuse_image, fused_lengths)
+
+    if fusion not in FUSIONS:
+        raise ValueError(f"unknown fusion {fusion!r}; one of {FUSIONS}")
+
     def t(x):
         return torch.as_tensor(np.ascontiguousarray(x, np.int32).ravel(),
                                device=device)
 
     hid = hid_plane(img)
-    return Tables(
+    tables = Tables(
         hid=t(hid), a=t(img.a), b=t(img.b), c=t(img.c),
         ilo=t(img.imm_lo), ihi=t(img.imm_hi), fent=t(img.f_entry),
         fnpar=t(img.f_nparams), fnloc=t(img.f_nlocals),
@@ -191,30 +249,57 @@ def device_tables(img: DeviceImage, device) -> Tables:
         mem_pages_max=int(img.mem_pages_max),
         has_bulk=bool(np.isin(hid, (H_MEMFILL, H_MEMCOPY)).any()),
         has_hostcall=bool((hid == H_HOSTCALL).any()),
-        has_simd=bool(img.has_simd))
+        has_simd=bool(img.has_simd), fusion=fusion)
+    if fusion == "none":
+        return tables
+    if fusion == "blocks":
+        fhid, shapes = fuse_blocks(hid, img)
+    else:
+        if img.has_simd:
+            raise ValueError("superinstructions move two-word cells: an "
+                             "image with v128 ops runs 'blocks' or 'none'")
+        fhid, fa, fb, fc, filo, fihi = fuse_image(
+            hid, img.a, img.b, img.c, img.imm_lo, img.imm_hi, img)
+        shapes = ()
+        tables.fa, tables.fb, tables.fc = t(fa), t(fb), t(fc)
+        tables.filo, tables.fihi = t(filo), t(fihi)
+    tables.hid0 = tables.hid
+    tables.hid = t(fhid)
+    tables.flen = t(fused_lengths(fhid, shapes))
+    tables.shapes = shapes
+    tables.fused_source = fusegen.cuda_source(
+        fhid, shapes, tables.has_bulk, tables.has_simd)
+    return tables
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel: build, bind, launch
+# The CUDA kernels: build, bind, launch
 # ---------------------------------------------------------------------------
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "interp.cu")
+_CSRC = os.path.join(_PKG, "csrc")
+_SRC = os.path.join(_CSRC, "interp.cu")
+_FUSED_HDR = os.path.join(_CSRC, "fused.cuh")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
               "-ftz=false", "-shared", "-Xcompiler", "-fPIC")
 
-# Launches of the CUDA kernel since the count was last set to 0 (the
+# Launches of the CUDA kernels since the counts were last set to 0 (the
 # plain version never counts): all of them, those whose code holds the
 # bulk-memory cases (h_memfill / h_memcopy), those whose code holds
-# host-call stubs (h_hostcall) and those whose code holds v128 ops (the
-# B7 handlers).
-LAUNCHES = {"interp": 0, "bulk": 0, "hostcall": 0, "simd": 0}
+# host-call stubs (h_hostcall), those whose code holds v128 ops (the B7
+# handlers), and those of the fused kernels: B2 basic blocks ("block")
+# and B6 superinstructions ("super").
+LAUNCHES = {"interp": 0, "bulk": 0, "hostcall": 0, "simd": 0, "block": 0,
+            "super": 0}
 
-_lib = None
+_libs = {}  # build key -> loaded ctypes library
 _lib_lock = threading.Lock()
-BUILD_INFO = {}
+# The per-op kernel's build: "path", "seconds" and "ptxas" (its -v
+# output); "fused" maps each fused build's key to the same three and
+# "fusion", "shapes" and "mean_len".
+BUILD_INFO = {"fused": {}}
 
 
 def _nvcc() -> str:
@@ -223,48 +308,133 @@ def _nvcc() -> str:
     return path if os.path.exists(path) else "nvcc"
 
 
-def build_kernel():
-    """Compile `csrc/interp.cu` with nvcc into a shared library under
-    `_build/` (keyed by the source and flags) and load it.  Returns the
-    ctypes library; `BUILD_INFO` records the path and build seconds."""
-    global _lib
+def _read(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+_jobs = {}  # generated source ("" for the per-op kernel) -> _job's result
+
+
+def _job(tables: Optional[Tables]):
+    """(key, shared library path, source path) of the per-op kernel
+    (tables None) or of the fused kernel of `tables` (its generated
+    source goes under _build/ when it is built)."""
+    text = "" if tables is None else tables.fused_source
+    if text not in _jobs:
+        _jobs[text] = _new_job(tables)
+    return _jobs[text]
+
+
+def _new_job(tables: Optional[Tables]):
+    flags = " ".join(NVCC_FLAGS).encode()
+    if tables is None:
+        key = hashlib.sha256(_read(_SRC) + flags).hexdigest()[:16]
+        return key, os.path.join(_BUILD_DIR, f"libinterp_{key}.so"), _SRC
+    src = tables.fused_source.encode()
+    key = hashlib.sha256(_read(_SRC) + _read(_FUSED_HDR) + src + flags) \
+        .hexdigest()[:16]
+    cu = os.path.join(_BUILD_DIR, f"fused_{key}.cu")
+    return key, os.path.join(_BUILD_DIR, f"libfused_{key}.so"), cu
+
+
+def build_kernels(tables_list=()) -> dict:
+    """Build, all nvcc processes at once, the per-op kernel
+    (`csrc/interp.cu`, four instantiations) and the fused kernel of each
+    fused `Tables` given (`csrc/interp.cu` with `csrc/fused.cuh` and the
+    generated dispatch of its blocks or superinstructions, one
+    instantiation), each into a shared library under `_build/` keyed by
+    the hash of its sources and flags, and load them.  Returns
+    {key: library}; `BUILD_INFO` records paths, build seconds and ptxas
+    output.  Raises if any build fails."""
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        with open(_SRC, "rb") as f:
-            src = f.read()
-        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
-            .hexdigest()[:16]
         os.makedirs(_BUILD_DIR, exist_ok=True)
-        so = os.path.join(_BUILD_DIR, f"libinterp_{key}.so")
-        t0 = time.perf_counter()
-        if not os.path.exists(so):
+        jobs = {}
+        for tb in (None, *tables_list):
+            if tb is not None and tb.fusion == "none":
+                continue
+            key, so, src = _job(tb)
+            jobs.setdefault(key, (so, src, tb))
+        procs = {}
+        for key, (so, src, tb) in jobs.items():
+            if key in _libs or os.path.exists(so):
+                continue
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, _SRC]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if tb is not None:
+                with open(f"{src}.{os.getpid()}.tmp", "w") as f:
+                    f.write(tb.fused_source)
+                os.replace(f"{src}.{os.getpid()}.tmp", src)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", _CSRC,
+                   "-o", tmp, src]
+            # nvcc's output goes to a file: a full pipe would stall it
+            log = open(f"{tmp}.log", "w+")
+            procs[key] = (subprocess.Popen(cmd, stdout=log, stderr=log),
+                          tmp, time.perf_counter(), log)
+        # each build's own seconds: poll until every nvcc has ended
+        ended, logs = {}, {}
+        try:
+            while len(ended) < len(procs):
+                for key, (proc, _, t0, _) in procs.items():
+                    if key not in ended and proc.poll() is not None:
+                        ended[key] = time.perf_counter() - t0
+                time.sleep(0.05)
+        finally:
+            for key, (proc, _, _, log) in procs.items():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.seek(0)
+                logs[key] = log.read()
+                log.close()
+                os.remove(log.name)
+        for key, (proc, tmp, _, _) in procs.items():
+            so, src, tb = jobs[key]
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+                                   f"{src}:\n{logs[key]}")
             os.replace(tmp, so)
-            BUILD_INFO["ptxas"] = proc.stderr
-        BUILD_INFO["seconds"] = time.perf_counter() - t0
-        BUILD_INFO["path"] = so
-        lib = ctypes.CDLL(so)
-        fn = lib.wasm_interp_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * _N_PTRS + [ctypes.c_int] * _N_INTS \
-            + [ctypes.c_void_p]
-        _lib = lib
-        return lib
+            info = {"path": so, "seconds": ended[key], "ptxas": logs[key]}
+            if tb is None:
+                BUILD_INFO.update(info)
+            else:
+                BUILD_INFO["fused"][key] = info
+        for key, (so, _, tb) in jobs.items():
+            if key in _libs:
+                continue
+            lib = ctypes.CDLL(so)
+            extra = 0
+            fn = lib.wasm_interp_launch if tb is None \
+                else lib.wasm_fused_launch
+            if tb is not None:
+                extra = len(_FUSED_FIELDS)
+                n_ops = [len(s) for s in tb.shapes]
+                BUILD_INFO["fused"].setdefault(key, {"path": so}).update(
+                    fusion=tb.fusion, shapes=len(tb.shapes),
+                    mean_len=float(np.mean(n_ops)) if n_ops else 0.0)
+            else:
+                BUILD_INFO.setdefault("path", so)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * (_N_PTRS + extra) + \
+                [ctypes.c_int] * _N_INTS + [ctypes.c_void_p]
+            _libs[key] = lib
+        return {key: _libs[key] for key in jobs}
 
 
-# Pointer arguments, in the order of wasm_interp_launch's signature.
+def fused_kernel_key(tables: Tables) -> str:
+    """The build key of the fused kernel of `tables` (BUILD_INFO["fused"]
+    is keyed by it)."""
+    return _job(tables)[0]
+
+
+# Pointer arguments, in the order of wasm_interp_launch's signature;
+# wasm_fused_launch appends the fused tables.
 _TABLE_FIELDS = ("hid", "a", "b", "c", "ilo", "ihi", "fent", "fnpar",
                  "fnloc", "ftop", "ftyp", "brt", "tbl", "v128")
 _STATE_FIELDS = ("pc", "sp", "fp", "opbase", "call_depth", "trap", "retired",
                  "fuel", "mem_pages", "stack_lo", "stack_hi", "stack_e2",
                  "stack_e3", "fr_ret_pc", "fr_fp", "fr_opbase", "glob_lo",
                  "glob_hi", "mem")
+_FUSED_FIELDS = ("hid0", "flen", "fa", "fb", "fc", "filo", "fihi")
 _N_PTRS = len(_TABLE_FIELDS) + len(_STATE_FIELDS)
 # code_len, nf, n_brt, tsize, nv (v128 table rows), L, D, CD, NG, W,
 # chunk, fuel_on, max_local_zeros, mem_pages_max, bulk and simd (the kernel
@@ -288,7 +458,8 @@ def _check(name, t, device, shape):
 def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool) -> None:
     """Run every live lane for up to `chunk` instructions, in place on
     the state `st` (a `batch.engine.BatchState`).  CUDA tensors launch
-    the kernel; CPU tensors run the plain interpreter."""
+    the kernel of the tables' encoding; CPU tensors run the plain
+    interpreter."""
     device = st.pc.device
     if device.type == "cpu":
         from wasmedge_tpu_torch.batch import interp_ref
@@ -303,9 +474,12 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool) -> None:
     NG = st.glob_lo.shape[0]
     W = st.mem.shape[0]
     n = tables.hid.shape[0]
-    for f in _TABLE_FIELDS:
+    fused = tables.fusion != "none"
+    for f in _TABLE_FIELDS + (("hid0", "flen") if fused else ()):
         _check(f, getattr(tables, f), device, None)
-    for f in ("a", "b", "c", "ilo", "ihi"):
+    for f in ("a", "b", "c", "ilo", "ihi") + (
+            _FUSED_FIELDS if tables.fusion == "super" else
+            ("hid0", "flen") if fused else ()):
         _check(f, getattr(tables, f), device, (n,))
     simd = tables.has_simd
     if (st.stack_e2 is not None) != simd or (st.stack_e3 is not None) != simd:
@@ -319,18 +493,25 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool) -> None:
                 "fr_ret_pc": CD, "fr_fp": CD, "fr_opbase": CD, "glob_lo": NG,
                 "glob_hi": NG, "mem": W}.get(f)
         _check(f, p, device, (L,) if rows is None else (rows, L))
-    lib = build_kernel()
+    key = _job(tables if fused else None)[0]
+    lib = _libs.get(key) or build_kernels([tables])[key]
+    launch = lib.wasm_fused_launch if fused else lib.wasm_interp_launch
     stream = torch.cuda.current_stream(device).cuda_stream
-    ptrs = [getattr(tables, f).data_ptr() for f in _TABLE_FIELDS] + \
-        [None if getattr(st, f) is None else getattr(st, f).data_ptr()
-         for f in _STATE_FIELDS]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    ptrs = [ptr(getattr(tables, f)) for f in _TABLE_FIELDS] + \
+        [ptr(getattr(st, f)) for f in _STATE_FIELDS]
+    if fused:
+        ptrs += [ptr(getattr(tables, f)) for f in _FUSED_FIELDS]
     ints = [n, tables.fent.shape[0], tables.brt.shape[0] // 3,
             tables.tbl.shape[0], tables.v128.shape[0] // 4, L, D, CD, NG, W,
             int(chunk), int(fuel_on),
             tables.max_local_zeros, tables.mem_pages_max,
             int(tables.has_bulk), int(simd)]
     with torch.cuda.device(device):
-        err = lib.wasm_interp_launch(*ptrs, *ints, stream)
+        err = launch(*ptrs, *ints, stream)
     if err != 0:
         raise RuntimeError(f"interpreter kernel launch failed: CUDA error "
                            f"{err}")
@@ -338,3 +519,5 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool) -> None:
     LAUNCHES["bulk"] += tables.has_bulk
     LAUNCHES["hostcall"] += tables.has_hostcall
     LAUNCHES["simd"] += simd
+    LAUNCHES["block"] += tables.fusion == "blocks"
+    LAUNCHES["super"] += tables.fusion == "super"

@@ -39,10 +39,14 @@ import torch
 
 from wasmedge_tpu_torch.batch import laneops as ops
 from wasmedge_tpu_torch.batch import simdops as sops
+from wasmedge_tpu_torch.batch.fusion import H_BLOCK_BASE, super_family
 from wasmedge_tpu_torch.batch.image import ALU1_SUB, TRAP_DONE, TRAP_HOSTCALL
 from wasmedge_tpu_torch.batch.interp import (
     H_ALU1_BASE, H_ALU2_BASE, H_BR, H_BR_TABLE, H_BRNZ, H_BRZ, H_CALL,
-    H_CALL_INDIRECT, H_CONST, H_DROP, H_GLOBAL_GET, H_GLOBAL_SET,
+    H_CALL_INDIRECT, H_CONST, H_DROP, H_FUSE_A2R_BASE, H_FUSE_GBR,
+    H_FUSE_GCA_BASE, H_FUSE_GCB_BASE, H_FUSE_GCC_BASE, H_FUSE_GCS_BASE,
+    H_FUSE_GGA_BASE, H_FUSE_GGBNZ_BASE, H_FUSE_GGBZ_BASE, H_FUSE_GGS_BASE,
+    H_GLOBAL_GET, H_GLOBAL_SET,
     H_HOSTCALL, H_LOAD, H_LOAD_D, H_LOAD_W, H_LOCAL_GET, H_LOCAL_SET,
     H_LOCAL_TEE, H_MEMCOPY, H_MEMFILL, H_MEMGROW, H_MEMSIZE, H_NOP,
     H_RETURN, H_SELECT, H_STORE, H_STORE_D, H_STORE_W, H_TRAP, H_V1_BASE,
@@ -57,20 +61,60 @@ _NUM_ALU1 = len(ALU1_SUB)
 
 
 def run_chunk(t: Tables, st, chunk: int, fuel_on: bool) -> None:
-    for _ in range(int(chunk)):
-        live = (st.trap == 0).nonzero().squeeze(1)
+    # steps each lane has left in this launch (a fused dispatch takes
+    # several at once)
+    left = torch.full_like(st.pc, int(chunk))
+    while True:
+        live = ((st.trap == 0) & (left > 0)).nonzero().squeeze(1)
         if live.numel() == 0:
             return
-        _step(t, st, live, fuel_on)
+        _step(t, st, live, fuel_on, left)
 
 
-def _step(t: Tables, st, lanes, fuel_on):
+def _step(t: Tables, st, lanes, fuel_on, left):
     code_len = t.hid.shape[0]
     pc = st.pc[lanes].clamp(0, code_len - 1)
-    hid = t.hid[pc.long()]
+    pcl = pc.long()
+    hid = t.hid[pcl]
+    fused = torch.zeros_like(hid, dtype=torch.bool)
+    if t.fusion != "none":
+        # a fused id runs only when the lane's steps and fuel cover its
+        # whole length; otherwise the head slot's original op runs
+        flen = t.flen[pcl]
+        fused = flen > 0
+        fits = (left[lanes] >= flen) & (
+            (st.fuel[lanes] > flen) if fuel_on else True)
+        hid = torch.where(fused & ~fits, t.hid0[pcl], hid)
+        fused = fused & fits
     for h in torch.unique(hid).tolist():
         m = hid == h
-        _Group(t, st, lanes[m], pc[m], fuel_on).run(int(h))
+        if bool(fused[m].any()):
+            _run_fused(t, st, lanes[m], pc[m], int(h), fuel_on, left)
+        else:
+            _Group(t, st, lanes[m], pc[m], fuel_on).run(int(h))
+            left[lanes[m]] -= 1
+
+
+def _run_fused(t, st, lanes, pc, h, fuel_on, left):
+    """One fused dispatch (a block or a superinstruction) on the lanes at
+    fused id h, then the terminal op, per op, on the lanes it leaves at
+    one."""
+    g = _Fused(t, st, lanes, pc, fuel_on)
+    if h >= H_BLOCK_BASE:
+        g.block(t.shapes[h - H_BLOCK_BASE])
+    else:
+        g.superinstruction(*super_family(h))
+    g.commit_fused()
+    left[lanes] -= g.n
+    tl = lanes[g.term]
+    if tl.numel() == 0:
+        return
+    tpc = st.pc[tl].clamp(0, t.hid.shape[0] - 1)
+    th = t.hid[tpc.long()]
+    for h2 in torch.unique(th).tolist():
+        m = th == h2
+        _Group(t, st, tl[m], tpc[m], fuel_on).run(int(h2))
+        left[tl[m]] -= 1
 
 
 class _Group:
@@ -322,14 +366,16 @@ class _Group:
         self.new_cd = self.cd + 1
 
     # -- memory ----------------------------------------------------------------
-    def _ea(self, base, nbytes):
-        """Effective address of an access of nbytes at base + offset,
-        bounds in u32 with the carry, its first word and bit shift."""
-        ea = ops.wrap32(base.to(torch.int64) + self.a.to(torch.int64))
+    def _ea(self, base, nbytes, off=None):
+        """Effective address of an access of nbytes at base + offset (the
+        op's `a` unless given), bounds in u32 with the carry, its first
+        word and bit shift."""
+        off = self.a if off is None else off
+        ea = ops.wrap32(base.to(torch.int64) + off.to(torch.int64))
         pages = self.st.mem_pages[self.lanes]
         mem_bytes = ops.wrap32(pages.to(torch.int64) * 65536)
         end = ops.wrap32(ea.to(torch.int64) + nbytes)
-        carry = ops.u_lt(ea, base) | ops.u_lt(ea, self.a)
+        carry = ops.u_lt(ea, base) | ops.u_lt(ea, off)
         oob = carry | ops.u_lt(end, ea) | ops.u_lt(mem_bytes, end)
         widx = (ops.u32(ea) >> 2).to(I32)
         sh = (ea & 3) * 8
@@ -341,12 +387,21 @@ class _Group:
 
     def load(self):
         base, _ = self.cell(self.sp - 1)
-        _, oob, widx, sh = self._ea(base, self.b.to(torch.int64))
+        lo, hi, oob = self.load_val(base, self.a, self.b, self.c)
+        self.put(self.sp - 1, lo, hi, ~oob)
+        self.trap = torch.where(
+            oob, torch.full_like(self.trap, int(ErrCode.MemoryOutOfBounds)),
+            self.trap)
+
+    def load_val(self, base, off, nbytes, flags):
+        """The value (lo, hi) of a load of nbytes (flags: 1 signed, 2 to
+        i64) at base + off, and its out-of-bounds mask."""
+        _, oob, widx, sh = self._ea(base, nbytes.to(torch.int64), off)
         w0, w1, w2 = (ops.u32(w) for w in self._words(widx))
         sh64 = sh.to(torch.int64)
         raw_lo = ops.wrap32(ops.shr_u64(w0 | (w1 << 32), sh64))
         raw_hi = ops.wrap32(ops.shr_u64(w1 | (w2 << 32), sh64))
-        nbytes, signed, is64 = self.b, (self.c & 1) != 0, (self.c & 2) != 0
+        signed, is64 = (flags & 1) != 0, (flags & 2) != 0
         b1, b2 = nbytes == 1, nbytes == 2
         lraw = torch.where(b1, raw_lo & 0xFF,
                            torch.where(b2, raw_lo & 0xFFFF, raw_lo))
@@ -358,17 +413,23 @@ class _Group:
             nbytes == 8, raw_hi,
             torch.where(signed, lo >> 31, torch.zeros_like(lo))),
             torch.zeros_like(lo))
-        self.put(self.sp - 1, lo, hi, ~oob)
-        self.trap = torch.where(
-            oob, torch.full_like(self.trap, int(ErrCode.MemoryOutOfBounds)),
-            self.trap)
+        return lo, hi, oob
 
     def store(self):
         v_lo, v_hi = self.cell(self.sp - 1)
         base, _ = self.cell(self.sp - 2)
-        _, oob, widx, sh = self._ea(base, self.b.to(torch.int64))
+        oob = self.store_val(base, self.a, self.b, v_lo, v_hi)
+        self.new_sp = self.sp - 2
+        self.trap = torch.where(
+            oob, torch.full_like(self.trap, int(ErrCode.MemoryOutOfBounds)),
+            self.trap)
+
+    def store_val(self, base, off, nbytes, v_lo, v_hi, mask=None):
+        """A store of nbytes of (v_lo, v_hi) at base + off on the lanes of
+        `mask` (all when None) that are in bounds; returns the
+        out-of-bounds mask."""
+        _, oob, widx, sh = self._ea(base, nbytes.to(torch.int64), off)
         words = self._words(widx)
-        nbytes = self.b
         sh64 = sh.to(torch.int64)
         full = torch.where(nbytes == 1, torch.full_like(sh64, 0xFF),
                            torch.where(nbytes == 2,
@@ -385,15 +446,12 @@ class _Group:
                          ops.shr_u64(val, back) & 0xFFFFFFFF)
         masks = [m01 & 0xFFFFFFFF, ops.shr_u64(m01, 32), m2]
         vals = [v01 & 0xFFFFFFFF, ops.shr_u64(v01, 32), v2]
-        ok = ~oob
+        ok = ~oob if mask is None else ~oob & mask
         for k in range(3):
             mk = masks[k]
             new = (ops.u32(words[k]) & ~mk) | (vals[k] & mk)
             self.scat(self.st.mem, widx + k, ops.wrap32(new), ok & (mk != 0))
-        self.new_sp = self.sp - 2
-        self.trap = torch.where(
-            oob, torch.full_like(self.trap, int(ErrCode.MemoryOutOfBounds)),
-            self.trap)
+        return oob
 
     def memsize(self):
         pages = self.st.mem_pages[self.lanes]
@@ -468,9 +526,9 @@ class _Group:
         self.put(self.sp - 1, lo, hi)
 
     # -- v128 (B7) -------------------------------------------------------------
-    def _v128_row(self):
+    def _v128_row(self, a=None):
         n = self.t.v128.shape[0] // 4
-        base = self.a.clamp(0, n - 1).long() * 4
+        base = (self.a if a is None else a).clamp(0, n - 1).long() * 4
         return tuple(self.t.v128[base + k] for k in range(4))
 
     def vconst(self):
@@ -572,6 +630,234 @@ _BASE = {
     H_VBITSEL: _Group.vbitsel, H_VLOAD: _Group.vload,
     H_VSTORE: _Group.vstore,
 }
+
+
+class _Fused(_Group):
+    """One fused dispatch on the lanes at one fused id: a B2 block shape
+    run op by op over a virtual stack (a list of cells, each a tuple of
+    per-lane tensors, lo/hi and e2/e3 or None), or a B6
+    superinstruction.  The flush rule is the kernel's: at every exit the
+    cells of the virtual stack at that point are written to their rows
+    (scalar cells with e2/e3 zero), and nothing else of the stack is
+    written.  Per lane it records the new pc and sp, the instructions
+    retired (`n`), a trap, and whether a terminal op is left (`term`)."""
+
+    def __init__(self, t, st, lanes, pc, fuel_on):
+        super().__init__(t, st, lanes, pc, fuel_on)
+        z = torch.zeros_like(pc)
+        self.active = torch.ones_like(pc, dtype=torch.bool)
+        self.out_pc, self.out_sp = pc.clone(), self.sp.clone()
+        self.n, self.otrap = z.clone(), z.clone()
+        self.term = torch.zeros_like(self.active)
+
+    def at(self, plane, j):
+        return plane[(self.pc + j).long()]
+
+    def sc(self, lo, hi):
+        """A scalar cell."""
+        z = torch.zeros_like(lo) if self.simd else None
+        return (lo, hi, z, z)
+
+    def exit(self, mask, snap, pc, sp, n, trap=0):
+        mask = mask & self.active
+        self.flush(snap, mask)
+        self.out_pc = torch.where(mask, pc, self.out_pc)
+        self.out_sp = torch.where(mask, sp, self.out_sp)
+        self.n = torch.where(mask, torch.full_like(self.n, n), self.n)
+        if trap:
+            self.otrap = torch.where(mask, torch.full_like(self.n, trap),
+                                     self.otrap)
+        self.active = self.active & ~mask
+
+    def flush(self, snap, mask):
+        items, nbelow = snap
+        for i, cell in enumerate(items):
+            self.put4(self.sp + (i - nbelow), cell, mask)
+
+    @staticmethod
+    def sp_of(sp0, snap):
+        return sp0 + (len(snap[0]) - snap[1])
+
+    # -- B2 ------------------------------------------------------------------
+    def block(self, shape):
+        term = shape[-1][0] == "term"
+        body = shape[:-1] if term else shape
+        self.items, self.nbelow = [], 0
+        for j, op in enumerate(body):
+            self.block_op(j, op)
+        snap = (self.items, self.nbelow)
+        ran_through = self.active
+        self.exit(ran_through, snap, self.pc + len(body),
+                  self.sp_of(self.sp, snap), len(body))
+        if term:
+            self.term = ran_through
+
+    def pop(self):
+        if self.items:
+            return self.items.pop()
+        self.nbelow += 1
+        return self.cell4(self.sp - self.nbelow)
+
+    def peek(self):
+        if self.items:
+            return self.items[-1]
+        return self.cell4(self.sp - self.nbelow - 1)
+
+    def snap(self):
+        return list(self.items), self.nbelow
+
+    def block_op(self, j, op):
+        kind, t = op[0], self.t
+        push = self.items.append
+        a = self.at(t.a, j)
+        if kind == "nop":
+            pass
+        elif kind == "const":
+            push(self.sc(self.at(t.ilo, j), self.at(t.ihi, j)))
+        elif kind == "lget":
+            # a local written earlier in the block reads back its new value
+            push(self.cell4(self.fp + a))
+        elif kind in ("lset", "ltee"):
+            v = self.pop() if kind == "lset" else self.peek()
+            self.put4(self.fp + a, v, self.active)
+        elif kind == "gget":
+            g = a.clamp(0, self.st.glob_lo.shape[0] - 1)
+            push(self.sc(self.gat(self.st.glob_lo, g),
+                         self.gat(self.st.glob_hi, g)))
+        elif kind == "gset":
+            v = self.pop()
+            g = a.clamp(0, self.st.glob_lo.shape[0] - 1)
+            self.scat(self.st.glob_lo, g, v[0], self.active)
+            self.scat(self.st.glob_hi, g, v[1], self.active)
+        elif kind == "drop":
+            self.pop()
+        elif kind == "select":
+            cnd, x2, x1 = self.pop(), self.pop(), self.pop()
+            z = cnd[0] == 0
+            push(tuple(None if u is None else torch.where(z, u, w)
+                       for u, w in zip(x2, x1)))
+        elif kind == "memsize":
+            pages = self.st.mem_pages[self.lanes]
+            push(self.sc(pages, torch.zeros_like(pages)))
+        elif kind == "alu2":
+            y, x = self.pop(), self.pop()
+            push(self.sc(*ops.alu2(op[1], x[0], x[1], y[0], y[1])))
+        elif kind == "alu1":
+            x = self.pop()
+            push(self.sc(*ops.alu1(op[1], x[0], x[1])))
+        elif kind in ("guardz", "guardnz"):
+            cnd = self.pop()
+            snap = self.snap()
+            if kind == "guardz":
+                self.exit(cnd[0] == 0, snap, a, self.sp_of(self.sp, snap),
+                          j + 1)
+            else:
+                self.exit(cnd[0] != 0, snap, a, self.ob + self.at(t.c, j),
+                          j + 1)
+        elif kind == "loadi":
+            pre = self.snap()
+            addr = self.pop()
+            lo, hi, oob = self.load_val(addr[0], a, self.at(t.b, j),
+                                        self.at(t.c, j))
+            self.exit(oob, pre, self.pc + j, self.sp_of(self.sp, pre), j + 1,
+                      int(ErrCode.MemoryOutOfBounds))
+            push(self.sc(lo, hi))
+        elif kind == "storei":
+            pre = self.snap()
+            val, addr = self.pop(), self.pop()
+            oob = self.store_val(addr[0], a, self.at(t.b, j), val[0], val[1],
+                                 self.active)
+            self.exit(oob, pre, self.pc + j, self.sp_of(self.sp, pre), j + 1,
+                      int(ErrCode.MemoryOutOfBounds))
+        else:
+            push(self.block_v128(op, a))
+
+    def block_v128(self, op, a):
+        kind = op[0]
+        if kind == "v2":
+            y, x = self.pop(), self.pop()
+            return sops.v2_fn(op[1])(x, y)
+        if kind == "v1":
+            return sops.v1_fn(op[1])(self.pop())
+        if kind == "vtest":
+            r = sops.vtest_fn(op[1])(self.pop())
+            return self.sc(r, torch.zeros_like(r))
+        if kind == "vshift":
+            cnt, x = self.pop(), self.pop()
+            return sops.vshift_fn(op[1])(x, cnt[0])
+        if kind == "vsplat":
+            v = self.pop()
+            return sops.vsplat_fn(op[1])(v[0], v[1])
+        if kind == "vextract":
+            return self.sc(*sops.vextract_dyn(op[1])(self.pop(), a))
+        if kind == "vreplace":
+            v, x = self.pop(), self.pop()
+            return sops.vreplace_dyn(op[1])(x, a, v[0], v[1])
+        if kind == "vconst":
+            return self._v128_row(a)
+        if kind == "vshuffle":
+            y, x = self.pop(), self.pop()
+            return sops.vshuffle_dyn(x, y, self._v128_row(a))
+        if kind == "vbitsel":
+            m, x, w = self.pop(), self.pop(), self.pop()
+            return sops.vbitselect(w, x, m)
+        raise ValueError(f"unknown block op {op}")
+
+    # -- B6 ------------------------------------------------------------------
+    def superinstruction(self, base, sub):
+        t = self.t
+        pcl = self.pc.long()
+        fa, fb, fc = t.fa[pcl], t.fb[pcl], t.fc[pcl]
+        filo, fihi = t.filo[pcl], t.fihi[pcl]
+        fp, ob, sp, pc = self.fp, self.ob, self.sp, self.pc
+        if base == H_FUSE_GBR:
+            self.put4(ob + fc, self.cell4(fp + filo), fb == 1)
+            self._super_out(fa, ob + fc + fb, 2)
+            return
+        if base == H_FUSE_A2R_BASE:
+            # the result lands where the return moves it; the return is
+            # the terminal
+            x, y = self.cell(sp - 2), self.cell(sp - 1)
+            self.put(fp, *ops.alu2(sub, *x, *y))
+            self._super_out(pc + 1, fp + 1, 1, term=True)
+            return
+        if base in (H_FUSE_GGA_BASE, H_FUSE_GGS_BASE):
+            x, y = self.cell(fp + fa), self.cell(fp + fc)
+        elif base in (H_FUSE_GGBZ_BASE, H_FUSE_GGBNZ_BASE):
+            x, y = self.cell(fp + filo), self.cell(fp + fihi)
+        else:
+            x, y = self.cell(fp + fa), (filo, fihi)
+        r = ops.alu2(sub, *x, *y)
+        if base in (H_FUSE_GCA_BASE, H_FUSE_GGA_BASE, H_FUSE_GCC_BASE):
+            # GCC leaves its call to the per-op code
+            self.put(sp, *r)
+            self._super_out(pc + 3, sp + 1, 3,
+                            term=base == H_FUSE_GCC_BASE)
+        elif base in (H_FUSE_GCS_BASE, H_FUSE_GGS_BASE):
+            self.put(fp + fb, *r)
+            self._super_out(pc + 4, sp, 4)
+        elif base in (H_FUSE_GCB_BASE, H_FUSE_GGBZ_BASE):
+            tgt = fb if base == H_FUSE_GCB_BASE else fa
+            self._super_out(torch.where(r[0] == 0, tgt, pc + 4), sp, 4)
+        else:  # GGBNZ
+            taken = r[0] != 0
+            self.put4(ob + fc, self.cell4(sp - 1), taken & (fb == 1))
+            self._super_out(torch.where(taken, fa, pc + 4),
+                            torch.where(taken, ob + fc + fb, sp), 4)
+
+    def _super_out(self, pc, sp, n, term=False):
+        self.out_pc, self.out_sp = pc, sp
+        self.n = torch.full_like(self.n, n)
+        self.term = torch.full_like(self.term, term)
+
+    def commit_fused(self):
+        st, lanes = self.st, self.lanes
+        st.pc[lanes] = self.out_pc
+        st.sp[lanes] = self.out_sp
+        st.retired[lanes] += self.n
+        if self.fuel_on:
+            st.fuel[lanes] -= self.n
+        st.trap[lanes] = self.otrap
 
 
 _BYTE_MASKS = (0xFF, 0xFF00, 0xFF0000, 0xFF000000)

@@ -74,6 +74,12 @@ class BatchConfigure:
     # serve parked host calls by groups through the SoA-vectorized WASI
     # implementations (host/wasi/vectorized.py) instead of lane by lane
     vectorized_hostcalls: bool = True
+    # Basic-block fusion in the warp-interpreter: straight-line runs of
+    # pure stack ops compile into single handlers that keep
+    # intermediates in registers (one dispatch per block instead of one
+    # per instruction).  None = on; False falls back to the peephole
+    # superinstructions (per-op dispatch for images with v128 ops).
+    block_fusion: Optional[bool] = None
 
 
 @dataclasses.dataclass

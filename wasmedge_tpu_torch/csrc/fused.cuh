@@ -1,0 +1,212 @@
+// Fused dispatch for the warp-interpreter: B2 basic blocks and B6 peephole
+// superinstructions (sm_90a).
+//
+// Replaces, in wasmedge_tpu/batch/pallas_engine.py, the fused basic blocks
+// `mk_block` (:2758-3201, planner `fuse_blocks` :429-569) and the
+// superinstruction handlers `mk_fuse_gca` ... `h_fuse_gbr` (:2472-2652,
+// planner `fuse_image` :269-388).  The Pallas kernel builds one handler
+// per block shape while it traces, with a virtual stack resolved at trace
+// time, so a block's intermediates live in vector registers.  Here a
+// generator (batch/fusegen.py) writes one `case` per block shape and per
+// superinstruction id of a module, with a virtual stack resolved when the
+// code is generated: every cell a block pushes and pops is a variable of
+// straight-line code, so nvcc keeps it in registers; local and global
+// writes commit at once, and a later read of the same local or global
+// ordinal takes the written value; at any exit the live cells are written
+// to the stack rows.  The module's source includes interp.cu and this
+// file, and instantiates interp_kernel once, with the module's kBulk and
+// kSimd and its `Fused` dispatch, into a shared library of its own.
+//
+// What bounds the per-op loop on the H100 is the latency of the dependent
+// global-memory accesses each instruction makes (the hid load, operand
+// rows, the result row) with about one warp per SM.  A fused dispatch pays
+// the loop's bookkeeping (pc clamp, hid load, fuel, trap check) once per
+// block and keeps the stack traffic between a block's ops in registers.
+//
+// Semantics kept exact (batch/interp_ref.py is the plain version):
+//  - a fused dispatch runs only when the lane's remaining steps in the
+//    launch and its fuel cover the whole fused length (interp.cu), so
+//    `retired`, `fuel` and the stopping instruction are the per-op loop's;
+//  - exits inside a block leave the per-op state: a taken forward branch
+//    (guard) exits at its op having retired it; an inline load or store
+//    out of bounds traps with everything before it committed, pc at the
+//    op and sp its pre-op sp; the terminal runs as a per-op step;
+//  - the flush rule: at every exit each cell of the virtual stack at that
+//    point is written to its row (a scalar cell with e2/e3 zeroed, a v128
+//    cell with all four words); rows the per-op loop would write for
+//    cells that die inside the dispatch are not written.
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// Cells of the virtual stack: u64 (scalar) or V4 (v128, kSimd builds)
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ u64 lo64(u64 v) { return v; }
+__device__ __forceinline__ u64 lo64(const V4& v) {
+  return ((u64)v.w[1] << 32) | v.w[0];
+}
+__device__ __forceinline__ V4 v4of(u64 v) {
+  return V4{{(u32)v, (u32)(v >> 32), 0u, 0u}};
+}
+__device__ __forceinline__ V4 v4of(const V4& v) { return v; }
+
+// an ALU op that cannot trap (the planner fuses no div/rem and no trapping
+// truncation), its sub known when the code is generated
+__device__ __forceinline__ u64 fused_alu2(int sub, u64 x, u64 y) {
+  int t = 0;
+  return alu2(sub, x, y, t);
+}
+__device__ __forceinline__ u64 fused_alu1(int sub, u64 w) {
+  int t = 0;
+  return alu1(sub, w, t);
+}
+
+template <bool kSimd>
+__device__ __forceinline__ u64 fused_gget(const Params& p,
+                                          const Lane<kSimd>& s, int g) {
+  const size_t i = s.at(g, p.NG);
+  return pack(p.glob_lo[i], p.glob_hi[i]);
+}
+template <bool kSimd>
+__device__ __forceinline__ void fused_gset(const Params& p,
+                                           const Lane<kSimd>& s, int g,
+                                           u64 v) {
+  const size_t i = s.at(g, p.NG);
+  p.glob_lo[i] = lo32(v);
+  p.glob_hi[i] = hi32(v);
+}
+
+// v128 table row `a`: a v128.const value or a shuffle's byte selectors
+__device__ __forceinline__ V4 fused_vrow(const Params& p, int a) {
+  const int row = clampi(a, 0, p.nv - 1) * 4;
+  return V4{{(u32)__ldg(&p.v128[row]), (u32)__ldg(&p.v128[row + 1]),
+             (u32)__ldg(&p.v128[row + 2]), (u32)__ldg(&p.v128[row + 3])}};
+}
+__device__ __forceinline__ V4 fused_vshuffle(const Params& p, int a,
+                                             const V4& x, const V4& y) {
+  const V4 c = fused_vrow(p, a);
+  V4 r;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) r.w[k] = shuffle_word(x, y, c.w[k], false);
+  return r;
+}
+// operands (v1, v2, mask) from the third cell down to the top
+__device__ __forceinline__ V4 fused_vbitsel(const V4& a, const V4& b,
+                                            const V4& m) {
+  V4 r;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) r.w[k] = (a.w[k] & m.w[k]) | (b.w[k] & ~m.w[k]);
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// Inline loads and stores: interp.cu's per-op H_LOAD / H_STORE cases with
+// the width and flags known when the code is generated.  false: out of
+// bounds, nothing read or written.
+// ---------------------------------------------------------------------------
+template <bool kSimd>
+__device__ __forceinline__ bool fused_load(const Params& p,
+                                           const Lane<kSimd>& s, int pages,
+                                           u32 base, u32 off, int nbytes,
+                                           int flags, u64& out) {
+  const u32 ea = base + off;
+  const u32 end = ea + (u32)nbytes;
+  const u32 mem_bytes = (u32)pages * 65536u;
+  if (ea < base || ea < off || end < ea || mem_bytes < end) return false;
+  const int widx = (int)(ea >> 2);
+  const u32 sh = (ea & 3) * 8;
+  u32 w[3];
+  for (int k = 0; k < 3; ++k) w[k] = (u32)p.mem[s.at(widx + k, p.W)];
+  const bool sgn = (flags & 1) != 0, is64 = (flags & 2) != 0;
+  const u32 raw_lo = sh ? (w[0] >> sh) | (w[1] << (32 - sh)) : w[0];
+  const u32 raw_hi = sh ? (w[1] >> sh) | (w[2] << (32 - sh)) : w[1];
+  u32 lo;
+  if (nbytes == 1) lo = sgn ? sext(raw_lo, 8) : (raw_lo & 0xFFu);
+  else if (nbytes == 2) lo = sgn ? sext(raw_lo, 16) : (raw_lo & 0xFFFFu);
+  else lo = raw_lo;
+  u32 hi = 0;
+  if (is64) hi = nbytes == 8 ? raw_hi : (sgn ? (u32)((i32)lo >> 31) : 0u);
+  out = ((u64)hi << 32) | lo;
+  return true;
+}
+
+template <bool kSimd>
+__device__ __forceinline__ bool fused_store(const Params& p,
+                                            const Lane<kSimd>& s, int pages,
+                                            u32 base, u32 off, int nbytes,
+                                            u64 val) {
+  const u32 ea = base + off;
+  const u32 end = ea + (u32)nbytes;
+  const u32 mem_bytes = (u32)pages * 65536u;
+  if (ea < base || ea < off || end < ea || mem_bytes < end) return false;
+  const int widx = (int)(ea >> 2);
+  const u32 sh = (ea & 3) * 8;
+  size_t wi[3];
+  u32 w[3];
+  for (int k = 0; k < 3; ++k) {
+    wi[k] = s.at(widx + k, p.W);
+    w[k] = (u32)p.mem[wi[k]];
+  }
+  const u64 full = nbytes == 1 ? 0xFFull : nbytes == 2 ? 0xFFFFull
+                   : nbytes == 8 ? ~0ull : 0xFFFFFFFFull;
+  const u64 m01 = full << sh, v01 = val << sh;
+  const u32 mk[3] = {(u32)m01, (u32)(m01 >> 32),
+                     sh ? (u32)(full >> (64 - sh)) : 0u};
+  const u32 vk[3] = {(u32)v01, (u32)(v01 >> 32),
+                     sh ? (u32)(val >> (64 - sh)) : 0u};
+  for (int k = 0; k < 3; ++k)
+    if (mk[k] != 0) p.mem[wi[k]] = (i32)((w[k] & ~mk[k]) | (vk[k] & mk[k]));
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// Launch of a module's fused kernel: one instantiation, the module's
+// kBulk and kSimd.  Returns a CUDA error code (0 = launched).
+// ---------------------------------------------------------------------------
+template <bool kBulk, bool kSimd, class F>
+int fused_launch(const Params& p, int bulk, int simd, void* stream) {
+  if ((bulk != 0) != kBulk || (simd != 0) != kSimd || !p.hid0 || !p.flen)
+    return (int)cudaErrorInvalidValue;
+  if (kSimd && (p.stack_e2 == nullptr || p.stack_e3 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  const int blocks = (p.L + threads - 1) / threads;
+  if (blocks > 0)
+    interp_kernel<kBulk, kSimd, F>
+        <<<blocks, threads, 0, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The module's C entry: wasm_interp_launch's arguments, then the fused
+// tables (hid0, flen and the superinstructions' operand planes, null for
+// blocks).
+#define WASM_FUSED_LAUNCH(KBULK, KSIMD, FUSED)                                 \
+  extern "C" int wasm_fused_launch(                                            \
+      const int* hid, const int* a, const int* b, const int* c,                \
+      const int* ilo, const int* ihi, const int* fent, const int* fnpar,       \
+      const int* fnloc, const int* ftop, const int* ftyp, const int* brt,      \
+      const int* tbl, const int* v128, int* pc, int* sp, int* fp,              \
+      int* opbase, int* call_depth, int* trap, int* retired, int* fuel,        \
+      int* mem_pages, int* stack_lo, int* stack_hi, int* stack_e2,             \
+      int* stack_e3, int* fr_ret_pc, int* fr_fp, int* fr_opbase,               \
+      int* glob_lo, int* glob_hi, int* mem, const int* hid0,                   \
+      const int* flen, const int* fa, const int* fb, const int* fc,            \
+      const int* filo, const int* fihi, int code_len, int nf, int n_brt,       \
+      int tsize, int nv, int L, int D, int CD, int NG, int W, int chunk,       \
+      int fuel_on, int max_local_zeros, int mem_pages_max, int bulk,           \
+      int simd, void* stream) {                                                \
+    Params p{hid,       a,         b,        c,         ilo,                   \
+             ihi,       fent,      fnpar,    fnloc,     ftop,                  \
+             ftyp,      brt,       tbl,      pc,        sp,                    \
+             fp,        opbase,    call_depth, trap,    retired,               \
+             fuel,      mem_pages, stack_lo, stack_hi,  fr_ret_pc,             \
+             fr_fp,     fr_opbase, glob_lo,  glob_hi,   mem,                   \
+             code_len,  nf,        n_brt,    tsize,     L,                     \
+             D,         CD,        NG,       W,         chunk,                 \
+             fuel_on,   max_local_zeros, mem_pages_max, v128, stack_e2,        \
+             stack_e3,  nv,        hid0,     flen,      fa,                    \
+             fb,        fc,        filo,     fihi};                            \
+    return fused_launch<KBULK, KSIMD, FUSED>(p, bulk, simd, stream);           \
+  }

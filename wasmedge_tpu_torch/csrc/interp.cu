@@ -64,6 +64,13 @@
 
 #include <type_traits>
 
+// The scalar ALU functions below are left to nvcc's inliner in the shared
+// per-op build; a fused build (fused.cuh) forces them inline, so that a
+// block's ALU op with its sub known at compile time folds to its one case.
+#ifndef ALU_INLINE
+#define ALU_INLINE
+#endif
+
 namespace {
 
 typedef int32_t i32;
@@ -115,6 +122,8 @@ constexpr int H_ALU2_BASE = 24;
 constexpr int NUM_ALU2 = 76;
 constexpr int H_ALU1_BASE = 100;
 constexpr int NUM_ALU1 = 61;
+constexpr int H_FUSE_GCA_BASE = 161;  // B6 superinstructions, 161-845
+constexpr int H_FUSE_GBR = 845;
 constexpr int H_LOAD_W = 846;
 constexpr int H_LOAD_D = 847;
 constexpr int H_STORE_W = 848;
@@ -131,7 +140,7 @@ constexpr int H_VSHIFT_BASE = 1034;
 constexpr int H_VSPLAT_BASE = 1046;
 constexpr int H_VEXTRACT_BASE = 1052;
 constexpr int H_VREPLACE_BASE = 1060;
-constexpr int NUM_HANDLERS = 1066;
+constexpr int NUM_HANDLERS = 1066;  // B2 block ids start here
 
 // First sub id of each family in batch/simdops.py's V2_NAMES / V1_NAMES
 // (the ops of a family follow in the order of its name list there).
@@ -194,6 +203,16 @@ struct Params {
   i32* stack_e2;                 // null unless the image holds v128 ops
   i32* stack_e3;
   int nv;
+  // fused encodings (a fused build only): the original hid plane, the
+  // instructions a fused dispatch retires in full, and the rewritten
+  // operand planes of the superinstructions
+  const i32* __restrict__ hid0;
+  const i32* __restrict__ flen;
+  const i32* __restrict__ fa;
+  const i32* __restrict__ fb;
+  const i32* __restrict__ fc;
+  const i32* __restrict__ filo;
+  const i32* __restrict__ fihi;
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -337,7 +356,7 @@ __device__ __forceinline__ u32 sext(u32 v, int bits) {
 // ---------------------------------------------------------------------------
 // ALU2: sub (image.py numbering) on x, y -> result cell; trap code out.
 // ---------------------------------------------------------------------------
-__device__ u64 alu2_i32(int op, u32 x, u32 y, int& trap) {
+__device__ ALU_INLINE u64 alu2_i32(int op, u32 x, u32 y, int& trap) {
   i32 xs = (i32)x, ys = (i32)y;
   u32 n = y & 31;
   switch (op) {
@@ -380,7 +399,7 @@ __device__ u64 alu2_i32(int op, u32 x, u32 y, int& trap) {
   }
 }
 
-__device__ u64 alu2_i64(int op, u64 x, u64 y, int& trap) {
+__device__ ALU_INLINE u64 alu2_i64(int op, u64 x, u64 y, int& trap) {
   i64 xs = (i64)x, ys = (i64)y;
   u32 n = (u32)(y & 63);
   switch (op) {
@@ -422,7 +441,7 @@ __device__ u64 alu2_i64(int op, u64 x, u64 y, int& trap) {
   }
 }
 
-__device__ u64 alu2_f32(int op, u32 x, u32 y) {
+__device__ ALU_INLINE u64 alu2_f32(int op, u32 x, u32 y) {
   switch (op) {
     case 0: return canon32(bits32(__fadd_rn(f32(x), f32(y))));
     case 1: return canon32(bits32(__fsub_rn(f32(x), f32(y))));
@@ -440,7 +459,7 @@ __device__ u64 alu2_f32(int op, u32 x, u32 y) {
   }
 }
 
-__device__ u64 alu2_f64(int op, u64 x, u64 y) {
+__device__ ALU_INLINE u64 alu2_f64(int op, u64 x, u64 y) {
   double dx = f64(x), dy = f64(y);
   switch (op) {
     case 0: return canon64(bits64(__dadd_rn(dx, dy)));
@@ -471,7 +490,7 @@ __device__ __forceinline__ u64 alu2(int sub, u64 x, u64 y, int& trap) {
 // ---------------------------------------------------------------------------
 // float -> int truncations (subs 23-26 and 49-60): laneops.alu1_fns trunc64
 // and alu1_trap_fns, via the exact f64 integer path.
-__device__ u64 alu1_trunc(u64 w, bool src32, bool to32, bool is_signed, bool sat,
+__device__ ALU_INLINE u64 alu1_trunc(u64 w, bool src32, bool to32, bool is_signed, bool sat,
                           int& trap) {
   u64 v = src32 ? f32_to_f64((u32)w) : w;
   bool ok_s, ok_u, nan;
@@ -495,7 +514,7 @@ __device__ u64 alu1_trunc(u64 w, bool src32, bool to32, bool is_signed, bool sat
   return nan ? 0 : (ok ? out : clamp);
 }
 
-__device__ u64 alu1(int sub, u64 w, int& trap) {
+__device__ ALU_INLINE u64 alu1(int sub, u64 w, int& trap) {
   u32 lo = (u32)w, hi = (u32)(w >> 32);
   switch (sub) {
     case 0: return __clz((int)lo);
@@ -1293,7 +1312,22 @@ __device__ __forceinline__ int simd_step(const Params& p,
 // H100 by 6 %, and out of line (__noinline__) it still cost 1-2 %
 // (PERF.md).  kSimd: the image holds v128 ops (four-word cells and the
 // B7 handlers, above); without them nothing of v128 is compiled in.
-template <bool kBulk, bool kSimd>
+//
+// F: the fused dispatch of a per-module build (fused.cuh and the code
+// batch/fusegen.py generates; B2 blocks or B6 superinstructions), or
+// NoFusion for the shared per-op build, which then compiles to the loop
+// it always was.  A fused id runs F::step only when the lane's remaining
+// steps in the launch and, with fuel on, its remaining fuel cover the
+// whole fused length, so a launch stops at the same instruction as the
+// per-op loop; otherwise the lane runs the head slot's original op
+// (hid0) and goes on one op at a time.  F::step retires n ops (their
+// writes committed, the live cells of its virtual stack flushed) and may
+// leave a terminal op at pc, which the per-op code below then runs.
+struct NoFusion {
+  static constexpr bool kOn = false;
+};
+
+template <bool kBulk, bool kSimd, class F = NoFusion>
 __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.L) return;
@@ -1306,8 +1340,34 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
   int trap = 0;
 
   for (int step = 0; step < p.chunk; ++step) {
-    const int pcc = clampi(pc, 0, p.code_len - 1);
-    const int h = __ldg(&p.hid[pcc]);
+    int pcc = clampi(pc, 0, p.code_len - 1);
+    int h = __ldg(&p.hid[pcc]);
+    if constexpr (F::kOn) {
+      if ((unsigned)(h - H_FUSE_GCA_BASE) <= (unsigned)(H_FUSE_GBR - H_FUSE_GCA_BASE) ||
+          h >= NUM_HANDLERS) {
+        const int len = __ldg(&p.flen[pcc]);
+        if (p.chunk - step >= len && (!p.fuel_on || fuel > len)) {
+          int n = 0, xtrap = 0;
+          const bool term = F::template step<kSimd>(p, s, h, pc, sp, fp, ob,
+                                                    pages, n, xtrap);
+          retired += n;
+          if (p.fuel_on) fuel -= n;
+          if (xtrap != 0) {
+            trap = xtrap;  // pc and sp are the trapping op's own
+            break;
+          }
+          step += n;
+          if (!term) {
+            --step;  // the loop's increment
+            continue;
+          }
+          pcc = clampi(pc, 0, p.code_len - 1);
+          h = __ldg(&p.hid[pcc]);  // the terminal keeps its original id
+        } else {
+          h = __ldg(&p.hid0[pcc]);
+        }
+      }
+    }
     int new_pc = pcc + 1, new_sp = sp, new_fp = fp, new_ob = ob, new_cd = cd;
     int ntrap = 0;
     int sp_halt = sp;
@@ -1592,6 +1652,7 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
 
 }  // namespace
 
+#ifndef WASM_FUSED_BUILD
 extern "C" int wasm_interp_launch(
     const int* hid, const int* a, const int* b, const int* c, const int* ilo,
     const int* ihi, const int* fent, const int* fnpar, const int* fnloc,
@@ -1625,3 +1686,4 @@ extern "C" int wasm_interp_launch(
   }
   return (int)cudaGetLastError();
 }
+#endif  // WASM_FUSED_BUILD

@@ -721,3 +721,176 @@ def build_simd_host() -> bytes:
     """f(x): v128 residue under env.double(x)'s frame, then v128 math on
     the result."""
     return parse_wat(V128_HOST_WAT)
+
+
+# -- fusion fixtures (B2 blocks, B6 superinstructions) -------------------------
+
+GUARD_WAT = """
+(module
+  (memory 1)
+  (global $g (mut i32) (i32.const 3))
+  (global $h (mut i64) (i64.const 5))
+  (func (export "guard") (param $x i32) (param $n i32) (result i32)
+    (local $acc i32) (local $i i32) (local $w i64)
+    (loop $top
+      (block $skip
+        ;; local and global traffic, then a forward br_if mid-block
+        ;; (guardnz): taken when (x + i) & 3 != 0
+        local.get $acc
+        local.get $i
+        i32.add
+        local.tee $acc
+        global.get $g
+        i32.xor
+        global.set $g
+        local.get $x
+        local.get $i
+        i32.add
+        i32.const 3
+        i32.and
+        br_if $skip
+        global.get $g
+        i32.const 7
+        i32.mul
+        global.set $g
+        global.get $g
+        local.get $acc
+        local.get $i
+        i32.const 1
+        i32.and
+        select
+        local.set $acc
+        memory.size
+        local.get $acc
+        i32.add
+        drop
+        local.get $w
+        global.get $h
+        i64.add
+        global.set $h)
+      ;; an if without else mid-block (guardz): taken when i is even
+      (if (i32.and (local.get $i) (i32.const 1))
+        (then
+          local.get $acc
+          i32.const 11
+          i32.add
+          local.set $acc))
+      ;; an if on two locals (local.get, local.get, compare, brz)
+      (if (i32.gt_u (local.get $acc) (local.get $x))
+        (then
+          local.get $acc
+          i32.const 3
+          i32.shr_u
+          local.set $acc))
+      local.get $w
+      local.get $acc
+      i64.extend_i32_u
+      i64.add
+      local.set $w
+      local.get $i
+      i32.const 1
+      i32.add
+      local.tee $i
+      local.get $n
+      i32.lt_s
+      br_if $top)
+    local.get $acc
+    global.get $g
+    i32.add
+    local.get $w
+    global.get $h
+    i64.xor
+    i32.wrap_i64
+    i32.xor))
+"""
+
+
+def build_guard_mix() -> bytes:
+    """guard(x, n): a loop whose blocks hold a forward br_if (taken or not
+    per lane and iteration), an if without else, local.tee, select,
+    memory.size, drop and global writes read back in the same block."""
+    return parse_wat(GUARD_WAT)
+
+
+OOB_WAT = """
+(module
+  (memory 1)
+  (data (i32.const 0) "\\01\\82\\03\\f4\\05\\96\\07\\a8\\09\\ba")
+  (func (export "oob") (param $a i32) (param $v i32) (result i32)
+    (local $s i32)
+    local.get $v
+    i32.const 3
+    i32.mul
+    local.set $s
+    ;; a store, then loads of three widths, each out of bounds for some
+    ;; lanes, in one block with live cells under them
+    local.get $s
+    local.get $a
+    local.get $s
+    i32.store offset=4
+    local.get $a
+    i64.load16_s offset=2
+    i32.wrap_i64
+    local.get $a
+    i32.load8_u offset=65530
+    i32.add
+    local.get $a
+    i64.load offset=1
+    i32.wrap_i64
+    i32.xor
+    i32.add
+    local.get $a
+    local.get $s
+    i64.extend_i32_s
+    i64.store16 offset=65530
+    local.get $a
+    i32.load offset=3
+    i32.add))
+"""
+
+# lane addresses for oob: in bounds for every access (0-4), then out of
+# bounds first on the i64.store16 (5), on the i32.load8_u (6, 65528), on
+# the i32.store (65529, 65535) and with a carry in addr + offset (-1, -4)
+OOB_ADDRS = [0, 1, 2, 3, 4, 5, 6, 65528, 65529, 65535, 4, 3, -1, -4]
+
+
+def build_oob_mix() -> bytes:
+    return parse_wat(OOB_WAT)
+
+
+def oob_args(lanes: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    return [np.resize(np.array(OOB_ADDRS, np.int64), lanes),
+            rng.integers(-2**31, 2**31, lanes)]
+
+
+def build_straight_line(n: int = 40) -> bytes:
+    """line(x): one function of 1 + 3 n straight-line ops (more than a
+    block's 24, so the planner cuts it into full blocks)."""
+    b = ModuleBuilder()
+    body = [("local.get", 0)]
+    for k in range(n):
+        body += [("i32.const", k * 7 + 1),
+                 ("i32.add", "i32.xor", "i32.mul", "i32.rotl")[k % 4],
+                 ("local.tee", 1) if k % 3 == 0 else "nop"]
+    b.add_function(["i32"], ["i32"], ["i32"], body, export="line")
+    return b.build()
+
+
+def build_many_shapes(n: int = 128) -> bytes:
+    """n functions, function k of shape local.get, then for each bit of k
+    an i32.const and an add or sub, then return: n distinct block shapes
+    (more than the planner's 96 when n > 96); `f` calls each in turn."""
+    b = ModuleBuilder()
+    funcs = []
+    for k in range(n):
+        body = [("local.get", 0)]
+        for bit in range(max(n - 1, 1).bit_length()):
+            body += [("i32.const", bit + 1),
+                     "i32.add" if (k >> bit) & 1 else "i32.sub"]
+        funcs.append(b.add_function(["i32"], ["i32"], [], body))
+    top = [("local.get", 0)]
+    for f in funcs:
+        top += [("call", f)]
+    b.add_function(["i32"], ["i32"], [], top, export="f")
+    return b.build()

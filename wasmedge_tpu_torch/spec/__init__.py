@@ -128,7 +128,31 @@ def run_corpus_batched(paths, device="cuda") -> SpecReport:
     cells carry 64 bits), modules that hold state across invocations
     (memories, globals) and modules the batch engine or this slice of the
     port does not run (the default proposals only: tail calls and
-    multiple memories are not in the batch engine)."""
+    multiple memories are not in the batch engine).  On the card, the
+    kernels of all the modules are built at once before the first run."""
+    rep = SpecReport()
+    modules = list(_batch_modules(paths, device, rep))
+    if any(eng.device.type == "cuda" for _, eng, _, _ in modules):
+        from wasmedge_tpu_torch.batch.interp import build_kernels
+
+        build_kernels([eng.tables for _, eng, _, _ in modules])
+    for path, eng, inst, by_field in modules:
+        for field, items in by_field.items():
+            _run_field(rep, path, eng, inst, field, items)
+    return rep
+
+
+def corpus_tables(paths) -> list:
+    """The code tables (CPU) of the corpus modules `run_corpus_batched`
+    runs, for building their kernels ahead of the run."""
+    return [eng.tables for _, eng, _, _ in
+            _batch_modules(paths, "cpu", SpecReport())]
+
+
+def _batch_modules(paths, device, rep):
+    """(path, engine, instance, {export: [(index, command)]}) for each
+    module of the corpus with batchable assertions; skips and failures of
+    parsing and set-up are counted in `rep`."""
     from wasmedge_tpu_torch.batch.engine import BatchEngine
     from wasmedge_tpu_torch.executor.instantiate import instantiate
     from wasmedge_tpu_torch.loader import Loader
@@ -137,7 +161,6 @@ def run_corpus_batched(paths, device="cuda") -> SpecReport:
 
     conf = Configure()
     conf.batch.steps_per_launch = 100_000
-    rep = SpecReport()
     for path in paths:
         with open(path) as f:
             src = f.read()
@@ -198,9 +221,7 @@ def run_corpus_batched(paths, device="cuda") -> SpecReport:
                     str(path), asserts[0][0], "setup",
                     f"module setup raised {type(e).__name__}: {e}"))
                 continue
-            for field, items in by_field.items():
-                _run_field(rep, str(path), eng, inst, field, items)
-    return rep
+            yield str(path), eng, inst, by_field
 
 
 def _run_field(rep, path, eng, inst, field, items):

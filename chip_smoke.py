@@ -5,12 +5,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases:
   1. build   - compile every kernel the script runs, one nvcc process per
                source, all started together: the per-op warp-interpreter
-               (csrc/interp.cu, four instantiations) and, per module and
-               encoding, the fused kernel (csrc/interp.cu + csrc/fused.cuh
-               + the dispatch batch/fusegen.py generates for its B2 block
-               shapes or B6 superinstructions); print each build's seconds,
-               shapes, mean shape length, registers and spills;
-  2. kernel  - the per-op kernel ("none" encoding) on the fixture modules
+               (csrc/interp.cu, four instantiations, once with direct
+               memory access and once with the B4 window cache,
+               csrc/memwin.cuh) and, per module, encoding and memory mode,
+               the fused kernel (csrc/interp.cu + csrc/fused.cuh + the
+               dispatch batch/fusegen.py generates for its B2 block shapes
+               or B6 superinstructions); print each build's seconds,
+               shapes, mean shape length, registers and spills, and what
+               the CUDA runtime reports of the per-op instantiations and
+               config 2's fused builds (registers, local bytes, shared
+               memory per block, blocks per SM);
+  2. kernel  - every fixture with a memory runs twice, through the window
+               cache (mem_hbm True) and with direct access (False); then
+               the per-op kernel ("none" encoding) on the fixture modules
                (ALU edge values, traps, divergent fib, memory ops, fuel,
                memory.fill / memory.copy edge cases, a small bulk
                workload) at 256 lanes against its plain PyTorch version on
@@ -29,11 +36,16 @@ Phases:
                modules, the small bulk workload, vmix (and with fuel),
                vloop, env.double and WASI echo, and "super" on the ones
                without v128 ops, every plane and every stack row after
-               every launch; then one 256-step launch of fib(30) x 4096 in
-               each encoding (kernel, plain version, bound), one converged
-               memory.fill + memory.copy launch (kernel, plain version and
-               the same fill and copy as PyTorch tensor calls) and one
-               256-step vloop launch x 4096, each with its bound;
+               every launch (the window fixtures: a stride walk across
+               windows, a ping-pong that makes the overlap rule evict a
+               dirty way, a store before a host-call park); then one
+               256-step launch of fib(30) x 4096 in each encoding (kernel,
+               plain version, bound), one converged memory.fill +
+               memory.copy launch (kernel, plain version and the same fill
+               and copy as PyTorch tensor calls), one 256-step vloop
+               launch x 4096 and one 256-step per-op launch of config 2's
+               mem_checksum x 4096 from the first store (windows and
+               direct), each with its bound;
   3. main    - at full size: fib(30) x 4096 through VM.execute_batch in the
                default encoding (B2 blocks), then per-op ("none") and with
                block_fusion False (B6), each once more under
@@ -48,12 +60,20 @@ Phases:
                run_corpus_batched on the card, strict; vloop(1,000,000) x
                4096 (bench_simd.py's shape) in blocks and with
                block_fusion False (per-op), every lane's result and retired
-               count checked, each profiled.  Every run sets the launch
-               counts to 0 before it and fails unless its kernels launched;
+               count checked, each profiled; BASELINE config 2
+               (bench_memory.py's shape): mem_checksum(8192) with 64 passes
+               and coremark(65536) x 4096, stacks 128 / 64, one page, in
+               blocks and per-op, windows on (the default) and off, every
+               lane against its oracle, each profiled.  Every memory
+               workload runs with the windows (the default) and once more
+               with mem_hbm False.  Every run sets the launch counts to 0
+               before it and fails unless its kernels launched (and, with
+               a memory, every launch ran the window cache or none did);
   4. report  - phase times, kernel times (CUDA events), retired
                instructions and instructions per second, registers and
                spills of each build, the card's name and power limit, one
-               JSON line of kernel records, and last the device JSON line.
+               JSON line of kernel records (with "mem_window", B4), and
+               last the device JSON line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.  Imports nothing of JAX or of the JAX package.
@@ -88,6 +108,11 @@ BULK_ITERS = 16
 WASI_ARGS = ["alpha", "be"]
 SMALL_BULK = dict(fill_bytes=700, copy_bytes=300, fold_words=300)
 SIMD_N = 1_000_000  # bench_simd.py's N_ITERS
+# BASELINE config 2 (bench_memory.py:19-27, :80-92): mem_checksum(N_WORDS)
+# with PASSES passes and coremark(COREMARK_N), stacks 128 / 64, one page
+MEM_N, MEM_PASSES, MEM_COREMARK_N = 8192, 64, 65536
+MEM_STACKS = dict(value_stack_depth=128, call_stack_depth=64,
+                  memory_pages_per_lane=1)
 SIMD_WAST = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "tests", "spec", "simd.wast")
 
@@ -109,7 +134,8 @@ def gpu_name_and_power() -> str:
 def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
                 fusion=None, **knobs):
     """A BatchEngine for `data`; `fusion` ("none", "blocks", "super")
-    replaces the encoding the engine chose from `block_fusion`."""
+    replaces the encoding the engine chose from `block_fusion` (the memory
+    mode stays the one it chose from `mem_hbm`)."""
     from wasmedge_tpu_torch.batch.engine import BatchEngine
     from wasmedge_tpu_torch.batch.interp import device_tables
     from wasmedge_tpu_torch.common.configure import Configure
@@ -131,7 +157,8 @@ def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
                       device=device)
     if fusion is not None:
         eng.fusion = fusion
-        eng.tables = device_tables(eng.img, eng.device, fusion)
+        eng.tables = device_tables(eng.img, eng.device, fusion,
+                                   mem_window=eng.mem_window)
     return eng, inst
 
 
@@ -148,38 +175,71 @@ def max_abs_err(a, b) -> int:
     return err
 
 
+# The worst max abs err of the window-cache kernels (B4) against their
+# plain versions, over every comparison that ran them.
+WINDOW_WORST = [0]
+
+
+def memory_modes(eng_of) -> list:
+    """(mem_hbm, engine) pairs to compare: for a module with a memory the
+    window cache (mem_hbm True) and direct access (False); one run
+    otherwise.  `eng_of(mem_hbm)` makes the engine."""
+    win = eng_of(True)
+    if not win[0].mem_window:
+        return [(None, win)]
+    return [(True, win), (False, eng_of(False))]
+
+
+def mode_tag(fusion, mem_hbm) -> str:
+    parts = ([] if fusion == "none" else [fusion]) + (
+        [] if mem_hbm is None else ["windows" if mem_hbm else "direct"])
+    return f" [{', '.join(parts)}]" if parts else ""
+
+
 def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs,
                     fusion="none") -> int:
-    """One fixture at KERNEL_LANES lanes in the encoding `fusion`: kernel
-    and plain version from the same CUDA state, launch by launch, every
-    plane (every stack row) equal.  Returns the max abs err."""
+    """One fixture at KERNEL_LANES lanes in the encoding `fusion`, for a
+    module with a memory through the window cache and with direct access:
+    kernel and plain version from the same CUDA state, launch by launch,
+    every plane (every stack row, every memory row) equal.  Returns the
+    max abs err."""
     from wasmedge_tpu_torch.batch import interp, interp_ref
 
-    t0 = time.perf_counter()
-    eng, inst = make_engine(data, KERNEL_LANES, fuel_per_launch=fuel,
-                            fusion=fusion, **knobs)
-    st = eng.initial_state(inst.exports[func][1], args)
-    ref = st.clone()
-    launches = worst = 0
-    while True:
-        interp.run_chunk(eng.tables, st, chunk, fuel is not None)
-        interp_ref.run_chunk(eng.tables, ref, chunk, fuel is not None)
-        torch.cuda.synchronize()
-        launches += 1
-        err = max_abs_err(st, ref)
-        worst = max(worst, err)
-        if err != 0:
-            fail(f"kernel != plain on {name} after launch {launches}: "
-                 f"max abs err {err}")
-        if not bool((st.trap == 0).any()):
-            break
-        if launches == 200:
-            fail(f"{name}: lanes still running after {launches} launches")
-    traps = sorted(set(st.trap.cpu().tolist()))
-    tag = "" if fusion == "none" else f" [{fusion}]"
-    print(f"kernel_vs_plain {name}{tag}: {launches} launches equal, "
-          f"traps {traps}, retired {int(st.retired.sum())}, "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    worst = 0
+    for mem_hbm, (eng, inst) in memory_modes(lambda m: make_engine(
+            data, KERNEL_LANES, fuel_per_launch=fuel, fusion=fusion,
+            mem_hbm=m, **knobs)):
+        t0 = time.perf_counter()
+        st = eng.initial_state(inst.exports[func][1], args)
+        ref = st.clone()
+        launches = 0
+        before = interp.LAUNCHES["window"]
+        while True:
+            interp.run_chunk(eng.tables, st, chunk, fuel is not None)
+            interp_ref.run_chunk(eng.tables, ref, chunk, fuel is not None)
+            torch.cuda.synchronize()
+            launches += 1
+            err = max_abs_err(st, ref)
+            worst = max(worst, err)
+            if mem_hbm:
+                WINDOW_WORST[0] = max(WINDOW_WORST[0], err)
+            if err != 0:
+                fail(f"kernel != plain on {name}{mode_tag(fusion, mem_hbm)} "
+                     f"after launch {launches}: max abs err {err}")
+            if not bool((st.trap == 0).any()):
+                break
+            if launches == 200:
+                fail(f"{name}: lanes still running after {launches} "
+                     f"launches")
+        if bool(mem_hbm) != (interp.LAUNCHES["window"] - before == launches):
+            fail(f"{name}{mode_tag(fusion, mem_hbm)}: "
+                 f"{interp.LAUNCHES['window'] - before} of {launches} "
+                 f"launches ran the window cache")
+        traps = sorted(set(st.trap.cpu().tolist()))
+        print(f"kernel_vs_plain {name}{mode_tag(fusion, mem_hbm)}: "
+              f"{launches} launches equal, traps {traps}, retired "
+              f"{int(st.retired.sum())}, {time.perf_counter() - t0:.2f} s",
+              flush=True)
     return worst
 
 
@@ -190,8 +250,9 @@ def phase_kernel_vs_plain() -> int:
         build_bulk_workload, build_coremark_kernel, build_fib,
         build_memory_workload)
     from wasmedge_tpu_torch.models.fixtures import (
-        alu_args, build_alu_edge, build_bulk_zoo, build_trap_zoo,
-        bulk_zoo_args, zoo_args)
+        alu_args, build_alu_edge, build_bulk_zoo, build_oob_mix,
+        build_trap_zoo, build_window_walk, bulk_zoo_args, oob_args,
+        zoo_args)
 
     L = KERNEL_LANES
     knobs = dict(value_stack_depth=64, call_stack_depth=32,
@@ -207,8 +268,13 @@ def phase_kernel_vs_plain() -> int:
         ("fib_fuel", build_fib(), "fib", [np.arange(L) % 9 + 3], 256, 700),
         ("coremark", build_coremark_kernel(), "coremark",
          [np.arange(L) % 20 + 1], 256, None),
+        ("coremark_fuel", build_coremark_kernel(), "coremark",
+         [np.arange(L) % 20 + 1], 13, 501),
+        ("oob_mix", build_oob_mix(), "oob", oob_args(L, SEED), 13, None),
         ("mem_checksum", build_memory_workload(), "mem_checksum",
          [np.arange(L) % 30 + 1], 256, None),
+        ("window_walk", build_window_walk(), "edgewalk",
+         [np.arange(L) % 120 + 3], 64, None),
         ("bulk_fill", build_bulk_zoo(), "fill",
          bulk_zoo_args(L, "fill", SEED), 64, None),
         ("bulk_copy", build_bulk_zoo(), "copy",
@@ -230,8 +296,9 @@ def fused_fixtures(L: int):
         build_bulk_workload, build_coremark_kernel, build_fac, build_fib,
         build_loop_sum, build_memory_workload, build_simd_loop)
     from wasmedge_tpu_torch.models.fixtures import (
-        build_guard_mix, build_oob_mix, build_trap_zoo, build_vmix, oob_args,
-        zoo_args)
+        build_guard_mix, build_oob_mix, build_trap_zoo, build_vmix,
+        build_window_pingpong, build_window_walk, oob_args,
+        window_pingpong_args, zoo_args)
 
     kn = dict(value_stack_depth=64, call_stack_depth=32,
               memory_pages_per_lane=3)
@@ -267,6 +334,10 @@ def fused_fixtures(L: int):
          kv, True),
         ("vloop", build_simd_loop(), "vloop", [np.arange(L) % 40], 256, None,
          kv, True),
+        ("window_walk", build_window_walk(), "edgewalk",
+         [np.arange(L) % 120 + 3], 64, None, kn, False),
+        ("window_pingpong", build_window_pingpong(), "pingpong",
+         window_pingpong_args(L, SEED), 64, None, kv, True),
     ]
 
 
@@ -283,7 +354,7 @@ def phase_fused_kernel_vs_plain() -> int:
                                                fuel, knobs, fusion))
     for fusion in ("blocks", "super"):
         worst = max(worst, phase_hostcalls_kernel_vs_plain(
-            fusion, only=("env.double", "wasi_echo")))
+            fusion, only=("env.double", "wasi_echo", "window_host")))
     return worst
 
 
@@ -308,7 +379,8 @@ def phase_simd_kernel_vs_plain() -> int:
     from wasmedge_tpu_torch.models import build_simd_loop
     from wasmedge_tpu_torch.models.fixtures import (
         build_simd_sweep, build_v128_control, build_v128_mem_zoo, build_vmix,
-        simd_sweep_args, simd_sweeps, v128_zoo_args)
+        build_window_pingpong, simd_sweep_args, simd_sweeps, v128_zoo_args,
+        window_pingpong_args)
 
     L = KERNEL_LANES
     knobs = dict(value_stack_depth=64, call_stack_depth=16,
@@ -339,6 +411,8 @@ def phase_simd_kernel_vs_plain() -> int:
          [np.arange(L) % 13 + 3], 64, 1),
         ("v128_zoo_fuel_store", build_v128_mem_zoo(), "rw", zoo, 64,
          store_fuel),
+        ("window_pingpong", build_window_pingpong(), "pingpong",
+         window_pingpong_args(L, SEED), 64, None),
     ]
     return max(kernel_vs_plain(name, data, func, args, chunk, fuel, knobs)
                for name, data, func, args, chunk, fuel in fixtures)
@@ -377,18 +451,16 @@ def hello_output(codes) -> bytes:
 
 def phase_hostcalls_kernel_vs_plain(fusion="none", only=None) -> int:
     """The host-call fixtures (those named in `only`, or all) at
-    KERNEL_LANES lanes in the encoding `fusion`: kernel and plain version
+    KERNEL_LANES lanes in the encoding `fusion`, with a memory through
+    the window cache and with direct access: kernel and plain version
     from the same CUDA state, each state with its own engine, host
     modules and serve round after every launch; every plane equal before
     and after each serve round, and the kernel side's stdout file
     byte-identical to the plain side's."""
-    from wasmedge_tpu_torch.batch import interp, interp_ref
-    from wasmedge_tpu_torch.batch.hostcall import serve_batch_state
-    from wasmedge_tpu_torch.common.errors import ErrCode
     from wasmedge_tpu_torch.models import build_echo, build_wasi_hello
     from wasmedge_tpu_torch.models.fixtures import (
         build_host_double, build_host_grow, build_host_poke,
-        build_host_trap, build_simd_host)
+        build_host_trap, build_simd_host, build_window_host)
     from wasmedge_tpu_torch.models.programs import ECHO_MESSAGE
 
     L = KERNEL_LANES
@@ -408,67 +480,103 @@ def phase_hostcalls_kernel_vs_plain(fusion="none", only=None) -> int:
          ECHO_MESSAGE * (4 * L)),
         ("wasi_hello", build_wasi_hello(), "hello", [hello_codes],
          hello_output(hello_codes)),
+        # a store, then a park in the same window: the serve round and the
+        # next launch read the plane
+        ("window_host", build_window_host(), "f", [np.arange(L) * 7 - 300],
+         None),
     ]
     worst = 0
     for name, data, func, args, want_out in fixtures:
         if only is not None and name not in only:
             continue
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as td:
-            paths = [os.path.join(td, k) for k in ("kernel", "plain")]
-            fds = [os.open(p, os.O_RDWR | os.O_CREAT | os.O_TRUNC)
-                   for p in paths]
-            try:
-                engs = [make_engine(data, L, imports=[
-                    wasi_import(fd) if want_out is not None
-                    else env_import()], fusion=fusion, **knobs)[0]
-                    for fd in fds]
-                inst = engs[0].inst
-                st = engs[0].initial_state(inst.exports[func][1], args)
-                ref = st.clone()
-                launches = rounds = 0
-                while True:
-                    interp.run_chunk(engs[0].tables, st, 64, False)
-                    interp_ref.run_chunk(engs[0].tables, ref, 64, False)
-                    torch.cuda.synchronize()
-                    launches += 1
-                    err = max_abs_err(st, ref)
-                    served = serve_batch_state(engs[0], st)
-                    if serve_batch_state(engs[1], ref) != served:
-                        fail(f"{name}: the two serve rounds served "
-                             f"different lanes")
-                    rounds += served > 0
-                    err = max(err, max_abs_err(st, ref))
-                    worst = max(worst, err)
-                    if err != 0:
-                        fail(f"kernel != plain on {name} around serve round "
-                             f"after launch {launches}: max abs err {err}")
-                    if not bool((st.trap == 0).any()):
-                        break
-                    if launches == 200:
-                        fail(f"{name}: lanes still running after "
-                             f"{launches} launches")
-            finally:
-                for fd in fds:
-                    os.close(fd)
-            outs = [open(p, "rb").read() for p in paths]
-        if outs[0] != outs[1]:
-            fail(f"{name}: kernel stdout ({len(outs[0])} B) != plain "
-                 f"stdout ({len(outs[1])} B)")
-        if want_out is not None and outs[0] != want_out:
-            fail(f"{name}: stdout is not the expected {len(want_out)} B")
-        trap = st.trap.cpu().numpy()
-        if name == "wasi_hello":
-            codes = st.stack_lo.cpu().numpy()[st.fp.cpu().numpy(),
-                                              np.arange(L)]
-            if not (trap == int(ErrCode.Terminated)).all() or \
-                    not (codes == hello_codes).all():
-                fail("wasi_hello: lanes did not exit with their codes")
-        tag = "" if fusion == "none" else f" [{fusion}]"
-        print(f"kernel_vs_plain {name}{tag}: {launches} launches and {rounds} "
-              f"serve rounds equal, traps {sorted(set(trap.tolist()))}, "
-              f"stdout {len(outs[0])} B identical, "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        imports = (lambda fd: [wasi_import(fd) if want_out is not None
+                               else env_import()])
+        for mem_hbm, _ in memory_modes(lambda m: make_engine(
+                data, L, imports=imports(1), fusion=fusion, mem_hbm=m,
+                **knobs)):
+            worst = max(worst, host_fixture_vs_plain(
+                name, data, func, args, want_out, fusion, mem_hbm, knobs,
+                imports))
+            if name == "window_host" and mem_hbm is None:
+                fail("window_host: the module runs without the window cache")
+    return worst
+
+
+def host_fixture_vs_plain(name, data, func, args, want_out, fusion, mem_hbm,
+                          knobs, imports) -> int:
+    """One host-call fixture of phase_hostcalls_kernel_vs_plain in one
+    encoding and memory mode."""
+    from wasmedge_tpu_torch.batch import interp, interp_ref
+    from wasmedge_tpu_torch.batch.hostcall import serve_batch_state
+    from wasmedge_tpu_torch.common.errors import ErrCode
+
+    L = KERNEL_LANES
+    hello_codes = np.arange(L) % 3
+    worst = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        paths = [os.path.join(td, k) for k in ("kernel", "plain")]
+        fds = [os.open(p, os.O_RDWR | os.O_CREAT | os.O_TRUNC)
+               for p in paths]
+        try:
+            engs = [make_engine(data, L, imports=imports(fd),
+                                fusion=fusion, mem_hbm=mem_hbm,
+                                **knobs)[0] for fd in fds]
+            inst = engs[0].inst
+            st = engs[0].initial_state(inst.exports[func][1], args)
+            ref = st.clone()
+            launches = rounds = 0
+            while True:
+                interp.run_chunk(engs[0].tables, st, 64, False)
+                interp_ref.run_chunk(engs[0].tables, ref, 64, False)
+                torch.cuda.synchronize()
+                launches += 1
+                err = max_abs_err(st, ref)
+                served = serve_batch_state(engs[0], st)
+                if serve_batch_state(engs[1], ref) != served:
+                    fail(f"{name}: the two serve rounds served "
+                         f"different lanes")
+                rounds += served > 0
+                err = max(err, max_abs_err(st, ref))
+                worst = max(worst, err)
+                if mem_hbm:
+                    WINDOW_WORST[0] = max(WINDOW_WORST[0], err)
+                if err != 0:
+                    fail(f"kernel != plain on {name}"
+                         f"{mode_tag(fusion, mem_hbm)} around serve "
+                         f"round after launch {launches}: max abs err "
+                         f"{err}")
+                if not bool((st.trap == 0).any()):
+                    break
+                if launches == 200:
+                    fail(f"{name}: lanes still running after "
+                         f"{launches} launches")
+        finally:
+            for fd in fds:
+                os.close(fd)
+        outs = [open(p, "rb").read() for p in paths]
+    if outs[0] != outs[1]:
+        fail(f"{name}: kernel stdout ({len(outs[0])} B) != plain "
+             f"stdout ({len(outs[1])} B)")
+    if want_out is not None and outs[0] != want_out:
+        fail(f"{name}: stdout is not the expected {len(want_out)} B")
+    trap = st.trap.cpu().numpy()
+    if name == "wasi_hello":
+        codes = st.stack_lo.cpu().numpy()[st.fp.cpu().numpy(),
+                                          np.arange(L)]
+        if not (trap == int(ErrCode.Terminated)).all() or \
+                not (codes == hello_codes).all():
+            fail("wasi_hello: lanes did not exit with their codes")
+    if name == "window_host":
+        x = np.asarray(args[0], np.int64)
+        got = st.stack_lo.cpu().numpy()[0].view(np.uint32)
+        if not (trap == -1).all() or \
+                not (got == ((5 * x + 1) & 0xFFFFFFFF)).all():
+            fail("window_host: results are not 5x + 1")
+    print(f"kernel_vs_plain {name}{mode_tag(fusion, mem_hbm)}: "
+          f"{launches} launches and {rounds} serve rounds equal, traps "
+          f"{sorted(set(trap.tolist()))}, stdout {len(outs[0])} B "
+          f"identical, {time.perf_counter() - t0:.2f} s", flush=True)
     return worst
 
 
@@ -697,7 +805,8 @@ def run_vm(vm, func, args, fusion=None):
 
     eng = vm_engine(vm._active, vm.store, vm.conf, device="cuda")
     eng.fusion = fusion
-    eng.tables = device_tables(eng.img, eng.device, fusion)
+    eng.tables = device_tables(eng.img, eng.device, fusion,
+                               mem_window=eng.mem_window)
     return eng.run(func, list(args), max_steps=10**9), eng
 
 
@@ -738,7 +847,12 @@ def run_main(vm, func, args, steps_per_launch, need=("interp",),
         if counts[k] == 0:
             fail(f"main path {func} never launched the CUDA kernel "
                  f"({k} launches: 0)")
+    if eng.tables.mem_window != (counts["window"] == counts["interp"]):
+        fail(f"main path {func}: {counts['window']} of {counts['interp']} "
+             f"launches ran the window cache (mem_window "
+             f"{eng.tables.mem_window})")
     counts["encoding"] = eng.tables.fusion
+    counts["mem_window"] = eng.tables.mem_window
     counts["build"] = fused_build(eng.tables)
     return res, counts["interp"], wall, e0.elapsed_time(e1), counts
 
@@ -751,16 +865,36 @@ def report_main(label, res_launches_wall_ev_counts, retired) -> dict:
              f"{build['mean_len']:.2f}" if build.get("shapes") else "")
     if build:
         shape += f", built in {build['seconds'] or 0:.1f} s"
-    print(f"main {label} [{counts['encoding']}]: {launches} launches "
+    mem = " windows" if counts["mem_window"] else ""
+    print(f"main {label} [{counts['encoding']}{mem}]: {launches} launches "
           f"(block {counts['block']}, super {counts['super']}, per-op "
-          f"{counts['op']}), wall {wall:.3f} s, {retired / wall:.4g} wasm "
-          f"instr/s over wall, events {ev_ms:.1f} ms, retired "
-          f"{retired}{shape}", flush=True)
+          f"{counts['op']}, window {counts['window']}), wall {wall:.3f} s, "
+          f"{retired / wall:.4g} wasm instr/s over wall, events "
+          f"{ev_ms:.1f} ms, retired {retired}{shape}", flush=True)
     return dict(encoding=counts["encoding"], launches=launches,
                 block_launches=counts["block"],
                 super_launches=counts["super"], op_launches=counts["op"],
+                window_launches=counts["window"],
+                mem_window=counts["mem_window"],
                 wall_s=wall, event_ms=ev_ms, retired=retired,
                 instr_per_s_wall=retired / wall, build=build)
+
+
+def direct_run(vm, func, args, steps_per_launch, need, check,
+               fusion=None) -> dict:
+    """The same run once more with mem_hbm False (every access on the
+    plane in global memory), checked by `check(result)`; its record."""
+    old = vm.conf.batch.mem_hbm
+    vm.conf.batch.mem_hbm = False
+    try:
+        run = run_main(vm, func, args, steps_per_launch, need, fusion)
+    finally:
+        vm.conf.batch.mem_hbm = old
+    if run[4]["window"]:
+        fail(f"{func} with mem_hbm False ran the window cache")
+    check(run[0])
+    return report_main(f"{func}, mem_hbm False", run,
+                       int(run[0].retired.astype(np.int64).sum()))
 
 
 # The encodings a main-path workload runs in: (record suffix, fusion
@@ -828,7 +962,7 @@ def phase_main():
     vm_cm.validate()
     vm_cm.instantiate()
     run = run_main(vm_cm, "coremark", [np.full(L, 200)], 1 << 20,
-                   ("interp", "block"))
+                   ("interp", "block", "window"))
     res = run[0]
     # the reference: the plain interpreter on the CPU for 32 lanes
     cpu = BatchEngine(vm_cm._active, store=vm_cm.store, conf=conf_cm,
@@ -845,20 +979,26 @@ def phase_main():
         int(res.retired.astype(np.int64).sum()))
 
     want = coremark_py(COREMARK_N)
-    for suffix, fusion, bf, need in ENCODINGS[:2]:
-        run = run_main(vm_cm, "coremark", [np.full(L, COREMARK_N)], 1 << 20,
-                       need, fusion)
-        res = run[0]
+
+    def check(res):
         if not (res.trap == -1).all() or \
                 not ((res.results[0] & 0xFFFFFFFF) == want).all():
             fail(f"coremark({COREMARK_N}) x {L} disagrees with the Python "
                  f"reference {want}")
-        retired = int(res.retired.astype(np.int64).sum())
+
+    args = [np.full(L, COREMARK_N)]
+    for suffix, fusion, bf, need in ENCODINGS[:2]:
+        run = run_main(vm_cm, "coremark", args, 1 << 20, need + ("window",),
+                       fusion)
+        check(run[0])
+        retired = int(run[0].retired.astype(np.int64).sum())
         key = "coremark" + suffix
         out[key] = report_main(f"coremark({COREMARK_N}) x {L}, all {want}",
                                run, retired)
-        out[key]["profile"] = profile_run(
-            vm_cm, "coremark", [np.full(L, COREMARK_N)], retired, fusion)
+        out[key]["profile"] = profile_run(vm_cm, "coremark", args, retired,
+                                          fusion)
+        out[key]["direct"] = direct_run(vm_cm, "coremark", args, 1 << 20,
+                                        need, check, fusion)
     return out
 
 
@@ -954,37 +1094,44 @@ def phase_main_wasi():
     out = {}
     calls = 2 * ECHO_ITERS * L
     want = ECHO_MESSAGE * calls
+    def check(res):
+        if not (res.trap == -1).all() or not (res.results[0] == 0).all():
+            fail(f"echo x {L}: traps {np.unique(res.trap)}, results "
+                 f"{np.unique(res.results[0])[:5]}")
+
+    kinds = ("run", "profile", "mem_hbm False")
     with tempfile.TemporaryDirectory() as td:
-        paths = [os.path.join(td, k) for k in ("run", "profile")]
+        paths = [os.path.join(td, str(i)) for i in range(len(kinds))]
         fds = [os.open(p, os.O_RDWR | os.O_CREAT | os.O_TRUNC)
                for p in paths]
         try:
             vm = wasi_vm(build_echo(), fds[0])
             res, launches, wall, ev_ms, counts = run_main(
                 vm, "echo", [ECHO_ITERS], 1 << 20,
-                need=("interp", "hostcall", "block"))
+                need=("interp", "hostcall", "block", "window"))
             stats = dict(vm.last_engine.hostcall_stats)
             retired = int(res.retired.astype(np.int64).sum())
             prof = profile_run(wasi_vm(build_echo(), fds[1]), "echo",
                                [ECHO_ITERS], retired)
+            direct = direct_run(wasi_vm(build_echo(), fds[2]), "echo",
+                                [ECHO_ITERS], 1 << 20,
+                                ("interp", "hostcall", "block"), check)
         finally:
             for fd in fds:
                 os.close(fd)
         runs = [open(p, "rb").read() for p in paths]
-    for k, got in zip(("run", "profile"), runs):
+    for k, got in zip(kinds, runs):
         if got != want:
             fail(f"echo x {L} ({k}): stdout is {len(got)} B, expected "
                  f"{len(want)} B of the message")
-    if not (res.trap == -1).all() or not (res.results[0] == 0).all():
-        fail(f"echo x {L}: traps {np.unique(res.trap)}, results "
-             f"{np.unique(res.results[0])[:5]}")
+    check(res)
     if stats["tier1_calls"] != calls:
         fail(f"echo x {L}: {stats['tier1_calls']} host calls served, "
              f"expected {calls}")
     out["echo"] = dict(launches=launches, hostcall_launches=counts[
         "hostcall"], wall_s=wall, event_ms=ev_ms, retired=retired,
         host_calls=calls, host_calls_per_s=calls / wall,
-        stdout_bytes=len(want), profile=prof, **stats)
+        stdout_bytes=len(want), profile=prof, direct=direct, **stats)
     print(f"main wasi echo x {L} (ITERS {ECHO_ITERS}): {calls} fd_write "
           f"calls, stdout {len(want)} B exact, all lanes done with 0, "
           f"{launches} launches, {stats['serve_rounds']} serve rounds "
@@ -1009,7 +1156,7 @@ def phase_main_wasi():
             vm = wasi_vm(build_wasi_hello(), fd)
             res, launches, wall, ev_ms, counts = run_main(
                 vm, "hello", [codes], 1 << 20,
-                need=("interp", "hostcall", "block"))
+                need=("interp", "hostcall", "block", "window"))
             eng = vm.last_engine
             rounds = eng.hostcall_stats["serve_rounds"]
             # the exit codes: proc_exit's argument in each parked frame
@@ -1059,15 +1206,19 @@ def phase_main_bulk():
     seeds = (np.random.default_rng(SEED).integers(0, 1 << 31, L))
     args = [seeds, BULK_ITERS]
     res, launches, wall, ev_ms, counts = run_main(
-        vm, "bulk", args, 1 << 20, need=("interp", "bulk", "block"))
+        vm, "bulk", args, 1 << 20, need=("interp", "bulk", "block", "window"))
     t0 = time.perf_counter()
     want, _ = bulk_workload_model(seeds, BULK_ITERS)
     t_model = time.perf_counter() - t0
-    if not (res.trap == -1).all() or \
-            not ((res.results[0] & 0xFFFFFFFF) == want).all():
-        bad = int(((res.results[0] & 0xFFFFFFFF) != want).sum())
-        fail(f"bulk x {L}: {bad} lanes disagree with the bytearray model, "
-             f"traps {np.unique(res.trap)}")
+
+    def check(res):
+        if not (res.trap == -1).all() or \
+                not ((res.results[0] & 0xFFFFFFFF) == want).all():
+            bad = int(((res.results[0] & 0xFFFFFFFF) != want).sum())
+            fail(f"bulk x {L}: {bad} lanes disagree with the bytearray "
+                 f"model, traps {np.unique(res.trap)}")
+
+    check(res)
     retired = int(res.retired.astype(np.int64).sum())
     F, C = BULK_FILL_BYTES, BULK_COPY_BYTES
     # the least bytes the bulk ops move (each filled byte written once,
@@ -1084,6 +1235,8 @@ def phase_main_bulk():
           f">= {bulk_bytes} B, {out['bulk_bound_ms']:.4f} ms at "
           f"{HBM_BYTES_PER_S:.3g} B/s", flush=True)
     out["profile"] = profile_run(vm, "bulk", args, retired)
+    out["direct"] = direct_run(vm, "bulk", args, 1 << 20,
+                               ("interp", "bulk", "block"), check)
     return out
 
 
@@ -1115,17 +1268,17 @@ def phase_simd_corpus():
                 launches=counts["simd"], wall_s=wall)
 
 
-def simd_retired_model(vm, n_small=(1, 2)):
-    """Instructions vloop(n) retires per lane, base + per * n, from two
-    small runs of the plain version on the CPU."""
+def retired_model(vm, func="vloop", n_small=(1, 2)):
+    """Instructions func(n) retires per lane, base + per * n, from small
+    runs of the plain version on the CPU."""
     counts = []
     for n in (0,) + tuple(n_small):
-        res = vm.execute_batch("vloop", [np.full(1, n)], lanes=1,
-                               max_steps=10**6, device="cpu")
+        res = vm.execute_batch(func, [np.full(1, n)], lanes=1,
+                               max_steps=10**7, device="cpu")
         counts.append(int(res.retired[0]))
     base, per = counts[0], counts[1] - counts[0]
     if counts[2] - counts[1] != per:
-        fail(f"vloop's retired count is not linear in n: {counts}")
+        fail(f"{func}'s retired count is not linear in n: {counts}")
     return base, per
 
 
@@ -1149,17 +1302,13 @@ def phase_main_simd():
     vm.load_wasm(build_simd_loop())
     vm.validate()
     vm.instantiate()
-    base, per = simd_retired_model(vm)
+    base, per = retired_model(vm)
     want_retired = base + per * SIMD_N
     want = simd_loop_model(SIMD_N)
     out = dict(n=SIMD_N, retired_per_lane=want_retired, per_iteration=per)
     # B2 blocks (the default) and, with block_fusion False, the per-op
     # kernel (a module with v128 ops runs no superinstructions)
-    for suffix, bf, need in (("", None, ("interp", "simd", "block")),
-                             ("_none", False, ("interp", "simd", "op"))):
-        vm.conf.batch.block_fusion = bf
-        run = run_main(vm, "vloop", [np.full(L, SIMD_N)], 1 << 20, need)
-        res, counts = run[0], run[4]
+    def check(res):
         if not (res.trap == -1).all() or \
                 not ((res.results[0] & 0xFFFFFFFF) == want).all():
             fail(f"vloop({SIMD_N}) x {L}: traps {np.unique(res.trap)}, "
@@ -1168,6 +1317,14 @@ def phase_main_simd():
             fail(f"vloop({SIMD_N}) x {L}: retired "
                  f"{np.unique(res.retired)[:5]}, expected {want_retired} "
                  f"per lane")
+
+    for suffix, bf, need in (("", None, ("interp", "simd", "block")),
+                             ("_none", False, ("interp", "simd", "op"))):
+        vm.conf.batch.block_fusion = bf
+        run = run_main(vm, "vloop", [np.full(L, SIMD_N)], 1 << 20,
+                       need + ("window",))
+        res, counts = run[0], run[4]
+        check(res)
         retired = int(res.retired.astype(np.int64).sum())
         rec = report_main(
             f"vloop({SIMD_N}) x {L}, every lane {want} (the model), retired "
@@ -1176,9 +1333,172 @@ def phase_main_simd():
         rec["simd_launches"] = counts["simd"]
         rec["profile"] = profile_run(vm, "vloop", [np.full(L, SIMD_N)],
                                      retired)
+        if not suffix:
+            # the default encoding once more on the plane directly
+            rec["direct"] = direct_run(vm, "vloop", [np.full(L, SIMD_N)],
+                                       1 << 20, need, check)
         out["none" if suffix else "blocks"] = rec
     vm.conf.batch.block_fusion = None
     return out
+
+
+def config2_vm(data: bytes):
+    """A VM at MAIN_LANES lanes with BASELINE config 2's geometry and
+    `data` instantiated."""
+    from wasmedge_tpu_torch.common.configure import Configure
+    from wasmedge_tpu_torch.vm.vm import VM
+
+    conf = Configure()
+    conf.batch.lanes = MAIN_LANES
+    for k, v in MEM_STACKS.items():
+        setattr(conf.batch, k, v)
+    vm = VM(conf)
+    vm.load_wasm(data)
+    vm.validate()
+    vm.instantiate()
+    return vm
+
+
+def phase_main_memory():
+    """BASELINE config 2 through VM.execute_batch at full width
+    (bench_memory.py's shape): mem_checksum(MEM_N) with MEM_PASSES passes
+    and coremark(MEM_COREMARK_N), x MAIN_LANES lanes, stacks 128 / 64,
+    one page per lane; with the window cache (mem_hbm None, the default)
+    and with direct access (False), in B2 blocks (the default) and per-op;
+    every lane complete and equal to its oracle (mem_checksum's retired
+    count too: its checksum is 0 for an even number of passes over an
+    even number of words); each run once more under torch.profiler."""
+    from wasmedge_tpu_torch.models import (
+        build_coremark_kernel, build_memory_workload)
+    from wasmedge_tpu_torch.models.programs import memory_workload_model
+
+    L = MAIN_LANES
+    out = {}
+    for name, data, n, want in (
+            ("mem_checksum", build_memory_workload(passes=MEM_PASSES), MEM_N,
+             memory_workload_model(MEM_N, MEM_PASSES)),
+            ("coremark", build_coremark_kernel(), MEM_COREMARK_N,
+             coremark_py(MEM_COREMARK_N))):
+        vm = config2_vm(data)
+        args = [np.full(L, n)]
+        base, per = retired_model(vm, name) \
+            if name == "mem_checksum" else (None, None)
+        for suffix, fusion, _, need in ENCODINGS[:2]:
+            for mem_hbm in (None, False):
+                vm.conf.batch.mem_hbm = mem_hbm
+                run = run_main(vm, name, args, 1 << 20, need + (
+                    ("window",) if mem_hbm is None else ()), fusion)
+                res = run[0]
+                if mem_hbm is False and run[4]["window"]:
+                    fail(f"config 2 {name} with mem_hbm False ran the "
+                         f"window cache")
+                if not (res.trap == -1).all() or \
+                        not ((res.results[0] & 0xFFFFFFFF) == want).all():
+                    bad = int(((res.results[0] & 0xFFFFFFFF) != want).sum())
+                    tag = mode_tag(fusion or "blocks", mem_hbm is None)
+                    fail(f"config 2 {name}({n}) x {L}{tag}: {bad} lanes "
+                         f"differ from {want}, traps {np.unique(res.trap)}")
+                if per is not None and \
+                        not (res.retired == base + per * n).all():
+                    fail(f"config 2 {name}({n}) x {L}: retired "
+                         f"{np.unique(res.retired)[:5]}, expected "
+                         f"{base + per * n} per lane")
+                retired = int(res.retired.astype(np.int64).sum())
+                key = name + suffix + ("" if mem_hbm is None else "_direct")
+                out[key] = report_main(
+                    f"config 2 {name}({n}) x {L}, every lane {want}"
+                    f"{'' if mem_hbm is None else ', mem_hbm False'}", run,
+                    retired)
+                out[key]["profile"] = profile_run(vm, name, args, retired,
+                                                  fusion)
+        vm.conf.batch.mem_hbm = None
+    return out
+
+
+def phase_time_mem_launch():
+    """One per-op launch of TIMED_STEPS steps of mem_checksum(MEM_N) with
+    MEM_PASSES passes x MAIN_LANES (config 2's geometry) from the lanes'
+    first store, through the window cache and with direct access: kernel
+    and plain version on the same inputs, both modes equal, and the
+    launch's bound."""
+    from wasmedge_tpu_torch.batch import interp, interp_ref
+    from wasmedge_tpu_torch.batch import interp as I
+    from wasmedge_tpu_torch.batch.engine import CONTROL_FIELDS
+    from wasmedge_tpu_torch.models import build_memory_workload
+
+    chunk, L = TIMED_STEPS, MAIN_LANES
+    data = build_memory_workload(passes=MEM_PASSES)
+    first = first_step_at(data, "mem_checksum", [np.full(1, MEM_N)],
+                          I.H_STORE_W, MEM_STACKS)
+    engs = {m: make_engine(data, L, fusion="none", mem_hbm=m,
+                           **MEM_STACKS)[0] for m in (True, False)}
+    if not engs[True].tables.mem_window or engs[False].tables.mem_window:
+        fail("mem_checksum's memory modes are not windows / direct")
+    st0 = engs[False].initial_state(
+        engs[False].inst.exports["mem_checksum"][1], [np.full(L, MEM_N)])
+    interp.run_chunk(engs[False].tables, st0, first, False)  # to the store
+    torch.cuda.synchronize()
+    out, outs = {}, {}
+    for m, eng in engs.items():
+        tb = eng.tables
+        kernel = lambda s, tb=tb: interp.run_chunk(tb, s, chunk, False)
+        plain = lambda s, tb=tb: interp_ref.run_chunk(tb, s, chunk, False)
+        kernel(st0.clone())  # warm-up
+        torch.cuda.synchronize()
+        ms, k25, k75, out_k = time_launch(kernel, st0, 21)
+        plain_ms, p25, p75, out_p = time_launch(plain, st0, 3)
+        err = max_abs_err(out_k, out_p)
+        if err != 0:
+            fail(f"kernel != plain on the mem_checksum launch (mem_hbm {m}):"
+                 f" max abs err {err}")
+        if m:
+            WINDOW_WORST[0] = max(WINDOW_WORST[0], err)
+        outs[m] = out_k
+        out["windows" if m else "direct"] = dict(
+            ms=ms, q25=k25, q75=k75, plain_ms=plain_ms, max_abs_err=err)
+        print(f"one launch of {chunk} steps x {L} lanes (mem_checksum("
+              f"{MEM_N}), {MEM_PASSES} passes, from step {first}, "
+              f"{'windows' if m else 'direct'}): kernel median {ms:.4f} ms "
+              f"(q25 {k25:.4f}, q75 {k75:.4f}, 21 runs), plain median "
+              f"{plain_ms:.2f} ms (q25 {p25:.2f}, q75 {p75:.2f}, 3 runs)",
+              flush=True)
+    if max_abs_err(outs[True], outs[False]) != 0:
+        fail("the mem_checksum launch leaves other planes with the windows "
+             "than without")
+    retired = int(outs[True].retired.sum() - st0.retired.sum())
+    tb = engs[False].tables
+    counts, max_sp, max_cd = launch_mix(tb, st0, chunk)
+    if int(counts.sum()) != retired:
+        fail(f"instruction mix counts {int(counts.sum())} instructions, "
+             f"the kernel retired {retired}")
+    hid = tb.hid.cpu().numpy()
+    loads = sum(int(c) for pc, c in enumerate(counts)
+                if hid[pc] in (I.H_LOAD, I.H_LOAD_W, I.H_LOAD_D))
+    # Least bytes: the stack rows below the deepest sp, the frame rows
+    # below the deepest call depth and the control planes read once and
+    # written once, each memory word the launch changes written once,
+    # each word a load reads read once, the code tables read once.
+    changed = int((outs[True].mem != st0.mem).sum())
+    touched = 4 * L * (2 * max_sp + 3 * max_cd + len(CONTROL_FIELDS))
+    table_bytes = sum(4 * t.numel() for t in vars(tb).values()
+                      if isinstance(t, torch.Tensor))
+    bytes_ = 2 * touched + 4 * changed + 4 * loads + table_bytes
+    bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = retired * OPS_PER_INSTR / OPS_PER_S * 1e3
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+    print(f"  retired {retired}; bound {bound_ms:.6f} ms by {by}: bytes "
+          f"{bytes_} B (stack rows {max_sp}, frame rows {max_cd}, "
+          f"{changed} memory words written, {loads} loaded, code tables "
+          f"{table_bytes} B) / {HBM_BYTES_PER_S:.3g} B/s = "
+          f"{bound_bytes_ms:.6f} ms; operations {retired} / "
+          f"{OPS_PER_S:.3g} /s = {bound_ops_ms:.6f} ms", flush=True)
+    w = out["windows"]
+    return dict(out, ms=w["ms"], plain_ms=w["plain_ms"], bound_ms=bound_ms,
+                bound_by=by, max_abs_err=max(w["max_abs_err"],
+                                             out["direct"]["max_abs_err"]),
+                retired=retired, first_step=first, bound_bytes=bytes_,
+                words_written=changed, words_loaded=loads)
 
 
 def phase_time_bulk():
@@ -1262,11 +1582,14 @@ def parse_ptxas(text: str) -> dict:
                       r"'?([\w$.]+)", line)
         if m:
             mangled = m.group(1)
-            inst = re.search(r"interp_kernelILb(\d)ELb(\d)E", mangled)
-            fn = re.search(r"(v[12]_op|alu[12]\w*|bulk_fill_copy)", mangled)
+            inst = re.search(r"interp_kernelILb(\d)ELb(\d)E.*?Lb(\d)EE",
+                             mangled)
+            fn = re.search(r"(v[12]_op|alu[12]\w*|bulk_fill_copy|win_move)",
+                           mangled)
             fused = "5Fused" in mangled
             cur = (f"interp_kernel<kBulk={inst.group(1)}, "
-                   f"kSimd={inst.group(2)}{', Fused' if fused else ''}>"
+                   f"kSimd={inst.group(2)}{', Fused' if fused else ''}"
+                   f"{', kWin' if inst.group(3) == '1' else ''}>"
                    if inst else fn.group(1) if fn else mangled)
             rows.setdefault(cur, {})
             continue
@@ -1282,11 +1605,43 @@ def parse_ptxas(text: str) -> dict:
     return rows
 
 
-def kernel_registers() -> dict:
-    """parse_ptxas of the per-op build."""
+def kernel_registers(win: bool = False) -> dict:
+    """parse_ptxas of the per-op build (its window-cache build when
+    `win`)."""
     from wasmedge_tpu_torch.batch import interp
 
-    return parse_ptxas(interp.BUILD_INFO.get("ptxas", ""))
+    info = interp.BUILD_INFO["window"] if win else interp.BUILD_INFO
+    return parse_ptxas(info.get("ptxas", ""))
+
+
+def window_attributes() -> dict:
+    """The CUDA runtime's report (registers, local bytes, shared memory,
+    blocks per SM) of the per-op instantiations with and without the
+    window cache and of config 2's fused builds, printed."""
+    from wasmedge_tpu_torch.batch import interp
+    from wasmedge_tpu_torch.models import (
+        build_coremark_kernel, build_memory_workload)
+
+    out = {}
+    for win in (False, True):
+        for inst, a in interp.per_op_attributes(win).items():
+            out[f"per-op <{inst}{', kWin' if win else ''}>"] = a
+    for name, data in (("mem_checksum",
+                        build_memory_workload(passes=MEM_PASSES)),
+                       ("coremark", build_coremark_kernel())):
+        for m in (True, False):
+            eng, _ = make_engine(data, 2, fusion="blocks", mem_hbm=m,
+                                 **MEM_STACKS)
+            out[f"{name} blocks{' kWin' if m else ''}"] = \
+                interp.kernel_attributes(eng.tables)
+    for name, a in out.items():
+        print(f"  attributes {name}: {a['registers']} registers, "
+              f"{a['local_bytes']} B local, {a['static_smem_bytes']} B "
+              f"static + {a['launch_smem_bytes']} B dynamic shared memory "
+              f"per block (limit {a['max_dynamic_smem_bytes']} B), "
+              f"{a['blocks_per_sm']} blocks of 128 threads per SM",
+              flush=True)
+    return out
 
 
 def print_registers(label: str, rows: dict) -> None:
@@ -1299,34 +1654,39 @@ def print_registers(label: str, rows: dict) -> None:
 
 def prebuild() -> dict:
     """Build every kernel the script runs, all nvcc processes at once:
-    the per-op kernel and the fused kernel of each module and encoding
-    (the fused fixtures, the main-path modules, the SIMD corpus module).
-    The generated source depends only on the module and the encoding, so
-    tables made on the CPU name the same builds as the card's."""
+    the per-op kernel (direct access and window cache, a library each)
+    and the fused kernel of each module, encoding and memory mode (the
+    fused fixtures, the main-path modules, the SIMD corpus module).  The
+    generated source depends only on the module, the encoding and the
+    memory mode, so tables made on the CPU name the same builds as the
+    card's."""
     from wasmedge_tpu_torch.batch import interp
     from wasmedge_tpu_torch.models import (
         build_bulk_workload, build_coremark_kernel, build_echo, build_fib,
-        build_simd_loop, build_wasi_hello)
-    from wasmedge_tpu_torch.models.fixtures import build_host_double
+        build_memory_workload, build_simd_loop, build_wasi_hello)
+    from wasmedge_tpu_torch.models.fixtures import (
+        build_host_double, build_window_host)
     from wasmedge_tpu_torch.spec import corpus_tables
 
     mods = [(data, simd, ()) for _, data, _, _, _, _, _, simd in
             fused_fixtures(2)]
     mods += [(build_fib(), False, ()), (build_coremark_kernel(), False, ()),
              (build_simd_loop(), True, ()), (build_bulk_workload(), False, ()),
+             (build_memory_workload(passes=MEM_PASSES), False, ()),
              (build_host_double(), False, (env_import,)),
+             (build_window_host(), False, (env_import,)),
              (build_echo(), False, (lambda: wasi_import(1),)),
              (build_wasi_hello(), False, (lambda: wasi_import(1),))]
     tables = []
     for data, simd, imports in mods:
         for fusion in ("blocks",) if simd else ("blocks", "super"):
-            eng, _ = make_engine(data, 2, device="cpu",
-                                 imports=[f() for f in imports],
-                                 fusion=fusion)
-            tables.append(eng.tables)
+            for _, (eng, _) in memory_modes(lambda m: make_engine(
+                    data, 2, device="cpu", imports=[f() for f in imports],
+                    fusion=fusion, mem_hbm=m)):
+                tables.append(eng.tables)
     tables += corpus_tables([SIMD_WAST])
     t0 = time.perf_counter()
-    interp.build_kernels(tables)
+    interp.build_kernels(tables, per_op_windows=True)
     wall = time.perf_counter() - t0
     builds = {}
     for key, info in interp.BUILD_INFO["fused"].items():
@@ -1334,8 +1694,10 @@ def prebuild() -> dict:
         builds[key] = dict(fusion=info.get("fusion"),
                            shapes=info.get("shapes"),
                            mean_len=info.get("mean_len"),
+                           mem_window=info.get("mem_window"),
                            seconds=info.get("seconds"), ptxas=rows)
-        print(f"  fused build {key} [{info.get('fusion')}]: "
+        print(f"  fused build {key} [{info.get('fusion')}"
+              f"{', windows' if info.get('mem_window') else ''}]: "
               f"{info.get('shapes')} block shapes, mean length "
               f"{info.get('mean_len') or 0:.2f}, nvcc "
               f"{info.get('seconds') or 0:.1f} s", flush=True)
@@ -1358,10 +1720,14 @@ def main() -> int:
     builds = prebuild()
     t_build = time.perf_counter() - t0
     print(f"phase build: {t_build:.2f} s (per-op nvcc "
-          f"{interp.BUILD_INFO.get('seconds', 0):.2f} s, {builds['n_fused']} "
-          f"fused builds, all at once)", flush=True)
+          f"{interp.BUILD_INFO.get('seconds', 0):.2f} s, with the window "
+          f"cache {interp.BUILD_INFO['window'].get('seconds', 0):.2f} s, "
+          f"{builds['n_fused']} fused builds, all at once)", flush=True)
     regs = kernel_registers()
     print_registers("per-op", regs)
+    win_regs = kernel_registers(win=True)
+    print_registers("per-op, window cache", win_regs)
+    attrs = window_attributes()
 
     t0 = time.perf_counter()
     worst = max(phase_kernel_vs_plain(), phase_hostcalls_kernel_vs_plain())
@@ -1370,9 +1736,11 @@ def main() -> int:
     timing = {f: phase_time_one_launch(f) for f in ("none", "blocks", "super")}
     bulk_timing = phase_time_bulk()
     simd_timing = phase_time_simd_launch()
+    mem_timing = phase_time_mem_launch()
     t_kernel = time.perf_counter() - t0
     print(f"phase kernel_vs_plain: {t_kernel:.2f} s, max abs err "
-          f"{max(worst, simd_worst, fused_worst)}", flush=True)
+          f"{max(worst, simd_worst, fused_worst)} (window cache "
+          f"{WINDOW_WORST[0]})", flush=True)
 
     t0 = time.perf_counter()
     main_out = phase_main()
@@ -1387,6 +1755,7 @@ def main() -> int:
     main_out["bulk"] = phase_main_bulk()
     main_out["simd_corpus"] = phase_simd_corpus()
     main_out["vloop"] = phase_main_simd()
+    main_out["config2"] = phase_main_memory()
     t_main = time.perf_counter() - t0
     print(f"phase main: {t_main:.2f} s", flush=True)
 
@@ -1463,14 +1832,36 @@ def main() -> int:
         timed_launch={"workload": f"vloop({SIMD_N})", "lanes": MAIN_LANES,
                       "steps": TIMED_STEPS,
                       "retired": simd_timing["retired"]})
+    # B4, the window cache: "ms", "plain_ms" and "bound_ms" are for one
+    # per-op launch of TIMED_STEPS steps of config 2's mem_checksum from
+    # the lanes' first store, windowed ("direct_ms": the same launch with
+    # mem_hbm False); "launches" counts the window-cache launches of
+    # config 2's main path, mem_checksum in the default encoding (B2
+    # blocks, windows on by default)
+    c2 = main_out["config2"]
+    window_record = launch_record(
+        "mem_window", "wasmedge_tpu_torch/csrc/memwin.cuh",
+        "wasmedge_tpu/batch/pallas_engine.py:1752",
+        c2["mem_checksum"]["window_launches"], mem_timing, WINDOW_WORST[0],
+        c2["mem_checksum"]["profile"],
+        direct_ms=mem_timing["direct"]["ms"],
+        direct_plain_ms=mem_timing["direct"]["plain_ms"],
+        per_op_window_launches=c2["mem_checksum_none"]["window_launches"],
+        timed_launch={"workload": f"mem_checksum({MEM_N}), {MEM_PASSES} "
+                      f"passes", "lanes": MAIN_LANES, "steps": TIMED_STEPS,
+                      "from_step": mem_timing["first_step"],
+                      "retired": mem_timing["retired"]})
     print(json.dumps({"phases_s": {"build": t_build, "kernel": t_kernel,
                                    "main": t_main},
-                      "registers": regs, "builds": builds,
+                      "registers": regs, "window_registers": win_regs,
+                      "attributes": attrs, "builds": builds,
                       "one_launch": timing, "bulk_pair": bulk_timing,
-                      "simd_launch": simd_timing, "main": main_out}),
+                      "simd_launch": simd_timing, "mem_launch": mem_timing,
+                      "main": main_out}),
           flush=True)
     print(json.dumps({"kernels": [record, block_record, super_record,
-                                  bulk_record, simd_record]}), flush=True)
+                                  bulk_record, simd_record, window_record]}),
+          flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

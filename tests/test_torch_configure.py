@@ -1,0 +1,87 @@
+"""The `mem_hbm` knob: the port's memory-mode choice against the JAX package's.
+
+`batch.engine.mem_window_of` chooses the window cache (B4) as
+`PallasUniformEngine._mem_mode` (wasmedge_tpu/batch/pallas_engine.py
+:3995-4013) chooses its HBM window mode, at the geometry the port runs
+(4096 lanes, one page per lane, BASELINE config 2's stacks): the same
+answer for `mem_hbm` None, True and False on an image with a memory and
+on one without.  The engine carries the choice into its tables.
+"""
+
+import numpy as np
+import pytest
+
+from wasmedge_tpu.common.configure import Configure as RefConfigure
+from wasmedge_tpu_torch.batch.engine import (
+    BatchEngine, mem_window_of, memory_words)
+from wasmedge_tpu_torch.batch.interp import device_tables
+from wasmedge_tpu_torch.batch.memwin import HBM_WINDOW_ROWS
+from wasmedge_tpu_torch.common.configure import BatchConfigure, Configure
+from wasmedge_tpu_torch.executor.instantiate import instantiate
+from wasmedge_tpu_torch.loader import Loader
+from wasmedge_tpu_torch.models import (
+    build_coremark_kernel, build_fib, build_memory_workload)
+from wasmedge_tpu_torch.runtime.store import StoreManager
+from wasmedge_tpu_torch.validator import Validator
+from tests.helpers import instantiate as ref_instantiate
+
+LANES = 4096
+GEOMETRY = dict(value_stack_depth=128, call_stack_depth=64,
+                memory_pages_per_lane=1)
+MODULES = {"fib": build_fib, "mem_checksum": build_memory_workload,
+           "coremark": build_coremark_kernel}
+
+
+def _ref_mode(data, mem_hbm):
+    from wasmedge_tpu.batch.pallas_engine import PallasUniformEngine
+
+    conf = RefConfigure()
+    for k, v in GEOMETRY.items():
+        setattr(conf.batch, k, v)
+    conf.batch.mem_hbm = mem_hbm
+    _, store, inst = ref_instantiate(data, conf)
+    eng = PallasUniformEngine(inst, store=store, conf=conf, lanes=LANES,
+                              interpret=True)
+    return eng._mem_mode()
+
+
+def _port_engine(data, mem_hbm, lanes=4):
+    conf = Configure()
+    for k, v in GEOMETRY.items():
+        setattr(conf.batch, k, v)
+    conf.batch.mem_hbm = mem_hbm
+    mod = Validator(conf).validate(Loader(conf).parse_module(data))
+    inst = instantiate(StoreManager(), mod, conf)
+    return BatchEngine(inst, conf=conf, lanes=lanes, device="cpu")
+
+
+@pytest.mark.parametrize("mem_hbm", [None, True, False])
+@pytest.mark.parametrize("name", list(MODULES))
+def test_mem_window_of_matches_mem_mode(name, mem_hbm):
+    data = MODULES[name]()
+    eng = _port_engine(data, mem_hbm)
+    want = _ref_mode(data, mem_hbm)
+    assert mem_window_of(mem_hbm, eng.img) is want
+    assert eng.mem_window is want and eng.tables.mem_window is want
+
+
+def test_knob_defaults_to_the_windows():
+    assert BatchConfigure().mem_hbm is None
+    eng = _port_engine(build_memory_workload(), None)
+    assert memory_words(eng.img) >= 2 * HBM_WINDOW_ROWS
+    assert eng.tables.mem_window
+
+
+def test_no_window_without_a_memory():
+    eng = _port_engine(build_fib(), True)
+    assert memory_words(eng.img) == 1 and not eng.tables.mem_window
+    with pytest.raises(ValueError):
+        device_tables(eng.img, "cpu", mem_window=True)
+
+
+def test_both_modes_give_the_same_result():
+    res = [_port_engine(build_memory_workload(), m, lanes=3).run(
+        "mem_checksum", [np.array([1, 129, 300])]) for m in (True, False)]
+    np.testing.assert_array_equal(res[0].results[0], res[1].results[0])
+    np.testing.assert_array_equal(res[0].retired, res[1].retired)
+    assert (res[0].trap == -1).all()

@@ -29,6 +29,7 @@ from wasmedge_tpu_torch.batch.image import (
     TRAP_DONE, TRAP_HOSTCALL, batchability, build_device_image,
     slice_refusal)
 from wasmedge_tpu_torch.batch.interp import device_tables, run_chunk
+from wasmedge_tpu_torch.batch.memwin import HBM_WINDOW_ROWS
 from wasmedge_tpu_torch.common.configure import Configure
 from wasmedge_tpu_torch.common.types import ValType
 
@@ -193,7 +194,9 @@ class BatchEngine:
             raise NotImplementedError(reason)
         self.img = img
         self.fusion = fusion_of(self.cfg.block_fusion, img.has_simd)
-        self.tables = device_tables(img, self.device, fusion=self.fusion)
+        self.mem_window = mem_window_of(self.cfg.mem_hbm, img)
+        self.tables = device_tables(img, self.device, fusion=self.fusion,
+                                    mem_window=self.mem_window)
         # serve rounds, lanes served, lanes served by a vectorized WASI
         # implementation, and host seconds spent in serve rounds
         # (batch/hostcall.py)
@@ -215,8 +218,8 @@ class BatchEngine:
         def full(v):
             return torch.full((L,), int(v), dtype=torch.int32, device=dev)
 
-        W = max(img.mem_pages_max * PAGE_WORDS, 1)
-        mem = torch.zeros((W, L), dtype=torch.int32, device=dev)
+        mem = torch.zeros((memory_words(img), L), dtype=torch.int32,
+                          device=dev)
         if img.mem_init.shape[0] > 1 or img.mem_pages_init:
             init = torch.as_tensor(img.mem_init, device=dev)
             mem[: init.shape[0]] = init[:, None]
@@ -290,6 +293,34 @@ def fusion_of(block_fusion: Optional[bool], has_simd: bool) -> str:
     if block_fusion is None or block_fusion:
         return "blocks"
     return "none" if has_simd else "super"
+
+
+def memory_words(img) -> int:
+    """Rows of the [words, lanes] memory plane: the per-lane page ceiling
+    in words (one row for an image without a memory)."""
+    return max(img.mem_pages_max * PAGE_WORDS, 1)
+
+
+def mem_window_of(mem_hbm: Optional[bool], img) -> bool:
+    """Whether the image's memory goes through the window cache (B4), as
+    the Pallas kernel chooses it (pallas_engine.py :3995-4013):
+
+        if not self.img.has_memory: return False
+        if self._mem_words() < self.HBM_WINDOW_ROWS: return False
+        ...
+        if forced is not None: return bool(forced) and blk_hbm is not None
+        ...
+        return blk_res is None or blk_hbm > blk_res
+
+    An image without a memory, or one too small for two windows, has
+    none; False forces direct access.  None (auto) and True give the
+    windows: the JAX rule's resident slab of one 64 KiB page per lane
+    never fits on chip (`blk_res` is None, or smaller than `blk_hbm`, at
+    every geometry the port runs), and a forced True always finds its
+    block, so both give the windows there."""
+    if not img.has_memory or memory_words(img) < 2 * HBM_WINDOW_ROWS:
+        return False
+    return mem_hbm is None or bool(mem_hbm)
 
 
 def _table_snapshot(inst, store):

@@ -10,7 +10,8 @@ cells are variables of straight-line code (registers, not a dynamically
 indexed array).  The source includes `csrc/interp.cu` and
 `csrc/fused.cuh`; `batch/interp.py` builds it into the module's own
 shared library.  The text depends only on the shapes, the superinstruction
-ids present and the kBulk/kSimd flags, so equal modules share a build.
+ids present and the kBulk/kSimd/kWin flags (kWin: memory through the
+window cache, `csrc/memwin.cuh`), so equal modules share a build.
 
 What a case does, per op (its operands from the code planes at pc0 + j):
 a push names a new cell; a pop takes the top cell, or reads the row below
@@ -34,7 +35,8 @@ from wasmedge_tpu_torch.batch.interp import (
 _HEAD = """\
 // Generated by wasmedge_tpu_torch/batch/fusegen.py: the fused dispatch of
 // one module ({nblocks} block shapes, {nsuper} superinstruction ids,
-// kBulk = {bulk}, kSimd = {simd}).  Built into _build/ at first use.
+// kBulk = {bulk}, kSimd = {simd}, kWin = {win}).  Built into _build/ at
+// first use.
 #define WASM_FUSED_BUILD 1
 #define ALU_INLINE __forceinline__
 #include "interp.cu"
@@ -46,15 +48,18 @@ struct Fused {{
   static constexpr bool kOn = true;
   // One fused dispatch at pc; returns true when the terminal op at the new
   // pc is left to the per-op code.  n: instructions retired; trap: set
-  // when an op inside traps (pc and sp are then that op's own).
-  template <bool kSimd>
+  // when an op inside traps (pc and sp are then that op's own).  m: the
+  // lane's memory access (its window cache with kWin).
+  template <bool kSimd, bool kWin>
   __device__ static __forceinline__ bool step(
-      const Params& p, const Lane<kSimd>& s, int h, int& pc, int& sp,
-      const int fp, const int ob, const int pages, int& n, int& trap) {{
+      const Params& p, const Lane<kSimd>& s, Mem<kWin>& m, int h, int& pc,
+      int& sp, const int fp, const int ob, const int pages, int& n,
+      int& trap) {{
     const int pc0 = pc, sp0 = sp;
     (void)sp0;
     (void)ob;
     (void)pages;
+    (void)m;
     switch (h) {{
 """
 
@@ -70,23 +75,23 @@ _TAIL = """\
 
 }}  // namespace
 
-WASM_FUSED_LAUNCH({bulk}, {simd}, Fused)
+WASM_FUSED_LAUNCH({bulk}, {simd}, {win}, Fused)
 """
 
 
-def cuda_source(hid, shapes, bulk: bool, simd: bool) -> str:
+def cuda_source(hid, shapes, bulk: bool, simd: bool,
+                win: bool = False) -> str:
     """The CUDA source of the fused dispatch for a fused hid plane and
     its block shapes (deterministic)."""
     supers = sorted({int(h) for h in hid if super_family(int(h))})
-    out = [_HEAD.format(nblocks=len(shapes), nsuper=len(supers),
-                        bulk=str(bool(bulk)).lower(),
-                        simd=str(bool(simd)).lower())]
+    flags = dict(bulk=str(bool(bulk)).lower(), simd=str(bool(simd)).lower(),
+                 win=str(bool(win)).lower())
+    out = [_HEAD.format(nblocks=len(shapes), nsuper=len(supers), **flags)]
     for sid, shape in enumerate(shapes):
         out.append(_Block(shape, simd).case(H_BLOCK_BASE + sid))
     for h in supers:
         out.append(_super_case(h))
-    out.append(_TAIL.format(bulk=str(bool(bulk)).lower(),
-                            simd=str(bool(simd)).lower()))
+    out.append(_TAIL.format(**flags))
     return "".join(out)
 
 
@@ -256,16 +261,18 @@ class _Block:
             self.k += 1
             self.emit(f"u64 {name};")
             self.exit_block(
-                f"!fused_load(p, s, pages, (u32)lo64({addr[0]}), (u32){a}, "
-                f"{op[1]}, {op[2]}, {name})", pre, at, self.sp_of(pre),
+                f"!fused_load(p, s, m, pages, (u32)lo64({addr[0]}), "
+                f"(u32){a}, {op[1]}, {op[2]}, {name})", pre, at,
+                self.sp_of(pre),
                 j + 1, "E_MEM_OOB")
             self.items.append((name, "s"))
         elif kind == "storei":
             pre = self.snapshot()
             val, addr = self.pop(), self.pop()
             self.exit_block(
-                f"!fused_store(p, s, pages, (u32)lo64({addr[0]}), (u32){a}, "
-                f"{op[1]}, lo64({val[0]}))", pre, at, self.sp_of(pre),
+                f"!fused_store(p, s, m, pages, (u32)lo64({addr[0]}), "
+                f"(u32){a}, {op[1]}, lo64({val[0]}))", pre, at,
+                self.sp_of(pre),
                 j + 1, "E_MEM_OOB")
         else:
             self.v128_op(op, a)

@@ -16,7 +16,10 @@ dispatch ("none"), B2 fused basic blocks ("blocks") and B6 peephole
 superinstructions ("super"), planned by `batch/fusion.py` as the Pallas
 kernel plans them.  The per-op encoding runs the shared kernel build; a
 fused encoding runs a kernel built for its module, `csrc/interp.cu` with
-the dispatch that `batch/fusegen.py` generates for its shapes.
+the dispatch that `batch/fusegen.py` generates for its shapes.  With
+`mem_window` (B4) every memory access goes through each lane's window
+cache in shared memory (`csrc/memwin.cuh`; plain version
+`batch/memwin.py`) instead of the plane in global memory.
 
 `run_chunk()` is the one entry: on CUDA tensors it launches the kernel
 (built from the repository's sources on first use), on CPU tensors it
@@ -46,6 +49,7 @@ from wasmedge_tpu_torch.batch.image import (
     CLS_VCONST, CLS_VEXTRACT, CLS_VLOAD, CLS_VREPLACE, CLS_VSHIFT,
     CLS_VSHUFFLE, CLS_VSPLAT, CLS_VSTORE, CLS_VTEST, NUM_ALU1, NUM_ALU2,
     DeviceImage, TRAP_DONE, TRAP_HOSTCALL)
+from wasmedge_tpu_torch.batch.memwin import HBM_WINDOW_ROWS
 from wasmedge_tpu_torch.batch.simdops import (
     V1_NAMES, V2_NAMES, VEXTRACT_NAMES, VREPLACE_NAMES, VSHIFT_NAMES,
     VSPLAT_NAMES, VTEST_NAMES)
@@ -190,7 +194,9 @@ class Tables:
     its original op), `flen` the instructions a fused dispatch retires in
     full (0 at other slots), `shapes` the block shapes, and, for "super",
     `fa` ... `fihi` the rewritten operand planes that the superinstruction
-    handlers read at their head slots."""
+    handlers read at their head slots.  `mem_window`: memory accesses go
+    through each lane's window cache (B4; `batch/engine.py`
+    `mem_window_of` chooses it)."""
 
     hid: torch.Tensor
     a: torch.Tensor
@@ -221,18 +227,24 @@ class Tables:
     fihi: Optional[torch.Tensor] = None
     shapes: tuple = ()
     fused_source: str = ""  # the generated CUDA of the fused dispatch
+    mem_window: bool = False
 
 
-def device_tables(img: DeviceImage, device, fusion: str = "none") -> Tables:
+def device_tables(img: DeviceImage, device, fusion: str = "none",
+                  mem_window: bool = False) -> Tables:
     """The image's code tables on `device` in the encoding `fusion`:
     "none" (one op per dispatch), "blocks" (B2 fused basic blocks) or
-    "super" (B6 superinstructions; images without v128 ops only)."""
+    "super" (B6 superinstructions; images without v128 ops only); with
+    `mem_window`, memory through the window cache (an image with a
+    memory)."""
     from wasmedge_tpu_torch.batch import fusegen
     from wasmedge_tpu_torch.batch.fusion import (
         fuse_blocks, fuse_image, fused_lengths)
 
     if fusion not in FUSIONS:
         raise ValueError(f"unknown fusion {fusion!r}; one of {FUSIONS}")
+    if mem_window and not img.has_memory:
+        raise ValueError("the window cache needs an image with a memory")
 
     def t(x):
         return torch.as_tensor(np.ascontiguousarray(x, np.int32).ravel(),
@@ -249,7 +261,8 @@ def device_tables(img: DeviceImage, device, fusion: str = "none") -> Tables:
         mem_pages_max=int(img.mem_pages_max),
         has_bulk=bool(np.isin(hid, (H_MEMFILL, H_MEMCOPY)).any()),
         has_hostcall=bool((hid == H_HOSTCALL).any()),
-        has_simd=bool(img.has_simd), fusion=fusion)
+        has_simd=bool(img.has_simd), fusion=fusion,
+        mem_window=bool(mem_window))
     if fusion == "none":
         return tables
     if fusion == "blocks":
@@ -268,7 +281,7 @@ def device_tables(img: DeviceImage, device, fusion: str = "none") -> Tables:
     tables.flen = t(fused_lengths(fhid, shapes))
     tables.shapes = shapes
     tables.fused_source = fusegen.cuda_source(
-        fhid, shapes, tables.has_bulk, tables.has_simd)
+        fhid, shapes, tables.has_bulk, tables.has_simd, tables.mem_window)
     return tables
 
 
@@ -280,6 +293,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _SRC = os.path.join(_CSRC, "interp.cu")
 _FUSED_HDR = os.path.join(_CSRC, "fused.cuh")
+_WIN_HDR = os.path.join(_CSRC, "memwin.cuh")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
@@ -289,17 +303,19 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # plain version never counts): all of them, those whose code holds the
 # bulk-memory cases (h_memfill / h_memcopy), those whose code holds
 # host-call stubs (h_hostcall), those whose code holds v128 ops (the B7
-# handlers), and those of the fused kernels: B2 basic blocks ("block")
-# and B6 superinstructions ("super").
+# handlers), those of the fused kernels: B2 basic blocks ("block") and
+# B6 superinstructions ("super"), and those whose memory accesses went
+# through the window cache (B4, "window").
 LAUNCHES = {"interp": 0, "bulk": 0, "hostcall": 0, "simd": 0, "block": 0,
-            "super": 0}
+            "super": 0, "window": 0}
 
 _libs = {}  # build key -> loaded ctypes library
 _lib_lock = threading.Lock()
 # The per-op kernel's build: "path", "seconds" and "ptxas" (its -v
-# output); "fused" maps each fused build's key to the same three and
-# "fusion", "shapes" and "mean_len".
-BUILD_INFO = {"fused": {}}
+# output); "window" the same three of its build with the window cache;
+# "fused" maps each fused build's key to the same three and "fusion",
+# "shapes", "mean_len" and "mem_window".
+BUILD_INFO = {"fused": {}, "window": {}}
 
 
 def _nvcc() -> str:
@@ -313,50 +329,70 @@ def _read(path) -> bytes:
         return f.read()
 
 
-_jobs = {}  # generated source ("" for the per-op kernel) -> _job's result
+# generated source, or the per-op kernel's window flag -> _job's result
+_jobs = {}
 
 
-def _job(tables: Optional[Tables]):
-    """(key, shared library path, source path) of the per-op kernel
-    (tables None) or of the fused kernel of `tables` (its generated
-    source goes under _build/ when it is built)."""
-    text = "" if tables is None else tables.fused_source
+def _defines(win: bool) -> tuple:
+    """The per-op build's extra nvcc flags: its window instantiations."""
+    return (f"-DWASM_MEM_WINDOW={int(win)}",)
+
+
+def _job(tables: Optional[Tables], win: bool = False):
+    """(key, shared library path, source path) of the kernel that runs
+    `tables`: the per-op build (tables None or of the "none" encoding;
+    with the window cache when `win` or `tables.mem_window`) or the fused
+    build of `tables` (its generated source goes under _build/ when it is
+    built)."""
+    if tables is not None and tables.fusion == "none":
+        tables, win = None, tables.mem_window
+    text = bool(win) if tables is None else tables.fused_source
     if text not in _jobs:
-        _jobs[text] = _new_job(tables)
+        _jobs[text] = _new_job(tables, win)
     return _jobs[text]
 
 
-def _new_job(tables: Optional[Tables]):
+def _new_job(tables: Optional[Tables], win: bool):
     flags = " ".join(NVCC_FLAGS).encode()
+    srcs = _read(_SRC) + _read(_WIN_HDR)
     if tables is None:
-        key = hashlib.sha256(_read(_SRC) + flags).hexdigest()[:16]
+        key = hashlib.sha256(srcs + flags + " ".join(_defines(win)).encode()) \
+            .hexdigest()[:16]
         return key, os.path.join(_BUILD_DIR, f"libinterp_{key}.so"), _SRC
     src = tables.fused_source.encode()
-    key = hashlib.sha256(_read(_SRC) + _read(_FUSED_HDR) + src + flags) \
+    key = hashlib.sha256(srcs + _read(_FUSED_HDR) + src + flags) \
         .hexdigest()[:16]
     cu = os.path.join(_BUILD_DIR, f"fused_{key}.cu")
     return key, os.path.join(_BUILD_DIR, f"libfused_{key}.so"), cu
 
 
-def build_kernels(tables_list=()) -> dict:
+def build_kernels(tables_list=(), per_op_windows: bool = False) -> dict:
     """Build, all nvcc processes at once, the per-op kernel
-    (`csrc/interp.cu`, four instantiations) and the fused kernel of each
-    fused `Tables` given (`csrc/interp.cu` with `csrc/fused.cuh` and the
+    (`csrc/interp.cu`, four instantiations; and, when `per_op_windows` or
+    a per-op `Tables` given has `mem_window`, its four window-cache
+    instantiations, a second library) and the fused kernel of each fused
+    `Tables` given (`csrc/interp.cu` with `csrc/fused.cuh` and the
     generated dispatch of its blocks or superinstructions, one
     instantiation), each into a shared library under `_build/` keyed by
-    the hash of its sources and flags, and load them.  Returns
-    {key: library}; `BUILD_INFO` records paths, build seconds and ptxas
-    output.  Raises if any build fails."""
+    the hash of its sources and flags, and load them.  Returns {key: library}; `BUILD_INFO` records
+    paths, build seconds and ptxas output.  Raises if any build fails."""
     with _lib_lock:
         os.makedirs(_BUILD_DIR, exist_ok=True)
         jobs = {}
-        for tb in (None, *tables_list):
-            if tb is not None and tb.fusion == "none":
-                continue
+        wins = {False, bool(per_op_windows)}
+        for tb in tables_list:
+            if tb.fusion == "none":
+                wins.add(tb.mem_window)
+        for win in sorted(wins):
+            key, so, src = _job(None, win)
+            jobs[key] = (so, src, None, win)
+        for tb in tables_list:
+            if tb.fusion == "none":
+                continue  # one of the per-op builds above
             key, so, src = _job(tb)
-            jobs.setdefault(key, (so, src, tb))
+            jobs.setdefault(key, (so, src, tb, tb.mem_window))
         procs = {}
-        for key, (so, src, tb) in jobs.items():
+        for key, (so, src, tb, win) in jobs.items():
             if key in _libs or os.path.exists(so):
                 continue
             tmp = f"{so}.{os.getpid()}.tmp"
@@ -364,8 +400,9 @@ def build_kernels(tables_list=()) -> dict:
                 with open(f"{src}.{os.getpid()}.tmp", "w") as f:
                     f.write(tb.fused_source)
                 os.replace(f"{src}.{os.getpid()}.tmp", src)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", _CSRC,
-                   "-o", tmp, src]
+            defines = _defines(win) if tb is None else ()
+            cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-Xptxas", "-v", "-I",
+                   _CSRC, "-o", tmp, src]
             # nvcc's output goes to a file: a full pipe would stall it
             log = open(f"{tmp}.log", "w+")
             procs[key] = (subprocess.Popen(cmd, stdout=log, stderr=log),
@@ -388,17 +425,19 @@ def build_kernels(tables_list=()) -> dict:
                 log.close()
                 os.remove(log.name)
         for key, (proc, tmp, _, _) in procs.items():
-            so, src, tb = jobs[key]
+            so, src, tb, win = jobs[key]
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
                                    f"{src}:\n{logs[key]}")
             os.replace(tmp, so)
             info = {"path": so, "seconds": ended[key], "ptxas": logs[key]}
-            if tb is None:
-                BUILD_INFO.update(info)
-            else:
+            if tb is not None:
                 BUILD_INFO["fused"][key] = info
-        for key, (so, _, tb) in jobs.items():
+            elif win:
+                BUILD_INFO["window"].update(info)
+            else:
+                BUILD_INFO.update(info)
+        for key, (so, _, tb, win) in jobs.items():
             if key in _libs:
                 continue
             lib = ctypes.CDLL(so)
@@ -410,14 +449,51 @@ def build_kernels(tables_list=()) -> dict:
                 n_ops = [len(s) for s in tb.shapes]
                 BUILD_INFO["fused"].setdefault(key, {"path": so}).update(
                     fusion=tb.fusion, shapes=len(tb.shapes),
-                    mean_len=float(np.mean(n_ops)) if n_ops else 0.0)
+                    mean_len=float(np.mean(n_ops)) if n_ops else 0.0,
+                    mem_window=bool(win))
             else:
-                BUILD_INFO.setdefault("path", so)
+                (BUILD_INFO["window"] if win else BUILD_INFO).setdefault(
+                    "path", so)
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * (_N_PTRS + extra) + \
                 [ctypes.c_int] * _N_INTS + [ctypes.c_void_p]
             _libs[key] = lib
         return {key: _libs[key] for key in jobs}
+
+
+KERNEL_ATTRS = ("registers", "local_bytes", "static_smem_bytes",
+                "max_dynamic_smem_bytes", "launch_smem_bytes",
+                "blocks_per_sm")
+
+
+def _attrs(fn, *args) -> dict:
+    out = (ctypes.c_int * len(KERNEL_ATTRS))()
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"kernel attributes: CUDA error {err}")
+    return dict(zip(KERNEL_ATTRS, list(out)))
+
+
+def kernel_attributes(tables: Tables) -> dict:
+    """What the CUDA runtime reports of the instantiation that runs
+    `tables` (built if need be), with the shared memory its launch asks
+    for: `KERNEL_ATTRS`, the last the 128-thread blocks that fit on one
+    SM."""
+    key = _job(tables)[0]
+    lib = _libs.get(key) or build_kernels([tables])[key]
+    if tables.fusion != "none":
+        return _attrs(lib.wasm_fused_attrs)
+    return _attrs(lib.wasm_interp_attrs, int(tables.has_bulk),
+                  int(tables.has_simd))
+
+
+def per_op_attributes(win: bool) -> dict:
+    """`kernel_attributes` of the four instantiations of the per-op build
+    (with the window cache when `win`), keyed "kBulk=b, kSimd=s"."""
+    key = _job(None, win)[0]
+    lib = _libs.get(key) or build_kernels(per_op_windows=win)[key]
+    return {f"kBulk={b}, kSimd={s}": _attrs(lib.wasm_interp_attrs, b, s)
+            for b in (0, 1) for s in (0, 1)}
 
 
 def fused_kernel_key(tables: Tables) -> str:
@@ -437,10 +513,10 @@ _STATE_FIELDS = ("pc", "sp", "fp", "opbase", "call_depth", "trap", "retired",
 _FUSED_FIELDS = ("hid0", "flen", "fa", "fb", "fc", "filo", "fihi")
 _N_PTRS = len(_TABLE_FIELDS) + len(_STATE_FIELDS)
 # code_len, nf, n_brt, tsize, nv (v128 table rows), L, D, CD, NG, W,
-# chunk, fuel_on, max_local_zeros, mem_pages_max, bulk and simd (the kernel
-# instantiations with the memory.fill / memory.copy cases and with the
-# v128 handlers)
-_N_INTS = 16
+# chunk, fuel_on, max_local_zeros, mem_pages_max, bulk, simd and win (the
+# kernel instantiations with the memory.fill / memory.copy cases, with
+# the v128 handlers and with the window cache)
+_N_INTS = 17
 
 
 def _check(name, t, device, shape):
@@ -458,8 +534,9 @@ def _check(name, t, device, shape):
 def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool) -> None:
     """Run every live lane for up to `chunk` instructions, in place on
     the state `st` (a `batch.engine.BatchState`).  CUDA tensors launch
-    the kernel of the tables' encoding; CPU tensors run the plain
-    interpreter."""
+    the kernel of the tables' encoding (and memory mode: with
+    `mem_window` the window-cache instantiation, or an error); CPU
+    tensors run the plain interpreter."""
     device = st.pc.device
     if device.type == "cpu":
         from wasmedge_tpu_torch.batch import interp_ref
@@ -493,7 +570,10 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool) -> None:
                 "fr_ret_pc": CD, "fr_fp": CD, "fr_opbase": CD, "glob_lo": NG,
                 "glob_hi": NG, "mem": W}.get(f)
         _check(f, p, device, (L,) if rows is None else (rows, L))
-    key = _job(tables if fused else None)[0]
+    if tables.mem_window and W < 2 * HBM_WINDOW_ROWS:
+        raise ValueError(f"a memory of {W} words per lane is too small for "
+                         f"the window cache")
+    key = _job(tables)[0]
     lib = _libs.get(key) or build_kernels([tables])[key]
     launch = lib.wasm_fused_launch if fused else lib.wasm_interp_launch
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -509,7 +589,7 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool) -> None:
             tables.tbl.shape[0], tables.v128.shape[0] // 4, L, D, CD, NG, W,
             int(chunk), int(fuel_on),
             tables.max_local_zeros, tables.mem_pages_max,
-            int(tables.has_bulk), int(simd)]
+            int(tables.has_bulk), int(simd), int(tables.mem_window)]
     with torch.cuda.device(device):
         err = launch(*ptrs, *ints, stream)
     if err != 0:
@@ -521,3 +601,4 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool) -> None:
     LAUNCHES["simd"] += simd
     LAUNCHES["block"] += tables.fusion == "blocks"
     LAUNCHES["super"] += tables.fusion == "super"
+    LAUNCHES["window"] += tables.mem_window

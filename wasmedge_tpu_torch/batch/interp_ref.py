@@ -19,6 +19,14 @@ corner cases:
     a trap, and read copy sources from the unmodified plane (memmove),
     as `laneops.plane_fill_copy` does; one instruction and one fuel unit
     however long;
+  - with `tables.mem_window` every memory access goes through the
+    window cache of `batch/memwin.py` (B4): a load or store selects the
+    window that holds its rows (up to five for a v128 access) and reads
+    and writes the window's words; memory.fill / memory.copy first write
+    the lane's dirty windows back and invalidate them, then run on the
+    plane; the windows start invalid and every dirty one is written back
+    when the launch ends, so the planes after a launch are the ones
+    direct access leaves;
   - when the image holds v128 ops the stack has four planes (lo, hi, e2,
     e3): moves (local.get/set/tee, select, a kept branch value, return)
     carry all four words, every scalar write (const, global.get,
@@ -53,6 +61,7 @@ from wasmedge_tpu_torch.batch.interp import (
     H_V2_BASE, H_VBITSEL, H_VCONST, H_VEXTRACT_BASE, H_VLOAD,
     H_VREPLACE_BASE, H_VSHIFT_BASE, H_VSHUFFLE, H_VSPLAT_BASE, H_VSTORE,
     H_VTEST_BASE, NUM_HANDLERS, Tables)
+from wasmedge_tpu_torch.batch.memwin import MemWindows
 from wasmedge_tpu_torch.common.errors import ErrCode
 
 I32 = torch.int32
@@ -64,14 +73,19 @@ def run_chunk(t: Tables, st, chunk: int, fuel_on: bool) -> None:
     # steps each lane has left in this launch (a fused dispatch takes
     # several at once)
     left = torch.full_like(st.pc, int(chunk))
+    # B4: the windows start invalid at every launch and are written back
+    # when it ends (pallas_engine.py :3656-3660, :3683-3693)
+    win = MemWindows(st.mem) if t.mem_window else None
     while True:
         live = ((st.trap == 0) & (left > 0)).nonzero().squeeze(1)
         if live.numel() == 0:
-            return
-        _step(t, st, live, fuel_on, left)
+            break
+        _step(t, st, live, fuel_on, left, win)
+    if win is not None:
+        win.flush()
 
 
-def _step(t: Tables, st, lanes, fuel_on, left):
+def _step(t: Tables, st, lanes, fuel_on, left, win):
     code_len = t.hid.shape[0]
     pc = st.pc[lanes].clamp(0, code_len - 1)
     pcl = pc.long()
@@ -89,17 +103,17 @@ def _step(t: Tables, st, lanes, fuel_on, left):
     for h in torch.unique(hid).tolist():
         m = hid == h
         if bool(fused[m].any()):
-            _run_fused(t, st, lanes[m], pc[m], int(h), fuel_on, left)
+            _run_fused(t, st, lanes[m], pc[m], int(h), fuel_on, left, win)
         else:
-            _Group(t, st, lanes[m], pc[m], fuel_on).run(int(h))
+            _Group(t, st, lanes[m], pc[m], fuel_on, win).run(int(h))
             left[lanes[m]] -= 1
 
 
-def _run_fused(t, st, lanes, pc, h, fuel_on, left):
+def _run_fused(t, st, lanes, pc, h, fuel_on, left, win):
     """One fused dispatch (a block or a superinstruction) on the lanes at
     fused id h, then the terminal op, per op, on the lanes it leaves at
     one."""
-    g = _Fused(t, st, lanes, pc, fuel_on)
+    g = _Fused(t, st, lanes, pc, fuel_on, win)
     if h >= H_BLOCK_BASE:
         g.block(t.shapes[h - H_BLOCK_BASE])
     else:
@@ -113,16 +127,19 @@ def _run_fused(t, st, lanes, pc, h, fuel_on, left):
     th = t.hid[tpc.long()]
     for h2 in torch.unique(th).tolist():
         m = th == h2
-        _Group(t, st, tl[m], tpc[m], fuel_on).run(int(h2))
+        _Group(t, st, tl[m], tpc[m], fuel_on, win).run(int(h2))
         left[tl[m]] -= 1
 
 
 class _Group:
-    """One handler applied to the lanes that sit at it this step."""
+    """One handler applied to the lanes that sit at it this step; `win`
+    the launch's memory windows (None: the plane is read directly)."""
 
-    def __init__(self, t, st, lanes, pc, fuel_on):
+    def __init__(self, t, st, lanes, pc, fuel_on, win=None):
         self.t, self.st, self.lanes, self.pc = t, st, lanes, pc
         self.fuel_on = fuel_on
+        self.win = win
+        self.way = None  # the way the last window select chose
         self.D = st.stack_lo.shape[0]
         self.simd = st.stack_e2 is not None
         pcl = pc.long()
@@ -381,9 +398,26 @@ class _Group:
         sh = (ea & 3) * 8
         return ea, oob, widx, sh
 
-    def _words(self, widx):
-        mem = self.st.mem
-        return [self.gat(mem, widx + k) for k in range(3)]
+    def _words(self, widx, n=3, en=None):
+        """The n memory words from row widx on of each lane (rows clamped
+        into the plane): through the window that holds them, selected on
+        the lanes of `en` (in-bounds accesses), when the windows are on."""
+        W = self.st.mem.shape[0]
+        rows = [(widx + k).clamp(0, W - 1) for k in range(n)]
+        if self.win is None:
+            return [self.gat(self.st.mem, r) for r in rows]
+        self.way = self.win.select(self.lanes, rows[0], rows[-1], en)
+        return [self.win.read(self.lanes, self.way, r) for r in rows]
+
+    def _put_word(self, row, vals, mask):
+        """Memory row `row` of each lane gets vals where mask (the window
+        of the last `_words` when the windows are on)."""
+        if self.win is None:
+            self.scat(self.st.mem, row, vals, mask)
+        else:
+            W = self.st.mem.shape[0]
+            self.win.write(self.lanes, self.way, row.clamp(0, W - 1), vals,
+                           mask)
 
     def load(self):
         base, _ = self.cell(self.sp - 1)
@@ -393,11 +427,13 @@ class _Group:
             oob, torch.full_like(self.trap, int(ErrCode.MemoryOutOfBounds)),
             self.trap)
 
-    def load_val(self, base, off, nbytes, flags):
+    def load_val(self, base, off, nbytes, flags, mask=None):
         """The value (lo, hi) of a load of nbytes (flags: 1 signed, 2 to
-        i64) at base + off, and its out-of-bounds mask."""
+        i64) at base + off on the lanes of `mask` (all when None), and its
+        out-of-bounds mask."""
         _, oob, widx, sh = self._ea(base, nbytes.to(torch.int64), off)
-        w0, w1, w2 = (ops.u32(w) for w in self._words(widx))
+        en = ~oob if mask is None else ~oob & mask
+        w0, w1, w2 = (ops.u32(w) for w in self._words(widx, 3, en))
         sh64 = sh.to(torch.int64)
         raw_lo = ops.wrap32(ops.shr_u64(w0 | (w1 << 32), sh64))
         raw_hi = ops.wrap32(ops.shr_u64(w1 | (w2 << 32), sh64))
@@ -429,7 +465,8 @@ class _Group:
         `mask` (all when None) that are in bounds; returns the
         out-of-bounds mask."""
         _, oob, widx, sh = self._ea(base, nbytes.to(torch.int64), off)
-        words = self._words(widx)
+        ok = ~oob if mask is None else ~oob & mask
+        words = self._words(widx, 3, ok)
         sh64 = sh.to(torch.int64)
         full = torch.where(nbytes == 1, torch.full_like(sh64, 0xFF),
                            torch.where(nbytes == 2,
@@ -446,11 +483,10 @@ class _Group:
                          ops.shr_u64(val, back) & 0xFFFFFFFF)
         masks = [m01 & 0xFFFFFFFF, ops.shr_u64(m01, 32), m2]
         vals = [v01 & 0xFFFFFFFF, ops.shr_u64(v01, 32), v2]
-        ok = ~oob if mask is None else ~oob & mask
         for k in range(3):
             mk = masks[k]
             new = (ops.u32(words[k]) & ~mk) | (vals[k] & mk)
-            self.scat(self.st.mem, widx + k, ops.wrap32(new), ok & (mk != 0))
+            self._put_word(widx + k, ops.wrap32(new), ok & (mk != 0))
         return oob
 
     def memsize(self):
@@ -500,6 +536,11 @@ class _Group:
             oob, torch.full_like(self.trap, int(ErrCode.MemoryOutOfBounds)),
             self.trap)
         self.new_sp = self.sp - 3
+        if self.win is not None:
+            # the bulk loop runs on the plane: the lanes' dirty windows
+            # go back first, and none stays valid (pallas_engine.py
+            # :2303-2306)
+            self.win.flush(self.lanes)
         go = ~oob & (n != 0)
         if bool(go.any()):
             _fill_copy(self.st.mem, self.lanes[go], dst[go], end[go],
@@ -584,7 +625,7 @@ class _Group:
         self.trap = torch.where(
             oob, torch.full_like(self.trap, int(ErrCode.MemoryOutOfBounds)),
             self.trap)
-        words = [ops.u32(self.gat(self.st.mem, widx + k)) for k in range(5)]
+        words = [ops.u32(w) for w in self._words(widx, 5, ~oob)]
         return oob, widx, sh.to(torch.int64), words
 
     def vload(self):
@@ -611,7 +652,7 @@ class _Group:
         for k in range(5):
             m = masks[k]
             new = (w[k] & ~m) | (vals[k] & m)
-            self.scat(self.st.mem, widx + k, ops.wrap32(new), ok & (m != 0))
+            self._put_word(widx + k, ops.wrap32(new), ok & (m != 0))
         self.new_sp = self.sp - 2
 
 
@@ -642,8 +683,8 @@ class _Fused(_Group):
     written.  Per lane it records the new pc and sp, the instructions
     retired (`n`), a trap, and whether a terminal op is left (`term`)."""
 
-    def __init__(self, t, st, lanes, pc, fuel_on):
-        super().__init__(t, st, lanes, pc, fuel_on)
+    def __init__(self, t, st, lanes, pc, fuel_on, win=None):
+        super().__init__(t, st, lanes, pc, fuel_on, win)
         z = torch.zeros_like(pc)
         self.active = torch.ones_like(pc, dtype=torch.bool)
         self.out_pc, self.out_sp = pc.clone(), self.sp.clone()
@@ -758,7 +799,7 @@ class _Fused(_Group):
             pre = self.snap()
             addr = self.pop()
             lo, hi, oob = self.load_val(addr[0], a, self.at(t.b, j),
-                                        self.at(t.c, j))
+                                        self.at(t.c, j), self.active)
             self.exit(oob, pre, self.pc + j, self.sp_of(self.sp, pre), j + 1,
                       int(ErrCode.MemoryOutOfBounds))
             push(self.sc(lo, hi))

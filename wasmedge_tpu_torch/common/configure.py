@@ -80,6 +80,18 @@ class BatchConfigure:
     # per instruction).  None = on; False falls back to the peephole
     # superinstructions (per-op dispatch for images with v128 ops).
     block_fusion: Optional[bool] = None
+    # Linear memory behind the window cache (B4): each lane keeps two
+    # windows of HBM_WINDOW_ROWS memory words (batch/memwin.py) in the
+    # card's shared memory, and its loads and stores go through them.
+    # None or True: the windows, for every image with a memory of at least
+    # 2 * HBM_WINDOW_ROWS words; False: every access reads and writes the
+    # [words, lanes] plane in global memory directly.  The JAX package's
+    # rule (pallas_engine.py `_mem_mode`) takes the windows whenever they
+    # give a larger lane block than a VMEM-resident slab; one page per lane
+    # never fits on chip on either device, so at every geometry the port
+    # runs that rule gives the windows.  False here is the plane read
+    # directly, not a resident slab, which has no counterpart on the card.
+    mem_hbm: Optional[bool] = None
 
 
 @dataclasses.dataclass

@@ -14,12 +14,14 @@
 // writes commit at once, and a later read of the same local or global
 // ordinal takes the written value; at any exit the live cells are written
 // to the stack rows.  The module's source includes interp.cu and this
-// file, and instantiates interp_kernel once, with the module's kBulk and
-// kSimd and its `Fused` dispatch, into a shared library of its own.
+// file, and instantiates interp_kernel once, with the module's kBulk,
+// kSimd and kWin (memory through the window cache, memwin.cuh) and its
+// `Fused` dispatch, into a shared library of its own.
 //
 // What bounds the per-op loop on the H100 is the latency of the dependent
 // global-memory accesses each instruction makes (the hid load, operand
-// rows, the result row) with about one warp per SM.  A fused dispatch pays
+// rows, the result row) with 4 warps on each of 32 SMs at 4096 lanes
+// (128-thread blocks; 100 of the 132 SMs idle).  A fused dispatch pays
 // the loop's bookkeeping (pc clamp, hid load, fuel, trap check) once per
 // block and keeps the stack traffic between a block's ops in registers.
 //
@@ -101,22 +103,26 @@ __device__ __forceinline__ V4 fused_vbitsel(const V4& a, const V4& b,
 
 // ---------------------------------------------------------------------------
 // Inline loads and stores: interp.cu's per-op H_LOAD / H_STORE cases with
-// the width and flags known when the code is generated.  false: out of
+// the width and flags known when the code is generated, through the
+// lane's memory access `m` (the window cache with kWin).  false: out of
 // bounds, nothing read or written.
 // ---------------------------------------------------------------------------
-template <bool kSimd>
+template <bool kSimd, bool kWin>
 __device__ __forceinline__ bool fused_load(const Params& p,
-                                           const Lane<kSimd>& s, int pages,
-                                           u32 base, u32 off, int nbytes,
-                                           int flags, u64& out) {
+                                           const Lane<kSimd>& s, Mem<kWin>& m,
+                                           int pages, u32 base, u32 off,
+                                           int nbytes, int flags, u64& out) {
   const u32 ea = base + off;
   const u32 end = ea + (u32)nbytes;
   const u32 mem_bytes = (u32)pages * 65536u;
   if (ea < base || ea < off || end < ea || mem_bytes < end) return false;
   const int widx = (int)(ea >> 2);
   const u32 sh = (ea & 3) * 8;
+  int row[3];
   u32 w[3];
-  for (int k = 0; k < 3; ++k) w[k] = (u32)p.mem[s.at(widx + k, p.W)];
+  for (int k = 0; k < 3; ++k) row[k] = clampi(widx + k, 0, p.W - 1);
+  m.select(p, s.lane, row[0], row[2]);
+  for (int k = 0; k < 3; ++k) w[k] = m.get(p, s.lane, row[k]);
   const bool sgn = (flags & 1) != 0, is64 = (flags & 2) != 0;
   const u32 raw_lo = sh ? (w[0] >> sh) | (w[1] << (32 - sh)) : w[0];
   const u32 raw_hi = sh ? (w[1] >> sh) | (w[2] << (32 - sh)) : w[1];
@@ -130,9 +136,10 @@ __device__ __forceinline__ bool fused_load(const Params& p,
   return true;
 }
 
-template <bool kSimd>
+template <bool kSimd, bool kWin>
 __device__ __forceinline__ bool fused_store(const Params& p,
-                                            const Lane<kSimd>& s, int pages,
+                                            const Lane<kSimd>& s,
+                                            Mem<kWin>& m, int pages,
                                             u32 base, u32 off, int nbytes,
                                             u64 val) {
   const u32 ea = base + off;
@@ -141,12 +148,11 @@ __device__ __forceinline__ bool fused_store(const Params& p,
   if (ea < base || ea < off || end < ea || mem_bytes < end) return false;
   const int widx = (int)(ea >> 2);
   const u32 sh = (ea & 3) * 8;
-  size_t wi[3];
+  int row[3];
   u32 w[3];
-  for (int k = 0; k < 3; ++k) {
-    wi[k] = s.at(widx + k, p.W);
-    w[k] = (u32)p.mem[wi[k]];
-  }
+  for (int k = 0; k < 3; ++k) row[k] = clampi(widx + k, 0, p.W - 1);
+  m.select(p, s.lane, row[0], row[2]);
+  for (int k = 0; k < 3; ++k) w[k] = m.get(p, s.lane, row[k]);
   const u64 full = nbytes == 1 ? 0xFFull : nbytes == 2 ? 0xFFFFull
                    : nbytes == 8 ? ~0ull : 0xFFFFFFFFull;
   const u64 m01 = full << sh, v01 = val << sh;
@@ -155,34 +161,33 @@ __device__ __forceinline__ bool fused_store(const Params& p,
   const u32 vk[3] = {(u32)v01, (u32)(v01 >> 32),
                      sh ? (u32)(val >> (64 - sh)) : 0u};
   for (int k = 0; k < 3; ++k)
-    if (mk[k] != 0) p.mem[wi[k]] = (i32)((w[k] & ~mk[k]) | (vk[k] & mk[k]));
+    if (mk[k] != 0) m.put(p, s.lane, row[k], (w[k] & ~mk[k]) | (vk[k] & mk[k]));
   return true;
 }
 
 // ---------------------------------------------------------------------------
 // Launch of a module's fused kernel: one instantiation, the module's
-// kBulk and kSimd.  Returns a CUDA error code (0 = launched).
+// kBulk, kSimd and kWin (with kWin, the windows' shared memory as
+// interp.cu's per-op launch gives it).  Returns a CUDA error code (0 =
+// launched).
 // ---------------------------------------------------------------------------
-template <bool kBulk, bool kSimd, class F>
-int fused_launch(const Params& p, int bulk, int simd, void* stream) {
-  if ((bulk != 0) != kBulk || (simd != 0) != kSimd || !p.hid0 || !p.flen)
+template <bool kBulk, bool kSimd, bool kWin, class F>
+int fused_launch(const Params& p, int bulk, int simd, int win, void* stream) {
+  if ((bulk != 0) != kBulk || (simd != 0) != kSimd || (win != 0) != kWin ||
+      !p.hid0 || !p.flen)
     return (int)cudaErrorInvalidValue;
   if (kSimd && (p.stack_e2 == nullptr || p.stack_e3 == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const int blocks = (p.L + threads - 1) / threads;
-  if (blocks > 0)
-    interp_kernel<kBulk, kSimd, F>
-        <<<blocks, threads, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  if (kWin && p.W < WIN_ROWS) return (int)cudaErrorInvalidValue;
+  return launch_kernel<kBulk, kSimd, F, kWin>(p, (cudaStream_t)stream);
 }
 
 }  // namespace
 
-// The module's C entry: wasm_interp_launch's arguments, then the fused
+// The module's C entries: wasm_interp_launch's arguments, then the fused
 // tables (hid0, flen and the superinstructions' operand planes, null for
-// blocks).
-#define WASM_FUSED_LAUNCH(KBULK, KSIMD, FUSED)                                 \
+// blocks); and interp.cu's kernel_attrs of its one instantiation.
+#define WASM_FUSED_LAUNCH(KBULK, KSIMD, KWIN, FUSED)                           \
   extern "C" int wasm_fused_launch(                                            \
       const int* hid, const int* a, const int* b, const int* c,                \
       const int* ilo, const int* ihi, const int* fent, const int* fnpar,       \
@@ -196,7 +201,7 @@ int fused_launch(const Params& p, int bulk, int simd, void* stream) {
       const int* filo, const int* fihi, int code_len, int nf, int n_brt,       \
       int tsize, int nv, int L, int D, int CD, int NG, int W, int chunk,       \
       int fuel_on, int max_local_zeros, int mem_pages_max, int bulk,           \
-      int simd, void* stream) {                                                \
+      int simd, int win, void* stream) {                                       \
     Params p{hid,       a,         b,        c,         ilo,                   \
              ihi,       fent,      fnpar,    fnloc,     ftop,                  \
              ftyp,      brt,       tbl,      pc,        sp,                    \
@@ -208,5 +213,9 @@ int fused_launch(const Params& p, int bulk, int simd, void* stream) {
              fuel_on,   max_local_zeros, mem_pages_max, v128, stack_e2,        \
              stack_e3,  nv,        hid0,     flen,      fa,                    \
              fb,        fc,        filo,     fihi};                            \
-    return fused_launch<KBULK, KSIMD, FUSED>(p, bulk, simd, stream);           \
+    return fused_launch<KBULK, KSIMD, KWIN, FUSED>(p, bulk, simd, win,        \
+                                                   stream);                    \
+  }                                                                            \
+  extern "C" int wasm_fused_attrs(int* out) {                                  \
+    return kernel_attrs<KBULK, KSIMD, FUSED, KWIN>(out);                       \
   }

@@ -22,8 +22,15 @@
 // access: the GPU form of the TPU's uniform-address fast path.  What
 // bounds it on this card is the latency of the dependent global-memory
 // accesses each instruction makes (handler id, operands, result), not
-// bandwidth: with 4096 lanes there are only 128 warps.  Keeping stack and
-// memory windows in shared memory is later work.
+// bandwidth: every launch runs 128-thread blocks, so 4096 lanes are 32
+// blocks, 4 warps on each of 32 SMs, and 100 of the H100's 132 SMs idle.
+//
+// Linear memory (kWin, B4, memwin.cuh): with the window cache on, each
+// lane's loads and stores go through two windows of 128 words of its
+// memory column in shared memory (128 KiB per block, one block per SM at
+// 4096 lanes), filled from and written back to the [W, L] plane; without
+// it they read and write the plane directly.  The value stack stays in
+// global memory.
 //
 // Host calls: a lane at a HOSTCALL stub parks (trap = TRAP_HOSTCALL, pc
 // left at the stub); the host serves it between launches and re-arms it
@@ -47,8 +54,8 @@
 // column of mem[W, L], a word per step, so the lanes of a converged warp
 // write one 128-byte row per step.  The work is bounded by bytes (each
 // byte filled is written once, each byte copied read and written once),
-// but with one thread per lane 4096 lanes make about one warp per SM, so
-// the loop runs far above that bound (PERF.md).  It keeps eight words in
+// but with one thread per lane 4096 lanes make 4 warps on each of 32 SMs,
+// so the loop runs far above that bound (PERF.md).  It keeps eight words in
 // flight per thread, reading all eight sources before it writes, which
 // is safe for memmove because a copy walks away from the bytes it has
 // not read yet (backward when dst > src).
@@ -1143,6 +1150,12 @@ struct Lane {
   }
 };
 
+}  // namespace
+
+#include "memwin.cuh"
+
+namespace {
+
 // memory.fill (copy = false, v = the fill byte) or memory.copy (copy =
 // true, v = the source address) of bytes [dst, end) in one lane's column,
 // end > dst, both ranges already bounds-checked.  Words are masked at the
@@ -1204,10 +1217,10 @@ __device__ void bulk_fill_copy(i32* mem, int L, int W, int lane, u32 dst,
 // One v128 instruction, handler h >= H_VCONST at pcc (kSimd only).
 // Returns its trap code: a v128.load / v128.store out of bounds writes
 // nothing.
-template <bool kSimd>
+template <bool kSimd, bool kWin>
 __device__ __forceinline__ int simd_step(const Params& p,
-                                         const Lane<kSimd>& s, int h,
-                                         int pcc, int sp, int pages,
+                                         const Lane<kSimd>& s, Mem<kWin>& m,
+                                         int h, int pcc, int sp, int pages,
                                          int& new_sp) {
   if (h >= H_V2_BASE) {
     if (h < H_V1_BASE) {
@@ -1271,11 +1284,15 @@ __device__ __forceinline__ int simd_step(const Params& p,
   if (ea < base || ea < off || end < ea || mem_bytes < end) return E_MEM_OOB;
   const int widx = (int)(ea >> 2);
   const u32 sh = (ea & 3u) * 8u;
+  int row[5];  // the five rows, clamped into the plane
+#pragma unroll
+  for (int k = 0; k < 5; ++k) row[k] = clampi(widx + k, 0, p.W - 1);
+  m.select(p, s.lane, row[0], row[4]);
   if (!store) {
     u32 w[5];
 #pragma unroll
     for (int k = 0; k < 5; ++k)
-      w[k] = k < 4 || sh ? (u32)p.mem[s.at(widx + k, p.W)] : 0u;
+      w[k] = k < 4 || sh ? m.get(p, s.lane, row[k]) : 0u;
     V4 r;
 #pragma unroll
     for (int k = 0; k < 4; ++k)
@@ -1287,20 +1304,19 @@ __device__ __forceinline__ int simd_step(const Params& p,
   new_sp = sp - 2;
   if (sh == 0) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) p.mem[s.at(widx + k, p.W)] = (i32)v.w[k];
+    for (int k = 0; k < 4; ++k) m.put(p, s.lane, row[k], v.w[k]);
     return 0;
   }
   // the 16 bytes span five words: keep the bytes below ea in the first
   // and those from ea + 16 on in the last
   const u32 keep = 0xFFFFFFFFu << sh;
-  i32* w0 = &p.mem[s.at(widx, p.W)];
-  i32* w4 = &p.mem[s.at(widx + 4, p.W)];
-  *w0 = (i32)(((u32)*w0 & ~keep) | (v.w[0] << sh));
+  m.put(p, s.lane, row[0],
+        (m.get(p, s.lane, row[0]) & ~keep) | (v.w[0] << sh));
 #pragma unroll
   for (int k = 1; k < 4; ++k)
-    p.mem[s.at(widx + k, p.W)] =
-        (i32)((v.w[k] << sh) | (v.w[k - 1] >> (32u - sh)));
-  *w4 = (i32)(((u32)*w4 & keep) | (v.w[3] >> (32u - sh)));
+    m.put(p, s.lane, row[k], (v.w[k] << sh) | (v.w[k - 1] >> (32u - sh)));
+  m.put(p, s.lane, row[4],
+        (m.get(p, s.lane, row[4]) & keep) | (v.w[3] >> (32u - sh)));
   return 0;
 }
 
@@ -1323,17 +1339,23 @@ __device__ __forceinline__ int simd_step(const Params& p,
 // (hid0) and goes on one op at a time.  F::step retires n ops (their
 // writes committed, the live cells of its virtual stack flushed) and may
 // leave a terminal op at pc, which the per-op code below then runs.
+//
+// kWin: memory accesses go through the lane's window cache (memwin.cuh);
+// the launch gives each block WIN_SMEM_BYTES of dynamic shared memory.
+// Every way out of the loop below ends in the flush after it.
 struct NoFusion {
   static constexpr bool kOn = false;
 };
 
-template <bool kBulk, bool kSimd, class F = NoFusion>
+template <bool kBulk, bool kSimd, class F = NoFusion, bool kWin = false>
 __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.L) return;
   if (p.trap[lane] != 0) return;
   const Lane<kSimd> s{p.stack_lo, p.stack_hi, p.stack_e2, p.stack_e3,
                       p.L,        p.D,        lane};
+  extern __shared__ i32 win_smem[];
+  Mem<kWin> m(win_smem);
   int pc = p.pc[lane], sp = p.sp[lane], fp = p.fp[lane], ob = p.opbase[lane];
   int cd = p.call_depth[lane], retired = p.retired[lane], fuel = p.fuel[lane];
   int pages = p.mem_pages[lane];
@@ -1348,8 +1370,8 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
         const int len = __ldg(&p.flen[pcc]);
         if (p.chunk - step >= len && (!p.fuel_on || fuel > len)) {
           int n = 0, xtrap = 0;
-          const bool term = F::template step<kSimd>(p, s, h, pc, sp, fp, ob,
-                                                    pages, n, xtrap);
+          const bool term = F::template step<kSimd, kWin>(
+              p, s, m, h, pc, sp, fp, ob, pages, n, xtrap);
           retired += n;
           if (p.fuel_on) fuel -= n;
           if (xtrap != 0) {
@@ -1382,7 +1404,7 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
       if (ntrap != 0 && (sub == 23 || sub == 24)) r = 0;  // f32 -> i32 trap writes 0
       s.put(sp - 1, r);
     } else if (kSimd && h >= H_VCONST) {
-      ntrap = simd_step<kSimd>(p, s, h, pcc, sp, pages, new_sp);
+      ntrap = simd_step<kSimd, kWin>(p, s, m, h, pcc, sp, pages, new_sp);
     } else {
       switch (h) {
         case H_NOP:
@@ -1553,12 +1575,11 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
           }
           const int widx = (int)(ea >> 2);
           const u32 sh = (ea & 3) * 8;
-          size_t wi[3];
+          int row[3];  // clamped into the plane
           u32 w[3];
-          for (int k = 0; k < 3; ++k) {
-            wi[k] = s.at(widx + k, p.W);
-            w[k] = (u32)p.mem[wi[k]];
-          }
+          for (int k = 0; k < 3; ++k) row[k] = clampi(widx + k, 0, p.W - 1);
+          m.select(p, lane, row[0], row[2]);
+          for (int k = 0; k < 3; ++k) w[k] = m.get(p, lane, row[k]);
           if (!is_store) {
             const int c = __ldg(&p.c[pcc]);
             const bool sgn = (c & 1) != 0, is64 = (c & 2) != 0;
@@ -1581,7 +1602,8 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
             const u32 vk[3] = {(u32)v01, (u32)(v01 >> 32),
                                sh ? (u32)(val >> (64 - sh)) : 0u};
             for (int k = 0; k < 3; ++k)
-              if (mk[k] != 0) p.mem[wi[k]] = (i32)((w[k] & ~mk[k]) | (vk[k] & mk[k]));
+              if (mk[k] != 0)
+                m.put(p, lane, row[k], (w[k] & ~mk[k]) | (vk[k] & mk[k]));
           }
           break;
         }
@@ -1603,6 +1625,9 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
             // memory.fill / memory.copy; stack: dst, fill value or
             // source, n (top)
             const bool copy = h == H_MEMCOPY;
+            // the bulk loop runs on the plane: the windows go back first
+            // and none stays valid (pallas_engine.py :2303-2306)
+            m.flush(p, lane);
             const u32 n = (u32)s.get(sp - 1), v = (u32)s.get(sp - 2);
             const u32 dst = (u32)s.get(sp - 3);
             const u32 mem_bytes = (u32)pages * 65536u;
@@ -1639,6 +1664,9 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
     cd = new_cd;
   }
 
+  // the exit commit (pallas_engine.py :3683-3693): chunk end, trap, fuel,
+  // done and the host-call park all leave the loop above to here
+  m.flush(p, lane);
   p.pc[lane] = pc;
   p.sp[lane] = sp;
   p.fp[lane] = fp;
@@ -1650,9 +1678,63 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
   p.mem_pages[lane] = pages;
 }
 
+// The dynamic shared memory of a launch: the windows of its 128 lanes
+// (kWin), or none.  Raises the kernel's limit above the 48 KiB default
+// first; a card without room for the windows fails here or at the launch.
+template <bool kWin, class K>
+int win_smem(K kernel, size_t* bytes) {
+  *bytes = kWin ? (size_t)WIN_SMEM_BYTES : 0;
+  if (!kWin) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WIN_SMEM_BYTES);
+}
+
+template <bool kBulk, bool kSimd, class F, bool kWin>
+int launch_kernel(const Params& p, cudaStream_t st) {
+  const int blocks = (p.L + WIN_THREADS - 1) / WIN_THREADS;
+  if (blocks <= 0) return 0;
+  size_t smem;
+  const int err = win_smem<kWin>(interp_kernel<kBulk, kSimd, F, kWin>, &smem);
+  if (err != 0) return err;
+  interp_kernel<kBulk, kSimd, F, kWin><<<blocks, WIN_THREADS, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// What the runtime reports of an instantiation, with its launch's shared
+// memory: registers, local (stack) bytes per thread, static and maximum
+// dynamic shared bytes per block, the dynamic bytes a launch asks for,
+// and the blocks of WIN_THREADS threads that fit on one SM.
+template <bool kBulk, bool kSimd, class F, bool kWin>
+int kernel_attrs(int* out) {
+  const auto k = interp_kernel<kBulk, kSimd, F, kWin>;
+  size_t smem;
+  int err = win_smem<kWin>(k, &smem);
+  if (err != 0) return err;
+  cudaFuncAttributes a;
+  err = (int)cudaFuncGetAttributes(&a, k);
+  if (err != 0) return err;
+  int blocks = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k,
+                                                           WIN_THREADS, smem);
+  if (err != 0) return err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxDynamicSharedSizeBytes;
+  out[4] = (int)smem;
+  out[5] = blocks;
+  return 0;
+}
+
 }  // namespace
 
 #ifndef WASM_FUSED_BUILD
+// The shared per-op build: interp.cu alone, once with WASM_MEM_WINDOW=0
+// (direct memory access) and once with WASM_MEM_WINDOW=1 (the window
+// cache), four instantiations each, as two libraries built side by side.
+#ifndef WASM_MEM_WINDOW
+#define WASM_MEM_WINDOW 0
+#endif
 extern "C" int wasm_interp_launch(
     const int* hid, const int* a, const int* b, const int* c, const int* ilo,
     const int* ihi, const int* fent, const int* fnpar, const int* fnloc,
@@ -1663,27 +1745,31 @@ extern "C" int wasm_interp_launch(
     int* fr_opbase, int* glob_lo, int* glob_hi, int* mem, int code_len,
     int nf, int n_brt, int tsize, int nv, int L, int D, int CD, int NG, int W,
     int chunk, int fuel_on, int max_local_zeros, int mem_pages_max,
-    int bulk, int simd, void* stream) {
+    int bulk, int simd, int win, void* stream) {
   Params p{hid, a, b, c, ilo, ihi, fent, fnpar, fnloc, ftop, ftyp, brt, tbl,
            pc, sp, fp, opbase, call_depth, trap, retired, fuel, mem_pages,
            stack_lo, stack_hi, fr_ret_pc, fr_fp, fr_opbase, glob_lo, glob_hi,
            mem, code_len, nf, n_brt, tsize, L, D, CD, NG, W, chunk, fuel_on,
            max_local_zeros, mem_pages_max, v128, stack_e2, stack_e3, nv};
-  const int threads = 128;
-  const int blocks = (L + threads - 1) / threads;
+  constexpr bool kWin = WASM_MEM_WINDOW != 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (blocks > 0) {
-    if (simd && (stack_e2 == nullptr || stack_e3 == nullptr))
-      return (int)cudaErrorInvalidValue;
-    if (bulk && simd)
-      interp_kernel<true, true><<<blocks, threads, 0, st>>>(p);
-    else if (bulk)
-      interp_kernel<true, false><<<blocks, threads, 0, st>>>(p);
-    else if (simd)
-      interp_kernel<false, true><<<blocks, threads, 0, st>>>(p);
-    else
-      interp_kernel<false, false><<<blocks, threads, 0, st>>>(p);
-  }
-  return (int)cudaGetLastError();
+  if ((win != 0) != kWin || (kWin && W < WIN_ROWS))
+    return (int)cudaErrorInvalidValue;
+  if (simd && (stack_e2 == nullptr || stack_e3 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (bulk && simd) return launch_kernel<true, true, NoFusion, kWin>(p, st);
+  if (bulk) return launch_kernel<true, false, NoFusion, kWin>(p, st);
+  if (simd) return launch_kernel<false, true, NoFusion, kWin>(p, st);
+  return launch_kernel<false, false, NoFusion, kWin>(p, st);
+}
+
+// kernel_attrs of the instantiation a launch with these flags runs (six
+// ints into out).
+extern "C" int wasm_interp_attrs(int bulk, int simd, int* out) {
+  constexpr bool kWin = WASM_MEM_WINDOW != 0;
+  if (bulk && simd) return kernel_attrs<true, true, NoFusion, kWin>(out);
+  if (bulk) return kernel_attrs<true, false, NoFusion, kWin>(out);
+  if (simd) return kernel_attrs<false, true, NoFusion, kWin>(out);
+  return kernel_attrs<false, false, NoFusion, kWin>(out);
 }
 #endif  // WASM_FUSED_BUILD

@@ -1,7 +1,8 @@
 """Workloads the port's checks drive, built programmatically (no
 wat2wasm): fib (the flagship), fac, loop_sum, mem_checksum, the
 CoreMark-style kernel, the WASI echo and hello programs, the
-bulk-memory workload and the v128 loop."""
+bulk-memory workload and the v128 loop; `programs.memory_workload_model`
+is mem_checksum's numpy oracle (BASELINE config 2)."""
 
 from wasmedge_tpu_torch.models.programs import (
     build_bulk_workload,

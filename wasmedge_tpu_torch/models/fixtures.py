@@ -18,8 +18,14 @@ the end of memory, out of bounds and with a carry in addr + offset,
 `build_v128_control` moves v128 values through select, branches with a
 kept value, return, calls with v128 parameters and zeroed v128 locals
 and local.tee, and `build_simd_host` leaves v128 words where a host
-call's result lands.  The tests and `chip_smoke.py` use them with lane
-inputs made from a seed.
+call's result lands.  The window-cache fixtures (B4): `build_window_walk`
+crosses a 512-byte window with an unaligned i64 store and load on every
+iteration, `build_window_pingpong` writes two regions more than a window
+apart in turn and then makes unaligned i64 and v128 accesses straddle
+window edges (the overlap rule evicts a dirty way), and
+`build_window_host` stores and then parks at a host call in the same
+window.  The tests and `chip_smoke.py` use them with lane inputs made
+from a seed.
 """
 
 from __future__ import annotations
@@ -893,4 +899,110 @@ def build_many_shapes(n: int = 128) -> bytes:
     for f in funcs:
         top += [("call", f)]
     b.add_function(["i32"], ["i32"], [], top, export="f")
+    return b.build()
+
+
+# -- the memory window cache (B4) --------------------------------------------
+
+
+def build_window_walk() -> bytes:
+    """edgewalk(n) -> i64: for i < n an i64 store of i ^ 0x0123456789ABCDEF
+    at i * 520 + 6 (unaligned, three words) and its load back, folded by
+    xor; each iteration crosses the 512-byte (128-word) window, so the two
+    ways alternate (the JAX package's tests/test_pallas_hbm.py stride
+    walk).  n <= 126 stays in the one page."""
+    b = ModuleBuilder()
+    b.add_memory(1, 2)
+    b.add_function(["i32"], ["i64"], ["i32", "i64"], [
+        ("block", None),
+        ("loop", None),
+        ("local.get", 1), ("local.get", 0), "i32.ge_u", ("br_if", 1),
+        ("local.get", 1), ("i32.const", 520), "i32.mul",
+        ("local.get", 1), "i64.extend_i32_u",
+        ("i64.const", 0x0123456789ABCDEF), "i64.xor",
+        ("i64.store", 3, 6),
+        ("local.get", 2),
+        ("local.get", 1), ("i32.const", 520), "i32.mul",
+        ("i64.load", 3, 6),
+        "i64.xor", ("local.set", 2),
+        ("local.get", 1), ("i32.const", 1), "i32.add", ("local.set", 1),
+        ("br", 0),
+        "end",
+        "end",
+        ("local.get", 2),
+    ], export="edgewalk")
+    return b.build()
+
+
+WINDOW_PINGPONG_WAT = """
+(module
+  (memory 1 1)
+  ;; pingpong(x, o, n): region A at o and region B at o + 8192 (2048 words
+  ;; apart, more than a window) are written and read in turn, A last; then
+  ;; an unaligned i64 store at o + 506 straddles the edge of A's first
+  ;; window (its window overlaps the dirty way that holds A: the overlap
+  ;; rule writes that way back and invalidates it), a load goes back to
+  ;; A's start, a v128 load across the same edge reads the i64 back, and a
+  ;; v128 store across the edge of B's window is read back as an i64
+  (func (export "pingpong") (param $x i32) (param $o i32) (param $n i32)
+                            (result i64)
+    (local $i i32) (local $a i32) (local $acc i64) (local $v v128)
+    (block (loop
+      (br_if 1 (i32.ge_u (local.get $i) (local.get $n)))
+      (local.set $a (i32.add (local.get $o)
+                             (i32.shl (local.get $i) (i32.const 2))))
+      (i32.store (local.get $a) (i32.xor (local.get $x) (local.get $i)))
+      (i32.store offset=8192 (local.get $a)
+                 (i32.add (local.get $x) (local.get $i)))
+      (local.set $acc
+        (i64.add (local.get $acc)
+                 (i64.extend_i32_u (i32.load offset=8192 (local.get $a)))))
+      (local.set $acc
+        (i64.xor (i64.rotl (local.get $acc) (i64.const 5))
+                 (i64.extend_i32_u (i32.load (local.get $a)))))
+      (local.set $i (i32.add (local.get $i) (i32.const 1)))
+      (br 0)))
+    (i64.store offset=506 (local.get $o) (local.get $acc))
+    (local.set $acc
+      (i64.add (local.get $acc) (i64.load offset=10 (local.get $o))))
+    (local.set $v (v128.load offset=500 (local.get $o)))
+    (v128.store offset=8702 (local.get $o)
+                (v128.xor (local.get $v) (i32x4.splat (local.get $x))))
+    (i64.xor
+      (i64.add (local.get $acc) (i64x2.extract_lane 0 (local.get $v)))
+      (i64.add (i64x2.extract_lane 1 (local.get $v))
+               (i64.load offset=8706 (local.get $o)))))
+)
+"""
+
+
+def build_window_pingpong() -> bytes:
+    return parse_wat(WINDOW_PINGPONG_WAT)
+
+
+def window_pingpong_args(lanes: int, seed: int = 0):
+    """(x, o, n): seeded x, every byte offset o in 0..63 in turn (the
+    straddling accesses land on both sides of the window edges) and
+    n in 1..24 iterations."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(-2**31, 2**31, lanes), np.arange(lanes) % 64,
+            np.arange(lanes) % 24 + 1]
+
+
+def build_window_host() -> bytes:
+    """f(x): stores x at 64, parks at env.double in the same window (the
+    park must write the window back), loads 64 again, lets env.poke store
+    x at 68 (the serve round writes the plane) and loads that back:
+    returns 2x + x + (x + 1) + x = 5x + 1."""
+    b = ModuleBuilder()
+    b.import_func(HOST_MODULE, "double", ["i32"], ["i32"])
+    b.import_func(HOST_MODULE, "poke", ["i32", "i32"], ["i32"])
+    b.add_memory(1, 1)
+    b.add_function(["i32"], ["i32"], [], [
+        ("i32.const", 64), ("local.get", 0), ("i32.store", 2, 0),
+        ("local.get", 0), ("call", 0),
+        ("i32.const", 64), ("i32.load", 2, 0), "i32.add",
+        ("i32.const", 68), ("local.get", 0), ("call", 1), "i32.add",
+        ("i32.const", 68), ("i32.load", 2, 0), "i32.add",
+    ], export="f")
     return b.build()

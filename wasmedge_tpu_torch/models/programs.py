@@ -105,6 +105,20 @@ def build_memory_workload(passes: int = 1) -> bytes:
     return b.build()
 
 
+def memory_workload_model(n: int, passes: int = 1) -> int:
+    """What build_memory_workload(passes)'s mem_checksum(n) returns (a
+    u32), computed with numpy (the port's copy of bench_memory.py's
+    `expected_checksum`, BASELINE config 2's oracle): pass p (counting
+    passes..1) stores word i = i * 0x9E3779B1 ^ (p - 1), then xors the n
+    words into the accumulator."""
+    acc = np.uint32(0)
+    i = np.arange(n, dtype=np.uint32)
+    for p in range(passes, 0, -1):
+        words = (i * np.uint32(0x9E3779B1)) ^ np.uint32(p - 1)
+        acc ^= np.bitwise_xor.reduce(words)
+    return int(acc)
+
+
 def build_coremark_kernel() -> bytes:
     """CoreMark-flavored kernel: list-free core mix of matrix-multiply-ish
     integer MACs, state-machine branches, and CRC over linear memory.

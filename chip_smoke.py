@@ -5,18 +5,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases:
   1. build   - compile every kernel the script runs, one nvcc process per
                source, all started together: the per-op warp-interpreter
-               (csrc/interp.cu, four instantiations, once with direct
-               memory access and once with the B4 window cache,
-               csrc/memwin.cuh) and, per module, encoding and memory mode,
-               the fused kernel (csrc/interp.cu + csrc/fused.cuh + the
-               dispatch batch/fusegen.py generates for its B2 block shapes
-               or B6 superinstructions); print each build's seconds,
-               shapes, mean shape length, registers and spills, and what
-               the CUDA runtime reports of the per-op instantiations and
-               config 2's fused builds (registers, local bytes, shared
-               memory per block, blocks per SM);
+               (csrc/interp.cu, four instantiations, a library each with
+               direct memory access and with the B4 window cache,
+               csrc/memwin.cuh, with and without B3 optimistic
+               convergence, csrc/optimistic.cuh) and, per module,
+               encoding, memory mode and optimistic or careful, the fused
+               kernel (csrc/interp.cu + csrc/fused.cuh + the dispatch
+               batch/fusegen.py generates for its B2 block shapes or B6
+               superinstructions), the spec corpus's modules included;
+               print each build's seconds, shapes, mean shape length,
+               registers and spills, and what the CUDA runtime reports of
+               the per-op instantiations and config 2's fused builds
+               (registers, local bytes, shared memory per block, blocks
+               per SM);
   2. kernel  - every fixture with a memory runs twice, through the window
-               cache (mem_hbm True) and with direct access (False); then
+               cache (mem_hbm True) and with direct access (False), and
+               with optimistic convergence on (the default) each side
+               keeps its own per-warp state, compared too, while the
+               careful kernel runs beside them (planes equal below sp);
+               then
                the per-op kernel ("none" encoding) on the fixture modules
                (ALU edge values, traps, divergent fib, memory ops, fuel,
                memory.fill / memory.copy edge cases, a small bulk
@@ -38,14 +45,22 @@ Phases:
                without v128 ops, every plane and every stack row after
                every launch (the window fixtures: a stride walk across
                windows, a ping-pong that makes the overlap rule evict a
-               dirty way, a store before a host-call park); then one
-               256-step launch of fib(30) x 4096 in each encoding (kernel,
-               plain version, bound), one converged memory.fill +
-               memory.copy launch (kernel, plain version and the same fill
-               and copy as PyTorch tensor calls), one 256-step vloop
+               dirty way, a store before a host-call park); B3's fixtures
+               (converged fib, fib(3 + lane % 11), the trap zoo, divergent
+               addresses, nonzero-but-different br_if conditions, the
+               window ping-pong converged and not, vmix, a function
+               entered from two call sites at one stack height; rollbacks
+               required where lanes diverge and none where they agree)
+               per-op, in blocks and super, with the store before a park
+               and WASI echo; then one 256-step launch of fib(30) x 4096
+               in each encoding, one converged memory.fill + memory.copy
+               launch (also as PyTorch tensor calls), one 256-step vloop
                launch x 4096 and one 256-step per-op launch of config 2's
                mem_checksum x 4096 from the first store (windows and
-               direct), each with its bound;
+               direct), each through the optimistic kernel the main path
+               runs and through the careful one, against the optimistic
+               plain version, and (but the bulk pair) once more with no
+               warp entering, each with its bound;
   3. main    - at full size: fib(30) x 4096 through VM.execute_batch in the
                default encoding (B2 blocks), then per-op ("none") and with
                block_fusion False (B6), each once more under
@@ -66,14 +81,21 @@ Phases:
                blocks and per-op, windows on (the default) and off, every
                lane against its oracle, each profiled.  Every memory
                workload runs with the windows (the default) and once more
-               with mem_hbm False.  Every run sets the launch counts to 0
-               before it and fails unless its kernels launched (and, with
-               a memory, every launch ran the window cache or none did);
+               with mem_hbm False.  Everything runs optimistic (B3, the
+               default); fib(30) and the mix, config 2's mem_checksum in
+               blocks (both memory modes) and vloop in blocks run once
+               more with optimistic False, profiled.  The 22 non-SIMD
+               spec corpus files run on the card with the reference test's
+               depths, strict (7,068 / 0 / 432).  Every run sets the
+               launch counts to 0 before it and fails unless its kernels
+               launched (with a memory, every launch ran the window cache
+               or none did; every launch optimistic where the knob is on,
+               none where it is off);
   4. report  - phase times, kernel times (CUDA events), retired
                instructions and instructions per second, registers and
                spills of each build, the card's name and power limit, one
-               JSON line of kernel records (with "mem_window", B4), and
-               last the device JSON line.
+               JSON line of kernel records (with "mem_window", B4, and
+               "optimistic", B3), and last the device JSON line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.  Imports nothing of JAX or of the JAX package.
@@ -113,8 +135,13 @@ SIMD_N = 1_000_000  # bench_simd.py's N_ITERS
 MEM_N, MEM_PASSES, MEM_COREMARK_N = 8192, 64, 65536
 MEM_STACKS = dict(value_stack_depth=128, call_stack_depth=64,
                   memory_pages_per_lane=1)
-SIMD_WAST = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "tests", "spec", "simd.wast")
+SPEC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "spec")
+SIMD_WAST = os.path.join(SPEC_DIR, "simd.wast")
+# the non-SIMD batchable corpus with the reference test's depths
+# (tests/test_spec.py:77-82): passed, failed, skipped
+CORPUS_COUNTS = (7068, 0, 432)
+CORPUS_DEPTHS = dict(call_stack_depth=2048, value_stack_depth=8192)
 
 
 def fail(msg: str) -> None:
@@ -158,8 +185,47 @@ def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
     if fusion is not None:
         eng.fusion = fusion
         eng.tables = device_tables(eng.img, eng.device, fusion,
-                                   mem_window=eng.mem_window)
+                                   mem_window=eng.mem_window,
+                                   optimistic=eng.optimistic)
     return eng, inst
+
+
+def new_warps(eng):
+    """A fresh per-warp state (B3) for `eng`'s tables on its device, None
+    when they are careful."""
+    from wasmedge_tpu_torch.batch.optimistic import WarpState
+
+    return WarpState.new(eng.lanes, eng.device) if eng.tables.optimistic \
+        else None
+
+
+def warp_err(wa, wb) -> int:
+    """Largest difference over the per-warp counters (snap, rollbacks,
+    entered, commits) of two WarpStates (0 when both are None)."""
+    if wa is None or wb is None:
+        return 0 if wa is wb else 1 << 30
+    return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+               for x, y in zip(wa.counters().values(),
+                               wb.counters().values()))
+
+
+def live_err(a, b) -> int:
+    """max_abs_err of two states of the same launch with the stack planes
+    compared in the rows below sp (sp itself equal first): optimistic
+    against careful, whose rows at or above sp may differ."""
+    if not torch.equal(a.sp, b.sp):
+        return int((a.sp.to(torch.int64) - b.sp.to(torch.int64)).abs().max())
+    live = torch.arange(a.stack_lo.shape[0], device=a.sp.device)[:, None] \
+        < a.sp[None, :]
+    err = 0
+    for f, pa in a.planes().items():
+        pb = b.planes()[f]
+        d = (pa.to(torch.int64) - pb.to(torch.int64)).abs()
+        if f.startswith("stack_"):
+            d = d[live]
+        if d.numel():
+            err = max(err, int(d.max()))
+    return err
 
 
 def max_abs_err(a, b) -> int:
@@ -178,6 +244,12 @@ def max_abs_err(a, b) -> int:
 # The worst max abs err of the window-cache kernels (B4) against their
 # plain versions, over every comparison that ran them.
 WINDOW_WORST = [0]
+# B3: the worst max abs err of the optimistic kernels against their plain
+# versions (every plane and row and the per-warp state), and of the
+# optimistic kernel against the careful one (rows below sp); per fixture
+# and mode, the per-warp counts of the kernel side.
+OPT_WORST = {"plain": 0, "careful": 0}
+OPT_FIXTURES = {}
 
 
 def memory_modes(eng_of) -> list:
@@ -197,12 +269,17 @@ def mode_tag(fusion, mem_hbm) -> str:
 
 
 def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs,
-                    fusion="none") -> int:
+                    fusion="none", rollbacks=None) -> int:
     """One fixture at KERNEL_LANES lanes in the encoding `fusion`, for a
     module with a memory through the window cache and with direct access:
     kernel and plain version from the same CUDA state, launch by launch,
-    every plane (every stack row, every memory row) equal.  Returns the
-    max abs err."""
+    every plane (every stack row, every memory row) equal.  With
+    optimistic convergence on (the default, B3) each side keeps its own
+    per-warp state, which must be equal too, and the careful kernel
+    (`optimistic` False) runs beside them from the same state: every
+    plane equal to the optimistic kernel's, the stack planes below sp.
+    `rollbacks` True: some warp must roll back; False: none may.
+    Returns the max abs err."""
     from wasmedge_tpu_torch.batch import interp, interp_ref
 
     worst = 0
@@ -210,36 +287,68 @@ def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs,
             data, KERNEL_LANES, fuel_per_launch=fuel, fusion=fusion,
             mem_hbm=m, **knobs)):
         t0 = time.perf_counter()
+        tag = mode_tag(fusion, mem_hbm)
         st = eng.initial_state(inst.exports[func][1], args)
         ref = st.clone()
+        wk, wp = new_warps(eng), new_warps(eng)
+        careful = None
+        if eng.tables.optimistic:
+            ceng = make_engine(data, KERNEL_LANES, fuel_per_launch=fuel,
+                               fusion=fusion, mem_hbm=mem_hbm,
+                               optimistic=False, **knobs)[0]
+            careful = st.clone()
         launches = 0
-        before = interp.LAUNCHES["window"]
+        before = dict(interp.LAUNCHES)
         while True:
-            interp.run_chunk(eng.tables, st, chunk, fuel is not None)
-            interp_ref.run_chunk(eng.tables, ref, chunk, fuel is not None)
+            interp.run_chunk(eng.tables, st, chunk, fuel is not None, wk)
+            interp_ref.run_chunk(eng.tables, ref, chunk, fuel is not None,
+                                 wp)
+            if careful is not None:
+                interp.run_chunk(ceng.tables, careful, chunk,
+                                 fuel is not None)
             torch.cuda.synchronize()
             launches += 1
-            err = max_abs_err(st, ref)
+            err = max(max_abs_err(st, ref), warp_err(wk, wp))
             worst = max(worst, err)
             if mem_hbm:
                 WINDOW_WORST[0] = max(WINDOW_WORST[0], err)
             if err != 0:
-                fail(f"kernel != plain on {name}{mode_tag(fusion, mem_hbm)} "
-                     f"after launch {launches}: max abs err {err}")
+                fail(f"kernel != plain on {name}{tag} after launch "
+                     f"{launches}: max abs err {err}")
+            if careful is not None:
+                OPT_WORST["plain"] = max(OPT_WORST["plain"], err)
+                cerr = live_err(st, careful)
+                OPT_WORST["careful"] = max(OPT_WORST["careful"], cerr)
+                if cerr != 0:
+                    fail(f"optimistic != careful on {name}{tag} after "
+                         f"launch {launches}: max abs err {cerr} (rows "
+                         f"below sp)")
             if not bool((st.trap == 0).any()):
                 break
             if launches == 200:
                 fail(f"{name}: lanes still running after {launches} "
                      f"launches")
-        if bool(mem_hbm) != (interp.LAUNCHES["window"] - before == launches):
-            fail(f"{name}{mode_tag(fusion, mem_hbm)}: "
-                 f"{interp.LAUNCHES['window'] - before} of {launches} "
+        ran = {k: interp.LAUNCHES[k] - before[k] for k in before}
+        kernels = launches * (1 if careful is None else 2)
+        if ran["interp"] != kernels or \
+                ran["window"] != (kernels if mem_hbm else 0):
+            fail(f"{name}{tag}: {ran['window']} of {ran['interp']} "
                  f"launches ran the window cache")
+        if ran["optimistic"] != (0 if careful is None else launches):
+            fail(f"{name}{tag}: {ran['optimistic']} of {ran['interp']} "
+                 f"launches ran optimistic convergence")
+        stats = wk.stats() if wk is not None else {}
+        if careful is not None:
+            OPT_FIXTURES[f"{name}{tag}"] = stats
+            if rollbacks is not None and \
+                    (stats["rollbacks"] > 0) != rollbacks:
+                fail(f"{name}{tag}: {stats['rollbacks']} rollbacks, "
+                     f"expected {'some' if rollbacks else 'none'}")
         traps = sorted(set(st.trap.cpu().tolist()))
-        print(f"kernel_vs_plain {name}{mode_tag(fusion, mem_hbm)}: "
-              f"{launches} launches equal, traps {traps}, retired "
-              f"{int(st.retired.sum())}, {time.perf_counter() - t0:.2f} s",
-              flush=True)
+        print(f"kernel_vs_plain {name}{tag}: {launches} launches equal"
+              f"{', equal to careful below sp' if careful is not None else ''}"
+              f", traps {traps}, retired {int(st.retired.sum())}, warps "
+              f"{stats}, {time.perf_counter() - t0:.2f} s", flush=True)
     return worst
 
 
@@ -358,11 +467,71 @@ def phase_fused_kernel_vs_plain() -> int:
     return worst
 
 
+def opt_fixtures(L: int):
+    """(name, module, export, args, steps per launch, knobs, simd,
+    rollbacks) of optimistic convergence's fixtures at L lanes:
+    rollbacks True where a warp must roll back, False where none may."""
+    from wasmedge_tpu_torch.models import build_fib
+    from wasmedge_tpu_torch.models.fixtures import (
+        build_call_sites, build_divergent_addresses,
+        build_nonzero_conditions, build_trap_zoo, build_vmix,
+        build_window_pingpong, window_pingpong_args, zoo_args)
+
+    kn = dict(value_stack_depth=64, call_stack_depth=32,
+              memory_pages_per_lane=3)
+    kv = dict(value_stack_depth=64, call_stack_depth=16,
+              memory_pages_per_lane=1)
+    pp = window_pingpong_args(L, SEED)
+    return [
+        ("opt_fib_converged", build_fib(), "fib", [np.full(L, 10)], 600,
+         kn, False, False),
+        ("opt_fib_3_11", build_fib(), "fib", [np.arange(L) % 11 + 3], 256,
+         kn, False, True),
+        ("opt_trap_zoo", build_trap_zoo(), "zoo", zoo_args(L, SEED), 64, kn,
+         False, True),
+        ("opt_divergent_addresses", build_divergent_addresses(), "f",
+         [np.arange(L) * 516 % 65000], 64, kn, False, True),
+        ("opt_nonzero_conditions", build_nonzero_conditions(), "f",
+         [np.arange(L) * 7919 + 3], 64, kn, False, False),
+        # warps that start launches converged inside a function each lane
+        # entered from its own call site: the return is a decision
+        ("opt_call_sites", build_call_sites(), "f", [np.arange(L)], 64, kn,
+         False, True),
+        ("opt_window_pingpong", build_window_pingpong(), "pingpong", pp, 64,
+         kv, True, True),
+        ("opt_window_pingpong_converged", build_window_pingpong(),
+         "pingpong", [np.full(L, int(a[min(5, L - 1)])) for a in pp], 64,
+         kv, True, False),
+        ("opt_vmix", build_vmix(), "vmix", [np.arange(L) % 13 + 3], 64, kv,
+         True, True),
+    ]
+
+
+def phase_optimistic_kernel_vs_plain() -> int:
+    """B3: optimistic convergence's fixtures at KERNEL_LANES lanes in
+    every encoding (superinstructions for modules without v128 ops) and,
+    with a memory, both memory modes: kernel against plain version and
+    careful kernel (kernel_vs_plain), rollbacks where the lanes diverge
+    and none where they agree; then the store before a host-call park
+    and WASI echo (with their serve rounds) in every encoding."""
+    worst = 0
+    for name, data, func, args, chunk, knobs, simd, rolls in \
+            opt_fixtures(KERNEL_LANES):
+        for fusion in ("none", "blocks") + (() if simd else ("super",)):
+            worst = max(worst, kernel_vs_plain(name, data, func, args, chunk,
+                                               None, knobs, fusion, rolls))
+    worst = max(worst, phase_hostcalls_kernel_vs_plain(
+        "none", only=("wasi_echo", "window_host")))
+    return worst
+
+
 def first_step_at(data, func, args, hid, knobs) -> int:
-    """Steps before lane 0 first sits at handler `hid` (plain version)."""
+    """Steps before lane 0 first sits at handler `hid` (plain version,
+    careful)."""
     from wasmedge_tpu_torch.batch import interp_ref
 
-    eng, inst = make_engine(data, len(args[0]), fusion="none", **knobs)
+    eng, inst = make_engine(data, len(args[0]), fusion="none",
+                            optimistic=False, **knobs)
     st = eng.initial_state(inst.exports[func][1], args)
     for step in range(10_000):
         if int(eng.tables.hid[int(st.pc[0])]) == hid:
@@ -525,13 +694,16 @@ def host_fixture_vs_plain(name, data, func, args, want_out, fusion, mem_hbm,
             inst = engs[0].inst
             st = engs[0].initial_state(inst.exports[func][1], args)
             ref = st.clone()
+            wk, wp = new_warps(engs[0]), new_warps(engs[0])
             launches = rounds = 0
             while True:
-                interp.run_chunk(engs[0].tables, st, 64, False)
-                interp_ref.run_chunk(engs[0].tables, ref, 64, False)
+                interp.run_chunk(engs[0].tables, st, 64, False, wk)
+                interp_ref.run_chunk(engs[0].tables, ref, 64, False, wp)
                 torch.cuda.synchronize()
                 launches += 1
-                err = max_abs_err(st, ref)
+                err = max(max_abs_err(st, ref), warp_err(wk, wp))
+                if wk is not None:
+                    OPT_WORST["plain"] = max(OPT_WORST["plain"], err)
                 served = serve_batch_state(engs[0], st)
                 if serve_batch_state(engs[1], ref) != served:
                     fail(f"{name}: the two serve rounds served "
@@ -573,10 +745,14 @@ def host_fixture_vs_plain(name, data, func, args, want_out, fusion, mem_hbm,
         if not (trap == -1).all() or \
                 not (got == ((5 * x + 1) & 0xFFFFFFFF)).all():
             fail("window_host: results are not 5x + 1")
+    stats = wk.stats() if wk is not None else {}
+    if wk is not None:
+        OPT_FIXTURES[f"{name}{mode_tag(fusion, mem_hbm)}"] = stats
     print(f"kernel_vs_plain {name}{mode_tag(fusion, mem_hbm)}: "
           f"{launches} launches and {rounds} serve rounds equal, traps "
           f"{sorted(set(trap.tolist()))}, stdout {len(outs[0])} B "
-          f"identical, {time.perf_counter() - t0:.2f} s", flush=True)
+          f"identical, warps {stats}, {time.perf_counter() - t0:.2f} s",
+          flush=True)
     return worst
 
 
@@ -643,30 +819,127 @@ def launch_mix(tables, st0, steps: int):
     return counts.cpu().numpy(), int(max_sp), int(max_cd)
 
 
+def time_opt_and_careful(eng, ceng, st0, chunk: int, what: str,
+                         refused: bool = True):
+    """One launch of `chunk` steps from st0 through the kernel the main
+    path runs, optimistic convergence on (B3, the default: `eng`), and
+    through the careful kernel of the same module, encoding and memory
+    mode (`ceng`, `optimistic` False), 21 runs each, in the order
+    optimistic, careful, careful, optimistic; the optimistic plain version
+    on the same inputs (3 runs, a fresh per-warp state each).  The kernel
+    must equal its plain version on every plane and row and in the
+    per-warp counts, and the careful kernel below sp.  With `refused`, the
+    same launch with lane 0 of every warp stopped, so that no warp enters:
+    the optimistic build runs its careful loop only, against the careful
+    build on that state (every plane equal).  Returns the record and the
+    optimistic kernel's output."""
+    from wasmedge_tpu_torch.batch import interp, interp_ref
+
+    L = st0.pc.shape[0]
+    wt = new_warps(eng)
+    kernel = lambda s: interp.run_chunk(eng.tables, s, chunk, False, wt)
+    careful = lambda s: interp.run_chunk(ceng.tables, s, chunk, False)
+    kernel(st0.clone())  # warm-up, and the shadow planes allocated
+    careful(st0.clone())
+    torch.cuda.synchronize()
+    ms, k25, k75, out_k = time_launch(kernel, st0, 21)
+    c_ms, c25, c75, out_c = time_launch(careful, st0, 21)
+    c_ms2, _, _, _ = time_launch(careful, st0, 21)
+    ms2, _, _, _ = time_launch(kernel, st0, 21)
+    held = {}
+
+    def plain(s):
+        held["w"] = new_warps(eng)
+        interp_ref.run_chunk(eng.tables, s, chunk, False, held["w"])
+
+    plain_ms, p25, p75, out_p = time_launch(plain, st0, 3)
+    wk = new_warps(eng)
+    one = st0.clone()
+    interp.run_chunk(eng.tables, one, chunk, False, wk)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(out_k, out_p), max_abs_err(one, out_p),
+              warp_err(wk, held["w"]))
+    cerr = live_err(out_k, out_c)
+    if err != 0 or cerr != 0:
+        fail(f"{what}: optimistic kernel != plain (max abs err {err}) or "
+             f"!= careful below sp ({cerr})")
+    OPT_WORST["plain"] = max(OPT_WORST["plain"], err)
+    OPT_WORST["careful"] = max(OPT_WORST["careful"], cerr)
+    stats = wk.stats()
+    if stats["rollbacks"] or stats["entered"] != (L + 31) // 32:
+        fail(f"{what}: a converged launch's warps {stats}")
+    out = dict(ms=ms, q25=k25, q75=k75, ms_again=ms2, careful_ms=c_ms,
+               careful_q25=c25, careful_q75=c75, careful_ms_again=c_ms2,
+               plain_ms=plain_ms, plain_q25=p25, plain_q75=p75,
+               max_abs_err=err, careful_err=cerr, warps=stats)
+    line = (f"one launch of {chunk} steps x {L} lanes ({what}): optimistic "
+            f"kernel median {ms:.4f} ms (q25 {k25:.4f}, q75 {k75:.4f}; "
+            f"again {ms2:.4f}), careful kernel {c_ms:.4f} ms (q25 "
+            f"{c25:.4f}, q75 {c75:.4f}; again {c_ms2:.4f}), 21 runs each; "
+            f"optimistic plain median {plain_ms:.2f} ms (q25 {p25:.2f}, "
+            f"q75 {p75:.2f}, 3 runs); warps {stats}")
+    if refused:
+        st_r = st0.clone()
+        st_r.trap[0::32] = -1  # lane 0 of each warp done: no warp enters
+        wr = new_warps(eng)
+        r_ms, _, _, out_r = time_launch(
+            lambda s: interp.run_chunk(eng.tables, s, chunk, False, wr),
+            st_r, 21)
+        rc_ms, _, _, out_rc = time_launch(careful, st_r, 21)
+        rerr = max_abs_err(out_r, out_rc)
+        if rerr != 0 or wr.stats()["entered"] != 0:
+            fail(f"{what}: with entry refused the optimistic build != the "
+                 f"careful one (max abs err {rerr}; warps {wr.stats()})")
+        out.update(refused_ms=r_ms, refused_careful_ms=rc_ms)
+        line += (f"; entry refused (lane 0 of each warp stopped): "
+                 f"optimistic build {r_ms:.4f} ms, careful build "
+                 f"{rc_ms:.4f} ms, equal")
+    print(line, flush=True)
+    return out, out_k
+
+
+def snapshot_bytes(st0, stats, max_cd: int, planes: int,
+                   mem_direct: bool) -> int:
+    """The least bytes optimistic convergence adds to a launch from st0
+    whose warps all ran on without a rollback (opt_save, opt_save_frame
+    and the counters of optimistic.cuh / interp.cu): the entry snapshot
+    (each lane's rows below its sp in `planes` stack planes, its frame
+    rows below its depth, the globals and, with `mem_direct`, its memory
+    column) read once and written once; the frame rows from the entry
+    depth to the deepest `max_cd` saved on their first write; each later
+    snapshot's globals and memory column (its stack and frame rows not
+    counted); and the four per-warp counters read and written."""
+    L = st0.pc.shape[0]
+    NG = st0.glob_lo.shape[0]
+    W = st0.mem.shape[0] if mem_direct and st0.mem.shape[0] > 1 else 0
+    per_snap = 2 * NG + W
+    entry = planes * int(st0.sp.sum()) + \
+        3 * int(st0.call_depth.sum()) + L * per_snap
+    frames = 3 * int((max_cd - st0.call_depth).clamp(min=0).sum())
+    later = max(stats["commits"] - stats["entered"], 0) * 32 * per_snap
+    counters = 4 * ((L + 31) // 32)
+    return 2 * 4 * (entry + frames + later + counters)
+
+
 def phase_time_one_launch(fusion="none"):
     """One launch of TIMED_STEPS steps from the flagship's initial state
-    (fib(30) x 4096) in the encoding `fusion`, kernel and plain version,
-    same inputs, and its bound from the state that launch touches and its
-    instruction mix (the same for every encoding: the launch retires the
-    same instructions)."""
-    from wasmedge_tpu_torch.batch import interp, interp_ref
+    (fib(30) x 4096) in the encoding `fusion`: the optimistic kernel the
+    main path runs, the careful one and the plain version
+    (time_opt_and_careful), and its bound from the state that launch
+    touches, its instruction mix (the same for every encoding: the launch
+    retires the same instructions) and what optimistic convergence
+    copies."""
     from wasmedge_tpu_torch.batch.engine import CONTROL_FIELDS
     from wasmedge_tpu_torch.models import build_fib
 
     chunk, L = TIMED_STEPS, MAIN_LANES
-    eng, inst = make_engine(build_fib(), L, value_stack_depth=256,
-                            call_stack_depth=256, fusion=fusion)
-    tb = eng.tables
-    st0 = eng.initial_state(inst.exports["fib"][1], [np.full(L, 30)])
-    kernel = lambda s: interp.run_chunk(tb, s, chunk, False)
-    plain = lambda s: interp_ref.run_chunk(tb, s, chunk, False)
-    kernel(st0.clone())  # warm-up
-    torch.cuda.synchronize()
-    ms, k25, k75, out_k = time_launch(kernel, st0, 21)
-    plain_ms, p25, p75, out_p = time_launch(plain, st0, 3)
-    err = max_abs_err(out_k, out_p)
-    if err != 0:
-        fail(f"kernel != plain at the flagship shape: max abs err {err}")
+    eng, ceng = (make_engine(build_fib(), L, value_stack_depth=256,
+                             call_stack_depth=256, fusion=fusion,
+                             optimistic=opt)[0] for opt in (None, False))
+    tb = ceng.tables
+    st0 = eng.initial_state(eng.inst.exports["fib"][1], [np.full(L, 30)])
+    t, out_k = time_opt_and_careful(eng, ceng, st0, chunk,
+                                    f"fib(30), {fusion}")
     retired = int(out_k.retired.sum())
 
     # one step at a time: a fused dispatch never fits, so the plain
@@ -677,69 +950,68 @@ def phase_time_one_launch(fusion="none"):
              f"the kernel retired {retired}")
     # Least bytes: each state row the launch touches read once and written
     # once (stack rows below the deepest sp, frame rows below the deepest
-    # call depth, the control planes), and the code tables read once.
+    # call depth, the control planes), the code tables read once, and what
+    # optimistic convergence copies (snapshot_bytes)
     touched = 4 * L * (2 * max_sp + 3 * max_cd + len(CONTROL_FIELDS))
-    table_bytes = sum(4 * t.numel() for t in vars(tb).values()
-                      if isinstance(t, torch.Tensor))
-    bytes_ = 2 * touched + table_bytes
+    table_bytes = sum(4 * t_.numel() for t_ in vars(tb).values()
+                      if isinstance(t_, torch.Tensor))
+    careful_bytes = 2 * touched + table_bytes
+    snap = snapshot_bytes(st0, t["warps"], max_cd, 2, False)
+    bytes_ = careful_bytes + snap
     bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = retired * OPS_PER_INSTR / OPS_PER_S * 1e3
     bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    careful_bound_ms = max(careful_bytes / HBM_BYTES_PER_S * 1e3,
+                           bound_ops_ms)
+    # the most a snapshot of this workload copies: stack rows below the
+    # deepest sp, frame rows below the deepest depth, the globals
+    NG = st0.glob_lo.shape[0]
+    per_commit = 2 * 4 * L * (2 * max_sp + 3 * max_cd + 2 * NG)
     # What this kernel's handlers move through the state planes for the
     # same instructions (a stack cell is read and written again and again)
     hid0 = tb.hid if tb.hid0 is None else tb.hid0
     hid, b = hid0.cpu().numpy(), tb.b.cpu().numpy()
     traffic = sum(int(c) * handler_bytes(int(hid[pc]), int(b[pc]))
                   for pc, c in enumerate(counts) if c)
-    print(f"one launch of {chunk} steps x {L} lanes (fib(30), {fusion}): "
-          f"kernel "
-          f"median {ms:.4f} ms (q25 {k25:.4f}, q75 {k75:.4f}, 21 runs), "
-          f"plain median {plain_ms:.2f} ms (q25 {p25:.2f}, q75 {p75:.2f}, "
-          f"3 runs), retired {retired}", flush=True)
-    print(f"  bound {bound_ms:.6f} ms by "
-          f"{'bytes' if bound_bytes_ms >= bound_ops_ms else 'operations'}: "
-          f"bytes {bytes_} B (stack rows {max_sp}, frame rows {max_cd}, "
-          f"code tables {table_bytes} B) / {HBM_BYTES_PER_S:.3g} B/s = "
-          f"{bound_bytes_ms:.6f} ms; operations {retired} x "
-          f"{OPS_PER_INSTR} / {OPS_PER_S:.3g} /s = {bound_ops_ms:.6f} ms",
-          flush=True)
+    by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+    print(f"  retired {retired}; bound {bound_ms:.6f} ms by {by}: bytes "
+          f"{bytes_} B (stack rows {max_sp}, frame rows {max_cd}, code "
+          f"tables {table_bytes} B; snapshots {snap} B) / "
+          f"{HBM_BYTES_PER_S:.3g} B/s = {bound_bytes_ms:.6f} ms, careful "
+          f"{careful_bound_ms:.6f} ms; operations {retired} x "
+          f"{OPS_PER_INSTR} / {OPS_PER_S:.3g} /s = {bound_ops_ms:.6f} ms; "
+          f"a snapshot at this workload's deepest point copies "
+          f"{per_commit} B", flush=True)
     print(f"  per-op handler traffic {traffic} B ({traffic / retired:.2f} "
           f"B per instruction), {traffic / HBM_BYTES_PER_S * 1e3:.6f} ms at "
           f"the HBM rate; touched state {touched} B, "
           f"{'within' if touched <= L2_BYTES else 'beyond'} the "
           f"{L2_BYTES:.3g} B L2", flush=True)
-    return dict(ms=ms, q25=k25, q75=k75, plain_ms=plain_ms,
-                bound_ms=bound_ms,
-                bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
-                else "operations", max_abs_err=err, retired=retired,
-                bound_bytes=bytes_, handler_traffic_bytes=traffic,
-                touched_state_bytes=touched)
+    return dict(t, bound_ms=bound_ms, careful_bound_ms=careful_bound_ms,
+                bound_by=by, retired=retired, bound_bytes=bytes_,
+                snapshot_bytes=snap, bytes_per_commit=per_commit,
+                handler_traffic_bytes=traffic, touched_state_bytes=touched)
 
 
 def phase_time_simd_launch():
     """One launch of TIMED_STEPS steps of vloop(SIMD_N) x MAIN_LANES from
-    its initial state, kernel and plain version, same inputs, and its
-    bound from the rows that launch touches."""
-    from wasmedge_tpu_torch.batch import interp, interp_ref
+    its initial state, per-op: optimistic kernel, careful kernel and plain
+    version on the same inputs (time_opt_and_careful), and its bound from
+    the rows that launch touches."""
     from wasmedge_tpu_torch.batch.engine import CONTROL_FIELDS
     from wasmedge_tpu_torch.batch import interp as I
     from wasmedge_tpu_torch.models import build_simd_loop
 
     chunk, L = TIMED_STEPS, MAIN_LANES
-    eng, inst = make_engine(build_simd_loop(), L, value_stack_depth=64,
-                            call_stack_depth=16, memory_pages_per_lane=1,
-                            fusion="none")
-    tb = eng.tables
-    st0 = eng.initial_state(inst.exports["vloop"][1], [np.full(L, SIMD_N)])
-    kernel = lambda s: interp.run_chunk(tb, s, chunk, False)
-    plain = lambda s: interp_ref.run_chunk(tb, s, chunk, False)
-    kernel(st0.clone())  # warm-up
-    torch.cuda.synchronize()
-    ms, k25, k75, out_k = time_launch(kernel, st0, 21)
-    plain_ms, p25, p75, out_p = time_launch(plain, st0, 3)
-    err = max_abs_err(out_k, out_p)
-    if err != 0:
-        fail(f"kernel != plain on the vloop launch: max abs err {err}")
+    eng, ceng = (make_engine(build_simd_loop(), L, value_stack_depth=64,
+                             call_stack_depth=16, memory_pages_per_lane=1,
+                             fusion="none", optimistic=opt)[0]
+                 for opt in (None, False))
+    tb = ceng.tables
+    st0 = eng.initial_state(eng.inst.exports["vloop"][1],
+                            [np.full(L, SIMD_N)])
+    t, out_k = time_opt_and_careful(eng, ceng, st0, chunk,
+                                    f"vloop({SIMD_N})")
     retired = int(out_k.retired.sum())
     counts, max_sp, max_cd = launch_mix(tb, st0, chunk)
     hid = tb.hid.cpu().numpy()
@@ -754,11 +1026,16 @@ def phase_time_simd_launch():
     # Least bytes: the four stack planes' rows below the deepest sp, the
     # frame rows below the deepest call depth and the control planes,
     # each read once and written once (the launch reads or writes no
-    # memory row: checked above), and the code tables read once.
+    # memory row: checked above), the code tables read once, and what
+    # optimistic convergence copies (the windows are on: no memory rows)
     touched = 4 * L * (4 * max_sp + 3 * max_cd + len(CONTROL_FIELDS))
-    table_bytes = sum(4 * t.numel() for t in vars(tb).values()
-                      if isinstance(t, torch.Tensor))
-    bytes_ = 2 * touched + table_bytes
+    table_bytes = sum(4 * t_.numel() for t_ in vars(tb).values()
+                      if isinstance(t_, torch.Tensor))
+    careful_bytes = 2 * touched + table_bytes
+    if not eng.tables.mem_window:
+        fail("vloop's timed launch runs without the windows")
+    snap = snapshot_bytes(st0, t["warps"], max_cd, 4, False)
+    bytes_ = careful_bytes + snap
     bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     # operations: one per scalar instruction, one per 32-bit word of a
     # v128 instruction
@@ -766,24 +1043,21 @@ def phase_time_simd_launch():
               for pc, c in enumerate(counts))
     bound_ops_ms = ops / OPS_PER_S * 1e3
     bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    careful_bound_ms = max(careful_bytes / HBM_BYTES_PER_S * 1e3,
+                           bound_ops_ms)
     v128_share = sum(int(c) for pc, c in enumerate(counts)
                      if hid[pc] >= I.H_VCONST) / retired
-    print(f"one launch of {chunk} steps x {L} lanes (vloop({SIMD_N})): "
-          f"kernel median {ms:.4f} ms (q25 {k25:.4f}, q75 {k75:.4f}, 21 "
-          f"runs), plain median {plain_ms:.2f} ms (q25 {p25:.2f}, q75 "
-          f"{p75:.2f}, 3 runs), retired {retired}, v128 share "
-          f"{v128_share:.3f}", flush=True)
-    print(f"  bound {bound_ms:.6f} ms by "
-          f"{'bytes' if bound_bytes_ms >= bound_ops_ms else 'operations'}: "
-          f"bytes {bytes_} B (4 stack planes x {max_sp} rows, frame rows "
-          f"{max_cd}, code tables {table_bytes} B) / {HBM_BYTES_PER_S:.3g} "
-          f"B/s = {bound_bytes_ms:.6f} ms; operations {ops} / "
-          f"{OPS_PER_S:.3g} /s = {bound_ops_ms:.6f} ms", flush=True)
-    return dict(ms=ms, q25=k25, q75=k75, plain_ms=plain_ms,
-                bound_ms=bound_ms,
-                bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
-                else "operations", max_abs_err=err, retired=retired,
-                bound_bytes=bytes_, bound_ops=ops, v128_share=v128_share)
+    by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+    print(f"  retired {retired}, v128 share {v128_share:.3f}; bound "
+          f"{bound_ms:.6f} ms by {by}: bytes {bytes_} B (4 stack planes x "
+          f"{max_sp} rows, frame rows {max_cd}, code tables {table_bytes} "
+          f"B; snapshots {snap} B) / {HBM_BYTES_PER_S:.3g} B/s = "
+          f"{bound_bytes_ms:.6f} ms, careful {careful_bound_ms:.6f} ms; "
+          f"operations {ops} / {OPS_PER_S:.3g} /s = {bound_ops_ms:.6f} ms",
+          flush=True)
+    return dict(t, bound_ms=bound_ms, careful_bound_ms=careful_bound_ms,
+                bound_by=by, retired=retired, bound_bytes=bytes_,
+                snapshot_bytes=snap, bound_ops=ops, v128_share=v128_share)
 
 
 def fib_py(n: int) -> int:
@@ -806,7 +1080,8 @@ def run_vm(vm, func, args, fusion=None):
     eng = vm_engine(vm._active, vm.store, vm.conf, device="cuda")
     eng.fusion = fusion
     eng.tables = device_tables(eng.img, eng.device, fusion,
-                               mem_window=eng.mem_window)
+                               mem_window=eng.mem_window,
+                               optimistic=eng.optimistic)
     return eng.run(func, list(args), max_steps=10**9), eng
 
 
@@ -851,8 +1126,19 @@ def run_main(vm, func, args, steps_per_launch, need=("interp",),
         fail(f"main path {func}: {counts['window']} of {counts['interp']} "
              f"launches ran the window cache (mem_window "
              f"{eng.tables.mem_window})")
+    # B3: every launch optimistic where the knob is on, none where off
+    if vm.conf.batch.optimistic is False:
+        if counts["optimistic"] != 0 or eng.tables.optimistic:
+            fail(f"main path {func} with optimistic False ran "
+                 f"{counts['optimistic']} optimistic launches")
+    elif counts["optimistic"] == 0 or \
+            counts["optimistic"] != counts["interp"]:
+        fail(f"main path {func}: {counts['optimistic']} of "
+             f"{counts['interp']} launches ran optimistic convergence")
     counts["encoding"] = eng.tables.fusion
     counts["mem_window"] = eng.tables.mem_window
+    counts["optimistic_on"] = eng.tables.optimistic
+    counts["warps"] = eng.optimistic_stats
     counts["build"] = fused_build(eng.tables)
     return res, counts["interp"], wall, e0.elapsed_time(e1), counts
 
@@ -866,15 +1152,20 @@ def report_main(label, res_launches_wall_ev_counts, retired) -> dict:
     if build:
         shape += f", built in {build['seconds'] or 0:.1f} s"
     mem = " windows" if counts["mem_window"] else ""
-    print(f"main {label} [{counts['encoding']}{mem}]: {launches} launches "
-          f"(block {counts['block']}, super {counts['super']}, per-op "
-          f"{counts['op']}, window {counts['window']}), wall {wall:.3f} s, "
+    opt = " optimistic" if counts["optimistic_on"] else " careful"
+    print(f"main {label} [{counts['encoding']}{mem}{opt}]: {launches} "
+          f"launches (block {counts['block']}, super {counts['super']}, "
+          f"per-op {counts['op']}, window {counts['window']}, optimistic "
+          f"{counts['optimistic']}), wall {wall:.3f} s, "
           f"{retired / wall:.4g} wasm instr/s over wall, events "
-          f"{ev_ms:.1f} ms, retired {retired}{shape}", flush=True)
+          f"{ev_ms:.1f} ms, retired {retired}{shape}; warps "
+          f"{counts['warps']}", flush=True)
     return dict(encoding=counts["encoding"], launches=launches,
                 block_launches=counts["block"],
                 super_launches=counts["super"], op_launches=counts["op"],
                 window_launches=counts["window"],
+                optimistic_launches=counts["optimistic"],
+                optimistic=counts["optimistic_on"], warps=counts["warps"],
                 mem_window=counts["mem_window"],
                 wall_s=wall, event_ms=ev_ms, retired=retired,
                 instr_per_s_wall=retired / wall, build=build)
@@ -895,6 +1186,24 @@ def direct_run(vm, func, args, steps_per_launch, need, check,
     check(run[0])
     return report_main(f"{func}, mem_hbm False", run,
                        int(run[0].retired.astype(np.int64).sum()))
+
+
+def careful_run(vm, func, args, steps_per_launch, need, check, label,
+                fusion=None) -> dict:
+    """The same run once more with `optimistic` False (the careful
+    kernel, B3's yardstick), checked by `check(result)`, then profiled;
+    its record."""
+    old = vm.conf.batch.optimistic
+    vm.conf.batch.optimistic = False
+    try:
+        run = run_main(vm, func, args, steps_per_launch, need, fusion)
+        check(run[0])
+        retired = int(run[0].retired.astype(np.int64).sum())
+        rec = report_main(f"{label}, optimistic False", run, retired)
+        rec["profile"] = profile_run(vm, func, args, retired, fusion)
+    finally:
+        vm.conf.batch.optimistic = old
+    return rec
 
 
 # The encodings a main-path workload runs in: (record suffix, fusion
@@ -942,15 +1251,33 @@ def phase_main():
                                           retired, fusion)
     vm.conf.batch.block_fusion = None
 
+    def fib30_check(res):
+        if not (res.trap == -1).all() or \
+                not (res.results[0] == 832040).all():
+            fail("fib(30), optimistic False: a lane is not 832040")
+
+    out["fib30_careful"] = careful_run(
+        vm, "fib", [np.full(L, 30)], 1 << 20, ("interp", "block"),
+        fib30_check, f"fib(30) x {L}, all 832040")
+
     ns = 20 + np.arange(L) % 11
-    run = run_main(vm, "fib", [ns], 1 << 20, ("interp", "block"))
-    res = run[0]
     want = np.array([fib_py(int(n)) for n in ns])
-    if not (res.trap == -1).all() or not (res.results[0] == want).all():
-        fail("divergent fib mix disagrees with the Python fib table")
-    out["fib_mix"] = report_main(
-        f"fib(20 + lane % 11) x {L}, matches", run,
-        int(res.retired.astype(np.int64).sum()))
+
+    def mix_check(res):
+        if not (res.trap == -1).all() or not (res.results[0] == want).all():
+            fail("divergent fib mix disagrees with the Python fib table")
+
+    run = run_main(vm, "fib", [ns], 1 << 20, ("interp", "block"))
+    mix_check(run[0])
+    retired = int(run[0].retired.astype(np.int64).sum())
+    out["fib_mix"] = report_main(f"fib(20 + lane % 11) x {L}, matches", run,
+                                 retired)
+    if not out["fib_mix"]["warps"]["rollbacks"]:
+        fail("the divergent fib mix rolled no warp back")
+    out["fib_mix"]["profile"] = profile_run(vm, "fib", [ns], retired)
+    out["fib_mix_careful"] = careful_run(
+        vm, "fib", [ns], 1 << 20, ("interp", "block"), mix_check,
+        f"fib(20 + lane % 11) x {L}, matches")
 
     conf_cm = Configure()
     conf_cm.batch.lanes = L
@@ -1261,11 +1588,64 @@ def phase_simd_corpus():
              f"failed, {rep.skipped} skipped")
     if counts["simd"] == 0:
         fail("simd.wast never launched the kernel's v128 instantiation")
+    if counts["optimistic"] == 0 or counts["optimistic"] != counts["interp"]:
+        fail(f"simd.wast ran {counts['optimistic']} of {counts['interp']} "
+             f"launches optimistically")
     print(f"spec simd.wast on the card (strict): {rep.passed} passed, "
           f"{rep.failed} failed, {rep.skipped} skipped, {counts['simd']} "
           f"v128 launches, wall {wall:.3f} s", flush=True)
     return dict(passed=rep.passed, failed=rep.failed, skipped=rep.skipped,
                 launches=counts["simd"], wall_s=wall)
+
+
+def corpus_files() -> list:
+    return sorted(os.path.join(SPEC_DIR, f) for f in os.listdir(SPEC_DIR)
+                  if f.endswith(".wast") and f != "simd.wast")
+
+
+def corpus_conf():
+    from wasmedge_tpu_torch.common.configure import Configure
+
+    conf = Configure()
+    for k, v in CORPUS_DEPTHS.items():
+        setattr(conf.batch, k, v)
+    return conf
+
+
+def phase_spec_corpus():
+    """The 22 batchable non-SIMD .wast files of tests/spec through the
+    port's batched corpus runner on the card, with the reference test's
+    depths (2048 frames, 8192 value slots) and optimistic convergence on
+    (one assertion per lane: every warp diverges), strict matching."""
+    from wasmedge_tpu_torch.batch import interp
+    from wasmedge_tpu_torch.spec import run_corpus_batched
+
+    files = corpus_files()
+    torch.cuda.synchronize()
+    for k in interp.LAUNCHES:
+        interp.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    rep = run_corpus_batched(files, device="cuda", conf=corpus_conf())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(interp.LAUNCHES)
+    for f in rep.failures[:10]:
+        print(f"  {f}", flush=True)
+    got = (rep.passed, rep.failed, rep.skipped)
+    if got != CORPUS_COUNTS:
+        fail(f"the non-SIMD corpus on the card: {got} (passed, failed, "
+             f"skipped), expected {CORPUS_COUNTS}")
+    if counts["optimistic"] == 0 or counts["optimistic"] != counts["interp"]:
+        fail(f"the corpus ran {counts['optimistic']} of {counts['interp']} "
+             f"launches optimistically")
+    print(f"spec corpus ({len(files)} non-SIMD files) on the card (strict, "
+          f"frames {CORPUS_DEPTHS['call_stack_depth']}, value slots "
+          f"{CORPUS_DEPTHS['value_stack_depth']}): {rep.passed} passed, "
+          f"{rep.failed} failed, {rep.skipped} skipped, {counts['interp']} "
+          f"launches, all optimistic, wall {wall:.3f} s", flush=True)
+    return dict(files=len(files), passed=rep.passed, failed=rep.failed,
+                skipped=rep.skipped, launches=counts["interp"],
+                optimistic_launches=counts["optimistic"], wall_s=wall)
 
 
 def retired_model(vm, func="vloop", n_small=(1, 2)):
@@ -1334,9 +1714,13 @@ def phase_main_simd():
         rec["profile"] = profile_run(vm, "vloop", [np.full(L, SIMD_N)],
                                      retired)
         if not suffix:
-            # the default encoding once more on the plane directly
+            # the default encoding once more on the plane directly, and
+            # with the careful kernel
             rec["direct"] = direct_run(vm, "vloop", [np.full(L, SIMD_N)],
                                        1 << 20, need, check)
+            rec["careful"] = careful_run(
+                vm, "vloop", [np.full(L, SIMD_N)], 1 << 20, need, check,
+                f"vloop({SIMD_N}) x {L}")
         out["none" if suffix else "blocks"] = rec
     vm.conf.batch.block_fusion = None
     return out
@@ -1386,31 +1770,39 @@ def phase_main_memory():
         for suffix, fusion, _, need in ENCODINGS[:2]:
             for mem_hbm in (None, False):
                 vm.conf.batch.mem_hbm = mem_hbm
+                tag = mode_tag(fusion or "blocks", mem_hbm is None)
+
+                def check(res):
+                    if not (res.trap == -1).all() or not (
+                            (res.results[0] & 0xFFFFFFFF) == want).all():
+                        bad = int(((res.results[0] & 0xFFFFFFFF)
+                                   != want).sum())
+                        fail(f"config 2 {name}({n}) x {L}{tag}: {bad} lanes"
+                             f" differ from {want}, traps "
+                             f"{np.unique(res.trap)}")
+                    if per is not None and \
+                            not (res.retired == base + per * n).all():
+                        fail(f"config 2 {name}({n}) x {L}: retired "
+                             f"{np.unique(res.retired)[:5]}, expected "
+                             f"{base + per * n} per lane")
+
                 run = run_main(vm, name, args, 1 << 20, need + (
                     ("window",) if mem_hbm is None else ()), fusion)
                 res = run[0]
                 if mem_hbm is False and run[4]["window"]:
                     fail(f"config 2 {name} with mem_hbm False ran the "
                          f"window cache")
-                if not (res.trap == -1).all() or \
-                        not ((res.results[0] & 0xFFFFFFFF) == want).all():
-                    bad = int(((res.results[0] & 0xFFFFFFFF) != want).sum())
-                    tag = mode_tag(fusion or "blocks", mem_hbm is None)
-                    fail(f"config 2 {name}({n}) x {L}{tag}: {bad} lanes "
-                         f"differ from {want}, traps {np.unique(res.trap)}")
-                if per is not None and \
-                        not (res.retired == base + per * n).all():
-                    fail(f"config 2 {name}({n}) x {L}: retired "
-                         f"{np.unique(res.retired)[:5]}, expected "
-                         f"{base + per * n} per lane")
+                check(res)
                 retired = int(res.retired.astype(np.int64).sum())
                 key = name + suffix + ("" if mem_hbm is None else "_direct")
-                out[key] = report_main(
-                    f"config 2 {name}({n}) x {L}, every lane {want}"
-                    f"{'' if mem_hbm is None else ', mem_hbm False'}", run,
-                    retired)
+                label = (f"config 2 {name}({n}) x {L}, every lane {want}"
+                         f"{'' if mem_hbm is None else ', mem_hbm False'}")
+                out[key] = report_main(label, run, retired)
                 out[key]["profile"] = profile_run(vm, name, args, retired,
                                                   fusion)
+                if name == "mem_checksum" and not suffix:
+                    out[key]["careful"] = careful_run(
+                        vm, name, args, 1 << 20, need, check, label)
         vm.conf.batch.mem_hbm = None
     return out
 
@@ -1418,10 +1810,11 @@ def phase_main_memory():
 def phase_time_mem_launch():
     """One per-op launch of TIMED_STEPS steps of mem_checksum(MEM_N) with
     MEM_PASSES passes x MAIN_LANES (config 2's geometry) from the lanes'
-    first store, through the window cache and with direct access: kernel
-    and plain version on the same inputs, both modes equal, and the
-    launch's bound."""
-    from wasmedge_tpu_torch.batch import interp, interp_ref
+    first store, through the window cache and with direct access: the
+    optimistic kernel, the careful kernel and the plain version on the
+    same inputs (time_opt_and_careful), both modes equal, and the launch's
+    bound in each mode."""
+    from wasmedge_tpu_torch.batch import interp
     from wasmedge_tpu_torch.batch import interp as I
     from wasmedge_tpu_torch.batch.engine import CONTROL_FIELDS
     from wasmedge_tpu_torch.models import build_memory_workload
@@ -1430,43 +1823,33 @@ def phase_time_mem_launch():
     data = build_memory_workload(passes=MEM_PASSES)
     first = first_step_at(data, "mem_checksum", [np.full(1, MEM_N)],
                           I.H_STORE_W, MEM_STACKS)
-    engs = {m: make_engine(data, L, fusion="none", mem_hbm=m,
-                           **MEM_STACKS)[0] for m in (True, False)}
-    if not engs[True].tables.mem_window or engs[False].tables.mem_window:
+    engs = {(m, opt): make_engine(data, L, fusion="none", mem_hbm=m,
+                                  optimistic=opt, **MEM_STACKS)[0]
+            for m in (True, False) for opt in (None, False)}
+    if not engs[True, None].tables.mem_window or \
+            engs[False, None].tables.mem_window:
         fail("mem_checksum's memory modes are not windows / direct")
-    st0 = engs[False].initial_state(
-        engs[False].inst.exports["mem_checksum"][1], [np.full(L, MEM_N)])
-    interp.run_chunk(engs[False].tables, st0, first, False)  # to the store
+    start = engs[False, False]
+    st0 = start.initial_state(start.inst.exports["mem_checksum"][1],
+                              [np.full(L, MEM_N)])
+    interp.run_chunk(start.tables, st0, first, False)  # to the store
     torch.cuda.synchronize()
     out, outs = {}, {}
-    for m, eng in engs.items():
-        tb = eng.tables
-        kernel = lambda s, tb=tb: interp.run_chunk(tb, s, chunk, False)
-        plain = lambda s, tb=tb: interp_ref.run_chunk(tb, s, chunk, False)
-        kernel(st0.clone())  # warm-up
-        torch.cuda.synchronize()
-        ms, k25, k75, out_k = time_launch(kernel, st0, 21)
-        plain_ms, p25, p75, out_p = time_launch(plain, st0, 3)
-        err = max_abs_err(out_k, out_p)
-        if err != 0:
-            fail(f"kernel != plain on the mem_checksum launch (mem_hbm {m}):"
-                 f" max abs err {err}")
+    for m in (True, False):
+        mode = "windows" if m else "direct"
+        t, out_k = time_opt_and_careful(
+            engs[m, None], engs[m, False], st0, chunk,
+            f"mem_checksum({MEM_N}), {MEM_PASSES} passes, from step "
+            f"{first}, {mode}")
         if m:
-            WINDOW_WORST[0] = max(WINDOW_WORST[0], err)
+            WINDOW_WORST[0] = max(WINDOW_WORST[0], t["max_abs_err"])
         outs[m] = out_k
-        out["windows" if m else "direct"] = dict(
-            ms=ms, q25=k25, q75=k75, plain_ms=plain_ms, max_abs_err=err)
-        print(f"one launch of {chunk} steps x {L} lanes (mem_checksum("
-              f"{MEM_N}), {MEM_PASSES} passes, from step {first}, "
-              f"{'windows' if m else 'direct'}): kernel median {ms:.4f} ms "
-              f"(q25 {k25:.4f}, q75 {k75:.4f}, 21 runs), plain median "
-              f"{plain_ms:.2f} ms (q25 {p25:.2f}, q75 {p75:.2f}, 3 runs)",
-              flush=True)
+        out[mode] = t
     if max_abs_err(outs[True], outs[False]) != 0:
         fail("the mem_checksum launch leaves other planes with the windows "
              "than without")
     retired = int(outs[True].retired.sum() - st0.retired.sum())
-    tb = engs[False].tables
+    tb = engs[False, False].tables
     counts, max_sp, max_cd = launch_mix(tb, st0, chunk)
     if int(counts.sum()) != retired:
         fail(f"instruction mix counts {int(counts.sum())} instructions, "
@@ -1477,49 +1860,62 @@ def phase_time_mem_launch():
     # Least bytes: the stack rows below the deepest sp, the frame rows
     # below the deepest call depth and the control planes read once and
     # written once, each memory word the launch changes written once,
-    # each word a load reads read once, the code tables read once.
+    # each word a load reads read once, the code tables read once, and
+    # what optimistic convergence copies (without the windows, each
+    # snapshot copies the lane's memory column)
     changed = int((outs[True].mem != st0.mem).sum())
     touched = 4 * L * (2 * max_sp + 3 * max_cd + len(CONTROL_FIELDS))
-    table_bytes = sum(4 * t.numel() for t in vars(tb).values()
-                      if isinstance(t, torch.Tensor))
-    bytes_ = 2 * touched + 4 * changed + 4 * loads + table_bytes
-    bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    table_bytes = sum(4 * t_.numel() for t_ in vars(tb).values()
+                      if isinstance(t_, torch.Tensor))
+    careful_bytes = 2 * touched + 4 * changed + 4 * loads + table_bytes
     bound_ops_ms = retired * OPS_PER_INSTR / OPS_PER_S * 1e3
-    bound_ms = max(bound_bytes_ms, bound_ops_ms)
-    by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
-    print(f"  retired {retired}; bound {bound_ms:.6f} ms by {by}: bytes "
-          f"{bytes_} B (stack rows {max_sp}, frame rows {max_cd}, "
-          f"{changed} memory words written, {loads} loaded, code tables "
-          f"{table_bytes} B) / {HBM_BYTES_PER_S:.3g} B/s = "
-          f"{bound_bytes_ms:.6f} ms; operations {retired} / "
-          f"{OPS_PER_S:.3g} /s = {bound_ops_ms:.6f} ms", flush=True)
-    w = out["windows"]
-    return dict(out, ms=w["ms"], plain_ms=w["plain_ms"], bound_ms=bound_ms,
-                bound_by=by, max_abs_err=max(w["max_abs_err"],
-                                             out["direct"]["max_abs_err"]),
-                retired=retired, first_step=first, bound_bytes=bytes_,
-                words_written=changed, words_loaded=loads)
+    careful_bound_ms = max(careful_bytes / HBM_BYTES_PER_S * 1e3,
+                           bound_ops_ms)
+    for m in (True, False):
+        mode = "windows" if m else "direct"
+        snap = snapshot_bytes(st0, out[mode]["warps"], max_cd, 2, not m)
+        bytes_ = careful_bytes + snap
+        bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+        by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+        out[mode].update(bound_ms=max(bound_bytes_ms, bound_ops_ms),
+                         bound_by=by, bound_bytes=bytes_, snapshot_bytes=snap)
+        print(f"  {mode}: bound {out[mode]['bound_ms']:.6f} ms by {by}: "
+              f"bytes {bytes_} B (stack rows {max_sp}, frame rows {max_cd}, "
+              f"{changed} memory words written, {loads} loaded, code tables "
+              f"{table_bytes} B; snapshots {snap} B) / {HBM_BYTES_PER_S:.3g}"
+              f" B/s = {bound_bytes_ms:.6f} ms", flush=True)
+    print(f"  retired {retired}; careful bound {careful_bound_ms:.6f} ms; "
+          f"operations {retired} / {OPS_PER_S:.3g} /s = "
+          f"{bound_ops_ms:.6f} ms", flush=True)
+    w, d = out["windows"], out["direct"]
+    return dict(out, ms=w["ms"], careful_ms=w["careful_ms"],
+                refused_ms=w["refused_ms"],
+                refused_careful_ms=w["refused_careful_ms"],
+                plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
+                careful_bound_ms=careful_bound_ms, bound_by=w["bound_by"],
+                max_abs_err=max(w["max_abs_err"], d["max_abs_err"]),
+                retired=retired, first_step=first, words_written=changed,
+                words_loaded=loads)
 
 
 def phase_time_bulk():
     """One launch of the converged bulk pair at MAIN_LANES lanes: every
     lane fills 32 KiB at 0 and copies 16 KiB from 0 to 32 KiB, word
-    aligned.  Kernel, plain version and the same fill and copy as PyTorch
-    tensor calls on the memory plane, CUDA events; and an unaligned
-    variant (fill at 1, copy 3 bytes back from 32769) on the kernel."""
-    from wasmedge_tpu_torch.batch import interp, interp_ref
+    aligned.  The optimistic kernel (its warps commit at the fill and run
+    the rest per lane), the careful kernel and the plain version
+    (time_opt_and_careful), and the same fill and copy as PyTorch tensor
+    calls on the memory plane, CUDA events; and an unaligned variant
+    (fill at 1, copy 3 bytes back from 32769)."""
     from wasmedge_tpu_torch.models.fixtures import build_bulk_pair
 
     L = MAIN_LANES
     fill_n, copy_n, val = 32768, 16384, 0x5A
-    eng, inst = make_engine(build_bulk_pair(), L, value_stack_depth=64,
-                            call_stack_depth=16, memory_pages_per_lane=1,
-                            fusion="none")
-    tb = eng.tables
-    pair = inst.exports["pair"][1]
+    eng, ceng = (make_engine(build_bulk_pair(), L, value_stack_depth=64,
+                             call_stack_depth=16, memory_pages_per_lane=1,
+                             fusion="none", optimistic=opt)[0]
+                 for opt in (None, False))
+    pair = eng.inst.exports["pair"][1]
     chunk = 8  # 3 operands + fill, 3 operands + copy: 8 instructions
-    kernel = lambda s: interp.run_chunk(tb, s, chunk, False)
-    plain = lambda s: interp_ref.run_chunk(tb, s, chunk, False)
     out = {}
     for name, args in (
             ("aligned", [0, val, fill_n, fill_n, 0, copy_n]),
@@ -1530,21 +1926,15 @@ def phase_time_bulk():
                                     generator=torch.Generator(
                                         device=st0.mem.device).manual_seed(
                                         SEED)))
-        kernel(st0.clone())  # warm-up
-        torch.cuda.synchronize()
-        ms, k25, k75, out_k = time_launch(kernel, st0, 21)
-        plain_ms, p25, p75, out_p = time_launch(plain, st0, 3)
-        err = max_abs_err(out_k, out_p)
-        if err != 0 or not bool((out_k.pc == st0.pc + chunk).all()):
-            fail(f"bulk pair ({name}): kernel != plain, max abs err {err}")
-        out[name] = dict(ms=ms, q25=k25, q75=k75, plain_ms=plain_ms,
-                         max_abs_err=err)
+        t, out_k = time_opt_and_careful(eng, ceng, st0, chunk,
+                                        f"bulk pair {name}", refused=False)
+        if not bool((out_k.pc == st0.pc + chunk).all()):
+            fail(f"bulk pair ({name}): the launch stopped early")
+        out[name] = t
         if name == "aligned":
             st_aligned, mem_k = st0, out_k.mem
-        print(f"bulk pair {name} x {L}: kernel median {ms:.4f} ms (q25 "
-              f"{k25:.4f}, q75 {k75:.4f}, 21 runs), plain median "
-              f"{plain_ms:.2f} ms (q25 {p25:.2f}, q75 {p75:.2f}, 3 runs), "
-              f"equal", flush=True)
+            snap = snapshot_bytes(st0, t["warps"], 0, 2,
+                                  not eng.tables.mem_window)
 
     # the library yardstick: the aligned pair as tensor calls
     word = val * 0x01010101
@@ -1560,17 +1950,22 @@ def phase_time_bulk():
         fail("bulk pair: the tensor-call yardstick left another memory "
              "plane than the kernel")
     # the least bytes: each byte filled written once, each byte copied
-    # read once and written once; the work is data movement, with no
-    # arithmetic to bound it
+    # read once and written once (the work is data movement, with no
+    # arithmetic to bound it), and the entry snapshot of optimistic
+    # convergence
     nbytes = L * (fill_n + 2 * copy_n)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = (nbytes + snap) / HBM_BYTES_PER_S * 1e3
+    careful_bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     a = out["aligned"]
     print(f"  library fill_ + copy_(clone) median {lib_ms:.4f} ms (q25 "
           f"{l25:.4f}, q75 {l75:.4f}, 21 runs); bound {bound_ms:.6f} ms by "
           f"bytes: {L} lanes x ({fill_n} B filled + 2 x {copy_n} B copied) "
-          f"= {nbytes} B / {HBM_BYTES_PER_S:.3g} B/s; kernel at "
+          f"= {nbytes} B, snapshot {snap} B / {HBM_BYTES_PER_S:.3g} B/s "
+          f"(careful {careful_bound_ms:.6f} ms); optimistic kernel at "
           f"{bound_ms / a['ms']:.3f} of the bound", flush=True)
-    return dict(out, library_ms=lib_ms, bound_ms=bound_ms, bound_bytes=nbytes)
+    return dict(out, library_ms=lib_ms, bound_ms=bound_ms,
+                careful_bound_ms=careful_bound_ms, bound_bytes=nbytes + snap,
+                snapshot_bytes=snap)
 
 
 def parse_ptxas(text: str) -> dict:
@@ -1582,14 +1977,15 @@ def parse_ptxas(text: str) -> dict:
                       r"'?([\w$.]+)", line)
         if m:
             mangled = m.group(1)
-            inst = re.search(r"interp_kernelILb(\d)ELb(\d)E.*?Lb(\d)EE",
-                             mangled)
-            fn = re.search(r"(v[12]_op|alu[12]\w*|bulk_fill_copy|win_move)",
-                           mangled)
+            inst = re.search(
+                r"interp_kernelILb(\d)ELb(\d)E.*?Lb(\d)ELb(\d)EE", mangled)
+            fn = re.search(r"(v[12]_op|alu[12]\w*|bulk_fill_copy|win_move|"
+                           r"opt_copy)", mangled)
             fused = "5Fused" in mangled
             cur = (f"interp_kernel<kBulk={inst.group(1)}, "
                    f"kSimd={inst.group(2)}{', Fused' if fused else ''}"
-                   f"{', kWin' if inst.group(3) == '1' else ''}>"
+                   f"{', kWin' if inst.group(3) == '1' else ''}"
+                   f"{', kOpt' if inst.group(4) == '1' else ''}>"
                    if inst else fn.group(1) if fn else mangled)
             rows.setdefault(cur, {})
             continue
@@ -1605,12 +2001,12 @@ def parse_ptxas(text: str) -> dict:
     return rows
 
 
-def kernel_registers(win: bool = False) -> dict:
-    """parse_ptxas of the per-op build (its window-cache build when
-    `win`)."""
+def kernel_registers(win: bool = False, opt: bool = False) -> dict:
+    """parse_ptxas of the per-op build (with the window cache when `win`,
+    with optimistic convergence when `opt`)."""
     from wasmedge_tpu_torch.batch import interp
 
-    info = interp.BUILD_INFO["window"] if win else interp.BUILD_INFO
+    info = interp.BUILD_INFO["per_op"].get(interp.per_op_label(win, opt), {})
     return parse_ptxas(info.get("ptxas", ""))
 
 
@@ -1623,17 +2019,21 @@ def window_attributes() -> dict:
         build_coremark_kernel, build_memory_workload)
 
     out = {}
-    for win in (False, True):
-        for inst, a in interp.per_op_attributes(win).items():
-            out[f"per-op <{inst}{', kWin' if win else ''}>"] = a
+    for opt in (False, True):
+        for win in (False, True):
+            for inst, a in interp.per_op_attributes(win, opt).items():
+                out[f"per-op <{inst}{', kWin' if win else ''}"
+                    f"{', kOpt' if opt else ''}>"] = a
     for name, data in (("mem_checksum",
                         build_memory_workload(passes=MEM_PASSES)),
                        ("coremark", build_coremark_kernel())):
         for m in (True, False):
-            eng, _ = make_engine(data, 2, fusion="blocks", mem_hbm=m,
-                                 **MEM_STACKS)
-            out[f"{name} blocks{' kWin' if m else ''}"] = \
-                interp.kernel_attributes(eng.tables)
+            for opt in (None, False):
+                eng, _ = make_engine(data, 2, fusion="blocks", mem_hbm=m,
+                                     optimistic=opt, **MEM_STACKS)
+                out[f"{name} blocks{' kWin' if m else ''}"
+                    f"{' kOpt' if opt is None else ''}"] = \
+                    interp.kernel_attributes(eng.tables)
     for name, a in out.items():
         print(f"  attributes {name}: {a['registers']} registers, "
               f"{a['local_bytes']} B local, {a['static_smem_bytes']} B "
@@ -1670,6 +2070,8 @@ def prebuild() -> dict:
 
     mods = [(data, simd, ()) for _, data, _, _, _, _, _, simd in
             fused_fixtures(2)]
+    mods += [(data, simd, ()) for _, data, _, _, _, _, simd, _ in
+             opt_fixtures(2)]
     mods += [(build_fib(), False, ()), (build_coremark_kernel(), False, ()),
              (build_simd_loop(), True, ()), (build_bulk_workload(), False, ()),
              (build_memory_workload(passes=MEM_PASSES), False, ()),
@@ -1680,13 +2082,16 @@ def prebuild() -> dict:
     tables = []
     for data, simd, imports in mods:
         for fusion in ("blocks",) if simd else ("blocks", "super"):
-            for _, (eng, _) in memory_modes(lambda m: make_engine(
-                    data, 2, device="cpu", imports=[f() for f in imports],
-                    fusion=fusion, mem_hbm=m)):
-                tables.append(eng.tables)
+            for opt in (None, False):
+                for _, (eng, _) in memory_modes(lambda m: make_engine(
+                        data, 2, device="cpu", imports=[f() for f in imports],
+                        fusion=fusion, mem_hbm=m, optimistic=opt)):
+                    tables.append(eng.tables)
     tables += corpus_tables([SIMD_WAST])
+    tables += corpus_tables(corpus_files(), corpus_conf())
     t0 = time.perf_counter()
-    interp.build_kernels(tables, per_op_windows=True)
+    interp.build_kernels(tables, per_op=[(w, o) for w in (False, True)
+                                         for o in (False, True)])
     wall = time.perf_counter() - t0
     builds = {}
     for key, info in interp.BUILD_INFO["fused"].items():
@@ -1695,9 +2100,11 @@ def prebuild() -> dict:
                            shapes=info.get("shapes"),
                            mean_len=info.get("mean_len"),
                            mem_window=info.get("mem_window"),
+                           optimistic=info.get("optimistic"),
                            seconds=info.get("seconds"), ptxas=rows)
         print(f"  fused build {key} [{info.get('fusion')}"
-              f"{', windows' if info.get('mem_window') else ''}]: "
+              f"{', windows' if info.get('mem_window') else ''}"
+              f"{', optimistic' if info.get('optimistic') else ''}]: "
               f"{info.get('shapes')} block shapes, mean length "
               f"{info.get('mean_len') or 0:.2f}, nvcc "
               f"{info.get('seconds') or 0:.1f} s", flush=True)
@@ -1719,28 +2126,35 @@ def main() -> int:
     t0 = time.perf_counter()
     builds = prebuild()
     t_build = time.perf_counter() - t0
-    print(f"phase build: {t_build:.2f} s (per-op nvcc "
-          f"{interp.BUILD_INFO.get('seconds', 0):.2f} s, with the window "
-          f"cache {interp.BUILD_INFO['window'].get('seconds', 0):.2f} s, "
+    per_op_s = {k: round(v.get("seconds", 0), 2)
+                for k, v in interp.BUILD_INFO["per_op"].items()}
+    print(f"phase build: {t_build:.2f} s (per-op nvcc {per_op_s}, "
           f"{builds['n_fused']} fused builds, all at once)", flush=True)
-    regs = kernel_registers()
-    print_registers("per-op", regs)
-    win_regs = kernel_registers(win=True)
-    print_registers("per-op, window cache", win_regs)
+    per_op_regs = {interp.per_op_label(w, o): kernel_registers(w, o)
+                   for o in (False, True) for w in (False, True)}
+    for label, rows in per_op_regs.items():
+        print_registers(f"per-op, {label}", rows)
+    regs = per_op_regs[interp.per_op_label(False, False)]
+    win_regs = per_op_regs[interp.per_op_label(True, False)]
     attrs = window_attributes()
 
     t0 = time.perf_counter()
     worst = max(phase_kernel_vs_plain(), phase_hostcalls_kernel_vs_plain())
     simd_worst = phase_simd_kernel_vs_plain()
     fused_worst = phase_fused_kernel_vs_plain()
+    opt_worst = phase_optimistic_kernel_vs_plain()
     timing = {f: phase_time_one_launch(f) for f in ("none", "blocks", "super")}
     bulk_timing = phase_time_bulk()
     simd_timing = phase_time_simd_launch()
     mem_timing = phase_time_mem_launch()
     t_kernel = time.perf_counter() - t0
     print(f"phase kernel_vs_plain: {t_kernel:.2f} s, max abs err "
-          f"{max(worst, simd_worst, fused_worst)} (window cache "
-          f"{WINDOW_WORST[0]})", flush=True)
+          f"{max(worst, simd_worst, fused_worst, opt_worst)} (window cache "
+          f"{WINDOW_WORST[0]}; optimistic against plain "
+          f"{OPT_WORST['plain']}, against careful below sp "
+          f"{OPT_WORST['careful']})", flush=True)
+    print(f"optimistic warps per fixture: {json.dumps(OPT_FIXTURES)}",
+          flush=True)
 
     t0 = time.perf_counter()
     main_out = phase_main()
@@ -1754,25 +2168,37 @@ def main() -> int:
     main_out.update(phase_main_wasi())
     main_out["bulk"] = phase_main_bulk()
     main_out["simd_corpus"] = phase_simd_corpus()
+    main_out["spec_corpus"] = phase_spec_corpus()
     main_out["vloop"] = phase_main_simd()
     main_out["config2"] = phase_main_memory()
     t_main = time.perf_counter() - t0
     print(f"phase main: {t_main:.2f} s", flush=True)
 
+    def per_launch(prof):
+        return prof["kernel_ms"] / prof["launches"]
+
     def launch_record(name, source, replaces, launches, t, worst_err,
                       prof, **extra):
         # "ms", "plain_ms" and "bound_ms" are for one launch of
         # TIMED_STEPS steps (the plain version cannot run a main-path
-        # launch in the time limit); "main_ms_per_launch" is the kernel's
-        # device time per launch of the main-path run whose launches
-        # "launches" counts.
+        # launch in the time limit) through the instantiation the main
+        # path runs, optimistic convergence on (the default), its bound
+        # counting the snapshots; "careful_ms" and "careful_bound_ms" are
+        # the same launch through the careful instantiation, and
+        # "refused_ms" / "refused_careful_ms" the optimistic and careful
+        # builds on the same state with no warp entering;
+        # "main_ms_per_launch" is the kernel's device time per launch of
+        # the main-path run whose launches "launches" counts.
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(worst_err, t["max_abs_err"]),
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": None, **extra,
-                "main_ms_per_launch": prof["kernel_ms"] / prof["launches"]}
+                "library_ms": None, "careful_ms": t["careful_ms"],
+                "careful_bound_ms": t["careful_bound_ms"],
+                **{k: t[k] for k in ("refused_ms", "refused_careful_ms")
+                   if k in t},
+                **extra, "main_ms_per_launch": per_launch(prof)}
 
     fib_launch = {"workload": "fib(30)", "lanes": MAIN_LANES,
                   "steps": TIMED_STEPS}
@@ -1790,6 +2216,8 @@ def main() -> int:
         "wasmedge_tpu/batch/pallas_engine.py:2758",
         main_out["fib30"]["block_launches"], timing["blocks"], fused_worst,
         main_out["fib30"]["profile"],
+        careful_main_ms_per_launch=per_launch(
+            main_out["fib30_careful"]["profile"]),
         timed_launch=dict(fib_launch, retired=timing["blocks"]["retired"]),
         generator="wasmedge_tpu_torch/batch/fusegen.py")
     super_record = launch_record(
@@ -1817,7 +2245,10 @@ def main() -> int:
         "bound_ms": bulk_timing["bound_ms"],
         "bound_by": "bytes",
         "library_ms": bulk_timing["library_ms"],
+        "careful_ms": bulk_timing["aligned"]["careful_ms"],
+        "careful_bound_ms": bulk_timing["careful_bound_ms"],
         "unaligned_ms": bulk_timing["unaligned"]["ms"],
+        "unaligned_careful_ms": bulk_timing["unaligned"]["careful_ms"],
     }
     # the B7 cases of the per-op kernel (its kSimd instantiations): one
     # launch of TIMED_STEPS steps of vloop(SIMD_N) x MAIN_LANES;
@@ -1834,7 +2265,7 @@ def main() -> int:
                       "retired": simd_timing["retired"]})
     # B4, the window cache: "ms", "plain_ms" and "bound_ms" are for one
     # per-op launch of TIMED_STEPS steps of config 2's mem_checksum from
-    # the lanes' first store, windowed ("direct_ms": the same launch with
+    # the lanes' first store, windowed ("direct_*": the same launch with
     # mem_hbm False); "launches" counts the window-cache launches of
     # config 2's main path, mem_checksum in the default encoding (B2
     # blocks, windows on by default)
@@ -1845,22 +2276,47 @@ def main() -> int:
         c2["mem_checksum"]["window_launches"], mem_timing, WINDOW_WORST[0],
         c2["mem_checksum"]["profile"],
         direct_ms=mem_timing["direct"]["ms"],
+        direct_careful_ms=mem_timing["direct"]["careful_ms"],
         direct_plain_ms=mem_timing["direct"]["plain_ms"],
+        direct_bound_ms=mem_timing["direct"]["bound_ms"],
+        careful_main_ms_per_launch=per_launch(
+            c2["mem_checksum"]["careful"]["profile"]),
         per_op_window_launches=c2["mem_checksum_none"]["window_launches"],
         timed_launch={"workload": f"mem_checksum({MEM_N}), {MEM_PASSES} "
                       f"passes", "lanes": MAIN_LANES, "steps": TIMED_STEPS,
                       "from_step": mem_timing["first_step"],
                       "retired": mem_timing["retired"]})
+    # B3, optimistic convergence: the B2 blocks launch of fib(30) above
+    # (the instantiation of the main path's default fib(30) run, whose
+    # optimistic launches "launches" counts, whose profile gives
+    # "main_ms_per_launch" and whose warps give the commits and
+    # rollbacks), its bound the launch's bytes plus the snapshots'
+    fib30 = main_out["fib30"]
+    opt_record = launch_record(
+        "optimistic", "wasmedge_tpu_torch/csrc/optimistic.cuh",
+        "wasmedge_tpu/batch/pallas_engine.py:958",
+        fib30["optimistic_launches"], timing["blocks"],
+        max(opt_worst, OPT_WORST["plain"]), fib30["profile"],
+        careful_main_ms_per_launch=per_launch(
+            main_out["fib30_careful"]["profile"]),
+        commits=fib30["warps"]["commits"],
+        rollbacks=fib30["warps"]["rollbacks"],
+        snapshot_bytes=timing["blocks"]["snapshot_bytes"],
+        bytes_per_commit=timing["blocks"]["bytes_per_commit"],
+        careful_max_abs_err=OPT_WORST["careful"],
+        timed_launch=dict(fib_launch, encoding="blocks",
+                          retired=timing["blocks"]["retired"]))
     print(json.dumps({"phases_s": {"build": t_build, "kernel": t_kernel,
                                    "main": t_main},
-                      "registers": regs, "window_registers": win_regs,
-                      "attributes": attrs, "builds": builds,
-                      "one_launch": timing, "bulk_pair": bulk_timing,
-                      "simd_launch": simd_timing, "mem_launch": mem_timing,
-                      "main": main_out}),
+                      "registers": per_op_regs, "attributes": attrs,
+                      "builds": builds, "one_launch": timing,
+                      "opt_fixtures": OPT_FIXTURES,
+                      "bulk_pair": bulk_timing, "simd_launch": simd_timing,
+                      "mem_launch": mem_timing, "main": main_out}),
           flush=True)
     print(json.dumps({"kernels": [record, block_record, super_record,
-                                  bulk_record, simd_record, window_record]}),
+                                  bulk_record, simd_record, window_record,
+                                  opt_record]}),
           flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

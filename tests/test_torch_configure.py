@@ -1,4 +1,4 @@
-"""The `mem_hbm` knob: the port's memory-mode choice against the JAX package's.
+"""The `mem_hbm` and `optimistic` knobs: the port's choices against the JAX package's.
 
 `batch.engine.mem_window_of` chooses the window cache (B4) as
 `PallasUniformEngine._mem_mode` (wasmedge_tpu/batch/pallas_engine.py
@@ -6,6 +6,12 @@
 (4096 lanes, one page per lane, BASELINE config 2's stacks): the same
 answer for `mem_hbm` None, True and False on an image with a memory and
 on one without.  The engine carries the choice into its tables.
+
+`optimistic` has the JAX field's default (None, which means on), and
+`batch.engine.optimistic_of` reads it as `PallasUniformEngine` does
+(pallas_engine.py :3921-3922): None and True give optimistic convergence
+(B3), False the careful kernel; the engine carries it into its tables and
+keeps its per-warp state only when it is on.
 """
 
 import numpy as np
@@ -13,7 +19,7 @@ import pytest
 
 from wasmedge_tpu.common.configure import Configure as RefConfigure
 from wasmedge_tpu_torch.batch.engine import (
-    BatchEngine, mem_window_of, memory_words)
+    BatchEngine, mem_window_of, memory_words, optimistic_of)
 from wasmedge_tpu_torch.batch.interp import device_tables
 from wasmedge_tpu_torch.batch.memwin import HBM_WINDOW_ROWS
 from wasmedge_tpu_torch.common.configure import BatchConfigure, Configure
@@ -85,3 +91,34 @@ def test_both_modes_give_the_same_result():
     np.testing.assert_array_equal(res[0].results[0], res[1].results[0])
     np.testing.assert_array_equal(res[0].retired, res[1].retired)
     assert (res[0].trap == -1).all()
+
+
+def test_optimistic_has_the_jax_default():
+    assert BatchConfigure().optimistic is None
+    assert RefConfigure().batch.optimistic is None
+
+
+def _ref_optimistic(data, optimistic):
+    from wasmedge_tpu.batch.pallas_engine import PallasUniformEngine
+
+    conf = RefConfigure()
+    conf.batch.optimistic = optimistic
+    _, store, inst = ref_instantiate(data, conf)
+    return PallasUniformEngine(inst, store=store, conf=conf, lanes=8,
+                               interpret=True).optimistic
+
+
+@pytest.mark.parametrize("optimistic", [None, True, False])
+def test_optimistic_of_follows_the_pallas_engine(optimistic):
+    conf = Configure()
+    conf.batch.optimistic = optimistic
+    mod = Validator(conf).validate(Loader(conf).parse_module(build_fib()))
+    inst = instantiate(StoreManager(), mod, conf)
+    eng = BatchEngine(inst, conf=conf, lanes=40, device="cpu")
+    want = _ref_optimistic(build_fib(), optimistic)
+    assert optimistic_of(optimistic) is want
+    assert eng.optimistic is want and eng.tables.optimistic is want
+    if want:
+        assert eng.warps.snap.tolist() == [131072, 131072]
+    else:
+        assert eng.warps is None

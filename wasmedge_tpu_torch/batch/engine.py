@@ -6,7 +6,10 @@ of the reference's host launch loop (`BatchEngine.run_from_state`,
 `wasmedge_tpu/batch/engine.py:2414-2527`): launch chunks of
 `steps_per_launch` instructions, serve the lanes parked at host calls
 between launches (batch/hostcall.py), until every lane has stopped or
-`max_steps` is reached, then collect per-lane results.
+`max_steps` is reached, then collect per-lane results.  With
+`optimistic` (B3) the engine keeps the per-warp state of optimistic
+convergence (`WarpState`: each warp's interval and its rollback, entry and
+commit counts, and the snapshot's shadow planes) next to the state.
 
 State layout is the reference's, lane fastest: value stacks
 `[value_stack_depth, lanes]` (two planes, lo and hi, and two more, e2
@@ -30,6 +33,7 @@ from wasmedge_tpu_torch.batch.image import (
     slice_refusal)
 from wasmedge_tpu_torch.batch.interp import device_tables, run_chunk
 from wasmedge_tpu_torch.batch.memwin import HBM_WINDOW_ROWS
+from wasmedge_tpu_torch.batch.optimistic import WarpState
 from wasmedge_tpu_torch.common.configure import Configure
 from wasmedge_tpu_torch.common.types import ValType
 
@@ -195,13 +199,28 @@ class BatchEngine:
         self.img = img
         self.fusion = fusion_of(self.cfg.block_fusion, img.has_simd)
         self.mem_window = mem_window_of(self.cfg.mem_hbm, img)
+        self.optimistic = optimistic_of(self.cfg.optimistic)
         self.tables = device_tables(img, self.device, fusion=self.fusion,
-                                    mem_window=self.mem_window)
+                                    mem_window=self.mem_window,
+                                    optimistic=self.optimistic)
+        # per-warp state of optimistic convergence (its shadow planes are
+        # allocated at the first run)
+        self.warps = WarpState.new(self.lanes, self.device) \
+            if self.optimistic else None
         # serve rounds, lanes served, lanes served by a vectorized WASI
         # implementation, and host seconds spent in serve rounds
         # (batch/hostcall.py)
         self.hostcall_stats = {"serve_rounds": 0, "tier1_calls": 0,
                                "tier1_vectorized": 0, "serve_s": 0.0}
+
+    @property
+    def optimistic_stats(self) -> dict:
+        """Warps that entered a launch optimistically, rollbacks and
+        clean commits, over every launch so far (zeros when
+        `optimistic` is off)."""
+        if self.warps is None:
+            return {"entered": 0, "rollbacks": 0, "commits": 0}
+        return self.warps.stats()
 
     def resolve_func(self, k: int):
         """Function index of a HOSTCALL stub -> its FunctionInstance."""
@@ -271,7 +290,7 @@ class BatchEngine:
         fuel_on = self.cfg.fuel_per_launch is not None
         while total < max_steps:
             before = state.retired.clone()
-            run_chunk(self.tables, state, chunk, fuel_on)
+            run_chunk(self.tables, state, chunk, fuel_on, self.warps)
             done = int((state.retired - before).max().item())
             total += done
             trap = state.trap.cpu().numpy()
@@ -293,6 +312,16 @@ def fusion_of(block_fusion: Optional[bool], has_simd: bool) -> str:
     if block_fusion is None or block_fusion:
         return "blocks"
     return "none" if has_simd else "super"
+
+
+def optimistic_of(optimistic: Optional[bool]) -> bool:
+    """Whether the kernel runs optimistic convergence (B3), as the Pallas
+    engine reads the knob (pallas_engine.py :3921-3922):
+
+        opt = getattr(self.cfg, "optimistic", None)
+        self.optimistic = True if opt is None else bool(opt)
+    """
+    return True if optimistic is None else bool(optimistic)
 
 
 def memory_words(img) -> int:

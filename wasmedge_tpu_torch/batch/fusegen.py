@@ -10,8 +10,9 @@ cells are variables of straight-line code (registers, not a dynamically
 indexed array).  The source includes `csrc/interp.cu` and
 `csrc/fused.cuh`; `batch/interp.py` builds it into the module's own
 shared library.  The text depends only on the shapes, the superinstruction
-ids present and the kBulk/kSimd/kWin flags (kWin: memory through the
-window cache, `csrc/memwin.cuh`), so equal modules share a build.
+ids present and the kBulk/kSimd/kWin/kOpt flags (kWin: memory through the
+window cache, `csrc/memwin.cuh`; kOpt: optimistic convergence,
+`csrc/optimistic.cuh`), so equal modules share a build.
 
 What a case does, per op (its operands from the code planes at pc0 + j):
 a push names a new cell; a pop takes the top cell, or reads the row below
@@ -19,7 +20,10 @@ the block's entry sp; local and global writes commit at once and are
 forwarded to later reads of the same ordinal; guards, inline loads and
 stores exit with the cells live at that point written to their rows; at
 the end the live cells are written and the terminal (if any) is left to
-the per-op code.  `batch/interp_ref.py` runs the same shapes op by op
+the per-op code.  Every decision (a guard's condition, an inline access's
+address, a superinstruction's branch) goes through the warp's `w`, which
+under kOpt takes lane 0's; an inline access that asks for a commit
+(OPT_DEFER) exits before it with the ops ahead of it retired.  `batch/interp_ref.py` runs the same shapes op by op
 with the same flush rule.
 """
 
@@ -35,8 +39,8 @@ from wasmedge_tpu_torch.batch.interp import (
 _HEAD = """\
 // Generated by wasmedge_tpu_torch/batch/fusegen.py: the fused dispatch of
 // one module ({nblocks} block shapes, {nsuper} superinstruction ids,
-// kBulk = {bulk}, kSimd = {simd}, kWin = {win}).  Built into _build/ at
-// first use.
+// kBulk = {bulk}, kSimd = {simd}, kWin = {win}, kOpt = {opt}).  Built into
+// _build/ at first use.
 #define WASM_FUSED_BUILD 1
 #define ALU_INLINE __forceinline__
 #include "interp.cu"
@@ -48,18 +52,21 @@ struct Fused {{
   static constexpr bool kOn = true;
   // One fused dispatch at pc; returns true when the terminal op at the new
   // pc is left to the per-op code.  n: instructions retired; trap: set
-  // when an op inside traps (pc and sp are then that op's own).  m: the
-  // lane's memory access (its window cache with kWin).
-  template <bool kSimd, bool kWin>
+  // when an op inside traps (pc and sp are then that op's own), or
+  // OPT_DEFER when an inline access asks for a commit first (pc and sp
+  // are that op's, n the ops before it).  m: the lane's memory access
+  // (its window cache with kWin); w: the warp's decisions.
+  template <bool kSimd, bool kWin, class Wp>
   __device__ static __forceinline__ bool step(
-      const Params& p, const Lane<kSimd>& s, Mem<kWin>& m, int h, int& pc,
-      int& sp, const int fp, const int ob, const int pages, int& n,
+      const Params& p, const Lane<kSimd>& s, Mem<kWin>& m, Wp& w, int h,
+      int& pc, int& sp, const int fp, const int ob, const int pages, int& n,
       int& trap) {{
     const int pc0 = pc, sp0 = sp;
     (void)sp0;
     (void)ob;
     (void)pages;
     (void)m;
+    (void)w;
     switch (h) {{
 """
 
@@ -75,17 +82,17 @@ _TAIL = """\
 
 }}  // namespace
 
-WASM_FUSED_LAUNCH({bulk}, {simd}, {win}, Fused)
+WASM_FUSED_LAUNCH({bulk}, {simd}, {win}, {opt}, Fused)
 """
 
 
 def cuda_source(hid, shapes, bulk: bool, simd: bool,
-                win: bool = False) -> str:
+                win: bool = False, opt: bool = False) -> str:
     """The CUDA source of the fused dispatch for a fused hid plane and
     its block shapes (deterministic)."""
     supers = sorted({int(h) for h in hid if super_family(int(h))})
     flags = dict(bulk=str(bool(bulk)).lower(), simd=str(bool(simd)).lower(),
-                 win=str(bool(win)).lower())
+                 win=str(bool(win)).lower(), opt=str(bool(opt)).lower())
     out = [_HEAD.format(nblocks=len(shapes), nsuper=len(supers), **flags)]
     for sid, shape in enumerate(shapes):
         out.append(_Block(shape, simd).case(H_BLOCK_BASE + sid))
@@ -179,6 +186,19 @@ class _Block:
             self.emit("  " + line)
         self.emit("}")
 
+    def access_exits(self, j, pre, call):
+        """An inline load or store at op j: out of bounds, it exits with
+        its trap, retired; asked to wait for a commit (kOpt), it exits
+        before it with the j ops ahead of it retired."""
+        r = f"r{self.k}"
+        self.k += 1
+        self.emit(f"const int {r} = {call};")
+        at = f"pc0 + {j}"
+        self.exit_block(f"{r} == E_MEM_OOB", pre, at, self.sp_of(pre),
+                        j + 1, "E_MEM_OOB")
+        self.exit_block(f"{r} == OPT_DEFER", pre, at, self.sp_of(pre), j,
+                        "OPT_DEFER")
+
     # -- the shape -----------------------------------------------------------
     def case(self, h):
         for j, op in enumerate(self.ops):
@@ -249,10 +269,10 @@ class _Block:
             cnd = self.pop()
             snap = self.snapshot()
             if kind == "guardz":
-                self.exit_block(f"(u32)lo64({cnd[0]}) == 0", snap,
+                self.exit_block(f"!w.nz((u32)lo64({cnd[0]}))", snap,
                                 a, self.sp_of(snap), j + 1)
             else:
-                self.exit_block(f"(u32)lo64({cnd[0]}) != 0", snap, a,
+                self.exit_block(f"w.nz((u32)lo64({cnd[0]}))", snap, a,
                                 f"ob + __ldg(&p.c[{at}])", j + 1)
         elif kind == "loadi":
             pre = self.snapshot()
@@ -260,20 +280,17 @@ class _Block:
             name = f"c{self.k}"
             self.k += 1
             self.emit(f"u64 {name};")
-            self.exit_block(
-                f"!fused_load(p, s, m, pages, (u32)lo64({addr[0]}), "
-                f"(u32){a}, {op[1]}, {op[2]}, {name})", pre, at,
-                self.sp_of(pre),
-                j + 1, "E_MEM_OOB")
+            self.access_exits(
+                j, pre, f"fused_load(p, s, m, w, pages, "
+                f"(u32)lo64({addr[0]}), (u32){a}, {op[1]}, {op[2]}, {name})")
             self.items.append((name, "s"))
         elif kind == "storei":
             pre = self.snapshot()
             val, addr = self.pop(), self.pop()
-            self.exit_block(
-                f"!fused_store(p, s, m, pages, (u32)lo64({addr[0]}), "
-                f"(u32){a}, {op[1]}, lo64({val[0]}))", pre, at,
-                self.sp_of(pre),
-                j + 1, "E_MEM_OOB")
+            self.access_exits(
+                j, pre, f"fused_store(p, s, m, w, pages, "
+                f"(u32)lo64({addr[0]}), (u32){a}, {op[1]}, "
+                f"lo64({val[0]}))")
         else:
             self.v128_op(op, a)
 
@@ -371,12 +388,12 @@ def _super_case(h: int) -> str:
         name = "GCS" if base == H_FUSE_GCS_BASE else "GGS"
     elif base in (H_FUSE_GCB_BASE, H_FUSE_GGBZ_BASE):
         tgt = _FB if base == H_FUSE_GCB_BASE else _FA
-        body += [f"pc = (u32)r == 0 ? {tgt} : pc0 + 4;", "n = 4;",
+        body += [f"pc = !w.nz((u32)r) ? {tgt} : pc0 + 4;", "n = 4;",
                  "return false;"]
         name = "GCB" if base == H_FUSE_GCB_BASE else "GGBZ"
     else:
         assert base == H_FUSE_GGBNZ_BASE
-        body += ["if ((u32)r != 0) {",
+        body += ["if (w.nz((u32)r)) {",
                  f"  const int nk = {_FB}, pt = {_FC};",
                  "  if (nk == 1) s.putc(ob + pt, s.getc(sp0 - 1));",
                  "  sp = ob + pt + nk;", f"  pc = {_FA};",

@@ -19,7 +19,11 @@ fused encoding runs a kernel built for its module, `csrc/interp.cu` with
 the dispatch that `batch/fusegen.py` generates for its shapes.  With
 `mem_window` (B4) every memory access goes through each lane's window
 cache in shared memory (`csrc/memwin.cuh`; plain version
-`batch/memwin.py`) instead of the plane in global memory.
+`batch/memwin.py`) instead of the plane in global memory.  With
+`optimistic` (B3) each warp that starts a launch converged runs its lane
+0's decisions, with a canary, snapshots and rollbacks
+(`csrc/optimistic.cuh`; plain version `batch/optimistic.py`), and its
+per-warp state (`WarpState`) goes with the launch.
 
 `run_chunk()` is the one entry: on CUDA tensors it launches the kernel
 (built from the repository's sources on first use), on CPU tensors it
@@ -50,6 +54,7 @@ from wasmedge_tpu_torch.batch.image import (
     CLS_VSHUFFLE, CLS_VSPLAT, CLS_VSTORE, CLS_VTEST, NUM_ALU1, NUM_ALU2,
     DeviceImage, TRAP_DONE, TRAP_HOSTCALL)
 from wasmedge_tpu_torch.batch.memwin import HBM_WINDOW_ROWS
+from wasmedge_tpu_torch.batch.optimistic import WarpState
 from wasmedge_tpu_torch.batch.simdops import (
     V1_NAMES, V2_NAMES, VEXTRACT_NAMES, VREPLACE_NAMES, VSHIFT_NAMES,
     VSPLAT_NAMES, VTEST_NAMES)
@@ -196,7 +201,9 @@ class Tables:
     `fa` ... `fihi` the rewritten operand planes that the superinstruction
     handlers read at their head slots.  `mem_window`: memory accesses go
     through each lane's window cache (B4; `batch/engine.py`
-    `mem_window_of` chooses it)."""
+    `mem_window_of` chooses it).  `optimistic`: warps that start a launch
+    converged run optimistic convergence (B3; `batch/engine.py`
+    `optimistic_of` chooses it)."""
 
     hid: torch.Tensor
     a: torch.Tensor
@@ -228,15 +235,17 @@ class Tables:
     shapes: tuple = ()
     fused_source: str = ""  # the generated CUDA of the fused dispatch
     mem_window: bool = False
+    optimistic: bool = False
 
 
 def device_tables(img: DeviceImage, device, fusion: str = "none",
-                  mem_window: bool = False) -> Tables:
+                  mem_window: bool = False,
+                  optimistic: bool = False) -> Tables:
     """The image's code tables on `device` in the encoding `fusion`:
     "none" (one op per dispatch), "blocks" (B2 fused basic blocks) or
     "super" (B6 superinstructions; images without v128 ops only); with
     `mem_window`, memory through the window cache (an image with a
-    memory)."""
+    memory); with `optimistic`, the kernel with optimistic convergence."""
     from wasmedge_tpu_torch.batch import fusegen
     from wasmedge_tpu_torch.batch.fusion import (
         fuse_blocks, fuse_image, fused_lengths)
@@ -262,7 +271,7 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
         has_bulk=bool(np.isin(hid, (H_MEMFILL, H_MEMCOPY)).any()),
         has_hostcall=bool((hid == H_HOSTCALL).any()),
         has_simd=bool(img.has_simd), fusion=fusion,
-        mem_window=bool(mem_window))
+        mem_window=bool(mem_window), optimistic=bool(optimistic))
     if fusion == "none":
         return tables
     if fusion == "blocks":
@@ -281,7 +290,8 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
     tables.flen = t(fused_lengths(fhid, shapes))
     tables.shapes = shapes
     tables.fused_source = fusegen.cuda_source(
-        fhid, shapes, tables.has_bulk, tables.has_simd, tables.mem_window)
+        fhid, shapes, tables.has_bulk, tables.has_simd, tables.mem_window,
+        tables.optimistic)
     return tables
 
 
@@ -294,6 +304,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 _SRC = os.path.join(_CSRC, "interp.cu")
 _FUSED_HDR = os.path.join(_CSRC, "fused.cuh")
 _WIN_HDR = os.path.join(_CSRC, "memwin.cuh")
+_OPT_HDR = os.path.join(_CSRC, "optimistic.cuh")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
@@ -304,18 +315,25 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # bulk-memory cases (h_memfill / h_memcopy), those whose code holds
 # host-call stubs (h_hostcall), those whose code holds v128 ops (the B7
 # handlers), those of the fused kernels: B2 basic blocks ("block") and
-# B6 superinstructions ("super"), and those whose memory accesses went
-# through the window cache (B4, "window").
+# B6 superinstructions ("super"), those whose memory accesses went
+# through the window cache (B4, "window") and those of the kernels with
+# optimistic convergence (B3, "optimistic").
 LAUNCHES = {"interp": 0, "bulk": 0, "hostcall": 0, "simd": 0, "block": 0,
-            "super": 0, "window": 0}
+            "super": 0, "window": 0, "optimistic": 0}
 
 _libs = {}  # build key -> loaded ctypes library
 _lib_lock = threading.Lock()
-# The per-op kernel's build: "path", "seconds" and "ptxas" (its -v
-# output); "window" the same three of its build with the window cache;
-# "fused" maps each fused build's key to the same three and "fusion",
-# "shapes", "mean_len" and "mem_window".
-BUILD_INFO = {"fused": {}, "window": {}}
+# "per_op" maps each per-op build (`per_op_label`) to its "path",
+# "seconds" and "ptxas" (its -v output); "fused" maps each fused build's
+# key to the same three and "fusion", "shapes", "mean_len", "mem_window"
+# and "optimistic".
+BUILD_INFO = {"fused": {}, "per_op": {}}
+
+
+def per_op_label(win: bool, opt: bool) -> str:
+    """The name of the per-op build with or without the window cache and
+    optimistic convergence."""
+    return ("window" if win else "direct") + (", optimistic" if opt else "")
 
 
 def _nvcc() -> str:
@@ -329,34 +347,39 @@ def _read(path) -> bytes:
         return f.read()
 
 
-# generated source, or the per-op kernel's window flag -> _job's result
+# generated source, or the per-op kernel's (window, optimistic) flags ->
+# _job's result
 _jobs = {}
 
 
-def _defines(win: bool) -> tuple:
-    """The per-op build's extra nvcc flags: its window instantiations."""
-    return (f"-DWASM_MEM_WINDOW={int(win)}",)
+def _defines(win: bool, opt: bool) -> tuple:
+    """The per-op build's extra nvcc flags: its window and optimistic
+    instantiations."""
+    return (f"-DWASM_MEM_WINDOW={int(win)}", f"-DWASM_OPTIMISTIC={int(opt)}")
 
 
-def _job(tables: Optional[Tables], win: bool = False):
+def _job(tables: Optional[Tables], win: bool = False, opt: bool = False):
     """(key, shared library path, source path) of the kernel that runs
     `tables`: the per-op build (tables None or of the "none" encoding;
-    with the window cache when `win` or `tables.mem_window`) or the fused
-    build of `tables` (its generated source goes under _build/ when it is
-    built)."""
+    with the window cache when `win` or `tables.mem_window`, with
+    optimistic convergence when `opt` or `tables.optimistic`) or the
+    fused build of `tables` (its generated source goes under _build/ when
+    it is built)."""
     if tables is not None and tables.fusion == "none":
-        tables, win = None, tables.mem_window
-    text = bool(win) if tables is None else tables.fused_source
+        tables, win, opt = None, tables.mem_window, tables.optimistic
+    text = (bool(win), bool(opt)) if tables is None \
+        else tables.fused_source
     if text not in _jobs:
-        _jobs[text] = _new_job(tables, win)
+        _jobs[text] = _new_job(tables, win, opt)
     return _jobs[text]
 
 
-def _new_job(tables: Optional[Tables], win: bool):
+def _new_job(tables: Optional[Tables], win: bool, opt: bool):
     flags = " ".join(NVCC_FLAGS).encode()
-    srcs = _read(_SRC) + _read(_WIN_HDR)
+    srcs = _read(_SRC) + _read(_WIN_HDR) + _read(_OPT_HDR)
     if tables is None:
-        key = hashlib.sha256(srcs + flags + " ".join(_defines(win)).encode()) \
+        key = hashlib.sha256(
+            srcs + flags + " ".join(_defines(win, opt)).encode()) \
             .hexdigest()[:16]
         return key, os.path.join(_BUILD_DIR, f"libinterp_{key}.so"), _SRC
     src = tables.fused_source.encode()
@@ -366,33 +389,34 @@ def _new_job(tables: Optional[Tables], win: bool):
     return key, os.path.join(_BUILD_DIR, f"libfused_{key}.so"), cu
 
 
-def build_kernels(tables_list=(), per_op_windows: bool = False) -> dict:
+def build_kernels(tables_list=(), per_op=((False, False),)) -> dict:
     """Build, all nvcc processes at once, the per-op kernel
-    (`csrc/interp.cu`, four instantiations; and, when `per_op_windows` or
-    a per-op `Tables` given has `mem_window`, its four window-cache
-    instantiations, a second library) and the fused kernel of each fused
-    `Tables` given (`csrc/interp.cu` with `csrc/fused.cuh` and the
-    generated dispatch of its blocks or superinstructions, one
-    instantiation), each into a shared library under `_build/` keyed by
-    the hash of its sources and flags, and load them.  Returns {key: library}; `BUILD_INFO` records
-    paths, build seconds and ptxas output.  Raises if any build fails."""
+    (`csrc/interp.cu`, four instantiations, a library for each (window,
+    optimistic) pair in `per_op` and for each per-op `Tables` given) and
+    the fused kernel of each fused `Tables` given (`csrc/interp.cu` with
+    `csrc/fused.cuh` and the generated dispatch of its blocks or
+    superinstructions, one instantiation), each into a shared library
+    under `_build/` keyed by the hash of its sources and flags, and load
+    them.  Returns {key: library}; `BUILD_INFO` records paths, build
+    seconds and ptxas output.  Raises if any build fails."""
     with _lib_lock:
         os.makedirs(_BUILD_DIR, exist_ok=True)
         jobs = {}
-        wins = {False, bool(per_op_windows)}
+        pairs = {(bool(w), bool(o)) for w, o in per_op}
         for tb in tables_list:
             if tb.fusion == "none":
-                wins.add(tb.mem_window)
-        for win in sorted(wins):
-            key, so, src = _job(None, win)
-            jobs[key] = (so, src, None, win)
+                pairs.add((tb.mem_window, tb.optimistic))
+        for win, opt in sorted(pairs):
+            key, so, src = _job(None, win, opt)
+            jobs[key] = (so, src, None, (win, opt))
         for tb in tables_list:
             if tb.fusion == "none":
                 continue  # one of the per-op builds above
             key, so, src = _job(tb)
-            jobs.setdefault(key, (so, src, tb, tb.mem_window))
+            jobs.setdefault(key, (so, src, tb,
+                                  (tb.mem_window, tb.optimistic)))
         procs = {}
-        for key, (so, src, tb, win) in jobs.items():
+        for key, (so, src, tb, flags) in jobs.items():
             if key in _libs or os.path.exists(so):
                 continue
             tmp = f"{so}.{os.getpid()}.tmp"
@@ -400,7 +424,7 @@ def build_kernels(tables_list=(), per_op_windows: bool = False) -> dict:
                 with open(f"{src}.{os.getpid()}.tmp", "w") as f:
                     f.write(tb.fused_source)
                 os.replace(f"{src}.{os.getpid()}.tmp", src)
-            defines = _defines(win) if tb is None else ()
+            defines = _defines(*flags) if tb is None else ()
             cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-Xptxas", "-v", "-I",
                    _CSRC, "-o", tmp, src]
             # nvcc's output goes to a file: a full pipe would stall it
@@ -425,7 +449,7 @@ def build_kernels(tables_list=(), per_op_windows: bool = False) -> dict:
                 log.close()
                 os.remove(log.name)
         for key, (proc, tmp, _, _) in procs.items():
-            so, src, tb, win = jobs[key]
+            so, src, tb, flags = jobs[key]
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
                                    f"{src}:\n{logs[key]}")
@@ -433,11 +457,9 @@ def build_kernels(tables_list=(), per_op_windows: bool = False) -> dict:
             info = {"path": so, "seconds": ended[key], "ptxas": logs[key]}
             if tb is not None:
                 BUILD_INFO["fused"][key] = info
-            elif win:
-                BUILD_INFO["window"].update(info)
             else:
-                BUILD_INFO.update(info)
-        for key, (so, _, tb, win) in jobs.items():
+                BUILD_INFO["per_op"][per_op_label(*flags)] = info
+        for key, (so, _, tb, flags) in jobs.items():
             if key in _libs:
                 continue
             lib = ctypes.CDLL(so)
@@ -450,12 +472,12 @@ def build_kernels(tables_list=(), per_op_windows: bool = False) -> dict:
                 BUILD_INFO["fused"].setdefault(key, {"path": so}).update(
                     fusion=tb.fusion, shapes=len(tb.shapes),
                     mean_len=float(np.mean(n_ops)) if n_ops else 0.0,
-                    mem_window=bool(win))
+                    mem_window=bool(flags[0]), optimistic=bool(flags[1]))
             else:
-                (BUILD_INFO["window"] if win else BUILD_INFO).setdefault(
-                    "path", so)
+                BUILD_INFO["per_op"].setdefault(
+                    per_op_label(*flags), {}).setdefault("path", so)
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * (_N_PTRS + extra) + \
+            fn.argtypes = [ctypes.c_void_p] * (_N_PTRS + extra + _N_OPT) + \
                 [ctypes.c_int] * _N_INTS + [ctypes.c_void_p]
             _libs[key] = lib
         return {key: _libs[key] for key in jobs}
@@ -487,11 +509,12 @@ def kernel_attributes(tables: Tables) -> dict:
                   int(tables.has_simd))
 
 
-def per_op_attributes(win: bool) -> dict:
+def per_op_attributes(win: bool, opt: bool = False) -> dict:
     """`kernel_attributes` of the four instantiations of the per-op build
-    (with the window cache when `win`), keyed "kBulk=b, kSimd=s"."""
-    key = _job(None, win)[0]
-    lib = _libs.get(key) or build_kernels(per_op_windows=win)[key]
+    (with the window cache when `win`, with optimistic convergence when
+    `opt`), keyed "kBulk=b, kSimd=s"."""
+    key = _job(None, win, opt)[0]
+    lib = _libs.get(key) or build_kernels(per_op=((win, opt),))[key]
     return {f"kBulk={b}, kSimd={s}": _attrs(lib.wasm_interp_attrs, b, s)
             for b in (0, 1) for s in (0, 1)}
 
@@ -503,7 +526,9 @@ def fused_kernel_key(tables: Tables) -> str:
 
 
 # Pointer arguments, in the order of wasm_interp_launch's signature;
-# wasm_fused_launch appends the fused tables.
+# wasm_fused_launch has the fused tables after the state planes; then
+# both take the per-warp tensors and shadow planes of optimistic
+# convergence (null for a careful launch).
 _TABLE_FIELDS = ("hid", "a", "b", "c", "ilo", "ihi", "fent", "fnpar",
                  "fnloc", "ftop", "ftyp", "brt", "tbl", "v128")
 _STATE_FIELDS = ("pc", "sp", "fp", "opbase", "call_depth", "trap", "retired",
@@ -511,12 +536,17 @@ _STATE_FIELDS = ("pc", "sp", "fp", "opbase", "call_depth", "trap", "retired",
                  "stack_e3", "fr_ret_pc", "fr_fp", "fr_opbase", "glob_lo",
                  "glob_hi", "mem")
 _FUSED_FIELDS = ("hid0", "flen", "fa", "fb", "fc", "filo", "fihi")
+_OPT_FIELDS = WarpState.COUNTERS + (
+    "sh_lo", "sh_hi", "sh_e2", "sh_e3", "sh_fr_ret_pc", "sh_fr_fp",
+    "sh_fr_opbase", "sh_glo", "sh_ghi", "sh_mem")
 _N_PTRS = len(_TABLE_FIELDS) + len(_STATE_FIELDS)
+_N_OPT = len(_OPT_FIELDS)
 # code_len, nf, n_brt, tsize, nv (v128 table rows), L, D, CD, NG, W,
-# chunk, fuel_on, max_local_zeros, mem_pages_max, bulk, simd and win (the
-# kernel instantiations with the memory.fill / memory.copy cases, with
-# the v128 handlers and with the window cache)
-_N_INTS = 17
+# chunk, fuel_on, max_local_zeros, mem_pages_max, bulk, simd, win and opt
+# (the kernel instantiations with the memory.fill / memory.copy cases,
+# with the v128 handlers, with the window cache and with optimistic
+# convergence), snap_max (the ceiling of a warp's interval)
+_N_INTS = 19
 
 
 def _check(name, t, device, shape):
@@ -531,20 +561,50 @@ def _check(name, t, device, shape):
                          f"expected {tuple(shape)}")
 
 
-def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool) -> None:
+def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool,
+              warps: Optional[WarpState] = None) -> None:
     """Run every live lane for up to `chunk` instructions, in place on
     the state `st` (a `batch.engine.BatchState`).  CUDA tensors launch
     the kernel of the tables' encoding (and memory mode: with
-    `mem_window` the window-cache instantiation, or an error); CPU
-    tensors run the plain interpreter."""
+    `mem_window` the window-cache instantiation, or an error; with
+    `optimistic` the instantiation with optimistic convergence, which
+    updates `warps`, a fresh `WarpState` when None); CPU tensors run the
+    plain interpreter."""
     device = st.pc.device
     if device.type == "cpu":
         from wasmedge_tpu_torch.batch import interp_ref
 
-        interp_ref.run_chunk(tables, st, chunk, fuel_on)
+        interp_ref.run_chunk(tables, st, chunk, fuel_on, warps)
         return
     if device.type != "cuda":
         raise ValueError(f"no interpreter for device {device}")
+    if tables.optimistic and warps is None:
+        warps = WarpState.new(st.pc.shape[0], device)
+    _check_launch(tables, st, warps, device)
+    key = _job(tables)[0]
+    lib = _libs.get(key) or build_kernels([tables])[key]
+    launch = lib.wasm_fused_launch if tables.fusion != "none" \
+        else lib.wasm_interp_launch
+    stream = torch.cuda.current_stream(device).cuda_stream
+    ptrs, ints = launch_args(tables, st, chunk, fuel_on, warps)
+    with torch.cuda.device(device):
+        err = launch(*ptrs, *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"interpreter kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["interp"] += 1
+    LAUNCHES["bulk"] += tables.has_bulk
+    LAUNCHES["hostcall"] += tables.has_hostcall
+    LAUNCHES["simd"] += tables.has_simd
+    LAUNCHES["block"] += tables.fusion == "blocks"
+    LAUNCHES["super"] += tables.fusion == "super"
+    LAUNCHES["window"] += tables.mem_window
+    LAUNCHES["optimistic"] += tables.optimistic
+
+
+def _check_launch(tables: Tables, st, warps, device) -> None:
+    """Raise unless the tables, the state and the per-warp state are the
+    kernel's: int32, contiguous, on `device`, of the state's geometry."""
     L = st.pc.shape[0]
     D = st.stack_lo.shape[0]
     CD = st.fr_ret_pc.shape[0]
@@ -573,32 +633,38 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool) -> None:
     if tables.mem_window and W < 2 * HBM_WINDOW_ROWS:
         raise ValueError(f"a memory of {W} words per lane is too small for "
                          f"the window cache")
-    key = _job(tables)[0]
-    lib = _libs.get(key) or build_kernels([tables])[key]
-    launch = lib.wasm_fused_launch if fused else lib.wasm_interp_launch
-    stream = torch.cuda.current_stream(device).cuda_stream
+    if tables.optimistic:
+        for f in WarpState.COUNTERS:
+            _check(f, getattr(warps, f), device, ((L + 31) // 32,))
 
+
+def launch_args(tables: Tables, st, chunk: int, fuel_on: bool,
+                warps: Optional[WarpState]):
+    """The pointer and int arguments of `wasm_interp_launch` (or, for a
+    fused encoding, `wasm_fused_launch`) before the stream, in their
+    order (the shadow planes allocated here on the first optimistic
+    launch)."""
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    L = st.pc.shape[0]
     ptrs = [ptr(getattr(tables, f)) for f in _TABLE_FIELDS] + \
         [ptr(getattr(st, f)) for f in _STATE_FIELDS]
-    if fused:
+    if tables.fusion != "none":
         ptrs += [ptr(getattr(tables, f)) for f in _FUSED_FIELDS]
-    ints = [n, tables.fent.shape[0], tables.brt.shape[0] // 3,
-            tables.tbl.shape[0], tables.v128.shape[0] // 4, L, D, CD, NG, W,
-            int(chunk), int(fuel_on),
-            tables.max_local_zeros, tables.mem_pages_max,
-            int(tables.has_bulk), int(simd), int(tables.mem_window)]
-    with torch.cuda.device(device):
-        err = launch(*ptrs, *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"interpreter kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["interp"] += 1
-    LAUNCHES["bulk"] += tables.has_bulk
-    LAUNCHES["hostcall"] += tables.has_hostcall
-    LAUNCHES["simd"] += simd
-    LAUNCHES["block"] += tables.fusion == "blocks"
-    LAUNCHES["super"] += tables.fusion == "super"
-    LAUNCHES["window"] += tables.mem_window
+    if tables.optimistic:
+        opt = dict(warps.counters(),
+                   **warps.shadows_for(st, tables.mem_window))
+        ptrs += [ptr(opt.get(f)) for f in _OPT_FIELDS]
+    else:
+        ptrs += [None] * _N_OPT
+    ints = [tables.hid.shape[0], tables.fent.shape[0],
+            tables.brt.shape[0] // 3, tables.tbl.shape[0],
+            tables.v128.shape[0] // 4, L, st.stack_lo.shape[0],
+            st.fr_ret_pc.shape[0], st.glob_lo.shape[0], st.mem.shape[0],
+            int(chunk), int(fuel_on), tables.max_local_zeros,
+            tables.mem_pages_max, int(tables.has_bulk),
+            int(tables.has_simd), int(tables.mem_window),
+            int(tables.optimistic),
+            warps.snap_max if tables.optimistic else 0]
+    return ptrs, ints

@@ -33,7 +33,14 @@ corner cases:
     memory.size/grow, ALU, load, the callee's zeroed locals, vextract,
     vtest) zeroes e2 and e3 at its row, and v128 ops (B7, through
     `batch/simdops.py`) read and write whole cells; a trapping
-    v128.load / v128.store writes nothing.
+    v128.load / v128.store writes nothing;
+  - with `tables.optimistic` (B3, `batch/optimistic.py`) a warp of 32
+    lanes that starts the launch converged takes its lane 0's value at
+    every decision (`_Group.agree` / `agree_nz`: branch conditions, table
+    indexes, grow deltas, memory addresses, ALU trap kinds), and a
+    load or store whose window miss would write a dirty way back, or a
+    bulk op, waits for a commit (`defer`) instead of running; commits,
+    snapshots and rollbacks are `OptRun`'s.
 
 Vectorised over lanes: each step groups the live lanes by the handler id
 at their pc and applies one handler per group.  It is the reference the
@@ -62,6 +69,8 @@ from wasmedge_tpu_torch.batch.interp import (
     H_VREPLACE_BASE, H_VSHIFT_BASE, H_VSHUFFLE, H_VSPLAT_BASE, H_VSTORE,
     H_VTEST_BASE, NUM_HANDLERS, Tables)
 from wasmedge_tpu_torch.batch.memwin import MemWindows
+from wasmedge_tpu_torch.batch.optimistic import (
+    DEFER_ACCESS, DEFER_BULK, OptRun, WarpState)
 from wasmedge_tpu_torch.common.errors import ErrCode
 
 I32 = torch.int32
@@ -69,23 +78,35 @@ _TRUNC_F32 = (ALU1_SUB["i32.trunc_f32_s"], ALU1_SUB["i32.trunc_f32_u"])
 _NUM_ALU1 = len(ALU1_SUB)
 
 
-def run_chunk(t: Tables, st, chunk: int, fuel_on: bool) -> None:
+def run_chunk(t: Tables, st, chunk: int, fuel_on: bool,
+              warps: WarpState = None) -> None:
+    """`warps`: the per-warp state of optimistic tables (a fresh one
+    when None)."""
     # steps each lane has left in this launch (a fused dispatch takes
     # several at once)
     left = torch.full_like(st.pc, int(chunk))
     # B4: the windows start invalid at every launch and are written back
     # when it ends (pallas_engine.py :3656-3660, :3683-3693)
     win = MemWindows(st.mem) if t.mem_window else None
+    opt = None
+    if t.optimistic:
+        if warps is None:
+            warps = WarpState.new(st.pc.shape[0], st.pc.device)
+        opt = OptRun(t, st, chunk, warps, win)
     while True:
+        if opt is not None:
+            opt.commit_points(left)
         live = ((st.trap == 0) & (left > 0)).nonzero().squeeze(1)
         if live.numel() == 0:
             break
-        _step(t, st, live, fuel_on, left, win)
+        _step(t, st, live, fuel_on, left, win, opt)
     if win is not None:
         win.flush()
+    if opt is not None:
+        opt.close()
 
 
-def _step(t: Tables, st, lanes, fuel_on, left, win):
+def _step(t: Tables, st, lanes, fuel_on, left, win, opt=None):
     code_len = t.hid.shape[0]
     pc = st.pc[lanes].clamp(0, code_len - 1)
     pcl = pc.long()
@@ -103,17 +124,19 @@ def _step(t: Tables, st, lanes, fuel_on, left, win):
     for h in torch.unique(hid).tolist():
         m = hid == h
         if bool(fused[m].any()):
-            _run_fused(t, st, lanes[m], pc[m], int(h), fuel_on, left, win)
+            _run_fused(t, st, lanes[m], pc[m], int(h), fuel_on, left, win,
+                       opt)
         else:
-            _Group(t, st, lanes[m], pc[m], fuel_on, win).run(int(h))
-            left[lanes[m]] -= 1
+            ran = _Group(t, st, lanes[m], pc[m], fuel_on, win, opt).run(
+                int(h))
+            left[ran] -= 1
 
 
-def _run_fused(t, st, lanes, pc, h, fuel_on, left, win):
+def _run_fused(t, st, lanes, pc, h, fuel_on, left, win, opt=None):
     """One fused dispatch (a block or a superinstruction) on the lanes at
     fused id h, then the terminal op, per op, on the lanes it leaves at
     one."""
-    g = _Fused(t, st, lanes, pc, fuel_on, win)
+    g = _Fused(t, st, lanes, pc, fuel_on, win, opt)
     if h >= H_BLOCK_BASE:
         g.block(t.shapes[h - H_BLOCK_BASE])
     else:
@@ -127,19 +150,25 @@ def _run_fused(t, st, lanes, pc, h, fuel_on, left, win):
     th = t.hid[tpc.long()]
     for h2 in torch.unique(th).tolist():
         m = th == h2
-        _Group(t, st, tl[m], tpc[m], fuel_on, win).run(int(h2))
-        left[tl[m]] -= 1
+        ran = _Group(t, st, tl[m], tpc[m], fuel_on, win, opt).run(int(h2))
+        left[ran] -= 1
 
 
 class _Group:
     """One handler applied to the lanes that sit at it this step; `win`
-    the launch's memory windows (None: the plane is read directly)."""
+    the launch's memory windows (None: the plane is read directly);
+    `opt` the launch's optimistic convergence (None: careful)."""
 
-    def __init__(self, t, st, lanes, pc, fuel_on, win=None):
+    def __init__(self, t, st, lanes, pc, fuel_on, win=None, opt=None):
         self.t, self.st, self.lanes, self.pc = t, st, lanes, pc
         self.fuel_on = fuel_on
         self.win = win
         self.way = None  # the way the last window select chose
+        # (on, lead) of the lanes' warps, None when none is on
+        self.opt = opt
+        self.olead = None if opt is None or not opt.any_on() \
+            else opt.leads(lanes)
+        self.defer = None  # lanes whose instruction waits for a commit
         self.D = st.stack_lo.shape[0]
         self.simd = st.stack_e2 is not None
         pcl = pc.long()
@@ -194,8 +223,37 @@ class _Group:
         for plane, v in zip(planes, v4):
             self.scat(plane, rows, v, mask)
 
+    # -- decisions (B3) ------------------------------------------------------
+    def agree(self, v, mask=None):
+        """An exact decision: lane 0's value on lanes whose warp is on
+        (a lane that differs sets its canary; `mask`: the lanes that take
+        the decision), the lane's own elsewhere."""
+        if self.olead is None:
+            return v
+        ol, lead = self.olead
+        lv = v[lead]
+        d = ol & (v != lv)
+        self.opt.disagree(self.lanes, d if mask is None else d & mask)
+        return lv
+
+    def agree_nz(self, v, mask=None):
+        """A condition: lane 0's value, compared by zeroness."""
+        if self.olead is None:
+            return v
+        ol, lead = self.olead
+        lv = v[lead]
+        d = ol & ((v != 0) != (lv != 0))
+        self.opt.disagree(self.lanes, d if mask is None else d & mask)
+        return lv
+
+    def wait(self, d):
+        """Lanes `d` (whose warps are on) run nothing of this
+        instruction: it waits for a commit."""
+        self.defer = d if self.defer is None else self.defer | d
+
     # -- dispatch ------------------------------------------------------------
     def run(self, h):
+        """Returns the lanes that ran (not those waiting for a commit)."""
         if h >= H_ALU2_BASE and h < H_ALU1_BASE:
             self.alu2(h - H_ALU2_BASE)
         elif h >= H_ALU1_BASE and h < H_ALU1_BASE + _NUM_ALU1:
@@ -211,7 +269,21 @@ class _Group:
             if handler is None:
                 raise ValueError(f"handler id {h} is not in this slice")
             handler(self)
+        if self.defer is not None and bool(self.defer.any()):
+            d = self.defer
+            self.opt.defer(self.lanes[d], DEFER_BULK if h in (
+                H_MEMFILL, H_MEMCOPY) else DEFER_ACCESS)
+            self._keep(~d)
         self.commit()
+        return self.lanes
+
+    def _keep(self, m):
+        """Only the lanes of `m` go on to the commit."""
+        for f in ("lanes", "pc", "sp", "fp", "ob", "cd", "new_pc", "new_sp",
+                  "new_fp", "new_ob", "new_cd", "trap", "sp_on_halt"):
+            v = getattr(self, f)
+            if v is not None:
+                setattr(self, f, v[m])
 
     def commit(self):
         st, lanes = self.st, self.lanes
@@ -288,12 +360,12 @@ class _Group:
         self.new_pc = self.a
 
     def brz(self):
-        v_lo, _ = self.cell(self.sp - 1)
+        v_lo = self.agree_nz(self.cell(self.sp - 1)[0])
         self.new_sp = self.sp - 1
         self.new_pc = torch.where(v_lo == 0, self.a, self.pc + 1)
 
     def brnz(self):
-        c_lo, _ = self.cell(self.sp - 1)
+        c_lo = self.agree_nz(self.cell(self.sp - 1)[0])
         taken = c_lo != 0
         self.put4(self.ob + self.c, self.cell4(self.sp - 2),
                   taken & (self.b == 1))
@@ -302,7 +374,7 @@ class _Group:
         self.new_pc = torch.where(taken, self.a, self.pc + 1)
 
     def br_table(self):
-        i_lo, _ = self.cell(self.sp - 1)
+        i_lo = self.agree(self.cell(self.sp - 1)[0])
         idx = torch.where(ops.u_lt(self.b, i_lo), self.b, i_lo)
         n = self.t.brt.shape[0] // 3
         e = (self.a + idx).clamp(0, n - 1).long() * 3
@@ -319,9 +391,15 @@ class _Group:
         done = self.cd == 0
         CD = st.fr_ret_pc.shape[0]
         rd = (self.cd - 1).clamp(0, CD - 1)
-        self.new_pc = torch.where(done, self.pc, self.gat(st.fr_ret_pc, rd))
-        self.new_fp = torch.where(done, self.fp, self.gat(st.fr_fp, rd))
-        self.new_ob = torch.where(done, self.ob, self.gat(st.fr_opbase, rd))
+        # frame rows are the lane's own: where the return goes is a
+        # decision (the entry compares no frame row)
+        back = ~done
+        self.new_pc = torch.where(done, self.pc, self.agree(
+            self.gat(st.fr_ret_pc, rd), back))
+        self.new_fp = torch.where(done, self.fp, self.agree(
+            self.gat(st.fr_fp, rd), back))
+        self.new_ob = torch.where(done, self.ob, self.agree(
+            self.gat(st.fr_opbase, rd), back))
         self.new_cd = torch.where(done, self.cd, self.cd - 1)
         self.new_sp = self.fp + nres
         self.trap = torch.where(done, torch.full_like(self.trap, TRAP_DONE),
@@ -335,7 +413,7 @@ class _Group:
     def call_indirect(self):
         t = self.t
         nf = t.fent.shape[0]
-        i_lo, _ = self.cell(self.sp - 1)
+        i_lo = self.agree(self.cell(self.sp - 1)[0])
         size = self.b
         ti = self.c + i_lo.clamp(min=0).minimum((size - 1).clamp(min=0))
         ti = ti.clamp(0, t.tbl.shape[0] - 1)
@@ -398,6 +476,25 @@ class _Group:
         sh = (ea & 3) * 8
         return ea, oob, widx, sh
 
+    def _access(self, base, nbytes, nwords, off=None, mask=None):
+        """An access of nbytes (nwords words) at base + offset on the
+        lanes of `mask` (all when None), the address lane 0's where the
+        warp is on: (out-of-bounds mask, first word, bit shift, the lanes
+        that access: in bounds, in `mask` and, with windows in an "on"
+        warp, not waiting for the commit a dirty write-back needs)."""
+        base = self.agree(base, mask)
+        _, oob, widx, sh = self._ea(base, nbytes, off)
+        en = ~oob if mask is None else ~oob & mask
+        if self.win is not None and self.olead is not None:
+            W = self.st.mem.shape[0]
+            d = en & self.olead[0] & self.win.dirty_miss(
+                self.lanes, widx.clamp(0, W - 1),
+                (widx + nwords - 1).clamp(0, W - 1))
+            if bool(d.any()):
+                self.wait(d)
+                en = en & ~d
+        return oob, widx, sh, en
+
     def _words(self, widx, n=3, en=None):
         """The n memory words from row widx on of each lane (rows clamped
         into the plane): through the window that holds them, selected on
@@ -421,18 +518,18 @@ class _Group:
 
     def load(self):
         base, _ = self.cell(self.sp - 1)
-        lo, hi, oob = self.load_val(base, self.a, self.b, self.c)
-        self.put(self.sp - 1, lo, hi, ~oob)
+        lo, hi, oob, en = self.load_val(base, self.a, self.b, self.c)
+        self.put(self.sp - 1, lo, hi, en)
         self.trap = torch.where(
             oob, torch.full_like(self.trap, int(ErrCode.MemoryOutOfBounds)),
             self.trap)
 
     def load_val(self, base, off, nbytes, flags, mask=None):
         """The value (lo, hi) of a load of nbytes (flags: 1 signed, 2 to
-        i64) at base + off on the lanes of `mask` (all when None), and its
-        out-of-bounds mask."""
-        _, oob, widx, sh = self._ea(base, nbytes.to(torch.int64), off)
-        en = ~oob if mask is None else ~oob & mask
+        i64) at base + off on the lanes of `mask` (all when None), its
+        out-of-bounds mask and the lanes that loaded."""
+        oob, widx, sh, en = self._access(base, nbytes.to(torch.int64), 3,
+                                         off, mask)
         w0, w1, w2 = (ops.u32(w) for w in self._words(widx, 3, en))
         sh64 = sh.to(torch.int64)
         raw_lo = ops.wrap32(ops.shr_u64(w0 | (w1 << 32), sh64))
@@ -449,7 +546,7 @@ class _Group:
             nbytes == 8, raw_hi,
             torch.where(signed, lo >> 31, torch.zeros_like(lo))),
             torch.zeros_like(lo))
-        return lo, hi, oob
+        return lo, hi, oob, en
 
     def store(self):
         v_lo, v_hi = self.cell(self.sp - 1)
@@ -464,8 +561,8 @@ class _Group:
         """A store of nbytes of (v_lo, v_hi) at base + off on the lanes of
         `mask` (all when None) that are in bounds; returns the
         out-of-bounds mask."""
-        _, oob, widx, sh = self._ea(base, nbytes.to(torch.int64), off)
-        ok = ~oob if mask is None else ~oob & mask
+        oob, widx, sh, ok = self._access(base, nbytes.to(torch.int64), 3,
+                                         off, mask)
         words = self._words(widx, 3, ok)
         sh64 = sh.to(torch.int64)
         full = torch.where(nbytes == 1, torch.full_like(sh64, 0xFF),
@@ -496,7 +593,7 @@ class _Group:
 
     def memgrow(self):
         st = self.st
-        delta, _ = self.cell(self.sp - 1)
+        delta = self.agree(self.cell(self.sp - 1)[0])
         pages = st.mem_pages[self.lanes]
         new = ops.wrap32(pages.to(torch.int64) + delta.to(torch.int64))
         cap = torch.full_like(pages, self.t.mem_pages_max)
@@ -521,7 +618,13 @@ class _Group:
 
     def _bulk(self, copy):
         """Operands (top of stack): n, then the fill value or copy source,
-        then dst.  Unsigned bounds in exact int64 arithmetic."""
+        then dst.  Unsigned bounds in exact int64 arithmetic.  In a warp
+        that is on, it waits for a commit and then runs per lane
+        (`_opt_bulk_exit`, pallas_engine.py :1065-1080)."""
+        go = None
+        if self.olead is not None:
+            self.wait(self.olead[0])
+            go = ~self.olead[0]
         n = ops.u32(self.cell(self.sp - 1)[0])
         val_or_src = ops.u32(self.cell(self.sp - 2)[0])
         dst = ops.u32(self.cell(self.sp - 3)[0])
@@ -540,8 +643,8 @@ class _Group:
             # the bulk loop runs on the plane: the lanes' dirty windows
             # go back first, and none stays valid (pallas_engine.py
             # :2303-2306)
-            self.win.flush(self.lanes)
-        go = ~oob & (n != 0)
+            self.win.flush(self.lanes if go is None else self.lanes[go])
+        go = ~oob & (n != 0) if go is None else go & ~oob & (n != 0)
         if bool(go.any()):
             _fill_copy(self.st.mem, self.lanes[go], dst[go], end[go],
                        val_or_src[go], copy)
@@ -554,17 +657,21 @@ class _Group:
         self.put(self.sp - 2, lo, hi)
         self.new_sp = self.sp - 1
         if ops.alu2_traps(sub):
-            self.trap = ops.alu2_trap(sub, x_lo, x_hi, y_lo, y_hi)
+            self.trap = self.agree(ops.alu2_trap(sub, x_lo, x_hi, y_lo,
+                                                 y_hi))
 
     def alu1(self, sub):
         w_lo, w_hi = self.cell(self.sp - 1)
         lo, hi = ops.alu1(sub, w_lo, w_hi)
+        trap = None
         if ops.alu1_traps(sub):
-            self.trap = ops.alu1_trap(sub, w_lo, w_hi)
+            trap = ops.alu1_trap(sub, w_lo, w_hi)
             if sub in _TRUNC_F32:
                 # the reference's f32 truncation writes 0 when it traps
-                lo = torch.where(self.trap != 0, torch.zeros_like(lo), lo)
+                lo = torch.where(trap != 0, torch.zeros_like(lo), lo)
         self.put(self.sp - 1, lo, hi)
+        if trap is not None:
+            self.trap = self.agree(trap)
 
     # -- v128 (B7) -------------------------------------------------------------
     def _v128_row(self, a=None):
@@ -620,26 +727,27 @@ class _Group:
 
     def _v128_ea(self, base):
         """A 16-byte access: trap if out of bounds; the first of the five
-        words it spans, the bit shift and the five words."""
-        _, oob, widx, sh = self._ea(base, 16)
+        words it spans, the bit shift, the five words and the lanes that
+        access."""
+        oob, widx, sh, en = self._access(base, 16, 5)
         self.trap = torch.where(
             oob, torch.full_like(self.trap, int(ErrCode.MemoryOutOfBounds)),
             self.trap)
-        words = [ops.u32(w) for w in self._words(widx, 5, ~oob)]
-        return oob, widx, sh.to(torch.int64), words
+        words = [ops.u32(w) for w in self._words(widx, 5, en)]
+        return en, widx, sh.to(torch.int64), words
 
     def vload(self):
         base, _ = self.cell(self.sp - 1)
-        oob, _, sh, w = self._v128_ea(base)
+        en, _, sh, w = self._v128_ea(base)
         r = tuple(ops.wrap32(torch.where(
             sh == 0, w[k], (w[k] >> sh) | (w[k + 1] << (32 - sh))))
             for k in range(4))
-        self.put4(self.sp - 1, r, ~oob)
+        self.put4(self.sp - 1, r, en)
 
     def vstore(self):
         base, _ = self.cell(self.sp - 2)
         val = [ops.u32(v) for v in self.cell4(self.sp - 1)]
-        oob, widx, sh, w = self._v128_ea(base)
+        ok, widx, sh, w = self._v128_ea(base)
         full = torch.full_like(sh, 0xFFFFFFFF)
         zero = torch.zeros_like(sh)
         masks = [(full << sh) & 0xFFFFFFFF, full, full, full,
@@ -648,7 +756,6 @@ class _Group:
         vals = [((prev[k + 1] if k < 4 else zero) << sh)
                 | torch.where(sh == 0, zero, prev[k] >> (32 - sh))
                 for k in range(5)]
-        ok = ~oob
         for k in range(5):
             m = masks[k]
             new = (w[k] & ~m) | (vals[k] & m)
@@ -683,8 +790,8 @@ class _Fused(_Group):
     written.  Per lane it records the new pc and sp, the instructions
     retired (`n`), a trap, and whether a terminal op is left (`term`)."""
 
-    def __init__(self, t, st, lanes, pc, fuel_on, win=None):
-        super().__init__(t, st, lanes, pc, fuel_on, win)
+    def __init__(self, t, st, lanes, pc, fuel_on, win=None, opt=None):
+        super().__init__(t, st, lanes, pc, fuel_on, win, opt)
         z = torch.zeros_like(pc)
         self.active = torch.ones_like(pc, dtype=torch.bool)
         self.out_pc, self.out_sp = pc.clone(), self.sp.clone()
@@ -787,31 +894,41 @@ class _Fused(_Group):
             x = self.pop()
             push(self.sc(*ops.alu1(op[1], x[0], x[1])))
         elif kind in ("guardz", "guardnz"):
-            cnd = self.pop()
+            cnd = self.agree_nz(self.pop()[0], self.active)
             snap = self.snap()
             if kind == "guardz":
-                self.exit(cnd[0] == 0, snap, a, self.sp_of(self.sp, snap),
+                self.exit(cnd == 0, snap, a, self.sp_of(self.sp, snap),
                           j + 1)
             else:
-                self.exit(cnd[0] != 0, snap, a, self.ob + self.at(t.c, j),
+                self.exit(cnd != 0, snap, a, self.ob + self.at(t.c, j),
                           j + 1)
         elif kind == "loadi":
             pre = self.snap()
             addr = self.pop()
-            lo, hi, oob = self.load_val(addr[0], a, self.at(t.b, j),
-                                        self.at(t.c, j), self.active)
-            self.exit(oob, pre, self.pc + j, self.sp_of(self.sp, pre), j + 1,
-                      int(ErrCode.MemoryOutOfBounds))
+            lo, hi, oob, _ = self.load_val(addr[0], a, self.at(t.b, j),
+                                           self.at(t.c, j), self.active)
+            self.access_exits(j, pre, oob)
             push(self.sc(lo, hi))
         elif kind == "storei":
             pre = self.snap()
             val, addr = self.pop(), self.pop()
             oob = self.store_val(addr[0], a, self.at(t.b, j), val[0], val[1],
                                  self.active)
-            self.exit(oob, pre, self.pc + j, self.sp_of(self.sp, pre), j + 1,
-                      int(ErrCode.MemoryOutOfBounds))
+            self.access_exits(j, pre, oob)
         else:
             push(self.block_v128(op, a))
+
+    def access_exits(self, j, pre, oob):
+        """After an inline access at op j: out of bounds, the lane exits
+        with its trap, the op retired; waiting for a commit (an "on"
+        warp's dirty write-back), it exits before the op."""
+        sp = self.sp_of(self.sp, pre)
+        self.exit(oob, pre, self.pc + j, sp, j + 1,
+                  int(ErrCode.MemoryOutOfBounds))
+        if self.defer is not None:
+            d, self.defer = self.defer, None
+            self.opt.defer(self.lanes[d & self.active], DEFER_ACCESS)
+            self.exit(d, pre, self.pc + j, sp, j)
 
     def block_v128(self, op, a):
         kind = op[0]
@@ -879,9 +996,10 @@ class _Fused(_Group):
             self._super_out(pc + 4, sp, 4)
         elif base in (H_FUSE_GCB_BASE, H_FUSE_GGBZ_BASE):
             tgt = fb if base == H_FUSE_GCB_BASE else fa
-            self._super_out(torch.where(r[0] == 0, tgt, pc + 4), sp, 4)
+            self._super_out(torch.where(self.agree_nz(r[0]) == 0, tgt,
+                                        pc + 4), sp, 4)
         else:  # GGBNZ
-            taken = r[0] != 0
+            taken = self.agree_nz(r[0]) != 0
             self.put4(ob + fc, self.cell4(sp - 1), taken & (fb == 1))
             self._super_out(torch.where(taken, fa, pc + 4),
                             torch.where(taken, ob + fc + fb, sp), 4)

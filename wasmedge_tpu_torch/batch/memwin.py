@@ -20,6 +20,11 @@ incoming window that overlaps the other way writes that way back (when
 dirty) and invalidates it before the fill reads the plane.  Windows start
 invalid at every launch, and `flush` writes every dirty way back at its
 end, so the plane after a launch is what direct access would leave.
+
+Optimistic convergence (B3, `batch/optimistic.py`) keeps the plane
+validated: `dirty_miss` tells whether a select would write a dirty way
+back (a commit point in "on" warps), `commit` writes the dirty ways back
+and keeps them valid, and `invalidate` drops the windows on a rollback.
 """
 
 from __future__ import annotations
@@ -115,4 +120,30 @@ class MemWindows:
         for way in (0, 1):
             self._writeback(way, lanes)
         self.wb[:, lanes] = SENT
+        self.mru[lanes] = 0
+
+    def dirty_miss(self, lanes, rlo, rhi):
+        """Per lane: whether `select(rlo, rhi)` would write a dirty way
+        back (the victim, or the other way under the overlap rule;
+        pallas_engine.py :1905-1922)."""
+        cw, W = self.cw, self.W
+        wb, wd, mru = self.wb[:, lanes], self.wd[:, lanes], self.mru[lanes]
+        hit = ((rlo >= wb[0]) & (rhi < wb[0] + cw)) | \
+            ((rlo >= wb[1]) & (rhi < wb[1] + cw))
+        nb = (rlo - rlo % 8).clamp(0, W - cw)
+        ov0 = (wb[0] < nb + cw) & (nb < wb[0] + cw)
+        ov1 = (wb[1] < nb + cw) & (nb < wb[1] + cw)
+        need = torch.where(mru == 0, wd[1] | (wd[0] & ov0),
+                           wd[0] | (wd[1] & ov1))
+        return ~hit & need
+
+    def commit(self, lanes):
+        """Write the dirty ways of `lanes` back; they stay valid, clean."""
+        for way in (0, 1):
+            self._writeback(way, lanes)
+
+    def invalidate(self, lanes):
+        """Drop both ways of `lanes` without writing them back."""
+        self.wb[:, lanes] = SENT
+        self.wd[:, lanes] = False
         self.mru[lanes] = 0

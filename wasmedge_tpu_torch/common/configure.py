@@ -92,6 +92,15 @@ class BatchConfigure:
     # runs that rule gives the windows.  False here is the plane read
     # directly, not a resident slab, which has no counterpart on the card.
     mem_hbm: Optional[bool] = None
+    # Optimistic convergence (lane-0 decisions + canary validation at
+    # commit points instead of per-instruction cross-lane reductions).
+    # None = on; False forces the per-step-checked ("careful") kernel.
+    # (The JAX field's comment, wasmedge_tpu/common/configure.py.)  Here a
+    # warp of 32 lanes that starts a launch converged runs its lane 0's
+    # decisions, validated at commit points and rolled back into the
+    # careful per-lane loop of the same kernel when a lane disagreed
+    # (csrc/optimistic.cuh, batch/optimistic.py).
+    optimistic: Optional[bool] = None
 
 
 @dataclasses.dataclass

@@ -15,8 +15,14 @@
 // ordinal takes the written value; at any exit the live cells are written
 // to the stack rows.  The module's source includes interp.cu and this
 // file, and instantiates interp_kernel once, with the module's kBulk,
-// kSimd and kWin (memory through the window cache, memwin.cuh) and its
-// `Fused` dispatch, into a shared library of its own.
+// kSimd and kWin (memory through the window cache, memwin.cuh), kOpt
+// (optimistic convergence, optimistic.cuh) and its `Fused` dispatch, into
+// a shared library of its own.  Under kOpt a block's decisions (its guard
+// conditions, the addresses of its inline loads and stores, a
+// superinstruction's branch) go through the warp's `w` as the per-op
+// handlers' do, and an inline access whose window miss would write a
+// dirty way back exits the block before it (n ops retired, no trap) for
+// the commit, as an out-of-bounds access exits it with its trap.
 //
 // What bounds the per-op loop on the H100 is the latency of the dependent
 // global-memory accesses each instruction makes (the hid load, operand
@@ -104,28 +110,32 @@ __device__ __forceinline__ V4 fused_vbitsel(const V4& a, const V4& b,
 // ---------------------------------------------------------------------------
 // Inline loads and stores: interp.cu's per-op H_LOAD / H_STORE cases with
 // the width and flags known when the code is generated, through the
-// lane's memory access `m` (the window cache with kWin).  false: out of
-// bounds, nothing read or written.
+// lane's memory access `m` (the window cache with kWin) and the warp's
+// decisions `w` (the address is lane 0's under kOpt).  Returns 0 (done),
+// E_MEM_OOB (out of bounds, nothing read or written) or OPT_DEFER (kOpt:
+// a commit first, nothing read or written).
 // ---------------------------------------------------------------------------
-template <bool kSimd, bool kWin>
-__device__ __forceinline__ bool fused_load(const Params& p,
-                                           const Lane<kSimd>& s, Mem<kWin>& m,
-                                           int pages, u32 base, u32 off,
-                                           int nbytes, int flags, u64& out) {
+template <bool kSimd, bool kWin, class Wp>
+__device__ __forceinline__ int fused_load(const Params& p,
+                                          const Lane<kSimd>& s, Mem<kWin>& m,
+                                          Wp& w, int pages, u32 base, u32 off,
+                                          int nbytes, int flags, u64& out) {
+  base = w.agree(base);
   const u32 ea = base + off;
   const u32 end = ea + (u32)nbytes;
   const u32 mem_bytes = (u32)pages * 65536u;
-  if (ea < base || ea < off || end < ea || mem_bytes < end) return false;
+  if (ea < base || ea < off || end < ea || mem_bytes < end) return E_MEM_OOB;
   const int widx = (int)(ea >> 2);
   const u32 sh = (ea & 3) * 8;
   int row[3];
-  u32 w[3];
+  u32 wd[3];
   for (int k = 0; k < 3; ++k) row[k] = clampi(widx + k, 0, p.W - 1);
+  if (w.on() && m.dirty_miss(p, row[0], row[2])) return OPT_DEFER;
   m.select(p, s.lane, row[0], row[2]);
-  for (int k = 0; k < 3; ++k) w[k] = m.get(p, s.lane, row[k]);
+  for (int k = 0; k < 3; ++k) wd[k] = m.get(p, s.lane, row[k]);
   const bool sgn = (flags & 1) != 0, is64 = (flags & 2) != 0;
-  const u32 raw_lo = sh ? (w[0] >> sh) | (w[1] << (32 - sh)) : w[0];
-  const u32 raw_hi = sh ? (w[1] >> sh) | (w[2] << (32 - sh)) : w[1];
+  const u32 raw_lo = sh ? (wd[0] >> sh) | (wd[1] << (32 - sh)) : wd[0];
+  const u32 raw_hi = sh ? (wd[1] >> sh) | (wd[2] << (32 - sh)) : wd[1];
   u32 lo;
   if (nbytes == 1) lo = sgn ? sext(raw_lo, 8) : (raw_lo & 0xFFu);
   else if (nbytes == 2) lo = sgn ? sext(raw_lo, 16) : (raw_lo & 0xFFFFu);
@@ -133,26 +143,28 @@ __device__ __forceinline__ bool fused_load(const Params& p,
   u32 hi = 0;
   if (is64) hi = nbytes == 8 ? raw_hi : (sgn ? (u32)((i32)lo >> 31) : 0u);
   out = ((u64)hi << 32) | lo;
-  return true;
+  return 0;
 }
 
-template <bool kSimd, bool kWin>
-__device__ __forceinline__ bool fused_store(const Params& p,
-                                            const Lane<kSimd>& s,
-                                            Mem<kWin>& m, int pages,
-                                            u32 base, u32 off, int nbytes,
-                                            u64 val) {
+template <bool kSimd, bool kWin, class Wp>
+__device__ __forceinline__ int fused_store(const Params& p,
+                                           const Lane<kSimd>& s,
+                                           Mem<kWin>& m, Wp& w, int pages,
+                                           u32 base, u32 off, int nbytes,
+                                           u64 val) {
+  base = w.agree(base);
   const u32 ea = base + off;
   const u32 end = ea + (u32)nbytes;
   const u32 mem_bytes = (u32)pages * 65536u;
-  if (ea < base || ea < off || end < ea || mem_bytes < end) return false;
+  if (ea < base || ea < off || end < ea || mem_bytes < end) return E_MEM_OOB;
   const int widx = (int)(ea >> 2);
   const u32 sh = (ea & 3) * 8;
   int row[3];
-  u32 w[3];
+  u32 wd[3];
   for (int k = 0; k < 3; ++k) row[k] = clampi(widx + k, 0, p.W - 1);
+  if (w.on() && m.dirty_miss(p, row[0], row[2])) return OPT_DEFER;
   m.select(p, s.lane, row[0], row[2]);
-  for (int k = 0; k < 3; ++k) w[k] = m.get(p, s.lane, row[k]);
+  for (int k = 0; k < 3; ++k) wd[k] = m.get(p, s.lane, row[k]);
   const u64 full = nbytes == 1 ? 0xFFull : nbytes == 2 ? 0xFFFFull
                    : nbytes == 8 ? ~0ull : 0xFFFFFFFFull;
   const u64 m01 = full << sh, v01 = val << sh;
@@ -161,33 +173,35 @@ __device__ __forceinline__ bool fused_store(const Params& p,
   const u32 vk[3] = {(u32)v01, (u32)(v01 >> 32),
                      sh ? (u32)(val >> (64 - sh)) : 0u};
   for (int k = 0; k < 3; ++k)
-    if (mk[k] != 0) m.put(p, s.lane, row[k], (w[k] & ~mk[k]) | (vk[k] & mk[k]));
-  return true;
+    if (mk[k] != 0) m.put(p, s.lane, row[k], (wd[k] & ~mk[k]) | (vk[k] & mk[k]));
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
 // Launch of a module's fused kernel: one instantiation, the module's
-// kBulk, kSimd and kWin (with kWin, the windows' shared memory as
+// kBulk, kSimd, kWin and kOpt (with kWin, the windows' shared memory as
 // interp.cu's per-op launch gives it).  Returns a CUDA error code (0 =
 // launched).
 // ---------------------------------------------------------------------------
-template <bool kBulk, bool kSimd, bool kWin, class F>
-int fused_launch(const Params& p, int bulk, int simd, int win, void* stream) {
+template <bool kBulk, bool kSimd, bool kWin, bool kOpt, class F>
+int fused_launch(const Params& p, int bulk, int simd, int win, int opt,
+                 void* stream) {
   if ((bulk != 0) != kBulk || (simd != 0) != kSimd || (win != 0) != kWin ||
-      !p.hid0 || !p.flen)
+      (opt != 0) != kOpt || !p.hid0 || !p.flen)
     return (int)cudaErrorInvalidValue;
   if (kSimd && (p.stack_e2 == nullptr || p.stack_e3 == nullptr))
     return (int)cudaErrorInvalidValue;
   if (kWin && p.W < WIN_ROWS) return (int)cudaErrorInvalidValue;
-  return launch_kernel<kBulk, kSimd, F, kWin>(p, (cudaStream_t)stream);
+  return launch_kernel<kBulk, kSimd, F, kWin, kOpt>(p, (cudaStream_t)stream);
 }
 
 }  // namespace
 
-// The module's C entries: wasm_interp_launch's arguments, then the fused
+// The module's C entries: wasm_interp_launch's arguments, with the fused
 // tables (hid0, flen and the superinstructions' operand planes, null for
-// blocks); and interp.cu's kernel_attrs of its one instantiation.
-#define WASM_FUSED_LAUNCH(KBULK, KSIMD, KWIN, FUSED)                           \
+// blocks) before the optimistic ones; and interp.cu's kernel_attrs of its
+// one instantiation.
+#define WASM_FUSED_LAUNCH(KBULK, KSIMD, KWIN, KOPT, FUSED)                     \
   extern "C" int wasm_fused_launch(                                            \
       const int* hid, const int* a, const int* b, const int* c,                \
       const int* ilo, const int* ihi, const int* fent, const int* fnpar,       \
@@ -198,10 +212,10 @@ int fused_launch(const Params& p, int bulk, int simd, int win, void* stream) {
       int* stack_e3, int* fr_ret_pc, int* fr_fp, int* fr_opbase,               \
       int* glob_lo, int* glob_hi, int* mem, const int* hid0,                   \
       const int* flen, const int* fa, const int* fb, const int* fc,            \
-      const int* filo, const int* fihi, int code_len, int nf, int n_brt,       \
-      int tsize, int nv, int L, int D, int CD, int NG, int W, int chunk,       \
-      int fuel_on, int max_local_zeros, int mem_pages_max, int bulk,           \
-      int simd, int win, void* stream) {                                       \
+      const int* filo, const int* fihi, WASM_OPT_ARGS, int code_len, int nf,   \
+      int n_brt, int tsize, int nv, int L, int D, int CD, int NG, int W,       \
+      int chunk, int fuel_on, int max_local_zeros, int mem_pages_max,          \
+      int bulk, int simd, int win, int opt, int snap_max, void* stream) {      \
     Params p{hid,       a,         b,        c,         ilo,                   \
              ihi,       fent,      fnpar,    fnloc,     ftop,                  \
              ftyp,      brt,       tbl,      pc,        sp,                    \
@@ -212,10 +226,11 @@ int fused_launch(const Params& p, int bulk, int simd, int win, void* stream) {
              D,         CD,        NG,       W,         chunk,                 \
              fuel_on,   max_local_zeros, mem_pages_max, v128, stack_e2,        \
              stack_e3,  nv,        hid0,     flen,      fa,                    \
-             fb,        fc,        filo,     fihi};                            \
-    return fused_launch<KBULK, KSIMD, KWIN, FUSED>(p, bulk, simd, win,        \
-                                                   stream);                    \
+             fb,        fc,        filo,     fihi,      WASM_OPT_FIELDS,       \
+             snap_max};                                                        \
+    return fused_launch<KBULK, KSIMD, KWIN, KOPT, FUSED>(p, bulk, simd, win,  \
+                                                         opt, stream);         \
   }                                                                            \
   extern "C" int wasm_fused_attrs(int* out) {                                  \
-    return kernel_attrs<KBULK, KSIMD, FUSED, KWIN>(out);                       \
+    return kernel_attrs<KBULK, KSIMD, FUSED, KWIN, KOPT>(out);                 \
   }

@@ -60,6 +60,14 @@
 // is safe for memmove because a copy walks away from the bytes it has
 // not read yet (backward when dst > src).
 //
+// Optimistic convergence (kOpt, B3, optimistic.cuh): a warp whose lanes
+// start a launch converged takes lane 0's decision at every branch,
+// table index, grow delta, memory address and ALU trap, with a canary
+// for lanes that disagree, validated at commit points; a dirty check
+// restores the last snapshot and re-runs the rest of the launch in the
+// careful per-lane loop below, in the same kernel.  Every other warp, and
+// every warp of a build without kOpt, runs the careful loop alone.
+//
 // Numerics are IEEE-strict: build with -fmad=false and without -ftz or
 // --use_fast_math; every float op uses an _rn intrinsic and NaNs are
 // canonicalised as the reference does.  Integer arithmetic runs on
@@ -220,6 +228,24 @@ struct Params {
   const i32* __restrict__ fc;
   const i32* __restrict__ filo;
   const i32* __restrict__ fihi;
+  // optimistic convergence (kOpt): the per-warp interval, rollback,
+  // entry and commit counts ([ceil(L / 32)]), the snapshot's shadow
+  // planes ([rows, L], null where unused) and the interval's ceiling
+  i32* w_snap;
+  i32* w_rollbacks;
+  i32* w_entered;
+  i32* w_commits;
+  i32* sh_lo;
+  i32* sh_hi;
+  i32* sh_e2;
+  i32* sh_e3;
+  i32* sh_fr_ret_pc;
+  i32* sh_fr_fp;
+  i32* sh_fr_opbase;
+  i32* sh_glo;
+  i32* sh_ghi;
+  i32* sh_mem;
+  int snap_max;
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -1153,6 +1179,7 @@ struct Lane {
 }  // namespace
 
 #include "memwin.cuh"
+#include "optimistic.cuh"
 
 namespace {
 
@@ -1217,11 +1244,11 @@ __device__ void bulk_fill_copy(i32* mem, int L, int W, int lane, u32 dst,
 // One v128 instruction, handler h >= H_VCONST at pcc (kSimd only).
 // Returns its trap code: a v128.load / v128.store out of bounds writes
 // nothing.
-template <bool kSimd, bool kWin>
+template <bool kSimd, bool kWin, class Wp>
 __device__ __forceinline__ int simd_step(const Params& p,
                                          const Lane<kSimd>& s, Mem<kWin>& m,
-                                         int h, int pcc, int sp, int pages,
-                                         int& new_sp) {
+                                         Wp& w, int h, int pcc, int sp,
+                                         int pages, int& new_sp) {
   if (h >= H_V2_BASE) {
     if (h < H_V1_BASE) {
       s.put4(sp - 2, v2_op(h - H_V2_BASE, s.get4(sp - 2), s.get4(sp - 1)));
@@ -1278,7 +1305,7 @@ __device__ __forceinline__ int simd_step(const Params& p,
   // v128.load (address on top) / v128.store (address, then the value)
   const bool store = h == H_VSTORE;
   const u32 off = (u32)__ldg(&p.a[pcc]);
-  const u32 base = (u32)s.get(store ? sp - 2 : sp - 1);
+  const u32 base = w.agree((u32)s.get(store ? sp - 2 : sp - 1));
   const u32 ea = base + off, end = ea + 16u;
   const u32 mem_bytes = (u32)pages * 65536u;
   if (ea < base || ea < off || end < ea || mem_bytes < end) return E_MEM_OOB;
@@ -1287,16 +1314,17 @@ __device__ __forceinline__ int simd_step(const Params& p,
   int row[5];  // the five rows, clamped into the plane
 #pragma unroll
   for (int k = 0; k < 5; ++k) row[k] = clampi(widx + k, 0, p.W - 1);
+  if (w.on() && m.dirty_miss(p, row[0], row[4])) return OPT_DEFER;
   m.select(p, s.lane, row[0], row[4]);
   if (!store) {
-    u32 w[5];
+    u32 word[5];
 #pragma unroll
     for (int k = 0; k < 5; ++k)
-      w[k] = k < 4 || sh ? m.get(p, s.lane, row[k]) : 0u;
+      word[k] = k < 4 || sh ? m.get(p, s.lane, row[k]) : 0u;
     V4 r;
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      r.w[k] = sh ? (w[k] >> sh) | (w[k + 1] << (32u - sh)) : w[k];
+      r.w[k] = sh ? (word[k] >> sh) | (word[k + 1] << (32u - sh)) : word[k];
     s.put4(sp - 1, r);
     return 0;
   }
@@ -1343,25 +1371,42 @@ __device__ __forceinline__ int simd_step(const Params& p,
 // kWin: memory accesses go through the lane's window cache (memwin.cuh);
 // the launch gives each block WIN_SMEM_BYTES of dynamic shared memory.
 // Every way out of the loop below ends in the flush after it.
+//
+// kOpt: optimistic convergence (optimistic.cuh).  The warp's present mask
+// is taken before any thread returns (a warp intrinsic after a return
+// would name absent threads).  A warp whose present lanes are all live
+// and share their control state runs the warp-leader loop
+// (dispatch_loop<..., kLead = true>: every decision through `w`, lane
+// 0's; a commit point at the top of an iteration once the interval has
+// passed or when a handler asked for one, OPT_DEFER: the instruction has
+// not run and runs again after the commit) until the launch ends, then
+// validates; a rollback or a bulk op hands the rest of the launch, from
+// the snapshot's step or the bulk op, to the careful loop
+// (dispatch_loop<..., kLead = false>), which every other warp runs from
+// the start.  Two instantiations of one loop: the careful one is the
+// loop of a build without kOpt.
 struct NoFusion {
   static constexpr bool kOn = false;
 };
 
-template <bool kBulk, bool kSimd, class F = NoFusion, bool kWin = false>
-__global__ void __launch_bounds__(128) interp_kernel(const Params p) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.L) return;
-  if (p.trap[lane] != 0) return;
-  const Lane<kSimd> s{p.stack_lo, p.stack_hi, p.stack_e2, p.stack_e3,
-                      p.L,        p.D,        lane};
-  extern __shared__ i32 win_smem[];
-  Mem<kWin> m(win_smem);
-  int pc = p.pc[lane], sp = p.sp[lane], fp = p.fp[lane], ob = p.opbase[lane];
-  int cd = p.call_depth[lane], retired = p.retired[lane], fuel = p.fuel[lane];
-  int pages = p.mem_pages[lane];
-  int trap = 0;
-
-  for (int step = 0; step < p.chunk; ++step) {
+template <bool kBulk, bool kSimd, class F, bool kWin, bool kLead>
+__device__ __forceinline__ void dispatch_loop(const Params& p,
+                                              const Lane<kSimd>& s,
+                                              Mem<kWin>& m, Warp<kLead>& w,
+                                              LaneRegs& r, OptRun& os) {
+  const int lane = s.lane;
+  int &pc = r.pc, &sp = r.sp, &fp = r.fp, &ob = r.ob, &cd = r.cd;
+  int &retired = r.retired, &fuel = r.fuel, &pages = r.pages;
+  int &trap = r.trap, &step = r.step;
+  for (; step < p.chunk; ++step) {
+    if constexpr (kLead) {
+      // the periodic commit (pallas_engine.py :3599-3651), or the one a
+      // handler asked for; a warp no longer on goes to the careful loop
+      if ((step >= os.due || os.pending) &&
+          !opt_commit<kSimd, kWin>(p, lane, m, w, r, os,
+                                   os.pending == OPT_WAIT_BULK))
+        return;
+    }
     int pcc = clampi(pc, 0, p.code_len - 1);
     int h = __ldg(&p.hid[pcc]);
     if constexpr (F::kOn) {
@@ -1371,10 +1416,20 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
         if (p.chunk - step >= len && (!p.fuel_on || fuel > len)) {
           int n = 0, xtrap = 0;
           const bool term = F::template step<kSimd, kWin>(
-              p, s, m, h, pc, sp, fp, ob, pages, n, xtrap);
+              p, s, m, w, h, pc, sp, fp, ob, pages, n, xtrap);
           retired += n;
           if (p.fuel_on) fuel -= n;
           if (xtrap != 0) {
+            if constexpr (kLead) {
+              if (xtrap == OPT_DEFER) {
+                // the n ops before the access retired; the commit it
+                // asks for comes at the top of the next iteration
+                step += n;
+                os.pending = OPT_WAIT_ACCESS;
+                --step;
+                continue;
+              }
+            }
             trap = xtrap;  // pc and sp are the trapping op's own
             break;
           }
@@ -1397,14 +1452,16 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
     if (h >= H_ALU2_BASE && h < H_ALU2_BASE + NUM_ALU2) {
       const u64 y = s.get(sp - 1), x = s.get(sp - 2);
       s.put(sp - 2, alu2(h - H_ALU2_BASE, x, y, ntrap));  // written even on a trap
+      if (alu2_traps(h - H_ALU2_BASE)) ntrap = (int)w.agree((u32)ntrap);
       new_sp = sp - 1;
     } else if (h >= H_ALU1_BASE && h < H_ALU1_BASE + NUM_ALU1) {
       const int sub = h - H_ALU1_BASE;
       u64 r = alu1(sub, s.get(sp - 1), ntrap);
       if (ntrap != 0 && (sub == 23 || sub == 24)) r = 0;  // f32 -> i32 trap writes 0
       s.put(sp - 1, r);
+      if (alu1_traps(sub)) ntrap = (int)w.agree((u32)ntrap);
     } else if (kSimd && h >= H_VCONST) {
-      ntrap = simd_step<kSimd, kWin>(p, s, m, h, pcc, sp, pages, new_sp);
+      ntrap = simd_step<kSimd, kWin>(p, s, m, w, h, pcc, sp, pages, new_sp);
     } else {
       switch (h) {
         case H_NOP:
@@ -1457,10 +1514,10 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
         }
         case H_BRZ:
           new_sp = sp - 1;
-          if ((u32)s.get(sp - 1) == 0) new_pc = __ldg(&p.a[pcc]);
+          if (!w.nz((u32)s.get(sp - 1))) new_pc = __ldg(&p.a[pcc]);
           break;
         case H_BRNZ: {
-          if ((u32)s.get(sp - 1) != 0) {
+          if (w.nz((u32)s.get(sp - 1))) {
             const int a = __ldg(&p.a[pcc]), b = __ldg(&p.b[pcc]), c = __ldg(&p.c[pcc]);
             if (b == 1) s.putc(ob + c, s.getc(sp - 2));
             new_sp = ob + c + b;
@@ -1472,7 +1529,7 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
         }
         case H_BR_TABLE: {
           const int a = __ldg(&p.a[pcc]), b = __ldg(&p.b[pcc]);
-          const i32 idx = (i32)(u32)s.get(sp - 1);
+          const i32 idx = (i32)w.agree((u32)s.get(sp - 1));
           const int i = ((u32)b < (u32)idx) ? b : idx;
           const int e = clampi(a + i, 0, p.n_brt - 1) * 3;
           const int tgt = __ldg(&p.brt[e]), keep = __ldg(&p.brt[e + 1]);
@@ -1490,10 +1547,12 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
             ntrap = TRAP_DONE;
             sp_halt = fp + nres;
           } else {
+            // frame rows are the lane's own (the entry compares none of
+            // them): where the return goes is a decision
             const size_t r = s.at(cd - 1, p.CD);
-            new_pc = p.fr_ret_pc[r];
-            new_fp = p.fr_fp[r];
-            new_ob = p.fr_opbase[r];
+            new_pc = (int)w.agree((u32)p.fr_ret_pc[r]);
+            new_fp = (int)w.agree((u32)p.fr_fp[r]);
+            new_ob = (int)w.agree((u32)p.fr_opbase[r]);
             new_cd = cd - 1;
           }
           break;
@@ -1506,7 +1565,7 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
             callee = clampi(a, 0, p.nf - 1);
           } else {
             const int b = __ldg(&p.b[pcc]), c = __ldg(&p.c[pcc]);
-            const i32 idx = (i32)(u32)s.get(sp - 1);
+            const i32 idx = (i32)w.agree((u32)s.get(sp - 1));
             const int ti = clampi(c + clampi(idx, 0, b - 1 > 0 ? b - 1 : 0), 0,
                                   p.tsize - 1);
             const int handle = __ldg(&p.tbl[ti]);
@@ -1523,6 +1582,7 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
           if (cd >= p.CD - 1) code = E_CALL_STACK;
           if (fp_new + __ldg(&p.ftop[callee]) > p.D) code = E_STACK_OVERFLOW;
           if (code == 0) {
+            if constexpr (kLead) opt_save_frame(p, lane, cd, os.o.fhi);
             const size_t r = s.at(cd, p.CD);
             p.fr_ret_pc[r] = pcc + 1;
             p.fr_fp[r] = fp;
@@ -1543,7 +1603,7 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
           new_sp = sp + 1;
           break;
         case H_MEMGROW: {
-          const i32 delta = (i32)(u32)s.get(sp - 1);
+          const i32 delta = (i32)w.agree((u32)s.get(sp - 1));
           const i32 grown = (i32)((u32)pages + (u32)delta);
           const bool ok = !((u32)p.mem_pages_max < (u32)grown) && delta >= 0 &&
                           grown >= pages;
@@ -1563,7 +1623,7 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
           const bool is_store = h == H_STORE || h == H_STORE_W || h == H_STORE_D;
           const u32 off = (u32)__ldg(&p.a[pcc]);
           const int nbytes = __ldg(&p.b[pcc]);
-          const u32 base = (u32)s.get(is_store ? sp - 2 : sp - 1);
+          const u32 base = w.agree((u32)s.get(is_store ? sp - 2 : sp - 1));
           const u32 ea = base + off;
           const u32 end = ea + (u32)nbytes;
           const u32 mem_bytes = (u32)pages * 65536u;
@@ -1576,15 +1636,19 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
           const int widx = (int)(ea >> 2);
           const u32 sh = (ea & 3) * 8;
           int row[3];  // clamped into the plane
-          u32 w[3];
+          u32 w3[3];
           for (int k = 0; k < 3; ++k) row[k] = clampi(widx + k, 0, p.W - 1);
+          if (w.on() && m.dirty_miss(p, row[0], row[2])) {
+            ntrap = OPT_DEFER;
+            break;
+          }
           m.select(p, lane, row[0], row[2]);
-          for (int k = 0; k < 3; ++k) w[k] = m.get(p, lane, row[k]);
+          for (int k = 0; k < 3; ++k) w3[k] = m.get(p, lane, row[k]);
           if (!is_store) {
             const int c = __ldg(&p.c[pcc]);
             const bool sgn = (c & 1) != 0, is64 = (c & 2) != 0;
-            const u32 raw_lo = sh ? (w[0] >> sh) | (w[1] << (32 - sh)) : w[0];
-            const u32 raw_hi = sh ? (w[1] >> sh) | (w[2] << (32 - sh)) : w[1];
+            const u32 raw_lo = sh ? (w3[0] >> sh) | (w3[1] << (32 - sh)) : w3[0];
+            const u32 raw_hi = sh ? (w3[1] >> sh) | (w3[2] << (32 - sh)) : w3[1];
             u32 lo;
             if (nbytes == 1) lo = sgn ? sext(raw_lo, 8) : (raw_lo & 0xFFu);
             else if (nbytes == 2) lo = sgn ? sext(raw_lo, 16) : (raw_lo & 0xFFFFu);
@@ -1603,7 +1667,7 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
                                sh ? (u32)(val >> (64 - sh)) : 0u};
             for (int k = 0; k < 3; ++k)
               if (mk[k] != 0)
-                m.put(p, lane, row[k], (w[k] & ~mk[k]) | (vk[k] & mk[k]));
+                m.put(p, lane, row[k], (w3[k] & ~mk[k]) | (vk[k] & mk[k]));
           }
           break;
         }
@@ -1619,6 +1683,12 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
           }
           if (!kBulk || (h != H_MEMFILL && h != H_MEMCOPY)) {
             ntrap = E_EXEC_FAILED;  // the engine refuses such images up front
+            break;
+          }
+          if (w.on()) {
+            // a commit point; the op runs in the careful loop
+            // (_opt_bulk_exit, pallas_engine.py :1065-1080)
+            ntrap = OPT_DEFER;
             break;
           }
           {
@@ -1646,6 +1716,17 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
       }
     }
 
+    if constexpr (kLead) {
+      if (ntrap == OPT_DEFER) {
+        // nothing of the instruction ran: the commit at the top of the
+        // next iteration, then the instruction again (a bulk op in the
+        // careful loop)
+        os.pending = h == H_MEMFILL || h == H_MEMCOPY ? OPT_WAIT_BULK
+                                                      : OPT_WAIT_ACCESS;
+        --step;  // the loop's increment
+        continue;
+      }
+    }
     ++retired;
     if (p.fuel_on) {
       --fuel;
@@ -1663,19 +1744,90 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
     ob = new_ob;
     cd = new_cd;
   }
+}
+
+template <bool kBulk, bool kSimd, class F = NoFusion, bool kWin = false,
+          bool kOpt = false>
+__global__ void __launch_bounds__(128) interp_kernel(const Params p) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned mask = 0;
+  if constexpr (kOpt) mask = __ballot_sync(0xffffffffu, lane < p.L);
+  if (lane >= p.L) return;
+  const int trap0 = p.trap[lane];
+  if constexpr (!kOpt) {
+    if (trap0 != 0) return;
+  }
+  const Lane<kSimd> s{p.stack_lo, p.stack_hi, p.stack_e2, p.stack_e3,
+                      p.L,        p.D,        lane};
+  extern __shared__ i32 win_smem[];
+  Mem<kWin> m(win_smem);
+  LaneRegs r{p.pc[lane],      p.sp[lane],      p.fp[lane],
+             p.opbase[lane],  p.call_depth[lane], p.retired[lane],
+             p.fuel[lane],    p.mem_pages[lane], 0, 0};
+  OptRun os{};
+  bool done = false;
+  if constexpr (kOpt) {
+    const int l_pc = __shfl_sync(mask, r.pc, 0);
+    const int l_sp = __shfl_sync(mask, r.sp, 0);
+    const int l_fp = __shfl_sync(mask, r.fp, 0);
+    const int l_ob = __shfl_sync(mask, r.ob, 0);
+    const int l_cd = __shfl_sync(mask, r.cd, 0);
+    const int l_pages = __shfl_sync(mask, r.pages, 0);
+    const int l_fuel = __shfl_sync(mask, r.fuel, 0);
+    const bool same = trap0 == 0 && r.pc == l_pc && r.sp == l_sp &&
+                      r.fp == l_fp && r.ob == l_ob && r.cd == l_cd &&
+                      r.pages == l_pages && r.fuel == l_fuel;
+    os.entered = os.on = __all_sync(mask, same) && p.chunk > 0;
+    if (trap0 != 0) return;
+    if (os.on) {
+      // the entry state is the first snapshot (pallas_engine.py
+      // :3661-3666); the windows start invalid
+      Warp<true> w{mask, 0u};
+      os.snapv = p.w_snap[lane >> 5];
+      opt_save<kSimd, kWin>(p, lane, r.sp, r.cd);
+      os.o = OptSnap{r.pc, r.sp, r.fp, r.ob, r.cd, r.retired, r.fuel,
+                     r.pages, 0, r.cd};
+      os.due = opt_due(0, os.snapv);
+      dispatch_loop<kBulk, kSimd, F, kWin, true>(p, s, m, w, r, os);
+      if (os.on) {
+        // the exit validation (pallas_engine.py :3669-3680): chunk end,
+        // trap, fuel, done and the park publish nothing unvalidated; a
+        // rollback leaves the rest of the launch to the careful loop
+        opt_commit<kSimd, kWin>(p, lane, m, w, r, os, true);
+        done = !os.rolled;
+      }
+    }
+  }
+  if (!done) {
+    Warp<false> careful;
+    dispatch_loop<kBulk, kSimd, F, kWin, false>(p, s, m, careful, r, os);
+  }
 
   // the exit commit (pallas_engine.py :3683-3693): chunk end, trap, fuel,
-  // done and the host-call park all leave the loop above to here
+  // done and the host-call park all leave the loops above to here
   m.flush(p, lane);
-  p.pc[lane] = pc;
-  p.sp[lane] = sp;
-  p.fp[lane] = fp;
-  p.opbase[lane] = ob;
-  p.call_depth[lane] = cd;
-  p.trap[lane] = trap;
-  p.retired[lane] = retired;
-  p.fuel[lane] = fuel;
-  p.mem_pages[lane] = pages;
+  p.pc[lane] = r.pc;
+  p.sp[lane] = r.sp;
+  p.fp[lane] = r.fp;
+  p.opbase[lane] = r.ob;
+  p.call_depth[lane] = r.cd;
+  p.trap[lane] = r.trap;
+  p.retired[lane] = r.retired;
+  p.fuel[lane] = r.fuel;
+  p.mem_pages[lane] = r.pages;
+  if constexpr (kOpt) {
+    // the warp's interval for its next launch (careful_recheck halves it,
+    // _drive doubles it back, pallas_engine.py :4371-4395, :4411-4416)
+    // and its counts, by lane 0
+    if (os.entered && (lane & 31) == 0) {
+      const int wid = lane >> 5;
+      p.w_snap[wid] = os.rolled ? max(os.snapv / 2, OPT_SNAP_MIN)
+                                : min(os.snapv * 2, p.snap_max);
+      p.w_rollbacks[wid] += os.rolled ? 1 : 0;
+      p.w_entered[wid] += 1;
+      p.w_commits[wid] += os.commits;
+    }
+  }
 }
 
 // The dynamic shared memory of a launch: the windows of its 128 lanes
@@ -1689,14 +1841,29 @@ int win_smem(K kernel, size_t* bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WIN_SMEM_BYTES);
 }
 
-template <bool kBulk, bool kSimd, class F, bool kWin>
+// kOpt: the per-warp tensors and the shadow planes a snapshot writes
+// (the e2/e3 shadows with kSimd, the memory's without kWin).
+template <bool kSimd, bool kWin, bool kOpt>
+bool opt_args_ok(const Params& p) {
+  if (!kOpt) return true;
+  if (!p.w_snap || !p.w_rollbacks || !p.w_entered || !p.w_commits ||
+      !p.sh_lo || !p.sh_hi || !p.sh_fr_ret_pc || !p.sh_fr_fp ||
+      !p.sh_fr_opbase || !p.sh_glo || !p.sh_ghi || p.snap_max < 1)
+    return false;
+  if (kSimd && (!p.sh_e2 || !p.sh_e3)) return false;
+  return kWin || p.W <= 1 || p.sh_mem;
+}
+
+template <bool kBulk, bool kSimd, class F, bool kWin, bool kOpt>
 int launch_kernel(const Params& p, cudaStream_t st) {
+  if (!opt_args_ok<kSimd, kWin, kOpt>(p)) return (int)cudaErrorInvalidValue;
   const int blocks = (p.L + WIN_THREADS - 1) / WIN_THREADS;
   if (blocks <= 0) return 0;
   size_t smem;
-  const int err = win_smem<kWin>(interp_kernel<kBulk, kSimd, F, kWin>, &smem);
+  const auto k = interp_kernel<kBulk, kSimd, F, kWin, kOpt>;
+  const int err = win_smem<kWin>(k, &smem);
   if (err != 0) return err;
-  interp_kernel<kBulk, kSimd, F, kWin><<<blocks, WIN_THREADS, smem, st>>>(p);
+  k<<<blocks, WIN_THREADS, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1704,9 +1871,9 @@ int launch_kernel(const Params& p, cudaStream_t st) {
 // memory: registers, local (stack) bytes per thread, static and maximum
 // dynamic shared bytes per block, the dynamic bytes a launch asks for,
 // and the blocks of WIN_THREADS threads that fit on one SM.
-template <bool kBulk, bool kSimd, class F, bool kWin>
+template <bool kBulk, bool kSimd, class F, bool kWin, bool kOpt>
 int kernel_attrs(int* out) {
-  const auto k = interp_kernel<kBulk, kSimd, F, kWin>;
+  const auto k = interp_kernel<kBulk, kSimd, F, kWin, kOpt>;
   size_t smem;
   int err = win_smem<kWin>(k, &smem);
   if (err != 0) return err;
@@ -1728,12 +1895,27 @@ int kernel_attrs(int* out) {
 
 }  // namespace
 
+// The pointer arguments of optimistic convergence (null for a careful
+// launch), after the state planes (and a fused build's tables).
+#define WASM_OPT_ARGS                                                       \
+  int *w_snap, int *w_rollbacks, int *w_entered, int *w_commits,          \
+      int *sh_lo, int *sh_hi, int *sh_e2, int *sh_e3, int *sh_fr_ret_pc,  \
+      int *sh_fr_fp, int *sh_fr_opbase, int *sh_glo, int *sh_ghi,         \
+      int *sh_mem
+#define WASM_OPT_FIELDS                                                     \
+  w_snap, w_rollbacks, w_entered, w_commits, sh_lo, sh_hi, sh_e2, sh_e3,  \
+      sh_fr_ret_pc, sh_fr_fp, sh_fr_opbase, sh_glo, sh_ghi, sh_mem
+
 #ifndef WASM_FUSED_BUILD
-// The shared per-op build: interp.cu alone, once with WASM_MEM_WINDOW=0
-// (direct memory access) and once with WASM_MEM_WINDOW=1 (the window
-// cache), four instantiations each, as two libraries built side by side.
+// The shared per-op build: interp.cu alone, with WASM_MEM_WINDOW 0
+// (direct memory access) or 1 (the window cache) and WASM_OPTIMISTIC 0
+// (the careful loop) or 1 (optimistic convergence), four instantiations
+// each, as four libraries built side by side.
 #ifndef WASM_MEM_WINDOW
 #define WASM_MEM_WINDOW 0
+#endif
+#ifndef WASM_OPTIMISTIC
+#define WASM_OPTIMISTIC 0
 #endif
 extern "C" int wasm_interp_launch(
     const int* hid, const int* a, const int* b, const int* c, const int* ilo,
@@ -1742,34 +1924,39 @@ extern "C" int wasm_interp_launch(
     const int* v128, int* pc, int* sp, int* fp, int* opbase, int* call_depth,
     int* trap, int* retired, int* fuel, int* mem_pages, int* stack_lo,
     int* stack_hi, int* stack_e2, int* stack_e3, int* fr_ret_pc, int* fr_fp,
-    int* fr_opbase, int* glob_lo, int* glob_hi, int* mem, int code_len,
-    int nf, int n_brt, int tsize, int nv, int L, int D, int CD, int NG, int W,
-    int chunk, int fuel_on, int max_local_zeros, int mem_pages_max,
-    int bulk, int simd, int win, void* stream) {
+    int* fr_opbase, int* glob_lo, int* glob_hi, int* mem, WASM_OPT_ARGS,
+    int code_len, int nf, int n_brt, int tsize, int nv, int L, int D, int CD,
+    int NG, int W, int chunk, int fuel_on, int max_local_zeros,
+    int mem_pages_max, int bulk, int simd, int win, int opt, int snap_max,
+    void* stream) {
   Params p{hid, a, b, c, ilo, ihi, fent, fnpar, fnloc, ftop, ftyp, brt, tbl,
            pc, sp, fp, opbase, call_depth, trap, retired, fuel, mem_pages,
            stack_lo, stack_hi, fr_ret_pc, fr_fp, fr_opbase, glob_lo, glob_hi,
            mem, code_len, nf, n_brt, tsize, L, D, CD, NG, W, chunk, fuel_on,
-           max_local_zeros, mem_pages_max, v128, stack_e2, stack_e3, nv};
+           max_local_zeros, mem_pages_max, v128, stack_e2, stack_e3, nv,
+           nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+           WASM_OPT_FIELDS, snap_max};
   constexpr bool kWin = WASM_MEM_WINDOW != 0;
+  constexpr bool kOpt = WASM_OPTIMISTIC != 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if ((win != 0) != kWin || (kWin && W < WIN_ROWS))
+  if ((win != 0) != kWin || (kWin && W < WIN_ROWS) || (opt != 0) != kOpt)
     return (int)cudaErrorInvalidValue;
   if (simd && (stack_e2 == nullptr || stack_e3 == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (bulk && simd) return launch_kernel<true, true, NoFusion, kWin>(p, st);
-  if (bulk) return launch_kernel<true, false, NoFusion, kWin>(p, st);
-  if (simd) return launch_kernel<false, true, NoFusion, kWin>(p, st);
-  return launch_kernel<false, false, NoFusion, kWin>(p, st);
+  if (bulk && simd) return launch_kernel<true, true, NoFusion, kWin, kOpt>(p, st);
+  if (bulk) return launch_kernel<true, false, NoFusion, kWin, kOpt>(p, st);
+  if (simd) return launch_kernel<false, true, NoFusion, kWin, kOpt>(p, st);
+  return launch_kernel<false, false, NoFusion, kWin, kOpt>(p, st);
 }
 
 // kernel_attrs of the instantiation a launch with these flags runs (six
 // ints into out).
 extern "C" int wasm_interp_attrs(int bulk, int simd, int* out) {
   constexpr bool kWin = WASM_MEM_WINDOW != 0;
-  if (bulk && simd) return kernel_attrs<true, true, NoFusion, kWin>(out);
-  if (bulk) return kernel_attrs<true, false, NoFusion, kWin>(out);
-  if (simd) return kernel_attrs<false, true, NoFusion, kWin>(out);
-  return kernel_attrs<false, false, NoFusion, kWin>(out);
+  constexpr bool kOpt = WASM_OPTIMISTIC != 0;
+  if (bulk && simd) return kernel_attrs<true, true, NoFusion, kWin, kOpt>(out);
+  if (bulk) return kernel_attrs<true, false, NoFusion, kWin, kOpt>(out);
+  if (simd) return kernel_attrs<false, true, NoFusion, kWin, kOpt>(out);
+  return kernel_attrs<false, false, NoFusion, kWin, kOpt>(out);
 }
 #endif  // WASM_FUSED_BUILD

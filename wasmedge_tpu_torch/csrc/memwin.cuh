@@ -32,6 +32,13 @@
 // window needs no agreement between lanes: both map to nothing here.
 // An access touches at most five rows (v128, unaligned), which always
 // fit one window: rhi - align8(rlo) <= 11 < CW.
+//
+// Optimistic convergence (B3, optimistic.cuh) keeps the plane validated:
+// in a warp that is on, a miss that would write a dirty way back is a
+// commit point (`dirty_miss`; the miss is warp-uniform there, so the check
+// sits in the caller, not in win_move), a clean commit writes both dirty
+// ways back and keeps them valid (`commit`), and a rollback drops the
+// windows (`invalidate`), whose words were never validated.
 
 namespace {
 
@@ -81,6 +88,11 @@ struct Mem {
     p.mem[(size_t)r * (size_t)p.L + (size_t)lane] = (i32)v;
   }
   __device__ __forceinline__ void flush(const Params&, int) {}
+  __device__ __forceinline__ bool dirty_miss(const Params&, int, int) const {
+    return false;
+  }
+  __device__ __forceinline__ void commit(const Params&, int) {}
+  __device__ __forceinline__ void invalidate() {}
 };
 
 template <>
@@ -148,6 +160,29 @@ struct Mem<true> {
     if (wd0) win_move(p.mem, p.L, lane, win, wb0, WIN_SENT);
     if (wd1)
       win_move(p.mem, p.L, lane, win + WIN_ROWS * WIN_THREADS, wb1, WIN_SENT);
+    wb0 = wb1 = WIN_SENT;
+    wd0 = wd1 = mru = 0;
+  }
+  // whether select(rlo, rhi) would write a dirty way back: the victim, or
+  // the other way under the overlap rule (pallas_engine.py :1905-1922)
+  __device__ __forceinline__ bool dirty_miss(const Params& p, int rlo,
+                                             int rhi) const {
+    if (rlo >= wb0 && rhi < wb0 + WIN_ROWS) return false;
+    if (rlo >= wb1 && rhi < wb1 + WIN_ROWS) return false;
+    const int nb = clampi(rlo & ~7, 0, p.W - WIN_ROWS);
+    if (mru == 0)  // way 1 is the victim
+      return wd1 || (wd0 && wb0 < nb + WIN_ROWS && nb < wb0 + WIN_ROWS);
+    return wd0 || (wd1 && wb1 < nb + WIN_ROWS && nb < wb1 + WIN_ROWS);
+  }
+  // a commit: both dirty ways back to the plane, kept valid and clean
+  __device__ __forceinline__ void commit(const Params& p, int lane) {
+    if (wd0) win_move(p.mem, p.L, lane, win, wb0, WIN_SENT);
+    if (wd1)
+      win_move(p.mem, p.L, lane, win + WIN_ROWS * WIN_THREADS, wb1, WIN_SENT);
+    wd0 = wd1 = 0;
+  }
+  // a rollback: both ways invalid, their words dropped
+  __device__ __forceinline__ void invalidate() {
     wb0 = wb1 = WIN_SENT;
     wd0 = wd1 = mru = 0;
   }

@@ -1006,3 +1006,67 @@ def build_window_host() -> bytes:
         ("i32.const", 68), ("i32.load", 2, 0), "i32.add",
     ], export="f")
     return b.build()
+
+
+# -- optimistic convergence (B3) ------------------------------------------------
+
+def build_divergent_addresses() -> bytes:
+    """f(a): stores a at address a and loads it back (the divergent-address
+    fixture of the JAX package's tests/test_optimistic.py): per-lane
+    addresses make a warp's lanes disagree on every access."""
+    b = ModuleBuilder()
+    b.add_memory(1, 1)
+    b.add_function(["i32"], ["i32"], [], [
+        ("local.get", 0), ("local.get", 0), ("i32.store", 2, 0),
+        ("local.get", 0), ("i32.load", 2, 0),
+    ], export="f")
+    return b.build()
+
+
+def build_nonzero_conditions() -> bytes:
+    """f(x): a loop of 50 rounds whose `br_if` condition is
+    (i < 50) * (x | 1): nonzero and different per lane on every round but
+    the last, zero on every lane there, so the lanes agree on every
+    branch though its values differ.  Returns 50."""
+    b = ModuleBuilder()
+    b.add_function(["i32"], ["i32"], ["i32"], [
+        ("block", None),
+        ("loop", None),
+        ("local.get", 1), ("i32.const", 1), "i32.add", ("local.set", 1),
+        ("local.get", 1), ("i32.const", 50), "i32.lt_u",
+        ("local.get", 0), ("i32.const", 1), "i32.or", "i32.mul",
+        ("br_if", 0),
+        "end",
+        "end",
+        ("local.get", 1),
+    ], export="f")
+    return b.build()
+
+
+def build_call_sites() -> bytes:
+    """f(x): calls g() from one of two call sites at the same stack height,
+    the `then` arm for odd x and the `else` arm for even x, and adds 1 or 2
+    to its result (g returns 100 after a loop of 40 rounds).  The lanes of
+    a warp that took different arms enter g at the same step and run it
+    in lock-step, with the same pc, sp, fp and call depth: a launch that
+    starts inside g finds them converged, though each returns through its
+    own frame row to its own call site."""
+    b = ModuleBuilder()
+    g = b.add_function([], ["i32"], ["i32"], [
+        ("block", None),
+        ("loop", None),
+        ("local.get", 0), ("i32.const", 1), "i32.add", ("local.tee", 0),
+        ("i32.const", 40), "i32.lt_u", ("br_if", 0),
+        "end",
+        "end",
+        ("i32.const", 100),
+    ])
+    b.add_function(["i32"], ["i32"], [], [
+        ("local.get", 0), ("i32.const", 1), "i32.and",
+        ("if", "i32"),
+        ("call", g), ("i32.const", 1), "i32.add",
+        "else",
+        ("call", g), ("i32.const", 2), "i32.add",
+        "end",
+    ], export="f")
+    return b.build()

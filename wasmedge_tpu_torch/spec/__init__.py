@@ -12,6 +12,7 @@ the reference's allowance for flushed f32 results, and its skip of the
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, List, Optional
 
@@ -119,7 +120,8 @@ def _trap_matches(code: int, message: str) -> bool:
         msg.startswith(message) or message.startswith(msg.split(" ")[0])))
 
 
-def run_corpus_batched(paths, device="cuda") -> SpecReport:
+def run_corpus_batched(paths, device="cuda",
+                       conf: Optional[Configure] = None) -> SpecReport:
     """Run the batchable subset of the corpus, one assertion per LANE:
     every module's assert_return / assert_trap commands on one export are
     stacked into a lane batch and run in one `BatchEngine.run` on
@@ -128,10 +130,13 @@ def run_corpus_batched(paths, device="cuda") -> SpecReport:
     cells carry 64 bits), modules that hold state across invocations
     (memories, globals) and modules the batch engine or this slice of the
     port does not run (the default proposals only: tail calls and
-    multiple memories are not in the batch engine).  On the card, the
+    multiple memories are not in the batch engine).  `conf`: the batch
+    knobs to run with, as the reference's `conf` (a copy is taken;
+    `steps_per_launch` is set to 100,000; None: `Configure()`), for
+    example deeper stacks for call.wast's `even(1000)`.  On the card, the
     kernels of all the modules are built at once before the first run."""
     rep = SpecReport()
-    modules = list(_batch_modules(paths, device, rep))
+    modules = list(_batch_modules(paths, device, rep, conf))
     if any(eng.device.type == "cuda" for _, eng, _, _ in modules):
         from wasmedge_tpu_torch.batch.interp import build_kernels
 
@@ -142,14 +147,14 @@ def run_corpus_batched(paths, device="cuda") -> SpecReport:
     return rep
 
 
-def corpus_tables(paths) -> list:
+def corpus_tables(paths, conf: Optional[Configure] = None) -> list:
     """The code tables (CPU) of the corpus modules `run_corpus_batched`
-    runs, for building their kernels ahead of the run."""
+    runs with `conf`, for building their kernels ahead of the run."""
     return [eng.tables for _, eng, _, _ in
-            _batch_modules(paths, "cpu", SpecReport())]
+            _batch_modules(paths, "cpu", SpecReport(), conf)]
 
 
-def _batch_modules(paths, device, rep):
+def _batch_modules(paths, device, rep, conf=None):
     """(path, engine, instance, {export: [(index, command)]}) for each
     module of the corpus with batchable assertions; skips and failures of
     parsing and set-up are counted in `rep`."""
@@ -159,7 +164,7 @@ def _batch_modules(paths, device, rep):
     from wasmedge_tpu_torch.runtime.store import StoreManager
     from wasmedge_tpu_torch.validator import Validator
 
-    conf = Configure()
+    conf = copy.deepcopy(conf) if conf is not None else Configure()
     conf.batch.steps_per_launch = 100_000
     for path in paths:
         with open(path) as f:

@@ -9,58 +9,74 @@ Phases:
                direct memory access and with the B4 window cache,
                csrc/memwin.cuh, with and without B3 optimistic
                convergence, csrc/optimistic.cuh) and, per module,
-               encoding, memory mode and optimistic or careful, the fused
-               kernel (csrc/interp.cu + csrc/fused.cuh + the dispatch
-               batch/fusegen.py generates for its B2 block shapes or B6
-               superinstructions), the spec corpus's modules included;
+               encoding, memory mode, optimistic or careful and stack
+               split or not (WASM_STACK_SPLIT: deeper stacks than the
+               rows on chip), the fused kernel (csrc/interp.cu +
+               csrc/fused.cuh + the dispatch batch/fusegen.py generates
+               for its B2 block shapes or B6 superinstructions), the spec
+               corpus's modules included;
                print each build's seconds, shapes, mean shape length,
                registers and spills, and what the CUDA runtime reports of
                the per-op instantiations and config 2's fused builds
                (registers, local bytes, shared memory per block, blocks
                per SM);
-  2. kernel  - every fixture with a memory runs twice, through the window
-               cache (mem_hbm True) and with direct access (False), and
-               with optimistic convergence on (the default) each side
-               keeps its own per-warp state, compared too, while the
-               careful kernel runs beside them (planes equal below sp);
-               then
+  2. kernel  - one geometry line per main-path instantiation (threads
+               per block, shared bytes per block, blocks per SM, the
+               stack rows on chip, registers and spills), held against
+               batch/interp.py's block_geometry; then every kernel-
+               against-plain comparison below as a job on WORKERS worker
+               processes, the plain version on a CPU copy of the kernel
+               side's inputs.  Every fixture with a memory runs twice,
+               through the window cache (mem_hbm True) and with direct
+               access (False), and with optimistic convergence on (the
+               default) each side keeps its own per-warp state, compared
+               too, while the careful kernel runs beside them (planes
+               equal below sp); the fixtures:
                the per-op kernel ("none" encoding) on the fixture modules
                (ALU edge values, traps, divergent fib, memory ops, fuel,
                memory.fill / memory.copy edge cases, a small bulk
-               workload) at 256 lanes against its plain PyTorch version on
-               the same CUDA tensors, every state plane after every launch
-               (tolerance 0); the host-call fixtures (env.double, env.poke,
-               a host trap, a host memory.grow, WASI echo and WASI hello),
-               each side with its own serve round after every launch,
-               planes compared before and after it and the two stdout
-               files byte for byte; the v128 fixtures (every batchable
-               v128 op in sweep modules with random and corner-byte
-               operands, vmix, vloop, the v128 memory zoo, the v128 control
-               module, fuel on a v128 op and on a v128.store), all four
-               stack planes; then the fused kernels, "blocks" on fib (256
-               and 13 steps per launch, fuel), fac, loop_sum, mem_checksum,
-               coremark (and with fuel), the trap zoo, the guard and OOB
-               modules, the small bulk workload, vmix (and with fuel),
-               vloop, env.double and WASI echo, and "super" on the ones
-               without v128 ops, every plane and every stack row after
-               every launch (the window fixtures: a stride walk across
-               windows, a ping-pong that makes the overlap rule evict a
-               dirty way, a store before a host-call park); B3's fixtures
-               (converged fib, fib(3 + lane % 11), the trap zoo, divergent
-               addresses, nonzero-but-different br_if conditions, the
-               window ping-pong converged and not, vmix, a function
-               entered from two call sites at one stack height; rollbacks
+               workload) at 256 lanes against its plain PyTorch version,
+               every state plane after every launch (tolerance 0); the
+               host-call fixtures (env.double, env.poke, a host trap, a
+               host memory.grow, WASI echo and WASI hello, three parks
+               with live stack rows), each side with its own serve round
+               after every launch, planes compared before and after it
+               and the two stdout files byte for byte; the v128 fixtures
+               (every batchable v128 op in sweep modules with random and
+               corner-byte operands, vmix, vloop, the v128 memory zoo, the
+               v128 control module, fuel on a v128 op and on a
+               v128.store), all four stack planes; the fused kernels,
+               "blocks" on fib (256 and 13 steps per launch, fuel), fac,
+               loop_sum, mem_checksum, coremark (and with fuel), the trap
+               zoo, the guard and OOB modules, the small bulk workload,
+               vmix (and with fuel), vloop, env.double and WASI echo, and
+               "super" on the ones without v128 ops, every plane and
+               every stack row after every launch (the window fixtures: a
+               stride walk across windows, a ping-pong that makes the
+               overlap rule evict a dirty way, a store before a host-call
+               park); B3's fixtures (converged fib, fib(3 + lane % 11),
+               the trap zoo, divergent addresses, nonzero-but-different
+               br_if conditions, the window ping-pong converged and not,
+               vmix, a function entered from two call sites at one stack
+               height, a rollback over local rows below sp; rollbacks
                required where lanes diverge and none where they agree)
                per-op, in blocks and super, with the store before a park
-               and WASI echo; then one 256-step launch of fib(30) x 4096
-               in each encoding, one converged memory.fill + memory.copy
-               launch (also as PyTorch tensor calls), one 256-step vloop
-               launch x 4096 and one 256-step per-op launch of config 2's
-               mem_checksum x 4096 from the first store (windows and
-               direct), each through the optimistic kernel the main path
-               runs and through the careful one, against the optimistic
-               plain version, and (but the bulk pair) once more with no
-               warp entering, each with its bound;
+               and WASI echo; B5's warp pass on memory.fill / memory.copy
+               (converged with byte shifts 0-3 forward and backward,
+               lane-dependent with one and two deltas in a warp, a lane
+               out of bounds and n == 0 lanes; at 256, 100 and 99 lanes;
+               warp passes required) and a recursion whose stack crosses
+               the 512 on-chip rows of a 1024-row stack.  Then, in this
+               process, one 256-step launch of fib(30) x 4096 in each
+               encoding, one converged memory.fill + memory.copy launch
+               (also as PyTorch tensor calls, its warp passes counted),
+               one 256-step vloop launch x 4096 and one 256-step per-op
+               launch of config 2's mem_checksum x 4096 from the first
+               store (windows and direct), each through the optimistic
+               kernel the main path runs and through the careful one,
+               against the optimistic plain version on the card, and (but
+               the bulk pair) once more with no warp entering, each with
+               its bound;
   3. main    - at full size: fib(30) x 4096 through VM.execute_batch in the
                default encoding (B2 blocks), then per-op ("none") and with
                block_fusion False (B6), each once more under
@@ -71,7 +87,7 @@ Phases:
                serve rounds and serve time against kernel time under
                torch.profiler), WASI hello x 4096 (proc_exit codes), the
                bulk-memory workload x 4096 (checked against a bytearray
-               model); the SIMD spec corpus (tests/spec/simd.wast) through
+               model, its warp passes counted); the SIMD spec corpus (tests/spec/simd.wast) through
                run_corpus_batched on the card, strict; vloop(1,000,000) x
                4096 (bench_simd.py's shape) in blocks and with
                block_fusion False (per-op), every lane's result and retired
@@ -186,7 +202,8 @@ def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
         eng.fusion = fusion
         eng.tables = device_tables(eng.img, eng.device, fusion,
                                    mem_window=eng.mem_window,
-                                   optimistic=eng.optimistic)
+                                   optimistic=eng.optimistic,
+                                   stack_depth=eng.cfg.value_stack_depth)
     return eng, inst
 
 
@@ -204,9 +221,38 @@ def warp_err(wa, wb) -> int:
     entered, commits) of two WarpStates (0 when both are None)."""
     if wa is None or wb is None:
         return 0 if wa is wb else 1 << 30
-    return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+    return max(int((x.cpu().to(torch.int64) - y.cpu().to(torch.int64))
+                   .abs().max())
                for x, y in zip(wa.counters().values(),
                                wb.counters().values()))
+
+
+def on_cpu(st):
+    """A copy of the state `st` on the CPU: the plain side of a
+    comparison starts from the kernel side's inputs."""
+    from wasmedge_tpu_torch.batch.engine import BatchState
+
+    return BatchState(**{f: t.to("cpu", copy=True)
+                         for f, t in st.planes().items()})
+
+
+def cpu_tables(eng):
+    """`eng`'s tables (encoding, memory mode, B3 mode) on the CPU."""
+    from wasmedge_tpu_torch.batch.interp import device_tables
+
+    tb = eng.tables
+    return device_tables(eng.img, "cpu", tb.fusion,
+                         mem_window=tb.mem_window, optimistic=tb.optimistic,
+                         stack_depth=eng.cfg.value_stack_depth)
+
+
+def cpu_warps(eng):
+    """A fresh per-warp state on the CPU for `eng`'s tables (None when
+    they are careful)."""
+    from wasmedge_tpu_torch.batch.optimistic import WarpState
+
+    return WarpState.new(eng.lanes, "cpu") if eng.tables.optimistic \
+        else None
 
 
 def live_err(a, b) -> int:
@@ -236,7 +282,7 @@ def max_abs_err(a, b) -> int:
         fail(f"states with different planes: {sorted(pa)} / {sorted(pb)}")
     err = 0
     for f in pa:
-        d = pa[f].to(torch.int64) - pb[f].to(torch.int64)
+        d = pa[f].cpu().to(torch.int64) - pb[f].cpu().to(torch.int64)
         err = max(err, int(d.abs().max().item()))
     return err
 
@@ -250,6 +296,9 @@ WINDOW_WORST = [0]
 # and mode, the per-warp counts of the kernel side.
 OPT_WORST = {"plain": 0, "careful": 0}
 OPT_FIXTURES = {}
+# B5's warp pass: the bulk-op counts of the kernel side per fixture and
+# mode (warp passes, their lanes, lane walks)
+BULK_FIXTURES = {}
 
 
 def memory_modes(eng_of) -> list:
@@ -269,40 +318,45 @@ def mode_tag(fusion, mem_hbm) -> str:
 
 
 def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs,
-                    fusion="none", rollbacks=None) -> int:
-    """One fixture at KERNEL_LANES lanes in the encoding `fusion`, for a
+                    fusion="none", rollbacks=None, lanes=KERNEL_LANES,
+                    bulk=None) -> int:
+    """One fixture at `lanes` lanes in the encoding `fusion`, for a
     module with a memory through the window cache and with direct access:
     kernel and plain version from the same CUDA state, launch by launch,
-    every plane (every stack row, every memory row) equal.  With
+    every plane (every stack row, every memory row) equal; the plain side
+    runs on a CPU copy of the same inputs.  With
     optimistic convergence on (the default, B3) each side keeps its own
     per-warp state, which must be equal too, and the careful kernel
     (`optimistic` False) runs beside them from the same state: every
     plane equal to the optimistic kernel's, the stack planes below sp.
-    `rollbacks` True: some warp must roll back; False: none may.
-    Returns the max abs err."""
+    `rollbacks` True: some warp must roll back; False: none may.  `bulk`
+    "warp": the kernel's bulk ops must include warp passes (and, with
+    optimistic convergence off as on, no lane walks where every warp is
+    whole). Returns the max abs err."""
     from wasmedge_tpu_torch.batch import interp, interp_ref
 
     worst = 0
     for mem_hbm, (eng, inst) in memory_modes(lambda m: make_engine(
-            data, KERNEL_LANES, fuel_per_launch=fuel, fusion=fusion,
+            data, lanes, fuel_per_launch=fuel, fusion=fusion,
             mem_hbm=m, **knobs)):
         t0 = time.perf_counter()
         tag = mode_tag(fusion, mem_hbm)
         st = eng.initial_state(inst.exports[func][1], args)
-        ref = st.clone()
-        wk, wp = new_warps(eng), new_warps(eng)
+        ref, tp = on_cpu(st), cpu_tables(eng)
+        wk, wp = new_warps(eng), cpu_warps(eng)
         careful = None
         if eng.tables.optimistic:
-            ceng = make_engine(data, KERNEL_LANES, fuel_per_launch=fuel,
+            ceng = make_engine(data, lanes, fuel_per_launch=fuel,
                                fusion=fusion, mem_hbm=mem_hbm,
                                optimistic=False, **knobs)[0]
             careful = st.clone()
         launches = 0
         before = dict(interp.LAUNCHES)
+        torch.cuda.synchronize()
+        interp.clear_bulk_counts()
         while True:
             interp.run_chunk(eng.tables, st, chunk, fuel is not None, wk)
-            interp_ref.run_chunk(eng.tables, ref, chunk, fuel is not None,
-                                 wp)
+            interp_ref.run_chunk(tp, ref, chunk, fuel is not None, wp)
             if careful is not None:
                 interp.run_chunk(ceng.tables, careful, chunk,
                                  fuel is not None)
@@ -338,6 +392,11 @@ def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs,
             fail(f"{name}{tag}: {ran['optimistic']} of {ran['interp']} "
                  f"launches ran optimistic convergence")
         stats = wk.stats() if wk is not None else {}
+        ops = interp.bulk_counts(eng.tables) if eng.tables.has_bulk else {}
+        if bulk == "warp":
+            BULK_FIXTURES[f"{name}{tag}"] = ops
+            if not ops["warp_passes"]:
+                fail(f"{name}{tag}: no bulk op took the warp pass ({ops})")
         if careful is not None:
             OPT_FIXTURES[f"{name}{tag}"] = stats
             if rollbacks is not None and \
@@ -348,13 +407,15 @@ def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs,
         print(f"kernel_vs_plain {name}{tag}: {launches} launches equal"
               f"{', equal to careful below sp' if careful is not None else ''}"
               f", traps {traps}, retired {int(st.retired.sum())}, warps "
-              f"{stats}, {time.perf_counter() - t0:.2f} s", flush=True)
+              f"{stats}{f', bulk ops {ops}' if ops else ''}, "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
     return worst
 
 
-def phase_kernel_vs_plain() -> int:
-    """Every fixture at KERNEL_LANES lanes: kernel and plain version from
-    the same CUDA state, launch by launch, all planes equal."""
+def scalar_jobs() -> list:
+    """The per-op kernel's fixtures at KERNEL_LANES lanes (kernel_vs_plain
+    jobs): kernel and plain version from the same state, launch by
+    launch, all planes equal."""
     from wasmedge_tpu_torch.models import (
         build_bulk_workload, build_coremark_kernel, build_fib,
         build_memory_workload)
@@ -394,8 +455,7 @@ def phase_kernel_vs_plain() -> int:
         ("bulk_workload", build_bulk_workload(**SMALL_BULK), "bulk",
          [np.arange(L) * 37 + 5, 3], 256, None),
     ]
-    return max(kernel_vs_plain(name, data, func, args, chunk, fuel, knobs)
-               for name, data, func, args, chunk, fuel in fixtures)
+    return [("kernel_vs_plain", (*f, knobs), {}) for f in fixtures]
 
 
 def fused_fixtures(L: int):
@@ -450,21 +510,20 @@ def fused_fixtures(L: int):
     ]
 
 
-def phase_fused_kernel_vs_plain() -> int:
+def fused_jobs() -> list:
     """The B2 ("blocks") and B6 ("super", modules without v128 ops) fused
     kernels against their plain versions at KERNEL_LANES lanes, every
     launch, every plane and every stack row; WASI echo with its serve
-    rounds in both encodings."""
-    worst = 0
+    rounds in both encodings (jobs)."""
+    jobs = []
     for name, data, func, args, chunk, fuel, knobs, simd in \
             fused_fixtures(KERNEL_LANES):
         for fusion in ("blocks",) if simd else ("blocks", "super"):
-            worst = max(worst, kernel_vs_plain(name, data, func, args, chunk,
-                                               fuel, knobs, fusion))
+            jobs.append(("kernel_vs_plain", (name, data, func, args, chunk,
+                                             fuel, knobs, fusion), {}))
     for fusion in ("blocks", "super"):
-        worst = max(worst, phase_hostcalls_kernel_vs_plain(
-            fusion, only=("env.double", "wasi_echo", "window_host")))
-    return worst
+        jobs += host_jobs(fusion, ("env.double", "wasi_echo", "window_host"))
+    return jobs
 
 
 def opt_fixtures(L: int):
@@ -474,8 +533,8 @@ def opt_fixtures(L: int):
     from wasmedge_tpu_torch.models import build_fib
     from wasmedge_tpu_torch.models.fixtures import (
         build_call_sites, build_divergent_addresses,
-        build_nonzero_conditions, build_trap_zoo, build_vmix,
-        build_window_pingpong, window_pingpong_args, zoo_args)
+        build_nonzero_conditions, build_rollback_rows, build_trap_zoo,
+        build_vmix, build_window_pingpong, window_pingpong_args, zoo_args)
 
     kn = dict(value_stack_depth=64, call_stack_depth=32,
               memory_pages_per_lane=3)
@@ -504,24 +563,121 @@ def opt_fixtures(L: int):
          kv, True, False),
         ("opt_vmix", build_vmix(), "vmix", [np.arange(L) % 13 + 3], 64, kv,
          True, True),
+        # lanes that follow lane 0's arm write wrong values into the
+        # (on-chip) rows of two locals below sp until the rollback
+        ("opt_rollback_rows", build_rollback_rows(), "f",
+         [np.random.default_rng(SEED).integers(0, 1 << 31, L)], 64, kn,
+         False, True),
     ]
 
 
-def phase_optimistic_kernel_vs_plain() -> int:
+def opt_jobs() -> list:
     """B3: optimistic convergence's fixtures at KERNEL_LANES lanes in
     every encoding (superinstructions for modules without v128 ops) and,
     with a memory, both memory modes: kernel against plain version and
     careful kernel (kernel_vs_plain), rollbacks where the lanes diverge
-    and none where they agree; then the store before a host-call park
-    and WASI echo (with their serve rounds) in every encoding."""
-    worst = 0
+    and none where they agree (jobs)."""
+    jobs = []
     for name, data, func, args, chunk, knobs, simd, rolls in \
             opt_fixtures(KERNEL_LANES):
         for fusion in ("none", "blocks") + (() if simd else ("super",)):
-            worst = max(worst, kernel_vs_plain(name, data, func, args, chunk,
-                                               None, knobs, fusion, rolls))
-    worst = max(worst, phase_hostcalls_kernel_vs_plain(
-        "none", only=("wasi_echo", "window_host")))
+            jobs.append(("kernel_vs_plain", (name, data, func, args, chunk,
+                                             None, knobs, fusion, rolls), {}))
+    return jobs
+
+
+def rows_jobs() -> list:
+    """B5's warp pass and the on-chip stack rows against their plain
+    versions (kernel_vs_plain jobs: both memory modes, optimistic and
+    careful, every plane and row after every launch): build_bulk_warp's
+    fill and copy in every case of BULK_WARP_CASES at KERNEL_LANES lanes
+    (converged with byte shifts 0-3 forward and backward, lane-dependent
+    with one and with two deltas in a warp, a lane out of bounds and n == 0
+    lanes in a converged warp), some of them at 100 lanes (a partial last
+    warp) and 99 (rows not 16-byte aligned), every one required to take
+    warp passes; two in blocks; and first a recursion whose stack crosses
+    the 512 on-chip rows of a 1024-row stack, in blocks (the build with
+    the stack split; its terminals run the per-op code).  The
+    host-call park with live rows (host_rows) and the rollback over rows
+    below sp (opt_rollback_rows) are among host_jobs and opt_jobs."""
+    from wasmedge_tpu_torch.models.fixtures import (
+        BULK_WARP_CASES, build_bulk_warp, build_deep_recursion,
+        bulk_warp_case)
+
+    kb = dict(value_stack_depth=64, call_stack_depth=16,
+              memory_pages_per_lane=1)
+    data = build_bulk_warp()
+    partial = ("fill_lanes", "copy_fwd_shift3", "copy_bwd_shift1",
+               "copy_two_deltas", "copy_oob_and_empty")
+    deep = dict(value_stack_depth=1024, call_stack_depth=128)
+    jobs = [("kernel_vs_plain", (
+        "deep_recursion_d1024", build_deep_recursion(), "deep",
+        [np.arange(KERNEL_LANES) % 40 + 48], 97, None, deep, "blocks"), {})]
+    for L in (KERNEL_LANES, 100, 99):
+        for case in BULK_WARP_CASES:
+            if L != KERNEL_LANES and case not in partial:
+                continue
+            func, args = bulk_warp_case(L, case)
+            jobs.append(("kernel_vs_plain", (
+                f"bulk_warp_{case}_x{L}", data, func, args, 8, None, kb),
+                dict(lanes=L, bulk="warp")))
+    for case in ("copy_two_deltas", "fill_oob_and_empty"):
+        func, args = bulk_warp_case(KERNEL_LANES, case)
+        jobs.append(("kernel_vs_plain", (
+            f"bulk_warp_{case}", data, func, args, 8, None, kb),
+            dict(fusion="blocks", bulk="warp")))
+    return jobs
+
+
+# worker processes of the kernel phase: its comparisons are independent,
+# and each one's plain side runs on the CPU
+WORKERS = 6
+
+
+def run_job(job):
+    """One kernel phase job in a worker process: (group, worst, the
+    worker's records, None), or (group, None, None, what failed)."""
+    group, name, args, kwargs = job
+    torch.set_num_threads(1)
+    WINDOW_WORST[0] = 0
+    OPT_WORST.update(plain=0, careful=0)
+    OPT_FIXTURES.clear()
+    BULK_FIXTURES.clear()
+    try:
+        worst = globals()[name](*args, **kwargs)
+    except SystemExit:
+        return group, None, None, f"{name} {args[0] if args else ''}"
+    return group, worst, dict(window=WINDOW_WORST[0], opt=dict(OPT_WORST),
+                              opt_fixtures=dict(OPT_FIXTURES),
+                              bulk=dict(BULK_FIXTURES)), None
+
+
+def run_jobs(groups: dict) -> dict:
+    """Every job of `groups` (group name -> jobs) on WORKERS worker
+    processes (spawned; each builds nothing: the libraries exist); the
+    records merged into this process's.  Returns group -> worst max abs
+    err; fails if any job failed."""
+    import concurrent.futures
+    import multiprocessing
+
+    jobs = [(g,) + j for g, js in groups.items() for j in js]
+    worst = {g: 0 for g in groups}
+    bad = []
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(WORKERS,
+                                                mp_context=ctx) as ex:
+        for group, w, rec, err in ex.map(run_job, jobs):
+            if err is not None:
+                bad.append(err)
+                continue
+            worst[group] = max(worst[group], w)
+            WINDOW_WORST[0] = max(WINDOW_WORST[0], rec["window"])
+            for k in OPT_WORST:
+                OPT_WORST[k] = max(OPT_WORST[k], rec["opt"][k])
+            OPT_FIXTURES.update(rec["opt_fixtures"])
+            BULK_FIXTURES.update(rec["bulk"])
+    if bad:
+        fail(f"{len(bad)} kernel phase jobs failed: {bad[:5]}")
     return worst
 
 
@@ -530,7 +686,7 @@ def first_step_at(data, func, args, hid, knobs) -> int:
     careful)."""
     from wasmedge_tpu_torch.batch import interp_ref
 
-    eng, inst = make_engine(data, len(args[0]), fusion="none",
+    eng, inst = make_engine(data, len(args[0]), device="cpu", fusion="none",
                             optimistic=False, **knobs)
     st = eng.initial_state(inst.exports[func][1], args)
     for step in range(10_000):
@@ -540,10 +696,10 @@ def first_step_at(data, func, args, hid, knobs) -> int:
     fail(f"{func}: handler {hid} never reached")
 
 
-def phase_simd_kernel_vs_plain() -> int:
+def simd_jobs() -> list:
     """The v128 fixtures at KERNEL_LANES lanes through the kernel's kSimd
     instantiations and the plain version, every plane (stack_e2 and
-    stack_e3 included) equal after every launch."""
+    stack_e3 included) equal after every launch (jobs)."""
     from wasmedge_tpu_torch.batch.interp import H_VSTORE
     from wasmedge_tpu_torch.models import build_simd_loop
     from wasmedge_tpu_torch.models.fixtures import (
@@ -583,8 +739,7 @@ def phase_simd_kernel_vs_plain() -> int:
         ("window_pingpong", build_window_pingpong(), "pingpong",
          window_pingpong_args(L, SEED), 64, None),
     ]
-    return max(kernel_vs_plain(name, data, func, args, chunk, fuel, knobs)
-               for name, data, func, args, chunk, fuel in fixtures)
+    return [("kernel_vs_plain", (*f, knobs), {}) for f in fixtures]
 
 
 def env_import():
@@ -618,6 +773,19 @@ def hello_output(codes) -> bytes:
                     for c in codes)
 
 
+# the host-call fixtures of phase_hostcalls_kernel_vs_plain
+HOST_FIXTURES = ("env.double", "env.poke", "env.id_or_trap", "env.grow",
+                 "env.double_v128", "wasi_echo", "wasi_hello", "window_host",
+                 "host_rows")
+
+
+def host_jobs(fusion="none", names=HOST_FIXTURES) -> list:
+    """phase_hostcalls_kernel_vs_plain in the encoding `fusion`, one job
+    per fixture."""
+    return [("phase_hostcalls_kernel_vs_plain", (fusion,),
+             dict(only=(name,))) for name in names]
+
+
 def phase_hostcalls_kernel_vs_plain(fusion="none", only=None) -> int:
     """The host-call fixtures (those named in `only`, or all) at
     KERNEL_LANES lanes in the encoding `fusion`, with a memory through
@@ -629,7 +797,7 @@ def phase_hostcalls_kernel_vs_plain(fusion="none", only=None) -> int:
     from wasmedge_tpu_torch.models import build_echo, build_wasi_hello
     from wasmedge_tpu_torch.models.fixtures import (
         build_host_double, build_host_grow, build_host_poke,
-        build_host_trap, build_simd_host, build_window_host)
+        build_host_rows, build_host_trap, build_simd_host, build_window_host)
     from wasmedge_tpu_torch.models.programs import ECHO_MESSAGE
 
     L = KERNEL_LANES
@@ -653,6 +821,8 @@ def phase_hostcalls_kernel_vs_plain(fusion="none", only=None) -> int:
         # next launch read the plane
         ("window_host", build_window_host(), "f", [np.arange(L) * 7 - 300],
          None),
+        # three parks with live (on-chip) rows under each call
+        ("host_rows", build_host_rows(), "f", [np.arange(L) * 13 - 40], None),
     ]
     worst = 0
     for name, data, func, args, want_out in fixtures:
@@ -688,17 +858,18 @@ def host_fixture_vs_plain(name, data, func, args, want_out, fusion, mem_hbm,
         fds = [os.open(p, os.O_RDWR | os.O_CREAT | os.O_TRUNC)
                for p in paths]
         try:
-            engs = [make_engine(data, L, imports=imports(fd),
+            engs = [make_engine(data, L, device=dev, imports=imports(fd),
                                 fusion=fusion, mem_hbm=mem_hbm,
-                                **knobs)[0] for fd in fds]
+                                **knobs)[0]
+                    for fd, dev in zip(fds, ("cuda", "cpu"))]
             inst = engs[0].inst
             st = engs[0].initial_state(inst.exports[func][1], args)
-            ref = st.clone()
-            wk, wp = new_warps(engs[0]), new_warps(engs[0])
+            ref = on_cpu(st)
+            wk, wp = new_warps(engs[0]), cpu_warps(engs[1])
             launches = rounds = 0
             while True:
                 interp.run_chunk(engs[0].tables, st, 64, False, wk)
-                interp_ref.run_chunk(engs[0].tables, ref, 64, False, wp)
+                interp_ref.run_chunk(engs[1].tables, ref, 64, False, wp)
                 torch.cuda.synchronize()
                 launches += 1
                 err = max(max_abs_err(st, ref), warp_err(wk, wp))
@@ -1081,7 +1252,8 @@ def run_vm(vm, func, args, fusion=None):
     eng.fusion = fusion
     eng.tables = device_tables(eng.img, eng.device, fusion,
                                mem_window=eng.mem_window,
-                               optimistic=eng.optimistic)
+                               optimistic=eng.optimistic,
+                               stack_depth=eng.cfg.value_stack_depth)
     return eng.run(func, list(args), max_steps=10**9), eng
 
 
@@ -1108,6 +1280,7 @@ def run_main(vm, func, args, steps_per_launch, need=("interp",),
     torch.cuda.synchronize()
     for k in interp.LAUNCHES:
         interp.LAUNCHES[k] = 0
+    interp.clear_bulk_counts()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -1140,6 +1313,8 @@ def run_main(vm, func, args, steps_per_launch, need=("interp",),
     counts["optimistic_on"] = eng.tables.optimistic
     counts["warps"] = eng.optimistic_stats
     counts["build"] = fused_build(eng.tables)
+    counts["bulk_ops"] = interp.bulk_counts(eng.tables) \
+        if eng.tables.has_bulk else {}
     return res, counts["interp"], wall, e0.elapsed_time(e1), counts
 
 
@@ -1546,13 +1721,16 @@ def phase_main_bulk():
                  f"model, traps {np.unique(res.trap)}")
 
     check(res)
+    ops = counts["bulk_ops"]
+    if not ops.get("warp_passes"):
+        fail(f"bulk x {L}: no bulk op took the warp pass ({ops})")
     retired = int(res.retired.astype(np.int64).sum())
     F, C = BULK_FILL_BYTES, BULK_COPY_BYTES
     # the least bytes the bulk ops move (each filled byte written once,
     # each copied byte read and written once; lengths at their least)
     bulk_bytes = L * BULK_ITERS * (F + F // 4 + 2 * 2 * C)
     out = dict(launches=launches, bulk_launches=counts["bulk"], wall_s=wall,
-               event_ms=ev_ms, retired=retired, model_s=t_model,
+               event_ms=ev_ms, retired=retired, model_s=t_model, bulk_ops=ops,
                min_bulk_bytes=bulk_bytes,
                bulk_bound_ms=bulk_bytes / HBM_BYTES_PER_S * 1e3)
     print(f"main bulk x {L} (1 page/lane, {BULK_ITERS} iterations of fills "
@@ -1560,7 +1738,7 @@ def phase_main_bulk():
           f"the bytearray model, {launches} launches, wall {wall:.3f} s, "
           f"events {ev_ms:.1f} ms, retired {retired}; the bulk ops' bytes "
           f">= {bulk_bytes} B, {out['bulk_bound_ms']:.4f} ms at "
-          f"{HBM_BYTES_PER_S:.3g} B/s", flush=True)
+          f"{HBM_BYTES_PER_S:.3g} B/s; bulk ops {ops}", flush=True)
     out["profile"] = profile_run(vm, "bulk", args, retired)
     out["direct"] = direct_run(vm, "bulk", args, 1 << 20,
                                ("interp", "bulk", "block"), check)
@@ -1906,6 +2084,7 @@ def phase_time_bulk():
     (time_opt_and_careful), and the same fill and copy as PyTorch tensor
     calls on the memory plane, CUDA events; and an unaligned variant
     (fill at 1, copy 3 bytes back from 32769)."""
+    from wasmedge_tpu_torch.batch import interp
     from wasmedge_tpu_torch.models.fixtures import build_bulk_pair
 
     L = MAIN_LANES
@@ -1926,10 +2105,24 @@ def phase_time_bulk():
                                     generator=torch.Generator(
                                         device=st0.mem.device).manual_seed(
                                         SEED)))
+        torch.cuda.synchronize()
+        interp.clear_bulk_counts()
         t, out_k = time_opt_and_careful(eng, ceng, st0, chunk,
                                         f"bulk pair {name}", refused=False)
         if not bool((out_k.pc == st0.pc + chunk).all()):
             fail(f"bulk pair ({name}): the launch stopped early")
+        torch.cuda.synchronize()
+        # per launch: the fill and the copy of every warp, one pass each
+        ops = {k: interp.bulk_counts(tb) for k, tb in
+               (("optimistic", eng.tables), ("careful", ceng.tables))}
+        t["bulk_ops"] = ops
+        print(f"  bulk ops over the pair's launches ({name}): {ops}",
+              flush=True)
+        if not ops["optimistic"]["warp_passes"] or \
+                not ops["careful"]["warp_passes"] or \
+                ops["optimistic"]["lane_walks"] or ops["careful"]["lane_walks"]:
+            fail(f"bulk pair ({name}): the converged pair did not run as "
+                 f"warp passes alone: {ops}")
         out[name] = t
         if name == "aligned":
             st_aligned, mem_k = st0, out_k.mem
@@ -2001,19 +2194,23 @@ def parse_ptxas(text: str) -> dict:
     return rows
 
 
-def kernel_registers(win: bool = False, opt: bool = False) -> dict:
+def kernel_registers(win: bool = False, opt: bool = False,
+                     split: bool = False) -> dict:
     """parse_ptxas of the per-op build (with the window cache when `win`,
-    with optimistic convergence when `opt`)."""
+    with optimistic convergence when `opt`, with the stack split when
+    `split`)."""
     from wasmedge_tpu_torch.batch import interp
 
-    info = interp.BUILD_INFO["per_op"].get(interp.per_op_label(win, opt), {})
+    info = interp.BUILD_INFO["per_op"].get(
+        interp.per_op_label(win, opt, split), {})
     return parse_ptxas(info.get("ptxas", ""))
 
 
 def window_attributes() -> dict:
     """The CUDA runtime's report (registers, local bytes, shared memory,
-    blocks per SM) of the per-op instantiations with and without the
-    window cache and of config 2's fused builds, printed."""
+    blocks per SM, stack rows on chip) of the per-op instantiations with
+    and without the window cache (at fib's depth, 256) and of config 2's
+    fused builds (at its depth, 128), printed."""
     from wasmedge_tpu_torch.batch import interp
     from wasmedge_tpu_torch.models import (
         build_coremark_kernel, build_memory_workload)
@@ -2033,14 +2230,101 @@ def window_attributes() -> dict:
                                      optimistic=opt, **MEM_STACKS)
                 out[f"{name} blocks{' kWin' if m else ''}"
                     f"{' kOpt' if opt is None else ''}"] = \
-                    interp.kernel_attributes(eng.tables)
+                    interp.kernel_attributes(
+                        eng.tables, MEM_STACKS["value_stack_depth"])
     for name, a in out.items():
         print(f"  attributes {name}: {a['registers']} registers, "
               f"{a['local_bytes']} B local, {a['static_smem_bytes']} B "
               f"static + {a['launch_smem_bytes']} B dynamic shared memory "
               f"per block (limit {a['max_dynamic_smem_bytes']} B), "
-              f"{a['blocks_per_sm']} blocks of 128 threads per SM",
+              f"{a['blocks_per_sm']} blocks of {a['threads_per_block']} "
+              f"threads per SM, {a['stack_rows']} stack rows on chip",
               flush=True)
+    return out
+
+
+def kernel_row(tables) -> dict:
+    """ptxas's registers and spills of the interp_kernel instantiation
+    that runs `tables`."""
+    from wasmedge_tpu_torch.batch import interp
+
+    if tables.fusion == "none":
+        rows = kernel_registers(tables.mem_window, tables.optimistic,
+                                tables.stack_split)
+        want = (f"interp_kernel<kBulk={int(tables.has_bulk)}, "
+                f"kSimd={int(tables.has_simd)}")
+        rows = {k: v for k, v in rows.items() if k.startswith(want + ">")
+                or k.startswith(want + ",")}
+    else:
+        info = interp.BUILD_INFO["fused"].get(
+            interp.fused_kernel_key(tables), {})
+        rows = parse_ptxas(info.get("ptxas", ""))
+    for k, v in rows.items():
+        if k.startswith("interp_kernel"):
+            return v
+    return {}
+
+
+def phase_geometry() -> dict:
+    """One geometry line per main-path instantiation: threads per block,
+    dynamic shared bytes per block, blocks per SM (CUDA runtime), the
+    stack rows on chip of its depth, registers and spills (ptxas); the
+    host helper `interp.block_geometry` must give the kernel's threads,
+    rows and bytes."""
+    from wasmedge_tpu_torch.batch import interp
+    from wasmedge_tpu_torch.models import (
+        build_bulk_workload, build_fib, build_memory_workload,
+        build_simd_loop)
+    from wasmedge_tpu_torch.models.fixtures import build_deep_recursion
+
+    runs = [("fib(30)", build_fib(), dict(value_stack_depth=256,
+                                          call_stack_depth=256), "blocks"),
+            ("fib(30)", build_fib(), dict(value_stack_depth=256,
+                                          call_stack_depth=256), "none"),
+            ("fib(30)", build_fib(), dict(value_stack_depth=256,
+                                          call_stack_depth=256), "super"),
+            ("vloop", build_simd_loop(), dict(
+                value_stack_depth=64, call_stack_depth=16,
+                memory_pages_per_lane=1), "blocks"),
+            ("config 2 mem_checksum", build_memory_workload(
+                passes=MEM_PASSES), MEM_STACKS, "blocks"),
+            ("bulk", build_bulk_workload(), dict(
+                value_stack_depth=64, call_stack_depth=16,
+                memory_pages_per_lane=1), "blocks"),
+            ("deep recursion", build_deep_recursion(), dict(
+                value_stack_depth=1024, call_stack_depth=128), "blocks")]
+    out = {}
+    for name, data, knobs, fusion in runs:
+        for opt in (None, False):
+            eng, _ = make_engine(data, 2, fusion=fusion, optimistic=opt,
+                                 **knobs)
+            tb = eng.tables
+            D = knobs["value_stack_depth"]
+            a = interp.kernel_attributes(tb, D)
+            g = interp.block_geometry(D, tb.has_simd, tb.mem_window)
+            if (a["threads_per_block"], a["stack_rows"],
+                    a["launch_smem_bytes"]) != (g["threads_per_block"],
+                                                g["stack_rows"],
+                                                g["smem_bytes"]):
+                fail(f"geometry {name}: the kernel's {a} != the host "
+                     f"helper's {g}")
+            r = kernel_row(tb)
+            key = (f"{name} [{fusion}{', windows' if tb.mem_window else ''}"
+                   f"{', optimistic' if tb.optimistic else ', careful'}]")
+            out[key] = dict(a, depth=D, spill_stores=r.get("spill_stores"),
+                            spill_loads=r.get("spill_loads"))
+            if a["stack_split"] != tb.stack_split:
+                fail(f"geometry {name}: the build's stack split "
+                     f"{a['stack_split']} != the tables' {tb.stack_split}")
+            print(f"geometry {key}: {a['threads_per_block']} threads per "
+                  f"block, {a['launch_smem_bytes']} B dynamic shared memory "
+                  f"per block, {a['blocks_per_sm']} blocks per SM, R "
+                  f"{a['stack_rows']} of {D} stack rows on chip"
+                  f"{' (split stack build)' if tb.stack_split else ''}, "
+                  f"{a['registers']} registers, {r.get('spill_stores', 0)} B "
+                  f"spill stores, {r.get('spill_loads', 0)} B spill loads; "
+                  f"{-(-MAIN_LANES // a['threads_per_block'])} blocks at "
+                  f"{MAIN_LANES} lanes", flush=True)
     return out
 
 
@@ -2065,33 +2349,49 @@ def prebuild() -> dict:
         build_bulk_workload, build_coremark_kernel, build_echo, build_fib,
         build_memory_workload, build_simd_loop, build_wasi_hello)
     from wasmedge_tpu_torch.models.fixtures import (
-        build_host_double, build_window_host)
+        build_bulk_warp, build_deep_recursion, build_host_double,
+        build_window_host)
     from wasmedge_tpu_torch.spec import corpus_tables
 
-    mods = [(data, simd, ()) for _, data, _, _, _, _, _, simd in
-            fused_fixtures(2)]
-    mods += [(data, simd, ()) for _, data, _, _, _, _, simd, _ in
-             opt_fixtures(2)]
-    mods += [(build_fib(), False, ()), (build_coremark_kernel(), False, ()),
-             (build_simd_loop(), True, ()), (build_bulk_workload(), False, ()),
-             (build_memory_workload(passes=MEM_PASSES), False, ()),
-             (build_host_double(), False, (env_import,)),
-             (build_window_host(), False, (env_import,)),
-             (build_echo(), False, (lambda: wasi_import(1),)),
-             (build_wasi_hello(), False, (lambda: wasi_import(1),))]
+    # (module, v128 ops, imports, encodings, value-stack depth): the
+    # builds each comparison and main-path run of the script uses (a depth
+    # whose rows all fit on chip names the build without the stack split)
+    def encs(simd):
+        return ("blocks",) if simd else ("blocks", "super")
+
+    mods = [(data, simd, (), encs(simd), kn["value_stack_depth"])
+            for _, data, _, _, _, _, kn, simd in fused_fixtures(2)]
+    mods += [(data, simd, (), encs(simd), kn["value_stack_depth"])
+             for _, data, _, _, _, kn, simd, _ in opt_fixtures(2)]
+    env, wasi = (env_import,), (lambda: wasi_import(1),)
+    mods += [(build_fib(), False, (), encs(False), 256),
+             (build_coremark_kernel(), False, (), ("blocks",), 256),
+             (build_simd_loop(), True, (), ("blocks",), 64),
+             (build_bulk_workload(), False, (), ("blocks",), 64),
+             (build_memory_workload(passes=MEM_PASSES), False, (),
+              ("blocks",), MEM_STACKS["value_stack_depth"]),
+             (build_host_double(), False, env, encs(False), 64),
+             (build_window_host(), False, env, encs(False), 64),
+             (build_bulk_warp(), False, (), ("blocks",), 64),
+             (build_deep_recursion(), False, (), ("blocks",), 1024),
+             (build_echo(), False, wasi, encs(False), 64),
+             (build_wasi_hello(), False, wasi, ("blocks",), 64)]
     tables = []
-    for data, simd, imports in mods:
-        for fusion in ("blocks",) if simd else ("blocks", "super"):
+    for data, simd, imports, fusions, depth in mods:
+        for fusion in fusions:
             for opt in (None, False):
                 for _, (eng, _) in memory_modes(lambda m: make_engine(
                         data, 2, device="cpu", imports=[f() for f in imports],
-                        fusion=fusion, mem_hbm=m, optimistic=opt)):
+                        fusion=fusion, mem_hbm=m, optimistic=opt,
+                        value_stack_depth=depth)):
                     tables.append(eng.tables)
     tables += corpus_tables([SIMD_WAST])
     tables += corpus_tables(corpus_files(), corpus_conf())
     t0 = time.perf_counter()
-    interp.build_kernels(tables, per_op=[(w, o) for w in (False, True)
-                                         for o in (False, True)])
+    # the per-op build for every memory and B3 mode (every per-op run of
+    # the script has a depth whose rows all fit on chip)
+    interp.build_kernels(tables, per_op=[
+        (w, o, False) for w in (False, True) for o in (False, True)])
     wall = time.perf_counter() - t0
     builds = {}
     for key, info in interp.BUILD_INFO["fused"].items():
@@ -2137,23 +2437,32 @@ def main() -> int:
     regs = per_op_regs[interp.per_op_label(False, False)]
     win_regs = per_op_regs[interp.per_op_label(True, False)]
     attrs = window_attributes()
+    geometry = phase_geometry()
 
     t0 = time.perf_counter()
-    worst = max(phase_kernel_vs_plain(), phase_hostcalls_kernel_vs_plain())
-    simd_worst = phase_simd_kernel_vs_plain()
-    fused_worst = phase_fused_kernel_vs_plain()
-    opt_worst = phase_optimistic_kernel_vs_plain()
+    w = run_jobs({"rows": rows_jobs(),
+                  "scalar": scalar_jobs() + host_jobs(),
+                  "simd": simd_jobs(), "fused": fused_jobs(),
+                  "opt": opt_jobs() + host_jobs(
+                      "none", ("wasi_echo", "window_host"))})
+    worst, simd_worst, fused_worst, opt_worst, rows_worst = (
+        w["scalar"], w["simd"], w["fused"], w["opt"], w["rows"])
+    t_jobs = time.perf_counter() - t0
     timing = {f: phase_time_one_launch(f) for f in ("none", "blocks", "super")}
     bulk_timing = phase_time_bulk()
     simd_timing = phase_time_simd_launch()
     mem_timing = phase_time_mem_launch()
     t_kernel = time.perf_counter() - t0
-    print(f"phase kernel_vs_plain: {t_kernel:.2f} s, max abs err "
-          f"{max(worst, simd_worst, fused_worst, opt_worst)} (window cache "
+    print(f"phase kernel_vs_plain: {t_kernel:.2f} s (comparisons "
+          f"{t_jobs:.2f} s on {WORKERS} workers), max abs err "
+          f"{max(worst, simd_worst, fused_worst, opt_worst, rows_worst)} "
+          f"(warp bulk pass and stack rows {rows_worst}; window cache "
           f"{WINDOW_WORST[0]}; optimistic against plain "
           f"{OPT_WORST['plain']}, against careful below sp "
           f"{OPT_WORST['careful']})", flush=True)
     print(f"optimistic warps per fixture: {json.dumps(OPT_FIXTURES)}",
+          flush=True)
+    print(f"bulk ops per warp-pass fixture: {json.dumps(BULK_FIXTURES)}",
           flush=True)
 
     t0 = time.perf_counter()
@@ -2205,8 +2514,8 @@ def main() -> int:
     record = launch_record(
         "wasm_interp", "wasmedge_tpu_torch/csrc/interp.cu",
         "wasmedge_tpu/batch/pallas_engine.py:3825",
-        main_out["fib30_none"]["op_launches"], timing["none"], worst,
-        main_out["fib30_none"]["profile"],
+        main_out["fib30_none"]["op_launches"], timing["none"],
+        max(worst, rows_worst), main_out["fib30_none"]["profile"],
         timed_launch=dict(fib_launch, retired=timing["none"]["retired"]))
     # B2 and B6: the fused kernel of fib's module, its launches in the
     # main path's fib(30) run with block_fusion None (blocks) and False
@@ -2238,7 +2547,8 @@ def main() -> int:
         "source": "wasmedge_tpu_torch/csrc/interp.cu",
         "replaces": "wasmedge_tpu/batch/pallas_engine.py:1389",
         "launches": main_out["bulk"]["bulk_launches"],
-        "max_abs_err": max(worst, bulk_timing["aligned"]["max_abs_err"],
+        "max_abs_err": max(worst, rows_worst,
+                           bulk_timing["aligned"]["max_abs_err"],
                            bulk_timing["unaligned"]["max_abs_err"]),
         "ms": bulk_timing["aligned"]["ms"],
         "plain_ms": bulk_timing["aligned"]["plain_ms"],
@@ -2249,6 +2559,12 @@ def main() -> int:
         "careful_bound_ms": bulk_timing["careful_bound_ms"],
         "unaligned_ms": bulk_timing["unaligned"]["ms"],
         "unaligned_careful_ms": bulk_timing["unaligned"]["careful_ms"],
+        # B5's warp pass: bulk ops over the timed pair's launches and the
+        # main bulk workload's run
+        "pair_bulk_ops": bulk_timing["aligned"]["bulk_ops"],
+        "main_bulk_ops": main_out["bulk"]["bulk_ops"],
+        "main_kernel_ms": main_out["bulk"]["profile"]["kernel_ms"],
+        "main_bound_ms": main_out["bulk"]["bulk_bound_ms"],
     }
     # the B7 cases of the per-op kernel (its kSimd instantiations): one
     # launch of TIMED_STEPS steps of vloop(SIMD_N) x MAIN_LANES;
@@ -2309,6 +2625,7 @@ def main() -> int:
     print(json.dumps({"phases_s": {"build": t_build, "kernel": t_kernel,
                                    "main": t_main},
                       "registers": per_op_regs, "attributes": attrs,
+                      "geometry": geometry, "bulk_fixtures": BULK_FIXTURES,
                       "builds": builds, "one_launch": timing,
                       "opt_fixtures": OPT_FIXTURES,
                       "bulk_pair": bulk_timing, "simd_launch": simd_timing,

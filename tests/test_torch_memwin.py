@@ -159,7 +159,11 @@ def test_cuda_constants_match_python():
     consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
     assert consts["WIN_ROWS"] == str(HBM_WINDOW_ROWS)
     assert consts["WIN_SENT"] == "-(1 << 30)" and SENT == -(1 << 30)
-    assert consts["WIN_THREADS"] == "128"
+    # each thread's two ways of CW words, in the launch's one-warp blocks
+    assert consts["WIN_SMEM_BYTES"] == "2 * WIN_ROWS * BLOCK_THREADS * 4"
+    src = open(os.path.join(PKG, "csrc", "interp.cu")).read()
+    assert re.search(r"constexpr int BLOCK_THREADS = (\d+);",
+                     src).group(1) == "32"
 
 
 # -- the plain interpreter with windows against it without -------------------

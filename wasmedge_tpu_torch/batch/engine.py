@@ -202,7 +202,8 @@ class BatchEngine:
         self.optimistic = optimistic_of(self.cfg.optimistic)
         self.tables = device_tables(img, self.device, fusion=self.fusion,
                                     mem_window=self.mem_window,
-                                    optimistic=self.optimistic)
+                                    optimistic=self.optimistic,
+                                    stack_depth=self.cfg.value_stack_depth)
         # per-warp state of optimistic convergence (its shadow planes are
         # allocated at the first run)
         self.warps = WarpState.new(self.lanes, self.device) \

@@ -10,9 +10,10 @@ cells are variables of straight-line code (registers, not a dynamically
 indexed array).  The source includes `csrc/interp.cu` and
 `csrc/fused.cuh`; `batch/interp.py` builds it into the module's own
 shared library.  The text depends only on the shapes, the superinstruction
-ids present and the kBulk/kSimd/kWin/kOpt flags (kWin: memory through the
+ids present, the kBulk/kSimd/kWin/kOpt flags (kWin: memory through the
 window cache, `csrc/memwin.cuh`; kOpt: optimistic convergence,
-`csrc/optimistic.cuh`), so equal modules share a build.
+`csrc/optimistic.cuh`) and whether the stack splits between shared and
+global memory (WASM_STACK_SPLIT), so equal modules share a build.
 
 What a case does, per op (its operands from the code planes at pc0 + j):
 a push names a new cell; a pop takes the top cell, or reads the row below
@@ -39,9 +40,10 @@ from wasmedge_tpu_torch.batch.interp import (
 _HEAD = """\
 // Generated by wasmedge_tpu_torch/batch/fusegen.py: the fused dispatch of
 // one module ({nblocks} block shapes, {nsuper} superinstruction ids,
-// kBulk = {bulk}, kSimd = {simd}, kWin = {win}, kOpt = {opt}).  Built into
-// _build/ at first use.
+// kBulk = {bulk}, kSimd = {simd}, kWin = {win}, kOpt = {opt}, stack split
+// {split}).  Built into _build/ at first use.
 #define WASM_FUSED_BUILD 1
+#define WASM_STACK_SPLIT {split}
 #define ALU_INLINE __forceinline__
 #include "interp.cu"
 #include "fused.cuh"
@@ -87,13 +89,16 @@ WASM_FUSED_LAUNCH({bulk}, {simd}, {win}, {opt}, Fused)
 
 
 def cuda_source(hid, shapes, bulk: bool, simd: bool,
-                win: bool = False, opt: bool = False) -> str:
+                win: bool = False, opt: bool = False,
+                split: bool = True) -> str:
     """The CUDA source of the fused dispatch for a fused hid plane and
-    its block shapes (deterministic)."""
+    its block shapes (deterministic); `split`: the build for stacks
+    deeper than the rows on chip (csrc/interp.cu WASM_STACK_SPLIT)."""
     supers = sorted({int(h) for h in hid if super_family(int(h))})
     flags = dict(bulk=str(bool(bulk)).lower(), simd=str(bool(simd)).lower(),
                  win=str(bool(win)).lower(), opt=str(bool(opt)).lower())
-    out = [_HEAD.format(nblocks=len(shapes), nsuper=len(supers), **flags)]
+    out = [_HEAD.format(nblocks=len(shapes), nsuper=len(supers),
+                        split=int(bool(split)), **flags)]
     for sid, shape in enumerate(shapes):
         out.append(_Block(shape, simd).case(H_BLOCK_BASE + sid))
     for h in supers:

@@ -19,7 +19,9 @@ fused encoding runs a kernel built for its module, `csrc/interp.cu` with
 the dispatch that `batch/fusegen.py` generates for its shapes.  With
 `mem_window` (B4) every memory access goes through each lane's window
 cache in shared memory (`csrc/memwin.cuh`; plain version
-`batch/memwin.py`) instead of the plane in global memory.  With
+`batch/memwin.py`) instead of the plane in global memory.  Every launch
+runs one-warp blocks, each lane's low stack rows in its block's shared
+memory (`block_geometry`).  With
 `optimistic` (B3) each warp that starts a launch converged runs its lane
 0's decisions, with a canary, snapshots and rollbacks
 (`csrc/optimistic.cuh`; plain version `batch/optimistic.py`), and its
@@ -203,7 +205,9 @@ class Tables:
     through each lane's window cache (B4; `batch/engine.py`
     `mem_window_of` chooses it).  `optimistic`: warps that start a launch
     converged run optimistic convergence (B3; `batch/engine.py`
-    `optimistic_of` chooses it)."""
+    `optimistic_of` chooses it).  `stack_split`: the build whose stack
+    rows at or above the rows on chip stay in global memory (the depth
+    the tables run at does not fit on chip, `stack_split()`)."""
 
     hid: torch.Tensor
     a: torch.Tensor
@@ -236,16 +240,20 @@ class Tables:
     fused_source: str = ""  # the generated CUDA of the fused dispatch
     mem_window: bool = False
     optimistic: bool = False
+    stack_split: bool = True
 
 
 def device_tables(img: DeviceImage, device, fusion: str = "none",
-                  mem_window: bool = False,
-                  optimistic: bool = False) -> Tables:
+                  mem_window: bool = False, optimistic: bool = False,
+                  stack_depth: Optional[int] = None) -> Tables:
     """The image's code tables on `device` in the encoding `fusion`:
     "none" (one op per dispatch), "blocks" (B2 fused basic blocks) or
     "super" (B6 superinstructions; images without v128 ops only); with
     `mem_window`, memory through the window cache (an image with a
-    memory); with `optimistic`, the kernel with optimistic convergence."""
+    memory); with `optimistic`, the kernel with optimistic convergence;
+    `stack_depth`, the value-stack depth the tables run at (the build
+    without the stack split when every row fits on chip, `stack_split`;
+    None: any depth)."""
     from wasmedge_tpu_torch.batch import fusegen
     from wasmedge_tpu_torch.batch.fusion import (
         fuse_blocks, fuse_image, fused_lengths)
@@ -271,7 +279,9 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
         has_bulk=bool(np.isin(hid, (H_MEMFILL, H_MEMCOPY)).any()),
         has_hostcall=bool((hid == H_HOSTCALL).any()),
         has_simd=bool(img.has_simd), fusion=fusion,
-        mem_window=bool(mem_window), optimistic=bool(optimistic))
+        mem_window=bool(mem_window), optimistic=bool(optimistic),
+        stack_split=stack_split(stack_depth, bool(img.has_simd),
+                                bool(mem_window)))
     if fusion == "none":
         return tables
     if fusion == "blocks":
@@ -291,7 +301,7 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
     tables.shapes = shapes
     tables.fused_source = fusegen.cuda_source(
         fhid, shapes, tables.has_bulk, tables.has_simd, tables.mem_window,
-        tables.optimistic)
+        tables.optimistic, tables.stack_split)
     return tables
 
 
@@ -330,10 +340,11 @@ _lib_lock = threading.Lock()
 BUILD_INFO = {"fused": {}, "per_op": {}}
 
 
-def per_op_label(win: bool, opt: bool) -> str:
-    """The name of the per-op build with or without the window cache and
-    optimistic convergence."""
-    return ("window" if win else "direct") + (", optimistic" if opt else "")
+def per_op_label(win: bool, opt: bool, split: bool = False) -> str:
+    """The name of the per-op build with or without the window cache,
+    optimistic convergence and the stack split."""
+    return ("window" if win else "direct") + (
+        ", optimistic" if opt else "") + (", split stack" if split else "")
 
 
 def _nvcc() -> str:
@@ -352,34 +363,38 @@ def _read(path) -> bytes:
 _jobs = {}
 
 
-def _defines(win: bool, opt: bool) -> tuple:
-    """The per-op build's extra nvcc flags: its window and optimistic
-    instantiations."""
-    return (f"-DWASM_MEM_WINDOW={int(win)}", f"-DWASM_OPTIMISTIC={int(opt)}")
+def _defines(win: bool, opt: bool, split: bool) -> tuple:
+    """The per-op build's extra nvcc flags: its window, optimistic and
+    stack-split instantiations."""
+    return (f"-DWASM_MEM_WINDOW={int(win)}", f"-DWASM_OPTIMISTIC={int(opt)}",
+            f"-DWASM_STACK_SPLIT={int(split)}")
 
 
-def _job(tables: Optional[Tables], win: bool = False, opt: bool = False):
+def _job(tables: Optional[Tables], win: bool = False, opt: bool = False,
+         split: bool = False):
     """(key, shared library path, source path) of the kernel that runs
     `tables`: the per-op build (tables None or of the "none" encoding;
     with the window cache when `win` or `tables.mem_window`, with
-    optimistic convergence when `opt` or `tables.optimistic`) or the
-    fused build of `tables` (its generated source goes under _build/ when
-    it is built)."""
+    optimistic convergence when `opt` or `tables.optimistic`, with the
+    stack split when `split` or `tables.stack_split`) or the fused build
+    of `tables` (its generated source goes under _build/ when it is
+    built)."""
     if tables is not None and tables.fusion == "none":
-        tables, win, opt = None, tables.mem_window, tables.optimistic
-    text = (bool(win), bool(opt)) if tables is None \
+        tables, win, opt, split = (None, tables.mem_window,
+                                   tables.optimistic, tables.stack_split)
+    text = (bool(win), bool(opt), bool(split)) if tables is None \
         else tables.fused_source
     if text not in _jobs:
-        _jobs[text] = _new_job(tables, win, opt)
+        _jobs[text] = _new_job(tables, win, opt, split)
     return _jobs[text]
 
 
-def _new_job(tables: Optional[Tables], win: bool, opt: bool):
+def _new_job(tables: Optional[Tables], win: bool, opt: bool, split: bool):
     flags = " ".join(NVCC_FLAGS).encode()
     srcs = _read(_SRC) + _read(_WIN_HDR) + _read(_OPT_HDR)
     if tables is None:
         key = hashlib.sha256(
-            srcs + flags + " ".join(_defines(win, opt)).encode()) \
+            srcs + flags + " ".join(_defines(win, opt, split)).encode()) \
             .hexdigest()[:16]
         return key, os.path.join(_BUILD_DIR, f"libinterp_{key}.so"), _SRC
     src = tables.fused_source.encode()
@@ -389,10 +404,11 @@ def _new_job(tables: Optional[Tables], win: bool, opt: bool):
     return key, os.path.join(_BUILD_DIR, f"libfused_{key}.so"), cu
 
 
-def build_kernels(tables_list=(), per_op=((False, False),)) -> dict:
+def build_kernels(tables_list=(), per_op=((False, False, False),)) -> dict:
     """Build, all nvcc processes at once, the per-op kernel
     (`csrc/interp.cu`, four instantiations, a library for each (window,
-    optimistic) pair in `per_op` and for each per-op `Tables` given) and
+    optimistic, stack split) triple in `per_op` and for each per-op
+    `Tables` given) and
     the fused kernel of each fused `Tables` given (`csrc/interp.cu` with
     `csrc/fused.cuh` and the generated dispatch of its blocks or
     superinstructions, one instantiation), each into a shared library
@@ -402,19 +418,19 @@ def build_kernels(tables_list=(), per_op=((False, False),)) -> dict:
     with _lib_lock:
         os.makedirs(_BUILD_DIR, exist_ok=True)
         jobs = {}
-        pairs = {(bool(w), bool(o)) for w, o in per_op}
+        triples = {(bool(w), bool(o), bool(x)) for w, o, x in per_op}
         for tb in tables_list:
             if tb.fusion == "none":
-                pairs.add((tb.mem_window, tb.optimistic))
-        for win, opt in sorted(pairs):
-            key, so, src = _job(None, win, opt)
-            jobs[key] = (so, src, None, (win, opt))
+                triples.add((tb.mem_window, tb.optimistic, tb.stack_split))
+        for win, opt, split in sorted(triples):
+            key, so, src = _job(None, win, opt, split)
+            jobs[key] = (so, src, None, (win, opt, split))
         for tb in tables_list:
             if tb.fusion == "none":
                 continue  # one of the per-op builds above
             key, so, src = _job(tb)
-            jobs.setdefault(key, (so, src, tb,
-                                  (tb.mem_window, tb.optimistic)))
+            jobs.setdefault(key, (so, src, tb, (tb.mem_window, tb.optimistic,
+                                                tb.stack_split)))
         procs = {}
         for key, (so, src, tb, flags) in jobs.items():
             if key in _libs or os.path.exists(so):
@@ -472,7 +488,8 @@ def build_kernels(tables_list=(), per_op=((False, False),)) -> dict:
                 BUILD_INFO["fused"].setdefault(key, {"path": so}).update(
                     fusion=tb.fusion, shapes=len(tb.shapes),
                     mean_len=float(np.mean(n_ops)) if n_ops else 0.0,
-                    mem_window=bool(flags[0]), optimistic=bool(flags[1]))
+                    mem_window=bool(flags[0]), optimistic=bool(flags[1]),
+                    stack_split=bool(flags[2]))
             else:
                 BUILD_INFO["per_op"].setdefault(
                     per_op_label(*flags), {}).setdefault("path", so)
@@ -483,9 +500,48 @@ def build_kernels(tables_list=(), per_op=((False, False),)) -> dict:
         return {key: _libs[key] for key in jobs}
 
 
+# The launch geometry (csrc/interp.cu): threads per block (one warp), the
+# shared memory a block may use on an H100 (opt-in), what is kept for
+# static shared memory, the most stack rows kept on chip, and the window
+# cache's bytes per block (csrc/memwin.cuh: two ways of HBM_WINDOW_ROWS
+# words per thread).
+BLOCK_THREADS = 32
+SMEM_BLOCK_MAX = 232448
+SMEM_STATIC = 1024
+STACK_ROWS_MAX = 512
+WIN_SMEM_BYTES = 2 * HBM_WINDOW_ROWS * BLOCK_THREADS * 4
+
+
+def stack_split(depth: Optional[int], simd: bool, win: bool) -> bool:
+    """Whether a launch at value-stack depth `depth` needs the build that
+    splits the stack between shared and global memory (csrc/interp.cu
+    WASM_STACK_SPLIT): its rows do not all fit on chip (None: any
+    depth)."""
+    return depth is None or \
+        block_geometry(depth, simd, win)["stack_rows"] < depth
+
+
+def block_geometry(depth: int, simd: bool, win: bool) -> dict:
+    """What a launch at value-stack depth `depth` asks for (csrc/interp.cu
+    `stack_rows` / `block_smem`, the same rule): threads per block, the
+    stack rows each lane keeps in shared memory ("stack_rows": the lowest
+    rows of its 2 stack planes, 4 with v128 cells, up to what the budget
+    left after the windows holds, in whole 32-row steps, and at most
+    STACK_ROWS_MAX), and the dynamic shared bytes per block (windows, then
+    stack rows)."""
+    planes = 4 if simd else 2
+    win_bytes = WIN_SMEM_BYTES if win else 0
+    budget = SMEM_BLOCK_MAX - SMEM_STATIC - win_bytes
+    rows = min((budget // (planes * 4 * BLOCK_THREADS)) & ~31, STACK_ROWS_MAX)
+    rows = min(max(int(depth), 0), rows)
+    return {"threads_per_block": BLOCK_THREADS, "stack_rows": rows,
+            "smem_bytes": win_bytes + rows * planes * 4 * BLOCK_THREADS}
+
+
 KERNEL_ATTRS = ("registers", "local_bytes", "static_smem_bytes",
                 "max_dynamic_smem_bytes", "launch_smem_bytes",
-                "blocks_per_sm")
+                "blocks_per_sm", "threads_per_block", "stack_rows",
+                "stack_split")
 
 
 def _attrs(fn, *args) -> dict:
@@ -496,27 +552,60 @@ def _attrs(fn, *args) -> dict:
     return dict(zip(KERNEL_ATTRS, list(out)))
 
 
-def kernel_attributes(tables: Tables) -> dict:
+def kernel_attributes(tables: Tables, depth: int) -> dict:
     """What the CUDA runtime reports of the instantiation that runs
-    `tables` (built if need be), with the shared memory its launch asks
-    for: `KERNEL_ATTRS`, the last the 128-thread blocks that fit on one
-    SM."""
+    `tables` (built if need be), with the shared memory of its launch at
+    value-stack depth `depth`: `KERNEL_ATTRS` (blocks per SM: of one warp;
+    the last three from the kernel's own geometry and build)."""
     key = _job(tables)[0]
     lib = _libs.get(key) or build_kernels([tables])[key]
     if tables.fusion != "none":
-        return _attrs(lib.wasm_fused_attrs)
+        return _attrs(lib.wasm_fused_attrs, int(depth))
     return _attrs(lib.wasm_interp_attrs, int(tables.has_bulk),
-                  int(tables.has_simd))
+                  int(tables.has_simd), int(depth))
 
 
-def per_op_attributes(win: bool, opt: bool = False) -> dict:
+def per_op_attributes(win: bool, opt: bool = False, depth: int = 256,
+                      split: bool = False) -> dict:
     """`kernel_attributes` of the four instantiations of the per-op build
     (with the window cache when `win`, with optimistic convergence when
-    `opt`), keyed "kBulk=b, kSimd=s"."""
-    key = _job(None, win, opt)[0]
-    lib = _libs.get(key) or build_kernels(per_op=((win, opt),))[key]
-    return {f"kBulk={b}, kSimd={s}": _attrs(lib.wasm_interp_attrs, b, s)
+    `opt`, with the stack split when `split`) at value-stack depth
+    `depth`, keyed "kBulk=b, kSimd=s"."""
+    key = _job(None, win, opt, split)[0]
+    lib = _libs.get(key) or build_kernels(per_op=((win, opt, split),))[key]
+    return {f"kBulk={b}, kSimd={s}": _attrs(lib.wasm_interp_attrs, b, s,
+                                            int(depth))
             for b in (0, 1) for s in (0, 1)}
+
+
+def _bulk_counts(lib, clear: bool) -> list:
+    out = (ctypes.c_ulonglong * 3)()
+    fn = lib.wasm_bulk_counts
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    err = fn(out, int(clear))
+    if err != 0:
+        raise RuntimeError(f"bulk counts: CUDA error {err}")
+    return list(out)
+
+
+def bulk_counts(tables: Tables, clear: bool = False) -> dict:
+    """The bulk-op counts of the library that runs `tables` (built if need
+    be) since they were last cleared: "warp_passes" (memory.fill /
+    memory.copy groups that the warp-cooperative row pass ran),
+    "warp_lanes" (the lanes in them) and "lane_walks" (lanes that walked
+    their own column: alone in their group, or in a warp with fewer than
+    8 threads at the op); set to 0 after the read when `clear`."""
+    key = _job(tables)[0]
+    lib = _libs.get(key) or build_kernels([tables])[key]
+    return dict(zip(("warp_passes", "warp_lanes", "lane_walks"),
+                    _bulk_counts(lib, clear)))
+
+
+def clear_bulk_counts() -> None:
+    """Set the bulk-op counts of every loaded library to 0."""
+    for lib in _libs.values():
+        _bulk_counts(lib, True)
 
 
 def fused_kernel_key(tables: Tables) -> str:

@@ -25,11 +25,11 @@
 // the commit, as an out-of-bounds access exits it with its trap.
 //
 // What bounds the per-op loop on the H100 is the latency of the dependent
-// global-memory accesses each instruction makes (the hid load, operand
-// rows, the result row) with 4 warps on each of 32 SMs at 4096 lanes
-// (128-thread blocks; 100 of the 132 SMs idle).  A fused dispatch pays
-// the loop's bookkeeping (pc clamp, hid load, fuel, trap check) once per
-// block and keeps the stack traffic between a block's ops in registers.
+// accesses each instruction makes (the hid load, operand rows, the result
+// row; the low stack rows in shared memory, interp.cu `Lane`), one warp
+// per SM at 4096 lanes.  A fused dispatch pays the loop's bookkeeping (pc
+// clamp, hid load, fuel, trap check) once per block and keeps the stack
+// traffic between a block's ops in registers.
 //
 // Semantics kept exact (batch/interp_ref.py is the plain version):
 //  - a fused dispatch runs only when the lane's remaining steps in the
@@ -200,7 +200,7 @@ int fused_launch(const Params& p, int bulk, int simd, int win, int opt,
 // The module's C entries: wasm_interp_launch's arguments, with the fused
 // tables (hid0, flen and the superinstructions' operand planes, null for
 // blocks) before the optimistic ones; and interp.cu's kernel_attrs of its
-// one instantiation.
+// one instantiation at depth D.
 #define WASM_FUSED_LAUNCH(KBULK, KSIMD, KWIN, KOPT, FUSED)                     \
   extern "C" int wasm_fused_launch(                                            \
       const int* hid, const int* a, const int* b, const int* c,                \
@@ -231,6 +231,6 @@ int fused_launch(const Params& p, int bulk, int simd, int win, int opt,
     return fused_launch<KBULK, KSIMD, KWIN, KOPT, FUSED>(p, bulk, simd, win,  \
                                                          opt, stream);         \
   }                                                                            \
-  extern "C" int wasm_fused_attrs(int* out) {                                  \
-    return kernel_attrs<KBULK, KSIMD, FUSED, KWIN, KOPT>(out);                 \
+  extern "C" int wasm_fused_attrs(int D, int* out) {                           \
+    return kernel_attrs<KBULK, KSIMD, FUSED, KWIN, KOPT>(D, out);              \
   }

@@ -20,17 +20,22 @@
 // State planes keep the reference layout, lane fastest ([rows, lanes]
 // int32), so the lanes of a converged warp touch one 128-byte row per
 // access: the GPU form of the TPU's uniform-address fast path.  What
-// bounds it on this card is the latency of the dependent global-memory
-// accesses each instruction makes (handler id, operands, result), not
-// bandwidth: every launch runs 128-thread blocks, so 4096 lanes are 32
-// blocks, 4 warps on each of 32 SMs, and 100 of the H100's 132 SMs idle.
+// bounds it on this card is the latency of the dependent accesses each
+// instruction makes (handler id, operands, result), not bandwidth.  Every
+// launch runs one-warp blocks (BLOCK_THREADS), so 4096 lanes are 128
+// blocks on 128 of the H100's 132 SMs, and the lowest R rows of each
+// lane's value stack live in its block's shared memory for the whole
+// launch (Lane), as the Pallas kernel keeps a lane block's stack in VMEM:
+// an instruction's result reaches the next one through shared memory,
+// not through a global store and a dependent global load.  R follows
+// from the depth D (stack_rows); rows at or above R stay in the [D, L]
+// planes.
 //
 // Linear memory (kWin, B4, memwin.cuh): with the window cache on, each
 // lane's loads and stores go through two windows of 128 words of its
-// memory column in shared memory (128 KiB per block, one block per SM at
-// 4096 lanes), filled from and written back to the [W, L] plane; without
-// it they read and write the plane directly.  The value stack stays in
-// global memory.
+// memory column in shared memory (32 KiB per block, before the stack
+// rows), filled from and written back to the [W, L] plane; without it
+// they read and write the plane directly.
 //
 // Host calls: a lane at a HOSTCALL stub parks (trap = TRAP_HOSTCALL, pc
 // left at the stub); the host serves it between launches and re-arms it
@@ -50,15 +55,12 @@
 // and scalar floats give the same bits.  v128.load / v128.store read a
 // five-word window of the lane's memory column shifted by (ea & 3) * 8.
 //
-// memory.fill / memory.copy run one lane per thread over the lane's own
-// column of mem[W, L], a word per step, so the lanes of a converged warp
-// write one 128-byte row per step.  The work is bounded by bytes (each
-// byte filled is written once, each byte copied read and written once),
-// but with one thread per lane 4096 lanes make 4 warps on each of 32 SMs,
-// so the loop runs far above that bound (PERF.md).  It keeps eight words in
-// flight per thread, reading all eight sources before it writes, which
-// is safe for memmove because a copy walks away from the bytes it has
-// not read yet (backward when dst > src).
+// memory.fill / memory.copy (B5) run as a warp-cooperative row pass
+// (bulk_op): the lanes of a warp at the op together form groups as the
+// TPU kernel's agree rule does, and each group's rows are moved 16 bytes
+// a thread by every thread at the op, under per-lane byte masks.  The
+// work is bounded by bytes (each byte filled is written once, each byte
+// copied read and written once).
 //
 // Optimistic convergence (kOpt, B3, optimistic.cuh): a warp whose lanes
 // start a launch converged takes lane 0's decision at every branch,
@@ -75,6 +77,7 @@
 // INT_MIN / -1 and division by zero are caught before dividing.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -246,7 +249,25 @@ struct Params {
   i32* sh_ghi;
   i32* sh_mem;
   int snap_max;
+  // stack rows on chip (Lane): set by the launch from D, kSimd and kWin
+  int srows;
 };
+
+// Threads per block of every launch: one warp, so that 4096 lanes are 128
+// blocks on 128 of the H100's 132 SMs in one wave.
+constexpr int BLOCK_THREADS = 32;
+
+// WASM_STACK_SPLIT 0: a build for depths whose every stack row fits on
+// chip (D <= the rows the block's shared memory holds, stack_rows), whose
+// stack accesses have no compare and no global path: on an H100 the
+// compare cost fib(30) x 4096 a sixth of its time (PERF.md); a launch at
+// a deeper stack is refused.  1: rows at or above R stay in global
+// memory.  The wrapper picks the build from the engine's depth
+// (batch/interp.py `stack_split`).
+#ifndef WASM_STACK_SPLIT
+#define WASM_STACK_SPLIT 1
+#endif
+constexpr bool kStackSplit = WASM_STACK_SPLIT != 0;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -1126,29 +1147,89 @@ __device__ __forceinline__ V4 vreplace_op(int sub, const V4& x, int lane,
 // ---------------------------------------------------------------------------
 // The interpreter
 // ---------------------------------------------------------------------------
-// Access to one lane's column of the [rows, L] planes, rows clamped into
-// the plane as the reference's gathers and scatters clamp them.  Holds
-// copies of the pointers (never a reference to the kernel parameters, so
-// they stay in the constant bank).  With kSimd a stack cell is four words
-// (lo, hi, e2, e3) and `Cell` is the whole cell; without it, 64 bits.
+// Rows [0, n) of one lane's column from src (stride ss words) to dst
+// (stride ds), up to 16 loads in flight.  Out of line: it runs at a
+// launch's entry and exit and at B3's snapshots, and the dispatch loop
+// keeps its registers.
+__device__ __noinline__ void copy_rows(i32* dst, int ds, const i32* src,
+                                       int ss, int n) {
+  constexpr int kGroup = 16;
+  int r = 0;
+  for (; r + kGroup <= n; r += kGroup) {
+    i32 v[kGroup];
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) v[k] = src[(size_t)(r + k) * ss];
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) dst[(size_t)(r + k) * ds] = v[k];
+  }
+  for (; r < n; ++r) dst[(size_t)r * ds] = src[(size_t)r * ss];
+}
+
+// Access to one lane's value stack, rows clamped into the plane as the
+// reference's gathers and scatters clamp them.  The lowest R rows of each
+// stack plane (lo and hi, and e2 and e3 with kSimd) live in the block's
+// dynamic shared memory for the whole launch, as the Pallas kernel keeps
+// a lane block's stack in VMEM scratch (pallas_engine.py :805-815): word
+// (row r, plane k) of this thread at sm[r * kRow + k * BLOCK_THREADS], so
+// a cell's words sit at fixed offsets from one address and each thread
+// in its own bank whatever rows the lanes of the warp use.  Rows at or
+// above R stay in the [D, L] planes in global memory, where one compare
+// picks the place; a build for depths that fit wholly on chip
+// (kStackSplit false) compiles neither.  `enter` loads the rows below the lane's sp (the rows a
+// launch can read before it writes them: a push writes its row, a call
+// zeroes its locals); the dispatch loop `note`s the sp after every
+// instruction (with a fuel trap, the sp the instruction would have left),
+// above which it never writes, so rows [0, hw) hold every row it wrote
+// and no row it neither loaded nor wrote; `leave` writes them back, and
+// the planes after a launch hold what the global-memory kernel leaves,
+// dead rows included.  Holds copies of the pointers (never a reference to
+// the kernel parameters, so they stay in the constant bank).  With kSimd
+// a stack cell is four words (lo, hi, e2, e3) and `Cell` is the whole
+// cell; without it, 64 bits.
 template <bool kSimd>
 struct Lane {
+  static constexpr int kPlanes = kSimd ? 4 : 2;
+  static constexpr int kRow = kPlanes * BLOCK_THREADS;  // words a row
   i32* lo;
   i32* hi;
   i32* e2;
   i32* e3;
-  int L, D, lane;
+  i32* sm;  // this thread's word of on-chip row 0, plane 0
+  int L, D, lane, R;
+  mutable int hw;  // on-chip rows [0, hw) to write back
   using Cell = typename std::conditional<kSimd, V4, u64>::type;
+
+  // a [rows, L] plane's index of this lane's row (frames, globals)
   __device__ __forceinline__ size_t at(int row, int rows) const {
     return (size_t)clampi(row, 0, rows - 1) * (size_t)L + (size_t)lane;
   }
+  __device__ __forceinline__ i32* plane(int k) const {
+    return k == 0 ? lo : k == 1 ? hi : k == 2 ? e2 : e3;
+  }
+  __device__ __forceinline__ void note(int sp) const { hw = max(hw, sp); }
   __device__ __forceinline__ u64 get(int row) const {
-    const size_t i = at(row, D);
+    const int r = clampi(row, 0, D - 1);
+    if (!kStackSplit || r < R) {
+      const i32* w = sm + r * kRow;
+      return pack(w[0], w[BLOCK_THREADS]);
+    }
+    const size_t i = (size_t)r * (size_t)L + (size_t)lane;
     return pack(lo[i], hi[i]);
   }
   // a scalar write: zeroes e2 and e3 of a four-word cell
   __device__ __forceinline__ void put(int row, u64 v) const {
-    const size_t i = at(row, D);
+    const int r = clampi(row, 0, D - 1);
+    if (!kStackSplit || r < R) {
+      i32* w = sm + r * kRow;
+      w[0] = lo32(v);
+      w[BLOCK_THREADS] = hi32(v);
+      if constexpr (kSimd) {
+        w[2 * BLOCK_THREADS] = 0;
+        w[3 * BLOCK_THREADS] = 0;
+      }
+      return;
+    }
+    const size_t i = (size_t)r * (size_t)L + (size_t)lane;
     lo[i] = lo32(v);
     hi[i] = hi32(v);
     if constexpr (kSimd) {
@@ -1157,11 +1238,26 @@ struct Lane {
     }
   }
   __device__ __forceinline__ V4 get4(int row) const {
-    const size_t i = at(row, D);
+    const int r = clampi(row, 0, D - 1);
+    if (!kStackSplit || r < R) {
+      const i32* w = sm + r * kRow;
+      return V4{{(u32)w[0], (u32)w[BLOCK_THREADS], (u32)w[2 * BLOCK_THREADS],
+                 (u32)w[3 * BLOCK_THREADS]}};
+    }
+    const size_t i = (size_t)r * (size_t)L + (size_t)lane;
     return V4{{(u32)lo[i], (u32)hi[i], (u32)e2[i], (u32)e3[i]}};
   }
   __device__ __forceinline__ void put4(int row, const V4& v) const {
-    const size_t i = at(row, D);
+    const int r = clampi(row, 0, D - 1);
+    if (!kStackSplit || r < R) {
+      i32* w = sm + r * kRow;
+      w[0] = (i32)v.w[0];
+      w[BLOCK_THREADS] = (i32)v.w[1];
+      w[2 * BLOCK_THREADS] = (i32)v.w[2];
+      w[3 * BLOCK_THREADS] = (i32)v.w[3];
+      return;
+    }
+    const size_t i = (size_t)r * (size_t)L + (size_t)lane;
     lo[i] = (i32)v.w[0];
     hi[i] = (i32)v.w[1];
     e2[i] = (i32)v.w[2];
@@ -1173,6 +1269,38 @@ struct Lane {
   }
   __device__ __forceinline__ void putc(int row, const Cell& v) const {
     if constexpr (kSimd) put4(row, v); else put(row, v);
+  }
+  // the launch's entry: the on-chip rows below sp from the planes
+  __device__ __forceinline__ void enter(int sp) const {
+    const int n = min(clampi(sp, 0, D), R);
+    for (int k = 0; k < kPlanes; ++k)
+      copy_rows(sm + k * BLOCK_THREADS, kRow, plane(k) + lane, L, n);
+  }
+  // the launch's exit: on-chip rows [0, hw) back to the planes
+  __device__ __forceinline__ void leave() const {
+    const int n = min(hw, R);
+    for (int k = 0; k < kPlanes; ++k)
+      copy_rows(plane(k) + lane, L, sm + k * BLOCK_THREADS, kRow, n);
+  }
+  // rows [0, n) of every stack plane to (save) or from (restore) the
+  // [D, L] shadow planes sh[k] of a B3 snapshot
+  __device__ __forceinline__ void snap(i32* const (&sh)[4], int n,
+                                       bool restore) const {
+    const int nc = min(n, R);
+    for (int k = 0; k < kPlanes; ++k) {
+      i32* const s = sh[k] + lane;
+      i32* const on = sm + k * BLOCK_THREADS;
+      i32* const g = plane(k) + lane;
+      const size_t off = (size_t)nc * L;
+      if (restore) {
+        copy_rows(on, kRow, s, L, nc);
+        copy_rows(g + off, L, s + off, L, n - nc);
+      } else {
+        copy_rows(s, L, on, kRow, nc);
+        copy_rows(s + off, L, g + off, L, n - nc);
+      }
+    }
+    if (restore) note(n);
   }
 };
 
@@ -1192,11 +1320,13 @@ namespace {
 // forward copy (src > dst) reads words at or above the ones it writes, a
 // backward copy (dst > src) words at or below them, and words already
 // written lie behind the walk, so every source byte is read before it is
-// overwritten (memmove).
-constexpr int BULK_GROUP = 8;
+// overwritten (memmove).  The per-lane walk: a lane alone in its group
+// (below), or a warp with fewer than 8 threads at the op.
+constexpr int BULK_GROUP = 16;
 
-__device__ void bulk_fill_copy(i32* mem, int L, int W, int lane, u32 dst,
-                               u32 end, u32 v, bool copy) {
+__device__ __noinline__ void bulk_fill_copy(i32* mem, int L, int W, int lane,
+                                            u32 dst, u32 end, u32 v,
+                                            bool copy) {
   const int w0 = (int)(dst >> 2), w1 = (int)((end - 1u) >> 2);
   const int wlast = w1 < W - 1 ? w1 : W - 1;
   if (w0 > wlast) return;
@@ -1238,6 +1368,274 @@ __device__ void bulk_fill_copy(i32* mem, int L, int W, int lane, u32 dst,
       *cell = m == 0xFFFFFFFFu ? (i32)val[j]
                                : (i32)(((u32)*cell & ~m) | (val[j] & m));
     }
+  }
+}
+
+// The warp-cooperative row pass (h_memfill / h_memcopy's row form,
+// pallas_engine.py :1389-1518).  The lanes of a warp that are at a bulk
+// op together (__activemask) form groups as the reference's agree rule
+// does (:1459-1468): every fill is one group, each lane with its own dst,
+// end and byte; copies group by src - dst (__match_any_sync), one pass per
+// distinct delta; a lane out of bounds or with n == 0 joins none.  A pass
+// walks the union of its lanes' rows, forward or backward by the sign of
+// the delta as the per-lane walk does, with every present thread of the
+// warp as a worker: a thread moves 16 bytes per access (4 adjacent lanes
+// of one row, a "quad"; 8 threads cover the warp's 128-byte row), K rows
+// of one quad per step, all of a step's source rows read (K + 1 of them:
+// a shifted copy's second word is the next row's first) before a
+// __syncwarp and its rows written after it.  Each lane's byte masks and
+// fill byte apply per element; a word of a lane outside the group is never
+// written (that lane may be running another path of the warp at the same
+// time), so a quad that is not whole in the group, or whose words are
+// not all whole, is stored word by word, and a partial word byte by byte
+// (no read of the old word).  Planes whose rows are not 16-byte aligned
+// (L % 4 != 0) read word by word too.  Source reads of a step lie at or
+// beyond its own rows in the walk's direction and every earlier step
+// wrote rows behind it, so each source byte is read before it is
+// overwritten, as in memmove.
+//
+// What bounds it is bytes; with one warp per block (BLOCK_THREADS) each
+// SM runs one warp, so the rows a step keeps in flight (K per thread,
+// 32 threads) set how near the pass comes to the HBM rate.
+constexpr int BULK_ROWS = 16;  // K: rows of one quad per thread per step
+
+// Counts of the bulk ops since they were last read and cleared: warp
+// passes, lanes that took one, and per-lane walks.
+__device__ unsigned long long g_bulk_counts[3];
+
+// The byte mask of the lane's word at row r, [w0, w1] its words.
+__device__ __forceinline__ u32 bulk_mask(int r, int w0, int w1, u32 head,
+                                         u32 tail) {
+  if (r < w0 || r > w1) return 0u;
+  u32 m = 0xFFFFFFFFu;
+  if (r == w0) m &= head;
+  if (r == w1) m &= tail;
+  return m;
+}
+
+// Words j of a quad that are in `qb` (all four as one 16-byte access when
+// `vec`) from the row starting at q.
+__device__ __forceinline__ void bulk_load(const i32* q, unsigned qb, bool vec,
+                                          u32 (&out)[4]) {
+  if (vec) {
+    const int4 v = *reinterpret_cast<const int4*>(q);
+    out[0] = (u32)v.x;
+    out[1] = (u32)v.y;
+    out[2] = (u32)v.z;
+    out[3] = (u32)v.w;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[j] = (qb >> j) & 1u ? (u32)q[j] : 0u;
+}
+
+// The quad's words under their masks: one 16-byte store when all four
+// are whole and in the group, else word by word, a partial word byte by
+// byte, a word outside the group or its lane's range not at all.
+__device__ __forceinline__ void bulk_store(i32* q, unsigned qb, bool vec,
+                                           const u32 (&val)[4],
+                                           const u32 (&m)[4]) {
+  if (vec && qb == 15u && (m[0] & m[1] & m[2] & m[3]) == 0xFFFFFFFFu) {
+    *reinterpret_cast<int4*>(q) =
+        make_int4((int)val[0], (int)val[1], (int)val[2], (int)val[3]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (m[j] == 0u) continue;
+    if (m[j] == 0xFFFFFFFFu) {
+      q[j] = (i32)val[j];
+      continue;
+    }
+    unsigned char* b = reinterpret_cast<unsigned char*>(q + j);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if ((m[j] >> (8 * k)) & 0xFFu) b[k] = (unsigned char)(val[j] >> (8 * k));
+  }
+}
+
+// One pass over rows [R0, R1] of the warp's columns for the lanes in
+// `grp` (kMode 0: fill; 1: copy by a delta d that is a multiple of 4; 2:
+// copy by any other d), run by every thread of `act` (at least 8);
+// tab[0..2][t]: lane t's dst, end and fill value or source.  A step whose
+// K rows of the quad lie whole inside the ranges of its lanes in the
+// group, in a plane of 16-byte rows, with every source row inside the
+// plane, runs as K plain 16-byte loads and 16-byte stores (4-byte stores
+// of the group's words when the quad is not whole in the group) one row
+// apart: the bulk of a long op.  Any other step goes row by row through
+// the masks and clamps.
+template <int kMode>
+__device__ __noinline__ void bulk_rows(i32* mem, int L, int W, int wbase,
+                                       unsigned act, unsigned grp, i32 d,
+                                       int R0, int R1,
+                                       const u32 (*tab)[BLOCK_THREADS]) {
+  constexpr int K = BULK_ROWS;
+  const int tid = threadIdx.x;
+  const int rank = __popc(act & ((1u << tid) - 1u));
+  const int G = __popc(act) >> 3;  // row groups of 8 workers
+  const int q = rank & 7, g = rank >> 3;
+  const unsigned qb = rank < 8 * G ? (grp >> (4 * q)) & 15u : 0u;
+  const bool vec = ((size_t)mem & 15u) == 0 && (L & 3) == 0;
+  const bool back = kMode != 0 && d < 0;
+  const int dr = back ? -1 : 1;  // the walk's direction in rows
+  const u32 sh = (u32)(d & 3) * 8u;
+  int w0[4], w1[4];
+  int wlo = INT_MIN, whi = INT_MAX;  // rows whole in the quad's group lanes
+  u32 head[4], tail[4], fw[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int t = 4 * q + j;
+    const u32 dst = tab[0][t], end = tab[1][t];
+    const bool in = (qb >> j) & 1u;
+    w0[j] = in ? (int)(dst >> 2) : 1;
+    w1[j] = in ? (int)((end - 1u) >> 2) : 0;  // w0 > w1: no row
+    head[j] = 0xFFFFFFFFu << ((dst & 3u) * 8u);
+    tail[j] = 0xFFFFFFFFu >> ((3u - ((end - 1u) & 3u)) * 8u);
+    fw[j] = (tab[2][t] & 0xFFu) * 0x01010101u;
+    wlo = max(wlo, in ? w0[j] + ((dst & 3u) != 0u) : INT_MIN);
+    whi = min(whi, in ? w1[j] - ((end & 3u) != 0u) : INT_MAX);
+  }
+  i32* const col = mem + wbase + 4 * q;
+  const size_t stride = back ? (size_t)0 - (size_t)L : (size_t)L;
+  const int nrows = R1 - R0 + 1;
+  for (int base = 0; base < nrows; base += G * K) {
+    const int r0 = base + g * K;  // this thread's first row, in walk order
+    const int rf = back ? R1 - r0 : R0 + r0;  // its row
+    const int rl = rf + dr * (K - 1);
+    // the source row of the first position (rows advance with the walk)
+    const int sf = (i32)((u32)rf * 4u + (u32)d) >> 2;
+    const bool whole = vec && qb != 0u && r0 + K <= nrows &&
+                       min(rf, rl) >= wlo && max(rf, rl) <= whi &&
+                       (kMode == 0 || (min(sf, sf + dr * K) >= 0 &&
+                                       max(sf - dr, sf + dr * K) <= W - 1));
+    // src[k + 1]: the first source word of walk position k, k in [-1, K]
+    u32 src[K + 2][4];
+    if (kMode != 0 && qb != 0u) {
+#pragma unroll
+      for (int k = -1; k <= K; ++k) {
+        // a shifted copy also reads the row after its last (forward) or
+        // before its first (backward), the second word of its edge row
+        const bool need = kMode == 1 ? k >= 0 && k < K
+                        : back ? k < K : k >= 0;
+        if (!need) continue;
+        if (whole) {
+          bulk_load(col + (size_t)sf * L + (size_t)k * stride, qb, true,
+                    src[k + 1]);
+          continue;
+        }
+        const int off = r0 + k;
+        if (off > nrows || (kMode == 1 && off >= nrows)) continue;
+        const int r = back ? R1 - off : R0 + off;
+        const int swi = (i32)((u32)r * 4u + (u32)d) >> 2;
+        bulk_load(col + (size_t)clampi(swi, 0, W - 1) * L, qb, vec,
+                  src[k + 1]);
+      }
+    }
+    __syncwarp(act);
+    // the word of walk position k for lane j of the quad (a shifted
+    // copy's second source word is the next position's first forward, the
+    // previous position's backward)
+    auto value = [&](int k, int j) -> u32 {
+      if (kMode == 0) return fw[j];
+      if (kMode == 1) return src[k + 1][j];
+      const u32 s1 = back ? src[k][j] : src[k + 2][j];
+      return (src[k + 1][j] >> sh) | (s1 << (32u - sh));
+    };
+    if (whole && qb == 15u) {
+      // a quad whole in the group: 16 bytes a row
+      i32* row = col + (size_t)rf * L;
+#pragma unroll
+      for (int k = 0; k < K; ++k, row += stride)
+        *reinterpret_cast<int4*>(row) =
+            make_int4((int)value(k, 0), (int)value(k, 1), (int)value(k, 2),
+                      (int)value(k, 3));
+    } else if (whole) {
+      // the group's words of the quad
+      i32* row = col + (size_t)rf * L;
+#pragma unroll
+      for (int k = 0; k < K; ++k, row += stride) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if ((qb >> j) & 1u) row[j] = (i32)value(k, j);
+      }
+    } else if (qb != 0u) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int off = r0 + k;
+        if (off >= nrows) break;
+        const int r = back ? R1 - off : R0 + off;
+        u32 val[4], m[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          m[j] = bulk_mask(r, w0[j], w1[j], head[j], tail[j]);
+          val[j] = value(k, j);
+        }
+        bulk_store(col + (size_t)r * L, qb, vec, val, m);
+      }
+    }
+    __syncwarp(act);
+  }
+}
+
+// memory.fill / memory.copy of the threads of the warp at a bulk op:
+// every thread of `act` calls it, `part` false for a lane that traps or
+// has n == 0.  The windows of every lane have been written back.
+__device__ void bulk_op(i32* mem, int L, int W, int lane, unsigned act,
+                        u32 dst, u32 end, u32 v, bool copy, bool part) {
+  __shared__ u32 tab[3][BLOCK_THREADS];
+  const int tid = threadIdx.x;
+  if (__popc(act) < 8) {
+    // too few threads for a row of quads: each lane walks its column
+    if (part) {
+      bulk_fill_copy(mem, L, W, lane, dst, end, v, copy);
+      atomicAdd(&g_bulk_counts[2], 1ull);
+    }
+    return;
+  }
+  tab[0][tid] = dst;
+  tab[1][tid] = end;
+  tab[2][tid] = v;
+  const unsigned long long key =
+      !part ? 1ull << 33 : copy ? (unsigned long long)(v - dst) : 1ull << 32;
+  const unsigned mine = __match_any_sync(act, key);
+  unsigned todo = __ballot_sync(act, part);
+  // the windows written back and the table before any thread reads
+  // another lane's column or entry
+  __syncwarp(act);
+  const int w_lo = (int)(dst >> 2);
+  const int w_hi = min((int)((end - 1u) >> 2), W - 1);
+  while (todo != 0u) {
+    const int leader = __ffs(todo) - 1;
+    const unsigned grp = __shfl_sync(act, mine, leader);
+    todo &= ~grp;
+    const bool in = (grp >> tid) & 1u;
+    const int R0 = __reduce_min_sync(act, in ? w_lo : INT_MAX);
+    const int R1 = __reduce_max_sync(act, in ? w_hi : -1);
+    const i32 d = (i32)__shfl_sync(act, v - dst, leader);
+    const bool gcopy = __shfl_sync(act, (int)copy, leader) != 0;
+    // a source address of the walk that leaves the int32 range (never in
+    // a plane of a real size) keeps the per-lane walk
+    const bool wraps = gcopy && ((long long)R0 * 4 + d < INT_MIN ||
+                                 (long long)R1 * 4 + 4 + d > INT_MAX);
+    if (__popc(grp) == 1 || wraps) {
+      if (in) {
+        bulk_fill_copy(mem, L, W, lane, dst, end, v, copy);
+        atomicAdd(&g_bulk_counts[2], 1ull);
+      }
+    } else if (R0 <= R1) {
+      const int wbase = lane - tid;
+      if (!gcopy)
+        bulk_rows<0>(mem, L, W, wbase, act, grp, d, R0, R1, tab);
+      else if ((d & 3) == 0)
+        bulk_rows<1>(mem, L, W, wbase, act, grp, d, R0, R1, tab);
+      else
+        bulk_rows<2>(mem, L, W, wbase, act, grp, d, R0, R1, tab);
+      if (tid == leader) {
+        atomicAdd(&g_bulk_counts[0], 1ull);
+        atomicAdd(&g_bulk_counts[1], (unsigned long long)__popc(grp));
+      }
+    }
+    __syncwarp(act);
   }
 }
 
@@ -1369,8 +1767,9 @@ __device__ __forceinline__ int simd_step(const Params& p,
 // leave a terminal op at pc, which the per-op code below then runs.
 //
 // kWin: memory accesses go through the lane's window cache (memwin.cuh);
-// the launch gives each block WIN_SMEM_BYTES of dynamic shared memory.
-// Every way out of the loop below ends in the flush after it.
+// the launch gives each block WIN_SMEM_BYTES of dynamic shared memory
+// before the stack rows (block_smem).  Every way out of the loop below
+// ends in the flush and the stack rows' write-back after it.
 //
 // kOpt: optimistic convergence (optimistic.cuh).  The warp's present mask
 // is taken before any thread returns (a warp intrinsic after a return
@@ -1403,7 +1802,7 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
       // the periodic commit (pallas_engine.py :3599-3651), or the one a
       // handler asked for; a warp no longer on goes to the careful loop
       if ((step >= os.due || os.pending) &&
-          !opt_commit<kSimd, kWin>(p, lane, m, w, r, os,
+          !opt_commit<kSimd, kWin>(p, s, m, w, r, os,
                                    os.pending == OPT_WAIT_BULK))
         return;
     }
@@ -1419,6 +1818,7 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
               p, s, m, w, h, pc, sp, fp, ob, pages, n, xtrap);
           retired += n;
           if (p.fuel_on) fuel -= n;
+          s.note(sp);  // a fused dispatch writes rows below its exit's sp
           if (xtrap != 0) {
             if constexpr (kLead) {
               if (xtrap == OPT_DEFER) {
@@ -1693,7 +2093,10 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
           }
           {
             // memory.fill / memory.copy; stack: dst, fill value or
-            // source, n (top)
+            // source, n (top).  The threads at the op together run it as
+            // one warp pass per group (bulk_op), out-of-bounds lanes and
+            // n == 0 included as workers.
+            const unsigned act = __activemask();
             const bool copy = h == H_MEMCOPY;
             // the bulk loop runs on the plane: the windows go back first
             // and none stays valid (pallas_engine.py :2303-2306)
@@ -1704,12 +2107,12 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
             const u32 end = dst + n;
             bool oob = end < dst || mem_bytes < end;
             if (copy) oob = oob || v + n < v || mem_bytes < v + n;
+            bulk_op(p.mem, p.L, p.W, lane, act, dst, end, v, copy,
+                    !oob && n != 0);
             if (oob) {
               ntrap = E_MEM_OOB;  // nothing written
               break;
             }
-            if (n != 0)
-              bulk_fill_copy(p.mem, p.L, p.W, lane, dst, end, v, copy);
             new_sp = sp - 3;
           }
           break;
@@ -1733,13 +2136,16 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
       if (ntrap == 0 && fuel <= 0) ntrap = E_COST_LIMIT;
     }
     if (ntrap != 0) {
-      // a halted lane keeps its pre-instruction control state
+      // a halted lane keeps its pre-instruction control state; a fuel trap
+      // keeps the instruction's writes, which lie below its new sp
+      s.note(ntrap == E_COST_LIMIT ? new_sp : sp);
       trap = ntrap;
       sp = sp_halt;
       break;
     }
     pc = new_pc;
     sp = new_sp;
+    s.note(sp);
     fp = new_fp;
     ob = new_ob;
     cd = new_cd;
@@ -1748,7 +2154,7 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
 
 template <bool kBulk, bool kSimd, class F = NoFusion, bool kWin = false,
           bool kOpt = false>
-__global__ void __launch_bounds__(128) interp_kernel(const Params p) {
+__global__ void __launch_bounds__(BLOCK_THREADS) interp_kernel(const Params p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned mask = 0;
   if constexpr (kOpt) mask = __ballot_sync(0xffffffffu, lane < p.L);
@@ -1757,10 +2163,12 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
   if constexpr (!kOpt) {
     if (trap0 != 0) return;
   }
+  // dynamic shared memory: the windows (kWin), then the stack rows
+  extern __shared__ i32 dyn_smem[];
+  Mem<kWin> m(dyn_smem);
   const Lane<kSimd> s{p.stack_lo, p.stack_hi, p.stack_e2, p.stack_e3,
-                      p.L,        p.D,        lane};
-  extern __shared__ i32 win_smem[];
-  Mem<kWin> m(win_smem);
+                      dyn_smem + (kWin ? WIN_SMEM_BYTES / 4 : 0) + threadIdx.x,
+                      p.L, p.D, lane, p.srows, 0};
   LaneRegs r{p.pc[lane],      p.sp[lane],      p.fp[lane],
              p.opbase[lane],  p.call_depth[lane], p.retired[lane],
              p.fuel[lane],    p.mem_pages[lane], 0, 0};
@@ -1779,12 +2187,15 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
                       r.pages == l_pages && r.fuel == l_fuel;
     os.entered = os.on = __all_sync(mask, same) && p.chunk > 0;
     if (trap0 != 0) return;
+  }
+  s.enter(r.sp);
+  if constexpr (kOpt) {
     if (os.on) {
       // the entry state is the first snapshot (pallas_engine.py
       // :3661-3666); the windows start invalid
       Warp<true> w{mask, 0u};
       os.snapv = p.w_snap[lane >> 5];
-      opt_save<kSimd, kWin>(p, lane, r.sp, r.cd);
+      opt_save<kSimd, kWin>(p, s, r.sp, r.cd);
       os.o = OptSnap{r.pc, r.sp, r.fp, r.ob, r.cd, r.retired, r.fuel,
                      r.pages, 0, r.cd};
       os.due = opt_due(0, os.snapv);
@@ -1793,7 +2204,7 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
         // the exit validation (pallas_engine.py :3669-3680): chunk end,
         // trap, fuel, done and the park publish nothing unvalidated; a
         // rollback leaves the rest of the launch to the careful loop
-        opt_commit<kSimd, kWin>(p, lane, m, w, r, os, true);
+        opt_commit<kSimd, kWin>(p, s, m, w, r, os, true);
         done = !os.rolled;
       }
     }
@@ -1804,8 +2215,10 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
   }
 
   // the exit commit (pallas_engine.py :3683-3693): chunk end, trap, fuel,
-  // done and the host-call park all leave the loops above to here
+  // done and the host-call park all leave the loops above to here; the
+  // windows and the on-chip stack rows go back to the planes
   m.flush(p, lane);
+  s.leave();
   p.pc[lane] = r.pc;
   p.sp[lane] = r.sp;
   p.fp[lane] = r.fp;
@@ -1830,15 +2243,35 @@ __global__ void __launch_bounds__(128) interp_kernel(const Params p) {
   }
 }
 
-// The dynamic shared memory of a launch: the windows of its 128 lanes
-// (kWin), or none.  Raises the kernel's limit above the 48 KiB default
-// first; a card without room for the windows fails here or at the launch.
-template <bool kWin, class K>
-int win_smem(K kernel, size_t* bytes) {
-  *bytes = kWin ? (size_t)WIN_SMEM_BYTES : 0;
-  if (!kWin) return 0;
+// The block's dynamic shared memory: the windows (kWin) and the on-chip
+// stack rows.  SMEM_BLOCK_MAX is what an H100 block may use (opt-in),
+// SMEM_STATIC kept for static shared memory (bulk_op's table).  R, the
+// stack rows on chip, is the depth D up to what the rest of the budget
+// holds in whole 32-row steps and at most STACK_ROWS_MAX (512 rows: 128
+// KiB of two planes), which leaves the SM's L1 room for the code tables,
+// frames and globals; batch/interp.py `block_geometry` is the same rule.
+constexpr int SMEM_BLOCK_MAX = 232448;
+constexpr int SMEM_STATIC = 1024;
+constexpr int STACK_ROWS_MAX = 512;
+
+template <bool kSimd, bool kWin>
+int stack_rows(int D) {
+  const int budget = SMEM_BLOCK_MAX - SMEM_STATIC - (kWin ? WIN_SMEM_BYTES : 0);
+  int rows = (budget / (Lane<kSimd>::kPlanes * 4 * BLOCK_THREADS)) & ~31;
+  if (rows > STACK_ROWS_MAX) rows = STACK_ROWS_MAX;
+  return D < rows ? (D > 0 ? D : 0) : rows;
+}
+
+// The dynamic shared bytes of a launch at depth D, and the kernel's limit
+// set to them (above the 48 KiB default only as dynamic shared memory); a
+// card without room fails here or at the launch, and the wrapper raises.
+template <bool kSimd, bool kWin, class K>
+int block_smem(K kernel, int D, size_t* bytes) {
+  *bytes = (size_t)(kWin ? WIN_SMEM_BYTES : 0) +
+           (size_t)stack_rows<kSimd, kWin>(D) * Lane<kSimd>::kPlanes * 4 *
+               BLOCK_THREADS;
   return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WIN_SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
 }
 
 // kOpt: the per-warp tensors and the shadow planes a snapshot writes
@@ -1857,32 +2290,39 @@ bool opt_args_ok(const Params& p) {
 template <bool kBulk, bool kSimd, class F, bool kWin, bool kOpt>
 int launch_kernel(const Params& p, cudaStream_t st) {
   if (!opt_args_ok<kSimd, kWin, kOpt>(p)) return (int)cudaErrorInvalidValue;
-  const int blocks = (p.L + WIN_THREADS - 1) / WIN_THREADS;
+  // a build without the split runs only depths whose rows all fit on chip
+  if (!kStackSplit && stack_rows<kSimd, kWin>(p.D) < p.D)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (p.L + BLOCK_THREADS - 1) / BLOCK_THREADS;
   if (blocks <= 0) return 0;
   size_t smem;
   const auto k = interp_kernel<kBulk, kSimd, F, kWin, kOpt>;
-  const int err = win_smem<kWin>(k, &smem);
+  const int err = block_smem<kSimd, kWin>(k, p.D, &smem);
   if (err != 0) return err;
-  k<<<blocks, WIN_THREADS, smem, st>>>(p);
+  Params q = p;
+  q.srows = stack_rows<kSimd, kWin>(p.D);
+  k<<<blocks, BLOCK_THREADS, smem, st>>>(q);
   return (int)cudaGetLastError();
 }
 
-// What the runtime reports of an instantiation, with its launch's shared
-// memory: registers, local (stack) bytes per thread, static and maximum
-// dynamic shared bytes per block, the dynamic bytes a launch asks for,
-// and the blocks of WIN_THREADS threads that fit on one SM.
+// What the runtime reports of an instantiation, with the shared memory of
+// its launch at depth D: registers, local (stack) bytes per thread, static
+// and maximum dynamic shared bytes per block, the dynamic bytes a launch
+// asks for, the blocks of BLOCK_THREADS threads that fit on one SM, the
+// threads per block, the stack rows on chip and whether the build splits
+// the stack (WASM_STACK_SPLIT).
 template <bool kBulk, bool kSimd, class F, bool kWin, bool kOpt>
-int kernel_attrs(int* out) {
+int kernel_attrs(int D, int* out) {
   const auto k = interp_kernel<kBulk, kSimd, F, kWin, kOpt>;
   size_t smem;
-  int err = win_smem<kWin>(k, &smem);
+  int err = block_smem<kSimd, kWin>(k, D, &smem);
   if (err != 0) return err;
   cudaFuncAttributes a;
   err = (int)cudaFuncGetAttributes(&a, k);
   if (err != 0) return err;
   int blocks = 0;
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k,
-                                                           WIN_THREADS, smem);
+                                                           BLOCK_THREADS, smem);
   if (err != 0) return err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -1890,6 +2330,9 @@ int kernel_attrs(int* out) {
   out[3] = a.maxDynamicSharedSizeBytes;
   out[4] = (int)smem;
   out[5] = blocks;
+  out[6] = BLOCK_THREADS;
+  out[7] = stack_rows<kSimd, kWin>(D);
+  out[8] = kStackSplit ? 1 : 0;
   return 0;
 }
 
@@ -1906,11 +2349,22 @@ int kernel_attrs(int* out) {
   w_snap, w_rollbacks, w_entered, w_commits, sh_lo, sh_hi, sh_e2, sh_e3,  \
       sh_fr_ret_pc, sh_fr_fp, sh_fr_opbase, sh_glo, sh_ghi, sh_mem
 
+// The bulk counts of this library's kernels (g_bulk_counts: warp passes,
+// the lanes that took them, per-lane walks) into out[3], then set to 0
+// when `clear`.
+extern "C" int wasm_bulk_counts(unsigned long long* out, int clear) {
+  int err = (int)cudaMemcpyFromSymbol(out, g_bulk_counts,
+                                      sizeof(g_bulk_counts));
+  if (err != 0 || !clear) return err;
+  const unsigned long long zero[3] = {0ull, 0ull, 0ull};
+  return (int)cudaMemcpyToSymbol(g_bulk_counts, zero, sizeof(zero));
+}
+
 #ifndef WASM_FUSED_BUILD
 // The shared per-op build: interp.cu alone, with WASM_MEM_WINDOW 0
-// (direct memory access) or 1 (the window cache) and WASM_OPTIMISTIC 0
-// (the careful loop) or 1 (optimistic convergence), four instantiations
-// each, as four libraries built side by side.
+// (direct memory access) or 1 (the window cache), WASM_OPTIMISTIC 0 (the
+// careful loop) or 1 (optimistic convergence) and WASM_STACK_SPLIT, four
+// instantiations each, as libraries built side by side.
 #ifndef WASM_MEM_WINDOW
 #define WASM_MEM_WINDOW 0
 #endif
@@ -1949,14 +2403,14 @@ extern "C" int wasm_interp_launch(
   return launch_kernel<false, false, NoFusion, kWin, kOpt>(p, st);
 }
 
-// kernel_attrs of the instantiation a launch with these flags runs (six
-// ints into out).
-extern "C" int wasm_interp_attrs(int bulk, int simd, int* out) {
+// kernel_attrs of the instantiation a launch with these flags runs, at
+// depth D (nine ints into out).
+extern "C" int wasm_interp_attrs(int bulk, int simd, int D, int* out) {
   constexpr bool kWin = WASM_MEM_WINDOW != 0;
   constexpr bool kOpt = WASM_OPTIMISTIC != 0;
-  if (bulk && simd) return kernel_attrs<true, true, NoFusion, kWin, kOpt>(out);
-  if (bulk) return kernel_attrs<true, false, NoFusion, kWin, kOpt>(out);
-  if (simd) return kernel_attrs<false, true, NoFusion, kWin, kOpt>(out);
-  return kernel_attrs<false, false, NoFusion, kWin, kOpt>(out);
+  if (bulk && simd) return kernel_attrs<true, true, NoFusion, kWin, kOpt>(D, out);
+  if (bulk) return kernel_attrs<true, false, NoFusion, kWin, kOpt>(D, out);
+  if (simd) return kernel_attrs<false, true, NoFusion, kWin, kOpt>(D, out);
+  return kernel_attrs<false, false, NoFusion, kWin, kOpt>(D, out);
 }
 #endif  // WASM_FUSED_BUILD

@@ -43,11 +43,10 @@
 namespace {
 
 constexpr int WIN_ROWS = 128;     // CW (batch/memwin.py HBM_WINDOW_ROWS)
-constexpr int WIN_THREADS = 128;  // threads per block of every launch
 constexpr int WIN_SENT = -(1 << 30);  // the base of an invalid way
-constexpr int WIN_SMEM_BYTES = 2 * WIN_ROWS * WIN_THREADS * 4;
+constexpr int WIN_SMEM_BYTES = 2 * WIN_ROWS * BLOCK_THREADS * 4;
 
-// Write way w (this thread's column, stride WIN_THREADS) back to plane
+// Write way w (this thread's column, stride BLOCK_THREADS) back to plane
 // rows [back, back + CW) unless back is WIN_SENT, then fill it from rows
 // [fill, fill + CW) unless fill is WIN_SENT.  Out of line: a miss is rare,
 // and the dispatch loop keeps its registers.
@@ -58,7 +57,7 @@ __device__ __noinline__ void win_move(i32* mem, int L, int lane, i32* w,
     i32* dst = mem + (size_t)back * L + lane;
 #pragma unroll 8
     for (int r = 0; r < WIN_ROWS; ++r)
-      dst[(size_t)r * L] = w[r * WIN_THREADS];
+      dst[(size_t)r * L] = w[r * BLOCK_THREADS];
   }
   if (fill != WIN_SENT) {
     const i32* src = mem + (size_t)fill * L + lane;
@@ -67,7 +66,7 @@ __device__ __noinline__ void win_move(i32* mem, int L, int lane, i32* w,
 #pragma unroll
       for (int k = 0; k < kGroup; ++k) v[k] = src[(size_t)(r0 + k) * L];
 #pragma unroll
-      for (int k = 0; k < kGroup; ++k) w[(r0 + k) * WIN_THREADS] = v[k];
+      for (int k = 0; k < kGroup; ++k) w[(r0 + k) * BLOCK_THREADS] = v[k];
     }
   }
 }
@@ -97,7 +96,7 @@ struct Mem {
 
 template <>
 struct Mem<true> {
-  i32* win;  // word (way, row) of this thread at win[(way * CW + row) * 128]
+  i32* win;  // word (way, row) of this thread at win[(way * CW + row) * 32]
   int wb0, wd0, wb1, wd1, mru;
 
   __device__ __forceinline__ explicit Mem(i32* smem)
@@ -123,7 +122,7 @@ struct Mem<true> {
         wb0 = WIN_SENT;
         wd0 = 0;
       }
-      win_move(p.mem, p.L, lane, win + WIN_ROWS * WIN_THREADS,
+      win_move(p.mem, p.L, lane, win + WIN_ROWS * BLOCK_THREADS,
                wd1 ? wb1 : WIN_SENT, nb);
       wb1 = nb;
       wd1 = 0;
@@ -131,7 +130,7 @@ struct Mem<true> {
     } else {  // way 0 is the victim
       if (wb1 < nb + WIN_ROWS && nb < wb1 + WIN_ROWS) {
         if (wd1)
-          win_move(p.mem, p.L, lane, win + WIN_ROWS * WIN_THREADS, wb1,
+          win_move(p.mem, p.L, lane, win + WIN_ROWS * BLOCK_THREADS, wb1,
                    WIN_SENT);
         wb1 = WIN_SENT;
         wd1 = 0;
@@ -144,14 +143,14 @@ struct Mem<true> {
   }
   // win_read_row / win_write_row of the selected (most recent) way
   __device__ __forceinline__ u32 get(const Params&, int, int r) const {
-    return (u32)win[(mru ? WIN_ROWS + r - wb1 : r - wb0) * WIN_THREADS];
+    return (u32)win[(mru ? WIN_ROWS + r - wb1 : r - wb0) * BLOCK_THREADS];
   }
   __device__ __forceinline__ void put(const Params&, int, int r, u32 v) {
     if (mru) {
-      win[(WIN_ROWS + r - wb1) * WIN_THREADS] = (i32)v;
+      win[(WIN_ROWS + r - wb1) * BLOCK_THREADS] = (i32)v;
       wd1 = 1;
     } else {
-      win[(r - wb0) * WIN_THREADS] = (i32)v;
+      win[(r - wb0) * BLOCK_THREADS] = (i32)v;
       wd0 = 1;
     }
   }
@@ -159,7 +158,7 @@ struct Mem<true> {
   __device__ __forceinline__ void flush(const Params& p, int lane) {
     if (wd0) win_move(p.mem, p.L, lane, win, wb0, WIN_SENT);
     if (wd1)
-      win_move(p.mem, p.L, lane, win + WIN_ROWS * WIN_THREADS, wb1, WIN_SENT);
+      win_move(p.mem, p.L, lane, win + WIN_ROWS * BLOCK_THREADS, wb1, WIN_SENT);
     wb0 = wb1 = WIN_SENT;
     wd0 = wd1 = mru = 0;
   }
@@ -178,7 +177,7 @@ struct Mem<true> {
   __device__ __forceinline__ void commit(const Params& p, int lane) {
     if (wd0) win_move(p.mem, p.L, lane, win, wb0, WIN_SENT);
     if (wd1)
-      win_move(p.mem, p.L, lane, win + WIN_ROWS * WIN_THREADS, wb1, WIN_SENT);
+      win_move(p.mem, p.L, lane, win + WIN_ROWS * BLOCK_THREADS, wb1, WIN_SENT);
     wd0 = wd1 = 0;
   }
   // a rollback: both ways invalid, their words dropped

@@ -41,7 +41,9 @@
 // rollback doubles a shrunken interval back toward 131072.
 //
 // A snapshot copies, per lane, the stack rows below sp (lo and hi, and e2,
-// e3 under kSimd), the frame rows below the call depth, the globals and,
+// e3 under kSimd; from shared memory below R, interp.cu `Lane`, and a
+// restore writes them back there), the frame rows below the call depth,
+// the globals and,
 // when memory runs without windows, the whole memory column (JAX's
 // `sh_mem`), into shadow planes [rows, L] in global memory, and the
 // control registers and the step count into registers of the thread.  A
@@ -106,23 +108,6 @@ __device__ __forceinline__ bool alu1_traps(int sub) {
   return sub == 23 || sub == 24 || (unsigned)(sub - 49) <= 5u;
 }
 
-// Rows [r0, r1) of one lane's column of a [rows, L] plane into another.
-// Out of line: commits are rare, and the dispatch loop keeps its
-// registers.
-__device__ __noinline__ void opt_copy(i32* dst, const i32* src, int r0,
-                                      int r1, int L, int lane) {
-  constexpr int kGroup = 8;  // loads in flight per thread
-  int r = r0;
-  for (; r + kGroup <= r1; r += kGroup) {
-    i32 v[kGroup];
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) v[k] = src[(size_t)(r + k) * L + lane];
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) dst[(size_t)(r + k) * L + lane] = v[k];
-  }
-  for (; r < r1; ++r) dst[(size_t)r * L + lane] = src[(size_t)r * L + lane];
-}
-
 // A lane's loop registers: control state, trap and the launch's step.
 struct LaneRegs {
   int pc, sp, fp, ob, cd, retired, fuel, pages, trap, step;
@@ -151,23 +136,22 @@ __device__ __forceinline__ int opt_due(int step, int snapv) {
 }
 
 // do_snapshot: the lane's planes into the shadow planes (the windows
-// have been written back: the plane is the snapshot's memory).
+// have been written back: the plane is the snapshot's memory); its stack
+// rows from where they live (Lane: on chip below R, the plane above).
 template <bool kSimd, bool kWin>
-__device__ __forceinline__ void opt_save(const Params& p, int lane, int sp,
+__device__ __forceinline__ void opt_save(const Params& p,
+                                         const Lane<kSimd>& s, int sp,
                                          int cd) {
   const int ns = clampi(sp, 0, p.D), nf = clampi(cd, 0, p.CD);
-  opt_copy(p.sh_lo, p.stack_lo, 0, ns, p.L, lane);
-  opt_copy(p.sh_hi, p.stack_hi, 0, ns, p.L, lane);
-  if constexpr (kSimd) {
-    opt_copy(p.sh_e2, p.stack_e2, 0, ns, p.L, lane);
-    opt_copy(p.sh_e3, p.stack_e3, 0, ns, p.L, lane);
-  }
-  opt_copy(p.sh_fr_ret_pc, p.fr_ret_pc, 0, nf, p.L, lane);
-  opt_copy(p.sh_fr_fp, p.fr_fp, 0, nf, p.L, lane);
-  opt_copy(p.sh_fr_opbase, p.fr_opbase, 0, nf, p.L, lane);
-  opt_copy(p.sh_glo, p.glob_lo, 0, p.NG, p.L, lane);
-  opt_copy(p.sh_ghi, p.glob_hi, 0, p.NG, p.L, lane);
-  if (!kWin && p.W > 1) opt_copy(p.sh_mem, p.mem, 0, p.W, p.L, lane);
+  const int lane = s.lane, L = p.L;
+  i32* const sh[4] = {p.sh_lo, p.sh_hi, p.sh_e2, p.sh_e3};
+  s.snap(sh, ns, false);
+  copy_rows(p.sh_fr_ret_pc + lane, L, p.fr_ret_pc + lane, L, nf);
+  copy_rows(p.sh_fr_fp + lane, L, p.fr_fp + lane, L, nf);
+  copy_rows(p.sh_fr_opbase + lane, L, p.fr_opbase + lane, L, nf);
+  copy_rows(p.sh_glo + lane, L, p.glob_lo + lane, L, p.NG);
+  copy_rows(p.sh_ghi + lane, L, p.glob_hi + lane, L, p.NG);
+  if (!kWin && p.W > 1) copy_rows(p.sh_mem + lane, L, p.mem + lane, L, p.W);
 }
 
 // Before a call writes frame row cd in a warp that is on: a row at or
@@ -187,21 +171,19 @@ __device__ __forceinline__ void opt_save_frame(const Params& p, int lane,
 // do_restore: the inverse of opt_save; stack rows at or above the
 // snapshot's sp keep what the wrong path wrote (dead rows).
 template <bool kSimd, bool kWin>
-__device__ __forceinline__ void opt_restore(const Params& p, int lane,
+__device__ __forceinline__ void opt_restore(const Params& p,
+                                            const Lane<kSimd>& s,
                                             const OptSnap& o) {
   const int ns = clampi(o.sp, 0, p.D), nf = clampi(o.fhi, 0, p.CD);
-  opt_copy(p.stack_lo, p.sh_lo, 0, ns, p.L, lane);
-  opt_copy(p.stack_hi, p.sh_hi, 0, ns, p.L, lane);
-  if constexpr (kSimd) {
-    opt_copy(p.stack_e2, p.sh_e2, 0, ns, p.L, lane);
-    opt_copy(p.stack_e3, p.sh_e3, 0, ns, p.L, lane);
-  }
-  opt_copy(p.fr_ret_pc, p.sh_fr_ret_pc, 0, nf, p.L, lane);
-  opt_copy(p.fr_fp, p.sh_fr_fp, 0, nf, p.L, lane);
-  opt_copy(p.fr_opbase, p.sh_fr_opbase, 0, nf, p.L, lane);
-  opt_copy(p.glob_lo, p.sh_glo, 0, p.NG, p.L, lane);
-  opt_copy(p.glob_hi, p.sh_ghi, 0, p.NG, p.L, lane);
-  if (!kWin && p.W > 1) opt_copy(p.mem, p.sh_mem, 0, p.W, p.L, lane);
+  const int lane = s.lane, L = p.L;
+  i32* const sh[4] = {p.sh_lo, p.sh_hi, p.sh_e2, p.sh_e3};
+  s.snap(sh, ns, true);
+  copy_rows(p.fr_ret_pc + lane, L, p.sh_fr_ret_pc + lane, L, nf);
+  copy_rows(p.fr_fp + lane, L, p.sh_fr_fp + lane, L, nf);
+  copy_rows(p.fr_opbase + lane, L, p.sh_fr_opbase + lane, L, nf);
+  copy_rows(p.glob_lo + lane, L, p.sh_glo + lane, L, p.NG);
+  copy_rows(p.glob_hi + lane, L, p.sh_ghi + lane, L, p.NG);
+  if (!kWin && p.W > 1) copy_rows(p.mem + lane, L, p.sh_mem + lane, L, p.W);
 }
 
 // A commit point of a warp that is on: the canaries checked with one
@@ -211,14 +193,15 @@ __device__ __forceinline__ void opt_restore(const Params& p, int lane,
 // windows go back to the plane and a snapshot is taken.  Returns whether
 // the warp is still on.
 template <bool kSimd, bool kWin>
-__device__ __forceinline__ bool opt_commit(const Params& p, int lane,
+__device__ __forceinline__ bool opt_commit(const Params& p,
+                                           const Lane<kSimd>& s,
                                            Mem<kWin>& m, Warp<true>& w,
                                            LaneRegs& r, OptRun& os,
                                            bool leave) {
   os.pending = 0;
   if (w.dirty()) {
     const OptSnap& o = os.o;
-    opt_restore<kSimd, kWin>(p, lane, o);
+    opt_restore<kSimd, kWin>(p, s, o);
     m.invalidate();
     r = LaneRegs{o.pc, o.sp, o.fp, o.ob, o.cd, o.retired, o.fuel, o.pages, 0,
                  o.step};
@@ -231,8 +214,8 @@ __device__ __forceinline__ bool opt_commit(const Params& p, int lane,
     os.on = false;
     return false;
   }
-  m.commit(p, lane);
-  opt_save<kSimd, kWin>(p, lane, r.sp, r.cd);
+  m.commit(p, s.lane);
+  opt_save<kSimd, kWin>(p, s, r.sp, r.cd);
   os.o = OptSnap{r.pc, r.sp, r.fp, r.ob, r.cd, r.retired, r.fuel, r.pages,
                  r.step, r.cd};
   os.due = opt_due(r.step, os.snapv);

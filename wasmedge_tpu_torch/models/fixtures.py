@@ -1070,3 +1070,150 @@ def build_call_sites() -> bytes:
         "end",
     ], export="f")
     return b.build()
+
+
+# -- the warp bulk pass and the on-chip stack rows ------------------------------
+
+def build_bulk_warp() -> bytes:
+    """fill(dst, val, n) / copy(dst, src, n): one memory.fill or
+    memory.copy on one 64 KiB page, then the word at dst xor the word at
+    dst + n - 4 (a few instructions around the op, so a comparison's
+    cost is the op's)."""
+    b = ModuleBuilder()
+    b.add_memory(1, 1)
+    b.add_active_data(0, [("i32.const", 0)], _bulk_pattern(8192, 0x5D))
+    for op, name in (("memory.fill", "fill"), ("memory.copy", "copy")):
+        b.add_function(["i32", "i32", "i32"], ["i32"], [], [
+            ("local.get", 0), ("local.get", 1), ("local.get", 2), op,
+            ("local.get", 0), ("i32.load", 0, 0),
+            ("local.get", 0), ("local.get", 2), "i32.add", ("i32.const", 4),
+            "i32.sub", ("i32.load", 0, 0), "i32.xor",
+        ], export=name)
+    return b.build()
+
+
+# build_bulk_warp's fill / copy shaped for the warp-cooperative row pass:
+# every lane of a warp at the op together, ranges of thousands of bytes
+BULK_WARP_CASES = (
+    "fill_shift0", "fill_shift1", "fill_shift2", "fill_shift3",
+    "copy_fwd_shift0", "copy_fwd_shift1", "copy_fwd_shift2",
+    "copy_fwd_shift3", "copy_bwd_shift0", "copy_bwd_shift1",
+    "copy_bwd_shift2", "copy_bwd_shift3", "fill_lanes", "copy_one_delta",
+    "copy_two_deltas", "fill_oob_and_empty", "copy_oob_and_empty")
+
+
+def bulk_warp_case(lanes: int, case: str):
+    """(export, per-lane args) of build_bulk_warp for one case of
+    BULK_WARP_CASES.  fill_shift{s}: every lane fills 6000 + s bytes at
+    256 + s.  copy_{fwd,bwd}_shift{s}: every lane copies 5000 bytes at
+    1000 + s from 12 + s bytes above (fwd: src > dst, the walk goes up)
+    or below (bwd: dst > src, the walk goes down), overlapping.
+    fill_lanes: lane-dependent dst, byte and length.  copy_one_delta:
+    lane-dependent dst and n, src = dst - 6 on every lane (one group);
+    copy_two_deltas: src - dst is -6 on even lanes and +7 on odd lanes (two
+    groups in every warp).  *_oob_and_empty: a converged op whose lane 3 of
+    each warp is out of bounds and whose lanes 5 and 9 have n == 0."""
+    lane = np.arange(lanes, dtype=np.int64)
+    if case.startswith("fill_shift"):
+        s = int(case[-1])
+        return "fill", [np.full(lanes, 256 + s), np.full(lanes, 0xA5),
+                        np.full(lanes, 6000 + s)]
+    if case.startswith("copy_") and "_shift" in case:
+        s = int(case[-1])
+        dst = np.full(lanes, 1000 + s)
+        delta = (12 + s) * (1 if "_fwd_" in case else -1)
+        return "copy", [dst, dst + delta, np.full(lanes, 5000)]
+    if case == "fill_lanes":
+        return "fill", [lane * 7 % 900, lane * 29 + 3, 4000 + lane * 11 % 300]
+    if case in ("copy_one_delta", "copy_two_deltas"):
+        dst = 300 + lane * 37 % 1024
+        delta = np.full(lanes, -6)
+        if case == "copy_two_deltas":
+            delta[1::2] = 7
+        return "copy", [dst, dst + delta, 3000 + lane * 13 % 500]
+    assert case in ("fill_oob_and_empty", "copy_oob_and_empty"), case
+    dst = np.full(lanes, 4000)
+    n = np.full(lanes, 6000)
+    dst[lane % 32 == 3] = 65500
+    n[(lane % 32 == 5) | (lane % 32 == 9)] = 0
+    if case == "fill_oob_and_empty":
+        return "fill", [dst, np.full(lanes, 0x3C), n]
+    return "copy", [dst, dst + 9, n]
+
+
+def build_deep_recursion() -> bytes:
+    """deep(n): a recursion n deep whose frames hold eight i64 locals (11
+    stack rows a frame with the operands under its call), each mixed from
+    n and folded with the callee's result on the way back; deep(0) is 7.
+    With n from 48 up, the stack crosses row 512 of a 1024-row stack (the
+    on-chip rows of a launch at that depth) and comes back."""
+    b = ModuleBuilder()
+    locs = list(range(1, 9))  # a..h
+    body = [("local.get", 0), "i32.eqz", ("if", "i64"), ("i64.const", 7),
+            "else",
+            ("local.get", 0), "i64.extend_i32_u",
+            ("i64.const", 0x9E3779B97F4A7C15 - (1 << 64)), "i64.mul",
+            ("local.set", locs[0])]
+    for k in range(1, 8):
+        body += [("local.get", locs[k - 1]), ("i64.const", 5 + 4 * k),
+                 "i64.rotl", ("local.get", 0), "i64.extend_i32_u", "i64.xor",
+                 ("local.set", locs[k])]
+    # a + (b ^ deep(n - 1)), then every local folded in
+    body += [("local.get", locs[0]), ("local.get", locs[1]),
+             ("local.get", 0), ("i32.const", 1), "i32.sub", ("call", 0),
+             "i64.xor", "i64.add"]
+    for k in range(2, 8):
+        body += [("i64.const", 31), "i64.mul", ("local.get", locs[k]),
+                 "i64.add"]
+    body += ["end"]
+    b.add_function(["i32"], ["i64"], ["i64"] * 8, body, export="deep")
+    return b.build()
+
+
+def build_host_rows() -> bytes:
+    """f(x): parks at env.double three times with live rows under the
+    call (x * 3 and x ^ 0x55, then the running value and a local), and
+    folds them after each return: the rows a launch keeps on chip cross
+    every park and serve round."""
+    b = ModuleBuilder()
+    b.import_func(HOST_MODULE, "double", ["i32"], ["i32"])
+    body = [("local.get", 0), ("i32.const", 3), "i32.mul",
+            ("local.get", 0), ("i32.const", 0x55), "i32.xor",
+            ("local.get", 0), ("call", 0), "i32.add", "i32.add",
+            ("local.set", 1)]
+    for k in range(2):
+        body += [("local.get", 1), ("i32.const", 5 + k), "i32.mul",
+                 ("local.get", 0), ("local.get", 1), ("i32.const", k),
+                 "i32.add", ("call", 0), "i32.sub", "i32.xor",
+                 ("local.set", 1)]
+    body += [("local.get", 1)]
+    b.add_function(["i32"], ["i32"], ["i32"], body, export="f")
+    return b.build()
+
+
+def build_rollback_rows() -> bytes:
+    """f(x): 30 rounds, each adding to local a or multiplying into local b
+    by bit i of x, then a * 31 + b.  The lanes of a warp take different
+    arms, so a warp that starts a launch converged follows lane 0's arm and
+    its other lanes write wrong values into the rows of a and b below sp
+    until the rollback restores them."""
+    b = ModuleBuilder()
+    i, a, c = 1, 2, 3
+    b.add_function(["i32"], ["i32"], ["i32", "i32", "i32"], [
+        ("block", None), ("loop", None),
+        ("local.get", i), ("i32.const", 30), "i32.ge_u", ("br_if", 1),
+        ("local.get", 0), ("local.get", i), "i32.shr_u", ("i32.const", 1),
+        "i32.and",
+        ("if", None),
+        ("local.get", a), ("local.get", 0), "i32.add", ("local.get", i),
+        "i32.xor", ("local.set", a),
+        "else",
+        ("local.get", c), ("i32.const", 7), "i32.mul", ("local.get", i),
+        "i32.add", ("local.set", c),
+        "end",
+        ("local.get", i), ("i32.const", 1), "i32.add", ("local.set", i),
+        ("br", 0), "end", "end",
+        ("local.get", a), ("i32.const", 31), "i32.mul", ("local.get", c),
+        "i32.add",
+    ], export="f")
+    return b.build()

@@ -13,10 +13,14 @@ Phases:
                split or not (WASM_STACK_SPLIT: deeper stacks than the
                rows on chip), the fused kernel (csrc/interp.cu +
                csrc/fused.cuh + the dispatch batch/fusegen.py generates
-               for its B2 block shapes or B6 superinstructions), the spec
-               corpus's modules included;
-               print each build's seconds, shapes, mean shape length,
-               registers and spills, and what the CUDA runtime reports of
+               for its B2 block heads, one instance case each, or B6
+               superinstructions), the spec corpus's modules included;
+               print each build's instance cases, seconds, shapes, mean
+               shape length, SASS bytes and indirect branches (BRX;
+               the main path's fib(30) and vloop builds against the same
+               modules with no block case: what the pc switch compiled
+               to), registers and spills, and what the CUDA runtime
+               reports of
                the per-op instantiations and config 2's fused builds
                (registers, local bytes, shared memory per block, blocks
                per SM);
@@ -49,7 +53,15 @@ Phases:
                "blocks" on fib (256 and 13 steps per launch, fuel), fac,
                loop_sum, mem_checksum, coremark (and with fuel), the trap
                zoo, the guard and OOB modules, the small bulk workload,
-               vmix (and with fuel), vloop, env.double and WASI echo, and
+               vmix (and with fuel), vloop, env.double and WASI echo, the
+               B2 instance-case fixtures (each terminal run in its case,
+               a brnz with a kept value, return at depth 0 with and
+               without a value, calls that trap E_CALL_STACK and
+               E_STACK_OVERFLOW and one that runs out of both stacks at
+               once, step and fuel budgets one short of, at and one past
+               a block that ends in a call, more block heads than an
+               instance cap lowered to 256) and blocks holding every v2 and v1
+               sub (random and corner-byte operands), and
                "super" on the ones without v128 ops, every plane and
                every stack row after every launch (the window fixtures: a
                stride walk across windows, a ping-pong that makes the
@@ -70,7 +82,8 @@ Phases:
                process, one 256-step launch of fib(30) x 4096 in each
                encoding, one converged memory.fill + memory.copy launch
                (also as PyTorch tensor calls, its warp passes counted),
-               one 256-step vloop launch x 4096 and one 256-step per-op
+               one 256-step vloop launch x 4096 (blocks, the main path,
+               and per-op) and one 256-step per-op
                launch of config 2's mem_checksum x 4096 from the first
                store (windows and direct), each through the optimistic
                kernel the main path runs and through the careful one,
@@ -87,8 +100,9 @@ Phases:
                serve rounds and serve time against kernel time under
                torch.profiler), WASI hello x 4096 (proc_exit codes), the
                bulk-memory workload x 4096 (checked against a bytearray
-               model, its warp passes counted); the SIMD spec corpus (tests/spec/simd.wast) through
-               run_corpus_batched on the card, strict; vloop(1,000,000) x
+               model, its warp passes counted); the SIMD spec corpus
+               (tests/spec/simd.wast) through run_corpus_batched on the
+               card, strict, every launch in B2 blocks; vloop(1,000,000) x
                4096 (bench_simd.py's shape) in blocks and with
                block_fusion False (per-op), every lane's result and retired
                count checked, each profiled; BASELINE config 2
@@ -126,12 +140,14 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 SEED = 20261016
 KERNEL_LANES = 256
+HEADS_CAP = 256  # the B2 instance cap of the over-cap fixture's build
 MAIN_LANES = 4096
 TIMED_STEPS = 256  # steps of the one launch timed against the plain version
 COREMARK_N = 4096  # bench.py's CoreMark size (bench.py:1231)
@@ -175,10 +191,13 @@ def gpu_name_and_power() -> str:
 
 
 def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
-                fusion=None, **knobs):
+                fusion=None, instance_cap=None, **knobs):
     """A BatchEngine for `data`; `fusion` ("none", "blocks", "super")
     replaces the encoding the engine chose from `block_fusion` (the memory
-    mode stays the one it chose from `mem_hbm`)."""
+    mode stays the one it chose from `mem_hbm`), generated with at most
+    `instance_cap` B2 instance cases where it is given (the package's cap
+    otherwise)."""
+    from wasmedge_tpu_torch.batch import fusegen
     from wasmedge_tpu_torch.batch.engine import BatchEngine
     from wasmedge_tpu_torch.batch.interp import device_tables
     from wasmedge_tpu_torch.common.configure import Configure
@@ -199,11 +218,17 @@ def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
     eng = BatchEngine(inst, store=store, conf=conf, lanes=lanes,
                       device=device)
     if fusion is not None:
-        eng.fusion = fusion
-        eng.tables = device_tables(eng.img, eng.device, fusion,
-                                   mem_window=eng.mem_window,
-                                   optimistic=eng.optimistic,
-                                   stack_depth=eng.cfg.value_stack_depth)
+        cap = fusegen.MAX_INSTANCE_CASES
+        if instance_cap is not None:
+            fusegen.MAX_INSTANCE_CASES = instance_cap
+        try:
+            eng.fusion = fusion
+            eng.tables = device_tables(eng.img, eng.device, fusion,
+                                       mem_window=eng.mem_window,
+                                       optimistic=eng.optimistic,
+                                       stack_depth=eng.cfg.value_stack_depth)
+        finally:
+            fusegen.MAX_INSTANCE_CASES = cap
     return eng, inst
 
 
@@ -465,15 +490,52 @@ def fused_fixtures(L: int):
         build_bulk_workload, build_coremark_kernel, build_fac, build_fib,
         build_loop_sum, build_memory_workload, build_simd_loop)
     from wasmedge_tpu_torch.models.fixtures import (
-        build_guard_mix, build_oob_mix, build_trap_zoo, build_vmix,
-        build_window_pingpong, build_window_walk, oob_args,
-        window_pingpong_args, zoo_args)
+        build_block_terminals, build_call_traps, build_guard_mix,
+        build_many_heads, build_oob_mix, build_trap_zoo, build_vmix,
+        build_vsub_blocks, build_window_pingpong, build_window_walk,
+        oob_args, simd_sweep_args, window_pingpong_args, zoo_args)
 
     kn = dict(value_stack_depth=64, call_stack_depth=32,
               memory_pages_per_lane=3)
     kv = dict(value_stack_depth=64, call_stack_depth=16,
               memory_pages_per_lane=1)
-    return [
+    terms, traps = build_block_terminals(), build_call_traps()
+    # B2 instance cases: each terminal run in its case, calls that trap
+    # (both stacks run out on one call at depths 84 / 16: E_STACK_OVERFLOW
+    # wins, as in the per-op step), the budget and fuel edges of entry's
+    # first block (4 instructions, its call included), more block heads
+    # than the cap (lowered to HEADS_CAP in this build: what falls back
+    # does not depend on the cap's size, and a build at the package's
+    # 1,024 cases takes minutes of nvcc); B7 inlined per sub: blocks
+    # holding every v2 and v1 sub
+    instances = [
+        ("block_terminals", terms, "terms", [np.arange(L) * 5 + 1], 13,
+         None, kv, False),
+        ("block_terminals_256", terms, "terms", [np.arange(L) * 5 + 1],
+         256, None, kv, False),
+        ("void_return_depth_0", terms, "void_top", [np.arange(L) * 3], 7,
+         None, kv, False)]
+    instances += [(f"call_block_steps_{n}", terms, "entry",
+                   [np.arange(L) * 5 + 1], n, None, kv, False)
+                  for n in (3, 4, 5)]
+    instances += [(f"call_block_fuel_{n}", terms, "entry",
+                   [np.arange(L) * 5 + 1], 64, n, kv, False)
+                  for n in (3, 4, 5)]
+    instances += [
+        ("call_stack_exhausted", traps, "deep", [np.arange(L) % 24], 64,
+         None, dict(kv, value_stack_depth=256), False),
+        ("stack_overflow", traps, "deep", [np.arange(L) % 24], 64, None,
+         dict(kv, call_stack_depth=64), False),
+        ("call_both_limits", traps, "deep", [np.arange(L) % 24], 64, None,
+         dict(kv, value_stack_depth=84), False),
+        ("heads_over_cap", build_many_heads(HEADS_CAP + 40), "heads",
+         [np.arange(L) * 7919 + 1], 4096, None,
+         dict(kv, instance_cap=HEADS_CAP), False),
+        ("vsub_blocks", build_vsub_blocks(), "f", simd_sweep_args(L, SEED),
+         97, None, kv, True),
+        ("vsub_blocks_corners", build_vsub_blocks(), "f",
+         simd_sweep_args(L, SEED, corners=True), 97, None, kv, True)]
+    return instances + [
         ("fib_divergent", build_fib(), "fib", [np.arange(L) % 9 + 3], 256,
          None, kn, False),
         ("fib_mix_13", build_fib(), "fib", [np.arange(L) % 7 + 2], 13, None,
@@ -1164,11 +1226,12 @@ def phase_time_one_launch(fusion="none"):
                 handler_traffic_bytes=traffic, touched_state_bytes=touched)
 
 
-def phase_time_simd_launch():
+def phase_time_simd_launch(fusion="blocks"):
     """One launch of TIMED_STEPS steps of vloop(SIMD_N) x MAIN_LANES from
-    its initial state, per-op: optimistic kernel, careful kernel and plain
-    version on the same inputs (time_opt_and_careful), and its bound from
-    the rows that launch touches."""
+    its initial state in the encoding `fusion` (the main path's B2 blocks,
+    or per-op): optimistic kernel, careful kernel and plain version on the
+    same inputs (time_opt_and_careful), and its bound from the rows that
+    launch touches."""
     from wasmedge_tpu_torch.batch.engine import CONTROL_FIELDS
     from wasmedge_tpu_torch.batch import interp as I
     from wasmedge_tpu_torch.models import build_simd_loop
@@ -1176,16 +1239,16 @@ def phase_time_simd_launch():
     chunk, L = TIMED_STEPS, MAIN_LANES
     eng, ceng = (make_engine(build_simd_loop(), L, value_stack_depth=64,
                              call_stack_depth=16, memory_pages_per_lane=1,
-                             fusion="none", optimistic=opt)[0]
+                             fusion=fusion, optimistic=opt)[0]
                  for opt in (None, False))
     tb = ceng.tables
     st0 = eng.initial_state(eng.inst.exports["vloop"][1],
                             [np.full(L, SIMD_N)])
     t, out_k = time_opt_and_careful(eng, ceng, st0, chunk,
-                                    f"vloop({SIMD_N})")
+                                    f"vloop({SIMD_N}), {fusion}")
     retired = int(out_k.retired.sum())
     counts, max_sp, max_cd = launch_mix(tb, st0, chunk)
-    hid = tb.hid.cpu().numpy()
+    hid = (tb.hid if tb.hid0 is None else tb.hid0).cpu().numpy()
     mem_hids = {I.H_LOAD, I.H_STORE, I.H_LOAD_W, I.H_LOAD_D, I.H_STORE_W,
                 I.H_STORE_D, I.H_MEMFILL, I.H_MEMCOPY, I.H_VLOAD,
                 I.H_VSTORE}
@@ -1766,12 +1829,16 @@ def phase_simd_corpus():
              f"failed, {rep.skipped} skipped")
     if counts["simd"] == 0:
         fail("simd.wast never launched the kernel's v128 instantiation")
+    if counts["block"] != counts["interp"]:
+        fail(f"simd.wast ran {counts['block']} of {counts['interp']} "
+             f"launches through B2 blocks")
     if counts["optimistic"] == 0 or counts["optimistic"] != counts["interp"]:
         fail(f"simd.wast ran {counts['optimistic']} of {counts['interp']} "
              f"launches optimistically")
     print(f"spec simd.wast on the card (strict): {rep.passed} passed, "
           f"{rep.failed} failed, {rep.skipped} skipped, {counts['simd']} "
-          f"v128 launches, wall {wall:.3f} s", flush=True)
+          f"v128 launches, all through B2 blocks, wall {wall:.3f} s",
+          flush=True)
     return dict(passed=rep.passed, failed=rep.failed, skipped=rep.skipped,
                 launches=counts["simd"], wall_s=wall)
 
@@ -2336,6 +2403,57 @@ def print_registers(label: str, rows: dict) -> None:
               f"{r.get('spill_loads', 0)} B spill loads", flush=True)
 
 
+def cuobjdump() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "cuobjdump")
+    return path if os.path.exists(path) else "cuobjdump"
+
+
+def sass_of(so: str) -> str:
+    return subprocess.run([cuobjdump(), "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def sass_stats(text: str) -> dict:
+    """Per interp_kernel instantiation in `cuobjdump -sass` output: its
+    machine code bytes and its indirect branches (BRX: a jump table
+    each)."""
+    rows, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if "interp_kernel" in m.group(1) else None
+            if cur:
+                rows[cur] = {"sass_bytes": 0, "brx": 0}
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*)", line)
+        if m and cur:
+            rows[cur]["sass_bytes"] = int(m.group(1), 16) + 16
+            rows[cur]["brx"] += bool(re.search(r"\bBRX\b", m.group(2)))
+    return rows
+
+
+def without_cases(tables, img):
+    """Blocks `tables` whose fused source has no block case (every pc
+    through the hid plane, a block head as its own op): the baseline of a
+    build's indirect branches."""
+    import dataclasses
+
+    from wasmedge_tpu_torch.batch import fusegen
+
+    hid0 = tables.hid0.cpu().tolist()
+    return dataclasses.replace(tables, fused_source=fusegen.cuda_source(
+        hid0, (), tables.has_bulk, tables.has_simd, tables.mem_window,
+        tables.optimistic, tables.stack_split, img=img, hid0=hid0))
+
+
+def instance_cases(tables) -> int:
+    """The B2 instance cases of the fused build of `tables` (its generated
+    source's count)."""
+    return int(re.search(r"\((\d+) block instance cases",
+                         tables.fused_source).group(1))
+
+
 def prebuild() -> dict:
     """Build every kernel the script runs, all nvcc processes at once:
     the per-op kernel (direct access and window cache, a library each)
@@ -2353,15 +2471,17 @@ def prebuild() -> dict:
         build_window_host)
     from wasmedge_tpu_torch.spec import corpus_tables
 
-    # (module, v128 ops, imports, encodings, value-stack depth): the
-    # builds each comparison and main-path run of the script uses (a depth
-    # whose rows all fit on chip names the build without the stack split)
+    # (module, v128 ops, imports, encodings, value-stack depth[, instance
+    # cap]): the builds each comparison and main-path run of the script
+    # uses (a depth whose rows all fit on chip names the build without the
+    # stack split)
     def encs(simd):
         return ("blocks",) if simd else ("blocks", "super")
 
-    mods = [(data, simd, (), encs(simd), kn["value_stack_depth"])
+    mods = [(data, simd, (), encs(simd), kn["value_stack_depth"],
+             kn.get("instance_cap"))
             for _, data, _, _, _, _, kn, simd in fused_fixtures(2)]
-    mods += [(data, simd, (), encs(simd), kn["value_stack_depth"])
+    mods += [(data, simd, (), encs(simd), kn["value_stack_depth"], None)
              for _, data, _, _, _, kn, simd, _ in opt_fixtures(2)]
     env, wasi = (env_import,), (lambda: wasi_import(1),)
     mods += [(build_fib(), False, (), encs(False), 256),
@@ -2377,39 +2497,84 @@ def prebuild() -> dict:
              (build_echo(), False, wasi, encs(False), 64),
              (build_wasi_hello(), False, wasi, ("blocks",), 64)]
     tables = []
-    for data, simd, imports, fusions, depth in mods:
+    for data, simd, imports, fusions, depth, *cap in mods:
         for fusion in fusions:
             for opt in (None, False):
                 for _, (eng, _) in memory_modes(lambda m: make_engine(
                         data, 2, device="cpu", imports=[f() for f in imports],
                         fusion=fusion, mem_hbm=m, optimistic=opt,
-                        value_stack_depth=depth)):
+                        value_stack_depth=depth,
+                        instance_cap=(cap or [None])[0])):
                     tables.append(eng.tables)
     tables += corpus_tables([SIMD_WAST])
     tables += corpus_tables(corpus_files(), corpus_conf())
+    # the main path's fib(30) and vloop blocks builds, kOpt and careful,
+    # and each module once more with no block case (every pc through the
+    # hid plane): the difference in BRX says what the pc switch compiled
+    # to
+    mains = {}
+    for name, data, depth in (("fib", build_fib(), 256),
+                              ("vloop", build_simd_loop(), 64)):
+        for opt in (None, False):
+            eng = make_engine(data, 2, device="cpu", fusion="blocks",
+                              optimistic=opt, value_stack_depth=depth,
+                              call_stack_depth=16,
+                              memory_pages_per_lane=1)[0]
+            base = without_cases(eng.tables, eng.img)
+            mains[f"{name}_blocks_{'kopt' if opt is None else 'careful'}"] \
+                = (eng.tables, base)
+            tables.append(base)
     t0 = time.perf_counter()
     # the per-op build for every memory and B3 mode (every per-op run of
     # the script has a depth whose rows all fit on chip)
     interp.build_kernels(tables, per_op=[
         (w, o, False) for w in (False, True) for o in (False, True)])
     wall = time.perf_counter() - t0
+    cases = {interp.fused_kernel_key(t): instance_cases(t) for t in tables
+             if t.fusion != "none"}
+    infos = interp.BUILD_INFO["fused"]
+    with ThreadPoolExecutor(8) as pool:
+        sass = dict(zip(infos, pool.map(lambda i: sass_of(i["path"]),
+                                        infos.values())))
+    # the main path's pc switches: a jump table adds one BRX per dispatch
+    # loop over the same module with no block case, a compare tree none
+    switches = {}
+    for label, (tb, base) in mains.items():
+        key, bkey = (interp.fused_kernel_key(t) for t in (tb, base))
+        brx, bbrx = (next(iter(sass_stats(sass[k]).values()))["brx"]
+                     for k in (key, bkey))
+        loops = 2 if tb.optimistic else 1
+        what = {loops: "a jump table", 0: "compare trees"}.get(
+            brx - bbrx, f"{brx - bbrx} jump tables over {loops} loops")
+        switches[label] = dict(key=key, brx=brx, brx_without_cases=bbrx,
+                               pc_switch=what)
+        print(f"  pc switch of {label} ({key}): {what} ({brx} BRX, {bbrx} "
+              f"with no block case)", flush=True)
     builds = {}
-    for key, info in interp.BUILD_INFO["fused"].items():
+    for key, info in infos.items():
         rows = parse_ptxas(info.get("ptxas", ""))
+        ss = sass_stats(sass[key])
+        code = next(iter(ss.values()), {})
         builds[key] = dict(fusion=info.get("fusion"),
                            shapes=info.get("shapes"),
                            mean_len=info.get("mean_len"),
                            mem_window=info.get("mem_window"),
                            optimistic=info.get("optimistic"),
-                           seconds=info.get("seconds"), ptxas=rows)
+                           instance_cases=cases.get(key),
+                           seconds=info.get("seconds"), ptxas=rows,
+                           sass_bytes=code.get("sass_bytes"),
+                           brx=code.get("brx"))
         print(f"  fused build {key} [{info.get('fusion')}"
               f"{', windows' if info.get('mem_window') else ''}"
               f"{', optimistic' if info.get('optimistic') else ''}]: "
-              f"{info.get('shapes')} block shapes, mean length "
-              f"{info.get('mean_len') or 0:.2f}, nvcc "
-              f"{info.get('seconds') or 0:.1f} s", flush=True)
+              f"{cases.get(key)} instance cases, {info.get('shapes')} block "
+              f"shapes, mean length {info.get('mean_len') or 0:.2f}, nvcc "
+              f"{info.get('seconds') or 0:.1f} s, SASS "
+              f"{code.get('sass_bytes')} B, {code.get('brx')} BRX",
+              flush=True)
         print_registers(key, rows)
-    return dict(wall_s=wall, n_fused=len(builds), fused=builds)
+    return dict(wall_s=wall, n_fused=len(builds), fused=builds,
+                pc_switches=switches)
 
 
 def main() -> int:
@@ -2450,7 +2615,8 @@ def main() -> int:
     t_jobs = time.perf_counter() - t0
     timing = {f: phase_time_one_launch(f) for f in ("none", "blocks", "super")}
     bulk_timing = phase_time_bulk()
-    simd_timing = phase_time_simd_launch()
+    simd_timing = phase_time_simd_launch("blocks")
+    simd_op_timing = phase_time_simd_launch("none")
     mem_timing = phase_time_mem_launch()
     t_kernel = time.perf_counter() - t0
     print(f"phase kernel_vs_plain: {t_kernel:.2f} s (comparisons "
@@ -2520,6 +2686,10 @@ def main() -> int:
     # B2 and B6: the fused kernel of fib's module, its launches in the
     # main path's fib(30) run with block_fusion None (blocks) and False
     # (superinstructions)
+    # B2's other main-path runs in blocks (the default): vloop and config
+    # 2's mem_checksum, their launches and kernel ms per launch, kOpt and
+    # careful
+    vb, c2 = main_out["vloop"]["blocks"], main_out["config2"]
     block_record = launch_record(
         "block", "wasmedge_tpu_torch/csrc/fused.cuh",
         "wasmedge_tpu/batch/pallas_engine.py:2758",
@@ -2528,7 +2698,16 @@ def main() -> int:
         careful_main_ms_per_launch=per_launch(
             main_out["fib30_careful"]["profile"]),
         timed_launch=dict(fib_launch, retired=timing["blocks"]["retired"]),
-        generator="wasmedge_tpu_torch/batch/fusegen.py")
+        generator="wasmedge_tpu_torch/batch/fusegen.py",
+        vloop_launches=vb["block_launches"],
+        vloop_main_ms_per_launch=per_launch(vb["profile"]),
+        vloop_careful_main_ms_per_launch=per_launch(
+            vb["careful"]["profile"]),
+        mem_checksum_launches=c2["mem_checksum"]["block_launches"],
+        mem_checksum_main_ms_per_launch=per_launch(
+            c2["mem_checksum"]["profile"]),
+        mem_checksum_careful_main_ms_per_launch=per_launch(
+            c2["mem_checksum"]["careful"]["profile"]))
     super_record = launch_record(
         "super", "wasmedge_tpu_torch/csrc/fused.cuh",
         "wasmedge_tpu/batch/pallas_engine.py:2472",
@@ -2566,26 +2745,34 @@ def main() -> int:
         "main_kernel_ms": main_out["bulk"]["profile"]["kernel_ms"],
         "main_bound_ms": main_out["bulk"]["bulk_bound_ms"],
     }
-    # the B7 cases of the per-op kernel (its kSimd instantiations): one
-    # launch of TIMED_STEPS steps of vloop(SIMD_N) x MAIN_LANES;
-    # "launches" counts the main path's vloop launches with block_fusion
-    # False (the per-op kernel; the fused kernel runs the same B7 device
-    # functions)
+    # B7, the v128 ops: one launch of TIMED_STEPS steps of vloop(SIMD_N)
+    # x MAIN_LANES in B2 blocks, the main path (block_fusion None: each
+    # v128 op inlined by its sub in its block's case); "launches" counts
+    # the main path's vloop launches in blocks.  "per_op_*": the same
+    # launch and run with block_fusion False (the per-op kernel's
+    # simd_step, the sub known at run time)
+    vn = main_out["vloop"]["none"]
     simd_record = launch_record(
         "v128", "wasmedge_tpu_torch/csrc/interp.cu",
         "wasmedge_tpu/batch/pallas_engine.py:3203",
-        main_out["vloop"]["none"]["simd_launches"], simd_timing, simd_worst,
-        main_out["vloop"]["none"]["profile"],
+        vb["simd_launches"], simd_timing, max(simd_worst, fused_worst),
+        vb["profile"],
+        careful_main_ms_per_launch=per_launch(vb["careful"]["profile"]),
         timed_launch={"workload": f"vloop({SIMD_N})", "lanes": MAIN_LANES,
-                      "steps": TIMED_STEPS,
-                      "retired": simd_timing["retired"]})
+                      "steps": TIMED_STEPS, "encoding": "blocks",
+                      "retired": simd_timing["retired"]},
+        per_op_ms=simd_op_timing["ms"],
+        per_op_careful_ms=simd_op_timing["careful_ms"],
+        per_op_plain_ms=simd_op_timing["plain_ms"],
+        per_op_bound_ms=simd_op_timing["bound_ms"],
+        per_op_launches=vn["simd_launches"],
+        per_op_main_ms_per_launch=per_launch(vn["profile"]))
     # B4, the window cache: "ms", "plain_ms" and "bound_ms" are for one
     # per-op launch of TIMED_STEPS steps of config 2's mem_checksum from
     # the lanes' first store, windowed ("direct_*": the same launch with
     # mem_hbm False); "launches" counts the window-cache launches of
     # config 2's main path, mem_checksum in the default encoding (B2
     # blocks, windows on by default)
-    c2 = main_out["config2"]
     window_record = launch_record(
         "mem_window", "wasmedge_tpu_torch/csrc/memwin.cuh",
         "wasmedge_tpu/batch/pallas_engine.py:1752",
@@ -2629,6 +2816,7 @@ def main() -> int:
                       "builds": builds, "one_launch": timing,
                       "opt_fixtures": OPT_FIXTURES,
                       "bulk_pair": bulk_timing, "simd_launch": simd_timing,
+                      "simd_launch_per_op": simd_op_timing,
                       "mem_launch": mem_timing, "main": main_out}),
           flush=True)
     print(json.dumps({"kernels": [record, block_record, super_record,

@@ -125,11 +125,13 @@ def test_planners_and_generated_source_are_deterministic(name):
         t2 = device_tables(img, "cpu", enc)
         assert t1.fused_source == t2.fused_source
         assert t1.shapes == t2.shapes
-        # one case per block shape and per superinstruction id present
+        # one case per block head (all of them under the instance cap)
+        # and per superinstruction id present
         ids = set(t1.hid.tolist())
         n_super = sum(1 for h in ids if fusion.super_family(h))
-        assert t1.fused_source.count("      case ") == \
-            len(t1.shapes) + n_super
+        n_heads = int((t1.hid >= fusion.H_BLOCK_BASE).sum())
+        assert n_heads <= fusegen.MAX_INSTANCE_CASES
+        assert t1.fused_source.count("      case ") == n_heads + n_super
         assert "WASM_FUSED_LAUNCH(" in t1.fused_source
     assert device_tables(img, "cpu").fused_source == ""
 

@@ -3,29 +3,44 @@
 The Pallas kernel compiles one handler per block shape of a module while
 it traces (`mk_block`, wasmedge_tpu/batch/pallas_engine.py :2758-3201),
 with a virtual stack resolved at trace time (`VS`, :2779-2818).  Its
-counterpart here resolves the virtual stack when the code is generated:
-`cuda_source` writes, for every block shape and superinstruction id of
-the module's fused hid plane, one `case` of `Fused::step` whose stack
-cells are variables of straight-line code (registers, not a dynamically
-indexed array).  The source includes `csrc/interp.cu` and
+counterpart here resolves the virtual stack when the code is generated,
+so a block's cells are variables of straight-line code (registers, not a
+dynamically indexed array).  The source includes `csrc/interp.cu` and
 `csrc/fused.cuh`; `batch/interp.py` builds it into the module's own
-shared library.  The text depends only on the shapes, the superinstruction
-ids present, the kBulk/kSimd/kWin/kOpt flags (kWin: memory through the
-window cache, `csrc/memwin.cuh`; kOpt: optimistic convergence,
-`csrc/optimistic.cuh`) and whether the stack splits between shared and
-global memory (WASM_STACK_SPLIT), so equal modules share a build.
+shared library, keyed by the text.
 
-What a case does, per op (its operands from the code planes at pc0 + j):
-a push names a new cell; a pop takes the top cell, or reads the row below
-the block's entry sp; local and global writes commit at once and are
-forwarded to later reads of the same ordinal; guards, inline loads and
-stores exit with the cells live at that point written to their rows; at
-the end the live cells are written and the terminal (if any) is left to
-the per-op code.  Every decision (a guard's condition, an inline access's
-address, a superinstruction's branch) goes through the warp's `w`, which
-under kOpt takes lane 0's; an inline access that asks for a commit
-(OPT_DEFER) exits before it with the ops ahead of it retired.  `batch/interp_ref.py` runs the same shapes op by op
-with the same flush rule.
+B2 blocks (`img` given): one `case` of `Fused::at_pc` per block *head
+pc*, up to MAX_INSTANCE_CASES, with every immediate a literal (local
+offsets, global ordinals, constants, access offsets, guard targets and
+keep rows, the block's length and fall-through pc, v128 constants and
+shuffle selectors), so an instance case reads no code plane.  The
+interpreter switches on the pc (no hid or flen load); the case tests the
+lane's step budget and fuel against its literal length and runs the
+head's own op when they do not cover it.  A block that ends in br,
+brnz, return or a direct call runs that terminal in the same case, with
+literal targets, keep counts and callees; any other terminal is left to
+the per-op code, as before.  Heads beyond the cap keep a case per block
+shape in `Fused::step`, reached through the hid plane, with its operands
+from the code planes at pc0 + j.  B6 superinstructions (`img` None): one
+case of `Fused::step` per superinstruction id present, dispatched by hid.
+The text depends on the module, the kBulk/kSimd/kWin/kOpt flags (kWin:
+memory through the window cache, `csrc/memwin.cuh`; kOpt: optimistic
+convergence, `csrc/optimistic.cuh`) and whether the stack splits between
+shared and global memory (WASM_STACK_SPLIT).
+
+What a block does, per op: a push names a new cell; a pop takes the top
+cell, or reads the row below the block's entry sp; local and global
+writes commit at once and are forwarded to later reads of the same
+ordinal; v128 ops are force-inlined bodies chosen by their literal sub
+(`v2_fn`, `v1_fn`, ...: no out-of-line `v2_op` / `v1_op` call); guards,
+inline loads and stores exit with the cells live at that point written to
+their rows; at the end the live cells are written, and then the terminal
+runs.  Every decision (a guard's or branch's condition, an inline
+access's address, a return's frame row, a superinstruction's branch) goes
+through the warp's `w`, which under kOpt takes lane 0's; an inline access
+that asks for a commit (OPT_DEFER) exits before it with the ops ahead of
+it retired.  `batch/interp_ref.py` runs the same shapes op by op with the
+same flush rule, and its per-op step runs the terminal.
 """
 
 from __future__ import annotations
@@ -33,15 +48,31 @@ from __future__ import annotations
 from wasmedge_tpu_torch.batch.fusion import (
     H_BLOCK_BASE, SUPER_LEN, super_family)
 from wasmedge_tpu_torch.batch.interp import (
-    H_FUSE_A2R_BASE, H_FUSE_GBR, H_FUSE_GCA_BASE, H_FUSE_GCB_BASE,
-    H_FUSE_GCC_BASE, H_FUSE_GCS_BASE, H_FUSE_GGA_BASE, H_FUSE_GGBNZ_BASE,
-    H_FUSE_GGBZ_BASE, H_FUSE_GGS_BASE)
+    H_BR, H_BRNZ, H_CALL, H_FUSE_A2R_BASE, H_FUSE_GBR,
+    H_FUSE_GCA_BASE, H_FUSE_GCB_BASE, H_FUSE_GCC_BASE, H_FUSE_GCS_BASE,
+    H_FUSE_GGA_BASE, H_FUSE_GGBNZ_BASE, H_FUSE_GGBZ_BASE, H_FUSE_GGS_BASE,
+    H_RETURN)
+
+# Instance cases per build.  Each is straight-line code inlined into the
+# dispatch loop (twice under kOpt: the warp-leader and the careful loop),
+# so the cap bounds a build's instruction footprint and nvcc time for a
+# large module (1,024 cases: 1.7 MB of SASS and 145 s of nvcc for a kOpt
+# build on an H100's host, PERF.md); the heads beyond it keep their
+# shape's case.  A module of the spec corpus or of the benchmarks has at
+# most 96 heads.
+MAX_INSTANCE_CASES = 1024
+
+# terminals an instance case runs itself (no block ends in a brz: it
+# comes only from `if`, always forward, and the planner makes every such
+# brz a guard)
+_IN_CASE_TERMINALS = (H_BR, H_BRNZ, H_RETURN, H_CALL)
 
 _HEAD = """\
 // Generated by wasmedge_tpu_torch/batch/fusegen.py: the fused dispatch of
-// one module ({nblocks} block shapes, {nsuper} superinstruction ids,
-// kBulk = {bulk}, kSimd = {simd}, kWin = {win}, kOpt = {opt}, stack split
-// {split}).  Built into _build/ at first use.
+// one module ({ninst} block instance cases, {nblocks} block shape cases,
+// {nsuper} superinstruction ids, kBulk = {bulk}, kSimd = {simd}, kWin =
+// {win}, kOpt = {opt}, stack split {split}).  Built into _build/ at first
+// use.
 #define WASM_FUSED_BUILD 1
 #define WASM_STACK_SPLIT {split}
 #define ALU_INLINE __forceinline__
@@ -52,10 +83,12 @@ namespace {{
 
 struct Fused {{
   static constexpr bool kOn = true;
-  // One fused dispatch at pc; returns true when the terminal op at the new
-  // pc is left to the per-op code.  n: instructions retired; trap: set
-  // when an op inside traps (pc and sp are then that op's own), or
-  // OPT_DEFER when an inline access asks for a commit first (pc and sp
+  static constexpr bool kByPc = {by_pc};
+  // One fused dispatch at pc by its fused id h (a block shape beyond the
+  // instance cap, a superinstruction); returns true when the terminal op
+  // at the new pc is left to the per-op code.  n: instructions retired;
+  // trap: set when an op inside traps (pc and sp are then that op's own),
+  // or OPT_DEFER when an inline access asks for a commit first (pc and sp
   // are that op's, n the ops before it).  m: the lane's memory access
   // (its window cache with kWin); w: the warp's decisions.
   template <bool kSimd, bool kWin, class Wp>
@@ -72,14 +105,60 @@ struct Fused {{
     switch (h) {{
 """
 
-_TAIL = """\
+_STEP_TAIL = """\
       default:
         break;
-    }}
+    }
     n = 0;
     trap = E_EXEC_FAILED;  // no fused id of this module
     return false;
-  }}
+  }
+"""
+
+_AT_PC_HEAD = """\
+  // The dispatch at the clamped pc pcc (kByPc: B2 builds), with `left`
+  // steps of the launch and `fuel` left: a block head's instance case,
+  // else by the hid plane; returns the handler the per-op code runs at pc
+  // next (after the n ops retired here), or FUSED_DONE.  trap as for
+  // step.
+  template <bool kSimd, bool kWin, bool kLead>
+  __device__ static __forceinline__ int at_pc(
+      const Params& p, const Lane<kSimd>& s, Mem<kWin>& m, Warp<kLead>& w,
+      OptRun& os, const int pcc, const int left, const int fuel, int& pc,
+      int& sp, int& fp, int& ob, int& cd, const int pages, int& n,
+      int& trap) {
+    (void)m;
+    (void)os;
+    (void)pages;
+    switch (pcc) {
+"""
+
+_AT_PC_DEFAULT_STEP = """\
+      default: {
+        // a pc that heads no instance case: its hid, and a block head
+        // beyond the cap through its shape's case
+        const int h = __ldg(&p.hid[pcc]);
+        if (h < NUM_HANDLERS) return h;
+        const int len = __ldg(&p.flen[pcc]);
+        if (left < len || (p.fuel_on && fuel <= len))
+          return __ldg(&p.hid0[pcc]);
+        if (!step<kSimd, kWin>(p, s, m, w, h, pc, sp, fp, ob, pages, n,
+                               trap) || trap != 0)
+          return FUSED_DONE;
+        return __ldg(&p.hid[clampi(pc, 0, p.code_len - 1)]);
+      }
+    }
+  }
+"""
+
+_AT_PC_DEFAULT = """\
+      default:
+        return __ldg(&p.hid[pcc]);
+    }
+  }
+"""
+
+_TAIL = """\
 }};
 
 }}  // namespace
@@ -90,40 +169,93 @@ WASM_FUSED_LAUNCH({bulk}, {simd}, {win}, {opt}, Fused)
 
 def cuda_source(hid, shapes, bulk: bool, simd: bool,
                 win: bool = False, opt: bool = False,
-                split: bool = True) -> str:
+                split: bool = True, img=None, hid0=None) -> str:
     """The CUDA source of the fused dispatch for a fused hid plane and
     its block shapes (deterministic); `split`: the build for stacks
-    deeper than the rows on chip (csrc/interp.cu WASM_STACK_SPLIT)."""
-    supers = sorted({int(h) for h in hid if super_family(int(h))})
+    deeper than the rows on chip (csrc/interp.cu WASM_STACK_SPLIT).
+    With the image `img` and its original hid plane `hid0` (a "blocks"
+    encoding), the block heads get instance cases dispatched by pc."""
+    hid = [int(h) for h in hid]
+    supers = sorted({h for h in hid if super_family(h)})
+    heads = [pc for pc, h in enumerate(hid) if h >= H_BLOCK_BASE] \
+        if img is not None else []
+    inst, rest = heads[:MAX_INSTANCE_CASES], heads[MAX_INSTANCE_CASES:]
+    sids = sorted({hid[pc] - H_BLOCK_BASE for pc in rest}) \
+        if img is not None else range(len(shapes))
     flags = dict(bulk=str(bool(bulk)).lower(), simd=str(bool(simd)).lower(),
                  win=str(bool(win)).lower(), opt=str(bool(opt)).lower())
-    out = [_HEAD.format(nblocks=len(shapes), nsuper=len(supers),
-                        split=int(bool(split)), **flags)]
-    for sid, shape in enumerate(shapes):
-        out.append(_Block(shape, simd).case(H_BLOCK_BASE + sid))
+    out = [_HEAD.format(ninst=len(inst), nblocks=len(sids),
+                        nsuper=len(supers), split=int(bool(split)),
+                        by_pc=str(img is not None).lower(), **flags)]
+    for sid in sids:
+        out.append(_Block(shapes[sid], simd).case(H_BLOCK_BASE + sid))
     for h in supers:
         out.append(_super_case(h))
+    out.append(_STEP_TAIL)
+    if img is not None:
+        out.append(_AT_PC_HEAD)
+        for pc in inst:
+            out.append(_Block(shapes[hid[pc] - H_BLOCK_BASE], simd,
+                              _Code(img, hid0), pc).instance_case())
+        out.append(_AT_PC_DEFAULT_STEP if sids else _AT_PC_DEFAULT)
     out.append(_TAIL.format(**flags))
     return "".join(out)
 
 
+class _Code:
+    """The image's planes an instance case takes its literals from."""
+
+    def __init__(self, img, hid0):
+        self.img, self.hid0 = img, hid0
+
+    def at(self, plane, pc):
+        return int(getattr(self.img, plane)[pc])
+
+    def vrow(self, a):
+        """v128 table row a, clamped as the kernel clamps it: four u32."""
+        v = self.img.v128
+        r = min(max(a, 0), v.shape[0] - 1)
+        return [int(x) & 0xFFFFFFFF for x in v[r]]
+
+    def func(self, a):
+        """(entry, params, locals, frame top) of callee a, clamped."""
+        img = self.img
+        f = min(max(a, 0), len(img.f_entry) - 1)
+        return (int(img.f_entry[f]), int(img.f_nparams[f]),
+                int(img.f_nlocals[f]), int(img.f_frame_top[f]))
+
+
 class _Block:
-    """Code of one block shape.  A cell is (name, kind): kind "s" a u64
+    """Code of one block: a shape case (operands from the code planes at
+    pc0 + j, `code` None) or the instance case of the block headed at pc0
+    (`code`: its literals).  A cell is (name, kind): kind "s" a u64
     scalar (e2/e3 zero when written), "v" a V4 (kSimd builds: what a
     local.get, a row below the entry sp or a v128 op gives)."""
 
-    def __init__(self, shape, simd):
+    def __init__(self, shape, simd, code=None, pc0=None):
         self.simd = simd
+        self.code, self.pc0 = code, pc0
+        self.done = "false" if code is None else "FUSED_DONE"
         self.term = shape[-1][0] == "term"
         self.ops = shape[:-1] if self.term else shape
         self.lines = []
         self.items = []      # the virtual stack above the rows below
         self.nbelow = 0      # rows below the entry sp popped so far
         self.below = {}      # k -> cell read from row sp0 - 1 - k
-        self.pend_l = {}     # local ordinal -> cell last written
+        self.pend_l = {}     # local ordinal -> cell last read or written
         self.pend_g = {}     # global ordinal -> scalar cell last written
         self.k = 0
         self.shape = shape
+
+    # -- operands ------------------------------------------------------------
+    def pc_at(self, j):
+        return f"pc0 + {j}" if self.code is None else str(self.pc0 + j)
+
+    def imm(self, plane, j):
+        """Operand `plane` ("a", "b", "c") of op j."""
+        if self.code is None:
+            return f"__ldg(&p.{plane}[pc0 + {j}])"
+        return str(self.code.at(plane, self.pc0 + j))
 
     # -- cells ---------------------------------------------------------------
     def new(self, kind, expr):
@@ -185,7 +317,7 @@ class _Block:
                                          f"n = {n};"]
         if trap:
             body.append(f"trap = {trap};")
-        body.append("return false;")
+        body.append(f"return {self.done};")
         self.emit(f"if ({cond}) {{")
         for line in body:
             self.emit("  " + line)
@@ -198,41 +330,161 @@ class _Block:
         r = f"r{self.k}"
         self.k += 1
         self.emit(f"const int {r} = {call};")
-        at = f"pc0 + {j}"
+        at = self.pc_at(j)
         self.exit_block(f"{r} == E_MEM_OOB", pre, at, self.sp_of(pre),
                         j + 1, "E_MEM_OOB")
         self.exit_block(f"{r} == OPT_DEFER", pre, at, self.sp_of(pre), j,
                         "OPT_DEFER")
 
     # -- the shape -----------------------------------------------------------
-    def case(self, h):
+    def desc(self):
+        return " ".join(":".join(str(x) for x in op) for op in self.shape)
+
+    def body(self):
         for j, op in enumerate(self.ops):
             self.op(j, op)
         snap = self.snapshot()
         for line in self.flush_lines(snap):
             self.emit(line)
+        return snap
+
+    def case(self, h):
+        snap = self.body()
         nops = len(self.ops)
         self.emit(f"sp = {self.sp_of(snap)};")
         self.emit(f"pc = pc0 + {nops};")
         self.emit(f"n = {nops};")
         self.emit(f"return {'true' if self.term else 'false'};")
-        desc = " ".join(":".join(str(x) for x in op) for op in self.shape)
-        return (f"      case {h}: {{  // {desc}\n"
+        return (f"      case {h}: {{  // {self.desc()}\n"
                 + "\n".join(self.lines) + "\n      }\n")
 
+    def instance_case(self):
+        """The case of the block headed at pc0: the budget test against
+        its literal length (else the head's own op), its ops, and its
+        terminal in the case or left to the per-op code."""
+        nops, pc0 = len(self.ops), self.pc0
+        length = len(self.shape)
+        self.emit(f"if (left < {length} || (p.fuel_on && fuel <= {length}))")
+        self.emit(f"  return {int(self.code.hid0[pc0])};")
+        self.emit("const int sp0 = sp;")
+        snap = self.body()
+        self.emit(f"sp = {self.sp_of(snap)};")
+        t = pc0 + nops
+        th = self.shape[-1][1] if self.term else None
+        if th in _IN_CASE_TERMINALS:
+            # the live cells are in their rows; rows below this sp hold
+            # what the terminal's per-op step would read
+            self.emit("s.note(sp);")
+            self.terminal(th, t, snap)
+            self.emit(f"n = {nops + 1};")
+            self.emit("return FUSED_DONE;")
+        else:
+            self.emit(f"pc = {t};")
+            self.emit(f"n = {nops};")
+            self.emit(f"return {th if self.term else 'FUSED_DONE'};")
+        return (f"      case {pc0}: {{  // {self.desc()}\n"
+                + "\n".join(self.lines) + "\n      }\n")
+
+    # -- terminals -----------------------------------------------------------
+    def cell_at(self, k, snap):
+        """The k-th cell from the top at the terminal (0: the top) as
+        (expression of the whole cell, expression of its low 32 bits):
+        a live cell's register, else its row below the entry sp."""
+        items, nbelow = snap
+        if k < len(items):
+            name, kind = items[-1 - k]
+            whole = f"v4of({name})" if self.simd and kind == "s" else name
+            return whole, f"(u32)lo64({name})"
+        row = _sp0(len(items) - nbelow - 1 - k)
+        return f"s.getc({row})", f"(u32)s.get({row})"
+
+    def terminal(self, th, t, snap):
+        c = self.code
+        a, b, cc = c.at("a", t), c.at("b", t), c.at("c", t)
+        emit = self.emit
+        if th == H_BR:
+            if b == 1:
+                emit(f"s.putc(ob + {cc}, {self.cell_at(0, snap)[0]});")
+            emit(f"sp = ob + {cc + b};")
+            emit(f"pc = {a};")
+        elif th == H_BRNZ:
+            emit(f"if (w.nz({self.cell_at(0, snap)[1]})) {{")
+            if b == 1:
+                emit(f"  s.putc(ob + {cc}, {self.cell_at(1, snap)[0]});")
+            emit(f"  sp = ob + {cc + b};")
+            emit(f"  pc = {a};")
+            emit("} else {")
+            emit("  sp = sp - 1;")
+            emit(f"  pc = {t + 1};")
+            emit("}")
+        elif th == H_RETURN:
+            if b == 1:
+                emit(f"s.putc(fp, {self.cell_at(0, snap)[0]});")
+            emit("if (cd == 0) {")
+            emit(f"  sp = fp + {b};")
+            emit(f"  pc = {t};")
+            emit("  trap = TRAP_DONE;")
+            emit("} else {")
+            emit("  // where the return goes is a decision")
+            emit("  const size_t r = s.at(cd - 1, p.CD);")
+            emit("  pc = (int)w.agree((u32)p.fr_ret_pc[r]);")
+            emit("  const int fp1 = (int)w.agree((u32)p.fr_fp[r]);")
+            emit("  ob = (int)w.agree((u32)p.fr_opbase[r]);")
+            emit(f"  sp = fp + {b};")
+            emit("  fp = fp1;")
+            emit("  cd = cd - 1;")
+            emit("}")
+        else:
+            assert th == H_CALL
+            entry, npar, nloc, ftop = c.func(a)
+            zeros = min(max(nloc - npar, 0), int(c.img.max_local_zeros))
+            emit(f"const int fp_new = sp - {npar};")
+            # a call that runs out of both stacks traps E_STACK_OVERFLOW,
+            # as the per-op step and the reference decide
+            emit(f"if (fp_new + {ftop} > p.D) {{")
+            emit(f"  pc = {t};")
+            emit("  trap = E_STACK_OVERFLOW;")
+            emit("} else if (cd >= p.CD - 1) {")
+            emit(f"  pc = {t};")
+            emit("  trap = E_CALL_STACK;")
+            emit("} else {")
+            emit("  if constexpr (kLead) opt_save_frame(p, s.lane, cd, "
+                 "os.o.fhi);")
+            emit("  const size_t r = s.at(cd, p.CD);")
+            emit(f"  p.fr_ret_pc[r] = {t + 1};")
+            emit("  p.fr_fp[r] = fp;")
+            emit("  p.fr_opbase[r] = ob;")
+            if zeros:
+                emit(f"  for (int k = 0; k < {zeros}; ++k) "
+                     f"s.put(fp_new + {npar} + k, 0);")
+            emit(f"  pc = {entry};")
+            emit("  fp = fp_new;")
+            emit(f"  ob = fp_new + {nloc};")
+            emit("  sp = ob;")
+            emit("  cd = cd + 1;")
+            emit("}")
+
+    # -- ops -----------------------------------------------------------------
     def op(self, j, op):
         kind = op[0]
-        at = f"pc0 + {j}"
-        a = f"__ldg(&p.a[{at}])"
+        a = self.imm("a", j)
         if kind == "nop":
             return
         if kind == "const":
-            self.items.append(self.new(
-                "s", f"pack(__ldg(&p.ilo[{at}]), __ldg(&p.ihi[{at}]))"))
+            if self.code is None:
+                expr = (f"pack(__ldg(&p.ilo[pc0 + {j}]), "
+                        f"__ldg(&p.ihi[pc0 + {j}]))")
+            else:
+                lo = self.code.at("imm_lo", self.pc0 + j) & 0xFFFFFFFF
+                hi = self.code.at("imm_hi", self.pc0 + j) & 0xFFFFFFFF
+                expr = f"0x{(hi << 32) | lo:016x}ull"
+            self.items.append(self.new("s", expr))
         elif kind == "lget":
+            # a local read or written earlier in the block: that cell
             cell = self.pend_l.get(op[1])
             if cell is None:
                 cell = self.new(self.full_kind(), f"s.getc(fp + {a})")
+                self.pend_l[op[1]] = cell
             self.items.append(cell)
         elif kind in ("lset", "ltee"):
             cell = self.pop() if kind == "lset" else self.peek()
@@ -278,7 +530,7 @@ class _Block:
                                 a, self.sp_of(snap), j + 1)
             else:
                 self.exit_block(f"w.nz((u32)lo64({cnd[0]}))", snap, a,
-                                f"ob + __ldg(&p.c[{at}])", j + 1)
+                                f"ob + {self.imm('c', j)}", j + 1)
         elif kind == "loadi":
             pre = self.snapshot()
             addr = self.pop()
@@ -303,10 +555,10 @@ class _Block:
         kind = op[0]
         if kind == "v2":
             y, x = self.pop(), self.pop()
-            expr = f"v2_op({op[1]}, v4of({x[0]}), v4of({y[0]}))"
+            expr = f"v2_fn({op[1]}, v4of({x[0]}), v4of({y[0]}))"
         elif kind == "v1":
             x = self.pop()
-            expr = f"v1_op({op[1]}, v4of({x[0]}))"
+            expr = f"v1_fn({op[1]}, v4of({x[0]}))"
         elif kind == "vtest":
             x = self.pop()
             self.items.append(self.new(
@@ -329,10 +581,23 @@ class _Block:
             expr = (f"vreplace_op({op[1]}, v4of({x[0]}), {a}, "
                     f"lo64({v[0]}))")
         elif kind == "vconst":
-            expr = f"fused_vrow(p, {a})"
+            if self.code is None:
+                expr = f"fused_vrow(p, {a})"
+            else:
+                words = ", ".join(f"0x{w:08x}u"
+                                  for w in self.code.vrow(int(a)))
+                expr = f"V4{{{{{words}}}}}"
         elif kind == "vshuffle":
             y, x = self.pop(), self.pop()
-            expr = f"fused_vshuffle(p, {a}, v4of({x[0]}), v4of({y[0]}))"
+            if self.code is None:
+                expr = (f"fused_vshuffle(p, {a}, v4of({x[0]}), "
+                        f"v4of({y[0]}))")
+            else:
+                xv, yv = self.new("v", f"v4of({x[0]})")[0], \
+                    self.new("v", f"v4of({y[0]})")[0]
+                words = ", ".join(_shuffle_word(xv, yv, mk)
+                                  for mk in self.code.vrow(int(a)))
+                expr = f"V4{{{{{words}}}}}"
         elif kind == "vbitsel":
             m, x, w = self.pop(), self.pop(), self.pop()
             expr = (f"fused_vbitsel(v4of({w[0]}), v4of({x[0]}), "
@@ -340,6 +605,28 @@ class _Block:
         else:
             raise ValueError(f"unknown block op {op}")
         self.items.append(self.new("v", expr))
+
+
+def _shuffle_word(x: str, y: str, mk: int) -> str:
+    """Word k of i8x16.shuffle with the literal selector word mk of the
+    V4s x and y: interp.cu's shuffle_word folded when the code is
+    generated, one __byte_perm per aligned 8-byte source pair that output
+    bytes come from (selector bits 3-7 pick the pair, 0-2 the byte; a
+    selector beyond the 32 bytes gives 0)."""
+    pairs = ((x, 0), (x, 2), (y, 0), (y, 2))
+    sel = [(mk >> (8 * j)) & 0xFF for j in range(4)]
+    nib = sum((m & 7) << (4 * j) for j, m in enumerate(sel))
+    terms = []
+    for q, (v, w) in enumerate(pairs):
+        mask = sum(0xFF << (8 * j) for j, m in enumerate(sel)
+                   if (m >> 3) & 0x1F == q)
+        if not mask:
+            continue
+        term = {0x3210: f"{v}.w[{w}]", 0x7654: f"{v}.w[{w + 1}]"}.get(
+            nib, f"__byte_perm({v}.w[{w}], {v}.w[{w + 1}], 0x{nib:04x}u)")
+        terms.append(term if mask == 0xFFFFFFFF
+                     else f"({term} & 0x{mask:08x}u)")
+    return " | ".join(terms) if terms else "0u"
 
 
 def _sp0(k: int) -> str:

@@ -16,10 +16,10 @@ dispatch ("none"), B2 fused basic blocks ("blocks") and B6 peephole
 superinstructions ("super"), planned by `batch/fusion.py` as the Pallas
 kernel plans them.  The per-op encoding runs the shared kernel build; a
 fused encoding runs a kernel built for its module, `csrc/interp.cu` with
-the dispatch that `batch/fusegen.py` generates for its shapes.  With
-`mem_window` (B4) every memory access goes through each lane's window
-cache in shared memory (`csrc/memwin.cuh`; plain version
-`batch/memwin.py`) instead of the plane in global memory.  Every launch
+the dispatch that `batch/fusegen.py` generates for its blocks or
+superinstructions.  With `mem_window` (B4) every memory access goes
+through each lane's window cache in shared memory (`csrc/memwin.cuh`;
+plain version `batch/memwin.py`) instead of the plane in global memory.  Every launch
 runs one-warp blocks, each lane's low stack rows in its block's shared
 memory (`block_geometry`).  With
 `optimistic` (B3) each warp that starts a launch converged runs its lane
@@ -301,7 +301,8 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
     tables.shapes = shapes
     tables.fused_source = fusegen.cuda_source(
         fhid, shapes, tables.has_bulk, tables.has_simd, tables.mem_window,
-        tables.optimistic, tables.stack_split)
+        tables.optimistic, tables.stack_split,
+        **(dict(img=img, hid0=hid) if fusion == "blocks" else {}))
     return tables
 
 

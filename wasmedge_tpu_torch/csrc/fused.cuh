@@ -4,41 +4,53 @@
 // Replaces, in wasmedge_tpu/batch/pallas_engine.py, the fused basic blocks
 // `mk_block` (:2758-3201, planner `fuse_blocks` :429-569) and the
 // superinstruction handlers `mk_fuse_gca` ... `h_fuse_gbr` (:2472-2652,
-// planner `fuse_image` :269-388).  The Pallas kernel builds one handler
-// per block shape while it traces, with a virtual stack resolved at trace
-// time, so a block's intermediates live in vector registers.  Here a
-// generator (batch/fusegen.py) writes one `case` per block shape and per
-// superinstruction id of a module, with a virtual stack resolved when the
-// code is generated: every cell a block pushes and pops is a variable of
-// straight-line code, so nvcc keeps it in registers; local and global
-// writes commit at once, and a later read of the same local or global
-// ordinal takes the written value; at any exit the live cells are written
-// to the stack rows.  The module's source includes interp.cu and this
-// file, and instantiates interp_kernel once, with the module's kBulk,
-// kSimd and kWin (memory through the window cache, memwin.cuh), kOpt
-// (optimistic convergence, optimistic.cuh) and its `Fused` dispatch, into
-// a shared library of its own.  Under kOpt a block's decisions (its guard
-// conditions, the addresses of its inline loads and stores, a
+// planner `fuse_image` :269-388), and inside blocks the v128 handlers
+// (:3203-3520).  The Pallas kernel builds one handler per block shape
+// while it traces, with a virtual stack resolved at trace time, so a
+// block's intermediates live in vector registers.  Here a generator
+// (batch/fusegen.py) writes the dispatch of one module, with a virtual
+// stack resolved when the code is generated: every cell a block pushes
+// and pops is a variable of straight-line code, so nvcc keeps it in
+// registers; local and global writes commit at once, and a later read of
+// the same local or global ordinal takes the written (or first read)
+// value; at any exit the live cells are written to the stack rows.  The
+// module's source includes interp.cu and this file, and instantiates
+// interp_kernel once, with the module's kBulk, kSimd and kWin (memory
+// through the window cache, memwin.cuh), kOpt (optimistic convergence,
+// optimistic.cuh) and its `Fused` dispatch, into a shared library of its
+// own.
+//
+// B2 blocks: one case of `Fused::at_pc` per block head pc, switched on by
+// the clamped pc at the top of interp.cu's dispatch loop (a jump table
+// where the heads are dense), every immediate a literal: what a Wasm
+// instruction costs in blocks on the H100 is the length of its chain of
+// dependent instructions, loads and taken branches, one warp per SM
+// scheduler with nothing to hide it, and a literal takes the operand
+// load, the hid and flen loads and the second dispatch of a terminal off
+// that chain.  The case runs br, brnz, return and direct calls itself;
+// v128 ops are force-inlined by their literal sub (interp.cu v2_fn,
+// v1_fn), shuffles literal byte permutes.  Heads beyond the generator's
+// cap, and B6 superinstructions, keep `Fused::step`, dispatched by the
+// fused id in the hid plane, operands from the code planes.
+//
+// Under kOpt a block's decisions (its guard and branch conditions, the
+// addresses of its inline loads and stores, a return's frame row, a
 // superinstruction's branch) go through the warp's `w` as the per-op
-// handlers' do, and an inline access whose window miss would write a
+// handlers' do, a call saves its frame row for a rollback first
+// (opt_save_frame), and an inline access whose window miss would write a
 // dirty way back exits the block before it (n ops retired, no trap) for
 // the commit, as an out-of-bounds access exits it with its trap.
 //
-// What bounds the per-op loop on the H100 is the latency of the dependent
-// accesses each instruction makes (the hid load, operand rows, the result
-// row; the low stack rows in shared memory, interp.cu `Lane`), one warp
-// per SM at 4096 lanes.  A fused dispatch pays the loop's bookkeeping (pc
-// clamp, hid load, fuel, trap check) once per block and keeps the stack
-// traffic between a block's ops in registers.
-//
 // Semantics kept exact (batch/interp_ref.py is the plain version):
 //  - a fused dispatch runs only when the lane's remaining steps in the
-//    launch and its fuel cover the whole fused length (interp.cu), so
-//    `retired`, `fuel` and the stopping instruction are the per-op loop's;
+//    launch and its fuel cover the whole fused length (its terminal
+//    included), so `retired`, `fuel` and the stopping instruction are the
+//    per-op loop's; a terminal in the case never meets the fuel limit;
 //  - exits inside a block leave the per-op state: a taken forward branch
 //    (guard) exits at its op having retired it; an inline load or store
 //    out of bounds traps with everything before it committed, pc at the
-//    op and sp its pre-op sp; the terminal runs as a per-op step;
+//    op and sp its pre-op sp; a terminal runs after the flush, as the
+//    per-op step would, its rows below the block's exit sp noted first;
 //  - the flush rule: at every exit each cell of the virtual stack at that
 //    point is written to its row (a scalar cell with e2/e3 zeroed, a v128
 //    cell with all four words); rows the per-op loop would write for

@@ -54,6 +54,10 @@
 // shuffles; float lanes call the scalar float functions below, so vector
 // and scalar floats give the same bits.  v128.load / v128.store read a
 // five-word window of the lane's memory column shifted by (ea & 3) * 8.
+// Inside a B2 block (fused.cuh) each op is its force-inlined body with
+// its sub a literal (v2_fn, v1_fn, ...), so nvcc folds it to its own
+// instructions on the cell in registers; the per-op step calls v2_op and
+// v1_op out of line with the sub known at run time.
 //
 // memory.fill / memory.copy (B5) run as a warp-cooperative row pass
 // (bulk_op): the lanes of a warp at the op together form groups as the
@@ -811,8 +815,11 @@ __device__ __forceinline__ u64 v2_f64(int op, u64 a, u64 b) {
   return alu2_f64(op - 1, a, b) != 0 ? ~0ull : 0ull;
 }
 
-// Binary v128 ops: x is the cell below the top, y the top.
-__device__ __noinline__ V4 v2_op(int sub, V4 x, V4 y) {
+// Binary v128 ops: x is the cell below the top, y the top.  A fused
+// build's generated code calls v2_fn with its sub a literal, so that the
+// op folds to its own few instructions on the V4 in registers; the per-op
+// step calls v2_op, out of line, with the sub known at run time.
+__device__ __forceinline__ V4 v2_fn(int sub, V4 x, V4 y) {
   V4 r;
   if (sub < V2_I8X16) {
 #pragma unroll
@@ -923,6 +930,7 @@ __device__ __noinline__ V4 v2_op(int sub, V4 x, V4 y) {
   }
   return r;
 }
+__device__ __noinline__ V4 v2_op(int sub, V4 x, V4 y) { return v2_fn(sub, x, y); }
 
 // The ALU1 sub (image.py ALU1_SUB) of f32x4 / f64x2 op `op` of abs neg
 // sqrt ceil floor trunc nearest.
@@ -933,8 +941,8 @@ __device__ __forceinline__ int a1_f64(int op) {
   return op == 0 ? 32 : op == 1 ? 33 : op == 2 ? 38 : 31 + op;
 }
 
-// Unary v128 ops.
-__device__ __noinline__ V4 v1_op(int sub, V4 x) {
+// Unary v128 ops (v1_fn inline with a literal sub, v1_op out of line).
+__device__ __forceinline__ V4 v1_fn(int sub, V4 x) {
   V4 r;
   int trap = 0;  // no op of this set traps
   if (sub == 0) {
@@ -1031,6 +1039,7 @@ __device__ __noinline__ V4 v1_op(int sub, V4 x) {
   }
   return r;
 }
+__device__ __noinline__ V4 v1_op(int sub, V4 x) { return v1_fn(sub, x); }
 
 // any_true, all_true (i8x16 i16x8 i32x4 i64x2), bitmask (the same four)
 __device__ __forceinline__ u32 vtest_op(int sub, const V4& x) {
@@ -1170,9 +1179,13 @@ __device__ __noinline__ void copy_rows(i32* dst, int ds, const i32* src,
 // stack plane (lo and hi, and e2 and e3 with kSimd) live in the block's
 // dynamic shared memory for the whole launch, as the Pallas kernel keeps
 // a lane block's stack in VMEM scratch (pallas_engine.py :805-815): word
-// (row r, plane k) of this thread at sm[r * kRow + k * BLOCK_THREADS], so
-// a cell's words sit at fixed offsets from one address and each thread
-// in its own bank whatever rows the lanes of the warp use.  Rows at or
+// (row r, plane k) of this thread at sm[r * kRow + k * kPlane], so a
+// cell's words sit at fixed offsets from one address and the threads of
+// a warp touch distinct banks whatever rows they use (two planes: a
+// stripe of 32 words per plane; kSimd: a cell's four words side by side,
+// one 16-byte access (LDS.128 / STS.128), the warp's 512 bytes of a row
+// contiguous; on an H100 about 5 % faster on vloop(1e6) x 4096 in blocks
+// than four stripes 128 B apart, PERF.md).  Rows at or
 // above R stay in the [D, L] planes in global memory, where one compare
 // picks the place; a build for depths that fit wholly on chip
 // (kStackSplit false) compiles neither.  `enter` loads the rows below the lane's sp (the rows a
@@ -1190,6 +1203,10 @@ template <bool kSimd>
 struct Lane {
   static constexpr int kPlanes = kSimd ? 4 : 2;
   static constexpr int kRow = kPlanes * BLOCK_THREADS;  // words a row
+  // word (row r, plane k) of this thread at sm[r * kRow + k * kPlane],
+  // this thread's row 0 at kLaneWords * threadIdx.x
+  static constexpr int kPlane = kSimd ? 1 : BLOCK_THREADS;
+  static constexpr int kLaneWords = kSimd ? kPlanes : 1;
   i32* lo;
   i32* hi;
   i32* e2;
@@ -1211,7 +1228,7 @@ struct Lane {
     const int r = clampi(row, 0, D - 1);
     if (!kStackSplit || r < R) {
       const i32* w = sm + r * kRow;
-      return pack(w[0], w[BLOCK_THREADS]);
+      return pack(w[0], w[kPlane]);
     }
     const size_t i = (size_t)r * (size_t)L + (size_t)lane;
     return pack(lo[i], hi[i]);
@@ -1221,11 +1238,11 @@ struct Lane {
     const int r = clampi(row, 0, D - 1);
     if (!kStackSplit || r < R) {
       i32* w = sm + r * kRow;
-      w[0] = lo32(v);
-      w[BLOCK_THREADS] = hi32(v);
       if constexpr (kSimd) {
-        w[2 * BLOCK_THREADS] = 0;
-        w[3 * BLOCK_THREADS] = 0;
+        *reinterpret_cast<uint4*>(w) = make_uint4((u32)v, (u32)(v >> 32), 0u, 0u);
+      } else {
+        w[0] = lo32(v);
+        w[kPlane] = hi32(v);
       }
       return;
     }
@@ -1237,24 +1254,31 @@ struct Lane {
       e3[i] = 0;
     }
   }
+  // the four-word cell; a two-plane stack (no v128 op in the image, so
+  // the per-op step's v128 code it is compiled into is never reached)
+  // reads and writes lo and hi
   __device__ __forceinline__ V4 get4(int row) const {
+    if constexpr (!kSimd) {
+      const u64 v = get(row);
+      return V4{{(u32)v, (u32)(v >> 32), 0u, 0u}};
+    }
     const int r = clampi(row, 0, D - 1);
     if (!kStackSplit || r < R) {
-      const i32* w = sm + r * kRow;
-      return V4{{(u32)w[0], (u32)w[BLOCK_THREADS], (u32)w[2 * BLOCK_THREADS],
-                 (u32)w[3 * BLOCK_THREADS]}};
+      const uint4 c = *reinterpret_cast<const uint4*>(sm + r * kRow);
+      return V4{{c.x, c.y, c.z, c.w}};
     }
     const size_t i = (size_t)r * (size_t)L + (size_t)lane;
     return V4{{(u32)lo[i], (u32)hi[i], (u32)e2[i], (u32)e3[i]}};
   }
   __device__ __forceinline__ void put4(int row, const V4& v) const {
+    if constexpr (!kSimd) {
+      put(row, (u64)v.w[0] | ((u64)v.w[1] << 32));
+      return;
+    }
     const int r = clampi(row, 0, D - 1);
     if (!kStackSplit || r < R) {
-      i32* w = sm + r * kRow;
-      w[0] = (i32)v.w[0];
-      w[BLOCK_THREADS] = (i32)v.w[1];
-      w[2 * BLOCK_THREADS] = (i32)v.w[2];
-      w[3 * BLOCK_THREADS] = (i32)v.w[3];
+      *reinterpret_cast<uint4*>(sm + r * kRow) =
+          make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
       return;
     }
     const size_t i = (size_t)r * (size_t)L + (size_t)lane;
@@ -1274,13 +1298,13 @@ struct Lane {
   __device__ __forceinline__ void enter(int sp) const {
     const int n = min(clampi(sp, 0, D), R);
     for (int k = 0; k < kPlanes; ++k)
-      copy_rows(sm + k * BLOCK_THREADS, kRow, plane(k) + lane, L, n);
+      copy_rows(sm + k * kPlane, kRow, plane(k) + lane, L, n);
   }
   // the launch's exit: on-chip rows [0, hw) back to the planes
   __device__ __forceinline__ void leave() const {
     const int n = min(hw, R);
     for (int k = 0; k < kPlanes; ++k)
-      copy_rows(plane(k) + lane, L, sm + k * BLOCK_THREADS, kRow, n);
+      copy_rows(plane(k) + lane, L, sm + k * kPlane, kRow, n);
   }
   // rows [0, n) of every stack plane to (save) or from (restore) the
   // [D, L] shadow planes sh[k] of a B3 snapshot
@@ -1289,7 +1313,7 @@ struct Lane {
     const int nc = min(n, R);
     for (int k = 0; k < kPlanes; ++k) {
       i32* const s = sh[k] + lane;
-      i32* const on = sm + k * BLOCK_THREADS;
+      i32* const on = sm + k * kPlane;
       i32* const g = plane(k) + lane;
       const size_t off = (size_t)nc * L;
       if (restore) {
@@ -1758,13 +1782,18 @@ __device__ __forceinline__ int simd_step(const Params& p,
 // F: the fused dispatch of a per-module build (fused.cuh and the code
 // batch/fusegen.py generates; B2 blocks or B6 superinstructions), or
 // NoFusion for the shared per-op build, which then compiles to the loop
-// it always was.  A fused id runs F::step only when the lane's remaining
+// it always was.  A fused dispatch runs only when the lane's remaining
 // steps in the launch and, with fuel on, its remaining fuel cover the
 // whole fused length, so a launch stops at the same instruction as the
 // per-op loop; otherwise the lane runs the head slot's original op
-// (hid0) and goes on one op at a time.  F::step retires n ops (their
-// writes committed, the live cells of its virtual stack flushed) and may
-// leave a terminal op at pc, which the per-op code below then runs.
+// (hid0) and goes on one op at a time.  B2 builds (F::kByPc) switch on
+// the pc: F::at_pc runs a block head's case, which may run its terminal
+// too (any other pc takes the hid plane, a block beyond the instance cap
+// F::step), and returns the handler the per-op code runs next or
+// FUSED_DONE; B6 builds load the hid and run F::step at a fused id.
+// Either retires n ops (their writes committed, the live cells of its
+// virtual stack flushed) and may leave a terminal op at pc to the per-op
+// code below.
 //
 // kWin: memory accesses go through the lane's window cache (memwin.cuh);
 // the launch gives each block WIN_SMEM_BYTES of dynamic shared memory
@@ -1786,7 +1815,12 @@ __device__ __forceinline__ int simd_step(const Params& p,
 // loop of a build without kOpt.
 struct NoFusion {
   static constexpr bool kOn = false;
+  static constexpr bool kByPc = false;
 };
+
+// What a fused build's at_pc returns when it leaves nothing to the per-op
+// code (not a handler id).
+constexpr int FUSED_DONE = -1;
 
 template <bool kBulk, bool kSimd, class F, bool kWin, bool kLead>
 __device__ __forceinline__ void dispatch_loop(const Params& p,
@@ -1807,8 +1841,52 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
         return;
     }
     int pcc = clampi(pc, 0, p.code_len - 1);
-    int h = __ldg(&p.hid[pcc]);
-    if constexpr (F::kOn) {
+    int h;
+    if constexpr (F::kByPc) {
+      // B2 blocks: the generated switch on pc runs a block head's own
+      // case (its budget test, its ops and, for br / brnz / return /
+      // call, its terminal, every immediate a literal), or returns the
+      // handler the per-op code below runs at pc: a pc that heads no
+      // block, a head whose block the budget does not cover (its own
+      // op), a terminal left to the per-op code (after the block's n
+      // ops).  FUSED_DONE: nothing left for the per-op code.
+      int n = 0, xtrap = 0;
+      h = F::template at_pc<kSimd, kWin>(p, s, m, w, os, pcc,
+                                         p.chunk - step, fuel, pc, sp, fp,
+                                         ob, cd, pages, n, xtrap);
+      if (h == FUSED_DONE || n != 0) {
+        retired += n;
+        if (p.fuel_on) fuel -= n;
+        s.note(sp);  // a fused dispatch writes rows below its exit's sp
+        if (xtrap != 0) {
+          if constexpr (kLead) {
+            if (xtrap == OPT_DEFER) {
+              // the n ops before the access retired; the commit it asks
+              // for comes at the top of the next iteration
+              step += n;
+              os.pending = OPT_WAIT_ACCESS;
+              --step;
+              continue;
+            }
+          }
+          trap = xtrap;  // pc and sp are the trapping op's own
+          break;
+        }
+        step += n;
+        if (h == FUSED_DONE) {
+          --step;  // the loop's increment
+          continue;
+        }
+        pcc = clampi(pc, 0, p.code_len - 1);
+      }
+    } else {
+      h = __ldg(&p.hid[pcc]);
+    }
+    if constexpr (F::kOn && !F::kByPc) {
+      // B6 superinstructions: dispatched by the hid plane.  One hook for
+      // both encodings (B6 through at_pc's default) ran fib(30) in super
+      // 5.9 % slower on an H100 (PERF.md): a second test on every
+      // per-op instruction's path.
       if ((unsigned)(h - H_FUSE_GCA_BASE) <= (unsigned)(H_FUSE_GBR - H_FUSE_GCA_BASE) ||
           h >= NUM_HANDLERS) {
         const int len = __ldg(&p.flen[pcc]);
@@ -2164,10 +2242,11 @@ __global__ void __launch_bounds__(BLOCK_THREADS) interp_kernel(const Params p) {
     if (trap0 != 0) return;
   }
   // dynamic shared memory: the windows (kWin), then the stack rows
-  extern __shared__ i32 dyn_smem[];
+  extern __shared__ __align__(16) i32 dyn_smem[];
   Mem<kWin> m(dyn_smem);
   const Lane<kSimd> s{p.stack_lo, p.stack_hi, p.stack_e2, p.stack_e3,
-                      dyn_smem + (kWin ? WIN_SMEM_BYTES / 4 : 0) + threadIdx.x,
+                      dyn_smem + (kWin ? WIN_SMEM_BYTES / 4 : 0) +
+                          Lane<kSimd>::kLaneWords * threadIdx.x,
                       p.L, p.D, lane, p.srows, 0};
   LaneRegs r{p.pc[lane],      p.sp[lane],      p.fp[lane],
              p.opbase[lane],  p.call_depth[lane], p.retired[lane],

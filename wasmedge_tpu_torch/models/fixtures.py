@@ -1217,3 +1217,126 @@ def build_rollback_rows() -> bytes:
         "i32.add",
     ], export="f")
     return b.build()
+
+
+# -- B2 instance cases and B7 ops inlined per sub -----------------------------
+
+BLOCK_TERMS_WAT = """
+(module
+  (memory 1)
+  (func $inc (param i32) (result i32) (local i64 i32 i32)
+    (local.set 2 (i32.add (local.get 2) (local.get 0)))
+    (return (i32.add (local.get 2) (i32.const 3))))
+  (func $void (param i32)
+    (drop (i32.mul (local.get 0) (i32.const 5))))
+  (func (export "terms") (param i32) (result i32) (local i32 i32)
+    (local.set 1
+      (block (result i32) (br 0 (i32.add (local.get 0) (i32.const 7)))))
+    (local.set 1 (i32.add (local.get 1)
+      (block (result i32)
+        (drop (br_if 0 (i32.mul (local.get 0) (i32.const 3))
+                       (i32.and (local.get 0) (i32.const 1))))
+        (i32.const 5))))
+    (loop
+      (local.set 2 (i32.add (local.get 2) (i32.const 1)))
+      (local.set 1 (call $inc (i32.xor (local.get 1) (local.get 2))))
+      (br_if 0 (i32.lt_u (local.get 2) (i32.and (local.get 0) (i32.const 7)))))
+    (block (loop
+      (br_if 1 (i32.ge_u (local.get 2) (i32.const 12)))
+      (call $void (i32.add (local.get 1) (local.get 2)))
+      (local.set 2 (i32.add (local.get 2) (i32.const 1)))
+      (br 0)))
+    (i32.add (local.get 1) (local.get 2)))
+  (func (export "void_top") (param i32)
+    (call $void (i32.add (local.get 0) (i32.const 1)))
+    (drop (i32.add (local.get 0) (i32.const 2))))
+  (func (export "entry") (param i32) (result i32)
+    (call $inc (i32.add (local.get 0) (i32.const 1)))))
+"""
+
+
+def build_block_terminals() -> bytes:
+    """Blocks that end in each terminal an instance case runs itself:
+    `terms(x)` a br with a kept value, a br_if with a kept value (taken on
+    odd x), a loop closed by a backward br_if and one by a br, direct calls
+    to a callee with locals to zero that returns from depth 1, and the
+    return at depth 0; `void_top(x)` returns no value at depth 0 after a
+    call of a void function; `entry(x)`'s first block ends in its call (4
+    instructions with it).  It declares a memory it does not use, so that
+    it runs in both memory modes."""
+    return parse_wat(BLOCK_TERMS_WAT)
+
+
+CALL_TRAPS_WAT = """
+(module
+  (memory 1)
+  (func $deep (export "deep") (param i32) (result i32) (local i64 i64 i64 i64)
+    (if (result i32) (i32.eqz (local.get 0))
+      (then (i32.const 1))
+      (else (i32.add (call $deep (i32.sub (local.get 0) (i32.const 1)))
+                     (local.get 0))))))
+"""
+
+
+def build_call_traps() -> bytes:
+    """deep(n): a recursion n deep (frames of one parameter, four i64
+    locals and the operands under the call), its call the terminal of a
+    block; sum 1 + n (n + 1) / 2.  With few frames (call stack depth 16)
+    it traps E_CALL_STACK from n = 15; with a short value stack (64 rows)
+    and many frames, E_STACK_OVERFLOW.  Declares an unused memory, as
+    build_block_terminals does."""
+    return parse_wat(CALL_TRAPS_WAT)
+
+
+def build_many_heads(n: int) -> bytes:
+    """heads(x): n blocks of one shape, each x += k, a forward br_if out of
+    it when x passes a bound, x = x * 3, then the next block (a branch
+    target): n block heads of one shape, with literals that differ."""
+    b = ModuleBuilder()
+    body = []
+    for k in range(n):
+        body += [("block", None), ("local.get", 0),
+                 ("i32.const", (k * 40503 + 11) & 0xFFFF), "i32.add",
+                 ("local.tee", 0), ("i32.const", 1 << 30), "i32.gt_u",
+                 ("br_if", 0), ("local.get", 0), ("i32.const", 3),
+                 "i32.mul", ("local.set", 0), "end"]
+    body += [("local.get", 0)]
+    b.add_function(["i32"], ["i32"], [], body, export="heads")
+    return b.build()
+
+
+def build_vsub_blocks() -> bytes:
+    """f(x, y): build_simd_sweep over every v2 op (of a and b) and every
+    v1 op (of a): straight-line code that the planner cuts into full
+    blocks, every v2 and v1 sub of the batch encoding inside one."""
+    return build_simd_sweep(
+        [[("local.get", 2), ("local.get", 5), op] for op in V2_NAMES]
+        + [[("local.get", 2), op] for op in V1_NAMES])
+
+
+def vsub_args(lanes: int, seed: int = 0):
+    """(x, y) lane operands of build_vsub_blocks with which no f32x4 op
+    of the module sees or makes a binary32 subnormal, which the reference
+    on XLA:CPU flushes (ROADMAP C5).  build_simd_sweep derives the v128
+    a from x (its second lane x times a multiplier) and b from y (y xor
+    a constant); read as binary32, a's words get exponents in [100, 150]
+    and b's in [28, 224], so a + b, a - b, a * b and a / b stay normal
+    (or overflow)."""
+    rng = np.random.default_rng(seed)
+
+    def ok(v, lo, hi):
+        e = (v.view(np.uint32).reshape(-1, 2) >> 23) & 0xFF
+        return ((e >= lo) & (e <= hi)).all(axis=1)
+
+    out = []
+    for mix, lo, hi in ((lambda v: v * np.uint64(0x9E3779B97F4A7C15), 100,
+                         150),
+                        (lambda v: v ^ np.uint64(0xC2B2AE3D27D4EB4F), 28,
+                         224)):
+        got = np.zeros(0, np.uint64)
+        while got.size < lanes:
+            v = rng.integers(0, 2**64, 1 << 16, np.uint64, endpoint=False)
+            got = np.concatenate([got, v[ok(v, lo, hi) & ok(mix(v), lo,
+                                                             hi)]])
+        out.append(got[:lanes].view(np.int64))
+    return out

@@ -243,7 +243,8 @@ def new_warps(eng):
 
 def warp_err(wa, wb) -> int:
     """Largest difference over the per-warp counters (snap, rollbacks,
-    entered, commits) of two WarpStates (0 when both are None)."""
+    entered, commits, uniform) of two WarpStates (0 when both are
+    None)."""
     if wa is None or wb is None:
         return 0 if wa is wb else 1 << 30
     return max(int((x.cpu().to(torch.int64) - y.cpu().to(torch.int64))
@@ -324,6 +325,14 @@ OPT_FIXTURES = {}
 # B5's warp pass: the bulk-op counts of the kernel side per fixture and
 # mode (warp passes, their lanes, lane walks)
 BULK_FIXTURES = {}
+# B4: per fixture and mode with the windows, the kernel side's window
+# counts over its launches (hits, misses, ways written back, the rows they
+# stored, rows filled; misses and ways written back equal to the plain
+# version's after every launch)
+WINDOW_FIXTURES = {}
+# B3: per fixture and mode, the kernel side's uniform entries against its
+# entries
+UNIFORM_FIXTURES = {}
 
 
 def memory_modes(eng_of) -> list:
@@ -342,9 +351,35 @@ def mode_tag(fusion, mem_hbm) -> str:
     return f" [{', '.join(parts)}]" if parts else ""
 
 
+def probe_prep(eng, st, case: str) -> None:
+    """The uniform probe's state for entry-rule case `case` (in place on
+    the card): one careful launch of 40 steps from `st` (plain version),
+    then lane 5's planes changed as tests/test_torch_uniform_warps.py
+    changes them."""
+    from wasmedge_tpu_torch.batch import interp_ref
+    from wasmedge_tpu_torch.batch.interp import device_tables
+
+    cpu = on_cpu(st)
+    interp_ref.run_chunk(device_tables(eng.img, "cpu", "none"), cpu, 40,
+                         False)
+    D, CD = cpu.stack_lo.shape[0], cpu.fr_ret_pc.shape[0]
+    sp, cd = int(cpu.sp[5]), int(cpu.call_depth[5])
+    bumps = {"equal": (), "at_or_above_sp": (("stack_lo", sp),
+                                             ("stack_hi", D - 1)),
+             "at_or_above_depth": (("fr_ret_pc", cd), ("fr_fp", CD - 1)),
+             "beyond_pages": (("mem", 16384), ("mem", cpu.mem.shape[0] - 1)),
+             "stack_row_below_sp": (("stack_lo", sp - 1),),
+             "frame_row": (("fr_opbase", 0),), "global": (("glob_lo", 0),),
+             "last_live_word": (("mem", 16383),)}[case]
+    for f, row in bumps:
+        getattr(cpu, f)[row, 5] += 1
+    for f, t in cpu.planes().items():
+        st.planes()[f].copy_(t)
+
+
 def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs,
                     fusion="none", rollbacks=None, lanes=KERNEL_LANES,
-                    bulk=None) -> int:
+                    bulk=None, prep=None, uniform=None) -> int:
     """One fixture at `lanes` lanes in the encoding `fusion`, for a
     module with a memory through the window cache and with direct access:
     kernel and plain version from the same CUDA state, launch by launch,
@@ -357,8 +392,13 @@ def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs,
     `rollbacks` True: some warp must roll back; False: none may.  `bulk`
     "warp": the kernel's bulk ops must include warp passes (and, with
     optimistic convergence off as on, no lane walks where every warp is
-    whole). Returns the max abs err."""
-    from wasmedge_tpu_torch.batch import interp, interp_ref
+    whole).  With the windows, the kernel's misses and ways written back
+    equal the plain version's after every launch (B4's counts).  `prep`:
+    an entry-rule case of the uniform probe (probe_prep) applied to the
+    initial state; `uniform` "all": every entry of the kernel's warps
+    uniform (B3's entry rule), "none": none, "some": fewer than its
+    entries.  Returns the max abs err."""
+    from wasmedge_tpu_torch.batch import interp, interp_ref, memwin
 
     worst = 0
     for mem_hbm, (eng, inst) in memory_modes(lambda m: make_engine(
@@ -367,6 +407,8 @@ def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs,
         t0 = time.perf_counter()
         tag = mode_tag(fusion, mem_hbm)
         st = eng.initial_state(inst.exports[func][1], args)
+        if prep is not None:
+            probe_prep(eng, st, prep)
         ref, tp = on_cpu(st), cpu_tables(eng)
         wk, wp = new_warps(eng), cpu_warps(eng)
         careful = None
@@ -378,7 +420,9 @@ def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs,
         launches = 0
         before = dict(interp.LAUNCHES)
         torch.cuda.synchronize()
-        interp.clear_bulk_counts()
+        interp.clear_counts()
+        memwin.clear_counts()
+        wsum = dict.fromkeys(interp.WINDOW_COUNTS, 0)
         while True:
             interp.run_chunk(eng.tables, st, chunk, fuel is not None, wk)
             interp_ref.run_chunk(tp, ref, chunk, fuel is not None, wp)
@@ -394,6 +438,15 @@ def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs,
             if err != 0:
                 fail(f"kernel != plain on {name}{tag} after launch "
                      f"{launches}: max abs err {err}")
+            if eng.tables.mem_window:
+                wc = interp.window_counts(eng.tables, clear=True)
+                if (wc["misses"], wc["ways_written_back"]) != (
+                        memwin.COUNTS["misses"],
+                        memwin.COUNTS["ways_written_back"]):
+                    fail(f"window counts of {name}{tag} after launch "
+                         f"{launches}: kernel {wc}, plain {memwin.COUNTS}")
+                wsum = {k: wsum[k] + wc[k] for k in wsum}
+            memwin.clear_counts()
             if careful is not None:
                 OPT_WORST["plain"] = max(OPT_WORST["plain"], err)
                 cerr = live_err(st, careful)
@@ -422,17 +475,30 @@ def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs,
             BULK_FIXTURES[f"{name}{tag}"] = ops
             if not ops["warp_passes"]:
                 fail(f"{name}{tag}: no bulk op took the warp pass ({ops})")
+        if eng.tables.mem_window:
+            WINDOW_FIXTURES[f"{name}{tag}"] = wsum
         if careful is not None:
             OPT_FIXTURES[f"{name}{tag}"] = stats
             if rollbacks is not None and \
                     (stats["rollbacks"] > 0) != rollbacks:
                 fail(f"{name}{tag}: {stats['rollbacks']} rollbacks, "
                      f"expected {'some' if rollbacks else 'none'}")
+            uni = int(wk.uniform.sum())
+            UNIFORM_FIXTURES[f"{name}{tag}"] = dict(
+                uniform=uni, entered=stats["entered"])
+            if uniform is not None and not {
+                    "all": uni == stats["entered"], "none": uni == 0,
+                    "some": uni < stats["entered"]}[uniform]:
+                fail(f"{name}{tag}: {uni} uniform entries of "
+                     f"{stats['entered']}, expected {uniform}")
         traps = sorted(set(st.trap.cpu().tolist()))
         print(f"kernel_vs_plain {name}{tag}: {launches} launches equal"
               f"{', equal to careful below sp' if careful is not None else ''}"
               f", traps {traps}, retired {int(st.retired.sum())}, warps "
-              f"{stats}{f', bulk ops {ops}' if ops else ''}, "
+              f"{stats}"
+              f"{f', uniform {int(wk.uniform.sum())}' if wk is not None else ''}"
+              f"{f', bulk ops {ops}' if ops else ''}"
+              f"{f', windows {wsum}' if eng.tables.mem_window else ''}, "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
     return worst
 
@@ -648,6 +714,116 @@ def opt_jobs() -> list:
     return jobs
 
 
+# the uniform probe's and the window-row fixtures' stacks and memory
+PROBE_KNOBS = dict(value_stack_depth=64, call_stack_depth=32,
+                   memory_pages_per_lane=3)
+PROBE_CASES = (("equal", "all"), ("at_or_above_sp", "all"),
+               ("at_or_above_depth", "all"), ("beyond_pages", "all"),
+               ("stack_row_below_sp", "some"), ("frame_row", "some"),
+               ("global", "some"), ("last_live_word", "some"))
+
+
+def win_rows_args(L: int, func: str) -> list:
+    """Lane inputs of build_win_rows' exports (as in
+    tests/test_torch_win_rows.py, lane % 32 for the addresses)."""
+    a = np.arange(L) % 32
+    x = np.random.default_rng(SEED).integers(-2**31, 2**31, L)
+    return {"sweep": [np.zeros(L), np.full(L, 160)],
+            "partial": [a * 4 + 1 + 2 * (a % 2), x],
+            "store_load": [a * 8, x],
+            "commit_rows": [np.full(L, 96), np.full(L, 12345),
+                            np.full(L, 200)]}[func]
+
+
+# build_win_rows' exports: (steps per launch, per lane in one careful
+# launch to the end through the windows: misses, ways written back, rows
+# they stored, rows filled; the same in one optimistic launch of a uniform
+# warp, None where the lanes differ)
+WIN_ROWS = {"sweep": (300, (2, 2, 160, 0), (2, 3, 160, 0)),
+            "partial": (9, (1, 1, 7, 125), None),
+            "store_load": (5, (1, 1, 4, 124), None),
+            "commit_rows": (500, (1, 1, 2, 126), (1, 2, 3, 126))}
+
+
+def uniform_jobs() -> list:
+    """B3's entry rule and B4's row bits against their plain versions
+    (kernel_vs_plain jobs: both memory modes, every plane and row, the
+    per-warp state and the window counts after every launch), per-op and
+    in B2 blocks (whose generated cases run the row bits through
+    fused_load / fused_store): the uniform probe at KERNEL_LANES lanes in
+    each entry-rule case (probe_prep; the warps where lane 5 differs below
+    sp, the depth or the pages are not uniform at entry, the others are)
+    and at 40 lanes (a partial warp); build_win_rows' four exports,
+    optimistic (the default) and careful (optimistic False), and their
+    row counts by hand (win_rows_hand, per-op)."""
+    from wasmedge_tpu_torch.models.fixtures import (
+        build_uniform_probe, build_win_rows)
+
+    probe, rows = build_uniform_probe(), build_win_rows()
+    L = KERNEL_LANES
+    jobs = []
+    for fusion in ("none", "blocks"):
+        jobs += [("kernel_vs_plain", (
+            f"uniform_{case}", probe, "rec", [np.full(L, 12), np.full(L, 5)],
+            40, None, PROBE_KNOBS, fusion), dict(prep=case, uniform=want))
+            for case, want in PROBE_CASES]
+        jobs.append(("kernel_vs_plain", (
+            "uniform_partial_warp_x40", probe, "rec",
+            [np.full(40, 12), np.full(40, 5)], 40, None, PROBE_KNOBS,
+            fusion), dict(lanes=40, uniform="some")))
+        for func, (chunk, _, _) in WIN_ROWS.items():
+            for opt in (None, False):
+                jobs.append(("kernel_vs_plain", (
+                    f"win_rows_{func}{'' if opt is None else '_careful'}",
+                    rows, func, win_rows_args(L, func), chunk, None,
+                    PROBE_KNOBS if opt is None else
+                    dict(PROBE_KNOBS, optimistic=False), fusion), {}))
+    jobs.append(("win_rows_hand", (), {}))
+    return jobs
+
+
+def win_rows_hand() -> int:
+    """build_win_rows' exports, one per-op launch to the end through the
+    windows at KERNEL_LANES lanes, careful and (where every lane holds one
+    state) optimistic: the kernel's misses, ways written back, rows stored
+    and rows filled as WIN_ROWS gives them per lane, its planes equal to
+    the plain version's."""
+    from wasmedge_tpu_torch.batch import interp, interp_ref
+    from wasmedge_tpu_torch.models.fixtures import build_win_rows
+
+    L = KERNEL_LANES
+    for func, (_, careful, uniform) in WIN_ROWS.items():
+        for opt, want in ((False, careful), (None, uniform)):
+            if want is None:
+                continue
+            eng, inst = make_engine(build_win_rows(), L, fusion="none",
+                                    mem_hbm=True, optimistic=opt,
+                                    **PROBE_KNOBS)
+            st = eng.initial_state(inst.exports[func][1],
+                                   win_rows_args(L, func))
+            ref = on_cpu(st)
+            wk, wp = new_warps(eng), cpu_warps(eng)
+            interp.clear_counts()
+            interp.run_chunk(eng.tables, st, 100_000, False, wk)
+            interp_ref.run_chunk(cpu_tables(eng), ref, 100_000, False, wp)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(st, ref), warp_err(wk, wp))
+            wc = interp.window_counts(eng.tables)
+            got = tuple(wc[k] for k in interp.WINDOW_COUNTS[1:])
+            if err or got != tuple(L * w for w in want) or \
+                    not (st.trap == -1).all():
+                fail(f"win_rows {func} (optimistic {opt is None}): max abs "
+                     f"err {err}, counts {wc}, expected {want} per lane")
+            if wk is not None and int(wk.uniform.sum()) != \
+                    int(wk.entered.sum()):
+                fail(f"win_rows {func}: warps not uniform ({wk.stats()})")
+            WINDOW_FIXTURES[f"win_rows_hand_{func}"
+                            f"{'' if opt is None else '_careful'}"] = wc
+            print(f"win_rows_hand {func} (optimistic {opt is None}): "
+                  f"{wc}, {want} per lane as expected", flush=True)
+    return 0
+
+
 def rows_jobs() -> list:
     """B5's warp pass and the on-chip stack rows against their plain
     versions (kernel_vs_plain jobs: both memory modes, optimistic and
@@ -705,13 +881,17 @@ def run_job(job):
     OPT_WORST.update(plain=0, careful=0)
     OPT_FIXTURES.clear()
     BULK_FIXTURES.clear()
+    WINDOW_FIXTURES.clear()
+    UNIFORM_FIXTURES.clear()
     try:
         worst = globals()[name](*args, **kwargs)
     except SystemExit:
         return group, None, None, f"{name} {args[0] if args else ''}"
     return group, worst, dict(window=WINDOW_WORST[0], opt=dict(OPT_WORST),
                               opt_fixtures=dict(OPT_FIXTURES),
-                              bulk=dict(BULK_FIXTURES)), None
+                              bulk=dict(BULK_FIXTURES),
+                              windows=dict(WINDOW_FIXTURES),
+                              uniform=dict(UNIFORM_FIXTURES)), None
 
 
 def run_jobs(groups: dict) -> dict:
@@ -738,6 +918,8 @@ def run_jobs(groups: dict) -> dict:
                 OPT_WORST[k] = max(OPT_WORST[k], rec["opt"][k])
             OPT_FIXTURES.update(rec["opt_fixtures"])
             BULK_FIXTURES.update(rec["bulk"])
+            WINDOW_FIXTURES.update(rec["windows"])
+            UNIFORM_FIXTURES.update(rec["uniform"])
     if bad:
         fail(f"{len(bad)} kernel phase jobs failed: {bad[:5]}")
     return worst
@@ -1053,7 +1235,7 @@ def launch_mix(tables, st0, steps: int):
 
 
 def time_opt_and_careful(eng, ceng, st0, chunk: int, what: str,
-                         refused: bool = True):
+                         refused: bool = True, uniform: bool = True):
     """One launch of `chunk` steps from st0 through the kernel the main
     path runs, optimistic convergence on (B3, the default: `eng`), and
     through the careful kernel of the same module, encoding and memory
@@ -1061,7 +1243,11 @@ def time_opt_and_careful(eng, ceng, st0, chunk: int, what: str,
     optimistic, careful, careful, optimistic; the optimistic plain version
     on the same inputs (3 runs, a fresh per-warp state each).  The kernel
     must equal its plain version on every plane and row and in the
-    per-warp counts, and the careful kernel below sp.  With `refused`, the
+    per-warp counts, and the careful kernel below sp; every warp enters
+    uniform (B3's entry rule) where `uniform`, else none does; that
+    launch's entry compares and window counts are read, and the entry
+    compare's device time is a one-step launch of each build (21 runs
+    each).  With `refused`, the
     same launch with lane 0 of every warp stopped, so that no warp enters:
     the optimistic build runs its careful loop only, against the careful
     build on that state (every plane equal).  Returns the record and the
@@ -1088,8 +1274,21 @@ def time_opt_and_careful(eng, ceng, st0, chunk: int, what: str,
     plain_ms, p25, p75, out_p = time_launch(plain, st0, 3)
     wk = new_warps(eng)
     one = st0.clone()
+    torch.cuda.synchronize()
+    interp.entry_counts(eng.tables, clear=True)
+    if eng.tables.mem_window:
+        interp.window_counts(eng.tables, clear=True)
     interp.run_chunk(eng.tables, one, chunk, False, wk)
     torch.cuda.synchronize()
+    entry = interp.entry_counts(eng.tables)
+    win = interp.window_counts(eng.tables) if eng.tables.mem_window else {}
+    # the entry compare's device time: a one-step launch of the
+    # optimistic build (entry rule, compare) against the careful build's
+    w1 = new_warps(eng)
+    e_ms, _, _, _ = time_launch(
+        lambda s: interp.run_chunk(eng.tables, s, 1, False, w1), st0, 21)
+    ec_ms, _, _, _ = time_launch(
+        lambda s: interp.run_chunk(ceng.tables, s, 1, False), st0, 21)
     err = max(max_abs_err(out_k, out_p), max_abs_err(one, out_p),
               warp_err(wk, held["w"]))
     cerr = live_err(out_k, out_c)
@@ -1099,18 +1298,29 @@ def time_opt_and_careful(eng, ceng, st0, chunk: int, what: str,
     OPT_WORST["plain"] = max(OPT_WORST["plain"], err)
     OPT_WORST["careful"] = max(OPT_WORST["careful"], cerr)
     stats = wk.stats()
-    if stats["rollbacks"] or stats["entered"] != (L + 31) // 32:
-        fail(f"{what}: a converged launch's warps {stats}")
+    n_uniform = int(wk.uniform.sum())
+    if stats["rollbacks"] or stats["entered"] != (L + 31) // 32 or \
+            n_uniform != (stats["entered"] if uniform else 0):
+        fail(f"{what}: a converged launch's warps {stats}, uniform "
+             f"{n_uniform}")
+    cycles = entry["cycles"] / max(entry["compares"], 1)
     out = dict(ms=ms, q25=k25, q75=k75, ms_again=ms2, careful_ms=c_ms,
                careful_q25=c25, careful_q75=c75, careful_ms_again=c_ms2,
                plain_ms=plain_ms, plain_q25=p25, plain_q75=p75,
-               max_abs_err=err, careful_err=cerr, warps=stats)
+               max_abs_err=err, careful_err=cerr, warps=stats,
+               uniform=n_uniform, entry=entry,
+               entry_compare_cycles_per_warp=cycles,
+               one_step_ms=e_ms, one_step_careful_ms=ec_ms,
+               entry_compare_ms=e_ms - ec_ms, window_counts=win)
     line = (f"one launch of {chunk} steps x {L} lanes ({what}): optimistic "
             f"kernel median {ms:.4f} ms (q25 {k25:.4f}, q75 {k75:.4f}; "
             f"again {ms2:.4f}), careful kernel {c_ms:.4f} ms (q25 "
             f"{c25:.4f}, q75 {c75:.4f}; again {c_ms2:.4f}), 21 runs each; "
             f"optimistic plain median {plain_ms:.2f} ms (q25 {p25:.2f}, "
-            f"q75 {p75:.2f}, 3 runs); warps {stats}")
+            f"q75 {p75:.2f}, 3 runs); warps {stats}, uniform {n_uniform}; "
+            f"entry compare {cycles:.0f} cycles a warp, a one-step launch "
+            f"{e_ms:.4f} ms optimistic against {ec_ms:.4f} ms careful"
+            f"{f'; windows {win}' if win else ''}")
     if refused:
         st_r = st0.clone()
         st_r.trap[0::32] = -1  # lane 0 of each warp done: no warp enters
@@ -1132,26 +1342,46 @@ def time_opt_and_careful(eng, ceng, st0, chunk: int, what: str,
 
 
 def snapshot_bytes(st0, stats, max_cd: int, planes: int,
-                   mem_direct: bool) -> int:
+                   mem_direct: bool, uniform: int = 0) -> int:
     """The least bytes optimistic convergence adds to a launch from st0
-    whose warps all ran on without a rollback (opt_save, opt_save_frame
-    and the counters of optimistic.cuh / interp.cu): the entry snapshot
-    (each lane's rows below its sp in `planes` stack planes, its frame
-    rows below its depth, the globals and, with `mem_direct`, its memory
-    column) read once and written once; the frame rows from the entry
-    depth to the deepest `max_cd` saved on their first write; each later
+    whose warps all ran on without a rollback (opt_save, opt_save_frame,
+    warp_uniform and the counters of optimistic.cuh / interp.cu), of
+    which `uniform` entered uniform: a uniform warp takes no snapshot, and
+    its entry compare reads each lane's rows below its sp in `planes`
+    stack planes, its frame rows below its depth, the globals and its
+    live memory rows once; every other warp's entry snapshot (the same
+    rows, the whole memory column with `mem_direct` and none without) is
+    read once and written once, its frame rows from the entry depth to
+    the deepest `max_cd` saved on their first write, and each later
     snapshot's globals and memory column (its stack and frame rows not
-    counted); and the four per-warp counters read and written."""
+    counted); and the five per-warp counters read and written."""
     L = st0.pc.shape[0]
+    nw = (L + 31) // 32
+    share = (stats["entered"] - uniform) / max(stats["entered"], 1)
     NG = st0.glob_lo.shape[0]
     W = st0.mem.shape[0] if mem_direct and st0.mem.shape[0] > 1 else 0
     per_snap = 2 * NG + W
-    entry = planes * int(st0.sp.sum()) + \
-        3 * int(st0.call_depth.sum()) + L * per_snap
+    rows = planes * int(st0.sp.sum()) + 3 * int(st0.call_depth.sum())
     frames = 3 * int((max_cd - st0.call_depth).clamp(min=0).sum())
     later = max(stats["commits"] - stats["entered"], 0) * 32 * per_snap
-    counters = 4 * ((L + 31) // 32)
-    return 2 * 4 * (entry + frames + later + counters)
+    snaps = 2 * (rows + L * per_snap + frames + later) * share
+    return int(4 * (snaps + 2 * 5 * nw)) + \
+        entry_compare_bytes(st0, planes, uniform)
+
+
+def entry_compare_bytes(st0, planes: int, uniform: int) -> int:
+    """The bytes the entry compare (warp_uniform) reads in a launch from
+    st0 whose `uniform` warps entered uniform: each lane's rows below its
+    sp in `planes` stack planes, its frame rows below its depth, the
+    globals and its live memory rows, once."""
+    L = st0.pc.shape[0]
+    nw = (L + 31) // 32
+    rows = planes * int(st0.sp.sum()) + 3 * int(st0.call_depth.sum())
+    live = int(torch.clamp(st0.mem_pages.to(torch.int64) * 16384,
+                           max=st0.mem.shape[0]).sum()) \
+        if st0.mem.shape[0] > 1 else 0
+    return int(4 * (rows + L * 2 * st0.glob_lo.shape[0] + live) *
+               (uniform / nw))
 
 
 def phase_time_one_launch(fusion="none"):
@@ -1189,7 +1419,7 @@ def phase_time_one_launch(fusion="none"):
     table_bytes = sum(4 * t_.numel() for t_ in vars(tb).values()
                       if isinstance(t_, torch.Tensor))
     careful_bytes = 2 * touched + table_bytes
-    snap = snapshot_bytes(st0, t["warps"], max_cd, 2, False)
+    snap = snapshot_bytes(st0, t["warps"], max_cd, 2, False, t["uniform"])
     bytes_ = careful_bytes + snap
     bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = retired * OPS_PER_INSTR / OPS_PER_S * 1e3
@@ -1223,6 +1453,8 @@ def phase_time_one_launch(fusion="none"):
     return dict(t, bound_ms=bound_ms, careful_bound_ms=careful_bound_ms,
                 bound_by=by, retired=retired, bound_bytes=bytes_,
                 snapshot_bytes=snap, bytes_per_commit=per_commit,
+                entry_compare_bytes=entry_compare_bytes(st0, 2,
+                                                        t["uniform"]),
                 handler_traffic_bytes=traffic, touched_state_bytes=touched)
 
 
@@ -1268,7 +1500,7 @@ def phase_time_simd_launch(fusion="blocks"):
     careful_bytes = 2 * touched + table_bytes
     if not eng.tables.mem_window:
         fail("vloop's timed launch runs without the windows")
-    snap = snapshot_bytes(st0, t["warps"], max_cd, 4, False)
+    snap = snapshot_bytes(st0, t["warps"], max_cd, 4, False, t["uniform"])
     bytes_ = careful_bytes + snap
     bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     # operations: one per scalar instruction, one per 32-bit word of a
@@ -1343,7 +1575,7 @@ def run_main(vm, func, args, steps_per_launch, need=("interp",),
     torch.cuda.synchronize()
     for k in interp.LAUNCHES:
         interp.LAUNCHES[k] = 0
-    interp.clear_bulk_counts()
+    interp.clear_counts()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -1375,6 +1607,11 @@ def run_main(vm, func, args, steps_per_launch, need=("interp",),
     counts["mem_window"] = eng.tables.mem_window
     counts["optimistic_on"] = eng.tables.optimistic
     counts["warps"] = eng.optimistic_stats
+    counts["uniform"] = 0 if eng.warps is None else int(eng.warps.uniform.sum())
+    counts["window_counts"] = interp.window_counts(eng.tables) \
+        if eng.tables.mem_window else {}
+    counts["entry"] = interp.entry_counts(eng.tables) \
+        if eng.tables.optimistic else {}
     counts["build"] = fused_build(eng.tables)
     counts["bulk_ops"] = interp.bulk_counts(eng.tables) \
         if eng.tables.has_bulk else {}
@@ -1397,16 +1634,31 @@ def report_main(label, res_launches_wall_ev_counts, retired) -> dict:
           f"{counts['optimistic']}), wall {wall:.3f} s, "
           f"{retired / wall:.4g} wasm instr/s over wall, events "
           f"{ev_ms:.1f} ms, retired {retired}{shape}; warps "
-          f"{counts['warps']}", flush=True)
+          f"{counts['warps']}, uniform {counts['uniform']}"
+          f"{'; entry ' + str(counts['entry']) if counts['entry'] else ''}"
+          f"{'; windows ' + str(counts['window_counts']) if counts['window_counts'] else ''}",
+          flush=True)
     return dict(encoding=counts["encoding"], launches=launches,
                 block_launches=counts["block"],
                 super_launches=counts["super"], op_launches=counts["op"],
                 window_launches=counts["window"],
                 optimistic_launches=counts["optimistic"],
                 optimistic=counts["optimistic_on"], warps=counts["warps"],
+                uniform=counts["uniform"], entry=counts["entry"],
+                window_counts=counts["window_counts"],
                 mem_window=counts["mem_window"],
                 wall_s=wall, event_ms=ev_ms, retired=retired,
                 instr_per_s_wall=retired / wall, build=build)
+
+
+def check_uniform(rec: dict, label: str, every: bool) -> None:
+    """B3's entry rule on a main-path run: every warp entry uniform (a
+    flagship workload: every lane one call with one argument, memories
+    from the same data) or, with `every` False, none (the fib mix)."""
+    entered = rec["warps"]["entered"]
+    if entered == 0 or rec["uniform"] != (entered if every else 0):
+        fail(f"{label}: {rec['uniform']} uniform entries of {entered}, "
+             f"expected {'all' if every else 'none'}")
 
 
 def direct_run(vm, func, args, steps_per_launch, need, check,
@@ -1485,6 +1737,7 @@ def phase_main():
         retired = int(res.retired.astype(np.int64).sum())
         key = "fib30" + suffix
         out[key] = report_main(f"fib(30) x {L}, all 832040", run, retired)
+        check_uniform(out[key], f"fib(30) [{counts['encoding']}]", True)
         out[key]["profile"] = profile_run(vm, "fib", [np.full(L, 30)],
                                           retired, fusion)
     vm.conf.batch.block_fusion = None
@@ -1512,6 +1765,7 @@ def phase_main():
                                  retired)
     if not out["fib_mix"]["warps"]["rollbacks"]:
         fail("the divergent fib mix rolled no warp back")
+    check_uniform(out["fib_mix"], "the divergent fib mix", False)
     out["fib_mix"]["profile"] = profile_run(vm, "fib", [ns], retired)
     out["fib_mix_careful"] = careful_run(
         vm, "fib", [ns], 1 << 20, ("interp", "block"), mix_check,
@@ -1560,6 +1814,7 @@ def phase_main():
         key = "coremark" + suffix
         out[key] = report_main(f"coremark({COREMARK_N}) x {L}, all {want}",
                                run, retired)
+        check_uniform(out[key], f"coremark({COREMARK_N}){suffix}", True)
         out[key]["profile"] = profile_run(vm_cm, "coremark", args, retired,
                                           fusion)
         out[key]["direct"] = direct_run(vm_cm, "coremark", args, 1 << 20,
@@ -1955,6 +2210,7 @@ def phase_main_simd():
             f"vloop({SIMD_N}) x {L}, every lane {want} (the model), retired "
             f"{want_retired} per lane ({base} + {per} per iteration)", run,
             retired)
+        check_uniform(rec, f"vloop({SIMD_N}){suffix}", True)
         rec["simd_launches"] = counts["simd"]
         rec["profile"] = profile_run(vm, "vloop", [np.full(L, SIMD_N)],
                                      retired)
@@ -2043,6 +2299,7 @@ def phase_main_memory():
                 label = (f"config 2 {name}({n}) x {L}, every lane {want}"
                          f"{'' if mem_hbm is None else ', mem_hbm False'}")
                 out[key] = report_main(label, run, retired)
+                check_uniform(out[key], f"config 2 {name}{tag}", True)
                 out[key]["profile"] = profile_run(vm, name, args, retired,
                                                   fusion)
                 if name == "mem_checksum" and not suffix:
@@ -2057,8 +2314,8 @@ def phase_time_mem_launch():
     MEM_PASSES passes x MAIN_LANES (config 2's geometry) from the lanes'
     first store, through the window cache and with direct access: the
     optimistic kernel, the careful kernel and the plain version on the
-    same inputs (time_opt_and_careful), both modes equal, and the launch's
-    bound in each mode."""
+    same inputs (time_opt_and_careful), both modes equal, and B4's bound
+    in each mode (B3's snapshot and entry-compare bytes apart)."""
     from wasmedge_tpu_torch.batch import interp
     from wasmedge_tpu_torch.batch import interp as I
     from wasmedge_tpu_torch.batch.engine import CONTROL_FIELDS
@@ -2105,9 +2362,7 @@ def phase_time_mem_launch():
     # Least bytes: the stack rows below the deepest sp, the frame rows
     # below the deepest call depth and the control planes read once and
     # written once, each memory word the launch changes written once,
-    # each word a load reads read once, the code tables read once, and
-    # what optimistic convergence copies (without the windows, each
-    # snapshot copies the lane's memory column)
+    # each word a load reads read once, the code tables read once
     changed = int((outs[True].mem != st0.mem).sum())
     touched = 4 * L * (2 * max_sp + 3 * max_cd + len(CONTROL_FIELDS))
     table_bytes = sum(4 * t_.numel() for t_ in vars(tb).values()
@@ -2118,17 +2373,37 @@ def phase_time_mem_launch():
                            bound_ops_ms)
     for m in (True, False):
         mode = "windows" if m else "direct"
-        snap = snapshot_bytes(st0, out[mode]["warps"], max_cd, 2, not m)
-        bytes_ = careful_bytes + snap
+        # B3's bytes (snapshots, the entry compare) go to B3's record; B4's
+        # bound counts B4's work: with the windows the rows they moved
+        # (each row filled or stored is 4 bytes read or written in the
+        # plane, in place of the words the launch changes and loads),
+        # without them each changed word written and each loaded word read
+        snap = snapshot_bytes(st0, out[mode]["warps"], max_cd, 2, not m,
+                              out[mode]["uniform"])
+        if m:
+            wc = out[mode]["window_counts"]
+            moved = 4 * (wc["rows_filled"] + wc["rows_written_back"])
+            bytes_ = 2 * touched + table_bytes + moved
+            out[mode].update(window_row_bytes=moved,
+                             window_rows_bound_ms=bytes_ / HBM_BYTES_PER_S *
+                             1e3)
+        else:
+            bytes_ = careful_bytes
         bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
         by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
         out[mode].update(bound_ms=max(bound_bytes_ms, bound_ops_ms),
-                         bound_by=by, bound_bytes=bytes_, snapshot_bytes=snap)
+                         bound_by=by, bound_bytes=bytes_, snapshot_bytes=snap,
+                         entry_compare_bytes=entry_compare_bytes(
+                             st0, 2, out[mode]["uniform"]))
         print(f"  {mode}: bound {out[mode]['bound_ms']:.6f} ms by {by}: "
               f"bytes {bytes_} B (stack rows {max_sp}, frame rows {max_cd}, "
-              f"{changed} memory words written, {loads} loaded, code tables "
-              f"{table_bytes} B; snapshots {snap} B) / {HBM_BYTES_PER_S:.3g}"
-              f" B/s = {bound_bytes_ms:.6f} ms", flush=True)
+              f"code tables {table_bytes} B, "
+              + (f"window rows moved {out[mode]['window_row_bytes']} B"
+                 if m else f"{changed} memory words written, {loads} "
+                 f"loaded") +
+              f") / {HBM_BYTES_PER_S:.3g} B/s = {bound_bytes_ms:.6f} ms; "
+              f"B3's snapshots and entry compare (not in it) {snap} B",
+              flush=True)
     print(f"  retired {retired}; careful bound {careful_bound_ms:.6f} ms; "
           f"operations {retired} / {OPS_PER_S:.3g} /s = "
           f"{bound_ops_ms:.6f} ms", flush=True)
@@ -2173,9 +2448,11 @@ def phase_time_bulk():
                                         device=st0.mem.device).manual_seed(
                                         SEED)))
         torch.cuda.synchronize()
-        interp.clear_bulk_counts()
+        interp.clear_counts()
+        # each lane's memory its own random words: no warp is uniform
         t, out_k = time_opt_and_careful(eng, ceng, st0, chunk,
-                                        f"bulk pair {name}", refused=False)
+                                        f"bulk pair {name}", refused=False,
+                                        uniform=False)
         if not bool((out_k.pc == st0.pc + chunk).all()):
             fail(f"bulk pair ({name}): the launch stopped early")
         torch.cuda.synchronize()
@@ -2239,8 +2516,9 @@ def parse_ptxas(text: str) -> dict:
             mangled = m.group(1)
             inst = re.search(
                 r"interp_kernelILb(\d)ELb(\d)E.*?Lb(\d)ELb(\d)EE", mangled)
-            fn = re.search(r"(v[12]_op|alu[12]\w*|bulk_fill_copy|win_move|"
-                           r"opt_copy)", mangled)
+            fn = re.search(r"(v[12]_op|alu[12]\w*|bulk_fill_copy|bulk_rows|"
+                           r"win_back|win_evict|win_fill|rows_differ|"
+                           r"copy_rows)", mangled)
             fused = "5Fused" in mangled
             cur = (f"interp_kernel<kBulk={inst.group(1)}, "
                    f"kSimd={inst.group(2)}{', Fused' if fused else ''}"
@@ -2414,22 +2692,29 @@ def sass_of(so: str) -> str:
                           text=True, check=True).stdout
 
 
-def sass_stats(text: str) -> dict:
-    """Per interp_kernel instantiation in `cuobjdump -sass` output: its
-    machine code bytes and its indirect branches (BRX: a jump table
-    each)."""
+def sass_stats(text: str, every: bool = False) -> dict:
+    """Per interp_kernel instantiation (with `every`, per function: the
+    device functions left out of line too) in `cuobjdump -sass` output:
+    its machine code bytes, its indirect branches (BRX: a jump table
+    each), its shuffles (SHFL), warp syncs (WARPSYNC) and calls (CALL)."""
     rows, cur = {}, None
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            cur = m.group(1) if "interp_kernel" in m.group(1) else None
+            cur = m.group(1) if every or "interp_kernel" in m.group(1) \
+                else None
             if cur:
-                rows[cur] = {"sass_bytes": 0, "brx": 0}
+                rows[cur] = {"sass_bytes": 0, "brx": 0, "shfl": 0,
+                             "warpsync": 0, "call": 0}
             continue
         m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*)", line)
         if m and cur:
             rows[cur]["sass_bytes"] = int(m.group(1), 16) + 16
             rows[cur]["brx"] += bool(re.search(r"\bBRX\b", m.group(2)))
+            rows[cur]["shfl"] += bool(re.search(r"\bSHFL\.", m.group(2)))
+            rows[cur]["warpsync"] += bool(
+                re.search(r"\bWARPSYNC\b", m.group(2)))
+            rows[cur]["call"] += bool(re.search(r"\bCALL\.", m.group(2)))
     return rows
 
 
@@ -2468,7 +2753,7 @@ def prebuild() -> dict:
         build_memory_workload, build_simd_loop, build_wasi_hello)
     from wasmedge_tpu_torch.models.fixtures import (
         build_bulk_warp, build_deep_recursion, build_host_double,
-        build_window_host)
+        build_uniform_probe, build_win_rows, build_window_host)
     from wasmedge_tpu_torch.spec import corpus_tables
 
     # (module, v128 ops, imports, encodings, value-stack depth[, instance
@@ -2493,6 +2778,10 @@ def prebuild() -> dict:
              (build_host_double(), False, env, encs(False), 64),
              (build_window_host(), False, env, encs(False), 64),
              (build_bulk_warp(), False, (), ("blocks",), 64),
+             (build_uniform_probe(), False, (), ("blocks",),
+              PROBE_KNOBS["value_stack_depth"]),
+             (build_win_rows(), False, (), ("blocks",),
+              PROBE_KNOBS["value_stack_depth"]),
              (build_deep_recursion(), False, (), ("blocks",), 1024),
              (build_echo(), False, wasi, encs(False), 64),
              (build_wasi_hello(), False, wasi, ("blocks",), 64)]
@@ -2524,6 +2813,7 @@ def prebuild() -> dict:
             mains[f"{name}_blocks_{'kopt' if opt is None else 'careful'}"] \
                 = (eng.tables, base)
             tables.append(base)
+
     t0 = time.perf_counter()
     # the per-op build for every memory and B3 mode (every per-op run of
     # the script has a depth whose rows all fit on chip)
@@ -2563,14 +2853,16 @@ def prebuild() -> dict:
                            instance_cases=cases.get(key),
                            seconds=info.get("seconds"), ptxas=rows,
                            sass_bytes=code.get("sass_bytes"),
-                           brx=code.get("brx"))
+                           brx=code.get("brx"), shfl=code.get("shfl"),
+                           warpsync=code.get("warpsync"))
         print(f"  fused build {key} [{info.get('fusion')}"
               f"{', windows' if info.get('mem_window') else ''}"
               f"{', optimistic' if info.get('optimistic') else ''}]: "
               f"{cases.get(key)} instance cases, {info.get('shapes')} block "
               f"shapes, mean length {info.get('mean_len') or 0:.2f}, nvcc "
               f"{info.get('seconds') or 0:.1f} s, SASS "
-              f"{code.get('sass_bytes')} B, {code.get('brx')} BRX",
+              f"{code.get('sass_bytes')} B, {code.get('brx')} BRX, "
+              f"{code.get('shfl')} SHFL, {code.get('warpsync')} WARPSYNC",
               flush=True)
         print_registers(key, rows)
     return dict(wall_s=wall, n_fused=len(builds), fused=builds,
@@ -2605,7 +2897,7 @@ def main() -> int:
     geometry = phase_geometry()
 
     t0 = time.perf_counter()
-    w = run_jobs({"rows": rows_jobs(),
+    w = run_jobs({"rows": rows_jobs() + uniform_jobs(),
                   "scalar": scalar_jobs() + host_jobs(),
                   "simd": simd_jobs(), "fused": fused_jobs(),
                   "opt": opt_jobs() + host_jobs(
@@ -2629,6 +2921,10 @@ def main() -> int:
     print(f"optimistic warps per fixture: {json.dumps(OPT_FIXTURES)}",
           flush=True)
     print(f"bulk ops per warp-pass fixture: {json.dumps(BULK_FIXTURES)}",
+          flush=True)
+    print(f"window counts per fixture: {json.dumps(WINDOW_FIXTURES)}",
+          flush=True)
+    print(f"uniform entries per fixture: {json.dumps(UNIFORM_FIXTURES)}",
           flush=True)
 
     t0 = time.perf_counter()
@@ -2785,6 +3081,14 @@ def main() -> int:
         careful_main_ms_per_launch=per_launch(
             c2["mem_checksum"]["careful"]["profile"]),
         per_op_window_launches=c2["mem_checksum_none"]["window_launches"],
+        # B4's counts: the timed launch's, with the rows it moved as bytes
+        # and the bound those give, and the main path's config 2 runs'
+        # (blocks, windows)
+        window_counts=mem_timing["windows"]["window_counts"],
+        window_row_bytes=mem_timing["windows"]["window_row_bytes"],
+        window_rows_bound_ms=mem_timing["windows"]["window_rows_bound_ms"],
+        main_window_counts={k: c2[k]["window_counts"]
+                            for k in ("mem_checksum", "coremark")},
         timed_launch={"workload": f"mem_checksum({MEM_N}), {MEM_PASSES} "
                       f"passes", "lanes": MAIN_LANES, "steps": TIMED_STEPS,
                       "from_step": mem_timing["first_step"],
@@ -2804,6 +3108,33 @@ def main() -> int:
             main_out["fib30_careful"]["profile"]),
         commits=fib30["warps"]["commits"],
         rollbacks=fib30["warps"]["rollbacks"],
+        # the entry rule: uniform entries against entries per main-path
+        # run, the entry compare (cycles a warp, and the one-step launch
+        # against the careful build's) of the timed fib and config 2
+        # launches, and the bytes a launch's snapshots and compares move
+        uniform_entries={k: dict(uniform=r["uniform"],
+                                 entered=r["warps"]["entered"])
+                         for k, r in (("fib30", fib30),
+                                      ("fib30_none", main_out["fib30_none"]),
+                                      ("fib30_super",
+                                       main_out["fib30_super"]),
+                                      ("fib_mix", main_out["fib_mix"]),
+                                      ("vloop", vb),
+                                      ("mem_checksum", c2["mem_checksum"]),
+                                      ("coremark", c2["coremark"]))},
+        entry_compare={k: dict(cycles_per_warp=t["entry_compare_cycles_per_warp"],
+                               ms=t["entry_compare_ms"],
+                               bytes=t["entry_compare_bytes"],
+                               one_step_ms=t["one_step_ms"],
+                               one_step_careful_ms=t["one_step_careful_ms"])
+                       for k, t in (("fib30_blocks", timing["blocks"]),
+                                    ("mem_checksum_windows",
+                                     mem_timing["windows"]),
+                                    ("mem_checksum_direct",
+                                     mem_timing["direct"]))},
+        mem_checksum_snapshot_bytes={
+            m: mem_timing[m]["snapshot_bytes"] for m in ("windows",
+                                                          "direct")},
         snapshot_bytes=timing["blocks"]["snapshot_bytes"],
         bytes_per_commit=timing["blocks"]["bytes_per_commit"],
         careful_max_abs_err=OPT_WORST["careful"],
@@ -2813,6 +3144,8 @@ def main() -> int:
                                    "main": t_main},
                       "registers": per_op_regs, "attributes": attrs,
                       "geometry": geometry, "bulk_fixtures": BULK_FIXTURES,
+                      "window_fixtures": WINDOW_FIXTURES,
+                      "uniform_fixtures": UNIFORM_FIXTURES,
                       "builds": builds, "one_launch": timing,
                       "opt_fixtures": OPT_FIXTURES,
                       "bulk_pair": bulk_timing, "simd_launch": simd_timing,

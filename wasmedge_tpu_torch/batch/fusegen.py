@@ -121,9 +121,9 @@ _AT_PC_HEAD = """\
   // else by the hid plane; returns the handler the per-op code runs at pc
   // next (after the n ops retired here), or FUSED_DONE.  trap as for
   // step.
-  template <bool kSimd, bool kWin, bool kLead>
+  template <bool kSimd, bool kWin, class Wp>
   __device__ static __forceinline__ int at_pc(
-      const Params& p, const Lane<kSimd>& s, Mem<kWin>& m, Warp<kLead>& w,
+      const Params& p, const Lane<kSimd>& s, Mem<kWin>& m, Wp& w,
       OptRun& os, const int pcc, const int left, const int fuel, int& pc,
       int& sp, int& fp, int& ob, int& cd, const int pages, int& n,
       int& trap) {
@@ -448,7 +448,7 @@ class _Block:
             emit(f"  pc = {t};")
             emit("  trap = E_CALL_STACK;")
             emit("} else {")
-            emit("  if constexpr (kLead) opt_save_frame(p, s.lane, cd, "
+            emit("  if constexpr (Wp::kLead) opt_save_frame(p, s.lane, cd, "
                  "os.o.fhi);")
             emit("  const size_t r = s.at(cd, p.CD);")
             emit(f"  p.fr_ret_pc[r] = {t + 1};")

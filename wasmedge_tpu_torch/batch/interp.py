@@ -503,12 +503,12 @@ def build_kernels(tables_list=(), per_op=((False, False, False),)) -> dict:
 
 # The launch geometry (csrc/interp.cu): threads per block (one warp), the
 # shared memory a block may use on an H100 (opt-in), what is kept for
-# static shared memory, the most stack rows kept on chip, and the window
+# static shared memory (bulk_op's table and the windows' row bits), the most stack rows kept on chip, and the window
 # cache's bytes per block (csrc/memwin.cuh: two ways of HBM_WINDOW_ROWS
 # words per thread).
 BLOCK_THREADS = 32
 SMEM_BLOCK_MAX = 232448
-SMEM_STATIC = 1024
+SMEM_STATIC = 3072
 STACK_ROWS_MAX = 512
 WIN_SMEM_BYTES = 2 * HBM_WINDOW_ROWS * BLOCK_THREADS * 4
 
@@ -579,15 +579,33 @@ def per_op_attributes(win: bool, opt: bool = False, depth: int = 256,
             for b in (0, 1) for s in (0, 1)}
 
 
-def _bulk_counts(lib, clear: bool) -> list:
-    out = (ctypes.c_ulonglong * 3)()
-    fn = lib.wasm_bulk_counts
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    err = fn(out, int(clear))
+# The device counters of each library (csrc/interp.cu wasm_*_counts):
+# C entry -> the names of its counts
+BULK_COUNTS = ("warp_passes", "warp_lanes", "lane_walks")
+WINDOW_COUNTS = ("hits", "misses", "ways_written_back", "rows_written_back",
+                 "rows_filled")
+ENTRY_COUNTS = ("compares", "cycles")
+_COUNTERS = {"wasm_bulk_counts": BULK_COUNTS,
+             "wasm_win_counts": WINDOW_COUNTS,
+             "wasm_entry_counts": ENTRY_COUNTS}
+
+
+def _lib_counts(lib, fn: str, clear: bool) -> dict:
+    names = _COUNTERS[fn]
+    out = (ctypes.c_ulonglong * len(names))()
+    f = getattr(lib, fn)
+    f.restype = ctypes.c_int
+    f.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    err = f(out, int(clear))
     if err != 0:
-        raise RuntimeError(f"bulk counts: CUDA error {err}")
-    return list(out)
+        raise RuntimeError(f"{fn}: CUDA error {err}")
+    return dict(zip(names, list(out)))
+
+
+def _device_counts(tables: Tables, fn: str, clear: bool) -> dict:
+    key = _job(tables)[0]
+    lib = _libs.get(key) or build_kernels([tables])[key]
+    return _lib_counts(lib, fn, clear)
 
 
 def bulk_counts(tables: Tables, clear: bool = False) -> dict:
@@ -597,16 +615,33 @@ def bulk_counts(tables: Tables, clear: bool = False) -> dict:
     "warp_lanes" (the lanes in them) and "lane_walks" (lanes that walked
     their own column: alone in their group, or in a warp with fewer than
     8 threads at the op); set to 0 after the read when `clear`."""
-    key = _job(tables)[0]
-    lib = _libs.get(key) or build_kernels([tables])[key]
-    return dict(zip(("warp_passes", "warp_lanes", "lane_walks"),
-                    _bulk_counts(lib, clear)))
+    return _device_counts(tables, "wasm_bulk_counts", clear)
 
 
-def clear_bulk_counts() -> None:
-    """Set the bulk-op counts of every loaded library to 0."""
+def window_counts(tables: Tables, clear: bool = False) -> dict:
+    """The window cache's counts (B4, csrc/memwin.cuh) of the library
+    that runs `tables` since they were last cleared: `WINDOW_COUNTS`
+    (selects that hit, misses, dirty ways written back, the rows those
+    stored, rows filled); set to 0 after the read when `clear`.  Misses
+    and ways written back are `memwin.COUNTS`'s, by the same rule."""
+    return _device_counts(tables, "wasm_win_counts", clear)
+
+
+def entry_counts(tables: Tables, clear: bool = False) -> dict:
+    """B3's entry compares (csrc/optimistic.cuh `warp_uniform`) of the
+    library that runs `tables` since they were last cleared: compares run
+    (whole warps that were on) and their clock cycles summed over warps
+    (the warps found uniform: `WarpState.uniform`); set to 0 after the
+    read when `clear`."""
+    return _device_counts(tables, "wasm_entry_counts", clear)
+
+
+def clear_counts() -> None:
+    """Set the bulk, window and entry counts of every loaded library
+    to 0."""
     for lib in _libs.values():
-        _bulk_counts(lib, True)
+        for fn in _COUNTERS:
+            _lib_counts(lib, fn, True)
 
 
 def fused_kernel_key(tables: Tables) -> str:

@@ -25,6 +25,14 @@ Optimistic convergence (B3, `batch/optimistic.py`) keeps the plane
 validated: `dirty_miss` tells whether a select would write a dirty way
 back (a commit point in "on" warps), `commit` writes the dirty ways back
 and keeps them valid, and `invalidate` drops the windows on a rollback.
+
+`COUNTS` sums, over every `MemWindows` since it was last set to 0, the
+misses (selects that hit neither way) and the ways written back (a dirty
+way: one with a write not yet in the plane), by the kernel's rule: the
+CUDA kernel's `interp.window_counts` gives the same two numbers for the
+same launches.  The kernel moves rows, not ways (per-row valid and dirty
+bits, `csrc/memwin.cuh`); what it leaves in the plane is what this version
+leaves.
 """
 
 from __future__ import annotations
@@ -33,6 +41,12 @@ import torch
 
 HBM_WINDOW_ROWS = 128  # CW: words per way (pallas_engine.py :3893)
 SENT = -(1 << 30)      # the base of an invalid way
+COUNTS = {"misses": 0, "ways_written_back": 0}
+
+
+def clear_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 class MemWindows:
@@ -58,6 +72,7 @@ class MemWindows:
     def _writeback(self, way: int, lanes):
         """Write way `way` of `lanes` back to the plane (dirty ones)."""
         lanes = lanes[self.wd[way, lanes]]
+        COUNTS["ways_written_back"] += lanes.numel()
         if lanes.numel():
             self.mem[self._span(self.wb[way, lanes]), lanes[None, :]] = \
                 self.rows[way][:, lanes]
@@ -75,6 +90,7 @@ class MemWindows:
         hit1 = (rlo >= wb[1]) & (rhi < wb[1] + cw)
         nb = (rlo - rlo % 8).clamp(0, W - cw).to(torch.int32)
         miss = en & ~(hit0 | hit1)
+        COUNTS["misses"] += int(miss.sum())
         vic = (mru == 0).to(torch.int32)  # 1: way 1 is the victim
         for way in (0, 1):
             repl = miss & (vic == way)

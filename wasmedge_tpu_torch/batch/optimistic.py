@@ -26,7 +26,16 @@ snapshots; a dirty one restores the snapshot (stack rows below its sp,
 frames, globals, memory without windows), drops the windows, halves the
 warp's interval (down to `SNAP_MIN`), counts a rollback and lets the rest
 of the launch run per lane from the snapshot's step.  A launch without a
-rollback doubles the interval back toward `snap_max`.  The kernel copies
+rollback doubles the interval back toward `snap_max`.
+
+The entry rule of uniform warps: a warp that is on, whole (32 lanes) and
+whose lanes equal its lane 0 in stack rows [0, sp) of every stack plane,
+frame rows [0, call depth), the globals and memory rows [0, min(W, pages x
+16384)) holds one state; its lanes run the same instructions on the same
+values until the launch ends, so the kernel runs it without shuffles or
+snapshots (`csrc/optimistic.cuh` `WarpUniform`).  Here such a warp runs as
+every warp that is on does (its canaries can never be set, so what it
+writes is the same); `WarpState.uniform` counts its entries.  The kernel copies
 the frame rows at or above the snapshot's depth on their first write, so
 that restoring them leaves them as they were; restoring every frame row
 from a whole copy, as here, is the same.  Stack rows at or above the
@@ -68,17 +77,19 @@ class WarpState:
     on the state's device: `snap` the interval of the warp's next launch
     (the counterpart of ctrl column `_C_SNAP`, pallas_engine.py :233-238),
     `rollbacks` (of `recheck_rounds`), `entered` the launches it ran
-    optimistically, `commits` its clean checks.  `shadows` holds the
-    snapshot's planes, allocated once for a state's geometry."""
+    optimistically, `commits` its clean checks, `uniform` the launches
+    it entered as a uniform warp (the entry rule above).  `shadows` holds
+    the snapshot's planes, allocated once for a state's geometry."""
 
     snap: torch.Tensor
     rollbacks: torch.Tensor
     entered: torch.Tensor
     commits: torch.Tensor
+    uniform: torch.Tensor
     snap_max: int = SNAP_STEPS
     shadows: dict = dataclasses.field(default_factory=dict)
 
-    COUNTERS = ("snap", "rollbacks", "entered", "commits")
+    COUNTERS = ("snap", "rollbacks", "entered", "commits", "uniform")
 
     @classmethod
     def new(cls, lanes: int, device, snap_max: int = SNAP_STEPS):
@@ -89,7 +100,7 @@ class WarpState:
                               device=device)
 
         return cls(snap=full(snap_max), rollbacks=full(0), entered=full(0),
-                   commits=full(0), snap_max=int(snap_max))
+                   commits=full(0), uniform=full(0), snap_max=int(snap_max))
 
     def counters(self) -> dict:
         return {f: getattr(self, f) for f in self.COUNTERS}
@@ -146,6 +157,10 @@ class OptRun:
             same = same & (p == p[self.leader])
         self.on = self._all(same) & (self.chunk > 0)
         self.entered = self.on.clone()
+        whole = (torch.arange(self.nw, device=dev) + 1) * WARP <= L
+        self.uniform = self.on & whole
+        if bool(self.uniform.any()):
+            self.uniform &= self._all(self._same_rows(st))
         self.canary = torch.zeros(L, dtype=torch.bool, device=dev)
         self.pending = torch.zeros(self.nw, dtype=torch.int32, device=dev)
         self.ls = torch.zeros(self.nw, dtype=torch.int32, device=dev)
@@ -165,6 +180,29 @@ class OptRun:
                          device=per_lane.device)
         pad[: self.L] = per_lane
         return pad.view(self.nw, WARP).all(1)
+
+    def _same_rows(self, st):
+        """Per lane: equal to its warp's lane 0 in the rows the entry rule
+        compares (its own sp, call depth and pages; a warp that is on
+        shares them)."""
+        ns, nf = st.sp.long(), st.call_depth.long()
+        W = st.mem.shape[0]
+        nm = torch.clamp(st.mem_pages.long() * 16384, max=W) if W > 1 \
+            else torch.zeros_like(ns)
+        same = torch.ones_like(st.sp, dtype=torch.bool)
+        for plane, n in ((st.stack_lo, ns), (st.stack_hi, ns),
+                         (st.stack_e2, ns), (st.stack_e3, ns),
+                         (st.fr_ret_pc, nf), (st.fr_fp, nf),
+                         (st.fr_opbase, nf), (st.glob_lo, None),
+                         (st.glob_hi, None), (st.mem, nm)):
+            if plane is None:
+                continue
+            diff = plane != plane[:, self.leader]
+            if n is not None:
+                rows = torch.arange(plane.shape[0], device=plane.device)
+                diff &= rows[:, None] < n[None, :]
+            same &= ~diff.any(0)
+        return same
 
     def lanes_of(self, warps_mask):
         return warps_mask[self.wid].nonzero().squeeze(1)
@@ -277,4 +315,5 @@ class OptRun:
         w.rollbacks += (e & self.rolled).to(torch.int32)
         w.entered += e.to(torch.int32)
         w.commits += self.commits
+        w.uniform += self.uniform.to(torch.int32)
 

@@ -36,8 +36,9 @@
 // Under kOpt a block's decisions (its guard and branch conditions, the
 // addresses of its inline loads and stores, a return's frame row, a
 // superinstruction's branch) go through the warp's `w` as the per-op
-// handlers' do, a call saves its frame row for a rollback first
-// (opt_save_frame), and an inline access whose window miss would write a
+// handlers' do (lane 0's in the leader loop, the lane's own in the
+// careful and uniform loops), a call in the leader loop saves its frame
+// row for a rollback first (opt_save_frame), and an inline access whose window miss would write a
 // dirty way back exits the block before it (n ops retired, no trap) for
 // the commit, as an out-of-bounds access exits it with its trap.
 //
@@ -144,6 +145,7 @@ __device__ __forceinline__ int fused_load(const Params& p,
   for (int k = 0; k < 3; ++k) row[k] = clampi(widx + k, 0, p.W - 1);
   if (w.on() && m.dirty_miss(p, row[0], row[2])) return OPT_DEFER;
   m.select(p, s.lane, row[0], row[2]);
+  m.readable(p, s.lane, row[0], row[2]);
   for (int k = 0; k < 3; ++k) wd[k] = m.get(p, s.lane, row[k]);
   const bool sgn = (flags & 1) != 0, is64 = (flags & 2) != 0;
   const u32 raw_lo = sh ? (wd[0] >> sh) | (wd[1] << (32 - sh)) : wd[0];
@@ -172,11 +174,9 @@ __device__ __forceinline__ int fused_store(const Params& p,
   const int widx = (int)(ea >> 2);
   const u32 sh = (ea & 3) * 8;
   int row[3];
-  u32 wd[3];
   for (int k = 0; k < 3; ++k) row[k] = clampi(widx + k, 0, p.W - 1);
   if (w.on() && m.dirty_miss(p, row[0], row[2])) return OPT_DEFER;
   m.select(p, s.lane, row[0], row[2]);
-  for (int k = 0; k < 3; ++k) wd[k] = m.get(p, s.lane, row[k]);
   const u64 full = nbytes == 1 ? 0xFFull : nbytes == 2 ? 0xFFFFull
                    : nbytes == 8 ? ~0ull : 0xFFFFFFFFull;
   const u64 m01 = full << sh, v01 = val << sh;
@@ -184,8 +184,12 @@ __device__ __forceinline__ int fused_store(const Params& p,
                      sh ? (u32)(full >> (64 - sh)) : 0u};
   const u32 vk[3] = {(u32)v01, (u32)(v01 >> 32),
                      sh ? (u32)(val >> (64 - sh)) : 0u};
-  for (int k = 0; k < 3; ++k)
-    if (mk[k] != 0) m.put(p, s.lane, row[k], (wd[k] & ~mk[k]) | (vk[k] & mk[k]));
+  for (int k = 0; k < 3; ++k) {
+    if (mk[k] == 0xFFFFFFFFu)
+      m.put(p, s.lane, row[k], vk[k]);
+    else if (mk[k] != 0)
+      m.merge(p, s.lane, row[k], vk[k], mk[k]);
+  }
   return 0;
 }
 

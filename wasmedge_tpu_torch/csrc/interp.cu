@@ -71,8 +71,11 @@
 // table index, grow delta, memory address and ALU trap, with a canary
 // for lanes that disagree, validated at commit points; a dirty check
 // restores the last snapshot and re-runs the rest of the launch in the
-// careful per-lane loop below, in the same kernel.  Every other warp, and
-// every warp of a build without kOpt, runs the careful loop alone.
+// careful per-lane loop below, in the same kernel.  A whole warp whose
+// lanes also hold one state (stack rows below sp, frames, globals, live
+// memory) cannot disagree: it runs the careful decisions with the
+// commit points and takes no snapshot.  Every other warp, and every warp
+// of a build without kOpt, runs the careful loop alone.
 //
 // Numerics are IEEE-strict: build with -fmad=false and without -ftz or
 // --use_fast_math; every float op uses an _rn intrinsic and NaNs are
@@ -236,12 +239,14 @@ struct Params {
   const i32* __restrict__ filo;
   const i32* __restrict__ fihi;
   // optimistic convergence (kOpt): the per-warp interval, rollback,
-  // entry and commit counts ([ceil(L / 32)]), the snapshot's shadow
-  // planes ([rows, L], null where unused) and the interval's ceiling
+  // entry, commit and uniform-entry counts ([ceil(L / 32)]), the
+  // snapshot's shadow planes ([rows, L], null where unused) and the
+  // interval's ceiling
   i32* w_snap;
   i32* w_rollbacks;
   i32* w_entered;
   i32* w_commits;
+  i32* w_uniform;
   i32* sh_lo;
   i32* sh_hi;
   i32* sh_e2;
@@ -1739,6 +1744,7 @@ __device__ __forceinline__ int simd_step(const Params& p,
   if (w.on() && m.dirty_miss(p, row[0], row[4])) return OPT_DEFER;
   m.select(p, s.lane, row[0], row[4]);
   if (!store) {
+    m.readable(p, s.lane, row[0], row[4]);
     u32 word[5];
 #pragma unroll
     for (int k = 0; k < 5; ++k)
@@ -1760,13 +1766,11 @@ __device__ __forceinline__ int simd_step(const Params& p,
   // the 16 bytes span five words: keep the bytes below ea in the first
   // and those from ea + 16 on in the last
   const u32 keep = 0xFFFFFFFFu << sh;
-  m.put(p, s.lane, row[0],
-        (m.get(p, s.lane, row[0]) & ~keep) | (v.w[0] << sh));
+  m.merge(p, s.lane, row[0], v.w[0] << sh, keep);
 #pragma unroll
   for (int k = 1; k < 4; ++k)
     m.put(p, s.lane, row[k], (v.w[k] << sh) | (v.w[k - 1] >> (32u - sh)));
-  m.put(p, s.lane, row[4],
-        (m.get(p, s.lane, row[4]) & keep) | (v.w[3] >> (32u - sh)));
+  m.merge(p, s.lane, row[4], v.w[3] >> (32u - sh), ~keep);
   return 0;
 }
 
@@ -1804,15 +1808,21 @@ __device__ __forceinline__ int simd_step(const Params& p,
 // is taken before any thread returns (a warp intrinsic after a return
 // would name absent threads).  A warp whose present lanes are all live
 // and share their control state runs the warp-leader loop
-// (dispatch_loop<..., kLead = true>: every decision through `w`, lane
-// 0's; a commit point at the top of an iteration once the interval has
-// passed or when a handler asked for one, OPT_DEFER: the instruction has
-// not run and runs again after the commit) until the launch ends, then
-// validates; a rollback or a bulk op hands the rest of the launch, from
-// the snapshot's step or the bulk op, to the careful loop
-// (dispatch_loop<..., kLead = false>), which every other warp runs from
-// the start.  Two instantiations of one loop: the careful one is the
-// loop of a build without kOpt.
+// (dispatch_loop<..., Warp<true>>: every decision through `w`, lane
+// 0's) up to each commit point: the loop's bound is the step at which
+// the interval has passed, and a handler that asks for a commit
+// (OPT_DEFER: the instruction has not run and runs again after it)
+// returns early with os.pending set; the kernel commits and runs the loop
+// again until the launch ends, then validates.  A rollback or a bulk op
+// hands the rest of the launch, from the snapshot's step or the bulk op,
+// to the careful loop (dispatch_loop<..., WarpUniform>, off), which every
+// other warp runs from the start to the launch's end, with no commit
+// point.  A whole warp whose lanes also hold one state (the entry rule,
+// optimistic.cuh `warp_uniform`) runs the careful loop on (`on_`) up to
+// each commit point in the same way, and takes no snapshot, until a bulk
+// op's commit turns it off.  Two instantiations of one loop in a kOpt
+// build; a build without kOpt has the careful one alone (Warp<false>, no
+// commit point compiled in).
 struct NoFusion {
   static constexpr bool kOn = false;
   static constexpr bool kByPc = false;
@@ -1822,24 +1832,17 @@ struct NoFusion {
 // code (not a handler id).
 constexpr int FUSED_DONE = -1;
 
-template <bool kBulk, bool kSimd, class F, bool kWin, bool kLead>
+template <bool kBulk, bool kSimd, class F, bool kWin, class Wp>
 __device__ __forceinline__ void dispatch_loop(const Params& p,
                                               const Lane<kSimd>& s,
-                                              Mem<kWin>& m, Warp<kLead>& w,
-                                              LaneRegs& r, OptRun& os) {
+                                              Mem<kWin>& m, Wp& w,
+                                              LaneRegs& r, OptRun& os,
+                                              const int lim) {
   const int lane = s.lane;
   int &pc = r.pc, &sp = r.sp, &fp = r.fp, &ob = r.ob, &cd = r.cd;
   int &retired = r.retired, &fuel = r.fuel, &pages = r.pages;
   int &trap = r.trap, &step = r.step;
-  for (; step < p.chunk; ++step) {
-    if constexpr (kLead) {
-      // the periodic commit (pallas_engine.py :3599-3651), or the one a
-      // handler asked for; a warp no longer on goes to the careful loop
-      if ((step >= os.due || os.pending) &&
-          !opt_commit<kSimd, kWin>(p, s, m, w, r, os,
-                                   os.pending == OPT_WAIT_BULK))
-        return;
-    }
+  for (; step < lim; ++step) {
     int pcc = clampi(pc, 0, p.code_len - 1);
     int h;
     if constexpr (F::kByPc) {
@@ -1859,14 +1862,13 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
         if (p.fuel_on) fuel -= n;
         s.note(sp);  // a fused dispatch writes rows below its exit's sp
         if (xtrap != 0) {
-          if constexpr (kLead) {
+          if constexpr (Wp::kCommits) {
             if (xtrap == OPT_DEFER) {
               // the n ops before the access retired; the commit it asks
-              // for comes at the top of the next iteration
+              // for comes first
               step += n;
               os.pending = OPT_WAIT_ACCESS;
-              --step;
-              continue;
+              return;
             }
           }
           trap = xtrap;  // pc and sp are the trapping op's own
@@ -1898,14 +1900,13 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
           if (p.fuel_on) fuel -= n;
           s.note(sp);  // a fused dispatch writes rows below its exit's sp
           if (xtrap != 0) {
-            if constexpr (kLead) {
+            if constexpr (Wp::kCommits) {
               if (xtrap == OPT_DEFER) {
                 // the n ops before the access retired; the commit it
-                // asks for comes at the top of the next iteration
+                // asks for comes first
                 step += n;
                 os.pending = OPT_WAIT_ACCESS;
-                --step;
-                continue;
+                return;
               }
             }
             trap = xtrap;  // pc and sp are the trapping op's own
@@ -2060,7 +2061,7 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
           if (cd >= p.CD - 1) code = E_CALL_STACK;
           if (fp_new + __ldg(&p.ftop[callee]) > p.D) code = E_STACK_OVERFLOW;
           if (code == 0) {
-            if constexpr (kLead) opt_save_frame(p, lane, cd, os.o.fhi);
+            if constexpr (Wp::kLead) opt_save_frame(p, lane, cd, os.o.fhi);
             const size_t r = s.at(cd, p.CD);
             p.fr_ret_pc[r] = pcc + 1;
             p.fr_fp[r] = fp;
@@ -2114,15 +2115,16 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
           const int widx = (int)(ea >> 2);
           const u32 sh = (ea & 3) * 8;
           int row[3];  // clamped into the plane
-          u32 w3[3];
+          u32 w3[3];  // a load's words
           for (int k = 0; k < 3; ++k) row[k] = clampi(widx + k, 0, p.W - 1);
           if (w.on() && m.dirty_miss(p, row[0], row[2])) {
             ntrap = OPT_DEFER;
             break;
           }
           m.select(p, lane, row[0], row[2]);
-          for (int k = 0; k < 3; ++k) w3[k] = m.get(p, lane, row[k]);
           if (!is_store) {
+            m.readable(p, lane, row[0], row[2]);
+            for (int k = 0; k < 3; ++k) w3[k] = m.get(p, lane, row[k]);
             const int c = __ldg(&p.c[pcc]);
             const bool sgn = (c & 1) != 0, is64 = (c & 2) != 0;
             const u32 raw_lo = sh ? (w3[0] >> sh) | (w3[1] << (32 - sh)) : w3[0];
@@ -2143,9 +2145,12 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
                                sh ? (u32)(full >> (64 - sh)) : 0u};
             const u32 vk[3] = {(u32)v01, (u32)(v01 >> 32),
                                sh ? (u32)(val >> (64 - sh)) : 0u};
-            for (int k = 0; k < 3; ++k)
-              if (mk[k] != 0)
-                m.put(p, lane, row[k], (w3[k] & ~mk[k]) | (vk[k] & mk[k]));
+            for (int k = 0; k < 3; ++k) {
+              if (mk[k] == 0xFFFFFFFFu)
+                m.put(p, lane, row[k], vk[k]);
+              else if (mk[k] != 0)
+                m.merge(p, lane, row[k], vk[k], mk[k]);
+            }
           }
           break;
         }
@@ -2197,23 +2202,24 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
       }
     }
 
-    if constexpr (kLead) {
-      if (ntrap == OPT_DEFER) {
-        // nothing of the instruction ran: the commit at the top of the
-        // next iteration, then the instruction again (a bulk op in the
-        // careful loop)
-        os.pending = h == H_MEMFILL || h == H_MEMCOPY ? OPT_WAIT_BULK
-                                                      : OPT_WAIT_ACCESS;
-        --step;  // the loop's increment
-        continue;
-      }
-    }
     ++retired;
     if (p.fuel_on) {
       --fuel;
       if (ntrap == 0 && fuel <= 0) ntrap = E_COST_LIMIT;
     }
     if (ntrap != 0) {
+      if constexpr (Wp::kCommits) {
+        if (ntrap == OPT_DEFER) {
+          // nothing of the instruction ran (not retired, not charged):
+          // the commit first, then the instruction again (a bulk op in
+          // the careful loop)
+          --retired;
+          if (p.fuel_on) ++fuel;
+          os.pending = h == H_MEMFILL || h == H_MEMCOPY ? OPT_WAIT_BULK
+                                                        : OPT_WAIT_ACCESS;
+          return;
+        }
+      }
       // a halted lane keeps its pre-instruction control state; a fuel trap
       // keeps the instruction's writes, which lie below its new sp
       s.note(ntrap == E_COST_LIMIT ? new_sp : sp);
@@ -2252,7 +2258,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) interp_kernel(const Params p) {
              p.opbase[lane],  p.call_depth[lane], p.retired[lane],
              p.fuel[lane],    p.mem_pages[lane], 0, 0};
   OptRun os{};
-  bool done = false;
+  bool done = false, uniform = false;
   if constexpr (kOpt) {
     const int l_pc = __shfl_sync(mask, r.pc, 0);
     const int l_sp = __shfl_sync(mask, r.sp, 0);
@@ -2266,37 +2272,79 @@ __global__ void __launch_bounds__(BLOCK_THREADS) interp_kernel(const Params p) {
                       r.pages == l_pages && r.fuel == l_fuel;
     os.entered = os.on = __all_sync(mask, same) && p.chunk > 0;
     if (trap0 != 0) return;
+    // a whole warp that is on: the entry rule (optimistic.cuh), on the
+    // planes before the on-chip rows are loaded
+    if (os.on && mask == 0xffffffffu)
+      uniform = warp_uniform<kSimd>(p, lane, r.sp, r.cd, r.pages);
   }
   s.enter(r.sp);
+  // the careful loop's decisions: a kOpt build's carry a uniform warp's
+  // commit points while `on` (WarpUniform), a build without kOpt's none
+  using Careful = typename std::conditional<kOpt, WarpUniform,
+                                            Warp<false>>::type;
+  Careful careful{};
   if constexpr (kOpt) {
     if (os.on) {
-      // the entry state is the first snapshot (pallas_engine.py
-      // :3661-3666); the windows start invalid
-      Warp<true> w{mask, 0u};
       os.snapv = p.w_snap[lane >> 5];
-      opt_save<kSimd, kWin>(p, s, r.sp, r.cd);
-      os.o = OptSnap{r.pc, r.sp, r.fp, r.ob, r.cd, r.retired, r.fuel,
-                     r.pages, 0, r.cd};
       os.due = opt_due(0, os.snapv);
-      dispatch_loop<kBulk, kSimd, F, kWin, true>(p, s, m, w, r, os);
-      if (os.on) {
-        // the exit validation (pallas_engine.py :3669-3680): chunk end,
-        // trap, fuel, done and the park publish nothing unvalidated; a
-        // rollback leaves the rest of the launch to the careful loop
-        opt_commit<kSimd, kWin>(p, s, m, w, r, os, true);
-        done = !os.rolled;
+      if (uniform) {
+        // no snapshot: nothing can roll back
+        careful.on_ = true;
+      } else {
+        // the entry state is the first snapshot (pallas_engine.py
+        // :3661-3666); the windows start invalid
+        Warp<true> w{mask, 0u};
+        opt_save<kSimd, kWin>(p, s, r.sp, r.cd);
+        os.o = OptSnap{r.pc, r.sp, r.fp, r.ob, r.cd, r.retired, r.fuel,
+                       r.pages, 0, r.cd};
+        // the leader loop up to each commit point (the interval passed,
+        // or a handler asked for one: os.pending), then the commit; a
+        // rollback or a bulk op ends it
+        for (;;) {
+          dispatch_loop<kBulk, kSimd, F, kWin, Warp<true>>(
+              p, s, m, w, r, os, min(p.chunk, os.due));
+          if (r.trap != 0 || r.step >= p.chunk ||
+              !opt_commit<kSimd, kWin>(p, s, m, w, r, os,
+                                       os.pending == OPT_WAIT_BULK))
+            break;
+        }
+        if (os.on) {
+          // the exit validation (pallas_engine.py :3669-3680): chunk end,
+          // trap, fuel, done and the park publish nothing unvalidated; a
+          // rollback leaves the rest of the launch to the careful loop
+          opt_commit<kSimd, kWin>(p, s, m, w, r, os, true);
+          done = !os.rolled;
+        }
       }
     }
   }
-  if (!done) {
-    Warp<false> careful;
-    dispatch_loop<kBulk, kSimd, F, kWin, false>(p, s, m, careful, r, os);
+  // the careful loop (one instantiation): a uniform warp's runs up to
+  // each commit point and commits there as the leader's does (a bulk
+  // op's commit turns the points off: the op runs next); every other
+  // warp's runs to the launch's end with no commit point
+  while (!done) {
+    dispatch_loop<kBulk, kSimd, F, kWin, Careful>(
+        p, s, m, careful, r, os,
+        careful.on() ? min(p.chunk, os.due) : p.chunk);
+    done = true;
+    if constexpr (kOpt) {
+      if (careful.on() && r.trap == 0 && r.step < p.chunk) {
+        opt_commit<kSimd, kWin>(p, s, m, careful, r, os,
+                                os.pending == OPT_WAIT_BULK);
+        done = false;
+      }
+    }
+  }
+  if constexpr (kOpt) {
+    // a uniform warp still on: the exit validation
+    if (careful.on()) opt_commit<kSimd, kWin>(p, s, m, careful, r, os, true);
   }
 
   // the exit commit (pallas_engine.py :3683-3693): chunk end, trap, fuel,
   // done and the host-call park all leave the loops above to here; the
   // windows and the on-chip stack rows go back to the planes
   m.flush(p, lane);
+  m.count();
   s.leave();
   p.pc[lane] = r.pc;
   p.sp[lane] = r.sp;
@@ -2318,19 +2366,21 @@ __global__ void __launch_bounds__(BLOCK_THREADS) interp_kernel(const Params p) {
       p.w_rollbacks[wid] += os.rolled ? 1 : 0;
       p.w_entered[wid] += 1;
       p.w_commits[wid] += os.commits;
+      p.w_uniform[wid] += uniform ? 1 : 0;
     }
   }
 }
 
 // The block's dynamic shared memory: the windows (kWin) and the on-chip
 // stack rows.  SMEM_BLOCK_MAX is what an H100 block may use (opt-in),
-// SMEM_STATIC kept for static shared memory (bulk_op's table).  R, the
-// stack rows on chip, is the depth D up to what the rest of the budget
-// holds in whole 32-row steps and at most STACK_ROWS_MAX (512 rows: 128
-// KiB of two planes), which leaves the SM's L1 room for the code tables,
-// frames and globals; batch/interp.py `block_geometry` is the same rule.
+// SMEM_STATIC kept for static shared memory (bulk_op's table, the
+// windows' row bits and counts).  R, the stack rows on chip, is the
+// depth D up to what the rest of the budget holds in whole 32-row steps
+// and at most STACK_ROWS_MAX (512 rows: 128 KiB of two planes), which
+// leaves the SM's L1 room for the code tables, frames and globals;
+// batch/interp.py `block_geometry` is the same rule.
 constexpr int SMEM_BLOCK_MAX = 232448;
-constexpr int SMEM_STATIC = 1024;
+constexpr int SMEM_STATIC = 3072;
 constexpr int STACK_ROWS_MAX = 512;
 
 template <bool kSimd, bool kWin>
@@ -2359,6 +2409,7 @@ template <bool kSimd, bool kWin, bool kOpt>
 bool opt_args_ok(const Params& p) {
   if (!kOpt) return true;
   if (!p.w_snap || !p.w_rollbacks || !p.w_entered || !p.w_commits ||
+      !p.w_uniform ||
       !p.sh_lo || !p.sh_hi || !p.sh_fr_ret_pc || !p.sh_fr_fp ||
       !p.sh_fr_opbase || !p.sh_glo || !p.sh_ghi || p.snap_max < 1)
     return false;
@@ -2421,22 +2472,38 @@ int kernel_attrs(int D, int* out) {
 // launch), after the state planes (and a fused build's tables).
 #define WASM_OPT_ARGS                                                       \
   int *w_snap, int *w_rollbacks, int *w_entered, int *w_commits,          \
-      int *sh_lo, int *sh_hi, int *sh_e2, int *sh_e3, int *sh_fr_ret_pc,  \
-      int *sh_fr_fp, int *sh_fr_opbase, int *sh_glo, int *sh_ghi,         \
-      int *sh_mem
+      int *w_uniform, int *sh_lo, int *sh_hi, int *sh_e2, int *sh_e3,     \
+      int *sh_fr_ret_pc, int *sh_fr_fp, int *sh_fr_opbase, int *sh_glo,   \
+      int *sh_ghi, int *sh_mem
 #define WASM_OPT_FIELDS                                                     \
-  w_snap, w_rollbacks, w_entered, w_commits, sh_lo, sh_hi, sh_e2, sh_e3,  \
-      sh_fr_ret_pc, sh_fr_fp, sh_fr_opbase, sh_glo, sh_ghi, sh_mem
+  w_snap, w_rollbacks, w_entered, w_commits, w_uniform, sh_lo, sh_hi,     \
+      sh_e2, sh_e3, sh_fr_ret_pc, sh_fr_fp, sh_fr_opbase, sh_glo, sh_ghi, \
+      sh_mem
+
+// A device counter array of this library into out, then set to 0 when
+// `clear`.
+template <class T>
+int read_counts(const T& sym, unsigned long long* out, int clear) {
+  int err = (int)cudaMemcpyFromSymbol(out, sym, sizeof(T));
+  if (err != 0 || !clear) return err;
+  const T zero = {};
+  return (int)cudaMemcpyToSymbol(sym, zero, sizeof(T));
+}
 
 // The bulk counts of this library's kernels (g_bulk_counts: warp passes,
-// the lanes that took them, per-lane walks) into out[3], then set to 0
-// when `clear`.
+// the lanes that took them, per-lane walks) into out[3].
 extern "C" int wasm_bulk_counts(unsigned long long* out, int clear) {
-  int err = (int)cudaMemcpyFromSymbol(out, g_bulk_counts,
-                                      sizeof(g_bulk_counts));
-  if (err != 0 || !clear) return err;
-  const unsigned long long zero[3] = {0ull, 0ull, 0ull};
-  return (int)cudaMemcpyToSymbol(g_bulk_counts, zero, sizeof(zero));
+  return read_counts(g_bulk_counts, out, clear);
+}
+// The window counts (g_win_counts: hits, misses, ways written back, the
+// rows they stored, rows filled) into out[5].
+extern "C" int wasm_win_counts(unsigned long long* out, int clear) {
+  return read_counts(g_win_counts, out, clear);
+}
+// The entry compares (g_entry_counts: compares, their cycles summed over
+// warps) into out[2].
+extern "C" int wasm_entry_counts(unsigned long long* out, int clear) {
+  return read_counts(g_entry_counts, out, clear);
 }
 
 #ifndef WASM_FUSED_BUILD

@@ -52,6 +52,25 @@
 // bounds it is bytes: a commit moves the rows it copies twice; between
 // commits a decision costs one shuffle where the careful loop compares
 // nothing.
+//
+// Uniform warps.  The TPU needed the leader because a lane block runs one
+// pc; an H100 lane has its own, and the hardware keeps a warp converged
+// while its lanes compute the same thing.  A warp that is on, whole (32
+// lanes) and whose lanes hold one state at the launch's start (the entry
+// compare `warp_uniform`, lane against lane 0: stack rows [0, sp) of every
+// stack plane, frame rows [0, cd), the globals and memory rows [0,
+// min(W, pages x 16384)) of the plane; rows nothing reads are not
+// compared) runs the same instructions on the same values in every lane
+// until the launch ends: lane identity is not visible to Wasm and a host
+// call parks the launch.  So lane 0's value is always the lane's own, no
+// canary can be set and no rollback can happen.  Such a warp runs the
+// careful loop of its kOpt build (`WarpUniform`, its `on` set): the
+// careful decisions (no shuffle, no canary) with the leader's commit
+// points and their effects (commits counted, the interval advanced, the
+// dirty windows written back, a bulk op's commit turning the warp off,
+// the exit's validation counted), and no snapshot.
+// The shadow planes are then untouched scratch; the per-warp counts come
+// out as the leader loop's would, and w_uniform counts these entries.
 
 namespace {
 
@@ -61,16 +80,22 @@ constexpr int OPT_FIRST = 512;          // the first interval, min(512, snap) (:
 // A load or store whose window miss would write a dirty way back, or a
 // bulk op, in a warp that is on: nothing done, the commit comes first.
 constexpr int OPT_DEFER = -3;
-// what a warp waits for at the top of its next iteration: a commit, and
-// then the instruction again (OPT_WAIT_BULK: in the careful loop)
+// what a warp's loop returned for (os.pending): a commit, and then the
+// instruction again (OPT_WAIT_BULK: in the careful loop)
 constexpr int OPT_WAIT_ACCESS = 1;
 constexpr int OPT_WAIT_BULK = 2;
 
-// The warp's decisions.  Warp<false> (the careful loop): each value is the
-// lane's own and nothing is compared.  Warp<true> (the warp-leader loop):
-// each is lane 0's, and a lane whose own value differs sets its canary.
+// The warp's decisions.  Warp<false> (the loop of a build without kOpt):
+// each value is the lane's own and nothing is compared.  Warp<true> (the
+// warp-leader loop): each is lane 0's, and a lane whose own value differs
+// sets its canary.  WarpUniform (the careful loop of a kOpt build): each
+// is the lane's own; while `on_` (a uniform warp that is on) the loop
+// stops at the leader's commit points.  kCommits: the loop may stop for a
+// commit; kLead: decisions are lane 0's, with snapshots and rollbacks.
 template <bool kOpt>
 struct Warp {
+  static constexpr bool kCommits = false;
+  static constexpr bool kLead = false;
   __device__ __forceinline__ bool on() const { return false; }
   __device__ __forceinline__ u32 agree(u32 v) { return v; }
   __device__ __forceinline__ bool nz(u32 v) { return v != 0; }
@@ -78,6 +103,8 @@ struct Warp {
 
 template <>
 struct Warp<true> {
+  static constexpr bool kCommits = true;
+  static constexpr bool kLead = true;
   unsigned mask;  // the present lanes (lane < L) of the warp
   u32 canary;     // nonzero: this lane disagreed since the last commit
 
@@ -97,6 +124,15 @@ struct Warp<true> {
   __device__ __forceinline__ bool dirty() const {
     return __any_sync(mask, canary != 0);
   }
+};
+
+struct WarpUniform {
+  static constexpr bool kCommits = true;
+  static constexpr bool kLead = false;
+  bool on_;
+  __device__ __forceinline__ bool on() const { return on_; }
+  __device__ __forceinline__ u32 agree(u32 v) { return v; }
+  __device__ __forceinline__ bool nz(u32 v) { return v != 0; }
 };
 
 // ALU subs whose trap kind is a decision (the others never trap):
@@ -120,9 +156,10 @@ struct OptSnap {
 };
 
 // A warp's optimistic run in one launch: the last snapshot, the step at
-// which the next periodic commit is due, the interval, the clean checks,
-// a commit a handler asked for (OPT_WAIT_*), and whether the warp is
-// still on, entered on at all and rolled back.
+// which the next commit is due (periodic, or the step of a handler that
+// asked for one), the interval, the clean checks, the kind of commit a
+// handler asked for (OPT_WAIT_*), and whether the warp is still on,
+// entered on at all and rolled back.
 struct OptRun {
   OptSnap o;
   int snapv, due, commits, pending;
@@ -186,41 +223,132 @@ __device__ __forceinline__ void opt_restore(const Params& p,
   if (!kWin && p.W > 1) copy_rows(p.mem + lane, L, p.sh_mem + lane, L, p.W);
 }
 
-// A commit point of a warp that is on: the canaries checked with one
-// __any_sync.  Dirty: the lane is rolled back to the last snapshot, its
-// step included, and the windows dropped; the warp is off.  Clean: with
-// `leave` (the loop's end, a bulk op) the warp is off; otherwise the dirty
-// windows go back to the plane and a snapshot is taken.  Returns whether
-// the warp is still on.
-template <bool kSimd, bool kWin>
+// A commit point of a warp that is on.  The leader's (Warp<true>): the
+// canaries checked with one __any_sync; dirty: the lane is rolled back to
+// the last snapshot, its step included, and the windows dropped; the
+// warp is off.  Clean (a uniform warp's always is): with `leave` (the
+// loop's end, a bulk op) the warp is off; otherwise the dirty windows go
+// back to the plane, the leader takes a snapshot, and the next periodic
+// commit is due.  Returns whether the warp is still on.
+template <bool kSimd, bool kWin, class Wp>
 __device__ __forceinline__ bool opt_commit(const Params& p,
                                            const Lane<kSimd>& s,
-                                           Mem<kWin>& m, Warp<true>& w,
-                                           LaneRegs& r, OptRun& os,
-                                           bool leave) {
+                                           Mem<kWin>& m, Wp& w, LaneRegs& r,
+                                           OptRun& os, bool leave) {
   os.pending = 0;
-  if (w.dirty()) {
-    const OptSnap& o = os.o;
-    opt_restore<kSimd, kWin>(p, s, o);
-    m.invalidate();
-    r = LaneRegs{o.pc, o.sp, o.fp, o.ob, o.cd, o.retired, o.fuel, o.pages, 0,
-                 o.step};
-    os.on = false;
-    os.rolled = true;
-    return false;
+  if constexpr (Wp::kLead) {
+    if (w.dirty()) {
+      const OptSnap& o = os.o;
+      opt_restore<kSimd, kWin>(p, s, o);
+      m.invalidate();
+      r = LaneRegs{o.pc, o.sp, o.fp, o.ob, o.cd, o.retired, o.fuel, o.pages,
+                   0, o.step};
+      os.on = false;
+      os.rolled = true;
+      return false;
+    }
   }
   ++os.commits;
   if (leave) {
     os.on = false;
+    if constexpr (!Wp::kLead) w.on_ = false;
     return false;
   }
   m.commit(p, s.lane);
-  opt_save<kSimd, kWin>(p, s, r.sp, r.cd);
-  os.o = OptSnap{r.pc, r.sp, r.fp, r.ob, r.cd, r.retired, r.fuel, r.pages,
-                 r.step, r.cd};
+  if constexpr (Wp::kLead) {
+    opt_save<kSimd, kWin>(p, s, r.sp, r.cd);
+    os.o = OptSnap{r.pc, r.sp, r.fp, r.ob, r.cd, r.retired, r.fuel, r.pages,
+                   r.step, r.cd};
+    w.canary = 0;
+  }
   os.due = opt_due(r.step, os.snapv);
-  w.canary = 0;
   return true;
+}
+
+// The entry compares since they were last read and cleared: compares
+// run and their clock cycles summed over warps.
+__device__ unsigned long long g_entry_counts[2];
+
+// Whether some lane of the warp (all 32 threads call it, at plane column
+// wbase + threadIdx.x) differs from lane 0 in rows [0, n) of `plane`.
+// With 16-byte rows of 4 lanes (L % 4 == 0) a thread loads a quad of a
+// row, 8 threads a whole 128-byte row, ENTRY_ROWS quads per step in
+// flight (4 x ENTRY_ROWS rows); else a word a thread, ENTRY_ROWS rows a
+// step.  Lane 0's word of each row comes from the thread holding it by a
+// shuffle; the pass stops after the first step that differs.  Out of
+// line: it runs once at a launch's entry.
+constexpr int ENTRY_ROWS = 16;
+
+__device__ __noinline__ bool rows_differ(const i32* plane, int L, int wbase,
+                                         int n) {
+  const int t = threadIdx.x;
+  if ((L & 3) == 0) {
+    const int q = t & 7, j = t >> 3;  // lanes 4q..4q+3 of row r0 + 4k + j
+    const i32* base = plane + wbase + 4 * q;
+    for (int r0 = 0; r0 < n; r0 += 4 * ENTRY_ROWS) {
+      int4 v[ENTRY_ROWS];
+#pragma unroll
+      for (int k = 0; k < ENTRY_ROWS; ++k) {
+        const int r = r0 + 4 * k + j;
+        v[k] = r < n ? *reinterpret_cast<const int4*>(base + (size_t)r * L)
+                     : make_int4(0, 0, 0, 0);
+      }
+      u32 diff = 0;
+#pragma unroll
+      for (int k = 0; k < ENTRY_ROWS; ++k) {
+        const i32 l0 = __shfl_sync(0xffffffffu, v[k].x, t & 24);
+        const int r = r0 + 4 * k + j;
+        if (r < n)
+          diff |= (u32)((v[k].x ^ l0) | (v[k].y ^ l0) | (v[k].z ^ l0) |
+                        (v[k].w ^ l0));
+      }
+      if (__any_sync(0xffffffffu, diff != 0)) return true;
+    }
+    return false;
+  }
+  const i32* col = plane + wbase + t;
+  for (int r0 = 0; r0 < n; r0 += ENTRY_ROWS) {
+    i32 v[ENTRY_ROWS];
+#pragma unroll
+    for (int k = 0; k < ENTRY_ROWS; ++k)
+      v[k] = r0 + k < n ? col[(size_t)(r0 + k) * L] : 0;
+    u32 diff = 0;
+#pragma unroll
+    for (int k = 0; k < ENTRY_ROWS; ++k)
+      diff |= (u32)(v[k] ^ __shfl_sync(0xffffffffu, v[k], 0));
+    if (__any_sync(0xffffffffu, diff != 0)) return true;
+  }
+  return false;
+}
+
+// The entry rule of a whole warp that is on (its lanes share sp, cd and
+// pages): every lane equal to lane 0 in the stack rows below sp (every
+// stack plane, in the [D, L] planes: the launch has not loaded its
+// on-chip rows yet), the frame rows below the depth, the globals and the
+// live memory rows.  Lane 0 adds the compare and its cycles to
+// g_entry_counts.
+template <bool kSimd>
+__device__ __forceinline__ bool warp_uniform(const Params& p, int lane, int sp,
+                                             int cd, int pages) {
+  const long long t0 = clock64();
+  const int wbase = lane - (int)threadIdx.x;
+  const int ns = clampi(sp, 0, p.D), nf = clampi(cd, 0, p.CD);
+  const int nm = p.W > 1 ? (int)min((long long)p.W, (long long)pages * 16384)
+                         : 0;
+  const i32* const planes[9] = {p.stack_lo,  p.stack_hi, p.stack_e2,
+                                p.stack_e3,  p.fr_ret_pc, p.fr_fp,
+                                p.fr_opbase, p.glob_lo,  p.glob_hi};
+  const int rows[9] = {ns, ns, kSimd ? ns : 0, kSimd ? ns : 0, nf, nf, nf,
+                       p.NG, p.NG};
+  bool same = true;
+  for (int k = 0; k < 9 && same; ++k)
+    if (rows[k] > 0) same = !rows_differ(planes[k], p.L, wbase, rows[k]);
+  if (same && nm > 0) same = !rows_differ(p.mem, p.L, wbase, nm);
+  if (threadIdx.x == 0) {
+    atomicAdd(&g_entry_counts[0], 1ull);
+    atomicAdd(&g_entry_counts[1], (unsigned long long)(clock64() - t0));
+  }
+  return same;
 }
 
 }  // namespace

@@ -24,8 +24,12 @@ iteration, `build_window_pingpong` writes two regions more than a window
 apart in turn and then makes unaligned i64 and v128 accesses straddle
 window edges (the overlap rule evicts a dirty way), and
 `build_window_host` stores and then parks at a host call in the same
-window.  The tests and `chip_smoke.py` use them with lane inputs made
-from a seed.
+window, and `build_win_rows` drives the per-row valid and dirty bits
+(a store-only sweep, partial stores into rows not valid, loads after
+stores, a commit with some rows dirty).  `build_uniform_probe` keeps
+stack rows, frames, a global and memory live across launches (B3's
+entry rule).  The tests and `chip_smoke.py` use them with lane inputs
+made from a seed.
 """
 
 from __future__ import annotations
@@ -1006,6 +1010,115 @@ def build_window_host() -> bytes:
         ("i32.const", 68), ("i32.load", 2, 0), "i32.add",
     ], export="f")
     return b.build()
+
+
+_ALNUM = "0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
+WIN_ROWS_DATA = "".join(_ALNUM[i * 7 % 62] for i in range(256))
+
+WIN_ROWS_WAT = """
+(module
+  (memory 1 1)
+  (data (i32.const 0) "DATA")
+  ;; sweep(a, n): whole-word stores of i * 0x9E3779B1 ^ a at a + 4i for
+  ;; i < n, nothing loaded (from a = 0, n = 160: rows 0..159, across the
+  ;; first way's end at row 128)
+  (func (export "sweep") (param $a i32) (param $n i32) (result i32)
+    (local $i i32)
+    (block (loop
+      (br_if 1 (i32.ge_u (local.get $i) (local.get $n)))
+      (i32.store (i32.add (local.get $a) (i32.shl (local.get $i) (i32.const 2)))
+                 (i32.xor (i32.mul (local.get $i) (i32.const 0x9E3779B1))
+                          (local.get $a)))
+      (local.set $i (i32.add (local.get $i) (i32.const 1)))
+      (br 0)))
+    (local.get $n))
+  ;; partial(a, x): a store8 at a, a store16 at a + 21 and an unaligned
+  ;; v128 store at a + 42 (when a % 4 != 2) into rows nothing made valid,
+  ;; then i64 loads over all three and one at a + 300
+  (func (export "partial") (param $a i32) (param $x i32) (result i64)
+    (i32.store8 (local.get $a) (local.get $x))
+    (i32.store16 offset=21 (local.get $a) (local.get $x))
+    (v128.store offset=42 (local.get $a)
+                (i32x4.splat (i32.mul (local.get $x) (i32.const 0x01000193))))
+    (i64.add (i64.load offset=40 (local.get $a))
+      (i64.xor (i64.load (local.get $a))
+        (i64.add (i64.load offset=20 (local.get $a))
+                 (i64.add (i64.load offset=50 (local.get $a))
+                          (i64.load offset=300 (local.get $a)))))))
+  ;; store_load(a, x): whole-word stores at a, a + 4, a + 8 and a + 12
+  ;; (a % 4 == 0: valid and dirty, no fill), a load of a + 4 (valid) and
+  ;; one of a + 200 (not valid: the rest of the way is filled)
+  (func (export "store_load") (param $a i32) (param $x i32) (result i32)
+    (i32.store (local.get $a) (local.get $x))
+    (i32.store offset=4 (local.get $a) (i32.add (local.get $x) (i32.const 1)))
+    (i32.store offset=8 (local.get $a) (i32.add (local.get $x) (i32.const 2)))
+    (i32.store offset=12 (local.get $a) (i32.add (local.get $x) (i32.const 3)))
+    (i32.add (i32.load offset=4 (local.get $a))
+             (i32.load offset=200 (local.get $a))))
+  ;; commit_rows(a, x, spin): whole-word stores at a and a + 8 (two dirty
+  ;; rows of a way no load filled), spin loop iterations without a memory
+  ;; access (a warp that is on commits on the way with those rows dirty),
+  ;; then a load of a + 64 (fills), a store at a + 8 and loads of a + 8
+  ;; and a + 4
+  (func (export "commit_rows") (param $a i32) (param $x i32) (param $spin i32)
+                               (result i32)
+    (local $i i32) (local $acc i32)
+    (i32.store (local.get $a) (local.get $x))
+    (i32.store offset=8 (local.get $a) (i32.mul (local.get $x) (i32.const 3)))
+    (block (loop
+      (br_if 1 (i32.ge_u (local.get $i) (local.get $spin)))
+      (local.set $acc (i32.add (i32.rotl (local.get $acc) (i32.const 3))
+                               (local.get $i)))
+      (local.set $i (i32.add (local.get $i) (i32.const 1)))
+      (br 0)))
+    (local.set $acc (i32.add (local.get $acc)
+                             (i32.load offset=64 (local.get $a))))
+    (i32.store offset=8 (local.get $a) (local.get $acc))
+    (i32.add (i32.load offset=8 (local.get $a))
+             (i32.load offset=4 (local.get $a))))
+)
+""".replace("DATA", WIN_ROWS_DATA)
+
+
+def build_win_rows() -> bytes:
+    """B4's per-row valid and dirty bits: a store-only sweep across a way
+    boundary (`sweep`), partial stores into rows that are not valid
+    (`partial`), loads after whole-word stores (`store_load`) and a B3
+    commit with some rows dirty (`commit_rows`), over a data segment of
+    256 patterned bytes."""
+    return parse_wat(WIN_ROWS_WAT)
+
+
+UNIFORM_PROBE_WAT = """
+(module
+  (memory 1 2)
+  (global $g (mut i32) (i32.const 7))
+  (data (i32.const 0) "DATA")
+  ;; rec(n, x): n levels of calls, each adding memory word n and the
+  ;; global (which it bumps) into x; the innermost reads the last word of
+  ;; the first page
+  (func $rec (export "rec") (param $n i32) (param $x i32) (result i32)
+    (if (result i32) (i32.eqz (local.get $n))
+      (then (i32.add (local.get $x)
+                     (i32.add (global.get $g) (i32.load (i32.const 65532)))))
+      (else
+        (global.set $g (i32.add (global.get $g) (local.get $n)))
+        (i32.add
+          (call $rec (i32.sub (local.get $n) (i32.const 1))
+                     (i32.add (local.get $x)
+                              (i32.load (i32.shl (local.get $n) (i32.const 2)))))
+          (local.get $n)))))
+)
+""".replace("DATA", WIN_ROWS_DATA)
+
+
+def build_uniform_probe() -> bytes:
+    """B3's entry rule: `rec(n, x)` keeps stack rows, frames, a global and
+    memory words (the first page's last one included) live across launch
+    boundaries, so a lane that differs from its warp's lane 0 in any of
+    them reads the difference; a second page, never grown into, lies
+    beyond the live memory."""
+    return parse_wat(UNIFORM_PROBE_WAT)
 
 
 # -- optimistic convergence (B3) ------------------------------------------------

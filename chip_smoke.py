@@ -8,7 +8,9 @@ Phases:
                (csrc/interp.cu, four instantiations, a library each with
                direct memory access and with the B4 window cache,
                csrc/memwin.cuh, with and without B3 optimistic
-               convergence, csrc/optimistic.cuh) and, per module,
+               convergence, csrc/optimistic.cuh; and the same four with
+               the tier-0 handlers, WASM_TIER0, one instantiation each)
+               and, per module (WASI modules with tier 0 on and off),
                encoding, memory mode, optimistic or careful and stack
                split or not (WASM_STACK_SPLIT: deeper stacks than the
                rows on chip), the fused kernel (csrc/interp.cu +
@@ -78,7 +80,21 @@ Phases:
                lane-dependent with one and two deltas in a warp, a lane
                out of bounds and n == 0 lanes; at 256, 100 and 99 lanes;
                warp passes required) and a recursion whose stack crosses
-               the 512 on-chip rows of a 1024-row stack.  Then, in this
+               the 512 on-chip rows of a 1024-row stack; tier 0 (the
+               host-call fixtures above run with it off): the tier-0 zoo
+               (clock ids served, parked and refused, random_get lengths
+               and offsets, sched_yield, proc_exit on some lanes, an
+               unaligned lane-dependent fd_write to fds 1, 2 and 3, the
+               shapes that park or fault, a 16-word stdout buffer that
+               fills, a uniform warp's random_get: every warp uniform, no
+               rollback, per-lane bytes), a module whose fd_close keeps
+               fd_write on the host, WASI echo and hello, per-op, in
+               blocks and super (hello: per-op and blocks), optimistic and
+               careful, both memory modes, with the same time base on
+               both sides at every launch, the host's cputime clocks and
+               urandom fixed, a serve round and a stdout flush after
+               every launch, every plane (t0_ctr, so_buf, so_off) and the
+               per-warp counts equal and stdout byte for byte.  Then, in this
                process, one 256-step launch of fib(30) x 4096 in each
                encoding, one converged memory.fill + memory.copy launch
                (also as PyTorch tensor calls, its warp passes counted),
@@ -96,9 +112,13 @@ Phases:
                torch.profiler; a divergent fib mix x 4096; CoreMark(200)
                and CoreMark(4096) x 4096 with one 64 KiB page per lane
                (CoreMark(4096) in blocks and per-op, profiled); WASI echo x
-               4096 (32,768 fd_write calls, output checked byte for byte,
-               serve rounds and serve time against kernel time under
-               torch.profiler), WASI hello x 4096 (proc_exit codes), the
+               4096 (32,768 fd_write calls, output checked byte for byte)
+               with tier 0 (every call retired in the kernel, no serve
+               round, one stdout flush) and with it off (every call
+               served between launches), each profiled; the tier-0 echo
+               launch timed against its careful twin, the plain version
+               and the tier-0-off launch, with its flush; WASI hello x
+               4096 (proc_exit codes, proc_exit in the kernel), the
                bulk-memory workload x 4096 (checked against a bytearray
                model, its warp passes counted); the SIMD spec corpus
                (tests/spec/simd.wast) through run_corpus_batched on the
@@ -124,8 +144,9 @@ Phases:
   4. report  - phase times, kernel times (CUDA events), retired
                instructions and instructions per second, registers and
                spills of each build, the card's name and power limit, one
-               JSON line of kernel records (with "mem_window", B4, and
-               "optimistic", B3), and last the device JSON line.
+               JSON line of kernel records (with "mem_window", B4,
+               "optimistic", B3, and "tier0"), and last the device JSON
+               line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.  Imports nothing of JAX or of the JAX package.
@@ -226,7 +247,9 @@ def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
             eng.tables = device_tables(eng.img, eng.device, fusion,
                                        mem_window=eng.mem_window,
                                        optimistic=eng.optimistic,
-                                       stack_depth=eng.cfg.value_stack_depth)
+                                       stack_depth=eng.cfg.value_stack_depth,
+                                       t0kinds=eng.t0kinds,
+                                       t0=eng.tables.t0)
         finally:
             fusegen.MAX_INSTANCE_CASES = cap
     return eng, inst
@@ -269,7 +292,8 @@ def cpu_tables(eng):
     tb = eng.tables
     return device_tables(eng.img, "cpu", tb.fusion,
                          mem_window=tb.mem_window, optimistic=tb.optimistic,
-                         stack_depth=eng.cfg.value_stack_depth)
+                         stack_depth=eng.cfg.value_stack_depth,
+                         t0kinds=eng.t0kinds, t0=tb.t0)
 
 
 def cpu_warps(eng):
@@ -883,15 +907,18 @@ def run_job(job):
     BULK_FIXTURES.clear()
     WINDOW_FIXTURES.clear()
     UNIFORM_FIXTURES.clear()
+    TIER0_FIXTURES.clear()
     try:
         worst = globals()[name](*args, **kwargs)
     except SystemExit:
-        return group, None, None, f"{name} {args[0] if args else ''}"
+        return group, None, None, f"{name} {args[0] if args else ''}" \
+            f"{kwargs.get('only') or ''}"
     return group, worst, dict(window=WINDOW_WORST[0], opt=dict(OPT_WORST),
                               opt_fixtures=dict(OPT_FIXTURES),
                               bulk=dict(BULK_FIXTURES),
                               windows=dict(WINDOW_FIXTURES),
-                              uniform=dict(UNIFORM_FIXTURES)), None
+                              uniform=dict(UNIFORM_FIXTURES),
+                              tier0=dict(TIER0_FIXTURES)), None
 
 
 def run_jobs(groups: dict) -> dict:
@@ -920,6 +947,7 @@ def run_jobs(groups: dict) -> dict:
             BULK_FIXTURES.update(rec["bulk"])
             WINDOW_FIXTURES.update(rec["windows"])
             UNIFORM_FIXTURES.update(rec["uniform"])
+            TIER0_FIXTURES.update(rec["tier0"])
     if bad:
         fail(f"{len(bad)} kernel phase jobs failed: {bad[:5]}")
     return worst
@@ -1001,12 +1029,13 @@ def env_import():
 
 
 def wasi_import(fd: int):
-    """A WASI host module whose stdout is the file descriptor `fd`."""
+    """A WASI host module whose stdout and stderr are the file descriptor
+    `fd`."""
     from wasmedge_tpu_torch.host.wasi import WasiModule
 
     wasi = WasiModule()
     wasi.init_wasi(args=list(WASI_ARGS))
-    wasi.env.fds[1].os_fd = fd
+    wasi.env.fds[1].os_fd = wasi.env.fds[2].os_fd = fd
     return wasi
 
 
@@ -1045,8 +1074,10 @@ def phase_hostcalls_kernel_vs_plain(fusion="none", only=None) -> int:
     from wasmedge_tpu_torch.models.programs import ECHO_MESSAGE
 
     L = KERNEL_LANES
+    # every call parks and is served between launches (tier 0 off;
+    # phase_tier0_kernel_vs_plain runs it on)
     knobs = dict(value_stack_depth=64, call_stack_depth=16,
-                 memory_pages_per_lane=3)
+                 memory_pages_per_lane=3, tier0_hostcalls=False)
     hello_codes = np.arange(L) % 3
     fixtures = [
         ("env.double", build_host_double(), "f", [np.arange(L) * 10 - 7],
@@ -1086,14 +1117,20 @@ def phase_hostcalls_kernel_vs_plain(fusion="none", only=None) -> int:
 
 
 def host_fixture_vs_plain(name, data, func, args, want_out, fusion, mem_hbm,
-                          knobs, imports) -> int:
-    """One host-call fixture of phase_hostcalls_kernel_vs_plain in one
-    encoding and memory mode."""
+                          knobs, imports, chunk=64, check=None) -> int:
+    """One host-call fixture of phase_hostcalls_kernel_vs_plain (or of
+    phase_tier0_kernel_vs_plain) in one encoding and memory mode: with
+    tier 0 both sides get the same time base at every launch, and each
+    side's stdout buffer is flushed after every launch and serve round;
+    `check(state, warps, engine)` returns what is wrong at the end, or
+    None."""
     from wasmedge_tpu_torch.batch import interp, interp_ref
-    from wasmedge_tpu_torch.batch.hostcall import serve_batch_state
+    from wasmedge_tpu_torch.batch.engine import t0_time_planes
+    from wasmedge_tpu_torch.batch.hostcall import (
+        flush_stdout_buffers, serve_batch_state)
     from wasmedge_tpu_torch.common.errors import ErrCode
 
-    L = KERNEL_LANES
+    L = len(np.asarray(args[0]))
     hello_codes = np.arange(L) % 3
     worst = 0
     t0 = time.perf_counter()
@@ -1111,9 +1148,12 @@ def host_fixture_vs_plain(name, data, func, args, want_out, fusion, mem_hbm,
             ref = on_cpu(st)
             wk, wp = new_warps(engs[0]), cpu_warps(engs[1])
             launches = rounds = 0
+            tier0 = st.t0_ctr is not None
             while True:
-                interp.run_chunk(engs[0].tables, st, 64, False, wk)
-                interp_ref.run_chunk(engs[1].tables, ref, 64, False, wp)
+                tt = t0_time_planes() if tier0 else None
+                interp.run_chunk(engs[0].tables, st, chunk, False, wk, tt)
+                interp_ref.run_chunk(engs[1].tables, ref, chunk, False, wp,
+                                     tt)
                 torch.cuda.synchronize()
                 launches += 1
                 err = max(max_abs_err(st, ref), warp_err(wk, wp))
@@ -1124,6 +1164,9 @@ def host_fixture_vs_plain(name, data, func, args, want_out, fusion, mem_hbm,
                     fail(f"{name}: the two serve rounds served "
                          f"different lanes")
                 rounds += served > 0
+                if flush_stdout_buffers(engs[0], st) != \
+                        flush_stdout_buffers(engs[1], ref):
+                    fail(f"{name}: the two flushes wrote different bytes")
                 err = max(err, max_abs_err(st, ref))
                 worst = max(worst, err)
                 if mem_hbm:
@@ -1148,7 +1191,7 @@ def host_fixture_vs_plain(name, data, func, args, want_out, fusion, mem_hbm,
     if want_out is not None and outs[0] != want_out:
         fail(f"{name}: stdout is not the expected {len(want_out)} B")
     trap = st.trap.cpu().numpy()
-    if name == "wasi_hello":
+    if name.endswith("wasi_hello"):
         codes = st.stack_lo.cpu().numpy()[st.fp.cpu().numpy(),
                                           np.arange(L)]
         if not (trap == int(ErrCode.Terminated)).all() or \
@@ -1161,13 +1204,152 @@ def host_fixture_vs_plain(name, data, func, args, want_out, fusion, mem_hbm,
                 not (got == ((5 * x + 1) & 0xFFFFFFFF)).all():
             fail("window_host: results are not 5x + 1")
     stats = wk.stats() if wk is not None else {}
+    tag = mode_tag(fusion, mem_hbm) + ("" if wk is not None or not tier0
+                                       else " careful")
     if wk is not None:
-        OPT_FIXTURES[f"{name}{mode_tag(fusion, mem_hbm)}"] = stats
-    print(f"kernel_vs_plain {name}{mode_tag(fusion, mem_hbm)}: "
+        OPT_FIXTURES[f"{name}{tag}"] = stats
+        UNIFORM_FIXTURES[f"{name}{tag}"] = dict(
+            uniform=int(wk.uniform.sum()), entered=stats["entered"])
+    if check is not None:
+        bad = check(st, wk, engs[0])
+        if bad:
+            fail(f"{name}{tag}: {bad}")
+    calls = st.t0_ctr.sum(1).tolist() if tier0 else None
+    if tier0:
+        TIER0_FIXTURES[f"{name}{tag}"] = dict(
+            t0_ctr=calls, serve_rounds=rounds,
+            stdout_bytes=engs[0].hostcall_stats["stdout_bytes"])
+    print(f"kernel_vs_plain {name}{tag}: "
           f"{launches} launches and {rounds} serve rounds equal, traps "
           f"{sorted(set(trap.tolist()))}, stdout {len(outs[0])} B "
-          f"identical, warps {stats}, {time.perf_counter() - t0:.2f} s",
-          flush=True)
+          f"identical, warps {stats}"
+          f"{f', uniform {int(wk.uniform.sum())}' if wk is not None else ''}"
+          f"{f', tier-0 calls {calls}' if tier0 else ''}, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return worst
+
+
+def tier0_fixtures(L: int) -> list:
+    """The tier-0 fixtures at L lanes: (name, module, export, args,
+    expected stdout or None, steps per launch, knobs, check): the cases of
+    models.fixtures.tier0_cases, the full stdout buffer (16 words), a
+    whole warp's random_get (every warp must enter uniform, none roll
+    back, and the lanes' bytes differ), fd_write made unsafe by fd_close,
+    and WASI echo and hello."""
+    from wasmedge_tpu_torch.common.errors import ErrCode
+    from wasmedge_tpu_torch.models import build_echo, build_wasi_hello
+    from wasmedge_tpu_torch.models.fixtures import (
+        build_tier0_unsafe, build_tier0_zoo, tier0_cases)
+    from wasmedge_tpu_torch.models.programs import ECHO_MESSAGE
+
+    zoo = build_tier0_zoo()
+
+    def uniform(st, wk, eng):
+        res = np.unique(st.stack_lo[0].cpu().numpy())
+        if res.size < L // 2:
+            return f"{res.size} distinct results of {L} lanes"
+        if wk is not None and (int(wk.uniform.sum()) < (L // 32) or
+                               int(wk.rollbacks.sum()) != 0):
+            return f"warps {wk.stats()}, uniform {int(wk.uniform.sum())}"
+        if int(st.t0_ctr[1].sum()) != L:
+            return f"{int(st.t0_ctr[1].sum())} random_get calls served"
+        return None
+
+    def parks(row, want):
+        def check(st, wk, eng):
+            got = int(st.t0_ctr[row].sum())
+            if want(got, eng.hostcall_stats):
+                return None
+            return (f"tier-0 count {row} is {got}, serve stats "
+                    f"{eng.hostcall_stats}")
+        return check
+
+    def exits(st, wk, eng):
+        x = np.arange(L) + 1
+        want = np.where(x % 3 == 0, int(ErrCode.Terminated), -1)
+        if not (st.trap.cpu().numpy() == want).all():
+            return "lanes did not stop where x % 3 == 0"
+        return None
+
+    cases = tier0_cases(L, SEED)
+    writes = int(cases["digit"][1][1].sum())
+    checks = {"exit": exits,
+              "digit": parks(2, lambda n, s: n == writes
+                             and s["serve_rounds"] == 0)}
+    out = [(f"tier0.{case}", zoo, func, args, None, 64, {}, checks.get(case))
+           for case, (func, args) in cases.items() if case != "uniform"]
+    hello_codes = np.arange(L) % 3
+    out += [
+        ("tier0.digit_full", zoo, "digit",
+         [np.arange(L), np.full(L, 8), np.ones(L, np.int64)], None, 256,
+         dict(stdout_buffer_words=16),
+         parks(2, lambda n, s: s["serve_rounds"] > 0 and n > 0)),
+        ("tier0.uniform", zoo, "uniform", [np.full(L, 700)], None, 64, {},
+         uniform),
+        ("tier0.unsafe", build_tier0_unsafe(), "f", [np.arange(L)], None,
+         64, {}, parks(0, lambda n, s: n == L and s["tier1_calls"] == L)),
+        ("tier0.wasi_echo", build_echo(), "echo", [np.full(L, 2)],
+         ECHO_MESSAGE * (4 * L), 64, {},
+         parks(2, lambda n, s: n == 4 * L and s["serve_rounds"] == 0)),
+        ("tier0.wasi_hello", build_wasi_hello(), "hello", [hello_codes],
+         hello_output(hello_codes), 64, {},
+         parks(3, lambda n, s: n == L and s["tier1_calls"] == 3 * L)),
+    ]
+    return out
+
+
+# tier-0 counts per fixture and mode of the kernel side (t0_ctr summed by
+# row, serve rounds, stdout bytes)
+TIER0_FIXTURES = {}
+# the encodings each tier-0 fixture runs in (per-op, blocks, super)
+TIER0_ENCODINGS = {"tier0.wasi_hello": ("none", "blocks"),
+                   "tier0.unsafe": ("none",)}
+
+
+def tier0_jobs(fusion="none") -> list:
+    """phase_tier0_kernel_vs_plain in the encoding `fusion`, one job per
+    fixture that runs in it."""
+    return [("phase_tier0_kernel_vs_plain", (fusion,), dict(only=(name,)))
+            for name, *_ in tier0_fixtures(2)
+            if fusion in TIER0_ENCODINGS.get(name, ("none", "blocks",
+                                                    "super"))]
+
+
+def phase_tier0_kernel_vs_plain(fusion="none", only=None) -> int:
+    """The tier-0 fixtures (those named in `only`, or all) at KERNEL_LANES
+    lanes in the encoding `fusion`, optimistic and careful, through the
+    window cache and with direct access: kernel and plain version from
+    the same CUDA state with the same time base at every launch, each
+    with its own engine, WASI module, serve round and stdout flush after
+    every launch; every plane (t0_ctr, so_buf and so_off included) and
+    the per-warp counts equal, and the two stdout files byte-identical."""
+    L = KERNEL_LANES
+    worst = 0
+    # the calls that park read the host (the cputime clocks, random_get
+    # above tier0_random_max): one fixed reading and byte stream for both
+    # sides' serve rounds
+    saved = (time.process_time_ns, time.thread_time_ns, os.urandom)
+    time.process_time_ns = lambda: 0x1234_5678_9ABC
+    time.thread_time_ns = lambda: 0x0FED_CBA9_8765
+    os.urandom = lambda n: bytes((37 * i + 11) & 0xFF for i in range(n))
+    try:
+        for name, data, func, args, want_out, chunk, kn, check in \
+                tier0_fixtures(L):
+            if only is not None and name not in only:
+                continue
+            knobs = dict(value_stack_depth=64, call_stack_depth=16,
+                         memory_pages_per_lane=1, rng_seed=SEED, **kn)
+            for opt in (None, False):
+                knobs["optimistic"] = opt
+                imports = (lambda fd: [wasi_import(fd)])
+                for mem_hbm, _ in memory_modes(lambda m: make_engine(
+                        data, 2, device="cpu", imports=imports(1),
+                        fusion=fusion, mem_hbm=m, **knobs)):
+                    worst = max(worst, host_fixture_vs_plain(
+                        name, data, func, args, want_out, fusion, mem_hbm,
+                        knobs, imports, chunk=chunk, check=check))
+    finally:
+        time.process_time_ns, time.thread_time_ns, os.urandom = saved
     return worst
 
 
@@ -1548,7 +1730,8 @@ def run_vm(vm, func, args, fusion=None):
     eng.tables = device_tables(eng.img, eng.device, fusion,
                                mem_window=eng.mem_window,
                                optimistic=eng.optimistic,
-                               stack_depth=eng.cfg.value_stack_depth)
+                               stack_depth=eng.cfg.value_stack_depth,
+                               t0kinds=eng.t0kinds, t0=eng.tables.t0)
     return eng.run(func, list(args), max_steps=10**9), eng
 
 
@@ -1862,13 +2045,15 @@ def profile_run(vm, func, args, retired: int, fusion=None):
                  for e in prof.key_averages() if "Memcpy" in e.key) / 1e6
     stats = eng.hostcall_stats
     serve_s = stats["serve_s"]
-    print(f"profile {func} x {MAIN_LANES} [{eng.tables.fusion}]: kernel "
+    print(f"profile {func} x {MAIN_LANES} [{eng.tables.fusion}"
+          f"{', tier 0' if eng.tables.t0k is not None else ''}]: kernel "
           f"device time "
           f"{kernel_s * 1e3:.3f} ms over {count} launches "
           f"({kernel_s * 1e3 / count:.3f} ms per launch), wall "
           f"{wall * 1e3:.3f} ms, set-up and host {(wall - kernel_s) * 1e3:.3f}"
           f" ms (of which {stats['serve_rounds']} serve rounds "
-          f"{serve_s * 1e3:.3f} ms; host<->device copies "
+          f"{serve_s * 1e3:.3f} ms, {stats['stdout_flushes']} stdout "
+          f"flushes {stats['flush_s'] * 1e3:.3f} ms; host<->device copies "
           f"{copy_s * 1e3:.3f} ms of device time), device idle share "
           f"{1.0 - kernel_s / wall:.4f}, "
           f"{retired / kernel_s:.4g} wasm instr/s over kernel time",
@@ -1877,13 +2062,16 @@ def profile_run(vm, func, args, retired: int, fusion=None):
                 launches=count, wall_s=wall,
                 setup_host_ms=(wall - kernel_s) * 1e3,
                 serve_rounds=stats["serve_rounds"], serve_ms=serve_s * 1e3,
+                stdout_flushes=stats["stdout_flushes"],
+                flush_ms=stats["flush_s"] * 1e3,
                 copy_ms=copy_s * 1e3, idle_share=1.0 - kernel_s / wall,
                 instr_per_s_kernel=retired / kernel_s)
 
 
-def wasi_vm(data: bytes, fd: int, pages: int = 1):
+def wasi_vm(data: bytes, fd: int, pages: int = 1, tier0: bool = True):
     """A VM at MAIN_LANES lanes with bench_echo's stack shape, the WASI
-    host module registered (stdout to `fd`) and `data` instantiated."""
+    host module registered (stdout to `fd`), tier 0 on (the default) or
+    off, and `data` instantiated."""
     from wasmedge_tpu_torch.common.configure import (
         Configure, HostRegistration)
     from wasmedge_tpu_torch.vm.vm import VM
@@ -1894,6 +2082,7 @@ def wasi_vm(data: bytes, fd: int, pages: int = 1):
     conf.batch.value_stack_depth = 64
     conf.batch.call_stack_depth = 16
     conf.batch.memory_pages_per_lane = pages
+    conf.batch.tier0_hostcalls = tier0
     vm = VM(conf)
     vm.wasi_module.init_wasi(args=list(WASI_ARGS))
     vm.wasi_module.env.fds[1].os_fd = fd
@@ -1904,8 +2093,12 @@ def wasi_vm(data: bytes, fd: int, pages: int = 1):
 
 
 def phase_main_wasi():
-    """WASI echo (bench_echo's shape) and WASI hello through
-    VM.execute_batch at MAIN_LANES lanes, stdout to temporary files."""
+    """WASI echo (bench_echo's shape) through VM.execute_batch at
+    MAIN_LANES lanes with tier 0 on (the default: every fd_write retired
+    in the kernel, one stdout flush) and off (every call served between
+    launches), each once more under torch.profiler, and WASI hello
+    (proc_exit in the kernel, its other calls served); stdout to
+    temporary files, checked byte for byte."""
     from wasmedge_tpu_torch.common.errors import ErrCode
     from wasmedge_tpu_torch.models import build_echo, build_wasi_hello
     from wasmedge_tpu_torch.models.programs import ECHO_MESSAGE
@@ -1919,7 +2112,8 @@ def phase_main_wasi():
             fail(f"echo x {L}: traps {np.unique(res.trap)}, results "
                  f"{np.unique(res.results[0])[:5]}")
 
-    kinds = ("run", "profile", "mem_hbm False")
+    kinds = ("run", "profile", "mem_hbm False", "tier 0 off",
+             "tier 0 off, profile")
     with tempfile.TemporaryDirectory() as td:
         paths = [os.path.join(td, str(i)) for i in range(len(kinds))]
         fds = [os.open(p, os.O_RDWR | os.O_CREAT | os.O_TRUNC)
@@ -1928,14 +2122,22 @@ def phase_main_wasi():
             vm = wasi_vm(build_echo(), fds[0])
             res, launches, wall, ev_ms, counts = run_main(
                 vm, "echo", [ECHO_ITERS], 1 << 20,
-                need=("interp", "hostcall", "block", "window"))
+                need=("interp", "hostcall", "block", "window", "tier0"))
             stats = dict(vm.last_engine.hostcall_stats)
             retired = int(res.retired.astype(np.int64).sum())
             prof = profile_run(wasi_vm(build_echo(), fds[1]), "echo",
                                [ECHO_ITERS], retired)
             direct = direct_run(wasi_vm(build_echo(), fds[2]), "echo",
                                 [ECHO_ITERS], 1 << 20,
-                                ("interp", "hostcall", "block"), check)
+                                ("interp", "hostcall", "block", "tier0"),
+                                check)
+            off = wasi_vm(build_echo(), fds[3], tier0=False)
+            res_off, launches_off, wall_off, ev_off, counts_off = run_main(
+                off, "echo", [ECHO_ITERS], 1 << 20,
+                need=("interp", "hostcall", "block", "window"))
+            stats_off = dict(off.last_engine.hostcall_stats)
+            prof_off = profile_run(wasi_vm(build_echo(), fds[4], tier0=False),
+                                   "echo", [ECHO_ITERS], retired)
         finally:
             for fd in fds:
                 os.close(fd)
@@ -1945,27 +2147,47 @@ def phase_main_wasi():
             fail(f"echo x {L} ({k}): stdout is {len(got)} B, expected "
                  f"{len(want)} B of the message")
     check(res)
-    if stats["tier1_calls"] != calls:
-        fail(f"echo x {L}: {stats['tier1_calls']} host calls served, "
-             f"expected {calls}")
+    check(res_off)
+    if stats["serve_rounds"] != 0 or stats["tier1_calls"] != 0 or \
+            stats["tier0_fd_write"] != calls or \
+            stats["stdout_flushes"] != 1 or \
+            stats["stdout_bytes"] != len(want):
+        fail(f"echo x {L} with tier 0: {stats}, expected {calls} fd_write "
+             f"calls in the kernel, no serve round and one flush of "
+             f"{len(want)} B")
+    if counts_off["tier0"] != 0 or stats_off["tier1_calls"] != calls or \
+            stats_off["tier0_calls"] != 0:
+        fail(f"echo x {L} with tier 0 off: {stats_off['tier1_calls']} host "
+             f"calls served, expected {calls}")
     out["echo"] = dict(launches=launches, hostcall_launches=counts[
-        "hostcall"], wall_s=wall, event_ms=ev_ms, retired=retired,
-        host_calls=calls, host_calls_per_s=calls / wall,
-        stdout_bytes=len(want), profile=prof, direct=direct, **stats)
-    print(f"main wasi echo x {L} (ITERS {ECHO_ITERS}): {calls} fd_write "
-          f"calls, stdout {len(want)} B exact, all lanes done with 0, "
-          f"{launches} launches, {stats['serve_rounds']} serve rounds "
-          f"({stats['tier1_vectorized']} calls vectorized) "
-          f"{stats['serve_s'] * 1e3:.3f} ms, wall {wall:.3f} s, "
-          f"{calls / wall:.4g} host calls/s", flush=True)
+        "hostcall"], tier0_launches=counts["tier0"], wall_s=wall,
+        event_ms=ev_ms, retired=retired, host_calls=calls,
+        host_calls_per_s=calls / wall, stdout_bytes=len(want),
+        flush_ms=stats["flush_s"] * 1e3, profile=prof, direct=direct,
+        **{k: v for k, v in stats.items() if k != "stdout_bytes"})
+    out["echo"]["tier0_off"] = dict(
+        launches=launches_off, wall_s=wall_off, event_ms=ev_off,
+        host_calls_per_s=calls / wall_off, profile=prof_off, **stats_off)
+    print(f"main wasi echo x {L} (ITERS {ECHO_ITERS}), tier 0: {calls} "
+          f"fd_write calls retired in the kernel "
+          f"({stats['tier0_fd_write']}), {stats['serve_rounds']} serve "
+          f"rounds, {stats['stdout_flushes']} flush of "
+          f"{stats['stdout_bytes']} B in {stats['flush_s'] * 1e3:.3f} ms, "
+          f"stdout exact, all lanes done with 0, {launches} launches, wall "
+          f"{wall:.3f} s, {calls / wall:.4g} host calls/s; tier 0 off: "
+          f"{launches_off} launches, {stats_off['serve_rounds']} serve "
+          f"rounds ({stats_off['tier1_vectorized']} calls vectorized) "
+          f"{stats_off['serve_s'] * 1e3:.3f} ms, wall {wall_off:.3f} s, "
+          f"{calls / wall_off:.4g} host calls/s", flush=True)
     # The least bytes one serve round moves per parked lane: fd_write's 4
     # argument cells (8 B each), the iovec (8 B) and the 16-byte message
     # read; nwritten (4 B) and the result cell (8 B) written.
     round_bytes = L * (4 * 8 + 8 + 16 + 4 + 8)
     out["echo"]["serve_round_bound_ms"] = round_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"  serve round bound {out['echo']['serve_round_bound_ms']:.6f} ms "
-          f"by bytes: {round_bytes} B / {HBM_BYTES_PER_S:.3g} B/s; mean "
-          f"round {stats['serve_s'] * 1e3 / stats['serve_rounds']:.3f} ms",
+    print(f"  serve round bound (tier 0 off) "
+          f"{out['echo']['serve_round_bound_ms']:.6f} ms by bytes: "
+          f"{round_bytes} B / {HBM_BYTES_PER_S:.3g} B/s; mean round "
+          f"{stats_off['serve_s'] * 1e3 / stats_off['serve_rounds']:.3f} ms",
           flush=True)
 
     codes = np.arange(L) % 3
@@ -1976,10 +2198,10 @@ def phase_main_wasi():
             vm = wasi_vm(build_wasi_hello(), fd)
             res, launches, wall, ev_ms, counts = run_main(
                 vm, "hello", [codes], 1 << 20,
-                need=("interp", "hostcall", "block", "window"))
+                need=("interp", "hostcall", "block", "window", "tier0"))
             eng = vm.last_engine
-            rounds = eng.hostcall_stats["serve_rounds"]
-            # the exit codes: proc_exit's argument in each parked frame
+            hstats = dict(eng.hostcall_stats)
+            # the exit codes: proc_exit's argument in each stopped frame
             st = eng.initial_state(vm._active.exports["hello"][1], [codes])
             st, _ = eng.run_from_state(st, 0, 10**9)
             exit_codes = st.stack_lo.cpu().numpy()[st.fp.cpu().numpy(),
@@ -1995,10 +2217,20 @@ def phase_main_wasi():
             not (exit_codes == codes).all():
         fail(f"hello x {L}: traps {np.unique(res.trap)}, exit codes "
              f"{np.unique(exit_codes)}")
+    # args_sizes_get, args_get and an fd_write of three iovecs are served
+    # between launches; proc_exit retires in the kernel
+    if hstats["tier0_sys"] != L or hstats["tier1_calls"] != 3 * L:
+        fail(f"hello x {L}: {hstats['tier0_sys']} proc_exit calls in the "
+             f"kernel (expected {L}), {hstats['tier1_calls']} served "
+             f"(expected {3 * L})")
     out["hello"] = dict(launches=launches, wall_s=wall, event_ms=ev_ms,
-                        serve_rounds=rounds)
+                        serve_rounds=hstats["serve_rounds"],
+                        tier1_calls=hstats["tier1_calls"],
+                        tier0_sys=hstats["tier0_sys"])
     print(f"main wasi hello x {L}: every lane Terminated with exit code "
-          f"lane % 3, stdout {len(want)} B exact, {launches} launches, "
+          f"lane % 3 (proc_exit in the kernel: {hstats['tier0_sys']}), "
+          f"{hstats['tier1_calls']} calls in {hstats['serve_rounds']} "
+          f"serve rounds, stdout {len(want)} B exact, {launches} launches, "
           f"wall {wall:.3f} s", flush=True)
     return out
 
@@ -2418,6 +2650,108 @@ def phase_time_mem_launch():
                 words_loaded=loads)
 
 
+def phase_time_tier0() -> dict:
+    """The tier-0 record: echo(ECHO_ITERS) x MAIN_LANES from its initial
+    state in one launch of the main path's build (B2 blocks, windows,
+    optimistic, tier 0: every lane runs to its end, 2 x ECHO_ITERS
+    fd_write calls retired in place), its careful twin and the plain
+    version on the card with the same time base (every plane equal),
+    against the same launch with tier 0 off (it ends at the first park),
+    and one flush of the buffered stdout.  The bound is the tier-0
+    calls' bytes: per call the iovec (8 B), the payload (16 B), nwritten
+    (4 B) and the record (20 B); per launch its argument cells."""
+    from wasmedge_tpu_torch.batch import interp, interp_ref
+    from wasmedge_tpu_torch.batch.engine import t0_time_planes
+    from wasmedge_tpu_torch.batch.hostcall import flush_stdout_buffers
+    from wasmedge_tpu_torch.models import build_echo
+
+    L, chunk = MAIN_LANES, 1 << 20
+    knobs = dict(value_stack_depth=64, call_stack_depth=16,
+                 memory_pages_per_lane=1)
+    with tempfile.TemporaryDirectory() as td:
+        fd = os.open(os.path.join(td, "out"), os.O_RDWR | os.O_CREAT)
+        try:
+            engs = {k: make_engine(build_echo(), L, imports=[wasi_import(fd)],
+                                   optimistic=opt, tier0_hostcalls=t0,
+                                   **knobs)[0]
+                    for k, opt, t0 in (("kopt", None, True),
+                                       ("careful", False, True),
+                                       ("off", None, False))}
+            eng = engs["kopt"]
+            st0 = eng.initial_state(eng.inst.exports["echo"][1],
+                                    [np.full(L, ECHO_ITERS)])
+            off0 = engs["off"].initial_state(eng.inst.exports["echo"][1],
+                                             [np.full(L, ECHO_ITERS)])
+            tt = t0_time_planes()
+
+            def timed(k, st, reps=7):
+                e = engs[k]
+                times, out = [], None
+                for _ in range(reps):
+                    s = st.clone()
+                    w = new_warps(e)
+                    if w is not None:
+                        w.shadows_for(s, e.tables.mem_window)
+                    torch.cuda.synchronize()
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    interp.run_chunk(e.tables, s, chunk, False, w,
+                                     tt if k != "off" else None)
+                    e1.record()
+                    torch.cuda.synchronize()
+                    times.append(e0.elapsed_time(e1))
+                    out = (s, w)
+                return float(np.median(times)), out
+
+            ms, (out_k, w_k) = timed("kopt", st0)
+            careful_ms, (out_c, _) = timed("careful", st0)
+            off_ms, (out_off, _) = timed("off", off0)
+            plain = st0.clone()
+            wp = new_warps(eng)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            interp_ref.run_chunk(eng.tables, plain, chunk, False, wp, tt)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max(max_abs_err(out_k, plain), warp_err(w_k, wp),
+                      live_err(out_k, out_c))
+            if err != 0:
+                fail(f"tier-0 echo launch: kernel != plain, max abs err "
+                     f"{err}")
+            calls = int(out_k.t0_ctr[2].sum())
+            if calls != 2 * ECHO_ITERS * L or \
+                    not bool((out_k.trap == -1).all()):
+                fail(f"tier-0 echo launch: {calls} fd_write calls in the "
+                     f"kernel, traps {sorted(set(out_k.trap.tolist()))}")
+            parked = int((out_off.trap == -2).sum())
+            if parked != L:
+                fail(f"tier-0-off echo launch: {parked} lanes parked")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nbytes = flush_stdout_buffers(eng, out_k)
+            flush_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            os.close(fd)
+    n_args = (len(interp._TABLE_FIELDS) + len(interp._STATE_FIELDS)
+              + len(interp._FUSED_FIELDS) + interp._N_OPT
+              + interp._N_T0_PTRS) * 8 + \
+        (interp._N_INTS + interp._N_T0_INTS) * 4
+    bound_bytes = calls * (8 + 16 + 4 + 20) + n_args
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"timed tier-0 echo launch x {L}: {calls} fd_write calls in the "
+          f"kernel, kOpt {ms:.4f} ms, careful {careful_ms:.4f} ms, plain "
+          f"{plain_ms:.1f} ms, max abs err {err}; tier 0 off (to the "
+          f"first park) {off_ms:.4f} ms; flush {nbytes} B in "
+          f"{flush_ms:.3f} ms; bound {bound_ms:.6f} ms by bytes "
+          f"({bound_bytes} B)", flush=True)
+    return dict(ms=ms, careful_ms=careful_ms, plain_ms=plain_ms,
+                tier0_off_ms=off_ms, flush_ms=flush_ms, flush_bytes=nbytes,
+                calls=calls, bound_ms=bound_ms, bound_bytes=bound_bytes,
+                bound_by="bytes", max_abs_err=err,
+                warps=w_k.stats(), uniform=int(w_k.uniform.sum()))
+
+
 def phase_time_bulk():
     """One launch of the converged bulk pair at MAIN_LANES lanes: every
     lane fills 32 KiB at 0 and copies 16 KiB from 0 to 32 KiB, word
@@ -2753,7 +3087,8 @@ def prebuild() -> dict:
         build_memory_workload, build_simd_loop, build_wasi_hello)
     from wasmedge_tpu_torch.models.fixtures import (
         build_bulk_warp, build_deep_recursion, build_host_double,
-        build_uniform_probe, build_win_rows, build_window_host)
+        build_tier0_unsafe, build_tier0_zoo, build_uniform_probe,
+        build_win_rows, build_window_host)
     from wasmedge_tpu_torch.spec import corpus_tables
 
     # (module, v128 ops, imports, encodings, value-stack depth[, instance
@@ -2782,9 +3117,14 @@ def prebuild() -> dict:
               PROBE_KNOBS["value_stack_depth"]),
              (build_win_rows(), False, (), ("blocks",),
               PROBE_KNOBS["value_stack_depth"]),
-             (build_deep_recursion(), False, (), ("blocks",), 1024),
-             (build_echo(), False, wasi, encs(False), 64),
-             (build_wasi_hello(), False, wasi, ("blocks",), 64)]
+             (build_deep_recursion(), False, (), ("blocks",), 1024)]
+    # the WASI modules with tier 0 on (the default) and off, and the
+    # tier-0 fixtures (per-op: the per-op libraries with the tier-0
+    # handlers)
+    t0mods = [(build_echo(), encs(False), (True, False)),
+              (build_wasi_hello(), ("blocks",), (True, False)),
+              (build_tier0_zoo(), ("none",) + encs(False), (True,)),
+              (build_tier0_unsafe(), ("none",), (True,))]
     tables = []
     for data, simd, imports, fusions, depth, *cap in mods:
         for fusion in fusions:
@@ -2795,6 +3135,15 @@ def prebuild() -> dict:
                         value_stack_depth=depth,
                         instance_cap=(cap or [None])[0])):
                     tables.append(eng.tables)
+    for data, fusions, t0s in t0mods:
+        for fusion in fusions:
+            for opt in (None, False):
+                for t0 in t0s:
+                    for _, (eng, _) in memory_modes(lambda m: make_engine(
+                            data, 2, device="cpu", imports=[wasi[0]()],
+                            fusion=fusion, mem_hbm=m, optimistic=opt,
+                            value_stack_depth=64, tier0_hostcalls=t0)):
+                        tables.append(eng.tables)
     tables += corpus_tables([SIMD_WAST])
     tables += corpus_tables(corpus_files(), corpus_conf())
     # the main path's fib(30) and vloop blocks builds, kOpt and careful,
@@ -2901,20 +3250,24 @@ def main() -> int:
                   "scalar": scalar_jobs() + host_jobs(),
                   "simd": simd_jobs(), "fused": fused_jobs(),
                   "opt": opt_jobs() + host_jobs(
-                      "none", ("wasi_echo", "window_host"))})
-    worst, simd_worst, fused_worst, opt_worst, rows_worst = (
-        w["scalar"], w["simd"], w["fused"], w["opt"], w["rows"])
+                      "none", ("wasi_echo", "window_host")),
+                  "tier0": tier0_jobs("none") + tier0_jobs("blocks")
+                  + tier0_jobs("super")})
+    worst, simd_worst, fused_worst, opt_worst, rows_worst, t0_worst = (
+        w["scalar"], w["simd"], w["fused"], w["opt"], w["rows"], w["tier0"])
     t_jobs = time.perf_counter() - t0
     timing = {f: phase_time_one_launch(f) for f in ("none", "blocks", "super")}
     bulk_timing = phase_time_bulk()
     simd_timing = phase_time_simd_launch("blocks")
     simd_op_timing = phase_time_simd_launch("none")
     mem_timing = phase_time_mem_launch()
+    t0_timing = phase_time_tier0()
     t_kernel = time.perf_counter() - t0
     print(f"phase kernel_vs_plain: {t_kernel:.2f} s (comparisons "
           f"{t_jobs:.2f} s on {WORKERS} workers), max abs err "
-          f"{max(worst, simd_worst, fused_worst, opt_worst, rows_worst)} "
-          f"(warp bulk pass and stack rows {rows_worst}; window cache "
+          f"{max(worst, simd_worst, fused_worst, opt_worst, rows_worst, t0_worst)}"
+          f" (tier 0 {t0_worst}; "
+          f"warp bulk pass and stack rows {rows_worst}; window cache "
           f"{WINDOW_WORST[0]}; optimistic against plain "
           f"{OPT_WORST['plain']}, against careful below sp "
           f"{OPT_WORST['careful']})", flush=True)
@@ -2925,6 +3278,8 @@ def main() -> int:
     print(f"window counts per fixture: {json.dumps(WINDOW_FIXTURES)}",
           flush=True)
     print(f"uniform entries per fixture: {json.dumps(UNIFORM_FIXTURES)}",
+          flush=True)
+    print(f"tier-0 calls per fixture: {json.dumps(TIER0_FIXTURES)}",
           flush=True)
 
     t0 = time.perf_counter()
@@ -3140,8 +3495,42 @@ def main() -> int:
         careful_max_abs_err=OPT_WORST["careful"],
         timed_launch=dict(fib_launch, encoding="blocks",
                           retired=timing["blocks"]["retired"]))
+    # Tier 0: the handlers at the stubs (tier0_call) of the main path's
+    # echo build; "ms", "careful_ms" and "plain_ms" are one echo(ITERS) x
+    # MAIN_LANES launch to every lane's end with tier 0 (the timed launch
+    # of phase_time_tier0), "tier0_off_ms" the same launch with tier 0 off
+    # (to the first park), "flush_ms" its stdout flush; "launches" counts
+    # the main path's tier-0 launches of echo, "main_ms_per_launch" their
+    # kernel device time and "tier0_off_main_kernel_ms" the tier-0-off
+    # run's whole kernel device time, with its serve rounds
+    eo = main_out["echo"]
+    t0_record = {
+        "name": "tier0",
+        "route": "cuda",
+        "source": "wasmedge_tpu_torch/csrc/interp.cu",
+        "replaces": "wasmedge_tpu/batch/pallas_engine.py:1520",
+        "launches": eo["tier0_launches"],
+        "max_abs_err": max(t0_worst, t0_timing["max_abs_err"]),
+        "ms": t0_timing["ms"], "plain_ms": t0_timing["plain_ms"],
+        "bound_ms": t0_timing["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "careful_ms": t0_timing["careful_ms"],
+        "tier0_off_ms": t0_timing["tier0_off_ms"],
+        "flush_ms": t0_timing["flush_ms"],
+        "flush_bytes": t0_timing["flush_bytes"],
+        "calls": t0_timing["calls"],
+        "main_ms_per_launch": per_launch(eo["profile"]),
+        "main_kernel_ms": eo["profile"]["kernel_ms"],
+        "main_flush_ms": eo["flush_ms"],
+        "tier0_off_main_kernel_ms": eo["tier0_off"]["profile"]["kernel_ms"],
+        "tier0_off_serve_rounds": eo["tier0_off"]["serve_rounds"],
+        "tier0_off_serve_ms": eo["tier0_off"]["serve_s"] * 1e3,
+        "timed_launch": {"workload": f"echo({ECHO_ITERS})",
+                         "lanes": MAIN_LANES, "encoding": "blocks"},
+    }
     print(json.dumps({"phases_s": {"build": t_build, "kernel": t_kernel,
                                    "main": t_main},
+                      "tier0_fixtures": TIER0_FIXTURES,
+                      "tier0_launch": t0_timing,
                       "registers": per_op_regs, "attributes": attrs,
                       "geometry": geometry, "bulk_fixtures": BULK_FIXTURES,
                       "window_fixtures": WINDOW_FIXTURES,
@@ -3154,7 +3543,7 @@ def main() -> int:
           flush=True)
     print(json.dumps({"kernels": [record, block_record, super_record,
                                   bulk_record, simd_record, window_record,
-                                  opt_record]}),
+                                  opt_record, t0_record]}),
           flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

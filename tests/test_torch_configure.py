@@ -122,3 +122,13 @@ def test_optimistic_of_follows_the_pallas_engine(optimistic):
         assert eng.warps.snap.tolist() == [131072, 131072]
     else:
         assert eng.warps is None
+
+
+def test_tier0_knob_defaults_match_reference():
+    """The tier-0 knobs (wasmedge_tpu/common/configure.py:195-211): same
+    names, same defaults; tier 0 on."""
+    ref, port = RefConfigure().batch, BatchConfigure()
+    for k in ("tier0_hostcalls", "rng_seed", "stdout_buffer_words",
+              "tier0_write_max", "tier0_random_max"):
+        assert getattr(port, k) == getattr(ref, k), k
+    assert port.tier0_hostcalls is True

@@ -6,10 +6,12 @@ over the workloads, a module with call_indirect, globals, a table and
 a data segment, and modules that import WASI or Python host functions
 (their HOSTCALL/RETURN stubs), use memory.fill and memory.copy or use
 v128 ops (constants and shuffle masks in the `v128` table); every numpy
-field of the port's DeviceImage (the `v128` table included) and every
-scalar field (`has_simd` included) must equal the reference's field of
-the same name, bit for bit, and the handler-id plane must equal the
-Pallas engine's.
+field of the port's DeviceImage (the `v128` table and the tier-0 `t0kind`
+plane included) and every scalar field (`has_simd` and `t0_fdwrite_safe`
+included) must equal the reference's field of the same name, bit for
+bit, and the handler-id plane must equal the Pallas engine's.  The WASI
+fixtures include the tier-0 zoo (every tier-0 kind) and a module whose
+fd_close makes fd_write unsafe.
 """
 
 import numpy as np
@@ -33,8 +35,8 @@ from wasmedge_tpu_torch.models import (
     build_fib, build_loop_sum, build_memory_workload, build_wasi_hello)
 from wasmedge_tpu_torch.models.fixtures import (
     build_alu_edge, build_bulk_zoo, build_host_grow, build_host_poke,
-    build_simd_host, build_simd_sweep, build_trap_zoo, build_v128_mem_zoo,
-    build_vmix, simd_sweeps)
+    build_simd_host, build_simd_sweep, build_tier0_unsafe, build_tier0_zoo,
+    build_trap_zoo, build_v128_mem_zoo, build_vmix, simd_sweeps)
 from wasmedge_tpu_torch.models.programs import build_simd_loop
 from wasmedge_tpu_torch.runtime.store import StoreManager
 from wasmedge_tpu_torch.utils.builder import ModuleBuilder
@@ -49,6 +51,7 @@ MODULES = {
     "call_indirect_globals_table_data": build_trap_zoo,
     "alu_edge": build_alu_edge,
     "wasi_echo": build_echo, "wasi_hello": build_wasi_hello,
+    "wasi_tier0_zoo": build_tier0_zoo, "wasi_tier0_unsafe": build_tier0_unsafe,
     "host_poke": build_host_poke, "host_grow": build_host_grow,
     "bulk_zoo": build_bulk_zoo, "bulk_workload": build_bulk_workload,
     "vmix": build_vmix, "vloop": build_simd_loop,

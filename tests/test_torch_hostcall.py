@@ -93,12 +93,14 @@ def _knobs(b, fuel=None, vectorized=True, chunk=CHUNK):
     b.memory_pages_per_lane = PAGES
     b.fuel_per_launch = fuel
     b.vectorized_hostcalls = vectorized
+    # every call parks and is served between launches (tier 0 off in
+    # both packages; tests/test_torch_tier0.py runs it on)
+    b.tier0_hostcalls = False
 
 
 def _ref_conf(**kw):
     conf = RefConfigure()
     _knobs(conf.batch, **kw)
-    conf.batch.tier0_hostcalls = False
     conf.batch.fuse_superinstructions = False
     conf.batch.tierup = False
     return conf

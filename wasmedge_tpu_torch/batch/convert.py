@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from wasmedge_tpu_torch.batch.engine import (
-    SIMD_FIELDS, BatchState, resolve_device)
+    OPTIONAL_FIELDS, BatchState, resolve_device)
 from wasmedge_tpu_torch.batch.image import DeviceImage
 
 
@@ -32,7 +32,8 @@ def image_from_reference(planes: dict, scalars: dict) -> DeviceImage:
     kw["v128"] = kw["v128"].reshape(-1, 4)
     for f in DeviceImage.SCALAR_FIELDS:
         v = scalars[f]
-        kw[f] = bool(v) if f in ("has_memory", "has_simd") else int(v)
+        kw[f] = bool(v) if f in ("has_memory", "has_simd",
+                                 "t0_fdwrite_safe") else int(v)
     if kw["code_len"] != kw["cls"].shape[0]:
         raise ValueError(f"code_len {kw['code_len']} != "
                          f"{kw['cls'].shape[0]} code cells")
@@ -42,15 +43,16 @@ def image_from_reference(planes: dict, scalars: dict) -> DeviceImage:
 def state_from_reference(planes: dict, device="cuda") -> BatchState:
     """`planes`: the reference BatchState's fields as numpy arrays (at
     least BatchState.FIELDS; `stack_e2` / `stack_e3` are None or absent
-    for images without v128 ops, and optional planes this slice does not
-    use must be absent or None)."""
+    for images without v128 ops, the tier-0 planes `t0_ctr`, `so_buf`
+    and `so_off` when tier 0 is off, and optional planes this slice does
+    not use must be absent or None)."""
     for f, v in planes.items():
         if f not in BatchState.FIELDS and v is not None:
             raise ValueError(f"state plane {f} is not used by this slice")
     L = np.asarray(planes["pc"]).shape[0]
     for f in BatchState.FIELDS:
         if planes.get(f) is None:
-            if f in SIMD_FIELDS:
+            if f in OPTIONAL_FIELDS:
                 continue
             raise ValueError(f"state plane {f} is missing")
         p = np.asarray(planes[f])

@@ -11,6 +11,16 @@ between launches (batch/hostcall.py), until every lane has stopped or
 convergence (`WarpState`: each warp's interval and its rollback, entry and
 commit counts, and the snapshot's shadow planes) next to the state.
 
+Tier 0 (`tier0_hostcalls`, on by default as in the reference): the
+interpreter retires pure WASI calls in place (`t0_effective_kinds`), with
+the per-lane call counts `t0_ctr [4, lanes]` and, when the module's
+fd_write is served, the stdout record buffer `so_buf [SW, lanes]` and its
+fill `so_off [lanes]` in the state (None when tier 0 is off, as in the
+reference's `t0_state_planes`).  Each launch gets the time base read on
+the host just before it (`t0_time_planes`); the buffered stdout is
+flushed before every serve round and at the end of the run, and the
+`t0_ctr` delta of the run is folded into `hostcall_stats`.
+
 State layout is the reference's, lane fastest: value stacks
 `[value_stack_depth, lanes]` (two planes, lo and hi, and two more, e2
 and e3, when the image holds v128 ops), frames `[call_stack_depth,
@@ -22,18 +32,21 @@ planes `[lanes]`, all int32.  The kernel updates them in place.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from wasmedge_tpu_torch.batch.hostcall import serve_batch_state
+from wasmedge_tpu_torch.batch.hostcall import (
+    flush_stdout_buffers, serve_batch_state)
 from wasmedge_tpu_torch.batch.image import (
-    TRAP_DONE, TRAP_HOSTCALL, batchability, build_device_image,
-    slice_refusal)
+    T0_FD_WRITE, T0_NEEDS_MEMORY, TRAP_DONE, TRAP_HOSTCALL, batchability,
+    build_device_image, slice_refusal)
 from wasmedge_tpu_torch.batch.interp import device_tables, run_chunk
 from wasmedge_tpu_torch.batch.memwin import HBM_WINDOW_ROWS
 from wasmedge_tpu_torch.batch.optimistic import WarpState
+from wasmedge_tpu_torch.batch.tier0 import t0_statics
 from wasmedge_tpu_torch.common.configure import Configure
 from wasmedge_tpu_torch.common.types import ValType
 
@@ -46,13 +59,21 @@ PLANE_FIELDS = ("stack_lo", "stack_hi", "fr_ret_pc", "fr_fp", "fr_opbase",
 # the upper two words of a v128 cell: [D, L] for images with v128 ops,
 # None otherwise (the reference BatchState's stack_e2 / stack_e3)
 SIMD_FIELDS = ("stack_e2", "stack_e3")
+# tier 0: the per-lane call counts [T0_CTR_ROWS, L] (clock, random,
+# fd_write, sched_yield + proc_exit), the stdout record buffer [SW, L] and
+# its fill in words [L]; None when tier 0 is off (so_buf and so_off also
+# when the module's fd_write is not served in place)
+T0_FIELDS = ("t0_ctr", "so_buf", "so_off")
+OPTIONAL_FIELDS = SIMD_FIELDS + T0_FIELDS
+T0_CTR_ROWS = 4
 
 
 @dataclasses.dataclass
 class BatchState:
     """Per-lane interpreter state (the reference BatchState's fields that
     this slice uses), int32 tensors on one device; `stack_e2` and
-    `stack_e3` are None unless the image holds v128 ops."""
+    `stack_e3` are None unless the image holds v128 ops, the tier-0
+    planes (`T0_FIELDS`) None unless tier 0 is on."""
 
     pc: torch.Tensor
     sp: torch.Tensor
@@ -73,8 +94,11 @@ class BatchState:
     mem: torch.Tensor
     stack_e2: Optional[torch.Tensor] = None
     stack_e3: Optional[torch.Tensor] = None
+    t0_ctr: Optional[torch.Tensor] = None
+    so_buf: Optional[torch.Tensor] = None
+    so_off: Optional[torch.Tensor] = None
 
-    FIELDS = CONTROL_FIELDS + PLANE_FIELDS + SIMD_FIELDS
+    FIELDS = CONTROL_FIELDS + PLANE_FIELDS + OPTIONAL_FIELDS
 
     @classmethod
     def from_numpy(cls, planes: dict, device) -> "BatchState":
@@ -152,6 +176,50 @@ def decode_results(stack_lo: np.ndarray, stack_hi: np.ndarray,
     return out
 
 
+def new_hostcall_stats() -> dict:
+    """Per-engine host-call counters: tier0_* the calls retired in the
+    kernel (the reference's names), tier1_calls the lanes served between
+    launches, tier1_vectorized those served by a vectorized WASI
+    implementation, serve_rounds the park -> serve -> re-arm cycles,
+    stdout_flushes and stdout_bytes the buffered stdout drained, and
+    serve_s / flush_s the host seconds of serve rounds and flushes."""
+    return {"tier0_clock": 0, "tier0_random": 0, "tier0_fd_write": 0,
+            "tier0_sys": 0, "tier0_calls": 0,
+            "tier1_calls": 0, "tier1_vectorized": 0, "serve_rounds": 0,
+            "stdout_flushes": 0, "stdout_bytes": 0, "serve_s": 0.0,
+            "flush_s": 0.0}
+
+
+def t0_effective_kinds(img, cfg) -> Optional[np.ndarray]:
+    """Per-pc tier-0 kinds this image and configuration serve in the
+    kernel, or None when tier 0 is off (the knob, or no served stub): the
+    reference's gate (`wasmedge_tpu/batch/engine.py:253-270`): fd_write
+    only where `t0_fdwrite_safe`, the kinds that write guest memory only
+    with a memory."""
+    if not cfg.tier0_hostcalls:
+        return None
+    kinds = np.asarray(img.t0kind, np.int32).copy()
+    if not img.t0_fdwrite_safe:
+        kinds[kinds == T0_FD_WRITE] = 0
+    if not img.has_memory:
+        kinds[np.isin(kinds, T0_NEEDS_MEMORY)] = 0
+    if not (kinds != 0).any():
+        return None
+    return kinds
+
+
+def t0_time_planes() -> np.ndarray:
+    """The per-launch time base: (realtime, monotonic) ns as int32 (lo,
+    hi) pairs, [2, 2] (the reference's `t0_time_planes`).  Read on the
+    host just before each launch; clock_time_get returns it plus the
+    lane's call count, so values rise per lane even within one launch."""
+    out = np.zeros((2, 2), np.int32)
+    for r, ns in enumerate((time.time_ns(), time.monotonic_ns())):
+        out[r, 0] = np.int32(np.uint32(ns & 0xFFFFFFFF))
+        out[r, 1] = np.int32(np.uint32((ns >> 32) & 0xFFFFFFFF))
+    return out
+
+
 def resolve_device(device) -> torch.device:
     """Entry points run on the card unless the caller asks for the CPU;
     a card that is asked for (or left as the default) must exist."""
@@ -200,19 +268,17 @@ class BatchEngine:
         self.fusion = fusion_of(self.cfg.block_fusion, img.has_simd)
         self.mem_window = mem_window_of(self.cfg.mem_hbm, img)
         self.optimistic = optimistic_of(self.cfg.optimistic)
-        self.tables = device_tables(img, self.device, fusion=self.fusion,
-                                    mem_window=self.mem_window,
-                                    optimistic=self.optimistic,
-                                    stack_depth=self.cfg.value_stack_depth)
+        self.t0kinds = t0_effective_kinds(img, self.cfg)
+        self.tables = device_tables(
+            img, self.device, fusion=self.fusion, mem_window=self.mem_window,
+            optimistic=self.optimistic, stack_depth=self.cfg.value_stack_depth,
+            t0kinds=self.t0kinds,
+            t0=None if self.t0kinds is None else t0_statics(self.cfg))
         # per-warp state of optimistic convergence (its shadow planes are
         # allocated at the first run)
         self.warps = WarpState.new(self.lanes, self.device) \
             if self.optimistic else None
-        # serve rounds, lanes served, lanes served by a vectorized WASI
-        # implementation, and host seconds spent in serve rounds
-        # (batch/hostcall.py)
-        self.hostcall_stats = {"serve_rounds": 0, "tier1_calls": 0,
-                               "tier1_vectorized": 0, "serve_s": 0.0}
+        self.hostcall_stats = new_hostcall_stats()
 
     @property
     def optimistic_stats(self) -> dict:
@@ -249,6 +315,12 @@ class BatchEngine:
             return torch.zeros((rows, L), dtype=torch.int32, device=dev)
 
         e2, e3 = (planes(D), planes(D)) if img.has_simd else (None, None)
+        t0 = {}
+        if self.t0kinds is not None:
+            t0["t0_ctr"] = planes(T0_CTR_ROWS)
+            if (self.t0kinds == T0_FD_WRITE).any():
+                t0["so_buf"] = planes(max(int(cfg.stdout_buffer_words), 16))
+                t0["so_off"] = full(0)
 
         def glob(v):
             return torch.as_tensor(v, device=dev)[:, None].repeat(1, L) \
@@ -263,7 +335,7 @@ class BatchEngine:
             stack_hi=torch.as_tensor(stack_hi, device=dev),
             fr_ret_pc=planes(CD), fr_fp=planes(CD), fr_opbase=planes(CD),
             glob_lo=glob(img.globals_lo), glob_hi=glob(img.globals_hi),
-            mem=mem, stack_e2=e2, stack_e3=e3)
+            mem=mem, stack_e2=e2, stack_e3=e3, **t0)
 
     # -- execution ---------------------------------------------------------
     def run(self, func_name: str, args_lanes,
@@ -286,12 +358,18 @@ class BatchEngine:
         loop goes on.  It ends when no lane is live or `max_steps` is
         reached (checked before each launch, as the reference's loop
         does); lanes still parked then are served once, so TRAP_HOSTCALL
-        never reaches the caller."""
+        never reaches the caller.  With tier 0 each launch gets its time
+        base, the buffered stdout is flushed before each serve round and
+        at the end, and the run's tier-0 calls are counted."""
         chunk = self.cfg.steps_per_launch
         fuel_on = self.cfg.fuel_per_launch is not None
+        t0_on = state.t0_ctr is not None
+        if t0_on:
+            ctr_in = state.t0_ctr.to(torch.int64).sum(1)
         while total < max_steps:
             before = state.retired.clone()
-            run_chunk(self.tables, state, chunk, fuel_on, self.warps)
+            run_chunk(self.tables, state, chunk, fuel_on, self.warps,
+                      t0_time=t0_time_planes() if t0_on else None)
             done = int((state.retired - before).max().item())
             total += done
             trap = state.trap.cpu().numpy()
@@ -301,6 +379,14 @@ class BatchEngine:
             if done == 0 or not (trap == 0).any():
                 break
         serve_batch_state(self, state)
+        flush_stdout_buffers(self, state)
+        if t0_on:
+            ctr = (state.t0_ctr.to(torch.int64).sum(1) - ctr_in).tolist()
+            stats = self.hostcall_stats
+            for k, name in enumerate(("tier0_clock", "tier0_random",
+                                      "tier0_fd_write", "tier0_sys")):
+                stats[name] += int(ctr[k])
+            stats["tier0_calls"] += int(sum(ctr))
         return state, total
 
 

@@ -75,7 +75,7 @@ _HEAD = """\
 // use.
 #define WASM_FUSED_BUILD 1
 #define WASM_STACK_SPLIT {split}
-#define ALU_INLINE __forceinline__
+{tier0}#define ALU_INLINE __forceinline__
 #include "interp.cu"
 #include "fused.cuh"
 
@@ -169,10 +169,12 @@ WASM_FUSED_LAUNCH({bulk}, {simd}, {win}, {opt}, Fused)
 
 def cuda_source(hid, shapes, bulk: bool, simd: bool,
                 win: bool = False, opt: bool = False,
-                split: bool = True, img=None, hid0=None) -> str:
+                split: bool = True, t0: bool = False, img=None,
+                hid0=None) -> str:
     """The CUDA source of the fused dispatch for a fused hid plane and
     its block shapes (deterministic); `split`: the build for stacks
-    deeper than the rows on chip (csrc/interp.cu WASM_STACK_SPLIT).
+    deeper than the rows on chip (csrc/interp.cu WASM_STACK_SPLIT); `t0`:
+    the build with the tier-0 handlers (WASM_TIER0, defined only then).
     With the image `img` and its original hid plane `hid0` (a "blocks"
     encoding), the block heads get instance cases dispatched by pc."""
     hid = [int(h) for h in hid]
@@ -186,6 +188,7 @@ def cuda_source(hid, shapes, bulk: bool, simd: bool,
                  win=str(bool(win)).lower(), opt=str(bool(opt)).lower())
     out = [_HEAD.format(ninst=len(inst), nblocks=len(sids),
                         nsuper=len(supers), split=int(bool(split)),
+                        tier0="#define WASM_TIER0 1\n" if t0 else "",
                         by_pc=str(img is not None).lower(), **flags)]
     for sid in sids:
         out.append(_Block(shapes[sid], simd).case(H_BLOCK_BASE + sid))

@@ -16,9 +16,21 @@ other group lane by lane in ascending lane order, through the same
 host-function layer (runtime/hostfunc.py) the scalar engine calls.
 
 Transfers: the argument rows come down as one slab; guest memory as
-4 KiB-row chunks of all lanes, each fetched once when first touched and
-written back once if dirty; results, pc, sp and trap as row or vector
-updates.  No per-lane transfer and no whole-plane round trip.
+4 KiB-row chunks of the parked lanes' columns (gathered on the device, as
+the Pallas host half gathers its parked lanes, pallas_engine.py
+:4585-4597), each fetched once when first touched and written back once
+if dirty; results, pc, sp and trap as row or vector updates.  No
+per-lane transfer and no whole-plane round trip.
+
+Tier 0 (`flush_stdout_buffers`, the reference's hostcall.py:214-283):
+fd_write calls that the kernel retired left records in each lane's
+in-device stdout buffer (`so_buf`: a header `fd << 28 | len`, then the
+payload padded to words); the flush writes them to the WASI environ's
+fds, lane by lane within each fd and fd by fd in sorted order, before
+every serve round (a tier-1 call must see the bytes written before it)
+and at the end of a run, and sets each lane's fill (`so_off`) to 0.  The
+reference's exactly-once cursor and effects stream serve checkpoints
+and its gateway, which the port does not have.
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ from wasmedge_tpu_torch.batch.image import TRAP_HOSTCALL
 from wasmedge_tpu_torch.common.errors import ErrCode, TrapError
 from wasmedge_tpu_torch.host.wasi.environ import WasiExit
 from wasmedge_tpu_torch.host.wasi.vectorized import (
-    VEC_WASI, MemView, NotVectorizable)
+    VEC_WASI, MemView, NotVectorizable, _write_all)
 from wasmedge_tpu_torch.runtime.instance import MemoryInstance
 
 MASK32 = 0xFFFFFFFF
@@ -84,14 +96,96 @@ def _cells_to_planes(cells: np.ndarray):
     return lo, hi
 
 
+def wasi_env_of(engine):
+    """The instance's WASI environ, found through any of its WASI host
+    functions (None when it has none)."""
+    for f in getattr(engine.inst, "funcs", None) or ():
+        if getattr(f, "kind", None) == "host":
+            env = getattr(getattr(f, "host", None), "_env", None)
+            if env is not None and hasattr(env, "get_fd"):
+                return env
+    return None
+
+
+def stdout_bytes(buf: np.ndarray, so_off: np.ndarray) -> dict:
+    """fd -> the bytes of the stdout records in buf [rows, L] (each lane's
+    rows below its fill so_off), lane after lane.  When every lane with
+    records holds them at the same rows with the same headers (the same
+    lengths to the same fds), they are cut out of the planes for all
+    lanes at once; otherwise lane by lane."""
+    lanes = np.nonzero(so_off > 0)[0]
+    if lanes.size == 0:
+        return {}
+    cols = buf[:, lanes]
+    first = cols[:, 0]
+    layout = []  # lane 0's records: (header row, fd, length)
+    off, end = 0, int(so_off[lanes[0]])
+    while off < end:
+        hdr = int(np.uint32(first[off]))
+        layout.append((off, hdr >> 28, hdr & 0x0FFFFFFF))
+        off += 1 + ((hdr & 0x0FFFFFFF) + 3) // 4
+    hrows = [r for r, _, _ in layout]
+    if (so_off[lanes] == end).all() and \
+            (cols[hrows] == first[hrows][:, None]).all():
+        parts = {}
+        for r, fd, ln in layout:
+            words = np.ascontiguousarray(cols[r + 1:r + 1 + (ln + 3) // 4].T)
+            parts.setdefault(fd, []).append(words.view(np.uint8)[:, :ln])
+        return {fd: np.concatenate(p, axis=1).tobytes()
+                for fd, p in parts.items()}
+    out = {}
+    for i, lane in enumerate(lanes):
+        off, end = 0, int(so_off[lane])
+        while off < end:
+            hdr = int(np.uint32(cols[off, i]))
+            ln = hdr & 0x0FFFFFFF
+            nw = (ln + 3) // 4
+            out.setdefault(hdr >> 28, []).append(np.ascontiguousarray(
+                cols[off + 1:off + 1 + nw, i]).tobytes()[:ln])
+            off += 1 + nw
+    return {fd: b"".join(p) for fd, p in out.items()}
+
+
+def flush_stdout_buffers(engine, state) -> int:
+    """Drain the tier-0 stdout records of `state` to the WASI environ's
+    fds (one download of the rows below the largest fill, one write per
+    fd) and set every lane's fill to 0.  Returns the bytes written."""
+    if state.so_buf is None:
+        return 0
+    so_off = state.so_off.cpu().numpy()
+    rows = int(so_off.max(initial=0))
+    if rows == 0:
+        return 0
+    t0 = time.perf_counter()
+    per_fd = stdout_bytes(state.so_buf[:rows].cpu().numpy(), so_off)
+    env = wasi_env_of(engine)
+    nbytes = 0
+    for fd in sorted(per_fd):
+        e = env.fds.get(fd) if env is not None else None
+        data = per_fd[fd]
+        nbytes += len(data)
+        if e is None or e.os_fd < 0:
+            continue  # fd vanished (the tier-0 gate makes this unreachable)
+        if data:
+            _write_all(e, data)
+    state.so_off.zero_()
+    stats = engine.hostcall_stats
+    stats["stdout_flushes"] += 1
+    stats["stdout_bytes"] += nbytes
+    stats["flush_s"] += time.perf_counter() - t0
+    return nbytes
+
+
 def serve_batch_state(engine, state) -> int:
     """Serve every lane of `state` (a batch.engine.BatchState) parked at
-    TRAP_HOSTCALL, updating the state in place.  Returns the number of
-    lanes served (0 when none was parked)."""
+    TRAP_HOSTCALL, updating the state in place; the buffered tier-0
+    stdout is flushed first.  Returns the number of lanes served (0 when
+    none was parked)."""
     trap = state.trap.cpu().numpy()
     waiting = np.nonzero(trap == TRAP_HOSTCALL)[0]
     if waiting.size == 0:
         return 0
+    flush_stdout_buffers(engine, state)
     t0 = time.perf_counter()
     img = engine.img
     stats = engine.hostcall_stats
@@ -103,7 +197,7 @@ def serve_batch_state(engine, state) -> int:
     sp = state.sp.cpu().numpy().copy()
     pages = state.mem_pages.cpu().numpy().copy()
     has_mem = img.has_memory
-    cache = PlaneMemoryCache(state.mem) if has_mem else None
+    cache = PlaneMemoryCache(state.mem, waiting) if has_mem else None
     plane_cap = int(state.mem.shape[0]) // PAGE_WORDS if has_mem else 0
     max_pages = img.mem_pages_max if img.mem_pages_max > 0 else None
     new_trap = trap.copy()
@@ -201,19 +295,25 @@ def serve_batch_state(engine, state) -> int:
 # round-cached serving: memory views over the device plane
 # ---------------------------------------------------------------------------
 class PlaneMemoryCache:
-    """Row-chunked host cache over a [W, lanes] memory plane for one serve
-    round: a chunk of guest memory comes down for ALL lanes at once (one
+    """Row-chunked host cache over the columns `lanes` (ascending) of a
+    [W, L] memory plane for one serve round: a chunk of guest memory comes
+    down for all those lanes at once (one gather on the device and one
     transfer per touched 4 KiB window, however many lanes read it),
     per-lane views slice columns out of the cached chunks, and each dirty
-    chunk goes back in one copy at flush.  A round that only reads guest
-    memory uploads nothing."""
+    chunk goes back in one scatter at flush.  A round that only reads
+    guest memory uploads nothing."""
 
     CHUNK_ROWS = 1024  # 4 KiB of guest memory per chunk
 
-    def __init__(self, mem_dev: torch.Tensor):
+    def __init__(self, mem_dev: torch.Tensor, lanes):
         self.dev = mem_dev
         self.W = int(mem_dev.shape[0])
         self.L = int(mem_dev.shape[1])
+        lanes = np.asarray(lanes, np.int64)
+        self._cols = torch.as_tensor(lanes, device=mem_dev.device)
+        # lane -> its column in the cached chunks (-1: not cached)
+        self.col = np.full(self.L, -1, np.int64)
+        self.col[lanes] = np.arange(lanes.size)
         self._chunks = {}
         self._dirty = set()
 
@@ -222,7 +322,7 @@ class PlaneMemoryCache:
         if c is None:
             lo = ci * self.CHUNK_ROWS
             hi = min(lo + self.CHUNK_ROWS, self.W)
-            c = self.dev[lo:hi].to("cpu", copy=True).numpy()  # all lanes
+            c = self.dev[lo:hi].index_select(1, self._cols).cpu().numpy()
             self._chunks[ci] = c
         return c
 
@@ -238,7 +338,8 @@ class PlaneMemoryCache:
             base = ci * self.CHUNK_ROWS
             chunk = self._chunk(ci)
             upto = min(w1 + 1, base + chunk.shape[0])
-            words[w - w0:upto - w0] = chunk[w - base:upto - base, lane]
+            words[w - w0:upto - w0] = chunk[w - base:upto - base,
+                                            self.col[lane]]
             w = upto
         raw = words.tobytes()
         start = off - w0 * 4
@@ -260,16 +361,20 @@ class PlaneMemoryCache:
             base = ci * self.CHUNK_ROWS
             chunk = self._chunk(ci)
             upto = min(w1 + 1, base + chunk.shape[0])
-            chunk[w - base:upto - base, lane] = words[w - w0:upto - w0]
+            chunk[w - base:upto - base, self.col[lane]] = \
+                words[w - w0:upto - w0]
             self._dirty.add(ci)
             w = upto
 
     def flush(self):
-        """Write the dirty chunks back to the device plane, one copy each."""
+        """Write the dirty chunks back to their columns of the device
+        plane, one scatter each."""
         for ci in sorted(self._dirty):
             lo = ci * self.CHUNK_ROWS
             chunk = self._chunks[ci]
-            self.dev[lo:lo + chunk.shape[0]].copy_(torch.from_numpy(chunk))
+            self.dev[lo:lo + chunk.shape[0]].index_copy_(
+                1, self._cols,
+                torch.from_numpy(chunk).to(self.dev.device))
         self._dirty.clear()
 
 
@@ -347,8 +452,9 @@ def make_cached_view(cache: PlaneMemoryCache, lanes, pages) -> MemView:
             out = np.empty(widx.shape, np.int32)
             cr = PlaneMemoryCache.CHUNK_ROWS
             cis = widx // cr
-            cols = np.broadcast_to(self.lanes[None, :], widx.shape) \
-                if widx.ndim == 2 else self.lanes
+            lanes = cache.col[self.lanes]
+            cols = np.broadcast_to(lanes[None, :], widx.shape) \
+                if widx.ndim == 2 else lanes
             for ci in np.unique(cis):
                 chunk = cache._chunk(int(ci))
                 m = cis == ci

@@ -20,14 +20,20 @@ holds any, and the engine gives such images two more stack planes.
 `batchability()` is the module-level gate; `slice_refusal()` is the
 port's own gate over a built image: classes that later slices of the
 port bring (tables, segments, tail calls) are refused up front with an
-error that names the class.  The reference's tier-0 `t0kind`
-plane is not built: this port parks every host call.
+error that names the class.
+
+Tier 0 (`classify_t0_imports`, the reference's :186-245): the stub of a
+pure WASI import (clock_time_get, random_get, sched_yield, proc_exit,
+fd_write) carries its kind in the `t0kind` plane, and `t0_fdwrite_safe`
+says whether no other import can see or change the fd table; the engine
+gates the kinds by its knobs (`batch/engine.py` `t0_effective_kinds`) and
+the interpreter retires those calls in place instead of parking.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -175,6 +181,60 @@ _TABLE0_OPS = {"table.get", "table.set", "table.size", "table.grow",
 TRAP_DONE = -1  # lane finished normally (trap plane sentinel)
 TRAP_HOSTCALL = -2  # lane parked at a HOSTCALL stub, waiting on the host
 
+# -- tier-0 host calls (the reference's image.py:186-245) -------------------
+# "Pure" WASI imports the interpreter can retire in place (no device ->
+# host round trip).  The stub's t0kind plane entry names the call; the
+# engine decides per configuration whether the kernel serves it or the
+# stub parks as usual.
+T0_NONE = 0
+T0_CLOCK_TIME_GET = 1   # time from the per-launch time base + seq plane
+T0_RANDOM_GET = 2       # counter-PRNG (deterministic under cfg seed)
+T0_SCHED_YIELD = 3      # no-op, errno SUCCESS
+T0_PROC_EXIT = 4        # lane terminates (ErrCode.Terminated, code on stack)
+T0_FD_WRITE = 5         # fd 1/2 append into the in-device stdout record buf
+
+T0_WASI_KINDS = {
+    "clock_time_get": T0_CLOCK_TIME_GET,
+    "random_get": T0_RANDOM_GET,
+    "sched_yield": T0_SCHED_YIELD,
+    "proc_exit": T0_PROC_EXIT,
+    "fd_write": T0_FD_WRITE,
+}
+
+_WASI_MODULE = "wasi_snapshot_preview1"
+
+# fd_write may only be served from the in-device stdout buffer when no
+# other import can observe or mutate fd-table state mid-run.  Anything in
+# these families other than fd_write itself disables fd_write's tier-0
+# path for the module.
+_T0_FD_UNSAFE_PREFIXES = ("fd_", "path_", "sock_", "poll_")
+
+# Tier-0 kinds that write through guest linear memory: served in place
+# only when the module has one.
+T0_NEEDS_MEMORY = (T0_CLOCK_TIME_GET, T0_RANDOM_GET, T0_FD_WRITE)
+
+
+def classify_t0_imports(funcs) -> Tuple[dict, bool]:
+    """Per-import tier-0 kind and module-level fd_write safety over a
+    FuncMeta list: ({func_idx: T0_*}, whether fd_write may buffer
+    in-device).  A non-WASI import can do anything, so it keeps fd_write
+    on the host, except the reference's own fd-inert "wasmedge" module."""
+    kinds = {}
+    fdwrite_safe = True
+    for idx, fn in enumerate(funcs):
+        if not fn.is_import:
+            continue
+        if fn.import_module == _WASI_MODULE:
+            kinds[idx] = T0_WASI_KINDS.get(fn.import_name, T0_NONE)
+            if fn.import_name != "fd_write" and fn.import_name.startswith(
+                    _T0_FD_UNSAFE_PREFIXES):
+                fdwrite_safe = False
+        else:
+            kinds[idx] = T0_NONE
+            if fn.import_module != "wasmedge":
+                fdwrite_safe = False
+    return kinds, fdwrite_safe
+
 
 def _i32(v: int) -> np.int32:
     """Wrap an unsigned value into int32 two's complement."""
@@ -277,13 +337,17 @@ class DeviceImage:
     code_len: int
     v128: np.ndarray  # [n, 4] int32: v128.const values and shuffle masks
     has_simd: bool  # the code holds a v128 class
+    t0kind: np.ndarray  # [code_len] T0_* of each import stub, 0 elsewhere
+    t0_fdwrite_safe: bool  # fd_write may buffer stdout in-device
 
     NUMPY_FIELDS = ("cls", "sub", "a", "b", "c", "imm_lo", "imm_hi",
                     "br_table", "f_entry", "f_nparams", "f_nlocals",
                     "f_nresults", "f_frame_top", "f_type", "table0",
-                    "globals_lo", "globals_hi", "mem_init", "op_id", "v128")
+                    "globals_lo", "globals_hi", "mem_init", "op_id", "v128",
+                    "t0kind")
     SCALAR_FIELDS = ("mem_pages_init", "mem_pages_max", "has_memory",
-                     "max_local_zeros", "code_len", "has_simd")
+                     "max_local_zeros", "code_len", "has_simd",
+                     "t0_fdwrite_safe")
 
 
 def build_device_image(image: LoweredModule, memories=None, globals_=None,
@@ -360,11 +424,14 @@ def build_device_image(image: LoweredModule, memories=None, globals_=None,
     op_id[:image.code_len] = np.asarray(image.op[:image.code_len], np.int32)
 
     stub_pc = {}
+    t0kind = np.zeros(n, np.int32)
+    t0_kind_of, t0_fdwrite_safe = classify_t0_imports(image.funcs)
     for si, k in enumerate(imports):
         at = image.code_len + 2 * si
         stub_pc[k] = at
         cls[at], a[at] = CLS_HOSTCALL, k
         cls[at + 1], b[at + 1] = CLS_RETURN, image.funcs[k].nresults
+        t0kind[at] = t0_kind_of.get(k, T0_NONE)
 
     for pc in range(image.code_len):
         op = image.op[pc]
@@ -528,4 +595,5 @@ def build_device_image(image: LoweredModule, memories=None, globals_=None,
         op_id=op_id, mem_pages_init=pages_init, mem_pages_max=pages_max,
         has_memory=bool(memories), max_local_zeros=max_zeros, code_len=n,
         v128=v128,
-        has_simd=bool(((cls >= CLS_VCONST) & (cls <= CLS_VSTORE)).any()))
+        has_simd=bool(((cls >= CLS_VCONST) & (cls <= CLS_VSTORE)).any()),
+        t0kind=t0kind, t0_fdwrite_safe=bool(t0_fdwrite_safe))

@@ -25,7 +25,12 @@ memory (`block_geometry`).  With
 `optimistic` (B3) each warp that starts a launch converged runs its lane
 0's decisions, with a canary, snapshots and rollbacks
 (`csrc/optimistic.cuh`; plain version `batch/optimistic.py`), and its
-per-warp state (`WarpState`) goes with the launch.
+per-warp state (`WarpState`) goes with the launch.  With tier 0 (`t0k`,
+the engine's `t0_effective_kinds`) the kernel retires pure WASI calls at
+their stubs (`csrc/interp.cu` `tier0_call`; plain version
+`batch/interp_ref.py` `_Group.hostcall` over `batch/tier0.py`), from a
+build that has the handlers compiled in (`WASM_TIER0`): every launch then
+takes the time base read on the host before it.
 
 `run_chunk()` is the one entry: on CUDA tensors it launches the kernel
 (built from the repository's sources on first use), on CPU tensors it
@@ -241,11 +246,19 @@ class Tables:
     mem_window: bool = False
     optimistic: bool = False
     stack_split: bool = True
+    # tier 0: the kind each stub pc serves in the kernel (batch/image.py
+    # T0_*, 0 elsewhere), None when tier 0 is off; and batch/tier0.py's
+    # t0_statics (the PRNG seed, the longest random_get and fd_write
+    # payloads in words)
+    t0k: Optional[torch.Tensor] = None
+    t0: Optional[dict] = None
 
 
 def device_tables(img: DeviceImage, device, fusion: str = "none",
                   mem_window: bool = False, optimistic: bool = False,
-                  stack_depth: Optional[int] = None) -> Tables:
+                  stack_depth: Optional[int] = None,
+                  t0kinds: Optional[np.ndarray] = None,
+                  t0: Optional[dict] = None) -> Tables:
     """The image's code tables on `device` in the encoding `fusion`:
     "none" (one op per dispatch), "blocks" (B2 fused basic blocks) or
     "super" (B6 superinstructions; images without v128 ops only); with
@@ -253,7 +266,9 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
     memory); with `optimistic`, the kernel with optimistic convergence;
     `stack_depth`, the value-stack depth the tables run at (the build
     without the stack split when every row fits on chip, `stack_split`;
-    None: any depth)."""
+    None: any depth); with `t0kinds` (the engine's `t0_effective_kinds`,
+    and `t0` its `t0_statics`), the build that serves those tier-0 calls
+    in the kernel."""
     from wasmedge_tpu_torch.batch import fusegen
     from wasmedge_tpu_torch.batch.fusion import (
         fuse_blocks, fuse_image, fused_lengths)
@@ -262,6 +277,8 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
         raise ValueError(f"unknown fusion {fusion!r}; one of {FUSIONS}")
     if mem_window and not img.has_memory:
         raise ValueError("the window cache needs an image with a memory")
+    if (t0kinds is None) != (t0 is None):
+        raise ValueError("tier-0 kinds and t0_statics go together")
 
     def t(x):
         return torch.as_tensor(np.ascontiguousarray(x, np.int32).ravel(),
@@ -281,7 +298,9 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
         has_simd=bool(img.has_simd), fusion=fusion,
         mem_window=bool(mem_window), optimistic=bool(optimistic),
         stack_split=stack_split(stack_depth, bool(img.has_simd),
-                                bool(mem_window)))
+                                bool(mem_window)),
+        t0k=None if t0kinds is None else t(t0kinds),
+        t0=None if t0 is None else dict(t0))
     if fusion == "none":
         return tables
     if fusion == "blocks":
@@ -301,7 +320,7 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
     tables.shapes = shapes
     tables.fused_source = fusegen.cuda_source(
         fhid, shapes, tables.has_bulk, tables.has_simd, tables.mem_window,
-        tables.optimistic, tables.stack_split,
+        tables.optimistic, tables.stack_split, tables.t0k is not None,
         **(dict(img=img, hid0=hid) if fusion == "blocks" else {}))
     return tables
 
@@ -327,25 +346,40 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # host-call stubs (h_hostcall), those whose code holds v128 ops (the B7
 # handlers), those of the fused kernels: B2 basic blocks ("block") and
 # B6 superinstructions ("super"), those whose memory accesses went
-# through the window cache (B4, "window") and those of the kernels with
-# optimistic convergence (B3, "optimistic").
+# through the window cache (B4, "window"), those of the kernels with
+# optimistic convergence (B3, "optimistic") and those of the builds that
+# serve tier-0 host calls in the kernel ("tier0").
 LAUNCHES = {"interp": 0, "bulk": 0, "hostcall": 0, "simd": 0, "block": 0,
-            "super": 0, "window": 0, "optimistic": 0}
+            "super": 0, "window": 0, "optimistic": 0, "tier0": 0}
 
 _libs = {}  # build key -> loaded ctypes library
 _lib_lock = threading.Lock()
 # "per_op" maps each per-op build (`per_op_label`) to its "path",
 # "seconds" and "ptxas" (its -v output); "fused" maps each fused build's
-# key to the same three and "fusion", "shapes", "mean_len", "mem_window"
-# and "optimistic".
+# key to the same three and "fusion", "shapes", "mean_len", "mem_window",
+# "optimistic" and "tier0".
 BUILD_INFO = {"fused": {}, "per_op": {}}
 
 
-def per_op_label(win: bool, opt: bool, split: bool = False) -> str:
+def per_op_label(win: bool, opt: bool, split: bool = False,
+                 t0: Optional[tuple] = None) -> str:
     """The name of the per-op build with or without the window cache,
-    optimistic convergence and the stack split."""
+    optimistic convergence and the stack split; `t0`: None, or the
+    (bulk, simd) instantiation of a build with the tier-0 handlers (such
+    a library holds that one instantiation)."""
     return ("window" if win else "direct") + (
-        ", optimistic" if opt else "") + (", split stack" if split else "")
+        ", optimistic" if opt else "") + (", split stack" if split else "") \
+        + ("" if t0 is None else
+           f", tier 0 (kBulk={int(t0[0])}, kSimd={int(t0[1])})")
+
+
+def _per_op_flags(flags) -> tuple:
+    """(win, opt, split, t0) of a per-op build given as a triple or as
+    that quadruple (t0 None or (bulk, simd))."""
+    win, opt, split, *t0 = flags
+    t0 = t0[0] if t0 else None
+    return (bool(win), bool(opt), bool(split),
+            None if t0 is None else (bool(t0[0]), bool(t0[1])))
 
 
 def _nvcc() -> str:
@@ -359,43 +393,60 @@ def _read(path) -> bytes:
         return f.read()
 
 
-# generated source, or the per-op kernel's (window, optimistic) flags ->
-# _job's result
+# generated source, or the per-op kernel's (window, optimistic, split,
+# tier 0) flags -> _job's result
 _jobs = {}
 
 
-def _defines(win: bool, opt: bool, split: bool) -> tuple:
+def _defines(win: bool, opt: bool, split: bool, t0=None) -> tuple:
     """The per-op build's extra nvcc flags: its window, optimistic and
-    stack-split instantiations."""
-    return (f"-DWASM_MEM_WINDOW={int(win)}", f"-DWASM_OPTIMISTIC={int(opt)}",
-            f"-DWASM_STACK_SPLIT={int(split)}")
+    stack-split instantiations and, for a build with the tier-0 handlers,
+    the one (bulk, simd) instantiation it holds.  A build without them
+    has no tier-0 define at all, so its code is the one before tier 0."""
+    out = (f"-DWASM_MEM_WINDOW={int(win)}", f"-DWASM_OPTIMISTIC={int(opt)}",
+           f"-DWASM_STACK_SPLIT={int(split)}")
+    if t0 is not None:
+        out += ("-DWASM_TIER0=1", f"-DWASM_T0_BULK={int(t0[0])}",
+                f"-DWASM_T0_SIMD={int(t0[1])}")
+    return out
+
+
+def tier0_key(tables: Tables) -> Optional[tuple]:
+    """The (bulk, simd) instantiation of a per-op build with the tier-0
+    handlers that runs `tables`, or None (tier 0 off)."""
+    if tables.t0k is None:
+        return None
+    return (bool(tables.has_bulk), bool(tables.has_simd))
 
 
 def _job(tables: Optional[Tables], win: bool = False, opt: bool = False,
-         split: bool = False):
+         split: bool = False, t0=None):
     """(key, shared library path, source path) of the kernel that runs
     `tables`: the per-op build (tables None or of the "none" encoding;
     with the window cache when `win` or `tables.mem_window`, with
     optimistic convergence when `opt` or `tables.optimistic`, with the
-    stack split when `split` or `tables.stack_split`) or the fused build
-    of `tables` (its generated source goes under _build/ when it is
-    built)."""
+    stack split when `split` or `tables.stack_split`, with the tier-0
+    handlers of one (bulk, simd) instantiation when `t0` or
+    `tables.t0k`) or the fused build of `tables` (its generated source
+    goes under _build/ when it is built)."""
     if tables is not None and tables.fusion == "none":
-        tables, win, opt, split = (None, tables.mem_window,
-                                   tables.optimistic, tables.stack_split)
-    text = (bool(win), bool(opt), bool(split)) if tables is None \
-        else tables.fused_source
+        tables, win, opt, split, t0 = (
+            None, tables.mem_window, tables.optimistic, tables.stack_split,
+            tier0_key(tables))
+    flags = _per_op_flags((win, opt, split, t0))
+    text = flags if tables is None else tables.fused_source
     if text not in _jobs:
-        _jobs[text] = _new_job(tables, win, opt, split)
+        _jobs[text] = _new_job(tables, *flags)
     return _jobs[text]
 
 
-def _new_job(tables: Optional[Tables], win: bool, opt: bool, split: bool):
+def _new_job(tables: Optional[Tables], win: bool, opt: bool, split: bool,
+             t0=None):
     flags = " ".join(NVCC_FLAGS).encode()
     srcs = _read(_SRC) + _read(_WIN_HDR) + _read(_OPT_HDR)
     if tables is None:
         key = hashlib.sha256(
-            srcs + flags + " ".join(_defines(win, opt, split)).encode()) \
+            srcs + flags + " ".join(_defines(win, opt, split, t0)).encode()) \
             .hexdigest()[:16]
         return key, os.path.join(_BUILD_DIR, f"libinterp_{key}.so"), _SRC
     src = tables.fused_source.encode()
@@ -409,7 +460,9 @@ def build_kernels(tables_list=(), per_op=((False, False, False),)) -> dict:
     """Build, all nvcc processes at once, the per-op kernel
     (`csrc/interp.cu`, four instantiations, a library for each (window,
     optimistic, stack split) triple in `per_op` and for each per-op
-    `Tables` given) and
+    `Tables` given; a quadruple whose last item is (bulk, simd), or
+    per-op tables with tier 0, name a library with the tier-0 handlers
+    and that one instantiation) and
     the fused kernel of each fused `Tables` given (`csrc/interp.cu` with
     `csrc/fused.cuh` and the generated dispatch of its blocks or
     superinstructions, one instantiation), each into a shared library
@@ -419,19 +472,21 @@ def build_kernels(tables_list=(), per_op=((False, False, False),)) -> dict:
     with _lib_lock:
         os.makedirs(_BUILD_DIR, exist_ok=True)
         jobs = {}
-        triples = {(bool(w), bool(o), bool(x)) for w, o, x in per_op}
+        builds = {_per_op_flags(f) for f in per_op}
         for tb in tables_list:
             if tb.fusion == "none":
-                triples.add((tb.mem_window, tb.optimistic, tb.stack_split))
-        for win, opt, split in sorted(triples):
-            key, so, src = _job(None, win, opt, split)
-            jobs[key] = (so, src, None, (win, opt, split))
+                builds.add((tb.mem_window, tb.optimistic, tb.stack_split,
+                            tier0_key(tb)))
+        for flags in sorted(builds, key=str):
+            key, so, src = _job(None, *flags)
+            jobs[key] = (so, src, None, flags)
         for tb in tables_list:
             if tb.fusion == "none":
                 continue  # one of the per-op builds above
             key, so, src = _job(tb)
-            jobs.setdefault(key, (so, src, tb, (tb.mem_window, tb.optimistic,
-                                                tb.stack_split)))
+            jobs.setdefault(key, (so, src, tb, (
+                tb.mem_window, tb.optimistic, tb.stack_split,
+                tb.t0k is not None)))
         procs = {}
         for key, (so, src, tb, flags) in jobs.items():
             if key in _libs or os.path.exists(so):
@@ -490,13 +545,14 @@ def build_kernels(tables_list=(), per_op=((False, False, False),)) -> dict:
                     fusion=tb.fusion, shapes=len(tb.shapes),
                     mean_len=float(np.mean(n_ops)) if n_ops else 0.0,
                     mem_window=bool(flags[0]), optimistic=bool(flags[1]),
-                    stack_split=bool(flags[2]))
+                    stack_split=bool(flags[2]), tier0=bool(flags[3]))
             else:
                 BUILD_INFO["per_op"].setdefault(
                     per_op_label(*flags), {}).setdefault("path", so)
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * (_N_PTRS + extra + _N_OPT) + \
-                [ctypes.c_int] * _N_INTS + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * (
+                _N_PTRS + extra + _N_OPT + _N_T0_PTRS) + \
+                [ctypes.c_int] * (_N_INTS + _N_T0_INTS) + [ctypes.c_void_p]
             _libs[key] = lib
         return {key: _libs[key] for key in jobs}
 
@@ -672,6 +728,14 @@ _N_OPT = len(_OPT_FIELDS)
 # with the v128 handlers, with the window cache and with optimistic
 # convergence), snap_max (the ceiling of a warp's interval)
 _N_INTS = 19
+# Tier 0's pointers come after the optimistic ones (null when it is off):
+# the kinds by pc, the per-lane call counts, the stdout record buffer and
+# its fills; its ints after snap_max: on, the buffer's rows (SW), the PRNG
+# seed, the longest random_get and fd_write payloads in words, and the
+# launch's time base (realtime lo, hi, monotonic lo, hi)
+_T0_PTRS = ("t0k", "t0_ctr", "so_buf", "so_off")
+_N_T0_PTRS = len(_T0_PTRS)
+_N_T0_INTS = 9
 
 
 def _check(name, t, device, shape):
@@ -687,19 +751,28 @@ def _check(name, t, device, shape):
 
 
 def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool,
-              warps: Optional[WarpState] = None) -> None:
+              warps: Optional[WarpState] = None, t0_time=None) -> None:
     """Run every live lane for up to `chunk` instructions, in place on
     the state `st` (a `batch.engine.BatchState`).  CUDA tensors launch
     the kernel of the tables' encoding (and memory mode: with
     `mem_window` the window-cache instantiation, or an error; with
     `optimistic` the instantiation with optimistic convergence, which
-    updates `warps`, a fresh `WarpState` when None); CPU tensors run the
-    plain interpreter."""
+    updates `warps`, a fresh `WarpState` when None; with tier 0 the build
+    with its handlers, `t0_time` the launch's time base, [2, 2] int32 as
+    `engine.t0_time_planes` reads it); CPU tensors run the plain
+    interpreter."""
     device = st.pc.device
+    if (tables.t0k is None) != (st.t0_ctr is None):
+        raise ValueError("tier-0 tables need a state with the tier-0 "
+                         "planes, and only they do")
+    if tables.t0k is not None:
+        if t0_time is None:
+            raise ValueError("a launch with tier 0 needs its time base")
+        t0_time = np.asarray(t0_time, np.int32).reshape(2, 2)
     if device.type == "cpu":
         from wasmedge_tpu_torch.batch import interp_ref
 
-        interp_ref.run_chunk(tables, st, chunk, fuel_on, warps)
+        interp_ref.run_chunk(tables, st, chunk, fuel_on, warps, t0_time)
         return
     if device.type != "cuda":
         raise ValueError(f"no interpreter for device {device}")
@@ -711,7 +784,7 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool,
     launch = lib.wasm_fused_launch if tables.fusion != "none" \
         else lib.wasm_interp_launch
     stream = torch.cuda.current_stream(device).cuda_stream
-    ptrs, ints = launch_args(tables, st, chunk, fuel_on, warps)
+    ptrs, ints = launch_args(tables, st, chunk, fuel_on, warps, t0_time)
     with torch.cuda.device(device):
         err = launch(*ptrs, *ints, stream)
     if err != 0:
@@ -725,6 +798,7 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool,
     LAUNCHES["super"] += tables.fusion == "super"
     LAUNCHES["window"] += tables.mem_window
     LAUNCHES["optimistic"] += tables.optimistic
+    LAUNCHES["tier0"] += tables.t0k is not None
 
 
 def _check_launch(tables: Tables, st, warps, device) -> None:
@@ -761,14 +835,20 @@ def _check_launch(tables: Tables, st, warps, device) -> None:
     if tables.optimistic:
         for f in WarpState.COUNTERS:
             _check(f, getattr(warps, f), device, ((L + 31) // 32,))
+    if tables.t0k is not None:
+        _check("t0k", tables.t0k, device, (n,))
+        _check("t0_ctr", st.t0_ctr, device, (4, L))
+        if st.so_buf is not None:
+            _check("so_buf", st.so_buf, device, (st.so_buf.shape[0], L))
+            _check("so_off", st.so_off, device, (L,))
 
 
 def launch_args(tables: Tables, st, chunk: int, fuel_on: bool,
-                warps: Optional[WarpState]):
+                warps: Optional[WarpState], t0_time=None):
     """The pointer and int arguments of `wasm_interp_launch` (or, for a
     fused encoding, `wasm_fused_launch`) before the stream, in their
     order (the shadow planes allocated here on the first optimistic
-    launch)."""
+    launch; `t0_time` the launch's tier-0 time base, [2, 2] int32)."""
     def ptr(t):
         return None if t is None else t.data_ptr()
 
@@ -792,4 +872,15 @@ def launch_args(tables: Tables, st, chunk: int, fuel_on: bool,
             int(tables.has_simd), int(tables.mem_window),
             int(tables.optimistic),
             warps.snap_max if tables.optimistic else 0]
+    t0 = tables.t0
+    if t0 is None:
+        ptrs += [None] * _N_T0_PTRS
+        ints += [0] * _N_T0_INTS
+    else:
+        tt = np.asarray(t0_time, np.int32).reshape(4).tolist()
+        ptrs += [ptr(tables.t0k), ptr(st.t0_ctr), ptr(st.so_buf),
+                 ptr(st.so_off)]
+        ints += [1, 0 if st.so_buf is None else st.so_buf.shape[0],
+                 int(t0["RNG_SEED"]), int(t0["RMAX_W"]), int(t0["WMAX_W"]),
+                 *tt]
     return ptrs, ints

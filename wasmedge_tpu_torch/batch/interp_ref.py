@@ -14,7 +14,16 @@ corner cases:
   - a return from depth 0 sets trap = TRAP_DONE and sp = fp + nresults;
   - stack, frame and memory rows are clamped into their planes;
   - a host call parks the lane (trap = TRAP_HOSTCALL) at its stub with
-    the instruction retired and its fuel charged;
+    the instruction retired and its fuel charged, unless tier 0 serves it
+    (`tables.t0k`, the reference SIMT step's engine.py:1309-1449): then
+    clock_time_get, random_get, sched_yield and fd_write to fd 1 or 2
+    retire in place (their errno at the frame's operand base, sp one
+    above it, pc at the stub's RETURN) and proc_exit stops the lane
+    (ErrCode.Terminated, its code at the operand base); a cputime clock,
+    an oversized request, a full stdout buffer, another fd, more than one
+    iovec or an unaligned iovec array park as before.  They read and
+    write the memory plane after the lane's dirty windows are written
+    back and dropped (as a bulk op does);
   - memory.fill / memory.copy check both ranges first, write nothing on
     a trap, and read copy sources from the unmodified plane (memmove),
     as `laneops.plane_fill_copy` does; one instruction and one fuel unit
@@ -39,8 +48,11 @@ corner cases:
     every decision (`_Group.agree` / `agree_nz`: branch conditions, table
     indexes, grow deltas, memory addresses, ALU trap kinds), and a
     load or store whose window miss would write a dirty way back, or a
-    bulk op, waits for a commit (`defer`) instead of running; commits,
-    snapshots and rollbacks are `OptRun`'s.
+    bulk op, waits for a commit (`defer`) instead of running; so does a
+    tier-0 call, except in a uniform warp (the entry rule) where only
+    random_get does (its bytes differ by lane), and after that commit
+    the warp runs per lane for the rest of the launch, as after a bulk
+    op; commits, snapshots and rollbacks are `OptRun`'s.
 
 Vectorised over lanes: each step groups the live lanes by the handler id
 at their pc and applies one handler per group.  It is the reference the
@@ -55,7 +67,10 @@ import torch
 from wasmedge_tpu_torch.batch import laneops as ops
 from wasmedge_tpu_torch.batch import simdops as sops
 from wasmedge_tpu_torch.batch.fusion import H_BLOCK_BASE, super_family
-from wasmedge_tpu_torch.batch.image import ALU1_SUB, TRAP_DONE, TRAP_HOSTCALL
+from wasmedge_tpu_torch.batch import tier0 as t0f
+from wasmedge_tpu_torch.batch.image import (
+    ALU1_SUB, T0_CLOCK_TIME_GET, T0_FD_WRITE, T0_NEEDS_MEMORY, T0_PROC_EXIT,
+    T0_RANDOM_GET, T0_SCHED_YIELD, TRAP_DONE, TRAP_HOSTCALL)
 from wasmedge_tpu_torch.batch.interp import (
     H_ALU1_BASE, H_ALU2_BASE, H_BR, H_BR_TABLE, H_BRNZ, H_BRZ, H_CALL,
     H_CALL_INDIRECT, H_CONST, H_DROP, H_FUSE_A2R_BASE, H_FUSE_GBR,
@@ -79,9 +94,10 @@ _NUM_ALU1 = len(ALU1_SUB)
 
 
 def run_chunk(t: Tables, st, chunk: int, fuel_on: bool,
-              warps: WarpState = None) -> None:
+              warps: WarpState = None, t0_time=None) -> None:
     """`warps`: the per-warp state of optimistic tables (a fresh one
-    when None)."""
+    when None); `t0_time`: the launch's tier-0 time base ([2, 2] int32,
+    needed with `t.t0k`)."""
     # steps each lane has left in this launch (a fused dispatch takes
     # several at once)
     left = torch.full_like(st.pc, int(chunk))
@@ -99,14 +115,14 @@ def run_chunk(t: Tables, st, chunk: int, fuel_on: bool,
         live = ((st.trap == 0) & (left > 0)).nonzero().squeeze(1)
         if live.numel() == 0:
             break
-        _step(t, st, live, fuel_on, left, win, opt)
+        _step(t, st, live, fuel_on, left, win, opt, t0_time)
     if win is not None:
         win.flush()
     if opt is not None:
         opt.close()
 
 
-def _step(t: Tables, st, lanes, fuel_on, left, win, opt=None):
+def _step(t: Tables, st, lanes, fuel_on, left, win, opt=None, t0_time=None):
     code_len = t.hid.shape[0]
     pc = st.pc[lanes].clamp(0, code_len - 1)
     pcl = pc.long()
@@ -125,14 +141,15 @@ def _step(t: Tables, st, lanes, fuel_on, left, win, opt=None):
         m = hid == h
         if bool(fused[m].any()):
             _run_fused(t, st, lanes[m], pc[m], int(h), fuel_on, left, win,
-                       opt)
+                       opt, t0_time)
         else:
-            ran = _Group(t, st, lanes[m], pc[m], fuel_on, win, opt).run(
-                int(h))
+            ran = _Group(t, st, lanes[m], pc[m], fuel_on, win, opt,
+                         t0_time).run(int(h))
             left[ran] -= 1
 
 
-def _run_fused(t, st, lanes, pc, h, fuel_on, left, win, opt=None):
+def _run_fused(t, st, lanes, pc, h, fuel_on, left, win, opt=None,
+               t0_time=None):
     """One fused dispatch (a block or a superinstruction) on the lanes at
     fused id h, then the terminal op, per op, on the lanes it leaves at
     one."""
@@ -150,19 +167,23 @@ def _run_fused(t, st, lanes, pc, h, fuel_on, left, win, opt=None):
     th = t.hid[tpc.long()]
     for h2 in torch.unique(th).tolist():
         m = th == h2
-        ran = _Group(t, st, tl[m], tpc[m], fuel_on, win, opt).run(int(h2))
+        ran = _Group(t, st, tl[m], tpc[m], fuel_on, win, opt,
+                     t0_time).run(int(h2))
         left[ran] -= 1
 
 
 class _Group:
     """One handler applied to the lanes that sit at it this step; `win`
     the launch's memory windows (None: the plane is read directly);
-    `opt` the launch's optimistic convergence (None: careful)."""
+    `opt` the launch's optimistic convergence (None: careful); `t0_time`
+    the launch's tier-0 time base."""
 
-    def __init__(self, t, st, lanes, pc, fuel_on, win=None, opt=None):
+    def __init__(self, t, st, lanes, pc, fuel_on, win=None, opt=None,
+                 t0_time=None):
         self.t, self.st, self.lanes, self.pc = t, st, lanes, pc
         self.fuel_on = fuel_on
         self.win = win
+        self.t0_time = t0_time
         self.way = None  # the way the last window select chose
         # (on, lead) of the lanes' warps, None when none is on
         self.opt = opt
@@ -272,7 +293,7 @@ class _Group:
         if self.defer is not None and bool(self.defer.any()):
             d = self.defer
             self.opt.defer(self.lanes[d], DEFER_BULK if h in (
-                H_MEMFILL, H_MEMCOPY) else DEFER_ACCESS)
+                H_MEMFILL, H_MEMCOPY, H_HOSTCALL) else DEFER_ACCESS)
             self._keep(~d)
         self.commit()
         return self.lanes
@@ -607,8 +628,148 @@ class _Group:
 
     # -- host calls and bulk memory --------------------------------------------
     def hostcall(self):
-        # park at the stub; the host re-arms the lane at pc + 1
-        self.trap = torch.full_like(self.trap, TRAP_HOSTCALL)
+        """Park at the stub (the host re-arms the lane at pc + 1), unless
+        tier 0 retires the call here (`_tier0`)."""
+        park = torch.ones_like(self.pc, dtype=torch.bool)
+        if self.t.t0k is not None:
+            kind = self.t.t0k[self.pc.long()]
+            t0 = kind != 0
+            if bool(t0.any()):
+                park = self._tier0(kind, t0)
+        self.trap = torch.where(park, torch.full_like(self.trap,
+                                                      TRAP_HOSTCALL),
+                                self.trap)
+
+    def _tier0(self, kind, t0):
+        """The reference SIMT step's tier-0 section (engine.py:1309-1449,
+        the write at the operand base :1577-1581, sp :1756, the traps
+        :1795-1799) on the lanes of `t0` that run; returns the lanes
+        that park."""
+        st, lanes = self.st, self.lanes
+        if self.olead is not None:
+            # B3: a warp that is on commits first and then runs the call
+            # per lane; a uniform warp runs it in place, but random_get
+            on = self.olead[0]
+            uni = self.opt.uniform[self.opt.wid[lanes]]
+            d = on & t0 & (~uni | (kind == T0_RANDOM_GET))
+            if bool(d.any()):
+                self.wait(d)
+                t0 = t0 & ~d
+        if self.win is not None:
+            w = t0 & torch.isin(kind, torch.tensor(T0_NEEDS_MEMORY,
+                                                   device=kind.device))
+            if bool(w.any()):
+                self.win.flush(lanes[w])
+        s = self.t.t0
+        mem = st.mem
+        zero = torch.zeros_like(self.pc)
+        arg = [self.gat(st.stack_lo, self.fp + k) for k in range(4)]
+        ctr = [st.t0_ctr[r, lanes] for r in range(4)]
+        mem_bytes = ops.wrap32(st.mem_pages[lanes].to(torch.int64) * 65536)
+        u_lt = ops.u_lt
+        gat = self.gat
+
+        def rmw(plane, rows, m, v, ok):
+            cur = self.gat(plane, rows)
+            self.scat(plane, rows, (cur & ~m) | (v & m), ok & (m != 0))
+            return plane
+
+        def wrap(v):
+            return ops.wrap32(v.to(torch.int64))
+
+        push = torch.zeros_like(t0)
+        val = zero.clone()
+        # clock_time_get(id, precision, *time)
+        m_clk = t0 & (kind == T0_CLOCK_TIME_GET)
+        if bool(m_clk.any()):
+            cid, tptr = arg[0], arg[2]
+            bad_id = u_lt(torch.full_like(cid, 3), cid)
+            hard_id = (cid == 2) | (cid == 3)
+            tend = wrap(tptr.to(torch.int64) + 8)
+            c_oob = u_lt(tend, tptr) | u_lt(mem_bytes, tend)
+            tv_lo, tv_hi = t0f.t0_clock_value(self.t0_time, cid, ctr[0])
+            wr = m_clk & ~bad_id & ~hard_id & ~c_oob
+            t0f.t0_masked_store(rmw, mem, tptr, tv_lo, tv_hi, 8, wr)
+            done = m_clk & ~hard_id
+            res = torch.where(bad_id, s["E_INVAL"],
+                              torch.where(c_oob, s["E_FAULT"], 0))
+            push |= done
+            val = torch.where(done, res.to(torch.int32), val)
+            ctr[0] = ctr[0] + wr.to(torch.int32)
+        # random_get(*buf, len)
+        m_rnd = t0 & (kind == T0_RANDOM_GET)
+        if bool(m_rnd.any()):
+            rbuf, rlen = arg[0], arg[1]
+            fits = ~u_lt(torch.full_like(rlen, s["RMAX_W"] * 4), rlen)
+            rend = wrap(rbuf.to(torch.int64) + ops.u32(rlen))
+            r_oob = u_lt(rend, rbuf) | u_lt(mem_bytes, rend)
+            ok = m_rnd & fits
+            wr = ok & ~r_oob & (rlen != 0)
+            seq_h = t0f.t0_rng_seq_hash(s["RNG_SEED"], lanes, ctr[1])
+            if bool(wr.any()):
+                t0f.t0_random_fill(rmw, mem, rbuf, rend, wr, seq_h,
+                                   s["RMAX_W"], zero)
+            push |= ok
+            val = torch.where(ok, torch.where(r_oob, s["E_FAULT"], 0)
+                              .to(torch.int32), val)
+            ctr[1] = ctr[1] + wr.to(torch.int32)
+        # fd_write(fd, *iovs, iovs_len, *nwritten)
+        m_fdw = t0 & (kind == T0_FD_WRITE)
+        if bool(m_fdw.any()):
+            wfd, wiovs, wcnt, wnp = arg
+            so_off = st.so_off[lanes]
+            SW = st.so_buf.shape[0]
+            iov_end = wrap(wiovs.to(torch.int64) + 8)
+            iov_ok = ~(u_lt(iov_end, wiovs) | u_lt(mem_bytes, iov_end))
+            iw = (ops.u32(wiovs) >> 2).to(torch.int32)
+            wbuf, wlen = gat(mem, iw), gat(mem, iw + 1)
+            fits = ~u_lt(torch.full_like(wlen, s["WMAX_W"] * 4), wlen)
+            nwords = (ops.u32(wrap(ops.u32(wlen) + 3)) >> 2).to(torch.int32)
+            space = ~u_lt(torch.full_like(wlen, SW),
+                          wrap(ops.u32(so_off) + 1 + ops.u32(nwords)))
+            npend = wrap(wnp.to(torch.int64) + 4)
+            np_ok = ~(u_lt(npend, wnp) | u_lt(mem_bytes, npend))
+            handled = m_fdw & ((wfd == 1) | (wfd == 2)) & (wcnt == 1) & \
+                ((wiovs & 3) == 0) & iov_ok & fits & space & np_ok
+            dend = wrap(ops.u32(wbuf) + ops.u32(wlen))
+            d_oob = u_lt(dend, wbuf) | u_lt(mem_bytes, dend)
+            wr = handled & ~d_oob
+            if bool(wr.any()):
+                shb = (wbuf & 3) * 8
+                inv = (32 - shb) & 31
+                hi_or = torch.where(shb == 0, 0, -1).to(torch.int32)
+                w0 = (ops.u32(wbuf) >> 2).to(torch.int32)
+                hdr = wlen | (wfd << 28)
+                self.scat(st.so_buf, so_off, hdr, wr)
+                for j in range(s["WMAX_W"]):
+                    on_j = wr & (j * 4 < wlen)
+                    if not bool(on_j.any()):
+                        break
+                    v = t0f.t0_shifted_src_word(gat, mem, w0, j, shb, inv,
+                                                hi_or)
+                    self.scat(st.so_buf, so_off + 1 + j, v, on_j)
+                t0f.t0_masked_store(rmw, mem, wnp, wlen, zero, 4, wr)
+                st.so_off[lanes] = torch.where(wr, so_off + 1 + nwords,
+                                               so_off)
+            push |= handled
+            val = torch.where(handled, torch.where(d_oob, s["E_FAULT"], 0)
+                              .to(torch.int32), val)
+            ctr[2] = ctr[2] + wr.to(torch.int32)
+        # sched_yield(), proc_exit(code)
+        m_yld = t0 & (kind == T0_SCHED_YIELD)
+        push |= m_yld
+        m_ext = t0 & (kind == T0_PROC_EXIT)
+        val = torch.where(m_ext, arg[0], val)
+        ctr[3] = ctr[3] + (m_yld | m_ext).to(torch.int32)
+        for r in range(4):
+            st.t0_ctr[r, lanes] = ctr[r]
+        # the result (or the exit code) at the operand base, as the host
+        # serve writes it; a retired call resumes at the stub's RETURN
+        self.put(self.ob, val, zero, push | m_ext)
+        self.new_sp = torch.where(push, self.ob + 1, self.new_sp)
+        self.trap = torch.where(m_ext, torch.full_like(
+            self.trap, int(ErrCode.Terminated)), self.trap)
+        return ~(push | m_ext)
 
     def memfill(self):
         self._bulk(copy=False)
@@ -790,8 +951,9 @@ class _Fused(_Group):
     written.  Per lane it records the new pc and sp, the instructions
     retired (`n`), a trap, and whether a terminal op is left (`term`)."""
 
-    def __init__(self, t, st, lanes, pc, fuel_on, win=None, opt=None):
-        super().__init__(t, st, lanes, pc, fuel_on, win, opt)
+    def __init__(self, t, st, lanes, pc, fuel_on, win=None, opt=None,
+                 t0_time=None):
+        super().__init__(t, st, lanes, pc, fuel_on, win, opt, t0_time)
         z = torch.zeros_like(pc)
         self.active = torch.ones_like(pc, dtype=torch.bool)
         self.out_pc, self.out_sp = pc.clone(), self.sp.clone()

@@ -20,8 +20,9 @@ is its lane 0's, and a lane whose own value differs sets its canary.  The
 commit points are the kernel's: the first dispatch boundary once
 `snap` steps have passed since the last snapshot (min(512, snap) for the
 first of a launch), a window miss that would write a dirty way back, a
-bulk op (after which the warp leaves "on" for the launch) and the end of
-the warp's loop.  A clean check writes the dirty windows back and
+bulk op or a tier-0 host call (after which the warp leaves "on" for the
+launch; a uniform warp only at random_get) and the end of the warp's
+loop.  A clean check writes the dirty windows back and
 snapshots; a dirty one restores the snapshot (stack rows below its sp,
 frames, globals, memory without windows), drops the windows, halves the
 warp's interval (down to `SNAP_MIN`), counts a rollback and lets the rest
@@ -30,10 +31,13 @@ rollback doubles the interval back toward `snap_max`.
 
 The entry rule of uniform warps: a warp that is on, whole (32 lanes) and
 whose lanes equal its lane 0 in stack rows [0, sp) of every stack plane,
-frame rows [0, call depth), the globals and memory rows [0, min(W, pages x
-16384)) holds one state; its lanes run the same instructions on the same
-values until the launch ends, so the kernel runs it without shuffles or
-snapshots (`csrc/optimistic.cuh` `WarpUniform`).  Here such a warp runs as
+frame rows [0, call depth), the globals, memory rows [0, min(W, pages x
+16384)) and, with tier 0, every row of the call counts `t0_ctr` and the
+stdout buffer's fill `so_off` (not the buffer: Wasm never reads it) holds
+one state; its lanes run the same instructions on the same values until
+the launch ends or a tier-0 random_get (seeded per lane) commits and
+turns it off, so the kernel runs it without shuffles or snapshots
+(`csrc/optimistic.cuh` `WarpUniform`).  Here such a warp runs as
 every warp that is on does (its canaries can never be set, so what it
 writes is the same); `WarpState.uniform` counts its entries.  The kernel copies
 the frame rows at or above the snapshot's depth on their first write, so
@@ -53,7 +57,7 @@ SNAP_MIN = 256       # _SNAP_MIN (pallas_engine.py:238)
 FIRST_INTERVAL = 512  # the first interval, min(512, snap) (:3608-3611)
 WARP = 32
 # why a warp waits for a commit: a window miss that would write a dirty
-# way back, or a bulk op (after which it leaves "on")
+# way back, or a bulk op or tier-0 host call (after which it leaves "on")
 DEFER_ACCESS, DEFER_BULK = 1, 2
 
 # shadow plane -> the state plane a snapshot copies
@@ -184,7 +188,7 @@ class OptRun:
     def _same_rows(self, st):
         """Per lane: equal to its warp's lane 0 in the rows the entry rule
         compares (its own sp, call depth and pages; a warp that is on
-        shares them)."""
+        shares them; every row of the tier-0 counts and the stdout fill)."""
         ns, nf = st.sp.long(), st.call_depth.long()
         W = st.mem.shape[0]
         nm = torch.clamp(st.mem_pages.long() * 16384, max=W) if W > 1 \
@@ -194,7 +198,10 @@ class OptRun:
                          (st.stack_e2, ns), (st.stack_e3, ns),
                          (st.fr_ret_pc, nf), (st.fr_fp, nf),
                          (st.fr_opbase, nf), (st.glob_lo, None),
-                         (st.glob_hi, None), (st.mem, nm)):
+                         (st.glob_hi, None), (st.mem, nm),
+                         (st.t0_ctr, None),
+                         (None if st.so_off is None else st.so_off[None],
+                          None)):
             if plane is None:
                 continue
             diff = plane != plane[:, self.leader]

@@ -101,6 +101,27 @@ class BatchConfigure:
     # careful per-lane loop of the same kernel when a lane disagreed
     # (csrc/optimistic.cuh, batch/optimistic.py).
     optimistic: Optional[bool] = None
+    # --- tier-0 host calls (wasmedge_tpu/common/configure.py:195-211) ---
+    # Tier 0: service pure WASI calls (clock_time_get / random_get /
+    # sched_yield / proc_exit / fd_write-to-buffered-stdout) directly in
+    # the kernel: they cost a dispatch slot, not a device<->host round
+    # trip.  False parks every hostcall on the outcall channel.
+    tier0_hostcalls: bool = True
+    # Seed for the in-kernel counter-PRNG behind tier-0 random_get
+    # (deterministic per (seed, lane, call, word)).  None (the default)
+    # draws fresh entropy once per Configure, so guests get
+    # unpredictable bytes run-to-run like the os.urandom-backed scalar
+    # and tier-1 paths; set an explicit seed for reproducible runs.
+    rng_seed: Optional[int] = None
+    # Per-lane in-device stdout record buffer, in 4-byte words (tier-0
+    # fd_write appends records here; the host drains them at flush
+    # points).  Writes that would overflow the buffer park on the
+    # tier-1 channel instead (after a flush they fit again).  At least 16.
+    stdout_buffer_words: int = 2048
+    # Max bytes of one tier-0 fd_write iovec / random_get request the
+    # kernel services inline; longer requests park on tier 1.
+    tier0_write_max: int = 256
+    tier0_random_max: int = 64
 
 
 @dataclasses.dataclass

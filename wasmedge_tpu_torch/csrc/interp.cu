@@ -40,6 +40,17 @@
 // Host calls: a lane at a HOSTCALL stub parks (trap = TRAP_HOSTCALL, pc
 // left at the stub); the host serves it between launches and re-arms it
 // at the stub's RETURN, so the kernel itself never leaves the card.
+// Tier 0 (WASM_TIER0 builds, those of images with tier-0 kinds; the
+// reference SIMT step's engine.py:1309-1449, which the Pallas kernel never
+// runs): clock_time_get, random_get, sched_yield, proc_exit and fd_write
+// to fd 1 or 2 are served at the stub by `tier0_call` instead: the result
+// at the frame's operand base and on at the stub's RETURN, or the lane
+// stops (proc_exit); fd_write appends a record to the lane's column of the
+// stdout buffer, which the host drains between launches.  The shapes the
+// reference leaves to the host (a cputime clock, an oversized request, a
+// full buffer, another fd, more than one iovec, an unaligned iovec array)
+// park as before.  A build without WASM_TIER0 has none of this compiled
+// in: fib's builds keep their code.
 //
 // v128 (B7, `h_vconst` ... `h_vstore`, pallas_engine.py :3203-3520): a
 // v128 cell is four words, kept in four stack planes (lo, hi, e2, e3).
@@ -117,6 +128,7 @@ constexpr int E_CALL_STACK = 0x90;
 constexpr int E_STACK_OVERFLOW = 0x91;
 constexpr int E_COST_LIMIT = 0x92;
 constexpr int E_EXEC_FAILED = 0x95;
+constexpr int E_TERMINATED = 0x01;
 
 // Handler ids (batch/interp.py, numbering shared with pallas_engine.py).
 constexpr int H_NOP = 0;
@@ -187,6 +199,22 @@ constexpr u32 SIGN32 = 0x80000000u;
 constexpr u32 F32_CANON_NAN = 0x7FC00000u;
 constexpr u64 F64_CANON_NAN = 0x7FF8000000000000ull;
 constexpr u64 SIGN64 = 0x8000000000000000ull;
+
+// Tier 0's launch arguments (null and 0 in a build without WASM_TIER0):
+// the kind each stub pc serves in the kernel (batch/image.py T0_*, 0
+// elsewhere), the per-lane call counts [4, L] (clock, random, fd_write,
+// sched_yield + proc_exit), the stdout record buffer [sw, L] and each
+// lane's fill in words [L] (null when the module's fd_write is not
+// served), on, the buffer's rows, the PRNG seed, the longest random_get
+// and fd_write payloads in words, and the launch's time base (realtime
+// and monotonic ns as (lo, hi), read on the host before the launch).
+struct T0Args {
+  const i32* __restrict__ kind;
+  i32* ctr;
+  i32* so_buf;
+  i32* so_off;
+  int on, sw, seed, rmax_w, wmax_w, rt_lo, rt_hi, mono_lo, mono_hi;
+};
 
 struct Params {
   // read-only code tables
@@ -260,6 +288,8 @@ struct Params {
   int snap_max;
   // stack rows on chip (Lane): set by the launch from D, kSimd and kWin
   int srows;
+  // tier 0 (WASM_TIER0 builds)
+  T0Args t0;
 };
 
 // Threads per block of every launch: one warp, so that 4096 lanes are 128
@@ -277,6 +307,17 @@ constexpr int BLOCK_THREADS = 32;
 #define WASM_STACK_SPLIT 1
 #endif
 constexpr bool kStackSplit = WASM_STACK_SPLIT != 0;
+
+// WASM_TIER0 1: the build of an image with tier-0 kinds, with the tier-0
+// handlers at its stubs (tier0_call) and its planes in B3's entry
+// compare; a launch must then give t0.on, and a build without it refuses
+// one that does.  Undefined in every other build, whose code it leaves as
+// it was: one more case label slowed fib(30) x 4096 by 1.5 % on an H100
+// (PERF.md).
+#ifndef WASM_TIER0
+#define WASM_TIER0 0
+#endif
+constexpr bool kTier0 = WASM_TIER0 != 0;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -1340,6 +1381,165 @@ struct Lane {
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// Tier-0 host calls (WASM_TIER0): batch/tier0.py's functions and the
+// reference SIMT step's handlers (engine.py:1309-1449), on one lane's
+// columns.  They read and write the memory plane: with the window cache
+// the caller has written the lane's windows back and dropped them first
+// (as a bulk op does), so the plane is the lane's memory.  What bounds a
+// call is bytes: the iovec, the payload and the record for fd_write, the
+// bytes stored for the others.
+// ---------------------------------------------------------------------------
+constexpr int T0_NONE = 0;
+constexpr int T0_CLOCK = 1;
+constexpr int T0_RANDOM = 2;
+constexpr int T0_YIELD = 3;
+constexpr int T0_EXIT = 4;
+constexpr int T0_FDWRITE = 5;
+// tier0_call's outcome, in the high word of what it returns (the low
+// word: the errno, or proc_exit's code)
+constexpr int T0_RETIRED = 0;
+constexpr int T0_EXITED = 1;
+constexpr int T0_PARKED = 2;
+constexpr u32 WASI_EFAULT = 21;  // host/wasi/wasi_abi.py Errno
+constexpr int WASI_EINVAL = 28;
+
+// t0_prng32: the counter-PRNG's avalanche
+__device__ __forceinline__ u32 t0_prng32(u32 x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// Word `row` (clamped into the plane) of the lane's memory column gets the
+// bytes of `m` from v; nothing when m is 0.
+__device__ __forceinline__ void t0_rmw(i32* mem, int L, int W, int lane,
+                                       u32 row, u32 m, u32 v) {
+  if (m == 0u) return;
+  i32* c = mem + (size_t)(row < (u32)(W - 1) ? row : (u32)(W - 1)) * L + lane;
+  *c = (i32)(((u32)*c & ~m) | (v & m));
+}
+
+__device__ __forceinline__ u32 t0_word(const i32* mem, int L, int W, int lane,
+                                       u32 row) {
+  return (u32)mem[(size_t)(row < (u32)(W - 1) ? row : (u32)(W - 1)) * L + lane];
+}
+
+// t0_masked_store: 4 or 8 bytes of val at byte address ea (in bounds)
+__device__ __forceinline__ void t0_store(i32* mem, int L, int W, int lane,
+                                         u32 ea, u64 val, bool eight) {
+  const u32 row = ea >> 2, sh = (ea & 3u) * 8u;
+  const u64 full = eight ? ~0ull : 0xFFFFFFFFull;
+  const u64 m01 = full << sh, v01 = (val & full) << sh;
+  t0_rmw(mem, L, W, lane, row, (u32)m01, (u32)v01);
+  t0_rmw(mem, L, W, lane, row + 1u, (u32)(m01 >> 32), (u32)(v01 >> 32));
+  if (sh != 0u)
+    t0_rmw(mem, L, W, lane, row + 2u, (u32)(full >> (64u - sh)),
+           (u32)((val & full) >> (64u - sh)));
+}
+
+// One lane's tier-0 call of kind `kind` with its first four argument
+// cells' low words a0..a3 and its memory's size in bytes.  Returns
+// (T0_RETIRED, errno), (T0_EXITED, code) or (T0_PARKED, 0) as
+// (outcome << 32) | word.  Out of line: only stubs reach it, and the
+// dispatch loop keeps its registers.
+__device__ __noinline__ u64 tier0_call(const T0Args t0, i32* mem, int L, int W,
+                                       int lane, int kind, u32 a0, u32 a1,
+                                       u32 a2, u32 a3, u32 mem_bytes) {
+  constexpr u64 kPark = (u64)T0_PARKED << 32;
+  i32* const ctr = t0.ctr + lane;  // count r at ctr[r * L]
+  switch (kind) {
+    case T0_CLOCK: {
+      // clock_time_get(id, precision, *time): the time base of the id's
+      // clock plus the lane's clock calls so far; the cputime ids park
+      if (a0 == 2u || a0 == 3u) return kPark;
+      if (a0 > 3u) return (u64)WASI_EINVAL;
+      const u32 tend = a2 + 8u;
+      if (tend < a2 || mem_bytes < tend) return (u64)WASI_EFAULT;
+      const i32 c = ctr[0];
+      const u64 base = a0 == 1u ? pack(t0.mono_lo, t0.mono_hi)
+                                : pack(t0.rt_lo, t0.rt_hi);
+      t0_store(mem, L, W, lane, a2, base + (u64)(u32)c, true);
+      ctr[0] = c + 1;
+      return 0;
+    }
+    case T0_RANDOM: {
+      // random_get(*buf, len): the counter-PRNG's words of (seed, lane,
+      // call), shifted to the buffer's byte offset, byte-masked at both
+      // edges (t0_random_fill); a request above the limit parks
+      if ((u32)(t0.rmax_w * 4) < a1) return kPark;
+      const u32 rend = a0 + a1;
+      if (rend < a0 || mem_bytes < rend) return (u64)WASI_EFAULT;
+      if (a1 == 0u) return 0;
+      const i32 c = ctr[L];
+      const u32 seq = t0_prng32((u32)t0.seed ^ (((u32)lane + 1u) * 0x9E3779B9u)) ^
+                      ((u32)c * 0x85EBCA6Bu);
+      const u32 shb = (a0 & 3u) * 8u, w0 = a0 >> 2;
+      u32 prev = 0u;
+      for (int j = 0; j <= t0.rmax_w; ++j) {
+        const u32 row = w0 + (u32)j;
+        if ((u64)row * 4u >= (u64)rend) break;  // no byte of it is the buffer's
+        const u32 pw = j < t0.rmax_w ? t0_prng32(seq ^ ((u32)j * 0x27220A95u)) : 0u;
+        const u32 v = (pw << shb) | (shb != 0u ? prev >> (32u - shb) : 0u);
+        u32 mk = 0u;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const u32 ba = row * 4u + (u32)b;
+          if (ba >= a0 && ba < rend) mk |= 0xFFu << (8 * b);
+        }
+        t0_rmw(mem, L, W, lane, row, mk, v);
+        prev = pw;
+      }
+      ctr[L] = c + 1;
+      return 0;
+    }
+    case T0_YIELD:
+      ctr[3 * L] += 1;
+      return 0;
+    case T0_EXIT:
+      ctr[3 * L] += 1;
+      return ((u64)T0_EXITED << 32) | a0;
+    case T0_FDWRITE: {
+      // fd_write(fd, *iovs, iovs_len, *nwritten): one aligned iovec to fd
+      // 1 or 2 whose record fits the lane's buffer; the record is a
+      // header (fd << 28 | len) and the payload padded to words, read
+      // from the guest's bytes at any offset before nwritten is stored
+      const u32 iov_end = a1 + 8u;
+      const bool iov_ok = !(iov_end < a1 || mem_bytes < iov_end);
+      const u32 wbuf = t0_word(mem, L, W, lane, a1 >> 2);
+      const u32 wlen = t0_word(mem, L, W, lane, (a1 >> 2) + 1u);
+      const u32 nwords = (wlen + 3u) >> 2;
+      const i32 off = t0.so_off[lane];
+      const u32 npend = a3 + 4u;
+      if (!((a0 == 1u || a0 == 2u) && a2 == 1u && (a1 & 3u) == 0u && iov_ok &&
+            wlen <= (u32)(t0.wmax_w * 4) &&
+            (u32)off + 1u + nwords <= (u32)t0.sw &&
+            !(npend < a3 || mem_bytes < npend)))
+        return kPark;
+      const u32 dend = wbuf + wlen;
+      if (dend < wbuf || mem_bytes < dend) return (u64)WASI_EFAULT;
+      i32* const rec = t0.so_buf + (size_t)off * L + lane;
+      rec[0] = (i32)(wlen | (a0 << 28));
+      const u32 shb = (wbuf & 3u) * 8u, w0 = wbuf >> 2;
+      u32 s0 = t0_word(mem, L, W, lane, w0);
+      for (u32 j = 0; j < nwords; ++j) {
+        const u32 s1 = t0_word(mem, L, W, lane, w0 + j + 1u);
+        rec[(size_t)(j + 1u) * L] = (i32)(shb != 0u ? (s0 >> shb) | (s1 << (32u - shb)) : s0);
+        s0 = s1;
+      }
+      t0_store(mem, L, W, lane, a3, wlen, false);
+      t0.so_off[lane] = off + 1 + (i32)nwords;
+      ctr[2 * L] += 1;
+      return 0;
+    }
+    default:
+      return kPark;
+  }
+}
+
 // memory.fill (copy = false, v = the fill byte) or memory.copy (copy =
 // true, v = the source address) of bytes [dst, end) in one lane's column,
 // end > dst, both ranges already bounds-checked.  Words are masked at the
@@ -2159,6 +2359,38 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
           // labels of their own: as cases they slowed fib(30) x 4096, which
           // runs neither, by 1.5 % on an H100 (PERF.md).
           if (h == H_HOSTCALL) {
+            if constexpr (kTier0) {
+              const int kind = __ldg(&p.t0.kind[pcc]);
+              if (kind != T0_NONE) {
+                // B3: a warp that is on commits first and runs the call
+                // per lane, off for the rest of the launch, as at a bulk
+                // op; a uniform warp runs it in place, but random_get,
+                // whose bytes differ by lane
+                if (w.on() && (Wp::kLead || kind == T0_RANDOM)) {
+                  ntrap = OPT_DEFER;
+                  break;
+                }
+                if (kind == T0_CLOCK || kind == T0_RANDOM || kind == T0_FDWRITE)
+                  m.flush(p, lane);
+                const u64 res = tier0_call(
+                    p.t0, p.mem, p.L, p.W, lane, kind, (u32)s.get(fp),
+                    (u32)s.get(fp + 1), (u32)s.get(fp + 2), (u32)s.get(fp + 3),
+                    (u32)pages * 65536u);
+                const int how = (int)(res >> 32);
+                if (how != T0_PARKED) {
+                  // the errno or the exit code at the operand base, where
+                  // the host's serve writes a result
+                  s.put(ob, cell32((u32)res));
+                  if (how == T0_EXITED) {
+                    ntrap = E_TERMINATED;
+                    s.note(ob + 1);
+                  } else {
+                    new_sp = ob + 1;
+                  }
+                  break;
+                }
+              }
+            }
             // park: retired and charged like any instruction; the halt
             // path below keeps pc at the stub and sp as it is
             ntrap = TRAP_HOSTCALL;
@@ -2215,8 +2447,10 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
           // the careful loop)
           --retired;
           if (p.fuel_on) ++fuel;
-          os.pending = h == H_MEMFILL || h == H_MEMCOPY ? OPT_WAIT_BULK
-                                                        : OPT_WAIT_ACCESS;
+          os.pending = h == H_MEMFILL || h == H_MEMCOPY ||
+                               (kTier0 && h == H_HOSTCALL)
+                           ? OPT_WAIT_BULK
+                           : OPT_WAIT_ACCESS;
           return;
         }
       }
@@ -2420,6 +2654,10 @@ bool opt_args_ok(const Params& p) {
 template <bool kBulk, bool kSimd, class F, bool kWin, bool kOpt>
 int launch_kernel(const Params& p, cudaStream_t st) {
   if (!opt_args_ok<kSimd, kWin, kOpt>(p)) return (int)cudaErrorInvalidValue;
+  // tier 0 only in a build with its handlers, and then with its planes
+  if ((p.t0.on != 0) != kTier0) return (int)cudaErrorInvalidValue;
+  if (kTier0 && (!p.t0.kind || !p.t0.ctr || (p.t0.so_buf && !p.t0.so_off)))
+    return (int)cudaErrorInvalidValue;
   // a build without the split runs only depths whose rows all fit on chip
   if (!kStackSplit && stack_rows<kSimd, kWin>(p.D) < p.D)
     return (int)cudaErrorInvalidValue;
@@ -2479,6 +2717,17 @@ int kernel_attrs(int D, int* out) {
   w_snap, w_rollbacks, w_entered, w_commits, w_uniform, sh_lo, sh_hi,     \
       sh_e2, sh_e3, sh_fr_ret_pc, sh_fr_fp, sh_fr_opbase, sh_glo, sh_ghi, \
       sh_mem
+// Tier 0's arguments (T0Args; null and 0 for a build without it): its
+// pointers after the optimistic ones, its ints after snap_max.
+#define WASM_T0_PTR_ARGS const int *t0k, int *t0_ctr, int *so_buf, int *so_off
+#define WASM_T0_INT_ARGS                                                  \
+  int t0_on, int t0_sw, int t0_seed, int t0_rmax_w, int t0_wmax_w,        \
+      int t0_rt_lo, int t0_rt_hi, int t0_mono_lo, int t0_mono_hi
+#define WASM_T0_FIELDS                                                    \
+  T0Args {                                                                \
+    t0k, t0_ctr, so_buf, so_off, t0_on, t0_sw, t0_seed, t0_rmax_w,        \
+        t0_wmax_w, t0_rt_lo, t0_rt_hi, t0_mono_lo, t0_mono_hi             \
+  }
 
 // A device counter array of this library into out, then set to 0 when
 // `clear`.
@@ -2525,10 +2774,10 @@ extern "C" int wasm_interp_launch(
     int* trap, int* retired, int* fuel, int* mem_pages, int* stack_lo,
     int* stack_hi, int* stack_e2, int* stack_e3, int* fr_ret_pc, int* fr_fp,
     int* fr_opbase, int* glob_lo, int* glob_hi, int* mem, WASM_OPT_ARGS,
-    int code_len, int nf, int n_brt, int tsize, int nv, int L, int D, int CD,
-    int NG, int W, int chunk, int fuel_on, int max_local_zeros,
-    int mem_pages_max, int bulk, int simd, int win, int opt, int snap_max,
-    void* stream) {
+    WASM_T0_PTR_ARGS, int code_len, int nf, int n_brt, int tsize, int nv,
+    int L, int D, int CD, int NG, int W, int chunk, int fuel_on,
+    int max_local_zeros, int mem_pages_max, int bulk, int simd, int win,
+    int opt, int snap_max, WASM_T0_INT_ARGS, void* stream) {
   Params p{hid, a, b, c, ilo, ihi, fent, fnpar, fnloc, ftop, ftyp, brt, tbl,
            pc, sp, fp, opbase, call_depth, trap, retired, fuel, mem_pages,
            stack_lo, stack_hi, fr_ret_pc, fr_fp, fr_opbase, glob_lo, glob_hi,
@@ -2536,6 +2785,7 @@ extern "C" int wasm_interp_launch(
            max_local_zeros, mem_pages_max, v128, stack_e2, stack_e3, nv,
            nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
            WASM_OPT_FIELDS, snap_max};
+  p.t0 = WASM_T0_FIELDS;
   constexpr bool kWin = WASM_MEM_WINDOW != 0;
   constexpr bool kOpt = WASM_OPTIMISTIC != 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -2543,10 +2793,17 @@ extern "C" int wasm_interp_launch(
     return (int)cudaErrorInvalidValue;
   if (simd && (stack_e2 == nullptr || stack_e3 == nullptr))
     return (int)cudaErrorInvalidValue;
+#if WASM_TIER0
+  // a build with the tier-0 handlers holds one instantiation
+  constexpr bool kB = WASM_T0_BULK != 0, kS = WASM_T0_SIMD != 0;
+  if ((bulk != 0) != kB || (simd != 0) != kS) return (int)cudaErrorInvalidValue;
+  return launch_kernel<kB, kS, NoFusion, kWin, kOpt>(p, st);
+#else
   if (bulk && simd) return launch_kernel<true, true, NoFusion, kWin, kOpt>(p, st);
   if (bulk) return launch_kernel<true, false, NoFusion, kWin, kOpt>(p, st);
   if (simd) return launch_kernel<false, true, NoFusion, kWin, kOpt>(p, st);
   return launch_kernel<false, false, NoFusion, kWin, kOpt>(p, st);
+#endif
 }
 
 // kernel_attrs of the instantiation a launch with these flags runs, at
@@ -2554,9 +2811,15 @@ extern "C" int wasm_interp_launch(
 extern "C" int wasm_interp_attrs(int bulk, int simd, int D, int* out) {
   constexpr bool kWin = WASM_MEM_WINDOW != 0;
   constexpr bool kOpt = WASM_OPTIMISTIC != 0;
+#if WASM_TIER0
+  constexpr bool kB = WASM_T0_BULK != 0, kS = WASM_T0_SIMD != 0;
+  if ((bulk != 0) != kB || (simd != 0) != kS) return (int)cudaErrorInvalidValue;
+  return kernel_attrs<kB, kS, NoFusion, kWin, kOpt>(D, out);
+#else
   if (bulk && simd) return kernel_attrs<true, true, NoFusion, kWin, kOpt>(D, out);
   if (bulk) return kernel_attrs<true, false, NoFusion, kWin, kOpt>(D, out);
   if (simd) return kernel_attrs<false, true, NoFusion, kWin, kOpt>(D, out);
   return kernel_attrs<false, false, NoFusion, kWin, kOpt>(D, out);
+#endif
 }
 #endif  // WASM_FUSED_BUILD

@@ -28,7 +28,8 @@
 //  - before a window miss would write a dirty way back (memwin.cuh), so
 //    the plane only ever holds validated words;
 //  - at memory.fill / memory.copy, after which the warp is off for the
-//    rest of the launch (they run per lane on the plane);
+//    rest of the launch (they run per lane on the plane), and at a tier-0
+//    host call in the same way (a uniform warp's only at random_get);
 //  - when the loop ends (chunk end, trap, fuel, done, the host-call park).
 // A clean check writes both dirty ways back and snapshots (below); a
 // dirty one restores the snapshot, drops the windows, halves the warp's
@@ -59,10 +60,15 @@
 // lanes) and whose lanes hold one state at the launch's start (the entry
 // compare `warp_uniform`, lane against lane 0: stack rows [0, sp) of every
 // stack plane, frame rows [0, cd), the globals and memory rows [0,
-// min(W, pages x 16384)) of the plane; rows nothing reads are not
-// compared) runs the same instructions on the same values in every lane
-// until the launch ends: lane identity is not visible to Wasm and a host
-// call parks the launch.  So lane 0's value is always the lane's own, no
+// min(W, pages x 16384)) of the plane and, with tier 0, every row of the
+// call counts t0_ctr and the stdout buffer's fill so_off; rows nothing
+// reads are not compared, nor the stdout buffer, which Wasm never reads)
+// runs the same instructions on the same values in every lane until the
+// launch ends: lane identity is not visible to Wasm, a host call parks
+// the launch, and the tier-0 calls that the kernel serves compute from
+// those planes alone, but random_get, whose stream is seeded by the
+// lane: there the warp commits and is off for the rest of the launch,
+// as at a bulk op.  So lane 0's value is always the lane's own, no
 // canary can be set and no rollback can happen.  Such a warp runs the
 // careful loop of its kOpt build (`WarpUniform`, its `on` set): the
 // careful decisions (no shuffle, no canary) with the leader's commit
@@ -344,6 +350,12 @@ __device__ __forceinline__ bool warp_uniform(const Params& p, int lane, int sp,
   for (int k = 0; k < 9 && same; ++k)
     if (rows[k] > 0) same = !rows_differ(planes[k], p.L, wbase, rows[k]);
   if (same && nm > 0) same = !rows_differ(p.mem, p.L, wbase, nm);
+  if constexpr (kTier0) {
+    // the tier-0 call counts (every row) and the stdout buffer's fill:
+    // what a clock or fd_write call reads besides memory
+    if (same) same = !rows_differ(p.t0.ctr, p.L, wbase, 4);
+    if (same && p.t0.so_off) same = !rows_differ(p.t0.so_off, p.L, wbase, 1);
+  }
   if (threadIdx.x == 0) {
     atomicAdd(&g_entry_counts[0], 1ull);
     atomicAdd(&g_entry_counts[1], (unsigned long long)(clock64() - t0));

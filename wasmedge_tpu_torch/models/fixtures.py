@@ -1453,3 +1453,182 @@ def vsub_args(lanes: int, seed: int = 0):
                                                              hi)]])
         out.append(got[:lanes].view(np.int64))
     return out
+
+
+# -- tier-0 host calls -----------------------------------------------------------
+
+TIER0_ZOO_WAT = """
+(module
+  (import "wasi_snapshot_preview1" "clock_time_get"
+    (func $clock (param i32 i64 i32) (result i32)))
+  (import "wasi_snapshot_preview1" "random_get"
+    (func $random (param i32 i32) (result i32)))
+  (import "wasi_snapshot_preview1" "sched_yield" (func $yield (result i32)))
+  (import "wasi_snapshot_preview1" "proc_exit" (func $exit (param i32)))
+  (import "wasi_snapshot_preview1" "fd_write"
+    (func $write (param i32 i32 i32 i32) (result i32)))
+  (memory 1 1)
+  (data (i32.const 320) "ab\\n")
+  ;; clock(id, ptr): two reads of clock id at ptr and ptr + 8; both errnos
+  (func (export "clock") (param $id i32) (param $p i32) (result i32)
+    (i32.add
+      (i32.mul (call $clock (local.get $id) (i64.const 1000) (local.get $p))
+               (i32.const 100))
+      (call $clock (local.get $id) (i64.const 0)
+                   (i32.add (local.get $p) (i32.const 8)))))
+  ;; random(ptr, len): len bytes at ptr, then at ptr + 100; both errnos
+  (func (export "random") (param $p i32) (param $n i32) (result i32)
+    (i32.add
+      (i32.mul (call $random (local.get $p) (local.get $n)) (i32.const 100))
+      (call $random (i32.add (local.get $p) (i32.const 100)) (local.get $n))))
+  ;; yield(n): n sched_yield calls; n plus their errnos
+  (func (export "yield") (param $n i32) (result i32) (local $i i32) (local $s i32)
+    (block $out (loop $top
+      (br_if $out (i32.ge_u (local.get $i) (local.get $n)))
+      (local.set $s (i32.add (local.get $s) (call $yield)))
+      (local.set $i (i32.add (local.get $i) (i32.const 1)))
+      (br $top)))
+    (i32.add (local.get $s) (local.get $n)))
+  ;; exit(x): proc_exit(x) on lanes with x % 3 == 0, else 2 x
+  (func (export "exit") (param $x i32) (result i32)
+    (if (i32.eqz (i32.rem_u (local.get $x) (i32.const 3)))
+      (then (call $exit (local.get $x))))
+    (i32.mul (local.get $x) (i32.const 2)))
+  ;; digit(x, n, fd): "lane " (the digit x % 10) "\\n" from the unaligned
+  ;; address 301, n times to fd; the last errno
+  (func (export "digit") (param $x i32) (param $n i32) (param $fd i32)
+        (result i32) (local $i i32) (local $e i32)
+    (i32.store (i32.const 64) (i32.const 301))
+    (i32.store (i32.const 68) (i32.const 7))
+    (i32.store8 (i32.const 301) (i32.const 108))
+    (i32.store8 (i32.const 302) (i32.const 97))
+    (i32.store8 (i32.const 303) (i32.const 110))
+    (i32.store8 (i32.const 304) (i32.const 101))
+    (i32.store8 (i32.const 305) (i32.const 32))
+    (i32.store8 (i32.const 306)
+      (i32.add (i32.const 48) (i32.rem_u (local.get $x) (i32.const 10))))
+    (i32.store8 (i32.const 307) (i32.const 10))
+    (block $out (loop $top
+      (br_if $out (i32.ge_u (local.get $i) (local.get $n)))
+      (local.set $e (call $write (local.get $fd) (i32.const 64) (i32.const 1)
+                                 (i32.const 32)))
+      (local.set $i (i32.add (local.get $i) (i32.const 1)))
+      (br $top)))
+    (i32.add (i32.mul (local.get $e) (i32.const 1000)) (i32.load (i32.const 32))))
+  ;; shapes(mode) of fd_write that park or fault, after one that does not:
+  ;; 0 two iovecs, 1 an unaligned iovec array, 2 a payload out of bounds
+  ;; (EFAULT in place), 3 nwritten out of bounds, 4 the iovec array out of
+  ;; bounds, 5 a payload above tier0_write_max
+  (func (export "shapes") (param $m i32) (result i32) (local $e i32)
+    (i32.store (i32.const 64) (i32.const 320))
+    (i32.store (i32.const 68) (i32.const 3))
+    (i32.store (i32.const 72) (i32.const 320))
+    (i32.store (i32.const 76) (i32.const 2))
+    (i32.store (i32.const 81) (i32.const 320))
+    (i32.store (i32.const 85) (i32.const 3))
+    (i32.store (i32.const 88) (i32.const 65530))
+    (i32.store (i32.const 92) (i32.const 16))
+    (i32.store (i32.const 96) (i32.const 320))
+    (i32.store (i32.const 100) (i32.const 300))
+    (local.set $e (call $write (i32.const 1) (i32.const 64) (i32.const 1)
+                               (i32.const 32)))
+    (local.set $e (i32.add (i32.mul (local.get $e) (i32.const 100))
+      (if (result i32) (i32.eqz (local.get $m))
+        (then (call $write (i32.const 1) (i32.const 64) (i32.const 2)
+                           (i32.const 32)))
+        (else (if (result i32) (i32.eq (local.get $m) (i32.const 1))
+          (then (call $write (i32.const 1) (i32.const 81) (i32.const 1)
+                             (i32.const 32)))
+          (else (if (result i32) (i32.eq (local.get $m) (i32.const 2))
+            (then (call $write (i32.const 1) (i32.const 88) (i32.const 1)
+                               (i32.const 32)))
+            (else (if (result i32) (i32.eq (local.get $m) (i32.const 3))
+              (then (call $write (i32.const 1) (i32.const 64) (i32.const 1)
+                                 (i32.const 65534)))
+              (else (if (result i32) (i32.eq (local.get $m) (i32.const 4))
+                (then (call $write (i32.const 1) (i32.const 65532)
+                                   (i32.const 1) (i32.const 32)))
+                (else (call $write (i32.const 1) (i32.const 96)
+                                   (i32.const 1) (i32.const 32))))))))))))))
+    (i32.add (i32.mul (local.get $e) (i32.const 1000)) (i32.load (i32.const 32))))
+  ;; uniform(p): a clock read and an fd_write served in place, then
+  ;; random_get(p, 16) and a fold of its bytes (every lane of a warp with
+  ;; one argument draws its own bytes)
+  (func (export "uniform") (param $p i32) (result i32)
+    (drop (call $clock (i32.const 1) (i64.const 0) (i32.const 512)))
+    (i32.store (i32.const 64) (i32.const 320))
+    (i32.store (i32.const 68) (i32.const 3))
+    (drop (call $write (i32.const 1) (i32.const 64) (i32.const 1)
+                       (i32.const 32)))
+    (drop (call $random (local.get $p) (i32.const 16)))
+    (i32.xor (i32.xor (i32.load (local.get $p))
+                      (i32.load (i32.add (local.get $p) (i32.const 4))))
+             (i32.xor (i32.load (i32.add (local.get $p) (i32.const 8)))
+                      (i32.load (i32.add (local.get $p) (i32.const 12))))))
+)
+"""
+
+TIER0_UNSAFE_WAT = """
+(module
+  (import "wasi_snapshot_preview1" "clock_time_get"
+    (func $clock (param i32 i64 i32) (result i32)))
+  (import "wasi_snapshot_preview1" "fd_write"
+    (func $write (param i32 i32 i32 i32) (result i32)))
+  (import "wasi_snapshot_preview1" "fd_close" (func $close (param i32) (result i32)))
+  (memory 1 1)
+  (data (i32.const 320) "safe?\\n")
+  ;; f(x): a clock read (served in place) and an fd_write that parks:
+  ;; fd_close makes the fd table something a guest can change
+  (func (export "f") (param $x i32) (result i32)
+    (i32.store (i32.const 64) (i32.const 320))
+    (i32.store (i32.const 68) (i32.const 6))
+    (i32.add (call $clock (i32.const 0) (i64.const 0) (i32.const 8))
+             (call $write (i32.const 1) (i32.const 64) (i32.const 1)
+                          (i32.const 32))))
+)
+"""
+
+
+def build_tier0_zoo() -> bytes:
+    """Every tier-0 WASI call in one module, an export each:
+    `clock(id, ptr)` (ids 0 and 1 served, 2 and 3 park, others EINVAL;
+    EFAULT past the end), `random(ptr, len)` (lengths up to
+    tier0_random_max served at any byte offset, longer ones park),
+    `yield(n)`, `exit(x)` (proc_exit where x % 3 == 0), `digit(x, n, fd)`
+    (a lane-dependent digit from an unaligned source, n times to fd: 1
+    and 2 served, others park), `shapes(mode)` (two iovecs, an unaligned
+    iovec array, faults and an oversized payload, after one served
+    write) and `uniform(p)` (a clock read and a write served in place,
+    then random_get, whose bytes differ by lane)."""
+    return parse_wat(TIER0_ZOO_WAT)
+
+
+def build_tier0_unsafe() -> bytes:
+    """`f(x)`: a clock read served in place and an fd_write that parks,
+    because the module also imports fd_close (`t0_fdwrite_safe` False)."""
+    return parse_wat(TIER0_UNSAFE_WAT)
+
+
+def tier0_cases(lanes: int, seed: int) -> dict:
+    """(export, per-lane args) of build_tier0_zoo's cases at `lanes`
+    lanes, from a seed: lane-dependent arguments over every outcome."""
+    rng = np.random.default_rng(seed)
+    lane = np.arange(lanes)
+
+    def pick(vals):
+        return np.asarray(vals, np.int64)[rng.integers(0, len(vals), lanes)]
+
+    return {
+        "clock": ("clock", [pick([0, 1, 0, 1, 2, 3, 7, -1]),
+                            pick([8, 13, 1000, 65528 - 8, 65524, 65530,
+                                  -4])]),
+        "random": ("random", [pick([400, 401, 402, 403, 1000, 65500,
+                                    -8]),
+                              pick([0, 1, 63, 64, 65, 5, 16, 33])]),
+        "yield": ("yield", [lane % 4]),
+        "exit": ("exit", [lane + 1]),
+        "digit": ("digit", [lane, 1 + lane % 3, pick([1, 1, 1, 2])]),
+        "digit_fd3": ("digit", [lane, np.full(lanes, 2), pick([1, 2, 3])]),
+        "shapes": ("shapes", [lane % 6]),
+        "uniform": ("uniform", [np.full(lanes, 700)]),
+    }

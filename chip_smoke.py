@@ -9,7 +9,9 @@ Phases:
                direct memory access and with the B4 window cache,
                csrc/memwin.cuh, with and without B3 optimistic
                convergence, csrc/optimistic.cuh; and the same four with
-               the tier-0 handlers, WASM_TIER0, one instantiation each)
+               the tier-0 handlers, WASM_TIER0, and with the table,
+               segment and tail-call handlers, WASM_TABLES, one
+               instantiation each)
                and, per module (WASI modules with tier 0 on and off),
                encoding, memory mode, optimistic or careful and stack
                split or not (WASM_STACK_SPLIT: deeper stacks than the
@@ -94,7 +96,19 @@ Phases:
                both sides at every launch, the host's cputime clocks and
                urandom fixed, a serve round and a stdout flush after
                every launch, every plane (t0_ctr, so_buf, so_off) and the
-               per-warp counts equal and stdout byte for byte.  Then, in this
+               per-warp counts equal and stdout byte for byte; tables,
+               segments, tail calls and weighted gas (table_fixtures):
+               every case of the table zoo (every table, segment,
+               tail-call and ref.func class, every trap they raise, a
+               grow past the capacity, segments used after a drop, lanes
+               of one warp calling one index of tables that differ, which
+               must roll back) per-op and in blocks (its super encoding
+               cut for the script's time), and the
+               tail-dispatch workload at 12 steps in both modes (per-op
+               and blocks; converged: every warp uniform) and with
+               weighted gas and a budget that runs out inside a block,
+               every plane (tab, tsize, edrop, ddrop) and the per-warp
+               counts after every launch.  Then, in this
                process, one 256-step launch of fib(30) x 4096 in each
                encoding, one converged memory.fill + memory.copy launch
                (also as PyTorch tensor calls, its warp passes counted),
@@ -105,8 +119,18 @@ Phases:
                kernel the main path runs and through the careful one,
                against the optimistic plain version on the card, and (but
                the bulk pair) once more with no warp entering, each with
-               its bound;
-  3. main    - at full size: fib(30) x 4096 through VM.execute_batch in the
+               its bound; one 256-step launch of the converged tail
+               dispatch x 4096 from its start the same way, and with
+               weighted gas and flat fuel (the gas kernel against its
+               plain version, the fuel it spent against its
+               instructions' weights);
+  3. main    - at full size: the tail-dispatch workload x 4096
+               (run(seed, 700,000), about 3e7 instructions a lane) in
+               both modes through VM.execute_batch, every lane equal to
+               the numpy model, the call depth 0 after every launch,
+               every converged warp entry uniform and no divergent one,
+               each careful too, and the converged run with flat fuel and
+               with weighted gas; fib(30) x 4096 through VM.execute_batch in the
                default encoding (B2 blocks), then per-op ("none") and with
                block_fusion False (B6), each once more under
                torch.profiler; a divergent fib mix x 4096; CoreMark(200)
@@ -136,7 +160,8 @@ Phases:
                blocks (both memory modes) and vloop in blocks run once
                more with optimistic False, profiled.  The 22 non-SIMD
                spec corpus files run on the card with the reference test's
-               depths, strict (7,068 / 0 / 432).  Every run sets the
+               depths, strict (7,155 / 0 / 345), the five table and
+               tail-call files each to its own counts.  Every run sets the
                launch counts to 0 before it and fails unless its kernels
                launched (with a memory, every launch ran the window cache
                or none did; every launch optimistic where the knob is on,
@@ -145,8 +170,8 @@ Phases:
                instructions and instructions per second, registers and
                spills of each build, the card's name and power limit, one
                JSON line of kernel records (with "mem_window", B4,
-               "optimistic", B3, and "tier0"), and last the device JSON
-               line.
+               "optimistic", B3, "tier0" and "tables"), and last the
+               device JSON line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.  Imports nothing of JAX or of the JAX package.
@@ -193,7 +218,14 @@ SPEC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 SIMD_WAST = os.path.join(SPEC_DIR, "simd.wast")
 # the non-SIMD batchable corpus with the reference test's depths
 # (tests/test_spec.py:77-82): passed, failed, skipped
-CORPUS_COUNTS = (7068, 0, 432)
+CORPUS_COUNTS = (7155, 0, 345)
+# the table and tail-call files of the corpus, (passed, failed, skipped)
+# each: the JAX package's batched runner's counts (its rule skips
+# table.wast and ref_types.wast: they mutate tables outside *_batch.wast)
+TABLE_CORPUS_COUNTS = {"table_batch.wast": (52, 0, 0),
+                       "tail_call_batch.wast": (20, 0, 0),
+                       "tail_call.wast": (15, 0, 1), "table.wast": (0, 0, 62),
+                       "ref_types.wast": (0, 0, 18)}
 CORPUS_DEPTHS = dict(call_stack_depth=2048, value_stack_depth=8192)
 
 
@@ -221,7 +253,7 @@ def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
     from wasmedge_tpu_torch.batch import fusegen
     from wasmedge_tpu_torch.batch.engine import BatchEngine
     from wasmedge_tpu_torch.batch.interp import device_tables
-    from wasmedge_tpu_torch.common.configure import Configure
+    from wasmedge_tpu_torch.common.configure import Configure, Proposal
     from wasmedge_tpu_torch.executor.instantiate import (
         instantiate, register_import_object)
     from wasmedge_tpu_torch.loader import Loader
@@ -229,6 +261,7 @@ def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
     from wasmedge_tpu_torch.validator import Validator
 
     conf = Configure()
+    conf.add_proposal(Proposal.TailCall)  # the tables fixtures' tail calls
     for k, v in knobs.items():
         setattr(conf.batch, k, v)
     mod = Validator(conf).validate(Loader(conf).parse_module(data))
@@ -249,7 +282,7 @@ def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
                                        optimistic=eng.optimistic,
                                        stack_depth=eng.cfg.value_stack_depth,
                                        t0kinds=eng.t0kinds,
-                                       t0=eng.tables.t0)
+                                       t0=eng.tables.t0, cost=eng.cost)
         finally:
             fusegen.MAX_INSTANCE_CASES = cap
     return eng, inst
@@ -293,7 +326,7 @@ def cpu_tables(eng):
     return device_tables(eng.img, "cpu", tb.fusion,
                          mem_window=tb.mem_window, optimistic=tb.optimistic,
                          stack_depth=eng.cfg.value_stack_depth,
-                         t0kinds=eng.t0kinds, t0=tb.t0)
+                         t0kinds=eng.t0kinds, t0=tb.t0, cost=eng.cost)
 
 
 def cpu_warps(eng):
@@ -493,6 +526,12 @@ def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs,
         if ran["optimistic"] != (0 if careful is None else launches):
             fail(f"{name}{tag}: {ran['optimistic']} of {ran['interp']} "
                  f"launches ran optimistic convergence")
+        # the builds with the table handlers and weighted gas, every launch
+        if ran["tables"] != (kernels if eng.tables.a3 else 0) or \
+                ran["gas"] != (kernels if eng.tables.gcum is not None and
+                               fuel is not None else 0):
+            fail(f"{name}{tag}: {ran['tables']} table and {ran['gas']} gas "
+                 f"launches of {ran['interp']}")
         stats = wk.stats() if wk is not None else {}
         ops = interp.bulk_counts(eng.tables) if eng.tables.has_bulk else {}
         if bulk == "warp":
@@ -1353,6 +1392,82 @@ def phase_tier0_kernel_vs_plain(fusion="none", only=None) -> int:
     return worst
 
 
+# Tables, segments, tail calls and weighted gas: the tail-dispatch jobs'
+# steps (12: a few launches of 64 steps) and fuel budget (runs out inside
+# a handler's block with tail_cost_table's weights)
+TAIL_SMALL_N = 12
+TAIL_FUEL = 412
+
+
+def table_fixtures(L: int) -> list:
+    """The table, segment, tail-call and weighted-gas fixtures at L lanes:
+    (name, module, export, args, steps per launch, fuel, knobs,
+    rollbacks, uniform, encodings).  Every case of
+    models.fixtures.table_cases on the table zoo (per-op and blocks: its
+    super encoding was cut to keep the script's time, PERF.md;
+    `agree` must roll back: lanes that call one index of tables that
+    differ), and the tail-dispatch workload at TAIL_SMALL_N steps in
+    both modes (per-op and blocks; "converged" every warp uniform and no
+    rollback, "divergent" none uniform), and with weighted gas and a
+    budget that runs out (blocks)."""
+    from wasmedge_tpu_torch.models.fixtures import (
+        TABLE_ZOO_CAP, build_table_zoo, build_tail_dispatch, table_cases,
+        tail_cost_table, tail_dispatch_args)
+
+    zoo = build_table_zoo()
+    knobs = dict(value_stack_depth=64, call_stack_depth=16,
+                 memory_pages_per_lane=1)
+    out = [(f"tables.{case}", zoo, func, args, 64, None,
+            dict(knobs, table_elems_per_lane=TABLE_ZOO_CAP),
+            True if case == "agree" else None, None, ("none", "blocks"))
+           for case, (func, args) in table_cases(L, SEED).items()]
+    tail = build_tail_dispatch()
+    for mode in ("converged", "divergent"):
+        args = tail_dispatch_args(L, mode, TAIL_SMALL_N)
+        uni = "all" if mode == "converged" else "none"
+        out.append((f"tables.tail_{mode}", tail, "run", args, 64, None, knobs,
+                    False if mode == "converged" else None, uni,
+                    ("none", "blocks")))
+        out.append((f"tables.tail_gas_{mode}", tail, "run", args, 64,
+                    TAIL_FUEL, dict(knobs, cost_table=tail_cost_table()),
+                    False if mode == "converged" else None, uni,
+                    ("blocks",)))
+    return out
+
+
+def table_builds() -> list:
+    """The tables (CPU) of the table, segment, tail-call and weighted-gas
+    builds the script runs: the zoo's and the tail-dispatch jobs' (each
+    encoding, B3 mode and memory mode), and the main path's tail dispatch
+    (blocks, the default depths, optimistic and careful, and with
+    weighted gas)."""
+    from wasmedge_tpu_torch.models.fixtures import tail_cost_table
+
+    out = []
+    for name, data, _, _, _, fuel, kn, _, _, fusions in table_fixtures(2):
+        for fusion in fusions:
+            for opt in (None, False):
+                for _, (eng, _) in memory_modes(lambda m: make_engine(
+                        data, 2, device="cpu", fusion=fusion, mem_hbm=m,
+                        optimistic=opt, fuel_per_launch=fuel, **kn)):
+                    out.append(eng.tables)
+    out += [e.tables for e in tail_engines(2, device="cpu")]
+    out.append(tail_engines(2, device="cpu", fuel_per_launch=1,
+                            cost_table=tail_cost_table())[0].tables)
+    return out
+
+
+def table_jobs() -> list:
+    """kernel_vs_plain jobs of the table fixtures, one per fixture and
+    encoding: every plane (tab, tsize, edrop, ddrop included), the window
+    counts and the per-warp counts after every launch, both memory modes,
+    optimistic with the careful kernel beside it."""
+    return [("kernel_vs_plain", (name, data, func, args, chunk, fuel, knobs),
+             dict(fusion=enc, rollbacks=rb, uniform=uni))
+            for name, data, func, args, chunk, fuel, knobs, rb, uni, encs
+            in table_fixtures(KERNEL_LANES) for enc in encs]
+
+
 def time_launch(fn, state, reps: int):
     """Median, 25th and 75th percentile ms of fn(state_copy) over reps
     (CUDA events, a fresh copy of the state each time)."""
@@ -1731,7 +1846,8 @@ def run_vm(vm, func, args, fusion=None):
                                mem_window=eng.mem_window,
                                optimistic=eng.optimistic,
                                stack_depth=eng.cfg.value_stack_depth,
-                               t0kinds=eng.t0kinds, t0=eng.tables.t0)
+                               t0kinds=eng.t0kinds, t0=eng.tables.t0,
+                               cost=eng.cost)
     return eng.run(func, list(args), max_steps=10**9), eng
 
 
@@ -1822,6 +1938,7 @@ def report_main(label, res_launches_wall_ev_counts, retired) -> dict:
           f"{'; windows ' + str(counts['window_counts']) if counts['window_counts'] else ''}",
           flush=True)
     return dict(encoding=counts["encoding"], launches=launches,
+                tables_launches=counts["tables"], gas_launches=counts["gas"],
                 block_launches=counts["block"],
                 super_launches=counts["super"], op_launches=counts["op"],
                 window_launches=counts["window"],
@@ -2357,10 +2474,33 @@ def phase_spec_corpus():
     for k in interp.LAUNCHES:
         interp.LAUNCHES[k] = 0
     t0 = time.perf_counter()
-    rep = run_corpus_batched(files, device="cuda", conf=corpus_conf())
+    rest = [f for f in files if os.path.basename(f) not in TABLE_CORPUS_COUNTS]
+    rep = run_corpus_batched(rest, device="cuda", conf=corpus_conf())
+    tables_launches = interp.LAUNCHES["tables"]
+    # the table and tail-call files one by one: each its own counts
+    per_file = {}
+    for f in files:
+        name = os.path.basename(f)
+        if name not in TABLE_CORPUS_COUNTS:
+            continue
+        r = run_corpus_batched([f], device="cuda", conf=corpus_conf())
+        per_file[name] = (r.passed, r.failed, r.skipped)
+        print(f"  {name} on the card: {r.passed} passed, {r.failed} failed, "
+              f"{r.skipped} skipped", flush=True)
+        if per_file[name] != TABLE_CORPUS_COUNTS[name]:
+            for x in r.failures[:10]:
+                print(f"  {x}", flush=True)
+            fail(f"{name} on the card: {per_file[name]}, expected "
+                 f"{TABLE_CORPUS_COUNTS[name]}")
+        rep.passed += r.passed
+        rep.failed += r.failed
+        rep.skipped += r.skipped
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(interp.LAUNCHES)
+    if counts["tables"] == tables_launches:
+        fail("the table and tail-call corpus files never launched a build "
+             "with the table handlers")
     for f in rep.failures[:10]:
         print(f"  {f}", flush=True)
     got = (rep.passed, rep.failed, rep.skipped)
@@ -2377,7 +2517,9 @@ def phase_spec_corpus():
           f"launches, all optimistic, wall {wall:.3f} s", flush=True)
     return dict(files=len(files), passed=rep.passed, failed=rep.failed,
                 skipped=rep.skipped, launches=counts["interp"],
-                optimistic_launches=counts["optimistic"], wall_s=wall)
+                optimistic_launches=counts["optimistic"],
+                tables_launches=counts["tables"], table_files=per_file,
+                wall_s=wall)
 
 
 def retired_model(vm, func="vloop", n_small=(1, 2)):
@@ -2750,6 +2892,199 @@ def phase_time_tier0() -> dict:
                 calls=calls, bound_ms=bound_ms, bound_bytes=bound_bytes,
                 bound_by="bytes", max_abs_err=err,
                 warps=w_k.stats(), uniform=int(w_k.uniform.sum()))
+
+
+def tail_engines(L: int, **knobs):
+    """The main path's tail-dispatch engines at L lanes (B2 blocks,
+    windows, the default depths): optimistic and careful."""
+    from wasmedge_tpu_torch.models.fixtures import build_tail_dispatch
+
+    return tuple(make_engine(build_tail_dispatch(), L, optimistic=opt,
+                             **knobs)[0] for opt in (None, False))
+
+
+def phase_time_tables() -> dict:
+    """The tables record: one launch of TIMED_STEPS steps of the converged
+    tail dispatch x MAIN_LANES from its initial state (run's set-up:
+    memory.init, data.drop, table.init, elem.drop, table.set, table.grow;
+    then handler steps, each a return_call_indirect through the lane's
+    table) through the main path's build, its careful twin and the plain
+    version (time_opt_and_careful: every plane and the per-warp counts
+    equal, every warp uniform); the same launch with weighted gas
+    (tail_cost_table, a budget that never runs out) and with flat fuel,
+    the gas kernel against its plain version.  The bound is the bytes the
+    launch must move: the control planes and stack rows below the deepest
+    sp read and written once, per lane the 256 program bytes memory.init
+    writes, the table rows and size it writes and the two dropped flags,
+    and once the segments it reads and the code tables."""
+    from wasmedge_tpu_torch.batch import interp, interp_ref
+    from wasmedge_tpu_torch.batch.engine import CONTROL_FIELDS
+    from wasmedge_tpu_torch.models.fixtures import (
+        tail_cost_table, tail_dispatch_args)
+
+    L, chunk = MAIN_LANES, TIMED_STEPS
+    eng, ceng = tail_engines(L)
+    args = tail_dispatch_args(L, "converged")
+    st0 = eng.initial_state(eng.inst.exports["run"][1], args)
+    t, out_k = time_opt_and_careful(eng, ceng, st0, chunk,
+                                    "tail dispatch, converged")
+    retired = int(out_k.retired.sum())
+    counts, max_sp, max_cd = launch_mix(ceng.tables, st0, chunk)
+    if int(counts.sum()) != retired or max_cd != 0:
+        fail(f"tail dispatch launch mix: {int(counts.sum())} instructions "
+             f"against {retired} retired, deepest call depth {max_cd}")
+    tb = ceng.tables
+    touched = 4 * L * (2 * max_sp + len(CONTROL_FIELDS))
+    per_lane = 256 + 4 * 9 + 4 + 4 + 4  # program, 9 rows, tsize, 2 flags
+    segments = 4 * (tb.efl.numel() + tb.dwords.numel())
+    table_bytes = sum(4 * t_.numel() for t_ in vars(tb).values()
+                      if isinstance(t_, torch.Tensor))
+    bytes_ = 2 * touched + L * per_lane + segments + table_bytes
+    bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = retired * OPS_PER_INSTR / OPS_PER_S * 1e3
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+    # weighted gas and flat fuel, the same launch
+    big = (1 << 31) - 1
+    geng = tail_engines(L, fuel_per_launch=big,
+                        cost_table=tail_cost_table())[0]
+    feng = tail_engines(L, fuel_per_launch=big)[0]
+    sg = geng.initial_state(geng.inst.exports["run"][1], args)
+    gas = {}
+    for k, e in (("gas", geng), ("fuel", feng)):
+        w = new_warps(e)
+        e_ms, _, _, out = time_launch(
+            lambda s: interp.run_chunk(e.tables, s, chunk, True, w), sg, 21)
+        gas[k] = (e_ms, out)
+    plain = sg.clone()
+    wp = new_warps(geng)
+    interp_ref.run_chunk(geng.tables, plain, chunk, True, wp)
+    wg = new_warps(geng)
+    one = sg.clone()
+    interp.run_chunk(geng.tables, one, chunk, True, wg)
+    torch.cuda.synchronize()
+    gerr = max(max_abs_err(one, plain), warp_err(wg, wp))
+    spent = int((sg.fuel.to(torch.int64) - one.fuel.to(torch.int64)).sum())
+    # the launch's instructions (the budget never runs out) at their
+    # weights
+    want = int((counts * geng.cost.astype(np.int64)).sum())
+    if gerr != 0 or spent != want or spent <= retired:
+        fail(f"weighted-gas tail dispatch launch: kernel != plain (max abs "
+             f"err {gerr}) or fuel spent {spent}, not the {want} its "
+             f"{retired} instructions weigh")
+    print(f"  tail dispatch launch: retired {retired}, bound {bound_ms:.6f} "
+          f"ms by {by} ({bytes_} B: stack rows {max_sp}, code tables "
+          f"{table_bytes} B, segments {segments} B; operations "
+          f"{bound_ops_ms:.6f} ms); weighted gas {gas['gas'][0]:.4f} ms, "
+          f"flat fuel {gas['fuel'][0]:.4f} ms, no fuel {t['ms']:.4f} ms; "
+          f"gas kernel equal to plain, {spent} fuel units for "
+          f"{int(one.retired.sum())} instructions", flush=True)
+    return dict(t, bound_ms=bound_ms, careful_bound_ms=bound_ms,
+                bound_by=by, retired=retired, bound_bytes=bytes_,
+                gas_ms=gas["gas"][0], fuel_ms=gas["fuel"][0],
+                gas_max_abs_err=gerr, gas_fuel_spent=spent,
+                max_abs_err=max(t["max_abs_err"], gerr))
+
+
+def phase_main_tables() -> dict:
+    """The tail-dispatch workload through VM.execute_batch at full size:
+    run(seed, TAIL_DISPATCH_N) x MAIN_LANES (about 3e7 instructions a
+    lane) with the defaults (B2 blocks, windows, optimistic) in both
+    modes, every lane equal to the numpy model, the call depth 0 after
+    every launch (tail calls push no frame), every converged warp entry
+    uniform and no divergent one; each profiled and once more careful
+    (profiled too for the converged run; the divergent careful run's
+    CUDA events over its launches, to keep the script's time);
+    the converged run once more with a fuel budget that never runs out,
+    flat and with weighted gas (tail_cost_table), equal to the model."""
+    from wasmedge_tpu_torch.batch import engine as engine_mod
+    from wasmedge_tpu_torch.common.configure import Configure, Proposal
+    from wasmedge_tpu_torch.models.fixtures import (
+        TAIL_DISPATCH_N, build_tail_dispatch, tail_cost_table,
+        tail_dispatch_args, tail_dispatch_model)
+    from wasmedge_tpu_torch.vm.vm import VM
+
+    L = MAIN_LANES
+    out = {}
+    depth = [0]
+    orig = engine_mod.run_chunk
+
+    def probe(tables, st, *a, **k):
+        orig(tables, st, *a, **k)
+        depth[0] = max(depth[0], int(st.call_depth.max()))
+
+    def vm_of(**knobs):
+        conf = Configure()
+        conf.add_proposal(Proposal.TailCall)
+        conf.batch.lanes = L
+        for k, v in knobs.items():
+            setattr(conf.batch, k, v)
+        vm = VM(conf)
+        vm.load_wasm(build_tail_dispatch())
+        vm.validate()
+        vm.instantiate()
+        return vm
+
+    vm = vm_of()
+    for mode in ("converged", "divergent"):
+        args = tail_dispatch_args(L, mode)
+        want = tail_dispatch_model(args[0], TAIL_DISPATCH_N)
+
+        def check(res, mode=mode, want=want):
+            got = res.results[0].astype(np.int64) & 0xFFFFFFFF
+            if not (res.trap == -1).all() or not (got == want).all():
+                fail(f"tail dispatch {mode} x {L}: traps "
+                     f"{sorted(set(res.trap.tolist()))}, "
+                     f"{int((got != want).sum())} lanes off the model")
+
+        need = ("interp", "block", "tables", "window")
+        depth[0] = 0
+        engine_mod.run_chunk = probe
+        try:
+            run = run_main(vm, "run", args, 1 << 20, need)
+        finally:
+            engine_mod.run_chunk = orig
+        check(run[0])
+        if depth[0] != 0:
+            fail(f"tail dispatch {mode}: call depth {depth[0]} after a "
+                 f"launch (a tail call pushes no frame)")
+        retired = int(run[0].retired.astype(np.int64).sum())
+        label = f"tail dispatch {mode} x {L}, n {TAIL_DISPATCH_N}"
+        rec = report_main(f"{label}, equal to the numpy model, "
+                          f"{retired / L:.4g} instr a lane", run, retired)
+        check_uniform(rec, f"tail dispatch {mode}", mode == "converged")
+        rec["profile"] = profile_run(vm, "run", args, retired)
+        if mode == "converged":
+            rec["careful"] = careful_run(vm, "run", args, 1 << 20, need,
+                                         check, label)
+        else:
+            vm.conf.batch.optimistic = False
+            try:
+                run = run_main(vm, "run", args, 1 << 20, need)
+            finally:
+                vm.conf.batch.optimistic = None
+            check(run[0])
+            rec["careful"] = report_main(f"{label}, optimistic False", run,
+                                         retired)
+        out[mode] = rec
+    args = tail_dispatch_args(L, "converged")
+    want = tail_dispatch_model(args[0], TAIL_DISPATCH_N)
+    for key, knobs in (("fuel", {}), ("gas", dict(
+            cost_table=tail_cost_table()))):
+        vmg = vm_of(fuel_per_launch=(1 << 31) - 1, **knobs)
+        run = run_main(vmg, "run", args, 1 << 20,
+                       ("interp", "block", "tables") + (
+                           ("gas",) if key == "gas" else ()))
+        got = run[0].results[0].astype(np.int64) & 0xFFFFFFFF
+        if not (run[0].trap == -1).all() or not (got == want).all():
+            fail(f"tail dispatch with {key}: a lane is off the model")
+        retired = int(run[0].retired.astype(np.int64).sum())
+        rec = report_main(f"tail dispatch converged x {L} with "
+                          f"{'weighted gas' if key == 'gas' else 'flat fuel'}"
+                          f", equal to the model", run, retired)
+        rec["profile"] = profile_run(vmg, "run", args, retired)
+        out[key] = rec
+    return out
 
 
 def phase_time_bulk():
@@ -3144,6 +3479,7 @@ def prebuild() -> dict:
                             fusion=fusion, mem_hbm=m, optimistic=opt,
                             value_stack_depth=64, tier0_hostcalls=t0)):
                         tables.append(eng.tables)
+    tables += table_builds()
     tables += corpus_tables([SIMD_WAST])
     tables += corpus_tables(corpus_files(), corpus_conf())
     # the main path's fib(30) and vloop blocks builds, kOpt and careful,
@@ -3252,9 +3588,10 @@ def main() -> int:
                   "opt": opt_jobs() + host_jobs(
                       "none", ("wasi_echo", "window_host")),
                   "tier0": tier0_jobs("none") + tier0_jobs("blocks")
-                  + tier0_jobs("super")})
+                  + tier0_jobs("super"), "tables": table_jobs()})
     worst, simd_worst, fused_worst, opt_worst, rows_worst, t0_worst = (
         w["scalar"], w["simd"], w["fused"], w["opt"], w["rows"], w["tier0"])
+    tables_worst = w["tables"]
     t_jobs = time.perf_counter() - t0
     timing = {f: phase_time_one_launch(f) for f in ("none", "blocks", "super")}
     bulk_timing = phase_time_bulk()
@@ -3262,11 +3599,12 @@ def main() -> int:
     simd_op_timing = phase_time_simd_launch("none")
     mem_timing = phase_time_mem_launch()
     t0_timing = phase_time_tier0()
+    tables_timing = phase_time_tables()
     t_kernel = time.perf_counter() - t0
     print(f"phase kernel_vs_plain: {t_kernel:.2f} s (comparisons "
           f"{t_jobs:.2f} s on {WORKERS} workers), max abs err "
-          f"{max(worst, simd_worst, fused_worst, opt_worst, rows_worst, t0_worst)}"
-          f" (tier 0 {t0_worst}; "
+          f"{max(worst, simd_worst, fused_worst, opt_worst, rows_worst, t0_worst, tables_worst)}"
+          f" (tier 0 {t0_worst}; tables {tables_worst}; "
           f"warp bulk pass and stack rows {rows_worst}; window cache "
           f"{WINDOW_WORST[0]}; optimistic against plain "
           f"{OPT_WORST['plain']}, against careful below sp "
@@ -3291,6 +3629,7 @@ def main() -> int:
           f"{main_out['fib30_none']['wall_s']:.3f} s; blocks "
           f"{main_out['fib30']['wall_s']:.3f} s, super "
           f"{main_out['fib30_super']['wall_s']:.3f} s", flush=True)
+    main_out["tables"] = phase_main_tables()
     main_out.update(phase_main_wasi())
     main_out["bulk"] = phase_main_bulk()
     main_out["simd_corpus"] = phase_simd_corpus()
@@ -3527,10 +3866,47 @@ def main() -> int:
         "timed_launch": {"workload": f"echo({ECHO_ITERS})",
                          "lanes": MAIN_LANES, "encoding": "blocks"},
     }
+    # Tables, segments, tail calls and weighted gas: the handlers of the
+    # main path's tail-dispatch build (a3_step, the tail calls and
+    # call_indirect through the lane's table); "ms", "careful_ms",
+    # "plain_ms" and "bound_ms" are one TIMED_STEPS-step launch of the
+    # converged workload x MAIN_LANES from its start, "gas_ms" / "fuel_ms"
+    # the same launch with weighted gas / flat fuel; "launches" counts the
+    # main path's converged run's launches of the build with the table
+    # handlers, "main_ms_per_launch" their kernel device time, and the
+    # divergent, careful and gas runs' beside it
+    tt = main_out["tables"]
+    tables_record = launch_record(
+        "tables", "wasmedge_tpu_torch/csrc/interp.cu",
+        "wasmedge_tpu/batch/engine.py:1156-1307 and :1464-1505 (the JAX "
+        "SIMT engine's table, segment and tail-call handlers; the Pallas "
+        "kernel has no counterpart: pallas_engine.py:578-595 sends such "
+        "images to the SIMT engine)",
+        tt["converged"]["tables_launches"], tables_timing, tables_worst,
+        tt["converged"]["profile"],
+        careful_main_ms_per_launch=per_launch(
+            tt["converged"]["careful"]["profile"]),
+        divergent_launches=tt["divergent"]["tables_launches"],
+        divergent_main_ms_per_launch=per_launch(tt["divergent"]["profile"]),
+        divergent_careful_main_ms_per_launch=(
+            tt["divergent"]["careful"]["event_ms"]
+            / tt["divergent"]["careful"]["launches"]),
+        uniform_entries={k: dict(uniform=tt[k]["uniform"],
+                                 entered=tt[k]["warps"]["entered"])
+                         for k in ("converged", "divergent")},
+        gas_ms=tables_timing["gas_ms"], fuel_ms=tables_timing["fuel_ms"],
+        gas_launches=tt["gas"]["gas_launches"],
+        gas_main_ms_per_launch=per_launch(tt["gas"]["profile"]),
+        fuel_main_ms_per_launch=per_launch(tt["fuel"]["profile"]),
+        timed_launch={"workload": "tail dispatch, converged",
+                      "lanes": MAIN_LANES, "steps": TIMED_STEPS,
+                      "encoding": "blocks",
+                      "retired": tables_timing["retired"]})
     print(json.dumps({"phases_s": {"build": t_build, "kernel": t_kernel,
                                    "main": t_main},
                       "tier0_fixtures": TIER0_FIXTURES,
                       "tier0_launch": t0_timing,
+                      "tables_launch": tables_timing,
                       "registers": per_op_regs, "attributes": attrs,
                       "geometry": geometry, "bulk_fixtures": BULK_FIXTURES,
                       "window_fixtures": WINDOW_FIXTURES,
@@ -3543,7 +3919,7 @@ def main() -> int:
           flush=True)
     print(json.dumps({"kernels": [record, block_record, super_record,
                                   bulk_record, simd_record, window_record,
-                                  opt_record, t0_record]}),
+                                  opt_record, t0_record, tables_record]}),
           flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -137,13 +137,18 @@ def _refused(body, memory=True, table=False, passive=None):
 
 
 def test_classes_outside_the_slice_are_refused_by_name():
-    make = _refused([("i32.const", 0), ("i32.const", 0), ("i32.const", 2),
-                     ("memory.init", 0, 0)], passive=b"ab")
-    with pytest.raises(NotImplementedError, match="CLS_MEMINIT"):
-        make()
-    make = _refused([("table.size", 0), "drop"], memory=False, table=True)
-    with pytest.raises(NotImplementedError, match="CLS_TABLE_SIZE"):
-        make()
+    """Every class of the encoding runs now (the table, segment and
+    tail-call classes since the tables slice): memory.init and table.size
+    build an engine, and a class beyond CLS_REFFUNC is refused by name."""
+    from wasmedge_tpu_torch.batch.image import SLICE_MAX_CLASS, slice_refusal
+
+    eng = _refused([("i32.const", 0), ("i32.const", 0), ("i32.const", 2),
+                    ("memory.init", 0, 0)], passive=b"ab")()
+    assert eng.tables.a3 and eng.img.cls.max() == SLICE_MAX_CLASS - 4
+    eng = _refused([("table.size", 0), "drop"], memory=False, table=True)()
+    assert eng.tables.a3 and not eng.tables.tmut
+    eng.img.cls[0] = SLICE_MAX_CLASS + 1
+    assert "(51)" in slice_refusal(eng.img)
 
 
 def test_imports_and_start_functions_are_refused():

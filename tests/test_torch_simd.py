@@ -231,9 +231,11 @@ def test_images_without_v128_keep_two_planes():
     st = eng.initial_state(inst.exports["fib"][1], [np.full(8, 5)])
     assert not eng.tables.has_simd
     assert st.stack_e2 is None and st.stack_e3 is None
-    # (fib imports nothing: no tier-0 planes either)
+    # (fib imports nothing and has no table: no tier-0 or table planes
+    # either)
     assert set(st.planes()) == set(st.FIELDS) - {
-        "stack_e2", "stack_e3", "t0_ctr", "so_buf", "so_off"}
+        "stack_e2", "stack_e3", "t0_ctr", "so_buf", "so_off", "tab",
+        "tsize", "edrop", "ddrop"}
     clone = st.clone()
     assert clone.stack_e2 is None and st.to_numpy()["stack_e3"] is None
 

@@ -2,17 +2,18 @@
 
 `wasmedge_tpu_torch.spec.run_corpus_batched(paths, device, conf)` runs
 each `.wast` file of `tests/spec/` but `simd.wast` (its own file,
-`test_torch_spec_simd.py`) and `call_gen.wast` (54 s on the CPU: its own
-file, `test_torch_spec_corpus_call_gen.py`) with the reference test's
+`test_torch_spec_simd.py`), `call_gen.wast` (54 s on the CPU: its own
+file, `test_torch_spec_corpus_call_gen.py`) and the table and tail-call
+files (`test_torch_spec_tables.py`) with the reference test's
 `conf` (`tests/test_spec.py:77-82`: 2048 frames and 8192 value slots, so
 that call.wast's `even(1000)` fits) and `optimistic` on, its default:
 one assertion per lane, so every export diverges inside its warps and
 rolls back.  Each file must fail nothing and pass and skip the counts
-measured (7,068 passed, 0 failed, 432 skipped over the 22 files with
-call_gen.wast); the skipped assertions are those of stateful modules
-(memories, globals) and of modules with tables or tail calls, which the
-port does not batch yet.  Matching is strict: `f32_subnormal.wast`,
-which the reference's batched runner skips, passes 162 of 162.
+measured (7,155 passed, 0 failed, 345 skipped over the 22 files with
+call_gen.wast and the table files); the skipped assertions are those of
+stateful modules (memories, globals, tables mutated outside the
+`*_batch.wast` files).  Matching is strict: `f32_subnormal.wast`, which
+the reference's batched runner skips, passes 162 of 162.
 """
 
 import os
@@ -42,11 +43,6 @@ COUNTS = {
     "memory.wast": (0, 63),
     "numeric_conversions.wast": (1004, 0),
     "official_style.wast": (11, 9),
-    "ref_types.wast": (0, 18),
-    "table.wast": (0, 62),
-    "table_batch.wast": (0, 52),
-    "tail_call.wast": (0, 16),
-    "tail_call_batch.wast": (0, 20),
 }
 
 
@@ -76,10 +72,16 @@ def test_corpus_file_passes_strictly(name):
 
 
 def test_the_counts_cover_the_non_simd_corpus():
+    from tests.test_torch_spec_tables import TABLE_COUNTS
+
     files = {f for f in os.listdir(SPEC) if f.endswith(".wast")}
-    assert files - set(COUNTS) == {"simd.wast", "call_gen.wast"}
-    assert sum(p for p, _ in COUNTS.values()) + 307 == 7068
-    assert sum(s for _, s in COUNTS.values()) == 432
+    assert not set(COUNTS) & set(TABLE_COUNTS)
+    assert files - set(COUNTS) - set(TABLE_COUNTS) == {"simd.wast",
+                                                       "call_gen.wast"}
+    counts = list(COUNTS.values()) + [(p, s) for p, _, s in
+                                      TABLE_COUNTS.values()]
+    assert sum(p for p, _ in counts) + 307 == 7155
+    assert sum(s for _, s in counts) == 345
 
 
 def test_conf_is_copied_and_its_depths_are_used():

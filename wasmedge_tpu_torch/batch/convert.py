@@ -19,9 +19,10 @@ from wasmedge_tpu_torch.batch.image import DeviceImage
 
 def image_from_reference(planes: dict, scalars: dict) -> DeviceImage:
     """`planes`: the reference image's numpy fields by name
-    (DeviceImage.NUMPY_FIELDS, the `v128` table included); `scalars`: its
-    mem_pages_init, mem_pages_max, has_memory, max_local_zeros, code_len
-    and has_simd.  An image
+    (DeviceImage.NUMPY_FIELDS, the `v128` table and the segment
+    snapshots included); `scalars`: its DeviceImage.SCALAR_FIELDS (the
+    table's declared maximum, capacity, initial size and mutation flags
+    included).  An image
     with import stubs comes across whole (code_len counts the stubs);
     the reference's tier-0 `t0kind` plane is not a field here and is
     ignored, since this port parks every host call at its stub."""
@@ -32,8 +33,7 @@ def image_from_reference(planes: dict, scalars: dict) -> DeviceImage:
     kw["v128"] = kw["v128"].reshape(-1, 4)
     for f in DeviceImage.SCALAR_FIELDS:
         v = scalars[f]
-        kw[f] = bool(v) if f in ("has_memory", "has_simd",
-                                 "t0_fdwrite_safe") else int(v)
+        kw[f] = bool(v) if f in DeviceImage.BOOL_FIELDS else int(v)
     if kw["code_len"] != kw["cls"].shape[0]:
         raise ValueError(f"code_len {kw['code_len']} != "
                          f"{kw['cls'].shape[0]} code cells")

@@ -21,6 +21,16 @@ the host just before it (`t0_time_planes`); the buffered stdout is
 flushed before every serve round and at the end of the run, and the
 `t0_ctr` delta of the run is folded into `hostcall_stats`.
 
+Tables, segments and tail calls (the reference's r05 planes,
+`r05_state_planes`): an image that mutates its table gives every lane its
+own table `tab [table_cap, lanes]` (funcidx+1, 0 = null) and size `tsize
+[lanes]`; one with table.init / elem.drop its element segments' dropped
+flags `edrop [n_elem, lanes]`, one with memory.init / data.drop its data
+segments' `ddrop [n_data, lanes]` (each None otherwise).  `table_cap` is
+the declared maximum clamped by `table_elems_per_lane` (table.grow past
+it returns -1).  With fuel on and a `cost_table` whose weights are not
+all 1, each instruction costs its opcode's weight (`cost_plane`).
+
 State layout is the reference's, lane fastest: value stacks
 `[value_stack_depth, lanes]` (two planes, lo and hi, and two more, e2
 and e3, when the image holds v128 ops), frames `[call_stack_depth,
@@ -41,13 +51,15 @@ import torch
 from wasmedge_tpu_torch.batch.hostcall import (
     flush_stdout_buffers, serve_batch_state)
 from wasmedge_tpu_torch.batch.image import (
-    T0_FD_WRITE, T0_NEEDS_MEMORY, TRAP_DONE, TRAP_HOSTCALL, batchability,
-    build_device_image, slice_refusal)
+    CLS_DATA_DROP, CLS_ELEM_DROP, CLS_MEMINIT, CLS_TABLE_GROW,
+    CLS_TABLE_INIT, T0_FD_WRITE, T0_NEEDS_MEMORY, TRAP_DONE, TRAP_HOSTCALL,
+    batchability, build_device_image, slice_refusal)
 from wasmedge_tpu_torch.batch.interp import device_tables, run_chunk
 from wasmedge_tpu_torch.batch.memwin import HBM_WINDOW_ROWS
 from wasmedge_tpu_torch.batch.optimistic import WarpState
 from wasmedge_tpu_torch.batch.tier0 import t0_statics
 from wasmedge_tpu_torch.common.configure import Configure
+from wasmedge_tpu_torch.common.opcodes import Op
 from wasmedge_tpu_torch.common.types import ValType
 
 PAGE_WORDS = 65536 // 4
@@ -64,7 +76,13 @@ SIMD_FIELDS = ("stack_e2", "stack_e3")
 # its fill in words [L]; None when tier 0 is off (so_buf and so_off also
 # when the module's fd_write is not served in place)
 T0_FIELDS = ("t0_ctr", "so_buf", "so_off")
-OPTIONAL_FIELDS = SIMD_FIELDS + T0_FIELDS
+# tables and segments: each lane's table [table_cap, L] and its size [L]
+# (an image that mutates its table), the dropped flags of the element
+# segments [n_elem, L] (table.init / elem.drop) and of the data segments
+# [n_data, L] (memory.init / data.drop); None when the image has no use
+# for them (the reference's r05_state_planes)
+A3_FIELDS = ("tab", "tsize", "edrop", "ddrop")
+OPTIONAL_FIELDS = SIMD_FIELDS + T0_FIELDS + A3_FIELDS
 T0_CTR_ROWS = 4
 
 
@@ -73,7 +91,8 @@ class BatchState:
     """Per-lane interpreter state (the reference BatchState's fields that
     this slice uses), int32 tensors on one device; `stack_e2` and
     `stack_e3` are None unless the image holds v128 ops, the tier-0
-    planes (`T0_FIELDS`) None unless tier 0 is on."""
+    planes (`T0_FIELDS`) None unless tier 0 is on, the table and segment
+    planes (`A3_FIELDS`) None unless the image uses them."""
 
     pc: torch.Tensor
     sp: torch.Tensor
@@ -97,6 +116,10 @@ class BatchState:
     t0_ctr: Optional[torch.Tensor] = None
     so_buf: Optional[torch.Tensor] = None
     so_off: Optional[torch.Tensor] = None
+    tab: Optional[torch.Tensor] = None
+    tsize: Optional[torch.Tensor] = None
+    edrop: Optional[torch.Tensor] = None
+    ddrop: Optional[torch.Tensor] = None
 
     FIELDS = CONTROL_FIELDS + PLANE_FIELDS + OPTIONAL_FIELDS
 
@@ -208,6 +231,37 @@ def t0_effective_kinds(img, cfg) -> Optional[np.ndarray]:
     return kinds
 
 
+def a3_plane_rows(img) -> dict:
+    """The rows of each table and segment plane the image needs (the
+    reference's r05_plane_names / r05_state_planes): "tab" (the table
+    capacity) and "tsize" (None: a [lanes] plane) when the code mutates
+    its table, "edrop" with table.init or elem.drop, "ddrop" with
+    memory.init or data.drop."""
+    out = {}
+    if img.has_table_mut:
+        out["tab"] = max(int(img.table_cap or img.table0.shape[0]), 1)
+        out["tsize"] = None
+    if np.isin(img.cls, (CLS_TABLE_INIT, CLS_ELEM_DROP)).any():
+        out["edrop"] = int(img.elem_len.shape[0])
+    if np.isin(img.cls, (CLS_MEMINIT, CLS_DATA_DROP)).any():
+        out["ddrop"] = int(img.data_len.shape[0])
+    return out
+
+
+def cost_plane(img, cfg) -> Optional[np.ndarray]:
+    """Per-pc gas weights [code_len] int32, or None for flat gas (one
+    unit an instruction): the rule of the reference's step builder
+    (`wasmedge_tpu/batch/engine.py:402-411`), the cost table gathered
+    through the image's opcode plane, weights clipped to [0, 2**30], only
+    with fuel on and a weight other than 1."""
+    ct = cfg.cost_table
+    if cfg.fuel_per_launch is None or ct is None or \
+            not any(c != 1 for c in ct):
+        return None
+    ct = np.clip(np.asarray(ct, np.int64), 0, 1 << 30).astype(np.int32)
+    return ct[np.clip(img.op_id, 0, len(ct) - 1)]
+
+
 def t0_time_planes() -> np.ndarray:
     """The per-launch time base: (realtime, monotonic) ns as int32 (lo,
     hi) pairs, [2, 2] (the reference's `t0_time_planes`).  Read on the
@@ -252,7 +306,21 @@ class BatchEngine:
                 raise ValueError("module not batchable: v128-typed global")
         img = build_device_image(
             inst.lowered, memories=inst.memories, globals_=inst.globals,
-            table0=_table_snapshot(inst, store), mod=inst.ast)
+            table0=_table_snapshot(inst, store), mod=inst.ast,
+            elem_segs=_elem_snapshot(inst, store),
+            data_segs=[bytes(d.data) for d in inst.datas])
+        # per-lane table capacity for table.grow, as the page ceiling
+        # below: the declared max clamped by the knob; table.grow reads
+        # it from its `b` (engine.py:2015-2028 of the reference)
+        tsize0 = img.table0.shape[0]
+        if img.has_table_grow:
+            declared = img.table_max if img.table_max > 0 \
+                else self.cfg.table_elems_per_lane
+            img.table_cap = max(tsize0, min(declared,
+                                            self.cfg.table_elems_per_lane))
+            img.b[img.cls == CLS_TABLE_GROW] = img.table_cap
+        else:
+            img.table_cap = tsize0
         # static per-lane memory ceiling: the declared max clamped by the
         # knob (engine.py:2035-2040 of the reference)
         if img.has_memory:
@@ -269,11 +337,14 @@ class BatchEngine:
         self.mem_window = mem_window_of(self.cfg.mem_hbm, img)
         self.optimistic = optimistic_of(self.cfg.optimistic)
         self.t0kinds = t0_effective_kinds(img, self.cfg)
+        # weighted gas: each pc's weight, None for flat gas
+        self.cost = cost_plane(img, self.cfg)
         self.tables = device_tables(
             img, self.device, fusion=self.fusion, mem_window=self.mem_window,
             optimistic=self.optimistic, stack_depth=self.cfg.value_stack_depth,
             t0kinds=self.t0kinds,
-            t0=None if self.t0kinds is None else t0_statics(self.cfg))
+            t0=None if self.t0kinds is None else t0_statics(self.cfg),
+            cost=self.cost)
         # per-warp state of optimistic convergence (its shadow planes are
         # allocated at the first run)
         self.warps = WarpState.new(self.lanes, self.device) \
@@ -322,6 +393,18 @@ class BatchEngine:
                 t0["so_buf"] = planes(max(int(cfg.stdout_buffer_words), 16))
                 t0["so_off"] = full(0)
 
+        a3 = {}
+        for f, rows in a3_plane_rows(img).items():
+            if f == "tab":
+                tab = np.zeros((rows, L), np.int32)
+                n0 = min(img.table0.shape[0], rows)
+                tab[:n0] = img.table0[:n0, None]
+                a3[f] = torch.as_tensor(tab, device=dev)
+            elif f == "tsize":
+                a3[f] = full(img.table_size_init)
+            else:
+                a3[f] = planes(rows)
+
         def glob(v):
             return torch.as_tensor(v, device=dev)[:, None].repeat(1, L) \
                 .contiguous()
@@ -335,7 +418,7 @@ class BatchEngine:
             stack_hi=torch.as_tensor(stack_hi, device=dev),
             fr_ret_pc=planes(CD), fr_fp=planes(CD), fr_opbase=planes(CD),
             glob_lo=glob(img.globals_lo), glob_hi=glob(img.globals_hi),
-            mem=mem, stack_e2=e2, stack_e3=e3, **t0)
+            mem=mem, stack_e2=e2, stack_e3=e3, **t0, **a3)
 
     # -- execution ---------------------------------------------------------
     def run(self, func_name: str, args_lanes,
@@ -437,6 +520,35 @@ def mem_window_of(mem_hbm: Optional[bool], img) -> bool:
     if not img.has_memory or memory_words(img) < 2 * HBM_WINDOW_ROWS:
         return False
     return mem_hbm is None or bool(mem_hbm)
+
+
+def _elem_snapshot(inst, store):
+    """Element segments in the device funcref domain (funcidx+1, 0 =
+    null) for table.init (the reference's `_elem_snapshot`).  A segment
+    holding a reference to another module's function blocks only modules
+    that can reach it (table.init); others run with that segment empty."""
+    func_index = {id(f): i for i, f in enumerate(inst.funcs)}
+    ops = np.asarray(inst.lowered.op[:inst.lowered.code_len])
+    needs = bool((ops == int(Op.table_init)).any())
+    segs = []
+    for seg in inst.elems:
+        refs = []
+        for h in seg.refs:
+            if h == 0:
+                refs.append(0)
+                continue
+            fi = store.deref_func(h) if store is not None else None
+            idx = func_index.get(id(fi)) if fi is not None else None
+            if idx is None:
+                if needs:
+                    raise ValueError(
+                        "element segment references a non-local function; "
+                        "module not batchable")
+                refs = []
+                break
+            refs.append(idx + 1)
+        segs.append(refs)
+    return segs
 
 
 def _table_snapshot(inst, store):

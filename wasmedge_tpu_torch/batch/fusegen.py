@@ -25,8 +25,13 @@ from the code planes at pc0 + j.  B6 superinstructions (`img` None): one
 case of `Fused::step` per superinstruction id present, dispatched by hid.
 The text depends on the module, the kBulk/kSimd/kWin/kOpt flags (kWin:
 memory through the window cache, `csrc/memwin.cuh`; kOpt: optimistic
-convergence, `csrc/optimistic.cuh`) and whether the stack splits between
-shared and global memory (WASM_STACK_SPLIT).
+convergence, `csrc/optimistic.cuh`), whether the stack splits between
+shared and global memory (WASM_STACK_SPLIT) and the handlers compiled in
+on request (WASM_TIER0, WASM_TABLES; WASM_GAS with weighted gas, where an
+instance case tests the fuel against its ops' literal weight sum, so a
+lane without the fuel for the whole block runs it per op and runs out on
+the right one; the table, segment and tail-call classes always end a
+block and run per op).
 
 What a block does, per op: a push names a new cell; a pop takes the top
 cell, or reads the row below the block's entry sp; local and global
@@ -75,7 +80,7 @@ _HEAD = """\
 // use.
 #define WASM_FUSED_BUILD 1
 #define WASM_STACK_SPLIT {split}
-{tier0}#define ALU_INLINE __forceinline__
+{defines}#define ALU_INLINE __forceinline__
 #include "interp.cu"
 #include "fused.cuh"
 
@@ -170,13 +175,16 @@ WASM_FUSED_LAUNCH({bulk}, {simd}, {win}, {opt}, Fused)
 def cuda_source(hid, shapes, bulk: bool, simd: bool,
                 win: bool = False, opt: bool = False,
                 split: bool = True, t0: bool = False, img=None,
-                hid0=None) -> str:
+                hid0=None, a3: bool = False, cost=None) -> str:
     """The CUDA source of the fused dispatch for a fused hid plane and
     its block shapes (deterministic); `split`: the build for stacks
     deeper than the rows on chip (csrc/interp.cu WASM_STACK_SPLIT); `t0`:
-    the build with the tier-0 handlers (WASM_TIER0, defined only then).
-    With the image `img` and its original hid plane `hid0` (a "blocks"
-    encoding), the block heads get instance cases dispatched by pc."""
+    the build with the tier-0 handlers (WASM_TIER0, defined only then);
+    `a3`: with the table, segment and tail-call handlers (WASM_TABLES);
+    `cost`: each pc's gas weight (weighted gas, WASM_GAS), None for flat
+    gas.  With the image `img` and its original hid plane `hid0` (a
+    "blocks" encoding), the block heads get instance cases dispatched by
+    pc."""
     hid = [int(h) for h in hid]
     supers = sorted({h for h in hid if super_family(h)})
     heads = [pc for pc, h in enumerate(hid) if h >= H_BLOCK_BASE] \
@@ -186,9 +194,12 @@ def cuda_source(hid, shapes, bulk: bool, simd: bool,
         if img is not None else range(len(shapes))
     flags = dict(bulk=str(bool(bulk)).lower(), simd=str(bool(simd)).lower(),
                  win=str(bool(win)).lower(), opt=str(bool(opt)).lower())
+    defines = "".join(f"#define {d} 1\n" for d, on in (
+        ("WASM_TIER0", t0), ("WASM_TABLES", a3),
+        ("WASM_GAS", cost is not None)) if on)
     out = [_HEAD.format(ninst=len(inst), nblocks=len(sids),
                         nsuper=len(supers), split=int(bool(split)),
-                        tier0="#define WASM_TIER0 1\n" if t0 else "",
+                        defines=defines,
                         by_pc=str(img is not None).lower(), **flags)]
     for sid in sids:
         out.append(_Block(shapes[sid], simd).case(H_BLOCK_BASE + sid))
@@ -197,19 +208,31 @@ def cuda_source(hid, shapes, bulk: bool, simd: bool,
     out.append(_STEP_TAIL)
     if img is not None:
         out.append(_AT_PC_HEAD)
+        code = _Code(img, hid0, cost)
         for pc in inst:
             out.append(_Block(shapes[hid[pc] - H_BLOCK_BASE], simd,
-                              _Code(img, hid0), pc).instance_case())
-        out.append(_AT_PC_DEFAULT_STEP if sids else _AT_PC_DEFAULT)
+                              code, pc).instance_case())
+        default = _AT_PC_DEFAULT_STEP if sids else _AT_PC_DEFAULT
+        if cost is not None:
+            default = default.replace("fuel <= len",
+                                      "fuel <= gas_run(p, pcc, len)")
+        out.append(default)
     out.append(_TAIL.format(**flags))
     return "".join(out)
 
 
 class _Code:
-    """The image's planes an instance case takes its literals from."""
+    """The image's planes an instance case takes its literals from, and
+    each pc's gas weight (None: flat gas)."""
 
-    def __init__(self, img, hid0):
-        self.img, self.hid0 = img, hid0
+    def __init__(self, img, hid0, cost=None):
+        self.img, self.hid0, self.cost = img, hid0, cost
+
+    def gas(self, pc, n):
+        """What n ops from pc cost: n, or their weights' sum."""
+        if self.cost is None:
+            return n
+        return int(sum(int(c) for c in self.cost[pc:pc + n]))
 
     def at(self, plane, pc):
         return int(getattr(self.img, plane)[pc])
@@ -367,7 +390,8 @@ class _Block:
         terminal in the case or left to the per-op code."""
         nops, pc0 = len(self.ops), self.pc0
         length = len(self.shape)
-        self.emit(f"if (left < {length} || (p.fuel_on && fuel <= {length}))")
+        self.emit(f"if (left < {length} || (p.fuel_on && fuel <= "
+                  f"{self.code.gas(pc0, length)}))")
         self.emit(f"  return {int(self.code.hid0[pc0])};")
         self.emit("const int sp0 = sp;")
         snap = self.body()

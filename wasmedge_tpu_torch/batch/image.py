@@ -18,9 +18,18 @@ v128 instructions (classes VCONST..VSTORE, op tables in
 holds any, and the engine gives such images two more stack planes.
 
 `batchability()` is the module-level gate; `slice_refusal()` is the
-port's own gate over a built image: classes that later slices of the
-port bring (tables, segments, tail calls) are refused up front with an
-error that names the class.
+port's own gate over a built image: a class the interpreter has no
+handler for is refused up front with an error that names the class.
+
+Tables, segments and tail calls (classes TABLE_GET ... REFFUNC, the
+reference's :691-723): the image carries the element segments resolved
+to funcidx+1 (`elem_flat`, `elem_off`, `elem_len`) and the data segments
+packed little-endian into words (`data_words`, byte offsets `data_off`,
+lengths `data_len`) for table.init and memory.init; `table_max` (the
+declared maximum, 0 = none), `table_cap` (the rows of the per-lane table
+plane; the engine clamps it), `table_size_init` (table 0's true size;
+`table0` is padded to one row) and whether the code mutates or grows the
+table.  The engine keeps the per-lane table and the dropped flags.
 
 Tier 0 (`classify_t0_imports`, the reference's :186-245): the stub of a
 pure WASI import (clock_time_get, random_get, sched_yield, proc_exit,
@@ -106,10 +115,16 @@ CLASS_NAMES = {
     CLS_REFFUNC: "REFFUNC",
 }
 
-# Classes the CUDA warp-interpreter executes: NOP..VSTORE (which
-# includes ALU1/ALU2, CALL_INDIRECT, LOAD/STORE, MEMSIZE/MEMGROW, TRAP,
-# HOSTCALL, MEMFILL/MEMCOPY and the v128 classes).
-SLICE_MAX_CLASS = CLS_VSTORE
+# Classes the CUDA warp-interpreter executes: every class above, NOP ..
+# REFFUNC (ALU1/ALU2, CALL_INDIRECT, LOAD/STORE, MEMSIZE/MEMGROW, TRAP,
+# HOSTCALL, MEMFILL/MEMCOPY, the v128 classes, the table families,
+# element and data segments, tail calls and ref.func).
+SLICE_MAX_CLASS = CLS_REFFUNC
+
+# classes that write the table: any of them gives each lane its own
+# mutable table plane (the reference's _TMUT, image.py:723)
+TABLE_MUT_CLASSES = (CLS_TABLE_SET, CLS_TABLE_GROW, CLS_TABLE_FILL,
+                     CLS_TABLE_COPY, CLS_TABLE_INIT)
 
 # -- ALU2 sub-ops (binary: pop2 push1) --------------------------------------
 _I32_BIN = ["add", "sub", "mul", "div_s", "div_u", "rem_s", "rem_u", "and",
@@ -339,19 +354,41 @@ class DeviceImage:
     has_simd: bool  # the code holds a v128 class
     t0kind: np.ndarray  # [code_len] T0_* of each import stub, 0 elsewhere
     t0_fdwrite_safe: bool  # fd_write may buffer stdout in-device
+    # segment snapshots for table.init / memory.init (funcref domain
+    # funcidx+1; data packed little-endian into words)
+    elem_flat: np.ndarray  # [sum of lengths] int32
+    elem_off: np.ndarray   # [n_elem] int32
+    elem_len: np.ndarray   # [n_elem] int32
+    data_words: np.ndarray  # [ceil(bytes / 4)] int32
+    data_off: np.ndarray   # [n_data] byte offsets
+    data_len: np.ndarray   # [n_data] byte lengths
+    table_max: int  # declared table 0 max (0 = none)
+    table_cap: int  # per-lane table plane rows (the engine clamps it)
+    table_size_init: int  # table 0's true size (table0 is padded to >= 1)
+    has_table_mut: bool  # any table.set / grow / fill / copy / init
+    has_table_grow: bool
 
     NUMPY_FIELDS = ("cls", "sub", "a", "b", "c", "imm_lo", "imm_hi",
                     "br_table", "f_entry", "f_nparams", "f_nlocals",
                     "f_nresults", "f_frame_top", "f_type", "table0",
                     "globals_lo", "globals_hi", "mem_init", "op_id", "v128",
-                    "t0kind")
+                    "t0kind", "elem_flat", "elem_off", "elem_len",
+                    "data_words", "data_off", "data_len")
     SCALAR_FIELDS = ("mem_pages_init", "mem_pages_max", "has_memory",
                      "max_local_zeros", "code_len", "has_simd",
-                     "t0_fdwrite_safe")
+                     "t0_fdwrite_safe", "table_max", "table_cap",
+                     "table_size_init", "has_table_mut", "has_table_grow")
+    BOOL_FIELDS = ("has_memory", "has_simd", "t0_fdwrite_safe",
+                   "has_table_mut", "has_table_grow")
 
 
 def build_device_image(image: LoweredModule, memories=None, globals_=None,
-                       table0=None, mod=None) -> DeviceImage:
+                       table0=None, mod=None, elem_segs=None,
+                       data_segs=None) -> DeviceImage:
+    """`elem_segs`: each element segment's funcidx+1 list (0 = null;
+    the engine's `_elem_snapshot`); `data_segs`: each data segment's
+    bytes.  A dropped segment (an active or declarative one after
+    instantiation) is empty."""
     imports = [i for i, fn in enumerate(image.funcs) if fn.is_import]
     n = image.code_len + 2 * len(imports)
     cls = np.zeros(n, np.int32)
@@ -586,6 +623,32 @@ def build_device_image(image: LoweredModule, memories=None, globals_=None,
         lo, hi = int(v_lo[i]), int(v_hi[i])
         v128[i] = (_i32(lo), _i32(lo >> 32), _i32(hi), _i32(hi >> 32))
 
+    # segment snapshots (table.init / memory.init sources; the per-lane
+    # dropped flags are engine state)
+    esegs = elem_segs or []
+    elem_off = np.zeros(max(len(esegs), 1), np.int32)
+    elem_len = np.zeros(max(len(esegs), 1), np.int32)
+    eflat = []
+    for i, seg in enumerate(esegs):
+        elem_off[i] = len(eflat)
+        elem_len[i] = len(seg)
+        eflat.extend(int(x) for x in seg)
+    dsegs = data_segs or []
+    data_off = np.zeros(max(len(dsegs), 1), np.int32)
+    data_len = np.zeros(max(len(dsegs), 1), np.int32)
+    dbytes = bytearray()
+    for i, seg in enumerate(dsegs):
+        data_off[i] = len(dbytes)
+        data_len[i] = len(seg)
+        dbytes.extend(seg)
+    dbytes.extend(b"\0" * (-len(dbytes) % 4))
+    data_words = np.frombuffer(bytes(dbytes), np.uint8).view(np.int32) \
+        .astype(np.int32) if dbytes else np.zeros(1, np.int32)
+    table_max = 0
+    if mod is not None and getattr(mod, "tables", None):
+        lim = mod.tables[0].limit
+        table_max = lim.max if lim.max is not None else 0
+
     return DeviceImage(
         cls=cls, sub=sub, a=a, b=b, c=c, imm_lo=imm_lo, imm_hi=imm_hi,
         br_table=np.asarray(image.arrays["br_table"], np.int32),
@@ -596,4 +659,10 @@ def build_device_image(image: LoweredModule, memories=None, globals_=None,
         has_memory=bool(memories), max_local_zeros=max_zeros, code_len=n,
         v128=v128,
         has_simd=bool(((cls >= CLS_VCONST) & (cls <= CLS_VSTORE)).any()),
-        t0kind=t0kind, t0_fdwrite_safe=bool(t0_fdwrite_safe))
+        t0kind=t0kind, t0_fdwrite_safe=bool(t0_fdwrite_safe),
+        elem_flat=np.asarray(eflat or [0], np.int32), elem_off=elem_off,
+        elem_len=elem_len, data_words=data_words, data_off=data_off,
+        data_len=data_len, table_max=int(table_max),
+        table_cap=len(table0), table_size_init=table_size,
+        has_table_mut=bool(np.isin(cls, TABLE_MUT_CLASSES).any()),
+        has_table_grow=bool((cls == CLS_TABLE_GROW).any()))

@@ -30,7 +30,14 @@ the engine's `t0_effective_kinds`) the kernel retires pure WASI calls at
 their stubs (`csrc/interp.cu` `tier0_call`; plain version
 `batch/interp_ref.py` `_Group.hostcall` over `batch/tier0.py`), from a
 build that has the handlers compiled in (`WASM_TIER0`): every launch then
-takes the time base read on the host before it.
+takes the time base read on the host before it.  An image with tables,
+element and data segments, tail calls or ref.func (classes TABLE_GET ...
+REFFUNC: `a3`) runs a build with their handlers (`WASM_TABLES`; the
+reference SIMT step's engine.py:1156-1307 and :1464-1516, which no Pallas
+code runs), over the per-lane table and dropped-flag planes of the state
+and the image's segment snapshots; weighted gas (`gas`, the engine's
+`cost_plane`) a build that charges each instruction its weight
+(`WASM_GAS`).  Builds without them keep their code.
 
 `run_chunk()` is the one entry: on CUDA tensors it launches the kernel
 (built from the repository's sources on first use), on CPU tensors it
@@ -55,8 +62,11 @@ from wasmedge_tpu_torch.batch.image import (
     CLS_ALU1, CLS_ALU2, CLS_BR, CLS_BR_TABLE, CLS_BRNZ, CLS_BRZ, CLS_CALL,
     CLS_CALL_INDIRECT, CLS_CONST, CLS_DROP, CLS_GLOBAL_GET, CLS_GLOBAL_SET,
     CLS_HOSTCALL, CLS_LOAD, CLS_LOCAL_GET, CLS_LOCAL_SET, CLS_LOCAL_TEE,
-    CLS_MEMCOPY, CLS_MEMFILL, CLS_MEMGROW, CLS_MEMSIZE, CLS_NOP, CLS_RETURN,
-    CLS_SELECT, CLS_STORE, CLS_TRAP, CLS_V1, CLS_V2, CLS_VBITSEL,
+    CLS_DATA_DROP, CLS_ELEM_DROP, CLS_MEMCOPY, CLS_MEMFILL, CLS_MEMGROW,
+    CLS_MEMINIT, CLS_MEMSIZE, CLS_NOP, CLS_REFFUNC, CLS_RETCALL,
+    CLS_RETCALL_INDIRECT, CLS_RETURN, CLS_SELECT, CLS_STORE, CLS_TABLE_COPY,
+    CLS_TABLE_FILL, CLS_TABLE_GET, CLS_TABLE_GROW, CLS_TABLE_INIT,
+    CLS_TABLE_SET, CLS_TABLE_SIZE, CLS_TRAP, CLS_V1, CLS_V2, CLS_VBITSEL,
     CLS_VCONST, CLS_VEXTRACT, CLS_VLOAD, CLS_VREPLACE, CLS_VSHIFT,
     CLS_VSHUFFLE, CLS_VSPLAT, CLS_VSTORE, CLS_VTEST, NUM_ALU1, NUM_ALU2,
     DeviceImage, TRAP_DONE, TRAP_HOSTCALL)
@@ -136,6 +146,28 @@ H_VSPLAT_BASE = H_VSHIFT_BASE + len(VSHIFT_NAMES)
 H_VEXTRACT_BASE = H_VSPLAT_BASE + len(VSPLAT_NAMES)
 H_VREPLACE_BASE = H_VEXTRACT_BASE + len(VEXTRACT_NAMES)
 NUM_HANDLERS = H_VREPLACE_BASE + len(VREPLACE_NAMES)
+# Tables, segments, tail calls and ref.func (no Pallas handler: the
+# reference SIMT step's, engine.py:1156-1307 and :1464-1516).  Negative,
+# so that the shared numbering above and the B2 block ids from
+# NUM_HANDLERS on stay as they are; compiled only into WASM_TABLES builds.
+H_A3_BASE = -64
+H_TABLE_GET = H_A3_BASE
+H_TABLE_SET = H_A3_BASE + 1
+H_TABLE_SIZE = H_A3_BASE + 2
+H_TABLE_GROW = H_A3_BASE + 3
+H_TABLE_FILL = H_A3_BASE + 4
+H_TABLE_COPY = H_A3_BASE + 5
+H_TABLE_INIT = H_A3_BASE + 6
+H_ELEM_DROP = H_A3_BASE + 7
+H_MEMINIT = H_A3_BASE + 8
+H_DATA_DROP = H_A3_BASE + 9
+H_RETCALL = H_A3_BASE + 10
+H_RETCALL_INDIRECT = H_A3_BASE + 11
+H_REFFUNC = H_A3_BASE + 12
+# the ones that write the table, its size, a dropped flag or memory from a
+# data segment: a warp-leader (B3) commits and is off before them
+A3_WRITES = (H_TABLE_SET, H_TABLE_GROW, H_TABLE_FILL, H_TABLE_COPY,
+             H_TABLE_INIT, H_ELEM_DROP, H_MEMINIT, H_DATA_DROP)
 
 _CLS_TO_HID = {
     CLS_NOP: H_NOP, CLS_CONST: H_CONST, CLS_LOCAL_GET: H_LOCAL_GET,
@@ -149,6 +181,13 @@ _CLS_TO_HID = {
     CLS_MEMFILL: H_MEMFILL, CLS_MEMCOPY: H_MEMCOPY,
     CLS_VCONST: H_VCONST, CLS_VSHUFFLE: H_VSHUFFLE,
     CLS_VBITSEL: H_VBITSEL, CLS_VLOAD: H_VLOAD, CLS_VSTORE: H_VSTORE,
+    CLS_TABLE_GET: H_TABLE_GET, CLS_TABLE_SET: H_TABLE_SET,
+    CLS_TABLE_SIZE: H_TABLE_SIZE, CLS_TABLE_GROW: H_TABLE_GROW,
+    CLS_TABLE_FILL: H_TABLE_FILL, CLS_TABLE_COPY: H_TABLE_COPY,
+    CLS_TABLE_INIT: H_TABLE_INIT, CLS_ELEM_DROP: H_ELEM_DROP,
+    CLS_MEMINIT: H_MEMINIT, CLS_DATA_DROP: H_DATA_DROP,
+    CLS_RETCALL: H_RETCALL, CLS_RETCALL_INDIRECT: H_RETCALL_INDIRECT,
+    CLS_REFFUNC: H_REFFUNC,
 }
 
 # sub-indexed v128 classes -> handler base id
@@ -212,7 +251,17 @@ class Tables:
     converged run optimistic convergence (B3; `batch/engine.py`
     `optimistic_of` chooses it).  `stack_split`: the build whose stack
     rows at or above the rows on chip stay in global memory (the depth
-    the tables run at does not fit on chip, `stack_split()`)."""
+    the tables run at does not fit on chip, `stack_split()`).
+
+    `a3`: the code holds a table, segment, tail-call or ref.func class
+    (the build with their handlers); `tmut`: it mutates its table (the
+    state then has the per-lane `tab` [tcap, L] and `tsize`, and
+    call_indirect reads them); `efl`/`eoff`/`elen` and
+    `dwords`/`doff`/`dlen`: the image's element and data segment
+    snapshots (a3 only).  `cost` and `gcum`: weighted gas, each pc's
+    weight and their running sum ([code_len + 1], int32 wrapping: a
+    fused dispatch of n ops at pc costs gcum[pc + n] - gcum[pc]); None
+    for flat gas."""
 
     hid: torch.Tensor
     a: torch.Tensor
@@ -252,13 +301,34 @@ class Tables:
     # payloads in words)
     t0k: Optional[torch.Tensor] = None
     t0: Optional[dict] = None
+    a3: bool = False
+    tmut: bool = False
+    tcap: int = 1
+    efl: Optional[torch.Tensor] = None
+    eoff: Optional[torch.Tensor] = None
+    elen: Optional[torch.Tensor] = None
+    dwords: Optional[torch.Tensor] = None
+    doff: Optional[torch.Tensor] = None
+    dlen: Optional[torch.Tensor] = None
+    cost: Optional[torch.Tensor] = None
+    gcum: Optional[torch.Tensor] = None
+
+
+def gas_planes(cost: np.ndarray):
+    """(cost, gcum) int32 planes of per-pc weights: gcum[k] is the sum
+    of cost[:k] wrapped to int32, so a run of n ops at pc costs
+    gcum[pc + n] - gcum[pc] (mod 2**32)."""
+    cost = np.asarray(cost, np.int64)
+    cum = np.concatenate([[0], np.cumsum(cost)]) & 0xFFFFFFFF
+    return cost.astype(np.int32), cum.astype(np.uint32).view(np.int32)
 
 
 def device_tables(img: DeviceImage, device, fusion: str = "none",
                   mem_window: bool = False, optimistic: bool = False,
                   stack_depth: Optional[int] = None,
                   t0kinds: Optional[np.ndarray] = None,
-                  t0: Optional[dict] = None) -> Tables:
+                  t0: Optional[dict] = None,
+                  cost: Optional[np.ndarray] = None) -> Tables:
     """The image's code tables on `device` in the encoding `fusion`:
     "none" (one op per dispatch), "blocks" (B2 fused basic blocks) or
     "super" (B6 superinstructions; images without v128 ops only); with
@@ -268,7 +338,9 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
     without the stack split when every row fits on chip, `stack_split`;
     None: any depth); with `t0kinds` (the engine's `t0_effective_kinds`,
     and `t0` its `t0_statics`), the build that serves those tier-0 calls
-    in the kernel."""
+    in the kernel; with `cost` (the engine's `cost_plane`), weighted
+    gas.  An image with a table, segment, tail-call or ref.func class
+    runs the build with those handlers."""
     from wasmedge_tpu_torch.batch import fusegen
     from wasmedge_tpu_torch.batch.fusion import (
         fuse_blocks, fuse_image, fused_lengths)
@@ -301,6 +373,16 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
                                 bool(mem_window)),
         t0k=None if t0kinds is None else t(t0kinds),
         t0=None if t0 is None else dict(t0))
+    if (hid < 0).any():
+        tables.a3 = True
+        tables.tmut = bool(img.has_table_mut)
+        tables.tcap = max(int(img.table_cap or img.table0.shape[0]), 1)
+        tables.efl, tables.eoff, tables.elen = (
+            t(img.elem_flat), t(img.elem_off), t(img.elem_len))
+        tables.dwords, tables.doff, tables.dlen = (
+            t(img.data_words), t(img.data_off), t(img.data_len))
+    if cost is not None:
+        tables.cost, tables.gcum = (t(x) for x in gas_planes(cost))
     if fusion == "none":
         return tables
     if fusion == "blocks":
@@ -321,6 +403,7 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
     tables.fused_source = fusegen.cuda_source(
         fhid, shapes, tables.has_bulk, tables.has_simd, tables.mem_window,
         tables.optimistic, tables.stack_split, tables.t0k is not None,
+        a3=tables.a3, cost=cost,
         **(dict(img=img, hid0=hid) if fusion == "blocks" else {}))
     return tables
 
@@ -347,39 +430,48 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # handlers), those of the fused kernels: B2 basic blocks ("block") and
 # B6 superinstructions ("super"), those whose memory accesses went
 # through the window cache (B4, "window"), those of the kernels with
-# optimistic convergence (B3, "optimistic") and those of the builds that
-# serve tier-0 host calls in the kernel ("tier0").
+# optimistic convergence (B3, "optimistic"), those of the builds that
+# serve tier-0 host calls in the kernel ("tier0"), those of the builds
+# with the table, segment, tail-call and ref.func handlers ("tables") and
+# those that charged weighted gas ("gas").
 LAUNCHES = {"interp": 0, "bulk": 0, "hostcall": 0, "simd": 0, "block": 0,
-            "super": 0, "window": 0, "optimistic": 0, "tier0": 0}
+            "super": 0, "window": 0, "optimistic": 0, "tier0": 0,
+            "tables": 0, "gas": 0}
 
 _libs = {}  # build key -> loaded ctypes library
 _lib_lock = threading.Lock()
 # "per_op" maps each per-op build (`per_op_label`) to its "path",
 # "seconds" and "ptxas" (its -v output); "fused" maps each fused build's
 # key to the same three and "fusion", "shapes", "mean_len", "mem_window",
-# "optimistic" and "tier0".
+# "optimistic", "tier0", "tables" and "gas".
 BUILD_INFO = {"fused": {}, "per_op": {}}
 
 
 def per_op_label(win: bool, opt: bool, split: bool = False,
-                 t0: Optional[tuple] = None) -> str:
+                 one: Optional[tuple] = None) -> str:
     """The name of the per-op build with or without the window cache,
-    optimistic convergence and the stack split; `t0`: None, or the
-    (bulk, simd) instantiation of a build with the tier-0 handlers (such
-    a library holds that one instantiation)."""
-    return ("window" if win else "direct") + (
-        ", optimistic" if opt else "") + (", split stack" if split else "") \
-        + ("" if t0 is None else
-           f", tier 0 (kBulk={int(t0[0])}, kSimd={int(t0[1])})")
+    optimistic convergence and the stack split; `one`: None, or the
+    `one_key` (bulk, simd, tier 0, tables, gas) of a build with handlers
+    compiled in on request (such a library holds that one (bulk, simd)
+    instantiation)."""
+    out = ("window" if win else "direct") + (
+        ", optimistic" if opt else "") + (", split stack" if split else "")
+    if one is None:
+        return out
+    bulk, simd, t0, a3, gas = one
+    extra = [n for n, on in (("tier 0", t0), ("tables", a3), ("gas", gas))
+             if on]
+    return out + f", {', '.join(extra)} (kBulk={int(bulk)}, " \
+        f"kSimd={int(simd)})"
 
 
 def _per_op_flags(flags) -> tuple:
-    """(win, opt, split, t0) of a per-op build given as a triple or as
-    that quadruple (t0 None or (bulk, simd))."""
-    win, opt, split, *t0 = flags
-    t0 = t0[0] if t0 else None
+    """(win, opt, split, one) of a per-op build given as a triple or as
+    that quadruple (one None or a `one_key`)."""
+    win, opt, split, *one = flags
+    one = one[0] if one else None
     return (bool(win), bool(opt), bool(split),
-            None if t0 is None else (bool(t0[0]), bool(t0[1])))
+            None if one is None else tuple(bool(x) for x in one))
 
 
 def _nvcc() -> str:
@@ -394,46 +486,55 @@ def _read(path) -> bytes:
 
 
 # generated source, or the per-op kernel's (window, optimistic, split,
-# tier 0) flags -> _job's result
+# one) flags -> _job's result
 _jobs = {}
 
 
-def _defines(win: bool, opt: bool, split: bool, t0=None) -> tuple:
+def _defines(win: bool, opt: bool, split: bool, one=None) -> tuple:
     """The per-op build's extra nvcc flags: its window, optimistic and
-    stack-split instantiations and, for a build with the tier-0 handlers,
-    the one (bulk, simd) instantiation it holds.  A build without them
-    has no tier-0 define at all, so its code is the one before tier 0."""
+    stack-split instantiations and, for a build with handlers compiled in
+    on request (`one_key`), their defines (WASM_TIER0, WASM_TABLES,
+    WASM_GAS) and the one (bulk, simd) instantiation it holds.  A build
+    without them has none of these defines, so its code is the one
+    before those handlers."""
     out = (f"-DWASM_MEM_WINDOW={int(win)}", f"-DWASM_OPTIMISTIC={int(opt)}",
            f"-DWASM_STACK_SPLIT={int(split)}")
-    if t0 is not None:
-        out += ("-DWASM_TIER0=1", f"-DWASM_T0_BULK={int(t0[0])}",
-                f"-DWASM_T0_SIMD={int(t0[1])}")
+    if one is not None:
+        bulk, simd, t0, a3, gas = one
+        out += tuple(f"-D{d}=1" for d, on in (
+            ("WASM_TIER0", t0), ("WASM_TABLES", a3), ("WASM_GAS", gas))
+            if on)
+        out += (f"-DWASM_ONE_BULK={int(bulk)}",
+                f"-DWASM_ONE_SIMD={int(simd)}")
     return out
 
 
-def tier0_key(tables: Tables) -> Optional[tuple]:
-    """The (bulk, simd) instantiation of a per-op build with the tier-0
-    handlers that runs `tables`, or None (tier 0 off)."""
-    if tables.t0k is None:
+def one_key(tables: Tables) -> Optional[tuple]:
+    """(bulk, simd, tier 0, tables, gas) of the per-op build with handlers
+    compiled in on request that runs `tables` (the tier-0 calls, the
+    table, segment and tail-call classes, weighted gas), or None when it
+    needs none of them."""
+    t0, a3, gas = tables.t0k is not None, tables.a3, tables.gcum is not None
+    if not (t0 or a3 or gas):
         return None
-    return (bool(tables.has_bulk), bool(tables.has_simd))
+    return (bool(tables.has_bulk), bool(tables.has_simd), t0, a3, gas)
 
 
 def _job(tables: Optional[Tables], win: bool = False, opt: bool = False,
-         split: bool = False, t0=None):
+         split: bool = False, one=None):
     """(key, shared library path, source path) of the kernel that runs
     `tables`: the per-op build (tables None or of the "none" encoding;
     with the window cache when `win` or `tables.mem_window`, with
     optimistic convergence when `opt` or `tables.optimistic`, with the
-    stack split when `split` or `tables.stack_split`, with the tier-0
-    handlers of one (bulk, simd) instantiation when `t0` or
-    `tables.t0k`) or the fused build of `tables` (its generated source
+    stack split when `split` or `tables.stack_split`, with the handlers
+    of `one` (a `one_key`, or the tables') in one (bulk, simd)
+    instantiation) or the fused build of `tables` (its generated source
     goes under _build/ when it is built)."""
     if tables is not None and tables.fusion == "none":
-        tables, win, opt, split, t0 = (
+        tables, win, opt, split, one = (
             None, tables.mem_window, tables.optimistic, tables.stack_split,
-            tier0_key(tables))
-    flags = _per_op_flags((win, opt, split, t0))
+            one_key(tables))
+    flags = _per_op_flags((win, opt, split, one))
     text = flags if tables is None else tables.fused_source
     if text not in _jobs:
         _jobs[text] = _new_job(tables, *flags)
@@ -441,12 +542,12 @@ def _job(tables: Optional[Tables], win: bool = False, opt: bool = False,
 
 
 def _new_job(tables: Optional[Tables], win: bool, opt: bool, split: bool,
-             t0=None):
+             one=None):
     flags = " ".join(NVCC_FLAGS).encode()
     srcs = _read(_SRC) + _read(_WIN_HDR) + _read(_OPT_HDR)
     if tables is None:
         key = hashlib.sha256(
-            srcs + flags + " ".join(_defines(win, opt, split, t0)).encode()) \
+            srcs + flags + " ".join(_defines(win, opt, split, one)).encode()) \
             .hexdigest()[:16]
         return key, os.path.join(_BUILD_DIR, f"libinterp_{key}.so"), _SRC
     src = tables.fused_source.encode()
@@ -460,9 +561,9 @@ def build_kernels(tables_list=(), per_op=((False, False, False),)) -> dict:
     """Build, all nvcc processes at once, the per-op kernel
     (`csrc/interp.cu`, four instantiations, a library for each (window,
     optimistic, stack split) triple in `per_op` and for each per-op
-    `Tables` given; a quadruple whose last item is (bulk, simd), or
-    per-op tables with tier 0, name a library with the tier-0 handlers
-    and that one instantiation) and
+    `Tables` given; a quadruple whose last item is a `one_key`, or
+    per-op tables with tier 0, tables or weighted gas, name a library
+    with those handlers and that one instantiation) and
     the fused kernel of each fused `Tables` given (`csrc/interp.cu` with
     `csrc/fused.cuh` and the generated dispatch of its blocks or
     superinstructions, one instantiation), each into a shared library
@@ -476,7 +577,7 @@ def build_kernels(tables_list=(), per_op=((False, False, False),)) -> dict:
         for tb in tables_list:
             if tb.fusion == "none":
                 builds.add((tb.mem_window, tb.optimistic, tb.stack_split,
-                            tier0_key(tb)))
+                            one_key(tb)))
         for flags in sorted(builds, key=str):
             key, so, src = _job(None, *flags)
             jobs[key] = (so, src, None, flags)
@@ -486,7 +587,7 @@ def build_kernels(tables_list=(), per_op=((False, False, False),)) -> dict:
             key, so, src = _job(tb)
             jobs.setdefault(key, (so, src, tb, (
                 tb.mem_window, tb.optimistic, tb.stack_split,
-                tb.t0k is not None)))
+                one_key(tb))))
         procs = {}
         for key, (so, src, tb, flags) in jobs.items():
             if key in _libs or os.path.exists(so):
@@ -541,18 +642,21 @@ def build_kernels(tables_list=(), per_op=((False, False, False),)) -> dict:
             if tb is not None:
                 extra = len(_FUSED_FIELDS)
                 n_ops = [len(s) for s in tb.shapes]
+                one = flags[3] or (False,) * 5
                 BUILD_INFO["fused"].setdefault(key, {"path": so}).update(
                     fusion=tb.fusion, shapes=len(tb.shapes),
                     mean_len=float(np.mean(n_ops)) if n_ops else 0.0,
                     mem_window=bool(flags[0]), optimistic=bool(flags[1]),
-                    stack_split=bool(flags[2]), tier0=bool(flags[3]))
+                    stack_split=bool(flags[2]), tier0=one[2],
+                    tables=one[3], gas=one[4])
             else:
                 BUILD_INFO["per_op"].setdefault(
                     per_op_label(*flags), {}).setdefault("path", so)
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * (
-                _N_PTRS + extra + _N_OPT + _N_T0_PTRS) + \
-                [ctypes.c_int] * (_N_INTS + _N_T0_INTS) + [ctypes.c_void_p]
+                _N_PTRS + extra + _N_OPT + _N_T0_PTRS + _N_A3_PTRS) + \
+                [ctypes.c_int] * (_N_INTS + _N_T0_INTS + _N_A3_INTS) + \
+                [ctypes.c_void_p]
             _libs[key] = lib
         return {key: _libs[key] for key in jobs}
 
@@ -736,6 +840,16 @@ _N_INTS = 19
 _T0_PTRS = ("t0k", "t0_ctr", "so_buf", "so_off")
 _N_T0_PTRS = len(_T0_PTRS)
 _N_T0_INTS = 9
+# The tables' and weighted gas's pointers come after tier 0's (null where
+# unused): the per-lane table, its size and the segments' dropped flags
+# (state), the element and data segment snapshots and the gas planes
+# (tables); their ints after tier 0's: on (a build with the table
+# handlers), the table plane's rows, the element segments, the data
+# segments, the flat element and data word counts, and gas on
+_A3_PTRS = ("tab", "tsize", "edrop", "ddrop", "efl", "eoff", "elen",
+            "dwords", "doff", "dlen", "cost", "gcum")
+_N_A3_PTRS = len(_A3_PTRS)
+_N_A3_INTS = 7
 
 
 def _check(name, t, device, shape):
@@ -799,6 +913,8 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool,
     LAUNCHES["window"] += tables.mem_window
     LAUNCHES["optimistic"] += tables.optimistic
     LAUNCHES["tier0"] += tables.t0k is not None
+    LAUNCHES["tables"] += tables.a3
+    LAUNCHES["gas"] += tables.gcum is not None and bool(fuel_on)
 
 
 def _check_launch(tables: Tables, st, warps, device) -> None:
@@ -841,6 +957,33 @@ def _check_launch(tables: Tables, st, warps, device) -> None:
         if st.so_buf is not None:
             _check("so_buf", st.so_buf, device, (st.so_buf.shape[0], L))
             _check("so_off", st.so_off, device, (L,))
+    _check_a3(tables, st, device)
+
+
+def _check_a3(tables: Tables, st, device) -> None:
+    """Raise unless the state has the table and segment planes the
+    tables need, of their geometry, and none that they do not use."""
+    L = st.pc.shape[0]
+    want = {"tab": (tables.tcap, L) if tables.tmut else None,
+            "tsize": (L,) if tables.tmut else None,
+            "edrop": None if not tables.a3 else (tables.elen.shape[0], L),
+            "ddrop": None if not tables.a3 else (tables.dlen.shape[0], L)}
+    for f, shape in want.items():
+        p = getattr(st, f)
+        if p is None:
+            if shape is not None and f in ("tab", "tsize"):
+                raise ValueError(f"tables that mutate their table need the "
+                                 f"state's {f}")
+            continue
+        if shape is None:
+            raise ValueError(f"the state has {f}, which these tables do "
+                             f"not use")
+        _check(f, p, device, shape)
+    for f in _A3_PTRS[4:10] if tables.a3 else ():
+        _check(f, getattr(tables, f), device, None)
+    if tables.gcum is not None:
+        _check("cost", tables.cost, device, (tables.hid.shape[0],))
+        _check("gcum", tables.gcum, device, (tables.hid.shape[0] + 1,))
 
 
 def launch_args(tables: Tables, st, chunk: int, fuel_on: bool,
@@ -883,4 +1026,12 @@ def launch_args(tables: Tables, st, chunk: int, fuel_on: bool,
         ints += [1, 0 if st.so_buf is None else st.so_buf.shape[0],
                  int(t0["RNG_SEED"]), int(t0["RMAX_W"]), int(t0["WMAX_W"]),
                  *tt]
+    ptrs += [ptr(getattr(st, f)) for f in _A3_PTRS[:4]] + \
+        [ptr(getattr(tables, f)) for f in _A3_PTRS[4:]]
+    ints += [int(tables.a3), tables.tcap,
+             0 if st.edrop is None else st.edrop.shape[0],
+             0 if st.ddrop is None else st.ddrop.shape[0],
+             0 if tables.efl is None else tables.efl.shape[0],
+             0 if tables.dwords is None else tables.dwords.shape[0],
+             int(tables.gcum is not None)]
     return ptrs, ints

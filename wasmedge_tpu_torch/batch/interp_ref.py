@@ -52,7 +52,25 @@ corner cases:
     tier-0 call, except in a uniform warp (the entry rule) where only
     random_get does (its bytes differ by lane), and after that commit
     the warp runs per lane for the rest of the launch, as after a bulk
-    op; commits, snapshots and rollbacks are `OptRun`'s.
+    op; commits, snapshots and rollbacks are `OptRun`'s;
+  - tables, segments and tail calls (`tables.a3`, the reference SIMT
+    step's engine.py:1156-1307 and :1464-1516): table.get / set / size /
+    grow / fill / copy / init over each lane's `tab` plane bounded by its
+    `tsize` (table 0 and the instruction's `b` when the code never
+    mutates it), elem.drop / data.drop setting the lane's dropped flag,
+    memory.init from the image's data words (after the lane's windows
+    are written back and dropped, as a bulk op), ref.func; call_indirect
+    through the lane's table; return_call / return_call_indirect replace
+    the frame (fp stays, the arguments slide down to it, no frame is
+    pushed and only the value stack is checked).  Copy and init gather
+    from the table before the op, as the reference does.  In a warp that
+    is on and not uniform, an instruction that writes the table, its
+    size, a dropped flag or memory from a segment waits for a commit and
+    then runs per lane (as a bulk op); a uniform warp runs them in place;
+    call_indirect agrees the handle it reads, not only the index;
+  - weighted gas (`tables.cost`): an instruction costs its weight, a
+    fused dispatch the sum of its ops' weights (`tables.gcum`), and runs
+    only when the lane's fuel is above that sum.
 
 Vectorised over lanes: each step groups the live lanes by the handler id
 at their pc and applies one handler per group.  It is the reference the
@@ -72,7 +90,9 @@ from wasmedge_tpu_torch.batch.image import (
     ALU1_SUB, T0_CLOCK_TIME_GET, T0_FD_WRITE, T0_NEEDS_MEMORY, T0_PROC_EXIT,
     T0_RANDOM_GET, T0_SCHED_YIELD, TRAP_DONE, TRAP_HOSTCALL)
 from wasmedge_tpu_torch.batch.interp import (
-    H_ALU1_BASE, H_ALU2_BASE, H_BR, H_BR_TABLE, H_BRNZ, H_BRZ, H_CALL,
+    A3_WRITES, H_DATA_DROP, H_ELEM_DROP, H_MEMINIT, H_REFFUNC, H_RETCALL,
+    H_RETCALL_INDIRECT, H_TABLE_COPY, H_TABLE_FILL, H_TABLE_GET,
+    H_TABLE_GROW, H_TABLE_INIT, H_TABLE_SET, H_TABLE_SIZE, H_ALU1_BASE, H_ALU2_BASE, H_BR, H_BR_TABLE, H_BRNZ, H_BRZ, H_CALL,
     H_CALL_INDIRECT, H_CONST, H_DROP, H_FUSE_A2R_BASE, H_FUSE_GBR,
     H_FUSE_GCA_BASE, H_FUSE_GCB_BASE, H_FUSE_GCC_BASE, H_FUSE_GCS_BASE,
     H_FUSE_GGA_BASE, H_FUSE_GGBNZ_BASE, H_FUSE_GGBZ_BASE, H_FUSE_GGS_BASE,
@@ -89,6 +109,7 @@ from wasmedge_tpu_torch.batch.optimistic import (
 from wasmedge_tpu_torch.common.errors import ErrCode
 
 I32 = torch.int32
+_A3_WRITES = frozenset(A3_WRITES)
 _TRUNC_F32 = (ALU1_SUB["i32.trunc_f32_s"], ALU1_SUB["i32.trunc_f32_u"])
 _NUM_ALU1 = len(ALU1_SUB)
 
@@ -134,7 +155,7 @@ def _step(t: Tables, st, lanes, fuel_on, left, win, opt=None, t0_time=None):
         flen = t.flen[pcl]
         fused = flen > 0
         fits = (left[lanes] >= flen) & (
-            (st.fuel[lanes] > flen) if fuel_on else True)
+            (st.fuel[lanes] > _gas(t, pc, flen)) if fuel_on else True)
         hid = torch.where(fused & ~fits, t.hid0[pcl], hid)
         fused = fused & fits
     for h in torch.unique(hid).tolist():
@@ -170,6 +191,15 @@ def _run_fused(t, st, lanes, pc, h, fuel_on, left, win, opt=None,
         ran = _Group(t, st, tl[m], tpc[m], fuel_on, win, opt,
                      t0_time).run(int(h2))
         left[ran] -= 1
+
+
+def _gas(t, pc, n):
+    """The fuel n ops from pc cost: n with flat gas, the sum of their
+    weights (wrapped to int32) with weighted gas."""
+    if t.gcum is None:
+        return n
+    pcl = pc.long()
+    return ops.wrap32(t.gcum[pcl + n].long() - t.gcum[pcl].long())
 
 
 class _Group:
@@ -275,6 +305,18 @@ class _Group:
     # -- dispatch ------------------------------------------------------------
     def run(self, h):
         """Returns the lanes that ran (not those waiting for a commit)."""
+        if h in _A3_WRITES and self.olead is not None:
+            # B3: a warp that is on and not uniform commits first and
+            # runs it per lane; a uniform warp runs it here
+            d = self.olead[0] & ~self.opt.uniform[self.opt.wid[self.lanes]]
+            if bool(d.any()):
+                self.opt.defer(self.lanes[d], DEFER_BULK)
+                rest = ~d
+                if not bool(rest.any()):
+                    return self.lanes[rest]
+                return _Group(self.t, self.st, self.lanes[rest],
+                              self.pc[rest], self.fuel_on, self.win,
+                              self.opt, self.t0_time).run(h)
         if h >= H_ALU2_BASE and h < H_ALU1_BASE:
             self.alu2(h - H_ALU2_BASE)
         elif h >= H_ALU1_BASE and h < H_ALU1_BASE + _NUM_ALU1:
@@ -311,7 +353,8 @@ class _Group:
         st.retired[lanes] += 1
         trap = self.trap
         if self.fuel_on:
-            fuel = st.fuel[lanes] - 1
+            fuel = st.fuel[lanes] - (1 if self.t.cost is None
+                                     else self.t.cost[self.pc.long()])
             st.fuel[lanes] = fuel
             trap = torch.where((trap == 0) & (fuel <= 0),
                                torch.full_like(trap,
@@ -431,14 +474,27 @@ class _Group:
         nf = self.t.fent.shape[0]
         self._call(self.a.clamp(0, nf - 1), self.sp, None)
 
-    def call_indirect(self):
+    def retcall(self):
+        nf = self.t.fent.shape[0]
+        self._call(self.a.clamp(0, nf - 1), self.sp, None, tail=True)
+
+    def retcall_indirect(self):
+        self.call_indirect(tail=True)
+
+    def call_indirect(self, tail=False):
+        """Through the lane's own table where the code mutates it (its
+        handle agreed under B3: lanes with one index can reach different
+        callees), else table 0 with the instruction's size `b`."""
         t = self.t
         nf = t.fent.shape[0]
         i_lo = self.agree(self.cell(self.sp - 1)[0])
-        size = self.b
+        size = self._tsize()
         ti = self.c + i_lo.clamp(min=0).minimum((size - 1).clamp(min=0))
-        ti = ti.clamp(0, t.tbl.shape[0] - 1)
-        handle = t.tbl[ti.long()]
+        if t.tmut:
+            handle = self.agree(self.gat(self.st.tab, ti))
+        else:
+            ti = ti.clamp(0, t.tbl.shape[0] - 1)
+            handle = t.tbl[ti.long()]
         oob = ~ops.u_lt(i_lo, size)
         null = ~oob & (handle == 0)
         callee = (handle - 1).clamp(0, nf - 1)
@@ -448,29 +504,39 @@ class _Group:
                        (null, ErrCode.UninitializedElement),
                        (bad_sig, ErrCode.IndirectCallTypeMismatch)):
             code = torch.where(m, torch.full_like(code, int(err)), code)
-        self._call(callee, self.sp - 1, code)
+        self._call(callee, self.sp - 1, code, tail)
 
-    def _call(self, callee, sp_eff, code):
+    def _call(self, callee, sp_eff, code, tail=False):
+        """A call, or with `tail` a return_call: the frame is replaced
+        (fp stays, the arguments slide down to it in ascending order,
+        which is overlap-safe since they lie at or above the operand
+        base; no frame row is written and the call stack is not
+        checked, engine.py:1496-1516 of the reference)."""
         t, st = self.t, self.st
         cl = callee.long()
         entry, npar, nloc, ftop = t.fent[cl], t.fnpar[cl], t.fnloc[cl], \
             t.ftop[cl]
         CD = st.fr_ret_pc.shape[0]
-        fp_new = sp_eff - npar
+        fp_new = self.fp if tail else sp_eff - npar
         ob_new = fp_new + nloc
         if code is None:
             code = torch.zeros_like(self.trap)
-        code = torch.where(self.cd >= CD - 1,
-                           torch.full_like(code,
-                                           int(ErrCode.CallStackExhausted)),
-                           code)
+        if not tail:
+            code = torch.where(
+                self.cd >= CD - 1,
+                torch.full_like(code, int(ErrCode.CallStackExhausted)), code)
         code = torch.where(fp_new + ftop > self.D,
                            torch.full_like(code, int(ErrCode.StackOverflow)),
                            code)
         ok = code == 0
-        self.scat(st.fr_ret_pc, self.cd, self.pc + 1, ok)
-        self.scat(st.fr_fp, self.cd, self.fp, ok)
-        self.scat(st.fr_opbase, self.cd, self.ob, ok)
+        if tail:
+            for k in range(int(npar.max()) if npar.numel() else 0):
+                self.put4(self.fp + k, self.cell4(sp_eff - npar + k),
+                          ok & (k < npar))
+        else:
+            self.scat(st.fr_ret_pc, self.cd, self.pc + 1, ok)
+            self.scat(st.fr_fp, self.cd, self.fp, ok)
+            self.scat(st.fr_opbase, self.cd, self.ob, ok)
         zero = torch.zeros_like(self.pc)
         for k in range(t.max_local_zeros):
             self.put(fp_new + npar + k, zero, zero, ok & (k < nloc - npar))
@@ -479,7 +545,7 @@ class _Group:
         self.new_fp = fp_new
         self.new_ob = ob_new
         self.new_sp = ob_new
-        self.new_cd = self.cd + 1
+        self.new_cd = self.cd if tail else self.cd + 1
 
     # -- memory ----------------------------------------------------------------
     def _ea(self, base, nbytes, off=None):
@@ -810,6 +876,160 @@ class _Group:
             _fill_copy(self.st.mem, self.lanes[go], dst[go], end[go],
                        val_or_src[go], copy)
 
+    # -- tables and segments (engine.py:1156-1307 of the reference) ----------
+    def _tsize(self):
+        """Each lane's table size: its `tsize` where the code mutates the
+        table, else the instruction's `b`."""
+        return self.st.tsize[self.lanes] if self.t.tmut else self.b
+
+    def _err(self, m, err):
+        self.trap = torch.where(m, torch.full_like(self.trap, int(err)),
+                                self.trap)
+
+    def _trange(self, lo, hi, vals_of, go):
+        """Rows [lo, hi) of each lane's table column (lanes of `go`) get
+        vals_of(rows), gathered from the table as it was before the op."""
+        if not bool(go.any()):
+            return
+        tab = self.st.tab
+        T = tab.shape[0]
+        rows = torch.arange(T, device=tab.device)[:, None]
+        lanes = self.lanes[go]
+        cur = tab[:, lanes]
+        inr = (rows >= lo[go][None]) & (rows < hi[go][None])
+        tab[:, lanes] = torch.where(inr, vals_of(rows, go, cur), cur)
+
+    def table_get(self):
+        i = self.cell(self.sp - 1)[0]
+        oob = ~ops.u_lt(i, self._tsize())
+        if self.t.tmut:
+            val = self.gat(self.st.tab, self.c + i)
+        else:
+            n = self.t.tbl.shape[0]
+            val = self.t.tbl[(self.c + i).clamp(0, n - 1).long()]
+        self.put(self.sp - 1, val, torch.zeros_like(val), ~oob)
+        self.trap = self.agree(torch.where(
+            oob, torch.full_like(self.trap, int(ErrCode.TableOutOfBounds)),
+            self.trap))
+
+    def table_set(self):
+        ref, i = self.cell(self.sp - 1)[0], self.cell(self.sp - 2)[0]
+        oob = ~ops.u_lt(i, self._tsize())
+        self.scat(self.st.tab, self.c + i, ref, ~oob)
+        self._err(oob, ErrCode.TableOutOfBounds)
+        self.new_sp = self.sp - 2
+
+    def table_size(self):
+        size = self._tsize()
+        self.put(self.sp, size, torch.zeros_like(size))
+        self.new_sp = self.sp + 1
+
+    def table_grow(self):
+        """delta on top, the init ref below; `b` is the capacity."""
+        delta, init = self.cell(self.sp - 1)[0], self.cell(self.sp - 2)[0]
+        size = self._tsize()
+        new = ops.wrap32(size.to(torch.int64) + delta.to(torch.int64))
+        ok = (delta >= 0) & (new >= size) & ~ops.u_lt(self.b, new)
+        res = torch.where(ok, size, torch.full_like(size, -1))
+        self.put(self.sp - 2, res, torch.zeros_like(res))
+        self._trange(self.c + size, self.c + new,
+                     lambda r, g, cur: init[g][None].expand_as(cur),
+                     ok & (delta > 0))
+        self.st.tsize[self.lanes] = torch.where(ok, new, size)
+        self.new_sp = self.sp - 1
+
+    def table_fill(self):
+        """n on top, then the value, then the first row i."""
+        n, val, i = (self.cell(self.sp - k)[0] for k in (1, 2, 3))
+        end = ops.wrap32(i.to(torch.int64) + ops.u32(n))
+        oob = ops.u_lt(end, i) | ops.u_lt(self._tsize(), end)
+        self._trange(self.c + i, self.c + end,
+                     lambda r, g, cur: val[g][None].expand_as(cur),
+                     ~oob & (n != 0))
+        self._err(oob, ErrCode.TableOutOfBounds)
+        self.new_sp = self.sp - 3
+
+    def table_copy(self):
+        """n on top, then src, then dst; rows gathered from the table
+        before the op (overlap-safe)."""
+        n, src, dst = (self.cell(self.sp - k)[0] for k in (1, 2, 3))
+        size = self._tsize()
+        send = ops.wrap32(src.to(torch.int64) + ops.u32(n))
+        dend = ops.wrap32(dst.to(torch.int64) + ops.u32(n))
+        oob = ops.u_lt(send, src) | ops.u_lt(size, send) | \
+            ops.u_lt(dend, dst) | ops.u_lt(size, dend)
+        T = self.st.tab.shape[0]
+
+        def vals(rows, g, cur):
+            srow = (rows - dst[g][None] + src[g][None]).clamp(0, T - 1)
+            return torch.gather(cur, 0, srow)
+
+        self._trange(self.c + dst, self.c + dend, vals, ~oob & (n != 0))
+        self._err(oob, ErrCode.TableOutOfBounds)
+        self.new_sp = self.sp - 3
+
+    def _segment(self, lens, offs, drops):
+        """(length, offset) of segment `a` for each lane: length 0 once
+        the lane dropped it."""
+        k = self.a.clamp(0, lens.shape[0] - 1)
+        kl = k.long()
+        return torch.where(self.gat(drops, k) != 0, torch.zeros_like(k),
+                           lens[kl]), offs[kl]
+
+    def table_init(self):
+        """n on top, then src (in the segment), then dst; segment `a`."""
+        t = self.t
+        n, src, dst = (self.cell(self.sp - k)[0] for k in (1, 2, 3))
+        slen, soff = self._segment(t.elen, t.eoff, self.st.edrop)
+        send = ops.wrap32(src.to(torch.int64) + ops.u32(n))
+        dend = ops.wrap32(dst.to(torch.int64) + ops.u32(n))
+        oob = ops.u_lt(send, src) | ops.u_lt(slen, send) | \
+            ops.u_lt(dend, dst) | ops.u_lt(self._tsize(), dend)
+        nf = t.efl.shape[0]
+        base = self.c + dst
+
+        def vals(rows, g, cur):
+            k = soff[g][None] + src[g][None] + (rows - base[g][None])
+            return t.efl[k.clamp(0, nf - 1).long()]
+
+        self._trange(base, self.c + dend, vals, ~oob & (n != 0))
+        self._err(oob, ErrCode.TableOutOfBounds)
+        self.new_sp = self.sp - 3
+
+    def elem_drop(self):
+        k = self.a.clamp(0, self.st.edrop.shape[0] - 1)
+        self.scat(self.st.edrop, k, torch.ones_like(k))
+
+    def data_drop(self):
+        k = self.a.clamp(0, self.st.ddrop.shape[0] - 1)
+        self.scat(self.st.ddrop, k, torch.ones_like(k))
+
+    def memory_init(self):
+        """n on top, then src (in the segment), then dst; data segment
+        `a`.  Bounds in u32 with the carry; the lane's windows are written
+        back and dropped first, and the bytes go to the plane."""
+        t = self.t
+        n, src, dst = (ops.u32(self.cell(self.sp - k)[0]) for k in (1, 2, 3))
+        slen, soff = self._segment(t.dlen, t.doff, self.st.ddrop)
+        pages = self.st.mem_pages[self.lanes].to(torch.int64)
+        mem_bytes = (pages * 65536) & 0xFFFFFFFF
+        send, dend = (src + n) & 0xFFFFFFFF, (dst + n) & 0xFFFFFFFF
+        oob = (send < src) | (ops.u32(slen) < send) | (dend < dst) | \
+            (mem_bytes < dend)
+        if self.win is not None:
+            self.win.flush(self.lanes)
+        go = ~oob & (n != 0)
+        if bool(go.any()):
+            _mem_init(self.st.mem, self.lanes[go], dst[go], dend[go],
+                      (soff.to(torch.int64) + src - dst)[go], t.dwords)
+        self._err(oob, ErrCode.MemoryOutOfBounds)
+        self.new_sp = self.sp - 3
+
+    def ref_func(self):
+        v = self.a + 1
+        self.put(self.sp, v, torch.zeros_like(v))
+        self.new_sp = self.sp + 1
+
     # -- ALU -------------------------------------------------------------------
     def alu2(self, sub):
         y_lo, y_hi = self.cell(self.sp - 1)
@@ -938,6 +1158,13 @@ _BASE = {
     H_VCONST: _Group.vconst, H_VSHUFFLE: _Group.vshuffle,
     H_VBITSEL: _Group.vbitsel, H_VLOAD: _Group.vload,
     H_VSTORE: _Group.vstore,
+    H_TABLE_GET: _Group.table_get, H_TABLE_SET: _Group.table_set,
+    H_TABLE_SIZE: _Group.table_size, H_TABLE_GROW: _Group.table_grow,
+    H_TABLE_FILL: _Group.table_fill, H_TABLE_COPY: _Group.table_copy,
+    H_TABLE_INIT: _Group.table_init, H_ELEM_DROP: _Group.elem_drop,
+    H_MEMINIT: _Group.memory_init, H_DATA_DROP: _Group.data_drop,
+    H_RETCALL: _Group.retcall, H_RETCALL_INDIRECT: _Group.retcall_indirect,
+    H_REFFUNC: _Group.ref_func,
 }
 
 
@@ -1177,11 +1404,36 @@ class _Fused(_Group):
         st.sp[lanes] = self.out_sp
         st.retired[lanes] += self.n
         if self.fuel_on:
-            st.fuel[lanes] -= self.n
+            st.fuel[lanes] -= _gas(self.t, self.pc, self.n)
         st.trap[lanes] = self.otrap
 
 
 _BYTE_MASKS = (0xFF, 0xFF00, 0xFF0000, 0xFF000000)
+
+
+def _mem_init(mem, lanes, dst, end, base, words):
+    """Bytes [dst, end) of each lane's column of the [W, L] memory plane
+    get the data segment bytes at dst + base on (byte k of the flat
+    segment bytes is byte k % 4 of words[k // 4]); rows outside the
+    plane are not written (the reference's run_minit, restricted to the
+    rows the lanes touch)."""
+    W, nw = mem.shape[0], words.shape[0]
+    r0 = int((dst >> 2).min())
+    r1 = min(int(((end - 1) >> 2).max()), W - 1)
+    if r0 > r1:
+        return
+    rows = torch.arange(r0, r1 + 1, dtype=torch.int64,
+                        device=mem.device)[:, None]
+    cols = lanes[None, :]
+    out = ops.u32(mem[rows, cols])
+    for bpos, bm in enumerate(_BYTE_MASKS):
+        ba = rows * 4 + bpos
+        inr = (ba >= dst[None, :]) & (ba < end[None, :])
+        sb = ba + base[None, :]
+        w = ops.u32(words[(sb >> 2).clamp(0, nw - 1)])
+        byte = (w >> ((sb & 3) * 8)) & 0xFF
+        out = torch.where(inr, (out & ~bm) | (byte << (8 * bpos)), out)
+    mem[rows, cols] = ops.wrap32(out)
 
 
 def _fill_copy(mem, lanes, dst, end, val_or_src, copy):

@@ -26,6 +26,11 @@ validated: `dirty_miss` tells whether a select would write a dirty way
 back (a commit point in "on" warps), `commit` writes the dirty ways back
 and keeps them valid, and `invalidate` drops the windows on a rollback.
 
+The instructions that work on the plane itself (memory.fill /
+memory.copy, memory.init from a data segment, and the tier-0 calls that
+touch memory) first `flush` the lane's windows: its dirty ways go back to
+the plane and none stays valid, so the next access fills again.
+
 `COUNTS` sums, over every `MemWindows` since it was last set to 0, the
 misses (selects that hit neither way) and the ways written back (a dirty
 way: one with a write not yet in the plane), by the kernel's rule: the

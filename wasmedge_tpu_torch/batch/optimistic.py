@@ -12,17 +12,21 @@ the CUDA kernel's half; this module is its plain PyTorch version, which
 share.
 
 A warp is 32 lanes (lane // 32).  A warp whose present lanes are all live
-and share pc, sp, fp, operand base, call depth, pages and fuel when a
-launch starts runs "on": every decision (a branch condition's zeroness; a
+and share pc, sp, fp, operand base, call depth, pages, fuel and (with a
+per-lane table) table size when a launch starts runs "on": every decision (a branch condition's zeroness; a
 table index, a grow delta, a memory address, an ALU trap kind and the frame
 row a return goes back through exactly: the entry compares no frame row)
 is its lane 0's, and a lane whose own value differs sets its canary.  The
 commit points are the kernel's: the first dispatch boundary once
 `snap` steps have passed since the last snapshot (min(512, snap) for the
 first of a launch), a window miss that would write a dirty way back, a
-bulk op or a tier-0 host call (after which the warp leaves "on" for the
-launch; a uniform warp only at random_get) and the end of the warp's
-loop.  A clean check writes the dirty windows back and
+bulk op, a tier-0 host call or an instruction that writes the table,
+its size, a dropped flag or memory from a data segment (after which the
+warp leaves "on" for the launch; a uniform warp only at random_get, and
+never at the table and segment writes, which its lanes make alike) and
+the end of the warp's loop.  So no snapshot holds the table or
+segment planes, and call_indirect agrees the handle it reads from the
+lane's table.  A clean check writes the dirty windows back and
 snapshots; a dirty one restores the snapshot (stack rows below its sp,
 frames, globals, memory without windows), drops the windows, halves the
 warp's interval (down to `SNAP_MIN`), counts a rollback and lets the rest
@@ -33,8 +37,10 @@ The entry rule of uniform warps: a warp that is on, whole (32 lanes) and
 whose lanes equal its lane 0 in stack rows [0, sp) of every stack plane,
 frame rows [0, call depth), the globals, memory rows [0, min(W, pages x
 16384)) and, with tier 0, every row of the call counts `t0_ctr` and the
-stdout buffer's fill `so_off` (not the buffer: Wasm never reads it) holds
-one state; its lanes run the same instructions on the same values until
+stdout buffer's fill `so_off` (not the buffer: Wasm never reads it) and,
+with tables and segments, the table rows below the lane's size `tsize`
+(rows at or above it are dead: table.grow writes every row it exposes)
+and every row of the dropped flags `edrop` and `ddrop`, holds one state; its lanes run the same instructions on the same values until
 the launch ends or a tier-0 random_get (seeded per lane) commits and
 turns it off, so the kernel runs it without shuffles or snapshots
 (`csrc/optimistic.cuh` `WarpUniform`).  Here such a warp runs as
@@ -156,8 +162,10 @@ class OptRun:
         self.lead_lanes = torch.arange(self.nw, device=dev) * WARP
         same = st.trap == 0
         for f in ("pc", "sp", "fp", "opbase", "call_depth", "mem_pages",
-                  "fuel"):
+                  "fuel", "tsize"):
             p = getattr(st, f)
+            if p is None:
+                continue
             same = same & (p == p[self.leader])
         self.on = self._all(same) & (self.chunk > 0)
         self.entered = self.on.clone()
@@ -188,7 +196,8 @@ class OptRun:
     def _same_rows(self, st):
         """Per lane: equal to its warp's lane 0 in the rows the entry rule
         compares (its own sp, call depth and pages; a warp that is on
-        shares them; every row of the tier-0 counts and the stdout fill)."""
+        shares them; every row of the tier-0 counts and the stdout fill;
+        the table rows below its size, every row of the dropped flags)."""
         ns, nf = st.sp.long(), st.call_depth.long()
         W = st.mem.shape[0]
         nm = torch.clamp(st.mem_pages.long() * 16384, max=W) if W > 1 \
@@ -201,7 +210,10 @@ class OptRun:
                          (st.glob_hi, None), (st.mem, nm),
                          (st.t0_ctr, None),
                          (None if st.so_off is None else st.so_off[None],
-                          None)):
+                          None),
+                         (st.tab, None if st.tsize is None
+                          else st.tsize.long()),
+                         (st.edrop, None), (st.ddrop, None)):
             if plane is None:
                 continue
             diff = plane != plane[:, self.leader]

@@ -69,8 +69,16 @@ class BatchConfigure:
     value_stack_depth: int = 1024  # 64-bit slots per lane
     call_stack_depth: int = 512  # frames per lane
     memory_pages_per_lane: int = 1  # 64 KiB pages of linear memory per lane
+    # table.grow capacity cap per lane (like memory_pages_per_lane: a
+    # static ceiling of the [table_cap, lanes] plane; grow beyond it
+    # returns -1, which the spec allows at any size)
+    table_elems_per_lane: int = 4096
     steps_per_launch: int = 1024  # interpreter steps per kernel launch
     fuel_per_launch: Optional[int] = None  # per-lane fuel budget (gas analog)
+    # per-opcode gas weights, indexed by opcode id (the Statistics cost
+    # table; None = flat 1 per instruction).  Read only with fuel on, and
+    # only when a weight differs from 1 (batch/engine.py `cost_plane`)
+    cost_table: Optional[tuple] = None
     # serve parked host calls by groups through the SoA-vectorized WASI
     # implementations (host/wasi/vectorized.py) instead of lane by lane
     vectorized_hostcalls: bool = True

@@ -215,7 +215,7 @@ int fused_launch(const Params& p, int bulk, int simd, int win, int opt,
 
 // The module's C entries: wasm_interp_launch's arguments, with the fused
 // tables (hid0, flen and the superinstructions' operand planes, null for
-// blocks) before the optimistic ones (then tier 0's); and interp.cu's
+// blocks) before the optimistic ones (then tier 0's and the tables'); and interp.cu's
 // kernel_attrs of its one instantiation at depth D.
 #define WASM_FUSED_LAUNCH(KBULK, KSIMD, KWIN, KOPT, FUSED)                     \
   extern "C" int wasm_fused_launch(                                            \
@@ -229,10 +229,11 @@ int fused_launch(const Params& p, int bulk, int simd, int win, int opt,
       int* glob_lo, int* glob_hi, int* mem, const int* hid0,                   \
       const int* flen, const int* fa, const int* fb, const int* fc,            \
       const int* filo, const int* fihi, WASM_OPT_ARGS, WASM_T0_PTR_ARGS,       \
-      int code_len, int nf, int n_brt, int tsize, int nv, int L, int D,        \
-      int CD, int NG, int W, int chunk, int fuel_on, int max_local_zeros,      \
-      int mem_pages_max, int bulk, int simd, int win, int opt, int snap_max,   \
-      WASM_T0_INT_ARGS, void* stream) {                                        \
+      WASM_A3_PTR_ARGS, int code_len, int nf, int n_brt, int tsize, int nv,    \
+      int L, int D, int CD, int NG, int W, int chunk, int fuel_on,             \
+      int max_local_zeros, int mem_pages_max, int bulk, int simd, int win,     \
+      int opt, int snap_max, WASM_T0_INT_ARGS, WASM_A3_INT_ARGS,               \
+      void* stream) {                                                          \
     Params p{hid,       a,         b,        c,         ilo,                   \
              ihi,       fent,      fnpar,    fnloc,     ftop,                  \
              ftyp,      brt,       tbl,      pc,        sp,                    \
@@ -246,6 +247,7 @@ int fused_launch(const Params& p, int bulk, int simd, int win, int opt,
              fb,        fc,        filo,     fihi,      WASM_OPT_FIELDS,       \
              snap_max};                                                        \
     p.t0 = WASM_T0_FIELDS;                                                     \
+    p.a3 = WASM_A3_FIELDS;                                                     \
     return fused_launch<KBULK, KSIMD, KWIN, KOPT, FUSED>(p, bulk, simd, win,  \
                                                          opt, stream);         \
   }                                                                            \

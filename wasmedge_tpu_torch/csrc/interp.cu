@@ -52,6 +52,26 @@
 // park as before.  A build without WASM_TIER0 has none of this compiled
 // in: fib's builds keep their code.
 //
+// Tables, element and data segments, tail calls and ref.func (WASM_TABLES
+// builds, those of images with such classes; the reference SIMT step's
+// engine.py:1156-1307 and :1464-1516, which no Pallas code runs: the
+// Pallas engine sends such images to the SIMT engine,
+// pallas_engine.py:578-595): each lane has its own table column in the
+// [table_cap, L] plane and its size (when the image mutates its table),
+// and its own dropped flag per segment; table.get / set / size / grow /
+// fill / copy / init, elem.drop, memory.init, data.drop and ref.func run
+// per lane in `a3_step` (out of line: the dispatch loop keeps its
+// registers), as row walks over the lane's column (copy walks backward
+// when dst > src: the reference gathers from the table before the op);
+// memory.init walks the lane's memory column bytewise from the segment's
+// words, after the lane's windows are written back and dropped (as a bulk
+// op).  call_indirect reads the lane's table; return_call and
+// return_call_indirect replace the frame: fp stays, the arguments slide
+// down to it, no frame row is written and only the value stack is
+// checked.  Weighted gas (WASM_GAS) charges each instruction its weight
+// and a fused dispatch its ops' sum.  A build without these defines has
+// none of this compiled in.
+//
 // v128 (B7, `h_vconst` ... `h_vstore`, pallas_engine.py :3203-3520): a
 // v128 cell is four words, kept in four stack planes (lo, hi, e2, e3).
 // Only images that hold v128 ops run the kSimd instantiations, which have
@@ -120,6 +140,7 @@ constexpr int TRAP_HOSTCALL = -2;
 constexpr int E_DIV_ZERO = 0x84;
 constexpr int E_INT_OVERFLOW = 0x85;
 constexpr int E_INVALID_CONV = 0x86;
+constexpr int E_TABLE_OOB = 0x87;
 constexpr int E_MEM_OOB = 0x88;
 constexpr int E_UNINIT_ELEM = 0x8A;
 constexpr int E_UNDEF_ELEM = 0x8B;
@@ -178,6 +199,22 @@ constexpr int H_VSPLAT_BASE = 1046;
 constexpr int H_VEXTRACT_BASE = 1052;
 constexpr int H_VREPLACE_BASE = 1060;
 constexpr int NUM_HANDLERS = 1066;  // B2 block ids start here
+// Tables, segments, tail calls and ref.func (WASM_TABLES builds only):
+// negative, so that the ids above and the block ids keep their numbers.
+constexpr int H_A3_BASE = -64;
+constexpr int H_TABLE_GET = -64;
+constexpr int H_TABLE_SET = -63;
+constexpr int H_TABLE_SIZE = -62;
+constexpr int H_TABLE_GROW = -61;
+constexpr int H_TABLE_FILL = -60;
+constexpr int H_TABLE_COPY = -59;
+constexpr int H_TABLE_INIT = -58;
+constexpr int H_ELEM_DROP = -57;
+constexpr int H_MEMINIT = -56;
+constexpr int H_DATA_DROP = -55;
+constexpr int H_RETCALL = -54;
+constexpr int H_RETCALL_INDIRECT = -53;
+constexpr int H_REFFUNC = -52;
 
 // First sub id of each family in batch/simdops.py's V2_NAMES / V1_NAMES
 // (the ops of a family follow in the order of its name list there).
@@ -214,6 +251,31 @@ struct T0Args {
   i32* so_buf;
   i32* so_off;
   int on, sw, seed, rmax_w, wmax_w, rt_lo, rt_hi, mono_lo, mono_hi;
+};
+
+// The tables' and weighted gas's launch arguments (null and 0 in a build
+// without WASM_TABLES / WASM_GAS): each lane's table [tcap, L] and size
+// [L] (null unless the image mutates its table), the segments' dropped
+// flags [n_elem, L] and [n_data, L] (null when unused), the element
+// segments (funcidx+1, flat, with offsets and lengths) and the data
+// segments (bytes packed into words, with byte offsets and lengths), each
+// pc's gas weight [code_len] and their running sum [code_len + 1]
+// (WASM_GAS), on, the table plane's rows, the segment counts, the flat
+// element and data word counts, and gas on.
+struct A3Args {
+  i32* tab;
+  i32* tsize;
+  i32* edrop;
+  i32* ddrop;
+  const i32* __restrict__ efl;
+  const i32* __restrict__ eoff;
+  const i32* __restrict__ elen;
+  const i32* __restrict__ dwords;
+  const i32* __restrict__ doff;
+  const i32* __restrict__ dlen;
+  const i32* __restrict__ cost;
+  const i32* __restrict__ gcum;
+  int on, tcap, n_elem, n_data, n_efl, n_dwords, gas_on;
 };
 
 struct Params {
@@ -290,6 +352,8 @@ struct Params {
   int srows;
   // tier 0 (WASM_TIER0 builds)
   T0Args t0;
+  // tables, segments and weighted gas (WASM_TABLES, WASM_GAS builds)
+  A3Args a3;
 };
 
 // Threads per block of every launch: one warp, so that 4096 lanes are 128
@@ -318,6 +382,22 @@ constexpr bool kStackSplit = WASM_STACK_SPLIT != 0;
 #define WASM_TIER0 0
 #endif
 constexpr bool kTier0 = WASM_TIER0 != 0;
+
+// WASM_TABLES 1: the build of an image with table, segment, tail-call or
+// ref.func classes, with their handlers (a3_step, the tail calls in the
+// call case, call_indirect through the lane's table) and the table and
+// segment planes in B3's entry compare; a launch must then give a3.on,
+// and a build without it refuses one that does.  WASM_GAS 1: weighted
+// gas (a launch gives a3.gas_on and the weights).  Undefined in every
+// other build, whose code they leave as it was.
+#ifndef WASM_TABLES
+#define WASM_TABLES 0
+#endif
+#ifndef WASM_GAS
+#define WASM_GAS 0
+#endif
+constexpr bool kTables = WASM_TABLES != 0;
+constexpr bool kGas = WASM_GAS != 0;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -1540,6 +1620,173 @@ __device__ __noinline__ u64 tier0_call(const T0Args t0, i32* mem, int L, int W,
   }
 }
 
+// What n instructions from pc cost: n, or (WASM_GAS) the sum of their
+// weights, from the running sum (wrapping, as the int32 sums of the plain
+// version).
+__device__ __forceinline__ int gas_run(const Params& p, int pc, int n) {
+  if constexpr (kGas)
+    return (int)((u32)__ldg(&p.a3.gcum[pc + n]) - (u32)__ldg(&p.a3.gcum[pc]));
+  else
+    return n;
+}
+
+// ---------------------------------------------------------------------------
+// Tables and segments (WASM_TABLES): the reference SIMT step's handlers
+// (engine.py:1156-1307), on one lane's columns.
+// ---------------------------------------------------------------------------
+#if WASM_TABLES
+// The stack change of each table and segment handler (H_A3_BASE on):
+// get, set, size, grow, fill, copy, init, elem.drop, memory.init,
+// data.drop, the two tail calls (not used: the call case sets sp) and
+// ref.func.
+__device__ __forceinline__ int a3_sp_delta(int h) {
+  constexpr int kDelta[13] = {0, -2, 1, -1, -3, -3, -3, 0, -3, 0, 0, 0, 1};
+  return kDelta[h - H_A3_BASE];
+}
+
+// The handlers that write the table, its size, a dropped flag or memory
+// from a data segment: a warp-leader commits and is off before them.
+__device__ __forceinline__ bool a3_writes(int h) {
+  return h >= H_TABLE_SET && h <= H_DATA_DROP && h != H_TABLE_SIZE;
+}
+
+// Bytes [dst, end) of one lane's memory column from the data segment
+// bytes at sb on (byte k at byte k % 4 of words[k / 4]), byte by byte;
+// rows beyond the plane are not written.
+__device__ __noinline__ void mem_init_walk(i32* mem, int L, int W, int lane,
+                                           u32 dst, u32 end, u32 sb,
+                                           const i32* __restrict__ words,
+                                           int nw) {
+  const int w0 = (int)(dst >> 2), w1 = (int)((end - 1u) >> 2);
+  const int wlast = w1 < W - 1 ? w1 : W - 1;
+  for (int r = w0; r <= wlast; ++r) {
+    u32 mk = 0u, v = 0u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const u32 ba = (u32)r * 4u + (u32)b;
+      if (ba >= dst && ba < end) {
+        const u32 k = ba - dst + sb;
+        const u32 wi = k >> 2;
+        const u32 wv = (u32)__ldg(&words[wi < (u32)(nw - 1) ? wi : (u32)(nw - 1)]);
+        mk |= 0xFFu << (8 * b);
+        v |= ((wv >> ((k & 3u) * 8u)) & 0xFFu) << (8 * b);
+      }
+    }
+    i32* const c = mem + (size_t)r * L + lane;
+    *c = (i32)(((u32)*c & ~mk) | (v & mk));
+  }
+}
+
+// One table or segment instruction h (not a tail call) of one lane, with
+// its immediates a, b (the table size, or table.grow's capacity) and c
+// (the table's base row), the lane's sp and memory size in bytes; returns
+// its trap code.  The stack change is a3_sp_delta's; memory.init's
+// caller has written the lane's windows back and dropped them.  Out of
+// line: the dispatch loop keeps its registers.
+template <bool kSimd>
+__device__ __noinline__ int a3_step(const A3Args t, const Lane<kSimd> s,
+                                    const i32* __restrict__ tbl, int ntbl,
+                                    i32* mem, int W, int h, int a, int b,
+                                    int c, int sp, u32 mem_bytes) {
+  const int L = s.L, lane = s.lane, T = t.tcap;
+  const u32 size = t.tsize ? (u32)t.tsize[lane] : (u32)b;
+  i32* const col = t.tab ? t.tab + lane : nullptr;  // row r at col[r * L]
+  switch (h) {
+    case H_TABLE_GET: {
+      const i32 i = (i32)s.get(sp - 1);
+      if (!((u32)i < size)) return E_TABLE_OOB;
+      const i32 v = col ? col[(size_t)clampi(c + i, 0, T - 1) * L]
+                        : __ldg(&tbl[clampi(c + i, 0, ntbl - 1)]);
+      s.put(sp - 1, cell32((u32)v));
+      return 0;
+    }
+    case H_TABLE_SET: {
+      const i32 i = (i32)s.get(sp - 2);
+      if (!((u32)i < size)) return E_TABLE_OOB;
+      col[(size_t)clampi(c + i, 0, T - 1) * L] = (i32)s.get(sp - 1);
+      return 0;
+    }
+    case H_TABLE_SIZE:
+      s.put(sp, cell32(size));
+      return 0;
+    case H_TABLE_GROW: {
+      // delta on top, the init ref below; b is the capacity
+      const i32 delta = (i32)s.get(sp - 1), init = (i32)s.get(sp - 2);
+      const i32 sz = (i32)size, nsz = (i32)(size + (u32)delta);
+      const bool ok = delta >= 0 && nsz >= sz && !((u32)b < (u32)nsz);
+      s.put(sp - 2, cell32(ok ? size : 0xFFFFFFFFu));
+      if (ok) {
+        for (int r = max(c + sz, 0); r < min(c + nsz, T); ++r)
+          col[(size_t)r * L] = init;
+        t.tsize[lane] = nsz;
+      }
+      return 0;
+    }
+    case H_TABLE_FILL:
+    case H_TABLE_COPY:
+    case H_TABLE_INIT: {
+      // n on top, then the value (fill) or source, then the first row
+      const u32 n = (u32)s.get(sp - 1), v = (u32)s.get(sp - 2);
+      const u32 dst = (u32)s.get(sp - 3), dend = dst + n;
+      u32 slimit = size, soff = 0u;
+      if (h == H_TABLE_INIT) {
+        const int k = clampi(a, 0, t.n_elem - 1);
+        const bool dropped = t.edrop && t.edrop[(size_t)k * L + lane] != 0;
+        slimit = dropped ? 0u : (u32)__ldg(&t.elen[k]);
+        soff = (u32)__ldg(&t.eoff[k]);
+      }
+      const bool oob = dend < dst || size < dend ||
+                       (h != H_TABLE_FILL && (v + n < v || slimit < v + n));
+      if (oob) return E_TABLE_OOB;
+      const int d0 = c + (i32)dst, s0 = c + (i32)v;
+      if (h == H_TABLE_FILL) {
+        for (u32 k = 0; k < n; ++k) col[(size_t)clampi(d0 + (int)k, 0, T - 1) * L] = (i32)v;
+      } else if (h == H_TABLE_INIT) {
+        for (u32 k = 0; k < n; ++k)
+          col[(size_t)clampi(d0 + (int)k, 0, T - 1) * L] =
+              __ldg(&t.efl[clampi((int)(soff + v + k), 0, t.n_efl - 1)]);
+      } else if (d0 > s0) {
+        // overlap-safe: a row is read before the walk writes it
+        for (u32 k = n; k-- > 0u;)
+          col[(size_t)clampi(d0 + (int)k, 0, T - 1) * L] =
+              col[(size_t)clampi(s0 + (int)k, 0, T - 1) * L];
+      } else {
+        for (u32 k = 0; k < n; ++k)
+          col[(size_t)clampi(d0 + (int)k, 0, T - 1) * L] =
+              col[(size_t)clampi(s0 + (int)k, 0, T - 1) * L];
+      }
+      return 0;
+    }
+    case H_ELEM_DROP:
+      t.edrop[(size_t)clampi(a, 0, t.n_elem - 1) * L + lane] = 1;
+      return 0;
+    case H_DATA_DROP:
+      t.ddrop[(size_t)clampi(a, 0, t.n_data - 1) * L + lane] = 1;
+      return 0;
+    case H_MEMINIT: {
+      // n on top, then the source offset in the segment, then dst
+      const u32 n = (u32)s.get(sp - 1), src = (u32)s.get(sp - 2);
+      const u32 dst = (u32)s.get(sp - 3);
+      const int k = clampi(a, 0, t.n_data - 1);
+      const bool dropped = t.ddrop[(size_t)k * L + lane] != 0;
+      const u32 slen = dropped ? 0u : (u32)__ldg(&t.dlen[k]);
+      const u32 send = src + n, dend = dst + n;
+      if (send < src || slen < send || dend < dst || mem_bytes < dend)
+        return E_MEM_OOB;  // nothing written
+      if (n != 0u)
+        mem_init_walk(mem, L, W, lane, dst, dend,
+                      (u32)__ldg(&t.doff[k]) + src, t.dwords, t.n_dwords);
+      return 0;
+    }
+    case H_REFFUNC:
+      s.put(sp, cell32((u32)(a + 1)));
+      return 0;
+    default:
+      return E_EXEC_FAILED;
+  }
+}
+#endif  // WASM_TABLES
+
 // memory.fill (copy = false, v = the fill byte) or memory.copy (copy =
 // true, v = the source address) of bytes [dst, end) in one lane's column,
 // end > dst, both ranges already bounds-checked.  Words are masked at the
@@ -2059,7 +2306,11 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
                                          ob, cd, pages, n, xtrap);
       if (h == FUSED_DONE || n != 0) {
         retired += n;
+#if WASM_GAS
+        if (p.fuel_on) fuel -= gas_run(p, pcc, n);
+#else
         if (p.fuel_on) fuel -= n;
+#endif
         s.note(sp);  // a fused dispatch writes rows below its exit's sp
         if (xtrap != 0) {
           if constexpr (Wp::kCommits) {
@@ -2092,12 +2343,20 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
       if ((unsigned)(h - H_FUSE_GCA_BASE) <= (unsigned)(H_FUSE_GBR - H_FUSE_GCA_BASE) ||
           h >= NUM_HANDLERS) {
         const int len = __ldg(&p.flen[pcc]);
+#if WASM_GAS
+        if (p.chunk - step >= len && (!p.fuel_on || fuel > gas_run(p, pcc, len))) {
+#else
         if (p.chunk - step >= len && (!p.fuel_on || fuel > len)) {
+#endif
           int n = 0, xtrap = 0;
           const bool term = F::template step<kSimd, kWin>(
               p, s, m, w, h, pc, sp, fp, ob, pages, n, xtrap);
           retired += n;
+#if WASM_GAS
+          if (p.fuel_on) fuel -= gas_run(p, pcc, n);
+#else
           if (p.fuel_on) fuel -= n;
+#endif
           s.note(sp);  // a fused dispatch writes rows below its exit's sp
           if (xtrap != 0) {
             if constexpr (Wp::kCommits) {
@@ -2236,6 +2495,65 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
           }
           break;
         }
+#if WASM_TABLES
+        case H_CALL:
+        case H_CALL_INDIRECT:
+        case H_RETCALL:
+        case H_RETCALL_INDIRECT: {
+          // a tail call (return_call, return_call_indirect) replaces the
+          // frame: fp stays, the arguments slide down to it (ascending:
+          // they lie at or above the operand base), no frame row is
+          // written and only the value stack is checked
+          const bool tail = h == H_RETCALL || h == H_RETCALL_INDIRECT;
+          const int a = __ldg(&p.a[pcc]);
+          int callee, sp_eff = sp, code = 0;
+          if (h == H_CALL || h == H_RETCALL) {
+            callee = clampi(a, 0, p.nf - 1);
+          } else {
+            // through the lane's own table where the image mutates it
+            // (its handle agreed: lanes with one index can reach
+            // different callees), else table 0 of size b
+            const int b = __ldg(&p.b[pcc]), c = __ldg(&p.c[pcc]);
+            const i32 idx = (i32)w.agree((u32)s.get(sp - 1));
+            const int size = p.a3.tsize ? p.a3.tsize[lane] : b;
+            const int ti = c + clampi(idx, 0, size - 1 > 0 ? size - 1 : 0);
+            const int handle =
+                p.a3.tab ? (int)w.agree((u32)p.a3.tab[(size_t)clampi(ti, 0, p.a3.tcap - 1) * p.L + lane])
+                         : __ldg(&p.tbl[clampi(ti, 0, p.tsize - 1)]);
+            const bool oob = !((u32)idx < (u32)size);
+            const bool null_ref = !oob && handle == 0;
+            callee = clampi(handle - 1, 0, p.nf - 1);
+            if (oob) code = E_UNDEF_ELEM;
+            if (null_ref) code = E_UNINIT_ELEM;
+            if (!oob && !null_ref && __ldg(&p.ftyp[callee]) != a) code = E_SIG_MISMATCH;
+            sp_eff = sp - 1;
+          }
+          const int npar = __ldg(&p.fnpar[callee]), nloc = __ldg(&p.fnloc[callee]);
+          const int fp_new = tail ? fp : sp_eff - npar, ob_new = fp_new + nloc;
+          if (!tail && cd >= p.CD - 1) code = E_CALL_STACK;
+          if (fp_new + __ldg(&p.ftop[callee]) > p.D) code = E_STACK_OVERFLOW;
+          if (code == 0) {
+            if (tail) {
+              for (int k = 0; k < npar; ++k) s.putc(fp + k, s.getc(sp_eff - npar + k));
+            } else {
+              if constexpr (Wp::kLead) opt_save_frame(p, lane, cd, os.o.fhi);
+              const size_t r = s.at(cd, p.CD);
+              p.fr_ret_pc[r] = pcc + 1;
+              p.fr_fp[r] = fp;
+              p.fr_opbase[r] = ob;
+            }
+            for (int k = 0; k < nloc - npar && k < p.max_local_zeros; ++k)
+              s.put(fp_new + npar + k, 0);
+          }
+          ntrap = code;
+          new_pc = __ldg(&p.fent[callee]);
+          new_fp = fp_new;
+          new_ob = ob_new;
+          new_sp = ob_new;
+          new_cd = tail ? cd : cd + 1;
+          break;
+        }
+#else
         case H_CALL:
         case H_CALL_INDIRECT: {
           const int a = __ldg(&p.a[pcc]);
@@ -2277,6 +2595,7 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
           new_cd = cd + 1;
           break;
         }
+#endif  // WASM_TABLES
         case H_MEMSIZE:
           s.put(sp, cell32((u32)pages));
           new_sp = sp + 1;
@@ -2358,6 +2677,24 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
           // The host-call park and bulk memory sit here, not under case
           // labels of their own: as cases they slowed fib(30) x 4096, which
           // runs neither, by 1.5 % on an H100 (PERF.md).
+#if WASM_TABLES
+          if (h < 0) {
+            // tables and segments: a warp-leader commits first and runs
+            // a write per lane, off for the rest of the launch; a uniform
+            // warp runs it in place (its lanes write alike)
+            if (w.on() && Wp::kLead && a3_writes(h)) {
+              ntrap = OPT_DEFER;
+              break;
+            }
+            if (h == H_MEMINIT) m.flush(p, lane);  // it works on the plane
+            ntrap = a3_step<kSimd>(p.a3, s, p.tbl, p.tsize, p.mem, p.W, h,
+                                   __ldg(&p.a[pcc]), __ldg(&p.b[pcc]),
+                                   __ldg(&p.c[pcc]), sp, (u32)pages * 65536u);
+            if (h == H_TABLE_GET) ntrap = (int)w.agree((u32)ntrap);
+            new_sp = sp + a3_sp_delta(h);
+            break;
+          }
+#endif
           if (h == H_HOSTCALL) {
             if constexpr (kTier0) {
               const int kind = __ldg(&p.t0.kind[pcc]);
@@ -2436,7 +2773,11 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
 
     ++retired;
     if (p.fuel_on) {
+#if WASM_GAS
+      fuel = (int)((u32)fuel - (u32)__ldg(&p.a3.cost[pcc]));
+#else
       --fuel;
+#endif
       if (ntrap == 0 && fuel <= 0) ntrap = E_COST_LIMIT;
     }
     if (ntrap != 0) {
@@ -2446,11 +2787,24 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
           // the commit first, then the instruction again (a bulk op in
           // the careful loop)
           --retired;
+#if WASM_GAS
+          if (p.fuel_on) fuel = (int)((u32)fuel + (u32)__ldg(&p.a3.cost[pcc]));
+#else
           if (p.fuel_on) ++fuel;
+#endif
+#if WASM_TABLES
+          // a table or segment write: the commit, then the rest of the
+          // launch per lane, as at a bulk op
+          os.pending = h == H_MEMFILL || h == H_MEMCOPY ||
+                               (kTier0 && h == H_HOSTCALL) || h < 0
+                           ? OPT_WAIT_BULK
+                           : OPT_WAIT_ACCESS;
+#else
           os.pending = h == H_MEMFILL || h == H_MEMCOPY ||
                                (kTier0 && h == H_HOSTCALL)
                            ? OPT_WAIT_BULK
                            : OPT_WAIT_ACCESS;
+#endif
           return;
         }
       }
@@ -2501,9 +2855,19 @@ __global__ void __launch_bounds__(BLOCK_THREADS) interp_kernel(const Params p) {
     const int l_cd = __shfl_sync(mask, r.cd, 0);
     const int l_pages = __shfl_sync(mask, r.pages, 0);
     const int l_fuel = __shfl_sync(mask, r.fuel, 0);
+#if WASM_TABLES
+    // the lane's table size is a control register of the entry compare
+    // (its shuffle outside the && chain: every lane of the mask takes it)
+    const int tsz = p.a3.tsize ? p.a3.tsize[lane] : 0;
+    const int l_tsz = __shfl_sync(mask, tsz, 0);
+    const bool same = trap0 == 0 && r.pc == l_pc && r.sp == l_sp &&
+                      r.fp == l_fp && r.ob == l_ob && r.cd == l_cd &&
+                      r.pages == l_pages && r.fuel == l_fuel && tsz == l_tsz;
+#else
     const bool same = trap0 == 0 && r.pc == l_pc && r.sp == l_sp &&
                       r.fp == l_fp && r.ob == l_ob && r.cd == l_cd &&
                       r.pages == l_pages && r.fuel == l_fuel;
+#endif
     os.entered = os.on = __all_sync(mask, same) && p.chunk > 0;
     if (trap0 != 0) return;
     // a whole warp that is on: the entry rule (optimistic.cuh), on the
@@ -2658,6 +3022,15 @@ int launch_kernel(const Params& p, cudaStream_t st) {
   if ((p.t0.on != 0) != kTier0) return (int)cudaErrorInvalidValue;
   if (kTier0 && (!p.t0.kind || !p.t0.ctr || (p.t0.so_buf && !p.t0.so_off)))
     return (int)cudaErrorInvalidValue;
+  // the tables' and weighted gas's handlers only in builds with them, and
+  // then with their planes
+  if ((p.a3.on != 0) != kTables || (p.a3.gas_on != 0) != kGas)
+    return (int)cudaErrorInvalidValue;
+  if (kTables && (!p.a3.efl || !p.a3.eoff || !p.a3.elen || !p.a3.dwords ||
+                  !p.a3.doff || !p.a3.dlen || (!p.a3.tab != !p.a3.tsize) ||
+                  p.a3.tcap < 1 || p.a3.n_efl < 1 || p.a3.n_dwords < 1))
+    return (int)cudaErrorInvalidValue;
+  if (kGas && (!p.a3.cost || !p.a3.gcum)) return (int)cudaErrorInvalidValue;
   // a build without the split runs only depths whose rows all fit on chip
   if (!kStackSplit && stack_rows<kSimd, kWin>(p.D) < p.D)
     return (int)cudaErrorInvalidValue;
@@ -2723,6 +3096,20 @@ int kernel_attrs(int D, int* out) {
 #define WASM_T0_INT_ARGS                                                  \
   int t0_on, int t0_sw, int t0_seed, int t0_rmax_w, int t0_wmax_w,        \
       int t0_rt_lo, int t0_rt_hi, int t0_mono_lo, int t0_mono_hi
+// The tables' and weighted gas's arguments (A3Args; null and 0 for a
+// build without them): pointers after tier 0's, ints after tier 0's.
+#define WASM_A3_PTR_ARGS                                                  \
+  int *tab, int *tsize_p, int *edrop, int *ddrop, const int *efl,         \
+      const int *eoff, const int *elen, const int *dwords,                \
+      const int *doff, const int *dlen, const int *cost, const int *gcum
+#define WASM_A3_INT_ARGS                                                  \
+  int a3_on, int tcap, int n_elem, int n_data, int n_efl, int n_dwords,   \
+      int gas_on
+#define WASM_A3_FIELDS                                                    \
+  A3Args {                                                                \
+    tab, tsize_p, edrop, ddrop, efl, eoff, elen, dwords, doff, dlen,      \
+        cost, gcum, a3_on, tcap, n_elem, n_data, n_efl, n_dwords, gas_on  \
+  }
 #define WASM_T0_FIELDS                                                    \
   T0Args {                                                                \
     t0k, t0_ctr, so_buf, so_off, t0_on, t0_sw, t0_seed, t0_rmax_w,        \
@@ -2774,10 +3161,11 @@ extern "C" int wasm_interp_launch(
     int* trap, int* retired, int* fuel, int* mem_pages, int* stack_lo,
     int* stack_hi, int* stack_e2, int* stack_e3, int* fr_ret_pc, int* fr_fp,
     int* fr_opbase, int* glob_lo, int* glob_hi, int* mem, WASM_OPT_ARGS,
-    WASM_T0_PTR_ARGS, int code_len, int nf, int n_brt, int tsize, int nv,
-    int L, int D, int CD, int NG, int W, int chunk, int fuel_on,
-    int max_local_zeros, int mem_pages_max, int bulk, int simd, int win,
-    int opt, int snap_max, WASM_T0_INT_ARGS, void* stream) {
+    WASM_T0_PTR_ARGS, WASM_A3_PTR_ARGS, int code_len, int nf, int n_brt,
+    int tsize, int nv, int L, int D, int CD, int NG, int W, int chunk,
+    int fuel_on, int max_local_zeros, int mem_pages_max, int bulk, int simd,
+    int win, int opt, int snap_max, WASM_T0_INT_ARGS, WASM_A3_INT_ARGS,
+    void* stream) {
   Params p{hid, a, b, c, ilo, ihi, fent, fnpar, fnloc, ftop, ftyp, brt, tbl,
            pc, sp, fp, opbase, call_depth, trap, retired, fuel, mem_pages,
            stack_lo, stack_hi, fr_ret_pc, fr_fp, fr_opbase, glob_lo, glob_hi,
@@ -2786,6 +3174,7 @@ extern "C" int wasm_interp_launch(
            nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
            WASM_OPT_FIELDS, snap_max};
   p.t0 = WASM_T0_FIELDS;
+  p.a3 = WASM_A3_FIELDS;
   constexpr bool kWin = WASM_MEM_WINDOW != 0;
   constexpr bool kOpt = WASM_OPTIMISTIC != 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -2793,9 +3182,9 @@ extern "C" int wasm_interp_launch(
     return (int)cudaErrorInvalidValue;
   if (simd && (stack_e2 == nullptr || stack_e3 == nullptr))
     return (int)cudaErrorInvalidValue;
-#if WASM_TIER0
-  // a build with the tier-0 handlers holds one instantiation
-  constexpr bool kB = WASM_T0_BULK != 0, kS = WASM_T0_SIMD != 0;
+#if WASM_TIER0 || WASM_TABLES || WASM_GAS
+  // a build with handlers compiled in on request holds one instantiation
+  constexpr bool kB = WASM_ONE_BULK != 0, kS = WASM_ONE_SIMD != 0;
   if ((bulk != 0) != kB || (simd != 0) != kS) return (int)cudaErrorInvalidValue;
   return launch_kernel<kB, kS, NoFusion, kWin, kOpt>(p, st);
 #else
@@ -2811,8 +3200,8 @@ extern "C" int wasm_interp_launch(
 extern "C" int wasm_interp_attrs(int bulk, int simd, int D, int* out) {
   constexpr bool kWin = WASM_MEM_WINDOW != 0;
   constexpr bool kOpt = WASM_OPTIMISTIC != 0;
-#if WASM_TIER0
-  constexpr bool kB = WASM_T0_BULK != 0, kS = WASM_T0_SIMD != 0;
+#if WASM_TIER0 || WASM_TABLES || WASM_GAS
+  constexpr bool kB = WASM_ONE_BULK != 0, kS = WASM_ONE_SIMD != 0;
   if ((bulk != 0) != kB || (simd != 0) != kS) return (int)cudaErrorInvalidValue;
   return kernel_attrs<kB, kS, NoFusion, kWin, kOpt>(D, out);
 #else

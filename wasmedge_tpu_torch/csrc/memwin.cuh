@@ -348,7 +348,9 @@ struct Mem<true> {
     }
     put(p, lane, r, ((u32)*cell & ~mask) | (v & mask));
   }
-  // _win_flush: both dirty ways back to the plane, both invalid
+  // _win_flush: both dirty ways back to the plane, both invalid (at the
+  // launch's exit, and before an instruction that works on the plane:
+  // memory.fill / memory.copy, memory.init, a tier-0 call with memory)
   __device__ __forceinline__ void flush(const Params& p, int lane) {
     if (dirty(0)) back(p, lane, 0, false);
     if (dirty(1)) back(p, lane, 1, false);

@@ -12,10 +12,12 @@
 //
 // The Pallas kernel's unit is the lane block, which runs one instruction
 // stream; here it is the warp.  A warp whose present lanes are all live
-// and share pc, sp, fp, operand base, call depth, pages and fuel at the
+// and share pc, sp, fp, operand base, call depth, pages, fuel and (with a
+// per-lane table) table size at the
 // launch's start is "on": it runs the warp-leader loop (interp.cu
 // dispatch_loop with kLead), where every decision (a branch condition's
-// zeroness; a table index, a grow delta, a memory address, an ALU trap
+// zeroness; a table index and the handle it reads from a lane's own
+// table, a grow delta, a memory address, an ALU or table.get trap
 // kind and the frame row a return goes back through exactly: the entry
 // compares no frame row) is lane 0's, taken with one __shfl_sync, and a
 // lane whose own value differs ORs the difference into its canary
@@ -29,7 +31,10 @@
 //    the plane only ever holds validated words;
 //  - at memory.fill / memory.copy, after which the warp is off for the
 //    rest of the launch (they run per lane on the plane), and at a tier-0
-//    host call in the same way (a uniform warp's only at random_get);
+//    host call in the same way (a uniform warp's only at random_get), and
+//    at an instruction that writes the table, its size, a dropped flag or
+//    memory from a data segment (a uniform warp's never: its lanes write
+//    alike), so no snapshot needs to hold those planes;
 //  - when the loop ends (chunk end, trap, fuel, done, the host-call park).
 // A clean check writes both dirty ways back and snapshots (below); a
 // dirty one restores the snapshot, drops the windows, halves the warp's
@@ -61,8 +66,10 @@
 // compare `warp_uniform`, lane against lane 0: stack rows [0, sp) of every
 // stack plane, frame rows [0, cd), the globals and memory rows [0,
 // min(W, pages x 16384)) of the plane and, with tier 0, every row of the
-// call counts t0_ctr and the stdout buffer's fill so_off; rows nothing
-// reads are not compared, nor the stdout buffer, which Wasm never reads)
+// call counts t0_ctr and the stdout buffer's fill so_off, with tables the
+// table rows below the lane's size and every row of the segments' dropped
+// flags; rows nothing reads are not compared, nor the stdout buffer, which
+// Wasm never reads)
 // runs the same instructions on the same values in every lane until the
 // launch ends: lane identity is not visible to Wasm, a host call parks
 // the launch, and the tier-0 calls that the kernel serves compute from
@@ -355,6 +362,17 @@ __device__ __forceinline__ bool warp_uniform(const Params& p, int lane, int sp,
     // what a clock or fd_write call reads besides memory
     if (same) same = !rows_differ(p.t0.ctr, p.L, wbase, 4);
     if (same && p.t0.so_off) same = !rows_differ(p.t0.so_off, p.L, wbase, 1);
+  }
+  if constexpr (kTables) {
+    // the table rows below the lane's size (a warp that is on shares it;
+    // rows at or above it are dead: table.grow writes every row it
+    // exposes) and every segment's dropped flag: what a table or segment
+    // instruction reads besides the stack
+    if (same && p.a3.tab)
+      same = !rows_differ(p.a3.tab, p.L, wbase,
+                          clampi(p.a3.tsize[lane], 0, p.a3.tcap));
+    if (same && p.a3.edrop) same = !rows_differ(p.a3.edrop, p.L, wbase, p.a3.n_elem);
+    if (same && p.a3.ddrop) same = !rows_differ(p.a3.ddrop, p.L, wbase, p.a3.n_data);
   }
   if (threadIdx.x == 0) {
     atomicAdd(&g_entry_counts[0], 1ull);

@@ -1632,3 +1632,360 @@ def tier0_cases(lanes: int, seed: int) -> dict:
         "shapes": ("shapes", [lane % 6]),
         "uniform": ("uniform", [np.full(lanes, 700)]),
     }
+
+
+# -- tables, segments, tail calls and weighted gas ----------------------------
+
+TABLE_ZOO_WAT = r"""(module
+  (type $v (func (result i32)))
+  (type $ii (func (param i32) (result i32)))
+  (type $acc (func (param i32 i32) (result i32)))
+  (table 4 10 funcref)
+  (memory 1)
+  (func $f0 (type $v) (i32.const 100))
+  (func $f1 (type $v) (i32.const 101))
+  (func $f2 (type $v) (i32.const 102))
+  (func $g (type $ii) (i32.add (local.get 0) (i32.const 7)))
+  (elem $e0 func $f0 $f1 $f2 $f0)
+  (elem $e1 func $f2 $g $f1)
+  (elem (i32.const 0) $f0 $f1)
+  (data $d0 "\01\02\03\04\05\06\07\08\09\0a\0b\0c\0d\0e\0f\10\11\12\13")
+  (data $d1 "hello, tables")
+  (func $sum (result i32)
+    (local $j i32) (local $acc i32)
+    (block $out
+      (loop $top
+        (br_if $out (i32.ge_u (local.get $j) (table.size)))
+        (local.set $acc (i32.add (i32.mul (local.get $acc) (i32.const 7))
+          (if (result i32) (ref.is_null (table.get (local.get $j)))
+            (then (i32.const 1))
+            (else (call_indirect (type $v) (local.get $j))))))
+        (local.set $j (i32.add (local.get $j) (i32.const 1)))
+        (br $top)))
+    (i32.add (i32.mul (local.get $acc) (i32.const 16)) (table.size)))
+  (func (export "get") (param $i i32) (result i32)
+    (if (result i32) (ref.is_null (table.get (local.get $i)))
+      (then (i32.const -1))
+      (else (call_indirect (type $v) (local.get $i)))))
+  (func (export "calli") (param $i i32) (result i32)
+    (call_indirect (type $v) (local.get $i)))
+  (func (export "set") (param $i i32) (param $k i32) (result i32)
+    (if (i32.eqz (local.get $k))
+      (then (table.set (local.get $i) (ref.func $f2)))
+      (else (if (i32.eq (local.get $k) (i32.const 1))
+        (then (table.set (local.get $i) (ref.null func)))
+        (else (table.set (i32.and (local.get $i) (i32.const 3))
+                         (ref.func $g))))))
+    (call_indirect (type $v) (local.get $i)))
+  (func (export "grow") (param $d i32) (param $k i32) (result i32)
+    (local $r i32)
+    (local.set $r (if (result i32) (local.get $k)
+      (then (table.grow (ref.null func) (local.get $d)))
+      (else (table.grow (ref.func $f1) (local.get $d)))))
+    (i32.add (i32.mul (local.get $r) (i32.const 100000)) (call $sum)))
+  (func (export "fill") (param $i i32) (param $n i32) (param $k i32)
+        (result i32)
+    (drop (table.grow (ref.null func) (i32.const 2)))
+    (table.fill (local.get $i) (ref.func $f2) (local.get $n))
+    (i32.add (call $sum)
+      (i32.mul (i32.const 1000000)
+        (call_indirect (type $v) (local.get $k)))))
+  (func (export "copy") (param $d i32) (param $s i32) (param $n i32)
+        (result i32)
+    (drop (table.grow (ref.null func) (i32.const 4)))
+    (table.init $e0 (i32.const 2) (i32.const 0) (i32.const 4))
+    (table.copy (local.get $d) (local.get $s) (local.get $n))
+    (call $sum))
+  (func (export "init") (param $mode i32) (param $s i32) (param $n i32)
+        (result i32)
+    (if (i32.and (local.get $mode) (i32.const 1))
+      (then (elem.drop $e0)))
+    (if (i32.and (local.get $mode) (i32.const 2))
+      (then (elem.drop $e0) (elem.drop $e1)))
+    (table.init $e0 (i32.const 0) (local.get $s) (local.get $n))
+    (table.init $e1 (i32.const 1) (i32.const 0) (i32.const 0))
+    (call $sum))
+  (func (export "meminit") (param $dst i32) (param $s i32) (param $n i32)
+        (param $drop i32) (result i32)
+    (if (local.get $drop) (then (data.drop $d0)))
+    (memory.init $d0 (local.get $dst) (local.get $s) (local.get $n))
+    (data.drop $d1)
+    (memory.init $d1 (i32.const 64) (i32.const 0) (i32.const 0))
+    (i32.xor (i32.load (i32.and (local.get $dst) (i32.const 0xfff8)))
+      (i32.rotl (i32.load offset=4 (i32.and (local.get $dst)
+                                            (i32.const 0xfff8)))
+                (i32.const 9))))
+  (func $count (param $n i32) (param $acc i32) (result i32)
+    (if (result i32) (i32.eqz (local.get $n))
+      (then (local.get $acc))
+      (else (return_call $count (i32.sub (local.get $n) (i32.const 1))
+                        (i32.add (local.get $acc) (local.get $n))))))
+  (func $wide (param $n i32) (param $acc i32) (result i32)
+    (local i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64)
+    (local i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64)
+    (local i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64)
+    (local i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64)
+    (i32.add (local.get $n) (local.get $acc)))
+  (func (export "tail") (param $n i32) (param $w i32) (result i32)
+    (if (result i32) (local.get $w)
+      (then (return_call $wide (local.get $n) (i32.const 1)))
+      (else (return_call $count (local.get $n) (i32.const 0)))))
+  (func $step (type $acc)
+    (if (result i32) (i32.eqz (local.get 0))
+      (then (local.get 1))
+      (else (return_call_indirect (type $acc)
+        (i32.sub (local.get 0) (i32.const 1))
+        (i32.add (i32.mul (local.get 1) (i32.const 3)) (local.get 0))
+        (i32.and (local.get 0) (i32.const 1))))))
+  (func $step2 (type $acc)
+    (return_call $step (local.get 0) (i32.xor (local.get 1) (i32.const 0x55))))
+  (elem $e2 func $step $step2)
+  (func (export "tail_ind") (param $i i32) (param $n i32) (result i32)
+    (table.set (i32.const 0) (ref.func $step))
+    (table.set (i32.const 1) (ref.func $step2))
+    (table.set (i32.const 3) (ref.func $f0))
+    (return_call_indirect (type $acc) (local.get $n) (i32.const 1)
+                          (local.get $i)))
+  (func (export "agree") (param $k i32) (param $n i32) (result i32)
+    (local $j i32) (local $acc i32)
+    (table.set (i32.const 1)
+      (if (result funcref) (i32.and (local.get $k) (i32.const 1))
+        (then (ref.func $f2)) (else (ref.func $f0))))
+    (loop $spin
+      (local.set $j (i32.add (local.get $j) (i32.const 1)))
+      (br_if $spin (i32.lt_u (local.get $j) (i32.const 40))))
+    (loop $calls
+      (local.set $acc (i32.add (local.get $acc)
+                               (call_indirect (type $v) (i32.const 1))))
+      (local.set $n (i32.sub (local.get $n) (i32.const 1)))
+      (br_if $calls (local.get $n)))
+    (local.get $acc))
+  (func (export "refs") (param $x i32) (result i32)
+    (i32.add
+      (i32.mul (ref.is_null (ref.func $f1)) (i32.const 10))
+      (i32.add (table.size)
+        (call_indirect (type $v)
+          (i32.and (local.get $x) (i32.const 1))))))
+)"""
+
+
+def build_table_zoo() -> bytes:
+    """Every table, segment, tail-call and ref.func class in one module, an
+    export each (table 4 of declared max 10, two passive element segments
+    and two passive data segments; run it with `table_elems_per_lane` 8 so
+    that a grow can pass the capacity under the declared max):
+    `get(i)` / `calli(i)` (table.get and call_indirect, TableOutOfBounds,
+    UndefinedElement, UninitializedElement), `set(i, k)` (a set to a
+    function, to null or to one of another type: IndirectCallTypeMismatch),
+    `grow(d, k)` (up to, past and below the capacity, with a ref or null),
+    `fill(i, n, k)`, `copy(d, s, n)` (both overlaps), `init(mode, s, n)`
+    (segments used after elem.drop), `meminit(dst, s, n, drop)` (memory.init
+    at any byte offset, after data.drop, out of bounds both ways),
+    `tail(n, w)` (return_call deeper than the call stack, or into a function
+    whose frame does not fit: StackOverflow), `tail_ind(i, n)`
+    (return_call_indirect through the lane's table: every call_indirect
+    trap), `agree(k, n)` (lanes of one warp calling one index of tables that
+    differ, after a launch boundary: B3's handle agreement) and `refs(x)`
+    (ref.func, table.size).  Each result folds the table (`$sum`) or the
+    memory it touched."""
+    return parse_wat(TABLE_ZOO_WAT)
+
+
+# table_elems_per_lane for the zoo: below its declared maximum of 10
+TABLE_ZOO_CAP = 8
+
+
+def table_cases(lanes: int, seed: int) -> dict:
+    """(export, per-lane args) of build_table_zoo's cases at `lanes`
+    lanes, from a seed: lane-dependent arguments over every outcome."""
+    rng = np.random.default_rng(seed)
+    lane = np.arange(lanes)
+
+    def pick(vals):
+        return np.asarray(vals, np.int64)[rng.integers(0, len(vals), lanes)]
+
+    return {
+        "get": ("get", [pick([0, 1, 2, 3, 4, 9, -1])]),
+        "calli": ("calli", [pick([0, 1, 2, 3, 4, -5])]),
+        "set": ("set", [pick([0, 1, 2, 3, 4, 7]), pick([0, 1, 2])]),
+        "grow": ("grow", [pick([0, 1, 2, 4, 5, 6, -1, 1 << 30]),
+                          lane % 2]),
+        "fill": ("fill", [pick([0, 1, 3, 5, 6]), pick([0, 1, 2, 3, 7]),
+                          pick([0, 2, 5])]),
+        "copy": ("copy", [pick([0, 1, 3, 4, 6, 7]), pick([0, 2, 3, 5, 6]),
+                          pick([0, 1, 2, 3, 4, 5])]),
+        "init": ("init", [lane % 4, pick([0, 1, 2, 3, 4]),
+                          pick([0, 1, 2, 3])]),
+        "meminit": ("meminit", [pick([0, 1, 3, 6, 9, 65530, 65533, -2]),
+                                pick([0, 1, 5, 15, 19, 20]),
+                                pick([0, 1, 3, 4, 7]), lane % 3 == 0]),
+        "tail": ("tail", [pick([0, 1, 7, 40, 90]), pick([0, 0, 0, 1])]),
+        "tail_ind": ("tail_ind", [pick([0, 1, 2, 3, 4, 9]),
+                                  pick([0, 1, 2, 5, 20])]),
+        "agree": ("agree", [lane // 3, pick([1, 5, 30])]),
+        "refs": ("refs", [lane]),
+    }
+
+
+# The threaded-code interpreter: handler k mixes the state as
+# st' = (st + k * C[k]) * A[k] + (byte + 1) * B[k] (mod 2**32), then
+# tail-calls table[byte % 9].  A odd, so each step is a bijection.
+TAIL_A = (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D, 0x27D4EB2F, 0x165667B1,
+          0xD3A2646D, 0xFD7046C5, 0xB55A4F09)
+TAIL_B = (0x7FEB352D, 0x846CA68B, 0x68E31DA4, 0xB5297A4D, 0x1B56C4E9,
+          0x2C1B3C6D, 0x297A2D39, 0x0C3E1F27)
+TAIL_C = (0x01000193, 0x5BD1E995, 0xCC9E2D51, 0x1B873593, 0xE6546B64,
+          0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F)
+TAIL_SEED = 20261018  # the program bytes' seed
+TAIL_CONVERGED_SEED = 0x2545F491  # every lane's seed in "converged" mode
+# steps of the full-width run: about 3e7 instructions a lane, as fib(30)'s
+# 2.8e7 (about 42.7 a step: 8 + 28 + k + 3 for handler k and 31 for run
+# itself; chip_smoke.py checks the count)
+TAIL_DISPATCH_N = 700_000
+
+
+def tail_program() -> bytes:
+    """The 256 opcode bytes of build_tail_dispatch's data segment."""
+    return bytes(np.random.default_rng(TAIL_SEED).integers(
+        0, 256, 256, dtype=np.uint8))
+
+
+def _i32_lit(v: int) -> int:
+    v &= 0xFFFFFFFF
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def build_tail_dispatch() -> bytes:
+    """A threaded-code interpreter, the shape Wasm builds of interpreters
+    (Lua, Python, wasm3-style tail-call dispatch) take: a funcref table
+    (min 8, declared max 64), a passive element segment of the 8 handler
+    functions and a passive 256-byte data segment holding an opcode
+    program (`tail_program`).  `run(seed, n)`: memory.init of the program
+    into page 0, data.drop, table.init of slots 0..7, elem.drop,
+    table.set of slot seed & 7 to handler 5's ref.func, table.grow by one
+    slot holding handler 2, then `n` steps of return_call_indirect: the
+    handler at step t (pc = t) mixes the state with the program byte at
+    pc & 255 and its own constants (`TAIL_A` / `TAIL_B` / `TAIL_C`, and
+    k extra additions in handler k) and tail-calls table[byte % 9] with
+    n - 1; the first handler is table[seed % 9] and the state starts at
+    the seed.  Returns the state.  Needs the tail-call proposal."""
+    data = "".join(f"\\{b:02x}" for b in tail_program())
+    handlers = []
+    for k in range(8):
+        extra = "\n".join(
+            f"    (local.set 0 (i32.add (local.get 0) "
+            f"(i32.const {_i32_lit(TAIL_C[k])})))" for _ in range(k))
+        handlers.append(f"""  (func $h{k} (type $h) (local $b i32)
+    (if (i32.eqz (local.get 1)) (then (return (local.get 0))))
+    (local.set $b (i32.load8_u (i32.and (local.get 2) (i32.const 255))))
+{extra}
+    (return_call_indirect (type $h)
+      (i32.add (i32.mul (local.get 0) (i32.const {_i32_lit(TAIL_A[k])}))
+               (i32.mul (i32.add (local.get $b) (i32.const 1))
+                        (i32.const {_i32_lit(TAIL_B[k])})))
+      (i32.sub (local.get 1) (i32.const 1))
+      (i32.add (local.get 2) (i32.const 1))
+      (i32.rem_u (local.get $b) (i32.const 9))))""")
+    wat = f"""(module
+  (type $h (func (param i32 i32 i32) (result i32)))
+  (table 8 64 funcref)
+  (memory 1)
+  (data $prog "{data}")
+{chr(10).join(handlers)}
+  (elem $hs func $h0 $h1 $h2 $h3 $h4 $h5 $h6 $h7)
+  (func (export "run") (param $seed i32) (param $n i32) (result i32)
+    (memory.init $prog (i32.const 0) (i32.const 0) (i32.const 256))
+    (data.drop $prog)
+    (table.init $hs (i32.const 0) (i32.const 0) (i32.const 8))
+    (elem.drop $hs)
+    (table.set (i32.and (local.get $seed) (i32.const 7)) (ref.func $h5))
+    (drop (table.grow (ref.func $h2) (i32.const 1)))
+    (return_call_indirect (type $h)
+      (local.get $seed) (local.get $n) (i32.const 0)
+      (i32.rem_u (local.get $seed) (i32.const 9)))))"""
+    return parse_wat(wat)
+
+
+def tail_dispatch_args(lanes: int, mode: str, n: int = TAIL_DISPATCH_N):
+    """`run`'s (seed, n) at `lanes` lanes: "converged" gives every lane
+    one seed (every warp should enter uniform), "divergent" seed = lane
+    (lanes follow different handler chains; no warp is uniform)."""
+    if mode == "converged":
+        seed = np.full(lanes, TAIL_CONVERGED_SEED, np.int64)
+    elif mode == "divergent":
+        seed = np.arange(lanes, dtype=np.int64)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    return [seed, np.full(lanes, n, np.int64)]
+
+
+def tail_dispatch_model(seeds, n: int, steps: bool = False) -> np.ndarray:
+    """What `run(seed, n)` returns for each seed (uint32 as int64), from a
+    plain model of the machine: each lane's table (slot seed & 7 holds
+    handler 5, slot 8 handler 2), the program bytes and each handler's
+    mix.  Step t runs handler table[seed % 9] (t = 0) or table[prog[(t -
+    1) & 255] % 9] and maps st to (st + k C[k]) A[k] + (prog[t & 255] +
+    1) B[k]; every step is affine and the steps from t = 1 on repeat
+    every 256, so the n steps compose into one map by squaring (with
+    `steps`, step by step instead: the direct model, for small n)."""
+    M = 1 << 32
+    prog = tail_program()
+    seeds = np.asarray(seeds, np.int64) & 0xFFFFFFFF
+    out = np.zeros(seeds.shape, np.int64)
+
+    def affine(k, t):
+        byte = prog[t & 255]
+        a = TAIL_A[k]
+        return a, ((k * TAIL_C[k] * a) + (byte + 1) * TAIL_B[k]) % M
+
+    def then(f, g):  # g after f
+        return (g[0] * f[0]) % M, (g[0] * f[1] + g[1]) % M
+
+    for v in range(8):
+        table = list(range(8)) + [2]
+        table[v] = 5
+        for s9 in range(9):
+            grp = ((seeds & 7) == v) & ((seeds % 9) == s9)
+            if not grp.any():
+                continue
+            total = (1, 0)
+            if n > 0:
+                total = affine(table[s9], 0)
+                if steps:
+                    for t in range(1, n):
+                        total = then(total, affine(
+                            table[prog[(t - 1) & 255] % 9], t))
+                else:
+                    per = [affine(table[prog[(t - 1) & 255] % 9], t)
+                           for t in range(1, 257)]
+                    period = (1, 0)
+                    for f in per:
+                        period = then(period, f)
+                    q, r = divmod(n - 1, 256)
+                    power, base = (1, 0), period
+                    while q:
+                        if q & 1:
+                            power = then(power, base)
+                        base = then(base, base)
+                        q >>= 1
+                    total = then(total, power)
+                    for f in per[:r]:
+                        total = then(total, f)
+            out[grp] = (seeds[grp] * total[0] + total[1]) % M
+    return out
+
+
+def tail_cost_table() -> tuple:
+    """The weighted-gas table of the tail-dispatch checks, by opcode id:
+    call_indirect and return_call_indirect 5, the table instructions
+    (table.get / set / size / grow / fill / copy / init, elem.drop) 3,
+    every other opcode 1."""
+    from wasmedge_tpu_torch.common.opcodes import NAME_TO_ID
+
+    ct = [1] * (max(NAME_TO_ID.values()) + 1)
+    for name in ("call_indirect", "return_call_indirect"):
+        ct[NAME_TO_ID[name]] = 5
+    for name in ("table.get", "table.set", "table.size", "table.grow",
+                 "table.fill", "table.copy", "table.init", "elem.drop"):
+        ct[NAME_TO_ID[name]] = 3
+    return tuple(ct)

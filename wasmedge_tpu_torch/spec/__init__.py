@@ -18,7 +18,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from wasmedge_tpu_torch.common.configure import Configure
+from wasmedge_tpu_torch.common.configure import Configure, Proposal
 from wasmedge_tpu_torch.common.errors import (
     ErrCode, InstantiationError, LoadError, ValidationError)
 from wasmedge_tpu_torch.utils.wat import (
@@ -128,9 +128,12 @@ def run_corpus_batched(paths, device="cuda",
     `device`, then checked lane by lane.  Skipped: commands other than
     those two, assertions with v128 arguments or results (the entry
     cells carry 64 bits), modules that hold state across invocations
-    (memories, globals) and modules the batch engine or this slice of the
-    port does not run (the default proposals only: tail calls and
-    multiple memories are not in the batch engine).  `conf`: the batch
+    (memories, globals, and tables that the module mutates, outside the
+    `*_batch.wast` files, whose assertions are written to be independent
+    of one another: the reference runner's rule,
+    wasmedge_tpu/spec/__init__.py:405-424) and modules the batch engine
+    does not run.  Each file runs with the reference's proposals for it
+    (the tail-call proposal for the tail-call files).  `conf`: the batch
     knobs to run with, as the reference's `conf` (a copy is taken;
     `steps_per_launch` is set to 100,000; None: `Configure()`), for
     example deeper stacks for call.wast's `even(1000)`.  On the card, the
@@ -154,6 +157,28 @@ def corpus_tables(paths, conf: Optional[Configure] = None) -> list:
             _batch_modules(paths, "cpu", SpecReport(), conf)]
 
 
+# ops whose modules hold table state across invocations (the reference
+# runner's _TMUT)
+_TABLE_MUTATORS = ("table.set", "table.grow", "table.fill", "table.copy",
+                   "table.init", "elem.drop")
+
+
+def conf_for_file(path) -> Configure:
+    """The proposals a corpus file runs with, as the reference's
+    proposal test directories run (wasmedge_tpu/spec/__init__.py
+    `_conf_for_file`): tail calls for the tail-call files, multiple
+    memories for the multi-memory ones."""
+    import os
+
+    conf = Configure()
+    name = os.path.basename(str(path))
+    if "tail_call" in name:
+        conf.add_proposal(Proposal.TailCall)
+    if "multi_memory" in name:
+        conf.add_proposal(Proposal.MultiMemories)
+    return conf
+
+
 def _batch_modules(paths, device, rep, conf=None):
     """(path, engine, instance, {export: [(index, command)]}) for each
     module of the corpus with batchable assertions; skips and failures of
@@ -164,9 +189,15 @@ def _batch_modules(paths, device, rep, conf=None):
     from wasmedge_tpu_torch.runtime.store import StoreManager
     from wasmedge_tpu_torch.validator import Validator
 
-    conf = copy.deepcopy(conf) if conf is not None else Configure()
-    conf.batch.steps_per_launch = 100_000
+    from wasmedge_tpu_torch.common.opcodes import NAME_TO_ID
+
+    base = copy.deepcopy(conf) if conf is not None else Configure()
+    base.batch.steps_per_launch = 100_000
+    mutators = {NAME_TO_ID[n] for n in _TABLE_MUTATORS}
     for path in paths:
+        conf = copy.deepcopy(base)
+        for p in conf_for_file(path).proposals:
+            conf.add_proposal(p)
         with open(path) as f:
             src = f.read()
         try:
@@ -196,7 +227,11 @@ def _batch_modules(paths, device, rep, conf=None):
                     Loader(conf).parse_module(data))
                 store = StoreManager()
                 inst = instantiate(store, mod, conf)
-                if inst.memories or inst.globals:
+                ops = inst.lowered.op[:inst.lowered.code_len]
+                mutates_table = any(int(o) in mutators for o in ops)
+                if inst.memories or inst.globals or (
+                        mutates_table
+                        and not str(path).endswith("_batch.wast")):
                     rep.skipped += len(asserts)
                     continue
                 by_field: Dict[str, list] = {}

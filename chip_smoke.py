@@ -108,7 +108,13 @@ Phases:
                and blocks; converged: every warp uniform) and with
                weighted gas and a budget that runs out inside a block,
                every plane (tab, tsize, edrop, ddrop) and the per-warp
-               counts after every launch.  Then, in this
+               counts after every launch; the linked program (a consumer
+               whose start function fills the memory, table and global it
+               imports from a registered provider, then loops over loads
+               and call_indirect: models.fixtures.build_linked_program) at
+               small n, in blocks, with and without a fuel budget that
+               runs out on some lanes (warps roll back, none uniform).
+               Then, in this
                process, one 256-step launch of fib(30) x 4096 in each
                encoding, one converged memory.fill + memory.copy launch
                (also as PyTorch tensor calls, its warp passes counted),
@@ -124,7 +130,18 @@ Phases:
                weighted gas and flat fuel (the gas kernel against its
                plain version, the fuel it spent against its
                instructions' weights);
-  3. main    - at full size: the tail-dispatch workload x 4096
+  3. main    - at full size: the linked program x 4096 through
+               VM.register_module -> load_wasm -> validate -> instantiate
+               (its start function on the host's scalar engine, timed)
+               -> execute_batch, run(n, k) with k = lane and n = 160,000 +
+               (lane % 8) 20,000 (about 8e6 instructions a lane), every
+               lane equal to the numpy model, 8 lanes at small n equal on
+               VM.execute (the host) and the card, profiled and once more
+               careful, and with statistics.cost_measuring and a cost
+               limit of lane group 3's instructions (groups 0-3 finish,
+               4-7 trap CostLimitExceeded at the limit + 1); the 23 spec
+               files through the port's scalar harness on the host
+               (10,135 / 0 / 0, each file to its count); the tail-dispatch workload x 4096
                (run(seed, 700,000), about 3e7 instructions a lane) in
                both modes through VM.execute_batch, every lane equal to
                the numpy model, the call depth 0 after every launch,
@@ -170,7 +187,8 @@ Phases:
                instructions and instructions per second, registers and
                spills of each build, the card's name and power limit, one
                JSON line of kernel records (with "mem_window", B4,
-               "optimistic", B3, "tier0" and "tables"), and last the
+               "optimistic", B3, "tier0" and "tables"; the summary line
+               before it has the "linked" record), and last the
                device JSON line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -244,18 +262,19 @@ def gpu_name_and_power() -> str:
 
 
 def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
-                fusion=None, instance_cap=None, **knobs):
+                fusion=None, instance_cap=None, registered=(), **knobs):
     """A BatchEngine for `data`; `fusion` ("none", "blocks", "super")
     replaces the encoding the engine chose from `block_fusion` (the memory
     mode stays the one it chose from `mem_hbm`), generated with at most
     `instance_cap` B2 instance cases where it is given (the package's cap
-    otherwise)."""
+    otherwise).  `imports`: host modules registered first; `registered`:
+    (name, module bytes) registered (instantiated, start functions run)
+    before `data` is instantiated."""
     from wasmedge_tpu_torch.batch import fusegen
     from wasmedge_tpu_torch.batch.engine import BatchEngine
     from wasmedge_tpu_torch.batch.interp import device_tables
     from wasmedge_tpu_torch.common.configure import Configure, Proposal
-    from wasmedge_tpu_torch.executor.instantiate import (
-        instantiate, register_import_object)
+    from wasmedge_tpu_torch.executor import Executor
     from wasmedge_tpu_torch.loader import Loader
     from wasmedge_tpu_torch.runtime.store import StoreManager
     from wasmedge_tpu_torch.validator import Validator
@@ -264,11 +283,16 @@ def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
     conf.add_proposal(Proposal.TailCall)  # the tables fixtures' tail calls
     for k, v in knobs.items():
         setattr(conf.batch, k, v)
-    mod = Validator(conf).validate(Loader(conf).parse_module(data))
-    store = StoreManager()
+
+    def parse(b):
+        return Validator(conf).validate(Loader(conf).parse_module(b))
+
+    store, ex = StoreManager(), Executor(conf)
     for imp in imports:
-        register_import_object(store, imp)
-    inst = instantiate(store, mod, conf)
+        ex.register_import_object(store, imp)
+    for name, b in registered:
+        ex.register_module(store, parse(b), name)
+    inst = ex.instantiate(store, parse(data))
     eng = BatchEngine(inst, store=store, conf=conf, lanes=lanes,
                       device=device)
     if fusion is not None:
@@ -1466,6 +1490,58 @@ def table_jobs() -> list:
              dict(fusion=enc, rollbacks=rb, uniform=uni))
             for name, data, func, args, chunk, fuel, knobs, rb, uni, encs
             in table_fixtures(KERNEL_LANES) for enc in encs]
+
+
+# the linked program's kernel-against-plain size: n = 20 + (lane % 8) 8,
+# at most 2,668 instructions a lane, and its steps per launch (two
+# launches), and the fuel of its gas job (runs out inside the loop on
+# the lanes past about n = 40)
+LINKED_SMALL = (20, 8)
+LINKED_CHUNK = 1500
+LINKED_FUEL = 1420
+# the lanes VM.execute runs on the host, beside the card's run at small n
+LINKED_SAMPLE = 8
+
+
+def linked_knobs() -> dict:
+    """The linked program's engine knobs: the default depths (the main
+    path's), the provider registered before the consumer."""
+    from wasmedge_tpu_torch.models.fixtures import build_linked_program
+
+    return dict(registered=(("prov", build_linked_program()[0]),))
+
+
+def linked_builds() -> list:
+    """The tables (CPU) of the linked program's builds: B2 blocks at the
+    default depths, optimistic and careful, windows and direct (the main
+    path's; the kernel jobs and the gas run use the same: flat fuel needs
+    no gas build)."""
+    from wasmedge_tpu_torch.models.fixtures import build_linked_program
+
+    cons = build_linked_program()[1]
+    return [eng.tables for opt in (None, False)
+            for _, (eng, _) in memory_modes(lambda m: make_engine(
+                cons, 2, device="cpu", fusion="blocks", mem_hbm=m,
+                optimistic=opt, **linked_knobs()))]
+
+
+def linked_jobs() -> list:
+    """kernel_vs_plain jobs of the linked program at KERNEL_LANES lanes
+    and small n, in blocks, both memory modes, optimistic with the careful
+    kernel beside it: lanes of every warp call different functions through
+    the imported table and leave the loop at different trips, so warps
+    roll back and none is uniform; once more with a fuel budget that runs
+    out on some lanes."""
+    from wasmedge_tpu_torch.models.fixtures import (
+        build_linked_program, linked_args)
+
+    cons = build_linked_program()[1]
+    args = linked_args(KERNEL_LANES, *LINKED_SMALL)
+    return [("kernel_vs_plain", (name, cons, "run", args, LINKED_CHUNK, fuel,
+                                 linked_knobs()),
+             dict(fusion="blocks", rollbacks=True, uniform="none"))
+            for name, fuel in (("linked", None), ("linked_fuel",
+                                                  LINKED_FUEL))]
 
 
 def time_launch(fn, state, reps: int):
@@ -3087,6 +3163,163 @@ def phase_main_tables() -> dict:
     return out
 
 
+def linked_vm(**stats):
+    """A VM at MAIN_LANES lanes (the default knobs: B2 blocks, windows,
+    optimistic) with the linked program's provider registered as "prov"
+    (VM.register_module) and the consumer loaded, validated and
+    instantiated, its start function run on the host's scalar engine
+    (`stats`: StatisticsConfigure fields, timers on).  Returns (vm,
+    instantiate wall s, the start function's host s from the VM's
+    Statistics)."""
+    from wasmedge_tpu_torch.common.configure import Configure
+    from wasmedge_tpu_torch.models.fixtures import build_linked_program
+    from wasmedge_tpu_torch.vm.vm import VM
+
+    prov, cons = build_linked_program()
+    conf = Configure()
+    conf.batch.lanes = MAIN_LANES
+    conf.statistics.time_measuring = True
+    for k, v in stats.items():
+        setattr(conf.statistics, k, v)
+    vm = VM(conf)
+    vm.register_module("prov", prov)
+    vm.load_wasm(cons)
+    vm.validate()
+    vm.statistics().reset()
+    t0 = time.perf_counter()
+    vm.instantiate()
+    return vm, time.perf_counter() - t0, vm.statistics().wasm_ns / 1e9
+
+
+def phase_main_linked() -> dict:
+    """The linked program at full size through the user's entry points:
+    VM.register_module("prov", ...) -> load_wasm -> validate ->
+    instantiate (the start function fills the imported memory and sets a
+    global on the host) -> execute_batch, run(n, k) x MAIN_LANES with k =
+    lane and n = LINKED_N0 + (lane % 8) LINKED_N1 (about 8e6
+    instructions a lane; trip counts and call_indirect targets differ in
+    every warp), the defaults (B2 blocks, windows, optimistic): every lane
+    equal to the numpy model and retiring 8 + 35 n, no warp entry
+    uniform; LINKED_SAMPLE lanes at small n through VM.execute on the
+    host's scalar engine equal to the card's execute_batch and the model;
+    profiled, and once more careful (profiled).  Then gas: a VM with
+    `statistics.cost_measuring`, flat weights and `cost_limit` the exact
+    retired count of lane group 3 (the start function's cost, charged at
+    instantiation, below it): groups 0-3 finish equal to the model (group
+    3 exactly on the budget), groups 4-7 trap CostLimitExceeded with
+    retired = the limit + 1."""
+    from wasmedge_tpu_torch.common.errors import ErrCode
+    from wasmedge_tpu_torch.models.fixtures import (
+        LINKED_N0, LINKED_N1, linked_args, linked_program_model)
+
+    L = MAIN_LANES
+    vm, inst_s, start_s = linked_vm()
+    args = linked_args(L)
+    t0 = time.perf_counter()
+    want = linked_program_model(*args)
+    model_s = time.perf_counter() - t0
+    steps = 8 + 35 * args[0]
+
+    def check(res):
+        got = res.results[0].astype(np.int64) & 0xFFFFFFFF
+        if not (res.trap == -1).all() or not (got == want).all() or \
+                not (res.retired == steps).all():
+            fail(f"linked x {L}: traps {sorted(set(res.trap.tolist()))}, "
+                 f"{int((got != want).sum())} lanes off the model, "
+                 f"{int((res.retired != steps).sum())} off 8 + 35 n retired")
+
+    # a few lanes at small n on the host's scalar engine, against the
+    # card at the same (n, k) and the model
+    small = [np.arange(LINKED_SAMPLE) * 7 + 30,
+             np.arange(LINKED_SAMPLE) * 513]
+    host = [int(vm.execute("run", [int(small[0][i]), int(small[1][i])])[0])
+            & 0xFFFFFFFF for i in range(LINKED_SAMPLE)]
+    card = vm.execute_batch("run", small, lanes=LINKED_SAMPLE,
+                            max_steps=10**9)
+    if host != (card.results[0].astype(np.int64) & 0xFFFFFFFF).tolist() or \
+            host != linked_program_model(*small).tolist():
+        fail(f"linked at small n: VM.execute {host}, execute_batch "
+             f"{card.results[0].tolist()}")
+    need = ("interp", "block", "window")
+    run = run_main(vm, "run", args, 1 << 20, need)
+    check(run[0])
+    retired = int(run[0].retired.astype(np.int64).sum())
+    label = (f"linked program x {L}, n {LINKED_N0} + (lane % 8) "
+             f"{LINKED_N1}")
+    rec = report_main(f"{label}, equal to the numpy model, "
+                      f"{retired / L:.4g} instr a lane", run, retired)
+    check_uniform(rec, "linked program", False)
+    rec["profile"] = profile_run(vm, "run", args, retired)
+    rec["careful"] = careful_run(vm, "run", args, 1 << 20, need, check,
+                                 label)
+    rec.update(instantiate_s=inst_s, start_s=start_s, model_s=model_s,
+               sample_lanes=LINKED_SAMPLE)
+    # gas: the budget of lane group 3, exactly
+    limit = int(steps[3])
+    vmg, ginst_s, gstart_s = linked_vm(cost_measuring=True,
+                                       cost_limit=limit)
+    start_cost = vmg.statistics().total_cost
+    if not 0 < start_cost < limit:
+        fail(f"linked gas: the start function cost {start_cost}, the "
+             f"limit {limit}")
+    grun = run_main(vmg, "run", args, 1 << 20, need)
+    res = grun[0]
+    group = np.arange(L) % 8
+    got = res.results[0].astype(np.int64) & 0xFFFFFFFF
+    done, out = group <= 3, group >= 4
+    cost_trap = int(ErrCode.CostLimitExceeded)
+    if not ((res.trap[done] == -1).all() and (got[done] == want[done]).all()
+            and (res.retired[group == 3] == limit).all()
+            and (res.trap[out] == cost_trap).all()
+            and (res.retired[out] == limit + 1).all()):
+        fail(f"linked gas (limit {limit}): traps by group "
+             f"{[sorted(set(res.trap[group == g].tolist())) for g in range(8)]}"
+             f", retired by group "
+             f"{[sorted(set(res.retired[group == g].tolist())) for g in range(8)]}")
+    gretired = int(res.retired.astype(np.int64).sum())
+    grec = report_main(f"linked program x {L} with gas, cost_limit {limit} "
+                       f"(group 3's instructions): groups 0-3 finish, 4-7 "
+                       f"trap CostLimitExceeded at limit + 1", grun,
+                       gretired)
+    grec.update(cost_limit=limit, start_cost=start_cost,
+                instantiate_s=ginst_s, start_s=gstart_s,
+                finished=int((res.trap == -1).sum()),
+                cost_limit_traps=int((res.trap == cost_trap).sum()))
+    rec["gas"] = grec
+    print(f"  linked: instantiate {inst_s:.4f} s (start function "
+          f"{start_s:.4f} s on the host), numpy model {model_s:.2f} s, "
+          f"{LINKED_SAMPLE} lanes at small n equal on host and card; gas: "
+          f"start function cost {start_cost}, {grec['finished']} lanes "
+          f"finished, {grec['cost_limit_traps']} CostLimitExceeded",
+          flush=True)
+    return rec
+
+
+def phase_scalar_corpus() -> dict:
+    """The 23 files of tests/spec through the port's scalar harness
+    (spec.run_corpus: the scalar engine on this machine's host, every
+    command kind, the stateful files included), one file at a time, each
+    to its count in SCALAR_CORPUS_COUNTS with 0 failed and 0 skipped."""
+    from wasmedge_tpu_torch.spec import SCALAR_CORPUS_COUNTS, run_corpus
+
+    t0 = time.perf_counter()
+    per_file = {}
+    for name in sorted(SCALAR_CORPUS_COUNTS):
+        rep = run_corpus([os.path.join(SPEC_DIR, name)])
+        per_file[name] = (rep.passed, rep.failed, rep.skipped)
+        if per_file[name] != (SCALAR_CORPUS_COUNTS[name], 0, 0):
+            for f in rep.failures[:10]:
+                print(f"  {f}", flush=True)
+            fail(f"{name} on the scalar harness: {per_file[name]}, "
+                 f"expected ({SCALAR_CORPUS_COUNTS[name]}, 0, 0)")
+    wall = time.perf_counter() - t0
+    total = sum(v[0] for v in per_file.values())
+    print(f"spec corpus (23 files) on the host's scalar engine: {total} "
+          f"passed, 0 failed, 0 skipped, wall {wall:.3f} s", flush=True)
+    return dict(passed=total, failed=0, skipped=0, files=len(per_file),
+                wall_s=wall)
+
+
 def phase_time_bulk():
     """One launch of the converged bulk pair at MAIN_LANES lanes: every
     lane fills 32 KiB at 0 and copies 16 KiB from 0 to 32 KiB, word
@@ -3480,6 +3713,7 @@ def prebuild() -> dict:
                             value_stack_depth=64, tier0_hostcalls=t0)):
                         tables.append(eng.tables)
     tables += table_builds()
+    tables += linked_builds()
     tables += corpus_tables([SIMD_WAST])
     tables += corpus_tables(corpus_files(), corpus_conf())
     # the main path's fib(30) and vloop blocks builds, kOpt and careful,
@@ -3582,7 +3816,8 @@ def main() -> int:
     geometry = phase_geometry()
 
     t0 = time.perf_counter()
-    w = run_jobs({"rows": rows_jobs() + uniform_jobs(),
+    w = run_jobs({"linked": linked_jobs(),
+                  "rows": rows_jobs() + uniform_jobs(),
                   "scalar": scalar_jobs() + host_jobs(),
                   "simd": simd_jobs(), "fused": fused_jobs(),
                   "opt": opt_jobs() + host_jobs(
@@ -3591,7 +3826,7 @@ def main() -> int:
                   + tier0_jobs("super"), "tables": table_jobs()})
     worst, simd_worst, fused_worst, opt_worst, rows_worst, t0_worst = (
         w["scalar"], w["simd"], w["fused"], w["opt"], w["rows"], w["tier0"])
-    tables_worst = w["tables"]
+    tables_worst, linked_worst = w["tables"], w["linked"]
     t_jobs = time.perf_counter() - t0
     timing = {f: phase_time_one_launch(f) for f in ("none", "blocks", "super")}
     bulk_timing = phase_time_bulk()
@@ -3603,8 +3838,9 @@ def main() -> int:
     t_kernel = time.perf_counter() - t0
     print(f"phase kernel_vs_plain: {t_kernel:.2f} s (comparisons "
           f"{t_jobs:.2f} s on {WORKERS} workers), max abs err "
-          f"{max(worst, simd_worst, fused_worst, opt_worst, rows_worst, t0_worst, tables_worst)}"
-          f" (tier 0 {t0_worst}; tables {tables_worst}; "
+          f"{max(worst, simd_worst, fused_worst, opt_worst, rows_worst, t0_worst, tables_worst, linked_worst)}"
+          f" (tier 0 {t0_worst}; tables {tables_worst}; linked program "
+          f"{linked_worst}; "
           f"warp bulk pass and stack rows {rows_worst}; window cache "
           f"{WINDOW_WORST[0]}; optimistic against plain "
           f"{OPT_WORST['plain']}, against careful below sp "
@@ -3630,6 +3866,8 @@ def main() -> int:
           f"{main_out['fib30']['wall_s']:.3f} s, super "
           f"{main_out['fib30_super']['wall_s']:.3f} s", flush=True)
     main_out["tables"] = phase_main_tables()
+    main_out["linked"] = phase_main_linked()
+    main_out["scalar_corpus"] = phase_scalar_corpus()
     main_out.update(phase_main_wasi())
     main_out["bulk"] = phase_main_bulk()
     main_out["simd_corpus"] = phase_simd_corpus()
@@ -3667,12 +3905,43 @@ def main() -> int:
 
     fib_launch = {"workload": "fib(30)", "lanes": MAIN_LANES,
                   "steps": TIMED_STEPS}
+    # the linked program's main-path run (B2 blocks, windows, optimistic;
+    # its call_indirect through the imported table runs per op inside the
+    # fused kernel): its launches beside each part's record
+    lk = main_out["linked"]
+    linked = dict(
+        launches=lk["launches"], block_launches=lk["block_launches"],
+        window_launches=lk["window_launches"],
+        optimistic_launches=lk["optimistic_launches"],
+        tables_launches=lk["tables_launches"],
+        kernel_ms=lk["profile"]["kernel_ms"],
+        main_ms_per_launch=per_launch(lk["profile"]),
+        careful_kernel_ms=lk["careful"]["profile"]["kernel_ms"],
+        retired=lk["retired"],
+        instr_per_s_kernel=lk["profile"]["instr_per_s_kernel"],
+        careful_instr_per_s_kernel=lk["careful"]["profile"][
+            "instr_per_s_kernel"],
+        idle_share=lk["profile"]["idle_share"],
+        uniform=lk["uniform"], entered=lk["warps"]["entered"],
+        rollbacks=lk["warps"]["rollbacks"],
+        instantiate_s=lk["instantiate_s"], start_s=lk["start_s"],
+        model_s=lk["model_s"], gas_cost_limit=lk["gas"]["cost_limit"],
+        gas_start_cost=lk["gas"]["start_cost"],
+        gas_finished=lk["gas"]["finished"],
+        gas_cost_limit_traps=lk["gas"]["cost_limit_traps"],
+        gas_event_ms=lk["gas"]["event_ms"],
+        scalar_corpus=main_out["scalar_corpus"])
     record = launch_record(
         "wasm_interp", "wasmedge_tpu_torch/csrc/interp.cu",
         "wasmedge_tpu/batch/pallas_engine.py:3825",
         main_out["fib30_none"]["op_launches"], timing["none"],
         max(worst, rows_worst), main_out["fib30_none"]["profile"],
-        timed_launch=dict(fib_launch, retired=timing["none"]["retired"]))
+        timed_launch=dict(fib_launch, retired=timing["none"]["retired"]),
+        # the linked program's per-op launches (0: its run is B2 blocks),
+        # and the B2 launches whose call_indirect runs this kernel's
+        # per-op handler inside the fused kernel
+        linked_op_launches=lk["op_launches"],
+        linked_block_launches_with_per_op_call=linked["block_launches"])
     # B2 and B6: the fused kernel of fib's module, its launches in the
     # main path's fib(30) run with block_fusion None (blocks) and False
     # (superinstructions)
@@ -3683,8 +3952,8 @@ def main() -> int:
     block_record = launch_record(
         "block", "wasmedge_tpu_torch/csrc/fused.cuh",
         "wasmedge_tpu/batch/pallas_engine.py:2758",
-        main_out["fib30"]["block_launches"], timing["blocks"], fused_worst,
-        main_out["fib30"]["profile"],
+        main_out["fib30"]["block_launches"], timing["blocks"],
+        max(fused_worst, linked_worst), main_out["fib30"]["profile"],
         careful_main_ms_per_launch=per_launch(
             main_out["fib30_careful"]["profile"]),
         timed_launch=dict(fib_launch, retired=timing["blocks"]["retired"]),
@@ -3697,7 +3966,9 @@ def main() -> int:
         mem_checksum_main_ms_per_launch=per_launch(
             c2["mem_checksum"]["profile"]),
         mem_checksum_careful_main_ms_per_launch=per_launch(
-            c2["mem_checksum"]["careful"]["profile"]))
+            c2["mem_checksum"]["careful"]["profile"]),
+        linked_launches=linked["block_launches"],
+        linked_main_ms_per_launch=linked["main_ms_per_launch"])
     super_record = launch_record(
         "super", "wasmedge_tpu_torch/csrc/fused.cuh",
         "wasmedge_tpu/batch/pallas_engine.py:2472",
@@ -3783,6 +4054,8 @@ def main() -> int:
         window_rows_bound_ms=mem_timing["windows"]["window_rows_bound_ms"],
         main_window_counts={k: c2[k]["window_counts"]
                             for k in ("mem_checksum", "coremark")},
+        linked_launches=linked["window_launches"],
+        linked_window_counts=lk["window_counts"],
         timed_launch={"workload": f"mem_checksum({MEM_N}), {MEM_PASSES} "
                       f"passes", "lanes": MAIN_LANES, "steps": TIMED_STEPS,
                       "from_step": mem_timing["first_step"],
@@ -3815,7 +4088,10 @@ def main() -> int:
                                       ("fib_mix", main_out["fib_mix"]),
                                       ("vloop", vb),
                                       ("mem_checksum", c2["mem_checksum"]),
-                                      ("coremark", c2["coremark"]))},
+                                      ("coremark", c2["coremark"]),
+                                      ("linked", lk))},
+        linked_launches=linked["optimistic_launches"],
+        linked_rollbacks=linked["rollbacks"],
         entry_compare={k: dict(cycles_per_warp=t["entry_compare_cycles_per_warp"],
                                ms=t["entry_compare_ms"],
                                bytes=t["entry_compare_bytes"],
@@ -3907,6 +4183,7 @@ def main() -> int:
                       "tier0_fixtures": TIER0_FIXTURES,
                       "tier0_launch": t0_timing,
                       "tables_launch": tables_timing,
+                      "linked": linked,
                       "registers": per_op_regs, "attributes": attrs,
                       "geometry": geometry, "bulk_fixtures": BULK_FIXTURES,
                       "window_fixtures": WINDOW_FIXTURES,

@@ -152,9 +152,11 @@ def test_classes_outside_the_slice_are_refused_by_name():
 
 
 def test_imports_and_start_functions_are_refused():
-    """Function imports resolve against registered host modules (an
-    unknown one is the reference's UnknownImport); imported memories,
-    tables and globals and start functions are refused by name."""
+    """Imports of every kind resolve against registered modules: an
+    unknown one is the reference's UnknownImport (a function and a
+    memory here), and a module with a start function is no longer
+    refused: the start function runs at instantiation (it sets the
+    global the batch image then starts from)."""
     b = ModuleBuilder()
     b.import_func("env", "f", [], [])
     b.add_function([], [], [], [("call", 0)], export="g")
@@ -166,14 +168,16 @@ def test_imports_and_start_functions_are_refused():
     b.import_memory("env", "mem", 1, 1)
     b.add_function([], [], [], [], export="g")
     mod = Validator().validate(Loader().parse_module(b.build()))
-    with pytest.raises(NotImplementedError, match="memory env.mem"):
+    with pytest.raises(InstantiationError) as err:
         instantiate(StoreManager(), mod)
+    assert err.value.code == ErrCode.UnknownImport
     b = ModuleBuilder()
-    b.add_function([], [], [], [])
+    g = b.add_global("i32", True, [("i32.const", 0)])
+    b.add_function([], [], [], [("i32.const", 7), ("global.set", g)])
     b.set_start(0)
     mod = Validator().validate(Loader().parse_module(b.build()))
-    with pytest.raises(NotImplementedError, match="start function"):
-        instantiate(StoreManager(), mod)
+    inst = instantiate(StoreManager(), mod)
+    assert inst.globals[0].value == 7
 
 
 def test_v128_ops_are_refused():

@@ -8,5 +8,8 @@ stays in the repository as the reference.  The main path:
     vm.execute_batch("fib", [np.full(4096, 30)])   # on the card
 
 (`wasmedge_tpu_torch.vm.vm.VM`); entry points take `device="cpu"` to run
-the plain PyTorch interpreter instead of the CUDA kernel.
+the plain PyTorch interpreter instead of the CUDA kernel.  `vm.execute`
+and `vm.run_wasm_file` run one call on the scalar engine on the host
+(`wasmedge_tpu_torch.executor`), which also runs start functions at
+instantiation.
 """

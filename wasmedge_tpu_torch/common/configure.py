@@ -2,9 +2,10 @@
 
 A trimmed copy of `wasmedge_tpu/common/configure.py`: the proposal set
 the loader and validator gate opcodes on, the host modules a VM
-registers, the runtime memory-page limit the validator reads, and the
-`BatchConfigure` knobs the CUDA warp-interpreter and its host launch
-loop read.
+registers, the runtime limits the validator and the scalar engine read
+(memory pages, call depth), the `Statistics` settings (instruction
+counting, gas, timers), and the `BatchConfigure` knobs the CUDA
+warp-interpreter and its host launch loop read.
 """
 
 from __future__ import annotations
@@ -59,6 +60,15 @@ class HostRegistration(enum.Enum):
 @dataclasses.dataclass
 class RuntimeConfigure:
     max_memory_pages: int = 65536
+    max_call_depth: int = 2048
+
+
+@dataclasses.dataclass
+class StatisticsConfigure:
+    instr_counting: bool = False
+    cost_measuring: bool = False
+    time_measuring: bool = False
+    cost_limit: int = (1 << 64) - 1
 
 
 @dataclasses.dataclass
@@ -139,6 +149,8 @@ class Configure:
     host_registrations: set = dataclasses.field(default_factory=set)
     runtime: RuntimeConfigure = dataclasses.field(
         default_factory=RuntimeConfigure)
+    statistics: StatisticsConfigure = dataclasses.field(
+        default_factory=StatisticsConfigure)
     batch: BatchConfigure = dataclasses.field(default_factory=BatchConfigure)
 
     def add_proposal(self, p: Proposal) -> "Configure":

@@ -1,8 +1,11 @@
 """Value types and size limits (a trimmed copy of the reference's
 `common/types.py`).
 
-Values are untyped 64-bit cells once the validator has proven types; the
-batch engine holds each as two int32 planes (lo, hi) per stack slot.
+Values are untyped 64-bit cells once the validator has proven types:
+the scalar engine holds each as a Python int with the raw little-endian
+bit pattern (i32/f32 in the low 32 bits, v128 as a 128-bit int, refs as
+index+1 with 0 = null); the batch engine holds each as two int32 planes
+(lo, hi) per stack slot.
 """
 
 from __future__ import annotations
@@ -72,8 +75,13 @@ def bits_to_f64(b: int) -> np.float64:
     return np.float64(struct.unpack("<d", struct.pack("<Q", b & MASK64))[0])
 
 
+# the NaNs the scalar engine's float ops canonicalise to
+F32_CANONICAL_NAN = 0x7FC00000
+F64_CANONICAL_NAN = 0x7FF8000000000000
+
+
 def typed_to_bits(ty: ValType, v) -> int:
-    """Typed Python/numpy value -> raw 64-bit cell (host-call results)."""
+    """Typed Python/numpy value -> raw cell (64-bit; v128 is 128-bit)."""
     if ty == ValType.I32:
         return int(v) & MASK32
     if ty in (ValType.I64, ValType.FuncRef, ValType.ExternRef):
@@ -82,12 +90,13 @@ def typed_to_bits(ty: ValType, v) -> int:
         return f32_to_bits(v)
     if ty == ValType.F64:
         return f64_to_bits(v)
+    if ty == ValType.V128:
+        return int(v) & ((1 << 128) - 1)
     raise ValueError(f"unsupported type {ty}")
 
 
 def bits_to_typed(ty: ValType, b: int):
-    """Raw cell -> typed value (ints signed, floats numpy; host-call
-    arguments)."""
+    """Raw cell -> typed value (ints are signed, floats numpy, v128 raw)."""
     if ty == ValType.I32:
         return s32(b)
     if ty == ValType.I64:
@@ -96,6 +105,8 @@ def bits_to_typed(ty: ValType, b: int):
         return bits_to_f32(b)
     if ty == ValType.F64:
         return bits_to_f64(b)
+    if ty == ValType.V128:
+        return b & ((1 << 128) - 1)
     if ty.is_ref:
         return b & MASK64
     raise ValueError(f"unsupported type {ty}")

@@ -28,8 +28,12 @@ window, and `build_win_rows` drives the per-row valid and dirty bits
 (a store-only sweep, partial stores into rows not valid, loads after
 stores, a commit with some rows dirty).  `build_uniform_probe` keeps
 stack rows, frames, a global and memory live across launches (B3's
-entry rule).  The tests and `chip_smoke.py` use them with lane inputs
-made from a seed.
+entry rule).  `build_linked_program` is a provider and a consumer linked
+through a registered module: the consumer imports the provider's memory,
+table and global, fills them with its element segment and start
+function, and loops over loads and call_indirect (`linked_program_model`
+is its numpy model).  The tests and `chip_smoke.py` use them with lane
+inputs made from a seed.
 """
 
 from __future__ import annotations
@@ -1989,3 +1993,145 @@ def tail_cost_table() -> tuple:
                  "table.fill", "table.copy", "table.init", "elem.drop"):
         ct[NAME_TO_ID[name]] = 3
     return tuple(ct)
+
+
+# --- the linked program: a consumer that imports a provider's memory,
+# table and global, fills them at instantiation, and loops over them ---
+LINKED_SEED = 0x13579BDF  # the provider's immutable global `seed`
+LINKED_LCG = (1664525, 1013904223)  # the start function's word generator
+LINKED_WORDS = 1024  # words the start function writes
+# the four table functions: f_j(h, w) = OP_j(h * LINKED_MUL[j], w), OP_j
+# add, sub, xor, or (one type, a different ALU op each, the same
+# instruction count each)
+LINKED_MUL = (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D, 0x27D4EB2F)
+# the full-width run's trip counts: n = LINKED_N0 + (lane % 8) LINKED_N1,
+# 8 + 35 n instructions a lane (about 8e6 on average); the numpy model
+# over 4096 lanes takes about 20 us an iteration, 6 s in all
+LINKED_N0 = 160_000
+LINKED_N1 = 20_000
+
+
+def build_linked_program():
+    """(provider bytes, consumer bytes) of a program linked through a
+    registered module, as WasmEdge's `register` pattern and Emscripten's
+    imported memory link one.  The provider (registered as "prov")
+    exports a memory of 1 page (max 1), a funcref table of 4 entries and
+    an immutable i32 global `seed`.  The consumer imports all three; its
+    active element segment puts its four functions f0..f3 (one type,
+    f_j(h, w) = OP_j(h * LINKED_MUL[j], w) with OP add, sub, xor, or) into
+    the imported table; its start function writes LINKED_WORDS words of
+    an LCG from `seed` into the imported memory (word i the (i + 1)th
+    value) and sets its mutable global $h0 to the last.  `run(n, k)`
+    starts h at $h0 and loops n times: load word (i + k) & 1023, add it
+    to h, h = table[h & 3](h, w); it returns h, and the instructions a
+    lane retires depend on n alone."""
+    a, c = LINKED_LCG
+    prov = parse_wat(f"""(module
+  (memory (export "mem") 1 1)
+  (table (export "tab") 4 funcref)
+  (global (export "seed") i32 (i32.const {_i32_lit(LINKED_SEED)})))""")
+    ops = ("i32.add", "i32.sub", "i32.xor", "i32.or")
+    funcs = "\n".join(
+        f"""  (func $f{j} (type $op)
+    ({op} (i32.mul (local.get 0) (i32.const {_i32_lit(LINKED_MUL[j])}))
+          (local.get 1)))""" for j, op in enumerate(ops))
+    consumer = parse_wat(f"""(module
+  (type $op (func (param i32 i32) (result i32)))
+  (import "prov" "mem" (memory 1 1))
+  (import "prov" "tab" (table 4 funcref))
+  (import "prov" "seed" (global $seed i32))
+  (global $h0 (mut i32) (i32.const 0))
+{funcs}
+  (elem (i32.const 0) $f0 $f1 $f2 $f3)
+  (func $init (local $i i32) (local $x i32)
+    (local.set $x (global.get $seed))
+    (block $done
+      (loop $top
+        (br_if $done (i32.ge_u (local.get $i) (i32.const {LINKED_WORDS})))
+        (local.set $x (i32.add (i32.mul (local.get $x)
+                                        (i32.const {_i32_lit(a)}))
+                               (i32.const {_i32_lit(c)})))
+        (i32.store (i32.shl (local.get $i) (i32.const 2)) (local.get $x))
+        (local.set $i (i32.add (local.get $i) (i32.const 1)))
+        (br $top)))
+    (global.set $h0 (local.get $x)))
+  (start $init)
+  (func (export "run") (param $n i32) (param $k i32) (result i32)
+    (local $i i32) (local $h i32) (local $w i32)
+    (local.set $h (global.get $h0))
+    (block $done
+      (loop $top
+        (br_if $done (i32.ge_u (local.get $i) (local.get $n)))
+        (local.set $w (i32.load (i32.shl
+          (i32.and (i32.add (local.get $i) (local.get $k))
+                   (i32.const {LINKED_WORDS - 1}))
+          (i32.const 2))))
+        (local.set $h (i32.add (local.get $h) (local.get $w)))
+        (local.set $h (call_indirect (type $op)
+          (local.get $h) (local.get $w)
+          (i32.and (local.get $h) (i32.const 3))))
+        (local.set $i (i32.add (local.get $i) (i32.const 1)))
+        (br $top)))
+    (local.get $h)))""")
+    return prov, consumer
+
+
+def linked_words() -> np.ndarray:
+    """The LINKED_WORDS words the consumer's start function writes
+    (uint32 as int64), and $h0 is the last."""
+    a, c = LINKED_LCG
+    out = np.zeros(LINKED_WORDS, np.int64)
+    x = LINKED_SEED
+    for i in range(LINKED_WORDS):
+        x = (x * a + c) & 0xFFFFFFFF
+        out[i] = x
+    return out
+
+
+def linked_args(lanes: int, n0: int = LINKED_N0, n1: int = LINKED_N1):
+    """`run`'s (n, k) at `lanes` lanes: k = lane, n = n0 + (lane % 8) n1,
+    so trip counts and the call_indirect targets differ inside every
+    warp."""
+    lane = np.arange(lanes, dtype=np.int64)
+    return [n0 + (lane % 8) * n1, lane]
+
+
+def linked_program_model(n, k) -> np.ndarray:
+    """What `run(n, k)` returns for each lane (uint32 as int64), from a
+    numpy model of the loop over the start function's words.  Lanes with
+    equal n and k mod LINKED_WORDS compute alike, so each distinct pair
+    runs once; the pairs are sorted by n, and each iteration steps the
+    pairs still going, a prefix, reading their words from a table of
+    every pair's word at each i mod LINKED_WORDS.  The four table
+    functions are one expression, hm + S w + T (hm & w) mod 2^32 with
+    hm = h * LINKED_MUL[j] (add: S 1, T 0; sub: -1, 0; xor: 1, -2; or:
+    1, -1), so a step selects by gathers, not by branches."""
+    n = np.asarray(n, np.int64)
+    k = np.asarray(k, np.int64) % LINKED_WORDS
+    pairs, inv = np.unique(np.stack([n, k], 1), axis=0, return_inverse=True)
+    order = np.argsort(-pairs[:, 0], kind="stable")
+    pn, pk = pairs[order, 0], pairs[order, 1]
+    words = linked_words().astype(np.uint32)
+    # wt[i % LINKED_WORDS, p]: the word pair p loads at iteration i
+    wt = words[(np.arange(LINKED_WORDS)[:, None] + pk[None, :])
+               % LINKED_WORDS]
+    mul = np.asarray(LINKED_MUL, np.uint32)
+    s_w = np.asarray([1, 0xFFFFFFFF, 1, 1], np.uint32)
+    t_and = np.asarray([0, 0, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
+    three = np.full(len(pn), 3, np.uint32)
+    h = np.full(len(pn), words[-1], np.uint32)
+    ends = [int(v) for v in pn[::-1]]  # ascending
+    live = len(pn)
+    with np.errstate(over="ignore"):
+        for i in range(ends[-1] if ends else 0):
+            while live and ends[len(pn) - live] <= i:
+                live -= 1
+            hl, w = h[:live], wt[i % LINKED_WORDS, :live]
+            hl += w
+            sel = np.bitwise_and(hl, three[:live]).astype(np.intp)
+            hm = hl * mul.take(sel)
+            np.add(hm + w * s_w.take(sel), (hm & w) * t_and.take(sel),
+                   out=hl)
+    out = np.empty(len(pn), np.int64)
+    out[order] = h
+    return out[inv.reshape(-1)]

@@ -1,28 +1,37 @@
-"""Spec conformance on the batch engine: a wast corpus as a lane workload.
+"""Spec conformance: a wast corpus on the host's scalar engine and the card.
 
-A trimmed copy of `wasmedge_tpu/spec/__init__.py`: its report types,
-value matching (NaN classes `nan:canonical` / `nan:arithmetic`, per-lane
-classes of float-shaped v128 results) and trap messages, and its batched
-runner `run_corpus_batched` over the port's `BatchEngine`, which runs on
-the card unless the caller asks for the CPU.  The scalar harness is not
-copied.  Matching is strict: the port keeps IEEE binary32 subnormals, so
-the reference's allowance for flushed f32 results, and its skip of the
-"subnormal" corpus files, are gone.
+A copy of `wasmedge_tpu/spec/__init__.py` (after WasmEdge's SpecTest
+runner, test/spec/spectest.cpp): its report types, value matching (NaN
+classes `nan:canonical` / `nan:arithmetic`, per-lane classes of
+float-shaped v128 results) and trap messages, and its two runners:
+
+- the scalar harness: `SpecTest.run_script` owns the command semantics
+  (module, module_quote, register, action, assert_return, assert_trap,
+  assert_exhaustion, assert_invalid, assert_malformed,
+  assert_unlinkable) and hands every engine interaction to callbacks;
+  `make_engine_callbacks` drives the loader, validator and `Executor`
+  with the scalar engine on the host, and `run_corpus` runs files through
+  it, a fresh store per file;
+- `run_corpus_batched`, one assertion per lane over the port's
+  `BatchEngine`, which runs on the card unless the caller asks for the
+  CPU.  Its matching is strict: the port keeps IEEE binary32 subnormals,
+  so the reference's allowance for flushed f32 results, and its skip of
+  the "subnormal" corpus files, are gone.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
 from wasmedge_tpu_torch.common.configure import Configure, Proposal
 from wasmedge_tpu_torch.common.errors import (
-    ErrCode, InstantiationError, LoadError, ValidationError)
+    ErrCode, InstantiationError, LoadError, TrapError, ValidationError)
 from wasmedge_tpu_torch.utils.wat import (
-    WatError, compile_module_fields, parse_wast)
+    WatError, compile_module_fields, parse_wast, parse_wat)
 
 # ErrCode -> spec trap message (WasmEdge's ErrCodeStr strings, as the
 # reference maps them)
@@ -38,9 +47,17 @@ TRAP_MESSAGES = {
     ErrCode.IndirectCallTypeMismatch: "indirect call type mismatch",
     ErrCode.CallStackExhausted: "call stack exhausted",
     ErrCode.StackOverflow: "call stack exhausted",
+    # instantiation and link failures the official suite asserts by message
+    ErrCode.DataSegDoesNotFit: "out of bounds memory access",
+    ErrCode.ElemSegDoesNotFit: "out of bounds table access",
+    ErrCode.UnknownImport: "unknown import",
+    ErrCode.IncompatibleImportType: "incompatible import type",
+    ErrCode.ModuleNameConflict: "module name conflict",
+    ErrCode.FuncSigMismatch: "indirect call type mismatch",
     ErrCode.CostLimitExceeded: "cost limit exceeded",
     ErrCode.Terminated: "terminated",
     ErrCode.ExecutionFailed: "generic runtime error",
+    ErrCode.RefTypeMismatch: "reference type mismatch",
 }
 
 F32_QUIET = 0x00400000
@@ -77,6 +94,12 @@ class SpecReport:
     failed: int = 0
     skipped: int = 0
     failures: List[SpecFailure] = dataclasses.field(default_factory=list)
+
+    def merge(self, other: "SpecReport"):
+        self.passed += other.passed
+        self.failed += other.failed
+        self.skipped += other.skipped
+        self.failures.extend(other.failures)
 
 
 def _match_value(expected, got: int) -> bool:
@@ -118,6 +141,192 @@ def _trap_matches(code: int, message: str) -> bool:
     msg = TRAP_MESSAGES.get(ErrCode(code), "")
     return not message or bool(msg and (
         msg.startswith(message) or message.startswith(msg.split(" ")[0])))
+
+
+class SpecTest:
+    """Callback-seam script runner (WasmEdge test/spec/spectest.h).
+
+    Callbacks:
+      on_module(name, data)   compile+instantiate binary; returns handle
+      on_invoke(handle, field, raw_args) -> raw result cells
+      on_register(handle, as_name)
+    Raise LoadError/ValidationError/TrapError to signal phase failures.
+    """
+
+    def __init__(self, on_module: Callable, on_invoke: Callable,
+                 on_register: Optional[Callable] = None):
+        self.on_module = on_module
+        self.on_invoke = on_invoke
+        self.on_register = on_register
+
+    def run_script(self, src: str, script_name: str = "script") -> SpecReport:
+        rep = SpecReport()
+        try:
+            cmds = parse_wast(src)
+        except WatError as e:
+            rep.failed += 1
+            rep.failures.append(SpecFailure(script_name, -1, "parse",
+                                            str(e)))
+            return rep
+        current = None
+        named: Dict[str, object] = {}
+
+        def handle_of(mod):
+            return named[mod] if mod else current
+
+        for idx, cmd in enumerate(cmds):
+            try:
+                if cmd.kind in ("module", "module_binary", "module_quote"):
+                    if cmd.kind == "module":
+                        data = compile_module_fields(cmd.fields)
+                    elif cmd.kind == "module_quote":
+                        data = parse_wat(cmd.text)
+                    else:
+                        data = cmd.data
+                    current = self.on_module(cmd.name, data)
+                    if cmd.name:
+                        named[cmd.name] = current
+                    rep.passed += 1
+                elif cmd.kind == "register":
+                    if self.on_register is None:
+                        rep.skipped += 1
+                        continue
+                    self.on_register(handle_of(cmd.mod), cmd.as_name)
+                    rep.passed += 1
+                elif cmd.kind == "action":
+                    akind, mod, name, args = cmd.action
+                    self.on_invoke(handle_of(mod), name,
+                                   [a[1] for a in args])
+                    rep.passed += 1
+                elif cmd.kind == "assert_return":
+                    akind, mod, name, args = cmd.action
+                    got = self.on_invoke(handle_of(mod), name,
+                                         [a[1] for a in args])
+                    exp = cmd.expected
+                    ok = len(got) == len(exp) and all(
+                        _match_value(e, g) for e, g in zip(exp, got))
+                    if ok:
+                        rep.passed += 1
+                    else:
+                        rep.failed += 1
+                        rep.failures.append(SpecFailure(
+                            script_name, idx, "assert_return",
+                            f"{name}{[a[1] for a in args]} -> "
+                            f"{[hex(g) for g in got]}, want "
+                            f"{[(e[0], e[1] if isinstance(e[1], str) else hex(e[1])) for e in exp]}"))
+                elif cmd.kind in ("assert_trap", "assert_exhaustion"):
+                    akind, mod, name, args = cmd.action
+                    try:
+                        self.on_invoke(handle_of(mod), name,
+                                       [a[1] for a in args])
+                        rep.failed += 1
+                        rep.failures.append(SpecFailure(
+                            script_name, idx, cmd.kind,
+                            f"{name} did not trap (want {cmd.message!r})"))
+                    except TrapError as te:
+                        if _trap_matches(te.code, cmd.message):
+                            rep.passed += 1
+                        else:
+                            rep.failed += 1
+                            rep.failures.append(SpecFailure(
+                                script_name, idx, cmd.kind,
+                                f"{name} trapped {te.code!r} "
+                                f"({TRAP_MESSAGES.get(te.code, '')!r}), "
+                                f"want {cmd.message!r}"))
+                elif cmd.kind in ("assert_invalid", "assert_malformed",
+                                  "assert_unlinkable"):
+                    want = {"assert_invalid": ValidationError,
+                            "assert_malformed": LoadError,
+                            "assert_unlinkable": Exception}[cmd.kind]
+                    try:
+                        if cmd.form == "binary":
+                            data = cmd.data
+                        elif cmd.form == "quote":
+                            data = parse_wat(cmd.text)
+                        else:
+                            data = compile_module_fields(cmd.fields)
+                        self.on_module(None, data)
+                        rep.failed += 1
+                        rep.failures.append(SpecFailure(
+                            script_name, idx, cmd.kind,
+                            f"module accepted (want {cmd.message!r})"))
+                    except WatError:
+                        # text-level rejection satisfies malformed/invalid
+                        rep.passed += 1
+                    except want:
+                        rep.passed += 1
+                    except (LoadError, ValidationError) as e:
+                        # wrong phase
+                        rep.failed += 1
+                        rep.failures.append(SpecFailure(
+                            script_name, idx, cmd.kind,
+                            f"wrong phase: {type(e).__name__}: {e}"))
+                else:
+                    rep.skipped += 1
+            except Exception as e:  # noqa: BLE001 — each command isolated
+                rep.failed += 1
+                rep.failures.append(SpecFailure(
+                    script_name, idx, cmd.kind,
+                    f"{type(e).__name__}: {e}"))
+        return rep
+
+
+def make_engine_callbacks(conf: Optional[Configure] = None) -> SpecTest:
+    """A SpecTest whose callbacks stage each module through the loader,
+    validator and `Executor` (start functions and imports included) into
+    one store, and invoke exports on the scalar engine on the host."""
+    from wasmedge_tpu_torch.executor import Executor
+    from wasmedge_tpu_torch.loader import Loader
+    from wasmedge_tpu_torch.runtime.store import StoreManager
+    from wasmedge_tpu_torch.validator import Validator
+
+    conf = conf or Configure()
+    store = StoreManager()
+    ex = Executor(conf)
+
+    def on_module(name, data):
+        mod = Validator(conf).validate(Loader(conf).parse_module(data))
+        return ex.instantiate(store, mod, name=name or "")
+
+    def on_invoke(inst, field, raw_args):
+        fi = inst.find_func(field)
+        if fi is None:
+            raise TrapError(ErrCode.FuncNotFound, f"no export {field}")
+        return ex.invoke_raw(store, fi, list(raw_args))
+
+    def on_register(inst, as_name):
+        inst.name = as_name
+        store.register_named(inst)
+
+    return SpecTest(on_module, on_invoke, on_register)
+
+
+# passed per file of tests/spec on the scalar harness (`run_corpus`), with
+# 0 failed and 0 skipped; the JAX package's scalar harness gives the same
+SCALAR_CORPUS_COUNTS = {
+    "bulk_memory.wast": 159, "call.wast": 19, "call_gen.wast": 308,
+    "control.wast": 25, "control_gen.wast": 325, "conversions.wast": 57,
+    "errors.wast": 19, "f32.wast": 979, "f32_subnormal.wast": 163,
+    "f64.wast": 1141, "float.wast": 64, "globals.wast": 15,
+    "i32.wast": 1485, "i64.wast": 1499, "memory.wast": 64,
+    "numeric_conversions.wast": 1005, "official_style.wast": 26,
+    "ref_types.wast": 19, "simd.wast": 2594, "table.wast": 63,
+    "table_batch.wast": 68, "tail_call.wast": 17,
+    "tail_call_batch.wast": 21,
+}
+
+
+def run_corpus(paths) -> SpecReport:
+    """Run .wast files through the scalar engine on the host, each with
+    its proposals (`conf_for_file`) and a fresh store; every command
+    counts, nothing is skipped for being stateful."""
+    total = SpecReport()
+    for path in paths:
+        st = make_engine_callbacks(conf_for_file(path))
+        with open(path) as f:
+            src = f.read()
+        total.merge(st.run_script(src, script_name=str(path)))
+    return total
 
 
 def run_corpus_batched(paths, device="cuda",
@@ -184,7 +393,7 @@ def _batch_modules(paths, device, rep, conf=None):
     module of the corpus with batchable assertions; skips and failures of
     parsing and set-up are counted in `rep`."""
     from wasmedge_tpu_torch.batch.engine import BatchEngine
-    from wasmedge_tpu_torch.executor.instantiate import instantiate
+    from wasmedge_tpu_torch.executor import Executor
     from wasmedge_tpu_torch.loader import Loader
     from wasmedge_tpu_torch.runtime.store import StoreManager
     from wasmedge_tpu_torch.validator import Validator
@@ -226,7 +435,7 @@ def _batch_modules(paths, device, rep, conf=None):
                 mod = Validator(conf).validate(
                     Loader(conf).parse_module(data))
                 store = StoreManager()
-                inst = instantiate(store, mod, conf)
+                inst = Executor(conf).instantiate(store, mod)
                 ops = inst.lowered.op[:inst.lowered.code_len]
                 mutates_table = any(int(o) in mutators for o in ops)
                 if inst.memories or inst.globals or (

@@ -1,0 +1,4 @@
+from wasmedge_tpu_torch.vm.async_ import Async
+from wasmedge_tpu_torch.vm.vm import VM, VMStage
+
+__all__ = ["VM", "VMStage", "Async"]

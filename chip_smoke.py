@@ -18,7 +18,8 @@ Phases:
                rows on chip), the fused kernel (csrc/interp.cu +
                csrc/fused.cuh + the dispatch batch/fusegen.py generates
                for its B2 block heads, one instance case each, or B6
-               superinstructions), the spec corpus's modules included;
+               superinstructions), the spec corpus's modules and config
+               5's concatenated image included;
                print each build's instance cases, seconds, shapes, mean
                shape length, SASS bytes and indirect branches (BRX;
                the main path's fib(30) and vloop builds against the same
@@ -113,7 +114,15 @@ Phases:
                imports from a registered provider, then loops over loads
                and call_indirect: models.fixtures.build_linked_program) at
                small n, in blocks, with and without a fuel budget that
-               runs out on some lanes (warps roll back, none uniform).
+               runs out on some lanes (warps roll back, none uniform);
+               the concatenated images (mix_jobs): config 5's four
+               modules at 256 lanes (61 / 67 / 59 / 69: warps hold two
+               modules) with small lane-dependent arguments, in blocks and
+               per op; with the plain version on the card, the C10 pair
+               (two memory.grow tenants whose memories declare max 1 and
+               max 4, four pages a lane) per op and one launch from a
+               serving state just after an install round (four modules,
+               idle TRAP_DONE lanes beside the installed ones).
                Then, in this
                process, one 256-step launch of fib(30) x 4096 in each
                encoding, one converged memory.fill + memory.copy launch
@@ -142,7 +151,8 @@ Phases:
                4-7 trap CostLimitExceeded at the limit + 1); the 23 spec
                files through the port's scalar harness on the host
                (10,135 / 0 / 0, each file to its count); the tail-dispatch workload x 4096
-               (run(seed, 700,000), about 3e7 instructions a lane) in
+               (run(seed, 700,000), about 3e7 instructions a lane;
+               divergent run(seed, 175,000)) in
                both modes through VM.execute_batch, every lane equal to
                the numpy model, the call depth 0 after every launch,
                every converged warp entry uniform and no divergent one,
@@ -182,14 +192,33 @@ Phases:
                launch counts to 0 before it and fails unless its kernels
                launched (with a memory, every launch ran the window cache
                or none did; every launch optimistic where the knob is on,
-               none where it is off);
+               none where it is off).  BASELINE config 5
+               (bench_multi.py:27-47, stacks 256 / 256): fib(30),
+               fac(20), loop_sum(16,000,000) and coremark(262,144), 1024
+               lanes each, each alone on its own BatchEngine (equal to its
+               numpy model, profiled), then the four as one concatenated
+               image (MultiTenantBatchEngine.run_tenants), every tenant's
+               results, traps and retired equal to its solo run,
+               profiled, and again with optimistic False; the same with
+               1021 / 1029 / 1011 / 1035 lanes at fib(25), fac(20),
+               loop_sum(1,000,000), coremark(16,384) (three warps hold two
+               modules); B3 entries by tenant and for the mixed warps.
+               Serving: BatchServer(engine=MultiModuleBatchEngine(the four
+               modules, 4096 lanes)), 65,536 steps a launch, 16,384
+               seeded requests over four tenants (weights 1 / 1 / 2 / 4,
+               a quota on one), run_until_idle: every future equal to its
+               model, rounds, recycled lanes, requests/s, latency p50 and
+               p99, instr/s, and (profiled once more) the kernel's share
+               of the wall;
   4. report  - phase times, kernel times (CUDA events), retired
                instructions and instructions per second, registers and
                spills of each build, the card's name and power limit, one
                JSON line of kernel records (with "mem_window", B4,
-               "optimistic", B3, "tier0" and "tables"; the summary line
-               before it has the "linked" record), and last the
-               device JSON line.
+               "optimistic", B3, "tier0" and "tables"; the mix's, the
+               straddling mix's and the serving run's launches beside
+               K/B1, B2, B3 and B4; the summary line before it has the
+               "linked" record and the main path's "mix" and "serve"),
+               and last the device JSON line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.  Imports nothing of JAX or of the JAX package.
@@ -460,7 +489,8 @@ def probe_prep(eng, st, case: str) -> None:
 
 def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs,
                     fusion="none", rollbacks=None, lanes=KERNEL_LANES,
-                    bulk=None, prep=None, uniform=None) -> int:
+                    bulk=None, prep=None, uniform=None,
+                    plain_on_card=False) -> int:
     """One fixture at `lanes` lanes in the encoding `fusion`, for a
     module with a memory through the window cache and with direct access:
     kernel and plain version from the same CUDA state, launch by launch,
@@ -478,25 +508,37 @@ def kernel_vs_plain(name, data, func, args, chunk, fuel, knobs,
     an entry-rule case of the uniform probe (probe_prep) applied to the
     initial state; `uniform` "all": every entry of the kernel's warps
     uniform (B3's entry rule), "none": none, "some": fewer than its
-    entries.  Returns the max abs err."""
+    entries.  `data` a list of (module bytes, export, args, lanes): the
+    concatenated image of those tenants (mix_engine; `func`, `args` and
+    `lanes` unused).  `plain_on_card`: the plain side runs on a copy on
+    the card instead.  Returns the max abs err."""
     from wasmedge_tpu_torch.batch import interp, interp_ref, memwin
 
+    def engine(mem_hbm, **kw):
+        """(engine, its initial state's maker)."""
+        if isinstance(data, list):
+            eng = mix_engine(data, fusion=fusion, mem_hbm=mem_hbm,
+                             fuel_per_launch=fuel, **knobs, **kw)
+            return eng, eng.initial_state
+        eng, inst = make_engine(data, lanes, fuel_per_launch=fuel,
+                                fusion=fusion, mem_hbm=mem_hbm, **knobs,
+                                **kw)
+        return eng, lambda: eng.initial_state(inst.exports[func][1], args)
+
     worst = 0
-    for mem_hbm, (eng, inst) in memory_modes(lambda m: make_engine(
-            data, lanes, fuel_per_launch=fuel, fusion=fusion,
-            mem_hbm=m, **knobs)):
+    for mem_hbm, (eng, initial) in memory_modes(engine):
         t0 = time.perf_counter()
         tag = mode_tag(fusion, mem_hbm)
-        st = eng.initial_state(inst.exports[func][1], args)
+        st = initial()
         if prep is not None:
             probe_prep(eng, st, prep)
-        ref, tp = on_cpu(st), cpu_tables(eng)
-        wk, wp = new_warps(eng), cpu_warps(eng)
+        ref, tp = (st.clone(), eng.tables) if plain_on_card else \
+            (on_cpu(st), cpu_tables(eng))
+        wk, wp = new_warps(eng), (new_warps(eng) if plain_on_card
+                                  else cpu_warps(eng))
         careful = None
         if eng.tables.optimistic:
-            ceng = make_engine(data, lanes, fuel_per_launch=fuel,
-                               fusion=fusion, mem_hbm=mem_hbm,
-                               optimistic=False, **knobs)[0]
+            ceng = engine(mem_hbm, optimistic=False)[0]
             careful = st.clone()
         launches = 0
         before = dict(interp.LAUNCHES)
@@ -971,6 +1013,7 @@ def run_job(job):
     WINDOW_FIXTURES.clear()
     UNIFORM_FIXTURES.clear()
     TIER0_FIXTURES.clear()
+    MIX_RECORDS.clear()
     try:
         worst = globals()[name](*args, **kwargs)
     except SystemExit:
@@ -981,7 +1024,8 @@ def run_job(job):
                               bulk=dict(BULK_FIXTURES),
                               windows=dict(WINDOW_FIXTURES),
                               uniform=dict(UNIFORM_FIXTURES),
-                              tier0=dict(TIER0_FIXTURES)), None
+                              tier0=dict(TIER0_FIXTURES),
+                              mix=dict(MIX_RECORDS)), None
 
 
 def run_jobs(groups: dict) -> dict:
@@ -1011,6 +1055,7 @@ def run_jobs(groups: dict) -> dict:
             WINDOW_FIXTURES.update(rec["windows"])
             UNIFORM_FIXTURES.update(rec["uniform"])
             TIER0_FIXTURES.update(rec["tier0"])
+            MIX_RECORDS.update(rec["mix"])
     if bad:
         fail(f"{len(bad)} kernel phase jobs failed: {bad[:5]}")
     return worst
@@ -1419,6 +1464,10 @@ def phase_tier0_kernel_vs_plain(fusion="none", only=None) -> int:
 # Tables, segments, tail calls and weighted gas: the tail-dispatch jobs'
 # steps (12: a few launches of 64 steps) and fuel budget (runs out inside
 # a handler's block with tail_cost_table's weights)
+# the main path's divergent tail dispatch (ten times slower a step than
+# the converged one) runs a quarter of TAIL_DISPATCH_N steps, to keep the
+# script's time
+TAIL_DIVERGENT_CUT = 4
 TAIL_SMALL_N = 12
 TAIL_FUEL = 412
 
@@ -1939,14 +1988,12 @@ def fused_build(tables) -> dict:
                                      "seconds")}
 
 
-def run_main(vm, func, args, steps_per_launch, need=("interp",),
-             fusion=None):
-    """One run (run_vm) with every launch count set to 0 before and read
-    after; fails unless the kinds of launch in `need` happened.  Returns
-    (result, launches, wall s, event ms, counts)."""
+def counted(label: str, fn, need=("interp",)):
+    """fn() with every launch count set to 0 before and read after, timed
+    by wall clock and CUDA events; fails unless the launches in `need`
+    happened.  Returns (fn(), counts, wall s, event ms)."""
     from wasmedge_tpu_torch.batch import interp
 
-    vm.conf.batch.steps_per_launch = steps_per_launch
     torch.cuda.synchronize()
     for k in interp.LAUNCHES:
         interp.LAUNCHES[k] = 0
@@ -1955,11 +2002,27 @@ def run_main(vm, func, args, steps_per_launch, need=("interp",),
     e1 = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     e0.record()
-    res, eng = run_vm(vm, func, args, fusion)
+    out = fn()
     e1.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(interp.LAUNCHES)
+    for k in need:
+        if counts[k] == 0:
+            fail(f"{label}: no {k} launch of the CUDA kernel")
+    return out, counts, wall, e0.elapsed_time(e1)
+
+
+def run_main(vm, func, args, steps_per_launch, need=("interp",),
+             fusion=None):
+    """One run (run_vm) with every launch count set to 0 before and read
+    after; fails unless the kinds of launch in `need` happened.  Returns
+    (result, launches, wall s, event ms, counts)."""
+    from wasmedge_tpu_torch.batch import interp
+
+    vm.conf.batch.steps_per_launch = steps_per_launch
+    (res, eng), counts, wall, ev_ms = counted(
+        f"main path {func}", lambda: run_vm(vm, func, args, fusion), ())
     counts["op"] = counts["interp"] - counts["block"] - counts["super"]
     for k in need:
         if counts[k] == 0:
@@ -1990,7 +2053,7 @@ def run_main(vm, func, args, steps_per_launch, need=("interp",),
     counts["build"] = fused_build(eng.tables)
     counts["bulk_ops"] = interp.bulk_counts(eng.tables) \
         if eng.tables.has_bulk else {}
-    return res, counts["interp"], wall, e0.elapsed_time(e1), counts
+    return res, counts["interp"], wall, ev_ms, counts
 
 
 def report_main(label, res_launches_wall_ev_counts, retired) -> dict:
@@ -2210,34 +2273,48 @@ def coremark_py(n: int) -> int:
     return crc ^ acc
 
 
-def profile_run(vm, func, args, retired: int, fusion=None):
-    """One more run (run_vm) under torch.profiler: the kernel's device
-    time and launches, the set-up and host time around them (wall minus
-    kernel) and, of that, the host time in serve rounds, the card's idle
-    share, and instr/s over the kernel time."""
+def profile_fn(label: str, fn, retired):
+    """fn() once more under torch.profiler: the interpreter kernel's
+    device time and launches, the wall, the host<->device copies' device
+    time, the card's idle share and (`retired` given) instr/s over the
+    kernel time.  Returns (fn(), record)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, eng = run_vm(vm, func, args, fusion)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = [e for e in prof.key_averages() if "interp_kernel" in e.key]
     dev_us = sum(getattr(e, "device_time_total", 0) or
                  getattr(e, "cuda_time_total", 0) for e in kern)
     if not kern or dev_us <= 0:
-        fail(f"profile {func}: the trace shows no interpreter kernel time")
-    count = sum(e.count for e in kern)
+        fail(f"profile {label}: the trace shows no interpreter kernel time")
     kernel_s = dev_us / 1e6
     # host <-> device copies (the serve rounds' memory chunks and stack
     # rows, set-up's planes): device time of the Memcpy entries
     copy_s = sum(getattr(e, "device_time_total", 0) or
                  getattr(e, "cuda_time_total", 0)
                  for e in prof.key_averages() if "Memcpy" in e.key) / 1e6
+    return out, dict(kernel_ms=kernel_s * 1e3,
+                     launches=sum(e.count for e in kern), wall_s=wall,
+                     setup_host_ms=(wall - kernel_s) * 1e3,
+                     copy_ms=copy_s * 1e3, idle_share=1.0 - kernel_s / wall,
+                     instr_per_s_kernel=None if retired is None
+                     else retired / kernel_s)
+
+
+def profile_run(vm, func, args, retired: int, fusion=None):
+    """One more run (run_vm) under torch.profiler (profile_fn), with the
+    host time in serve rounds and stdout flushes."""
+    (_, eng), rec = profile_fn(func, lambda: run_vm(vm, func, args, fusion),
+                               retired)
     stats = eng.hostcall_stats
     serve_s = stats["serve_s"]
+    kernel_s, wall, count = rec["kernel_ms"] / 1e3, rec["wall_s"], \
+        rec["launches"]
     print(f"profile {func} x {MAIN_LANES} [{eng.tables.fusion}"
           f"{', tier 0' if eng.tables.t0k is not None else ''}]: kernel "
           f"device time "
@@ -2247,18 +2324,18 @@ def profile_run(vm, func, args, retired: int, fusion=None):
           f" ms (of which {stats['serve_rounds']} serve rounds "
           f"{serve_s * 1e3:.3f} ms, {stats['stdout_flushes']} stdout "
           f"flushes {stats['flush_s'] * 1e3:.3f} ms; host<->device copies "
-          f"{copy_s * 1e3:.3f} ms of device time), device idle share "
-          f"{1.0 - kernel_s / wall:.4f}, "
+          f"{rec['copy_ms']:.3f} ms of device time), device idle share "
+          f"{rec['idle_share']:.4f}, "
           f"{retired / kernel_s:.4g} wasm instr/s over kernel time",
           flush=True)
-    return dict(encoding=eng.tables.fusion, kernel_ms=kernel_s * 1e3,
+    return dict(encoding=eng.tables.fusion, kernel_ms=rec["kernel_ms"],
                 launches=count, wall_s=wall,
-                setup_host_ms=(wall - kernel_s) * 1e3,
+                setup_host_ms=rec["setup_host_ms"],
                 serve_rounds=stats["serve_rounds"], serve_ms=serve_s * 1e3,
                 stdout_flushes=stats["stdout_flushes"],
                 flush_ms=stats["flush_s"] * 1e3,
-                copy_ms=copy_s * 1e3, idle_share=1.0 - kernel_s / wall,
-                instr_per_s_kernel=retired / kernel_s)
+                copy_ms=rec["copy_ms"], idle_share=rec["idle_share"],
+                instr_per_s_kernel=rec["instr_per_s_kernel"])
 
 
 def wasi_vm(data: bytes, fd: int, pages: int = 1, tier0: bool = True):
@@ -3065,8 +3142,8 @@ def phase_time_tables() -> dict:
 def phase_main_tables() -> dict:
     """The tail-dispatch workload through VM.execute_batch at full size:
     run(seed, TAIL_DISPATCH_N) x MAIN_LANES (about 3e7 instructions a
-    lane) with the defaults (B2 blocks, windows, optimistic) in both
-    modes, every lane equal to the numpy model, the call depth 0 after
+    lane; divergent a TAIL_DIVERGENT_CUT-th of the steps) with the defaults (B2 blocks,
+    windows, optimistic) in both modes, every lane equal to the numpy model, the call depth 0 after
     every launch (tail calls push no frame), every converged warp entry
     uniform and no divergent one; each profiled and once more careful
     (profiled too for the converged run; the divergent careful run's
@@ -3103,8 +3180,10 @@ def phase_main_tables() -> dict:
 
     vm = vm_of()
     for mode in ("converged", "divergent"):
-        args = tail_dispatch_args(L, mode)
-        want = tail_dispatch_model(args[0], TAIL_DISPATCH_N)
+        n = TAIL_DISPATCH_N // (1 if mode == "converged"
+                                else TAIL_DIVERGENT_CUT)
+        args = tail_dispatch_args(L, mode, n)
+        want = tail_dispatch_model(args[0], n)
 
         def check(res, mode=mode, want=want):
             got = res.results[0].astype(np.int64) & 0xFFFFFFFF
@@ -3125,7 +3204,7 @@ def phase_main_tables() -> dict:
             fail(f"tail dispatch {mode}: call depth {depth[0]} after a "
                  f"launch (a tail call pushes no frame)")
         retired = int(run[0].retired.astype(np.int64).sum())
-        label = f"tail dispatch {mode} x {L}, n {TAIL_DISPATCH_N}"
+        label = f"tail dispatch {mode} x {L}, n {n}"
         rec = report_main(f"{label}, equal to the numpy model, "
                           f"{retired / L:.4g} instr a lane", run, retired)
         check_uniform(rec, f"tail dispatch {mode}", mode == "converged")
@@ -3405,6 +3484,485 @@ def phase_time_bulk():
     return dict(out, library_ms=lib_ms, bound_ms=bound_ms,
                 careful_bound_ms=careful_bound_ms, bound_bytes=nbytes + snap,
                 snapshot_bytes=snap)
+
+
+# ---------------------------------------------------------------------------
+# Multi-tenant images and serving (BASELINE config 5)
+# ---------------------------------------------------------------------------
+# bench_multi.py:27-47: four tenants of MIX_LANES lanes, stacks 256 / 256
+MIX_KNOBS = dict(value_stack_depth=256, call_stack_depth=256,
+                 steps_per_launch=1 << 20)
+MIX_LANES = {"fib": 1024, "fac": 1024, "loop_sum": 1024, "coremark": 1024}
+MIX_N = {"fib": 30, "fac": 20, "loop_sum": 16_000_000, "coremark": 262_144}
+# the straddling variant: lane counts off the warp size, so that three
+# warps hold lanes of two modules, at a smaller depth
+STRADDLE_LANES = {"fib": 1021, "fac": 1029, "loop_sum": 1011,
+                  "coremark": 1035}
+STRADDLE_N = {"fib": 25, "fac": 20, "loop_sum": 1_000_000,
+              "coremark": 16_384}
+# the serving run: a MultiModuleBatchEngine over the four modules at
+# MAIN_LANES lanes, SERVE_REQUESTS seeded requests over four tenants
+SERVE_REQUESTS = 16_384
+SERVE_CHUNK = 65_536
+SERVE_WEIGHTS = {"t0": 1, "t1": 1, "t2": 2, "t3": 4}
+SERVE_QUOTAS = {"t0": 512}
+# the kernel jobs' mix: small arguments, lane counts off the warp size
+MIX_JOB_LANES = {"fib": 61, "fac": 67, "loop_sum": 59, "coremark": 69}
+MIX_JOB_CHUNK = 997
+MIX_RECORDS = {}  # kernel job records of the concatenated image
+
+
+def mix_module(name: str) -> bytes:
+    from wasmedge_tpu_torch import models
+
+    return getattr(models, {"coremark": "build_coremark_kernel"}.get(
+        name, f"build_{name}"))()
+
+
+def mix_conf(**knobs):
+    from wasmedge_tpu_torch.common.configure import Configure, Proposal
+
+    conf = Configure()
+    conf.add_proposal(Proposal.TailCall)
+    for k, v in dict(MIX_KNOBS, **knobs).items():
+        setattr(conf.batch, k, v)
+    return conf
+
+
+def mix_instance(data: bytes, conf):
+    """(instance, store) of module bytes under `conf`."""
+    from wasmedge_tpu_torch.executor import Executor
+    from wasmedge_tpu_torch.loader import Loader
+    from wasmedge_tpu_torch.runtime.store import StoreManager
+    from wasmedge_tpu_torch.validator import Validator
+
+    store = StoreManager()
+    mod = Validator(conf).validate(Loader(conf).parse_module(data))
+    return Executor(conf).instantiate(store, mod), store
+
+
+def mix_tenants(conf, specs, device="cuda") -> list:
+    """Tenants (each its own BatchEngine) of `specs`: [(module bytes,
+    export, args, lanes)]."""
+    from wasmedge_tpu_torch.batch.engine import BatchEngine
+    from wasmedge_tpu_torch.batch.multitenant import Tenant
+
+    out = []
+    for data, func, args, lanes in specs:
+        inst, store = mix_instance(data, conf)
+        out.append(Tenant(BatchEngine(inst, store=store, conf=conf,
+                                      lanes=lanes, device=device),
+                          func, list(args), lanes))
+    return out
+
+
+def config5_specs(lanes: dict, ns: dict) -> list:
+    """The config-5 tenants' specs: every lane of a tenant one call with
+    its argument."""
+    from wasmedge_tpu_torch.models.fixtures import CONFIG5
+
+    return [(mix_module(name), func, [np.full(lanes[name], ns[name],
+                                              np.int64)], lanes[name])
+            for name, func, _ in CONFIG5]
+
+
+def mix_engine(specs, device="cuda", fusion=None, **knobs):
+    """A MultiTenantBatchEngine over `specs` ([(module bytes, export,
+    args, lanes)]) with the knobs set, its encoding replaced by `fusion`
+    where it is given (make_engine's counterpart)."""
+    from wasmedge_tpu_torch.batch.interp import device_tables
+    from wasmedge_tpu_torch.batch.multitenant import MultiTenantBatchEngine
+
+    conf = mix_conf(**knobs)
+    eng = MultiTenantBatchEngine(mix_tenants(conf, specs, device), conf=conf,
+                                 device=device)
+    if fusion is not None:
+        eng.fusion = fusion
+        eng.tables = device_tables(eng.img, eng.device, fusion,
+                                   mem_window=eng.mem_window,
+                                   optimistic=eng.optimistic,
+                                   stack_depth=eng.cfg.value_stack_depth)
+    return eng
+
+
+def model_cells(model, res, args) -> bool:
+    """Whether a config-5 result equals its numpy model (fac's i64 cell
+    whole, the others' i32 cells as unsigned words)."""
+    from wasmedge_tpu_torch.models.fixtures import fac_model
+
+    got = np.asarray(res, np.int64)
+    if model is not fac_model:
+        got = got & 0xFFFFFFFF
+    return bool((got == model(args)).all())
+
+
+def warp_deltas(warps, before) -> dict:
+    """Per-warp counters of a run: `warps` now minus `before` (a copy
+    taken before the run)."""
+    return {k: (v - before[k]).cpu().numpy().astype(np.int64)
+            for k, v in warps.counters().items() if k != "snap"}
+
+
+def warp_counters(warps) -> dict:
+    return {k: v.clone() for k, v in warps.counters().items()}
+
+
+def b3_by_tenant(d: dict, lanes: dict) -> dict:
+    """B3 entries by tenant (the warps wholly inside its lanes; `lanes`
+    maps each tenant's name to its lane count, in lane order) and of the
+    warps that hold lanes of two tenants ("mixed"): warps, uniform
+    entries, all entries and rollbacks."""
+    names = list(lanes)
+    bounds = np.cumsum([0] + list(lanes.values()))
+    owner = []
+    for w in range(d["entered"].shape[0]):
+        first, last = (int(np.searchsorted(bounds, x, "right")) - 1
+                       for x in (32 * w, min(32 * w + 32, bounds[-1]) - 1))
+        owner.append(names[first] if first == last else "mixed")
+    out = {}
+    for key in names + ["mixed"]:
+        sel = np.array([o == key for o in owner])
+        if sel.any():
+            out[key] = dict(warps=int(sel.sum()),
+                            uniform=int(d["uniform"][sel].sum()),
+                            entered=int(d["entered"][sel].sum()),
+                            rollbacks=int(d["rollbacks"][sel].sum()))
+    return out
+
+
+def mix_case(label: str, lanes: dict, ns: dict, in_image: bool = False
+             ) -> dict:
+    """One config-5 mix through the user's entry points: each tenant
+    alone on its own BatchEngine (its lanes, run(), the defaults: B2
+    blocks, windows where it has a memory, optimistic), equal to the numpy
+    model; then the four as one concatenated image through `run_mixed`
+    with the defaults, each tenant's results, trap and retired equal to
+    its solo run (its wall includes run_mixed's engine set-up); the mix
+    again with `optimistic` False.  Each is profiled on a
+    MultiTenantBatchEngine built by hand over the solo tenants (the same
+    image and build), whose per-warp B3 counters give the entries by
+    tenant.  `in_image`: each tenant once more alone through the
+    concatenated image (the others at 0 lanes), timed by events."""
+    from wasmedge_tpu_torch.batch.multitenant import (
+        MultiTenantBatchEngine, Tenant, run_mixed)
+    from wasmedge_tpu_torch.models.fixtures import CONFIG5
+
+    conf = mix_conf()
+    specs = config5_specs(lanes, ns)
+    tenants = mix_tenants(conf, specs)
+    solo, rec = {}, {"lanes": dict(lanes), "n": dict(ns)}
+    for t, (name, func, model) in zip(tenants, CONFIG5):
+        def run(t=t, func=func):
+            return t.engine.run(func, t.args_lanes, max_steps=10**9)
+
+        w0 = warp_counters(t.engine.warps)
+        res, counts, wall, ev_ms = counted(f"{label} {name} alone", run,
+                                           ("interp", "block"))
+        d = warp_deltas(t.engine.warps, w0)
+        if not (res.trap == -1).all() or \
+                not model_cells(model, res.results[0], t.args_lanes[0]):
+            fail(f"{label} {name}({ns[name]}) alone: traps "
+                 f"{sorted(set(res.trap.tolist()))}, not the model")
+        retired = int(res.retired.astype(np.int64).sum())
+        prof = profile_fn(f"{label} {name} alone", run, retired)[1]
+        solo[name] = res
+        rec[name] = dict(retired=retired, launches=counts["interp"],
+                         wall_s=wall, event_ms=ev_ms,
+                         kernel_ms=prof["kernel_ms"],
+                         instr_per_s_wall=retired / wall,
+                         instr_per_s_kernel=prof["instr_per_s_kernel"],
+                         uniform=int(d["uniform"].sum()),
+                         entered=int(d["entered"].sum()),
+                         rollbacks=int(d["rollbacks"].sum()))
+        print(f"  {label} {name}({ns[name]}) x {lanes[name]} alone: retired "
+              f"{retired}, {counts['interp']} launches, kernel "
+              f"{prof['kernel_ms']:.1f} ms, wall {wall:.3f} s, "
+              f"{retired / wall:.4g} instr/s over wall, "
+              f"{prof['instr_per_s_kernel']:.4g} over kernel; B3 entries "
+              f"{rec[name]['uniform']} uniform of {rec[name]['entered']}, "
+              f"{rec[name]['rollbacks']} rollbacks", flush=True)
+    if in_image:
+        # each tenant alone through the concatenated image's build (the
+        # others at 0 lanes): the build's cost, apart from sharing it
+        for k, (name, _, _) in enumerate(CONFIG5):
+            only = [t if i == k else Tenant(t.engine, t.func_name,
+                                            [np.zeros(0, np.int64)], 0)
+                    for i, t in enumerate(tenants)]
+            mt = MultiTenantBatchEngine(only, conf=conf, device="cuda")
+            res, counts, wall, ev_ms = counted(
+                f"{label} {name} alone in the image",
+                lambda mt=mt: mt.run_tenants(max_steps=10**9),
+                ("interp", "block"))
+            if not np.array_equal(res[k].results[0], solo[name].results[0]):
+                fail(f"{label} {name} alone in the image: not its solo run")
+            rec[name].update(in_image_launches=counts["interp"],
+                             in_image_event_ms=ev_ms, in_image_wall_s=wall)
+            print(f"  {label} {name} alone in the concatenated image: "
+                  f"{counts['interp']} launches, events {ev_ms:.1f} ms "
+                  f"(alone on its own build: {rec[name]['event_ms']:.1f})",
+                  flush=True)
+    for opt in (None, False):
+        mconf = mix_conf(optimistic=opt)
+        rspecs = [(*mix_instance(data, mconf), func, args, n)
+                  for data, func, args, n in specs]
+        need = ("interp", "block", "window") + \
+            (("optimistic",) if opt is None else ())
+
+        def same_as_solo(res, how):
+            for r, (name, _, _) in zip(res, CONFIG5):
+                s = solo[name]
+                if not (np.array_equal(r.trap, s.trap)
+                        and np.array_equal(r.retired, s.retired)
+                        and np.array_equal(r.results[0], s.results[0])):
+                    fail(f"{label}, optimistic {opt}, {how}: tenant {name} "
+                         f"differs from its solo run")
+
+        res, counts, wall, ev_ms = counted(
+            label, lambda: run_mixed(rspecs, mconf, 10**9, device="cuda"),
+            need)
+        if counts["window"] != counts["interp"] or \
+                counts["optimistic"] != (counts["interp"] if opt is None
+                                         else 0):
+            fail(f"{label}: {counts['window']} window and "
+                 f"{counts['optimistic']} optimistic launches of "
+                 f"{counts['interp']}")
+        same_as_solo(res, "run_mixed")
+        retired = int(sum(r.retired.astype(np.int64).sum() for r in res))
+        mt = MultiTenantBatchEngine(tenants, conf=mconf, device="cuda")
+        w0 = warp_counters(mt.warps) if mt.warps is not None else None
+        pres, prof = profile_fn(
+            label, lambda: mt.run_tenants(max_steps=10**9), retired)
+        same_as_solo(pres, "profiled")
+        key = "mix" if opt is None else "mix_careful"
+        rec[key] = dict(retired=retired, launches=counts["interp"],
+                        block_launches=counts["block"],
+                        window_launches=counts["window"],
+                        optimistic_launches=counts["optimistic"],
+                        wall_s=wall, event_ms=ev_ms,
+                        kernel_ms=prof["kernel_ms"],
+                        idle_share=prof["idle_share"],
+                        profiled_wall_s=prof["wall_s"],
+                        profiled_launches=prof["launches"],
+                        instr_per_s_wall=retired / wall,
+                        instr_per_s_kernel=prof["instr_per_s_kernel"],
+                        build=fused_build(mt.tables))
+        if w0 is not None:
+            rec[key]["b3"] = b3_by_tenant(warp_deltas(mt.warps, w0), lanes)
+        print(f"  {label} x {sum(lanes.values())}, one concatenated image "
+              f"through run_mixed [{mt.tables.fusion}, windows, "
+              f"{'optimistic' if opt is None else 'careful'}]: every tenant "
+              f"equal to its solo run; retired {retired}, "
+              f"{counts['interp']} launches, wall {wall:.3f} s, "
+              f"{retired / wall:.4g} instr/s over wall; profiled: kernel "
+              f"{prof['kernel_ms']:.1f} ms, "
+              f"{prof['instr_per_s_kernel']:.4g} instr/s over kernel, idle "
+              f"share {prof['idle_share']:.4f} of {prof['wall_s']:.3f} s; "
+              f"build "
+              f"{rec[key]['build']}; B3 by tenant {rec[key].get('b3')}",
+              flush=True)
+    return rec
+
+
+def phase_main_mix() -> dict:
+    """BASELINE config 5 at MAIN_LANES lanes (each tenant also alone in
+    the concatenated image) and its straddling variant (mix_case each)."""
+    return {"config5": mix_case("config 5", MIX_LANES, MIX_N, True),
+            "straddle": mix_case("straddling mix", STRADDLE_LANES,
+                                 STRADDLE_N)}
+
+
+def serve_once(profile: bool) -> dict:
+    """One serving run: BatchServer(engine=MultiModuleBatchEngine(the four
+    config-5 modules, MAIN_LANES lanes)), SERVE_CHUNK steps a launch,
+    SERVE_REQUESTS seeded requests (serve_load) over four tenants with
+    SERVE_WEIGHTS and SERVE_QUOTAS, all submitted, then run_until_idle.
+    Every future equal to its model, every request completed.  With
+    `profile`, under torch.profiler (the kernel's device time)."""
+    from wasmedge_tpu_torch.batch.multitenant import MultiModuleBatchEngine
+    from wasmedge_tpu_torch.models.fixtures import (
+        CONFIG5, serve_load, serve_model)
+    from wasmedge_tpu_torch.serve import BatchServer
+
+    conf = mix_conf(steps_per_launch=SERVE_CHUNK)
+    modules = [(name, *mix_instance(mix_module(name), conf))
+               for name, _, _ in CONFIG5]
+    eng = MultiModuleBatchEngine(modules, conf=conf, lanes=MAIN_LANES)
+    srv = BatchServer(engine=eng, weights=SERVE_WEIGHTS, quotas=SERVE_QUOTAS)
+    load = serve_load(SERVE_REQUESTS, SEED)
+
+    def drive():
+        t_sub, futs = [], []
+        for tenant, func, n in load:
+            t_sub.append(time.monotonic())
+            futs.append(srv.submit(func, [n], tenant=tenant))
+        return futs, t_sub, srv.run_until_idle()
+
+    if profile:
+        prof = profile_fn("serving", drive, None)[1]
+        return dict(kernel_ms=prof["kernel_ms"], wall_s=prof["wall_s"],
+                    launches=prof["launches"])
+    (futs, t_sub, rounds), counts, wall, ev_ms = counted(
+        "serving", drive, ("interp", "block", "window", "optimistic"))
+    c = srv.counters
+    if c["completed"] != SERVE_REQUESTS or c["killed"] or c["trapped"]:
+        fail(f"serving: counters {c}")
+    got = np.array([f.result(0)[0] for f in futs], np.int64)
+    funcs = np.array([f for _, f, _ in load])
+    ns = np.array([n for _, _, n in load], np.int64)
+    for name, func, model in CONFIG5:
+        sel = funcs == f"{name}:{func}"
+        if not model_cells(model, got[sel], ns[sel]):
+            fail(f"serving: {int(sel.sum())} {name} requests, some off "
+                 f"the model")
+    lat = np.array([f.t_done - t for f, t in zip(futs, t_sub)])
+    stats = eng.warps.stats()
+    rec = dict(requests=SERVE_REQUESTS, rounds=rounds,
+               recycled_lanes=c["recycled_lanes"],
+               retired=c["retired_instructions"], wall_s=wall,
+               event_ms=ev_ms, launches=counts["interp"],
+               block_launches=counts["block"],
+               window_launches=counts["window"],
+               optimistic_launches=counts["optimistic"],
+               requests_per_s=SERVE_REQUESTS / wall,
+               latency_p50_ms=float(np.percentile(lat, 50)) * 1e3,
+               latency_p99_ms=float(np.percentile(lat, 99)) * 1e3,
+               instr_per_s_wall=c["retired_instructions"] / wall,
+               uniform=int(eng.warps.uniform.sum()), **stats,
+               admitted_by_tenant={t: sum(1 for _, tt, _ in srv.admissions
+                                          if tt == t)
+                                   for t in SERVE_WEIGHTS},
+               counters=dict(c))
+    return rec
+
+
+def phase_serve() -> dict:
+    """The serving run (serve_once), then the same run profiled: the
+    kernel's share of that run's wall (1 - its idle share)."""
+    rec = serve_once(False)
+    prof = serve_once(True)
+    rec.update(kernel_ms=prof["kernel_ms"], profiled_wall_s=prof["wall_s"],
+               kernel_share=prof["kernel_ms"] / 1e3 / prof["wall_s"])
+    print(f"  serving x {MAIN_LANES} lanes, {SERVE_REQUESTS} requests over "
+          f"4 modules and 4 tenants (weights {SERVE_WEIGHTS}, quotas "
+          f"{SERVE_QUOTAS}), {SERVE_CHUNK} steps a launch: every future "
+          f"equal to its model; {rec['rounds']} rounds, "
+          f"{rec['launches']} launches, {rec['recycled_lanes']} recycled "
+          f"lanes, wall {rec['wall_s']:.3f} s, "
+          f"{rec['requests_per_s']:.1f} requests/s, latency p50 "
+          f"{rec['latency_p50_ms']:.1f} ms, p99 {rec['latency_p99_ms']:.1f}"
+          f" ms, {rec['instr_per_s_wall']:.4g} retired instr/s over wall, "
+          f"kernel {rec['kernel_ms']:.1f} ms ({rec['kernel_share']:.3f} of "
+          f"the profiled run's wall, {rec['profiled_wall_s']:.3f} s), B3 "
+          f"entries {rec['uniform']} uniform of "
+          f"{rec['entered']}, {rec['rollbacks']} rollbacks; admitted by "
+          f"tenant {rec['admitted_by_tenant']}", flush=True)
+    return rec
+
+
+def mix_job_specs(name: str) -> list:
+    """The kernel jobs' concatenated images: "config5" the four modules at
+    MIX_JOB_LANES lanes and small lane-dependent arguments; "c10" two
+    memory.grow tenants whose memories declare max 1 and max 4."""
+    from wasmedge_tpu_torch.models.fixtures import (
+        C10_MAX_PAGES, CONFIG5, build_grow_tenant)
+
+    if name == "c10":
+        d = np.arange(40, dtype=np.int64) % 6
+        return [(build_grow_tenant(m), "g", [d], 40) for m in C10_MAX_PAGES]
+    top = {"fib": 13, "fac": 21, "loop_sum": 300, "coremark": 40}
+    return [(mix_module(n), f, [np.arange(MIX_JOB_LANES[n], dtype=np.int64)
+                                % top[n]], MIX_JOB_LANES[n])
+            for n, f, _ in CONFIG5]
+
+
+def mix_job_knobs(name: str) -> dict:
+    from wasmedge_tpu_torch.models.fixtures import C10_PAGES_PER_LANE
+
+    kn = dict(MIX_KNOBS, steps_per_launch=MIX_JOB_CHUNK)
+    if name == "c10":
+        kn["memory_pages_per_lane"] = C10_PAGES_PER_LANE
+    return kn
+
+
+def serve_state_vs_plain(name: str) -> int:
+    """A serving state just after an install round, kernel against plain:
+    a BatchServer over the four config-5 modules at KERNEL_LANES lanes
+    (small arguments) fills every lane and steps three rounds, then
+    installs a few more requests into the lowest freed lanes (idle
+    TRAP_DONE lanes beside them); one launch from that state through the
+    kernel and through the plain version (a copy on the card), every
+    plane equal, and the kernel's windows written back at the last
+    launch's exit (the install wrote the plane).  Returns the max abs
+    err."""
+    from wasmedge_tpu_torch.batch import interp, interp_ref
+    from wasmedge_tpu_torch.batch.multitenant import MultiModuleBatchEngine
+    from wasmedge_tpu_torch.batch.optimistic import WarpState
+    from wasmedge_tpu_torch.models.fixtures import CONFIG5, serve_load
+    from wasmedge_tpu_torch.serve import BatchServer
+
+    conf = mix_conf(steps_per_launch=MIX_JOB_CHUNK)
+    modules = [(n, *mix_instance(mix_module(n), conf)) for n, _, _ in CONFIG5]
+    eng = MultiModuleBatchEngine(modules, conf=conf, lanes=KERNEL_LANES)
+    srv = BatchServer(engine=eng)
+    load = serve_load(KERNEL_LANES + KERNEL_LANES // 8, SEED, ranges={
+        "fib": (3, 14), "fac": (1, 20), "loop_sum": (1, 400),
+        "coremark": (1, 40)})
+    # every lane busy, three rounds (lanes retire and park), then the
+    # last eighth of the requests into the lowest freed lanes
+    for t, f, n in load[:KERNEL_LANES]:
+        srv.submit(f, [n], tenant=t)
+    for _ in range(3):
+        srv.step()
+    for t, f, n in load[KERNEL_LANES:]:
+        srv.submit(f, [n], tenant=t)
+    with srv._lock:
+        installed = srv._admit(time.monotonic())
+    st = srv.state
+    idle = int((st.trap == -1).sum())
+    ref = st.clone()
+    interp.run_chunk(eng.tables, st, MIX_JOB_CHUNK, False,
+                     WarpState.new(eng.lanes, eng.device))
+    interp_ref.run_chunk(eng.tables, ref, MIX_JOB_CHUNK, False,
+                         WarpState.new(eng.lanes, eng.device))
+    torch.cuda.synchronize()
+    err = max_abs_err(st, ref)
+    if err or not installed or not idle:
+        fail(f"{name}: after an install round of {installed} lanes beside "
+             f"{idle} idle ones, kernel != plain: max abs err {err}")
+    MIX_RECORDS[name] = dict(installed=installed, idle=idle, err=err)
+    print(f"kernel_vs_plain {name}: {installed} lanes installed beside "
+          f"{idle} idle TRAP_DONE lanes, one launch equal", flush=True)
+    return err
+
+
+def mix_jobs() -> list:
+    """The concatenated image's kernel jobs, each with the plain version
+    on the card: config 5's four modules at small size and the C10 pair,
+    each in blocks and per op (kernel_vs_plain: both memory modes,
+    optimistic with the careful kernel beside it), and a launch from a
+    serving state after an install round.  The config-5 jobs are the
+    longest of the kernel phase, so run_jobs starts them first."""
+    jobs = [("kernel_vs_plain", (f"mix.{n}", mix_job_specs(n), None, None,
+                                 MIX_JOB_CHUNK, None, mix_job_knobs(n)),
+             dict(fusion=f, lanes=None, plain_on_card=True))
+            for n in ("config5", "c10") for f in ("none", "blocks")]
+    return jobs + [("serve_state_vs_plain", ("mix.serve_state",), {})]
+
+
+def mix_builds() -> list:
+    """The tables (CPU) of the concatenated image's builds: config 5's
+    (the main path, the straddling variant, the serving engine and the
+    kernel jobs) and the C10 pair's (its kernel jobs), each in B2 blocks,
+    optimistic and careful, windows and direct; and the solo tenants'
+    (blocks, optimistic, their memory mode)."""
+    out = [mix_engine(mix_job_specs(n), device="cpu", fusion="blocks",
+                      optimistic=opt, mem_hbm=m, **mix_job_knobs(n)).tables
+           for n in ("config5", "c10") for opt in (None, False)
+           for m in (None, False)]
+    conf = mix_conf()
+    out += [t.engine.tables for t in mix_tenants(
+        conf, config5_specs(dict.fromkeys(MIX_N, 2), MIX_N), "cpu")]
+    return out
 
 
 def parse_ptxas(text: str) -> dict:
@@ -3714,6 +4272,7 @@ def prebuild() -> dict:
                         tables.append(eng.tables)
     tables += table_builds()
     tables += linked_builds()
+    tables += mix_builds()
     tables += corpus_tables([SIMD_WAST])
     tables += corpus_tables(corpus_files(), corpus_conf())
     # the main path's fib(30) and vloop blocks builds, kOpt and careful,
@@ -3816,7 +4375,7 @@ def main() -> int:
     geometry = phase_geometry()
 
     t0 = time.perf_counter()
-    w = run_jobs({"linked": linked_jobs(),
+    w = run_jobs({"mix": mix_jobs(), "linked": linked_jobs(),
                   "rows": rows_jobs() + uniform_jobs(),
                   "scalar": scalar_jobs() + host_jobs(),
                   "simd": simd_jobs(), "fused": fused_jobs(),
@@ -3826,7 +4385,8 @@ def main() -> int:
                   + tier0_jobs("super"), "tables": table_jobs()})
     worst, simd_worst, fused_worst, opt_worst, rows_worst, t0_worst = (
         w["scalar"], w["simd"], w["fused"], w["opt"], w["rows"], w["tier0"])
-    tables_worst, linked_worst = w["tables"], w["linked"]
+    tables_worst, linked_worst, mix_worst = w["tables"], w["linked"], \
+        w["mix"]
     t_jobs = time.perf_counter() - t0
     timing = {f: phase_time_one_launch(f) for f in ("none", "blocks", "super")}
     bulk_timing = phase_time_bulk()
@@ -3838,9 +4398,9 @@ def main() -> int:
     t_kernel = time.perf_counter() - t0
     print(f"phase kernel_vs_plain: {t_kernel:.2f} s (comparisons "
           f"{t_jobs:.2f} s on {WORKERS} workers), max abs err "
-          f"{max(worst, simd_worst, fused_worst, opt_worst, rows_worst, t0_worst, tables_worst, linked_worst)}"
+          f"{max(worst, simd_worst, fused_worst, opt_worst, rows_worst, t0_worst, tables_worst, linked_worst, mix_worst)}"
           f" (tier 0 {t0_worst}; tables {tables_worst}; linked program "
-          f"{linked_worst}; "
+          f"{linked_worst}; concatenated images {mix_worst}; "
           f"warp bulk pass and stack rows {rows_worst}; window cache "
           f"{WINDOW_WORST[0]}; optimistic against plain "
           f"{OPT_WORST['plain']}, against careful below sp "
@@ -3855,6 +4415,7 @@ def main() -> int:
           flush=True)
     print(f"tier-0 calls per fixture: {json.dumps(TIER0_FIXTURES)}",
           flush=True)
+    print(f"concatenated-image jobs: {json.dumps(MIX_RECORDS)}", flush=True)
 
     t0 = time.perf_counter()
     main_out = phase_main()
@@ -3874,6 +4435,8 @@ def main() -> int:
     main_out["spec_corpus"] = phase_spec_corpus()
     main_out["vloop"] = phase_main_simd()
     main_out["config2"] = phase_main_memory()
+    main_out["mix"] = phase_main_mix()
+    main_out["serve"] = phase_serve()
     t_main = time.perf_counter() - t0
     print(f"phase main: {t_main:.2f} s", flush=True)
 
@@ -3931,11 +4494,18 @@ def main() -> int:
         gas_cost_limit_traps=lk["gas"]["cost_limit_traps"],
         gas_event_ms=lk["gas"]["event_ms"],
         scalar_corpus=main_out["scalar_corpus"])
+    # the config-5 mix (one concatenated image), its straddling variant
+    # and the serving run: B2 blocks, windows, optimistic (the defaults)
+    mx = {k: main_out["mix"][k]["mix"] for k in ("config5", "straddle")}
+    sv = main_out["serve"]
     record = launch_record(
         "wasm_interp", "wasmedge_tpu_torch/csrc/interp.cu",
         "wasmedge_tpu/batch/pallas_engine.py:3825",
         main_out["fib30_none"]["op_launches"], timing["none"],
-        max(worst, rows_worst), main_out["fib30_none"]["profile"],
+        max(worst, rows_worst, mix_worst), main_out["fib30_none"]["profile"],
+        # memory.grow reads its page ceiling from its instruction's b (a
+        # tenant's own in a concatenated image)
+        memgrow_ceiling="b",
         timed_launch=dict(fib_launch, retired=timing["none"]["retired"]),
         # the linked program's per-op launches (0: its run is B2 blocks),
         # and the B2 launches whose call_indirect runs this kernel's
@@ -3968,7 +4538,12 @@ def main() -> int:
         mem_checksum_careful_main_ms_per_launch=per_launch(
             c2["mem_checksum"]["careful"]["profile"]),
         linked_launches=linked["block_launches"],
-        linked_main_ms_per_launch=linked["main_ms_per_launch"])
+        linked_main_ms_per_launch=linked["main_ms_per_launch"],
+        mix_launches=mx["config5"]["block_launches"],
+        mix_main_ms_per_launch=mx["config5"]["kernel_ms"]
+        / mx["config5"]["profiled_launches"],
+        straddle_launches=mx["straddle"]["block_launches"],
+        serve_launches=sv["block_launches"])
     super_record = launch_record(
         "super", "wasmedge_tpu_torch/csrc/fused.cuh",
         "wasmedge_tpu/batch/pallas_engine.py:2472",
@@ -4056,6 +4631,9 @@ def main() -> int:
                             for k in ("mem_checksum", "coremark")},
         linked_launches=linked["window_launches"],
         linked_window_counts=lk["window_counts"],
+        mix_launches=mx["config5"]["window_launches"],
+        straddle_launches=mx["straddle"]["window_launches"],
+        serve_launches=sv["window_launches"],
         timed_launch={"workload": f"mem_checksum({MEM_N}), {MEM_PASSES} "
                       f"passes", "lanes": MAIN_LANES, "steps": TIMED_STEPS,
                       "from_step": mem_timing["first_step"],
@@ -4092,6 +4670,12 @@ def main() -> int:
                                       ("linked", lk))},
         linked_launches=linked["optimistic_launches"],
         linked_rollbacks=linked["rollbacks"],
+        mix_launches=mx["config5"]["optimistic_launches"],
+        straddle_launches=mx["straddle"]["optimistic_launches"],
+        mix_entries={k: mx[k]["b3"] for k in mx},
+        serve_launches=sv["optimistic_launches"],
+        serve_entries=dict(uniform=sv["uniform"], entered=sv["entered"],
+                           rollbacks=sv["rollbacks"]),
         entry_compare={k: dict(cycles_per_warp=t["entry_compare_cycles_per_warp"],
                                ms=t["entry_compare_ms"],
                                bytes=t["entry_compare_bytes"],

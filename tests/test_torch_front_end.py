@@ -22,7 +22,8 @@ from wasmedge_tpu.batch.image import build_device_image as ref_build
 from wasmedge_tpu.batch.pallas_engine import hid_plane as ref_hid_plane
 from wasmedge_tpu.common.configure import Configure as RefConfigure
 from wasmedge_tpu_torch.batch.engine import BatchEngine, _table_snapshot
-from wasmedge_tpu_torch.batch.image import DeviceImage, build_device_image
+from wasmedge_tpu_torch.batch.image import (
+    CLS_MEMGROW, DeviceImage, build_device_image)
 from wasmedge_tpu_torch.batch.interp import hid_plane
 from wasmedge_tpu_torch.common.configure import Configure
 from wasmedge_tpu_torch.common.errors import ErrCode, InstantiationError
@@ -78,9 +79,15 @@ def _port_inst(data, conf=None, imports=()):
     return store, instantiate(store, mod, conf)
 
 
-def _assert_same(img, ref):
+def _assert_same(img, ref, memgrow_ceiling=False):
+    """Every field equal; with `memgrow_ceiling` (an engine's image) the
+    `b` of each memory.grow is the page ceiling, which the reference
+    reads from its image's mem_pages_max."""
     for f in DeviceImage.NUMPY_FIELDS:
         want = np.asarray(getattr(ref, f))
+        if f == "b" and memgrow_ceiling:
+            want = want.copy()
+            want[np.asarray(ref.cls) == CLS_MEMGROW] = ref.mem_pages_max
         got = getattr(img, f)
         assert got.dtype == want.dtype, f
         np.testing.assert_array_equal(got, want, err_msg=f)
@@ -118,7 +125,7 @@ def test_engine_image_clamps_pages_like_reference(name):
     store, inst = _port_inst(data, conf)
     img = BatchEngine(inst, store=store, conf=conf, lanes=4,
                       device="cpu").img
-    _assert_same(img, ref)
+    _assert_same(img, ref, memgrow_ceiling=True)
     assert img.mem_pages_max == 2
 
 

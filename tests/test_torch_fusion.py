@@ -16,6 +16,7 @@ from wasmedge_tpu.batch import pallas_engine as P
 from wasmedge_tpu.batch.engine import BatchEngine as RefEngine
 from wasmedge_tpu.common.configure import Configure as RefConfigure
 from wasmedge_tpu_torch.batch import fusegen, fusion
+from wasmedge_tpu_torch.batch.image import CLS_MEMGROW
 from wasmedge_tpu_torch.batch.interp import (
     H_FUSE_GCA_BASE, device_tables, hid_plane)
 from wasmedge_tpu_torch.models import (
@@ -105,7 +106,11 @@ def test_fuse_image_matches_reference(name):
     hid = hid_plane(img)
     got = fusion.fuse_image(hid, img.a, img.b, img.c, img.imm_lo, img.imm_hi,
                             img)
-    want = P.fuse_image(P.hid_plane(ref_img), ref_img.a, ref_img.b,
+    # the port's memory.grow carries the page ceiling in its `b` (the
+    # reference reads its image's mem_pages_max): the same input planes
+    ref_b = np.asarray(ref_img.b).copy()
+    ref_b[np.asarray(ref_img.cls) == CLS_MEMGROW] = ref_img.mem_pages_max
+    want = P.fuse_image(P.hid_plane(ref_img), ref_img.a, ref_b,
                         ref_img.c, ref_img.imm_lo, ref_img.imm_hi, ref_img)
     for plane, g, w in zip(("hid", "a", "b", "c", "ilo", "ihi"), got, want):
         np.testing.assert_array_equal(g, w, err_msg=plane)

@@ -1,6 +1,7 @@
 """The port stands alone: nothing under wasmedge_tpu_torch/ (its host
 modules under host/ and runtime/hostfunc.py, the v128 ops, the text
-front-end and the corpus runner included) and nothing in chip_smoke.py
+front-end, the corpus runner, the multi-tenant engines and the serving
+layer included) and nothing in chip_smoke.py
 imports JAX or the JAX package, no entry point defaults to the CPU, and
 the CUDA source's ids, v128 family offsets and trap codes equal the
 Python package's, and no generated fused-kernel source is kept outside
@@ -37,7 +38,9 @@ def test_source_walk_covers_the_host_modules():
               "spec/__init__.py", "batch/fusion.py", "batch/fusegen.py",
               "common/statistics.py", "executor/executor.py",
               "executor/engine.py", "executor/numeric.py",
-              "executor/simd.py", "vm/async_.py", "vm/vm.py"):
+              "executor/simd.py", "vm/async_.py", "vm/vm.py",
+              "batch/multitenant.py", "serve/queue.py", "serve/recycle.py",
+              "serve/server.py"):
         assert f in rel, f
 
 

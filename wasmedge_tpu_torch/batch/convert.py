@@ -14,7 +14,7 @@ import numpy as np
 
 from wasmedge_tpu_torch.batch.engine import (
     OPTIONAL_FIELDS, BatchState, resolve_device)
-from wasmedge_tpu_torch.batch.image import DeviceImage
+from wasmedge_tpu_torch.batch.image import CLS_MEMGROW, DeviceImage
 
 
 def image_from_reference(planes: dict, scalars: dict) -> DeviceImage:
@@ -25,7 +25,9 @@ def image_from_reference(planes: dict, scalars: dict) -> DeviceImage:
     included).  An image
     with import stubs comes across whole (code_len counts the stubs);
     the reference's tier-0 `t0kind` plane is not a field here and is
-    ignored, since this port parks every host call at its stub."""
+    ignored, since this port parks every host call at its stub.  The `b`
+    of each memory.grow takes the image's `mem_pages_max`, the ceiling
+    the reference's grow reads."""
     kw = {}
     for f in DeviceImage.NUMPY_FIELDS:
         kw[f] = np.ascontiguousarray(planes[f], np.int32).copy()
@@ -37,6 +39,9 @@ def image_from_reference(planes: dict, scalars: dict) -> DeviceImage:
     if kw["code_len"] != kw["cls"].shape[0]:
         raise ValueError(f"code_len {kw['code_len']} != "
                          f"{kw['cls'].shape[0]} code cells")
+    # memory.grow reads its page ceiling from its `b` here, the reference
+    # from the image-wide mem_pages_max
+    kw["b"][kw["cls"] == CLS_MEMGROW] = kw["mem_pages_max"]
     return DeviceImage(**kw)
 
 

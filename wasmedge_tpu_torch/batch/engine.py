@@ -51,7 +51,7 @@ import torch
 from wasmedge_tpu_torch.batch.hostcall import (
     flush_stdout_buffers, serve_batch_state)
 from wasmedge_tpu_torch.batch.image import (
-    CLS_DATA_DROP, CLS_ELEM_DROP, CLS_MEMINIT, CLS_TABLE_GROW,
+    CLS_DATA_DROP, CLS_ELEM_DROP, CLS_MEMGROW, CLS_MEMINIT, CLS_TABLE_GROW,
     CLS_TABLE_INIT, T0_FD_WRITE, T0_NEEDS_MEMORY, TRAP_DONE, TRAP_HOSTCALL,
     batchability, build_device_image, slice_refusal)
 from wasmedge_tpu_torch.batch.interp import device_tables, run_chunk
@@ -155,6 +155,19 @@ class BatchResult:
     @property
     def completed(self) -> np.ndarray:
         return self.trap == TRAP_DONE
+
+
+@dataclasses.dataclass
+class HostPlanes:
+    """The host's copy of a state's `trap` and `retired` planes [L] and
+    of its first result rows (`lo`, `hi` [rows, L]), read back in
+    one device-to-host copy after a launch and kept equal to the state
+    through the serve round that follows it."""
+
+    trap: np.ndarray
+    retired: np.ndarray
+    lo: np.ndarray
+    hi: np.ndarray
 
 
 def check_batch_entry(inst, func_name: str) -> int:
@@ -322,16 +335,27 @@ class BatchEngine:
         else:
             img.table_cap = tsize0
         # static per-lane memory ceiling: the declared max clamped by the
-        # knob (engine.py:2035-2040 of the reference)
+        # knob (engine.py:2035-2040 of the reference); memory.grow reads
+        # it from its `b`, as table.grow reads its capacity, so that in a
+        # concatenated image (batch/multitenant.py) each tenant's grows
+        # keep their own module's ceiling
         if img.has_memory:
             declared = img.mem_pages_max if img.mem_pages_max > 0 \
                 else self.cfg.memory_pages_per_lane
             img.mem_pages_max = max(
                 img.mem_pages_init,
                 min(declared, self.cfg.memory_pages_per_lane))
+            img.b[img.cls == CLS_MEMGROW] = img.mem_pages_max
         reason = slice_refusal(img)
         if reason is not None:
             raise NotImplementedError(reason)
+        self._setup_image(img)
+
+    def _setup_image(self, img) -> None:
+        """What follows from the image: the encoding, memory and B3
+        choices, the tier-0 kinds and gas weights, the code tables on the
+        device, the per-warp state and the host-call counters (shared with
+        the concatenated engine of batch/multitenant.py)."""
         self.img = img
         self.fusion = fusion_of(self.cfg.block_fusion, img.has_simd)
         self.mem_window = mem_window_of(self.cfg.mem_hbm, img)
@@ -363,6 +387,22 @@ class BatchEngine:
     def resolve_func(self, k: int):
         """Function index of a HOSTCALL stub -> its FunctionInstance."""
         return self.inst.funcs[k]
+
+    def mem_pages_max_of(self, k: int) -> int:
+        """The page ceiling of the module that owns function index `k`
+        (a host function that grows memory keeps to it)."""
+        return int(self.img.mem_pages_max)
+
+    def export_func_idx(self, func_name: str) -> int:
+        """Engine-global function index of an exported batch entry (the
+        serving layer's LaneRecycler resolves names through it; the
+        multi-module engine takes `module:func` names).  Raises KeyError
+        for an unknown export, ValueError for a v128 signature."""
+        return check_batch_entry(self.inst, func_name)
+
+    def func_nresults(self, func_idx: int) -> int:
+        """Result arity of an engine-global function index."""
+        return int(self.img.f_nresults[func_idx])
 
     # -- state -------------------------------------------------------------
     def initial_state(self, func_idx: int, args_lanes) -> BatchState:
@@ -435,6 +475,13 @@ class BatchEngine:
                            steps=total)
 
     def run_from_state(self, state: BatchState, total: int, max_steps: int):
+        """`run_slice` without the read-back's result rows: returns
+        (state, total)."""
+        state, total, _ = self.run_slice(state, total, max_steps, 0)
+        return state, total
+
+    def run_slice(self, state: BatchState, total: int, max_steps: int,
+                  rows: int):
         """Launch loop from any state: each launch runs every live lane for
         up to `steps_per_launch` instructions; after a launch in which a
         lane parked at a host call, the parked lanes are served and the
@@ -443,25 +490,28 @@ class BatchEngine:
         does); lanes still parked then are served once, so TRAP_HOSTCALL
         never reaches the caller.  With tier 0 each launch gets its time
         base, the buffered stdout is flushed before each serve round and
-        at the end, and the run's tier-0 calls are counted."""
+        at the end, and the run's tier-0 calls are counted.  Each launch
+        reads trap, retired and the first `rows` result rows back in one
+        copy.  Returns (state, total, the last launch's HostPlanes; None
+        when no launch ran)."""
         chunk = self.cfg.steps_per_launch
         fuel_on = self.cfg.fuel_per_launch is not None
         t0_on = state.t0_ctr is not None
         if t0_on:
             ctr_in = state.t0_ctr.to(torch.int64).sum(1)
+        host = None
         while total < max_steps:
             before = state.retired.clone()
             run_chunk(self.tables, state, chunk, fuel_on, self.warps,
                       t0_time=t0_time_planes() if t0_on else None)
-            done = int((state.retired - before).max().item())
+            host, done = self._read_back(state, before, rows)
             total += done
-            trap = state.trap.cpu().numpy()
-            if (trap == TRAP_HOSTCALL).any():
-                serve_batch_state(self, state)
+            if (host.trap == TRAP_HOSTCALL).any():
+                serve_batch_state(self, state, host.trap)
                 continue
-            if done == 0 or not (trap == 0).any():
+            if done == 0 or not (host.trap == 0).any():
                 break
-        serve_batch_state(self, state)
+        serve_batch_state(self, state, None if host is None else host.trap)
         flush_stdout_buffers(self, state)
         if t0_on:
             ctr = (state.t0_ctr.to(torch.int64).sum(1) - ctr_in).tolist()
@@ -470,7 +520,19 @@ class BatchEngine:
                                       "tier0_fd_write", "tier0_sys")):
                 stats[name] += int(ctr[k])
             stats["tier0_calls"] += int(sum(ctr))
-        return state, total
+        return state, total, host
+
+    def _read_back(self, state: BatchState, before: torch.Tensor, R: int):
+        """After a launch: trap, retired, each lane's retired delta and
+        the first `R` result rows in one device-to-host copy.  Returns
+        (HostPlanes, the largest delta)."""
+        rows = torch.cat([state.trap[None], state.retired[None],
+                          (state.retired - before)[None],
+                          state.stack_lo[:R], state.stack_hi[:R]]).cpu() \
+            .numpy()
+        return (HostPlanes(trap=rows[0], retired=rows[1],
+                           lo=rows[3:3 + R], hi=rows[3 + R:3 + 2 * R]),
+                int(rows[2].max(initial=0)))
 
 
 def fusion_of(block_fusion: Optional[bool], has_simd: bool) -> str:

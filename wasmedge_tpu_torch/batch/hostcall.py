@@ -176,12 +176,16 @@ def flush_stdout_buffers(engine, state) -> int:
     return nbytes
 
 
-def serve_batch_state(engine, state) -> int:
+def serve_batch_state(engine, state, trap: Optional[np.ndarray] = None
+                      ) -> int:
     """Serve every lane of `state` (a batch.engine.BatchState) parked at
     TRAP_HOSTCALL, updating the state in place; the buffered tier-0
-    stdout is flushed first.  Returns the number of lanes served (0 when
+    stdout is flushed first.  `trap`: the host's copy of the state's trap
+    plane, when the caller has one (it is updated with the state's);
+    else the plane is read.  Returns the number of lanes served (0 when
     none was parked)."""
-    trap = state.trap.cpu().numpy()
+    if trap is None:
+        trap = state.trap.cpu().numpy()
     waiting = np.nonzero(trap == TRAP_HOSTCALL)[0]
     if waiting.size == 0:
         return 0
@@ -199,7 +203,6 @@ def serve_batch_state(engine, state) -> int:
     has_mem = img.has_memory
     cache = PlaneMemoryCache(state.mem, waiting) if has_mem else None
     plane_cap = int(state.mem.shape[0]) // PAGE_WORDS if has_mem else 0
-    max_pages = img.mem_pages_max if img.mem_pages_max > 0 else None
     new_trap = trap.copy()
     new_pc = pc.copy()
     use_vec = bool(engine.cfg.vectorized_hostcalls)
@@ -241,7 +244,9 @@ def serve_batch_state(engine, state) -> int:
             new_trap[lanes] = np.where(ok, 0, codes)
             new_pc[okl] = pc[okl] + 1  # resume at the stub's RETURN
             continue
-        # per-lane fallback over chunk-cached lane memory views
+        # per-lane fallback over chunk-cached lane memory views; a host
+        # function that grows memory keeps to its module's ceiling
+        max_pages = engine.mem_pages_max_of(int(k)) or None
         g_rows, g_lanes, g_cells = [], [], []
         for lane in lanes:
             base = int(fp[lane])
@@ -284,6 +289,7 @@ def serve_batch_state(engine, state) -> int:
     state.pc.copy_(torch.from_numpy(new_pc))
     state.sp.copy_(torch.from_numpy(sp))
     state.trap.copy_(torch.from_numpy(new_trap))
+    trap[:] = new_trap
     if has_mem:
         cache.flush()  # dirty chunks only
         state.mem_pages.copy_(torch.from_numpy(pages))

@@ -278,7 +278,6 @@ class Tables:
     tbl: torch.Tensor      # table 0: funcidx + 1, 0 = null
     v128: torch.Tensor     # flat [4 * n]: v128.const values, shuffle masks
     max_local_zeros: int
-    mem_pages_max: int
     has_bulk: bool = False      # the code holds memory.fill / memory.copy
     has_hostcall: bool = False  # the code holds HOSTCALL stubs
     has_simd: bool = False      # the code holds v128 ops (4-word cells)
@@ -364,7 +363,6 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
         ftop=t(img.f_frame_top), ftyp=t(img.f_type), brt=t(img.br_table),
         tbl=t(img.table0), v128=t(img.v128),
         max_local_zeros=int(img.max_local_zeros),
-        mem_pages_max=int(img.mem_pages_max),
         has_bulk=bool(np.isin(hid, (H_MEMFILL, H_MEMCOPY)).any()),
         has_hostcall=bool((hid == H_HOSTCALL).any()),
         has_simd=bool(img.has_simd), fusion=fusion,
@@ -827,11 +825,11 @@ _OPT_FIELDS = WarpState.COUNTERS + (
 _N_PTRS = len(_TABLE_FIELDS) + len(_STATE_FIELDS)
 _N_OPT = len(_OPT_FIELDS)
 # code_len, nf, n_brt, tsize, nv (v128 table rows), L, D, CD, NG, W,
-# chunk, fuel_on, max_local_zeros, mem_pages_max, bulk, simd, win and opt
-# (the kernel instantiations with the memory.fill / memory.copy cases,
-# with the v128 handlers, with the window cache and with optimistic
-# convergence), snap_max (the ceiling of a warp's interval)
-_N_INTS = 19
+# chunk, fuel_on, max_local_zeros, bulk, simd, win and opt (the kernel
+# instantiations with the memory.fill / memory.copy cases, with the v128
+# handlers, with the window cache and with optimistic convergence),
+# snap_max (the ceiling of a warp's interval)
+_N_INTS = 18
 # Tier 0's pointers come after the optimistic ones (null when it is off):
 # the kinds by pc, the per-lane call counts, the stdout record buffer and
 # its fills; its ints after snap_max: on, the buffer's rows (SW), the PRNG
@@ -1011,7 +1009,7 @@ def launch_args(tables: Tables, st, chunk: int, fuel_on: bool,
             tables.v128.shape[0] // 4, L, st.stack_lo.shape[0],
             st.fr_ret_pc.shape[0], st.glob_lo.shape[0], st.mem.shape[0],
             int(chunk), int(fuel_on), tables.max_local_zeros,
-            tables.mem_pages_max, int(tables.has_bulk),
+            int(tables.has_bulk),
             int(tables.has_simd), int(tables.mem_window),
             int(tables.optimistic),
             warps.snap_max if tables.optimistic else 0]

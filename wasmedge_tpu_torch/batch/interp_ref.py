@@ -683,7 +683,7 @@ class _Group:
         delta = self.agree(self.cell(self.sp - 1)[0])
         pages = st.mem_pages[self.lanes]
         new = ops.wrap32(pages.to(torch.int64) + delta.to(torch.int64))
-        cap = torch.full_like(pages, self.t.mem_pages_max)
+        cap = self.b  # the page ceiling of the module the pc belongs to
         ok = ~ops.u_lt(cap, new) & (delta >= 0) & (new >= pages)
         res = torch.where(ok, pages, torch.full_like(pages, -1))
         self.put(self.sp - 1, res, torch.zeros_like(res))

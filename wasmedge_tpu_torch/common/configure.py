@@ -5,7 +5,8 @@ the loader and validator gate opcodes on, the host modules a VM
 registers, the runtime limits the validator and the scalar engine read
 (memory pages, call depth), the `Statistics` settings (instruction
 counting, gas, timers), and the `BatchConfigure` knobs the CUDA
-warp-interpreter and its host launch loop read.
+warp-interpreter and its host launch loop read, and the
+`ServeConfigure` knobs of the serving layer.
 """
 
 from __future__ import annotations
@@ -143,6 +144,24 @@ class BatchConfigure:
 
 
 @dataclasses.dataclass
+class ServeConfigure:
+    """Knobs of the continuous-batching serving layer (serve/) that the
+    port reads: a BatchServer holds a bounded request queue, installs
+    queued requests into lanes and recycles each lane as soon as it
+    retires.  (The reference's checkpoint, backoff and autotune knobs
+    come with their subsystems.)"""
+
+    # Bounded request queue: submit() beyond this many queued (not yet
+    # admitted) requests is rejected with QueueSaturated (backpressure,
+    # never a silent drop).
+    queue_capacity: int = 65536
+    # Per-request retired-instruction budget: a request still running
+    # past it is terminated with CostLimitExceeded (the serving loop has
+    # no max_steps to drain to).
+    max_steps_per_request: int = 10_000_000
+
+
+@dataclasses.dataclass
 class Configure:
     proposals: set = dataclasses.field(
         default_factory=lambda: set(DEFAULT_PROPOSALS))
@@ -152,6 +171,7 @@ class Configure:
     statistics: StatisticsConfigure = dataclasses.field(
         default_factory=StatisticsConfigure)
     batch: BatchConfigure = dataclasses.field(default_factory=BatchConfigure)
+    serve: ServeConfigure = dataclasses.field(default_factory=ServeConfigure)
 
     def add_proposal(self, p: Proposal) -> "Configure":
         self.proposals.add(p)

@@ -231,9 +231,8 @@ int fused_launch(const Params& p, int bulk, int simd, int win, int opt,
       const int* filo, const int* fihi, WASM_OPT_ARGS, WASM_T0_PTR_ARGS,       \
       WASM_A3_PTR_ARGS, int code_len, int nf, int n_brt, int tsize, int nv,    \
       int L, int D, int CD, int NG, int W, int chunk, int fuel_on,             \
-      int max_local_zeros, int mem_pages_max, int bulk, int simd, int win,     \
-      int opt, int snap_max, WASM_T0_INT_ARGS, WASM_A3_INT_ARGS,               \
-      void* stream) {                                                          \
+      int max_local_zeros, int bulk, int simd, int win, int opt,               \
+      int snap_max, WASM_T0_INT_ARGS, WASM_A3_INT_ARGS, void* stream) {        \
     Params p{hid,       a,         b,        c,         ilo,                   \
              ihi,       fent,      fnpar,    fnloc,     ftop,                  \
              ftyp,      brt,       tbl,      pc,        sp,                    \
@@ -242,10 +241,9 @@ int fused_launch(const Params& p, int bulk, int simd, int win, int opt,
              fr_fp,     fr_opbase, glob_lo,  glob_hi,   mem,                   \
              code_len,  nf,        n_brt,    tsize,     L,                     \
              D,         CD,        NG,       W,         chunk,                 \
-             fuel_on,   max_local_zeros, mem_pages_max, v128, stack_e2,        \
-             stack_e3,  nv,        hid0,     flen,      fa,                    \
-             fb,        fc,        filo,     fihi,      WASM_OPT_FIELDS,       \
-             snap_max};                                                        \
+             fuel_on,   max_local_zeros, v128, stack_e2, stack_e3,             \
+             nv,        hid0,      flen,     fa,        fb,                    \
+             fc,        filo,      fihi,     WASM_OPT_FIELDS, snap_max};       \
     p.t0 = WASM_T0_FIELDS;                                                     \
     p.a3 = WASM_A3_FIELDS;                                                     \
     return fused_launch<KBULK, KSIMD, KWIN, KOPT, FUSED>(p, bulk, simd, win,  \

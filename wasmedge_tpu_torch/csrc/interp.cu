@@ -312,7 +312,7 @@ struct Params {
   i32* glob_hi;
   i32* mem;
   int code_len, nf, n_brt, tsize, L, D, CD, NG, W, chunk, fuel_on,
-      max_local_zeros, mem_pages_max;
+      max_local_zeros;
   // v128 (kSimd): appended, so that the fields above keep their places
   const i32* __restrict__ v128;  // [nv, 4]: v128.const values, masks
   i32* stack_e2;                 // null unless the image holds v128 ops
@@ -2601,9 +2601,11 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
           new_sp = sp + 1;
           break;
         case H_MEMGROW: {
+          // b is the page ceiling of the module this pc belongs to (each
+          // tenant's own in a concatenated image)
           const i32 delta = (i32)w.agree((u32)s.get(sp - 1));
           const i32 grown = (i32)((u32)pages + (u32)delta);
-          const bool ok = !((u32)p.mem_pages_max < (u32)grown) && delta >= 0 &&
+          const bool ok = !((u32)__ldg(&p.b[pcc]) < (u32)grown) && delta >= 0 &&
                           grown >= pages;
           s.put(sp - 1, cell32(ok ? (u32)pages : 0xFFFFFFFFu));
           if (ok) pages = grown;  // the page count is not rolled back by a fuel trap
@@ -3163,14 +3165,13 @@ extern "C" int wasm_interp_launch(
     int* fr_opbase, int* glob_lo, int* glob_hi, int* mem, WASM_OPT_ARGS,
     WASM_T0_PTR_ARGS, WASM_A3_PTR_ARGS, int code_len, int nf, int n_brt,
     int tsize, int nv, int L, int D, int CD, int NG, int W, int chunk,
-    int fuel_on, int max_local_zeros, int mem_pages_max, int bulk, int simd,
-    int win, int opt, int snap_max, WASM_T0_INT_ARGS, WASM_A3_INT_ARGS,
-    void* stream) {
+    int fuel_on, int max_local_zeros, int bulk, int simd, int win, int opt,
+    int snap_max, WASM_T0_INT_ARGS, WASM_A3_INT_ARGS, void* stream) {
   Params p{hid, a, b, c, ilo, ihi, fent, fnpar, fnloc, ftop, ftyp, brt, tbl,
            pc, sp, fp, opbase, call_depth, trap, retired, fuel, mem_pages,
            stack_lo, stack_hi, fr_ret_pc, fr_fp, fr_opbase, glob_lo, glob_hi,
            mem, code_len, nf, n_brt, tsize, L, D, CD, NG, W, chunk, fuel_on,
-           max_local_zeros, mem_pages_max, v128, stack_e2, stack_e3, nv,
+           max_local_zeros, v128, stack_e2, stack_e3, nv,
            nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
            WASM_OPT_FIELDS, snap_max};
   p.t0 = WASM_T0_FIELDS;

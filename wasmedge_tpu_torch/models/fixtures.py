@@ -2135,3 +2135,142 @@ def linked_program_model(n, k) -> np.ndarray:
     out = np.empty(len(pn), np.int64)
     out[order] = h
     return out[inv.reshape(-1)]
+
+
+# ---------------------------------------------------------------------------
+# multi-tenant images and serving (BASELINE config 5)
+# ---------------------------------------------------------------------------
+C10_MAX_PAGES = (1, 4)  # the C10 tenants' declared memory maxima
+C10_PAGES_PER_LANE = 4  # memory_pages_per_lane of the C10 runs
+
+
+def build_grow_tenant(max_pages: int) -> bytes:
+    """g(d) = memory.grow(d) over a memory of (1, max `max_pages`): the
+    C10 fixture is two of these, max 1 and max 4, in one batch (each
+    tenant's grows keep its own ceiling)."""
+    b = ModuleBuilder()
+    b.add_memory(1, max_pages)
+    b.add_function(["i32"], ["i32"], [],
+                   [("local.get", 0), ("memory.grow", 0)], export="g")
+    return b.build()
+
+
+def build_clash_a() -> bytes:
+    """A tenant whose index spaces clash with `build_clash_b`'s (a
+    global, a memory, a table and call_indirect): go(x) stores x at
+    byte 8, adds x to its global (1000) and returns table[0](x) + the
+    global + the stored word: 1000 + 5x on a fresh instance."""
+    b = ModuleBuilder()
+    b.add_global("i32", True, [("i32.const", 1000)])
+    b.add_memory(1, 1)
+    f0 = b.add_function(["i32"], ["i32"], [],
+                        [("local.get", 0), ("i32.const", 3), "i32.mul"])
+    b.add_table("funcref", 2)
+    b.add_active_elem(0, [("i32.const", 0)], [f0])
+    ti = b.add_type(["i32"], ["i32"])
+    b.add_function(["i32"], ["i32"], [], [
+        ("i32.const", 8), ("local.get", 0), ("i32.store", 2, 0),
+        ("global.get", 0), ("local.get", 0), "i32.add", ("global.set", 0),
+        ("local.get", 0), ("i32.const", 0), ("call_indirect", ti, 0),
+        ("global.get", 0), "i32.add",
+        ("i32.const", 8), ("i32.load", 2, 0), "i32.add",
+    ], export="go")
+    return b.build()
+
+
+def build_clash_b() -> bytes:
+    """The other clashing tenant: go(x) = table[0](x) + global (x + 7 and
+    -5): x + 2."""
+    b = ModuleBuilder()
+    b.add_global("i32", True, [("i32.const", -5)])
+    f0 = b.add_function(["i32"], ["i32"], [],
+                        [("local.get", 0), ("i32.const", 7), "i32.add"])
+    b.add_table("funcref", 1)
+    b.add_active_elem(0, [("i32.const", 0)], [f0])
+    ti = b.add_type(["i32"], ["i32"])
+    b.add_function(["i32"], ["i32"], [], [
+        ("local.get", 0), ("i32.const", 0), ("call_indirect", ti, 0),
+        ("global.get", 0), "i32.add",
+    ], export="go")
+    return b.build()
+
+
+def u32_cells(v) -> np.ndarray:
+    """Values as the port decodes an i32 result cell (the low word,
+    unsigned, in an int64)."""
+    return np.asarray(v, np.int64) & 0xFFFFFFFF
+
+
+def fib_model(n) -> np.ndarray:
+    """fib(n) over lanes (models.build_fib, i32)."""
+    n = np.asarray(n, np.int64)
+    top = int(n.max(initial=0)) + 1
+    f = np.zeros(max(top, 2), np.int64)
+    f[1] = 1
+    for i in range(2, top):
+        f[i] = (f[i - 1] + f[i - 2]) & 0xFFFFFFFF
+    return f[n]
+
+
+def fac_model(n) -> np.ndarray:
+    """fac(n) over lanes (models.build_fac, i64, wrapping)."""
+    n = np.asarray(n, np.int64)
+    top = int(n.max(initial=1)) + 1
+    f = np.ones(top, np.uint64)
+    for i in range(2, top):
+        f[i] = f[i - 1] * np.uint64(i)
+    return f[np.maximum(n, 1)].view(np.int64)
+
+
+def loop_sum_model(n) -> np.ndarray:
+    """loop_sum(n) = 0 + 1 + ... + (n - 1) over lanes (i32, wrapping)."""
+    n = np.asarray(n, np.int64) & 0xFFFFFFFF
+    return u32_cells((n * (n - 1) // 2) & 0xFFFFFFFF)
+
+
+def coremark_model(n) -> np.ndarray:
+    """What models.build_coremark_kernel's export returns, over lanes:
+    acc = sum of 3i (i + 7) for i < n (mod 2^32), then a CRC-16 step over
+    its low byte, xor acc."""
+    n = np.asarray(n, np.int64)
+    i = np.arange(int(n.max(initial=0)), dtype=np.uint64)
+    acc = np.concatenate([np.zeros(1, np.uint64),
+                          np.cumsum(np.uint64(3) * i * (i + np.uint64(7)))])
+    acc = (acc[n] & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    data, crc = acc & 0xFF, np.full(n.shape, 0xFFFF, np.int64)
+    for _ in range(8):
+        crc = np.where((crc ^ data) & 1, (crc >> 1) ^ 0xA001, crc >> 1)
+        data = data >> 1
+    return crc ^ acc
+
+
+# the four modules of BASELINE config 5 (bench_multi.py): (module name,
+# export, numpy model over lanes)
+CONFIG5 = (("fib", "fib", fib_model), ("fac", "fac", fac_model),
+           ("loop_sum", "loop_sum", loop_sum_model),
+           ("coremark", "coremark", coremark_model))
+
+
+def serve_load(requests: int, seed: int, tenants=("t0", "t1", "t2", "t3"),
+               ranges=None):
+    """A seeded request stream over the config-5 modules: [(tenant,
+    "module:func", n)], each request a random module, its argument drawn
+    from `ranges` (module -> (lo, hi) inclusive)."""
+    ranges = ranges or {"fib": (15, 25), "fac": (1, 20),
+                        "loop_sum": (1000, 100_000),
+                        "coremark": (64, 4096)}
+    rng = np.random.default_rng(seed)
+    mods = [m for m, _, _ in CONFIG5]
+    which = rng.integers(0, len(mods), requests)
+    who = rng.integers(0, len(tenants), requests)
+    out = []
+    for k, t in zip(which.tolist(), who.tolist()):
+        lo, hi = ranges[mods[k]]
+        out.append((tenants[t], f"{mods[k]}:{CONFIG5[k][1]}",
+                    int(rng.integers(lo, hi + 1))))
+    return out
+
+
+def serve_model(func: str, n) -> np.ndarray:
+    """The model of a config-5 request `module:func` over arguments."""
+    return {f"{m}:{f}": model for m, f, model in CONFIG5}[func](n)

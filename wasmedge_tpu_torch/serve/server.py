@@ -1,0 +1,468 @@
+"""BatchServer: the continuous-batching execution service.
+
+A copy of the core of `wasmedge_tpu/serve/server.py` (`:77-825`,
+`:839-893`, `:1108-1221`).  `VM.execute_batch` and `run_mixed` run one
+cohort of lanes to its end: a short request admitted behind fib(30)
+waits for the whole batch while freed lanes sit parked.  `BatchServer`
+turns the batch engine into a long-lived service:
+
+  submit(func, args, tenant=, deadline_s=) -> ServeFuture
+      a bounded queue (QueueSaturated backpressure) with per-tenant
+      weighted-fair admission and in-flight quotas (serve/queue.py)
+
+  serving loop (step / run_until_idle / start)
+      each round expires queued deadlines, installs queued requests into
+      the free lanes (serve/recycle.py: the `initial_state` columns, in
+      place), runs ONE `steps_per_launch` slice of the engine
+      (`run_from_state`: host calls served between launches as always),
+      kills lanes past their deadline or `max_steps_per_request`,
+      harvests every lane that stopped, resolves its future and parks
+      the lane for the next install.  A request's result is the one a
+      solo `execute_batch` gives it.
+
+The launch's read-back (`run_slice`'s HostPlanes: trap, retired and
+the result rows in one device-to-host copy) serves the round's kills
+and harvest; a round without host calls copies from the
+device once.  `engine=` takes a prebuilt engine, such as a
+`MultiModuleBatchEngine` over several modules (`module:func` names).
+
+Left out until their subsystems are ported (each is off by default in
+the reference server): lane virtualization, lane compaction, guest
+suspend and resume (effects), resharding and the mesh, checkpoints,
+recovery, lineage and integrity audits, autotune and the recorder.
+Without recovery, a failed launch fails the server: every in-flight and
+queued future is rejected with the error (`_fail`), with no retry.  The
+recorder's admission events are kept as a plain list, `admissions`:
+(request id, tenant, lane) in admission order.
+"""
+
+from __future__ import annotations
+
+import copy
+import heapq
+import threading
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from wasmedge_tpu_torch.batch.image import TRAP_DONE
+from wasmedge_tpu_torch.common.errors import ErrCode, WasmError
+from wasmedge_tpu_torch.serve.queue import (
+    DeadlineExceeded, FairQueue, ServeFuture, ServeRejected, ServeRequest)
+from wasmedge_tpu_torch.serve.recycle import LaneRecycler
+
+
+class BatchServer:
+    """Continuous-batching server over one instantiated module (or a
+    prebuilt engine).  `weights` / `quotas` map tenant name -> DRR weight
+    / most lanes in flight (serve/queue.py)."""
+
+    def __init__(self, inst=None, store=None, conf=None,
+                 lanes: Optional[int] = None, weights=None, quotas=None,
+                 engine=None, device="cuda"):
+        from wasmedge_tpu_torch.batch.engine import BatchEngine
+        from wasmedge_tpu_torch.common.configure import Configure
+
+        if engine is not None:
+            # a prebuilt engine: its Configure governs the run
+            self.conf = engine.conf
+            self.engine = engine
+        else:
+            self.conf = copy.deepcopy(conf) if conf is not None \
+                else Configure()
+            self.engine = BatchEngine(inst, store=store, conf=self.conf,
+                                      lanes=lanes, device=device)
+        self.k = self.conf.serve
+        self.lanes = self.engine.lanes
+        self.queue = FairQueue(self.k.queue_capacity, weights=weights,
+                               quotas=quotas)
+        self.recycler = LaneRecycler(self.engine)
+        self.state = None
+        self.total = 0
+        self._bindings: Dict[int, ServeRequest] = {}
+        self._kills: Dict[int, BaseException] = {}
+        self._rows = 0   # result rows the launch's read-back carries
+        self._stepping = False   # one round at a time (see step())
+        # min-heap of free lanes: lowest-lane-first admission
+        self._free: List[int] = list(range(self.lanes))
+        self._served_before = np.zeros(self.lanes, bool)
+        self.failed: Optional[BaseException] = None
+        self._draining = False
+        self._lock = threading.RLock()
+        self._wake = threading.Condition(self._lock)
+        self._thread = None
+        self._stop = False
+        self.admissions: List[tuple] = []   # (request id, tenant, lane)
+        self.counters = {
+            "submitted": 0, "admitted": 0, "completed": 0, "trapped": 0,
+            "rejected": 0, "expired": 0, "killed": 0, "recycled_lanes": 0,
+            "rounds": 0, "retired_instructions": 0,
+        }
+
+    # -- submission --------------------------------------------------------
+    def submit(self, func_name: str, args=(), tenant: str = "default",
+               deadline_s: Optional[float] = None) -> ServeFuture:
+        """Queue one request; returns its future.  Raises QueueSaturated
+        when the bounded queue is full, KeyError for an unknown export,
+        and the server's terminal error once it has failed."""
+        with self._lock:
+            if self.failed is not None:
+                raise self.failed
+            if self._draining:
+                raise WasmError(ErrCode.Terminated,
+                                "server is draining; submissions closed")
+            # a tenant configured out of admission (quota <= 0 or weight
+            # <= 0) can never be installed: reject now, not QueueSaturated
+            # (that says "try later")
+            quota = self.queue.quotas.get(tenant)
+            if (quota is not None and quota <= 0) \
+                    or self.queue.weights.get(tenant, 1.0) <= 0:
+                raise WasmError(
+                    ErrCode.Terminated,
+                    f"tenant {tenant!r} has no admission capacity "
+                    f"(quota/weight <= 0)")
+            self.recycler.func_idx(func_name)  # validate the export now
+            now = time.monotonic()
+            req = ServeRequest(
+                func_name, tuple(int(a) for a in args), tenant=tenant,
+                deadline=(now + float(deadline_s))
+                if deadline_s is not None else None, t_submit=now)
+            self.queue.push(req)   # raises QueueSaturated on backpressure
+            self.counters["submitted"] += 1
+            self._wake.notify_all()
+            return req.future
+
+    def withdraw(self, request_id: int) -> bool:
+        """Remove a still-queued request (counted as rejected); False
+        when it was already admitted."""
+        with self._lock:
+            if self.queue.remove_by_id(int(request_id)) is None:
+                return False
+            self.counters["rejected"] += 1
+            return True
+
+    # -- serving loop ------------------------------------------------------
+    @property
+    def in_flight(self) -> int:
+        """Admitted requests holding a lane."""
+        return len(self._bindings)
+
+    def _has_work(self) -> bool:
+        return bool(self._bindings or len(self.queue))
+
+    def _flight_by_tenant(self) -> Dict[str, int]:
+        """Lanes in flight per tenant (the FairQueue's quota count)."""
+        out: Dict[str, int] = {}
+        for req in self._bindings.values():
+            out[req.tenant] = out.get(req.tenant, 0) + 1
+        return out
+
+    def step(self) -> bool:
+        """One serving round: expire, admit, run one launch slice,
+        enforce deadlines and budgets, harvest.  Returns True while
+        queued or in-flight work remains."""
+        with self._lock:
+            if self.failed is not None:
+                return False
+            if self._stepping:
+                # another thread is mid-round: wait for it to end
+                self._wake.wait(timeout=0.05)
+                return self._has_work()
+            self._stepping = True
+        try:
+            return self._step_body()
+        finally:
+            with self._lock:
+                self._stepping = False
+                self._wake.notify_all()
+
+    def _step_body(self) -> bool:
+        with self._lock:
+            now = time.monotonic()
+            self._expire_queued(now)
+            admitted = self._admit(now)
+            run_from = (self.state, self.total) if self._bindings else None
+        # the launch slice runs outside the lock, so that submit() and
+        # shutdown() from other threads do not wait for it; only the
+        # serving thread reassigns state, total and the bindings
+        launched = launch_err = None
+        if run_from is not None:
+            chunk = max(int(self.engine.cfg.steps_per_launch), 1)
+            try:
+                launched = self.engine.run_slice(
+                    run_from[0], run_from[1], run_from[1] + chunk,
+                    self._rows)
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:
+                launch_err = e
+        with self._lock:
+            if self.failed is not None:
+                return False
+            if launch_err is not None:
+                # no recovery in this slice: the server fails
+                self._fail(launch_err)
+                raise launch_err
+            progressed = run_from is not None
+            host = None
+            if progressed:
+                self.state, self.total, host = launched
+                self._enforce(time.monotonic(), host)
+            self.counters["rounds"] += 1
+            harvested = self._harvest(host)
+            if not (admitted or progressed or harvested) \
+                    and not self._bindings and len(self.queue):
+                # a submit that raced the launch lands after this round's
+                # admission: try it once more before declaring a stall
+                if self._admit(time.monotonic()):
+                    return True
+                # everything queued is admission-blocked with nothing in
+                # flight to unblock it: reject rather than strand it
+                for req in self.queue.pop_all():
+                    self.counters["rejected"] += 1
+                    req.future._reject(ServeRejected(
+                        f"request {req.id} can never be admitted "
+                        f"(tenant {req.tenant!r} admission-blocked)"))
+                return False
+            return self._has_work()
+
+    def run_until_idle(self, max_rounds: Optional[int] = None) -> int:
+        """Drive step() until no work remains; returns rounds executed."""
+        rounds = 0
+        while self.step():
+            rounds += 1
+            if max_rounds is not None and rounds >= max_rounds:
+                break
+        return rounds
+
+    # -- background drive --------------------------------------------------
+    def start(self) -> "BatchServer":
+        """Run the serving loop on a background thread until shutdown.
+        The thread launches on the engine's device."""
+        with self._lock:
+            t = self._thread
+            if t is not None and t.is_alive() and not self._stop:
+                return self
+        if t is not None:
+            t.join()   # a stopping thread exits at its round's end
+        with self._lock:
+            if self._thread is t:
+                self._thread = None
+            if self._thread is not None:   # lost a race to another start()
+                return self
+            self._stop = False
+            self._thread = threading.Thread(target=self._drive,
+                                            name="wasmedge-serve",
+                                            daemon=True)
+            self._thread.start()
+        return self
+
+    def _drive(self):
+        import torch
+
+        dev = self.engine.device
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        while True:
+            with self._lock:
+                if self._stop:
+                    return
+                if not self._has_work():
+                    # sleep on the condition: submit() and shutdown()
+                    # notify it
+                    self._wake.wait(timeout=0.05)
+                    if self._stop:
+                        return
+                    if not self._has_work():
+                        continue
+            try:
+                self.step()
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception:  # the failure is recorded by step()
+                return
+
+    def drain(self, timeout_s: Optional[float] = None) -> bool:
+        """Stop admitting submissions and serve what is queued and in
+        flight to its end.  Returns True when idle."""
+        with self._lock:
+            self._draining = True
+            self._wake.notify_all()
+            threaded = self._thread is not None
+        deadline = (time.monotonic() + timeout_s) if timeout_s else None
+        if threaded:
+            while True:
+                with self._lock:
+                    if not self._has_work() or self.failed is not None:
+                        return True
+                if deadline is not None and time.monotonic() >= deadline:
+                    return False
+                time.sleep(0.01)
+        while self.step():
+            if deadline is not None and time.monotonic() >= deadline:
+                return False
+        return not self._has_work()
+
+    def shutdown(self, drain: bool = True,
+                 timeout_s: Optional[float] = None):
+        """Stop the server.  With drain=True queued and in-flight work
+        is served first; without, unfinished futures are rejected."""
+        if drain:
+            self.drain(timeout_s=timeout_s)
+        with self._lock:
+            self._stop = True
+            self._draining = True
+            self._wake.notify_all()
+            t = self._thread
+        if t is not None:
+            t.join(timeout=5.0)
+            if not t.is_alive():
+                self._thread = None
+        with self._lock:
+            err = ServeRejected("server shut down")
+            for req in list(self._bindings.values()):
+                if not req.future.done:
+                    self.counters["killed"] += 1   # terminated in flight
+                req.future._reject(err)
+            self._bindings.clear()
+            self._free = list(range(self.lanes))
+            for req in self.queue.pop_all():
+                self.counters["rejected"] += 1
+                req.future._reject(err)
+
+    # -- round phases ------------------------------------------------------
+    def _expire_queued(self, now: float):
+        for req in self.queue.expire(now):
+            self.counters["expired"] += 1
+            req.future._reject(DeadlineExceeded(
+                f"request {req.id} expired before admission"))
+
+    def _admit(self, now: float) -> int:
+        if not self._free or not len(self.queue):
+            return 0
+        picks = self.queue.pop(len(self._free), self._flight_by_tenant())
+        if not picks:
+            return 0
+        if self.state is None:
+            self.state = self.recycler.idle_state(
+                self.recycler.func_idx(picks[0].func_name))
+        # group by function, so that each install is one column-set pass
+        by_func: Dict[int, List[ServeRequest]] = {}
+        for req in picks:
+            by_func.setdefault(self.recycler.func_idx(req.func_name),
+                               []).append(req)
+        nres = 0
+        for fidx, reqs in by_func.items():
+            lanes = [heapq.heappop(self._free) for _ in reqs]
+            nargs = max((len(r.args) for r in reqs), default=0)
+            args_rows = [[(r.args[i] if i < len(r.args) else 0)
+                          for r in reqs] for i in range(nargs)]
+            self.state = self.recycler.install(self.state, lanes, fidx,
+                                               args_rows)
+            nres = max(nres, self.recycler.nresults(fidx))
+            for lane, req in zip(lanes, reqs):
+                self._bindings[lane] = req
+                if self._served_before[lane]:
+                    self.counters["recycled_lanes"] += 1
+                self._served_before[lane] = True
+                self.admissions.append((req.id, req.tenant, lane))
+        # the launch's read-back carries the result rows for the harvest
+        self._rows = max(self._rows, nres)
+        self.counters["admitted"] += len(picks)
+        return len(picks)
+
+    def _enforce(self, now: float, host):
+        """Deadlines and the per-request step budget on in-flight lanes
+        (`host`: the launch's HostPlanes): an offending lane is stopped in
+        the trap plane and in `host`, and its future rejected at
+        harvest."""
+        if not self._bindings or host is None:
+            return
+        trap, retired = host.trap, host.retired
+        cap = int(self.k.max_steps_per_request)
+        kill_lanes, kill_codes = [], []
+        for lane, req in self._bindings.items():
+            if trap[lane] != 0:
+                continue
+            if req.deadline is not None and now >= req.deadline:
+                kill_lanes.append(lane)
+                kill_codes.append(int(ErrCode.Terminated))
+                self._kills[lane] = DeadlineExceeded(
+                    f"request {req.id} exceeded its deadline in flight")
+            elif retired[lane] >= cap:
+                kill_lanes.append(lane)
+                kill_codes.append(int(ErrCode.CostLimitExceeded))
+                self._kills[lane] = WasmError(
+                    ErrCode.CostLimitExceeded,
+                    f"request {req.id} exceeded max_steps_per_request")
+        if kill_lanes:
+            import torch
+
+            dev = self.state.trap.device
+            self.state.trap[torch.as_tensor(kill_lanes, device=dev)] = \
+                torch.as_tensor(kill_codes, dtype=torch.int32, device=dev)
+            trap[np.asarray(kill_lanes, np.int64)] = kill_codes
+
+    def _harvest(self, host) -> int:
+        """Resolve the futures of every bound lane that stopped in `host`
+        (the launch's HostPlanes, kills applied); park and free the lanes
+        (the recycling half of continuous batching)."""
+        if not self._bindings or host is None:
+            return 0
+        trap, retired = host.trap, host.retired
+        done = [lane for lane in self._bindings if trap[lane] != 0]
+        if not done:
+            return 0
+        by_func: Dict[int, List[int]] = {}
+        for lane in done:
+            by_func.setdefault(
+                self.recycler.func_idx(self._bindings[lane].func_name),
+                []).append(lane)
+        for fidx, lanes in by_func.items():
+            cells = self.recycler.harvest_cells(self.state, lanes, fidx,
+                                                host)
+            for col, lane in enumerate(lanes):
+                req = self._bindings.pop(lane)
+                code = int(trap[lane])
+                first = not req.future.done
+                if code == int(TRAP_DONE):
+                    req.future._resolve(
+                        [int(cells[r, col]) for r in range(cells.shape[0])])
+                    if first:
+                        self.counters["completed"] += 1
+                else:
+                    exc = self._kills.pop(lane, None)
+                    if exc is None:
+                        # a guest trap
+                        if first:
+                            self.counters["trapped"] += 1
+                        exc = WasmError(ErrCode(code)
+                                        if code in ErrCode._value2member_map_
+                                        else ErrCode.ExecutionFailed)
+                    elif first:
+                        self.counters["killed"] += 1
+                    req.future._reject(exc)
+                if first:
+                    # install() resets the lane's retired count, so this
+                    # is the request's own
+                    self.counters["retired_instructions"] += \
+                        int(retired[lane])
+        self.state = self.recycler.park(self.state, done)
+        for lane in done:
+            heapq.heappush(self._free, lane)
+        return len(done)
+
+    def _fail(self, exc: BaseException):
+        """The server's terminal failure: every in-flight and queued
+        future is rejected with `exc` (the counters still reconcile)."""
+        self.failed = exc
+        for req in list(self._bindings.values()):
+            if not req.future.done:
+                self.counters["killed"] += 1
+            req.future._reject(exc)
+        self._bindings.clear()
+        for req in self.queue.pop_all():
+            if not req.future.done:
+                self.counters["rejected"] += 1
+            req.future._reject(exc)

@@ -17,7 +17,9 @@ Two ways to run an export:
   its host calls between launches.  A `Statistics` cost limit becomes
   the lanes' fuel and a non-uniform cost table their weights
   (`batch_conf_with_gas`).  `make_engine` is the seam that picks the
-  engine; the port has one.
+  engine; the port has one;
+- `serve()` returns a continuous-batching `BatchServer` over the
+  instantiated module (serve/), on the card unless asked otherwise.
 """
 
 from __future__ import annotations
@@ -245,6 +247,26 @@ class VM:
         eng = make_engine(inst, self.store, conf, lanes=lanes, device=device)
         self.last_engine = eng  # its hostcall_stats outlive the call
         return eng.run(func_name, list(args_lanes), max_steps=max_steps)
+
+    def serve(self, lanes: Optional[int] = None, weights=None, quotas=None,
+              device="cuda"):
+        """Continuous-batching serving over the instantiated module
+        (serve/): returns a BatchServer whose submit() queues one request
+        a call and whose serving loop recycles retired lanes with queued
+        requests instead of draining the batch.  `conf.serve` holds its
+        knobs; `weights` / `quotas` set per-tenant fair admission; a
+        `Statistics` cost limit becomes each lane's fuel, as in
+        `execute_batch`."""
+        from wasmedge_tpu_torch.serve import BatchServer
+
+        with self._lock:
+            if self._active is None or self.stage != VMStage.Instantiated:
+                raise WasmError(ErrCode.WrongVMWorkflow,
+                                "no instantiated module")
+            inst = self._active
+        conf = batch_conf_with_gas(self.conf, self.stat)
+        return BatchServer(inst, store=self.store, conf=conf, lanes=lanes,
+                           weights=weights, quotas=quotas, device=device)
 
     # -- introspection -------------------------------------------------------
     def get_function_list(self) -> List[Tuple[str, ast.FunctionType]]:

@@ -122,7 +122,14 @@ Phases:
                (two memory.grow tenants whose memories declare max 1 and
                max 4, four pages a lane) per op and one launch from a
                serving state just after an install round (four modules,
-               idle TRAP_DONE lanes beside the installed ones).
+               idle TRAP_DONE lanes beside the installed ones); lane
+               compaction (compact_jobs, the plain side on the card):
+               narrowed launches of fib(10 + lane % 11) x 4096 at widths
+               64 and 1024 (every lane live: the lanes beyond the width
+               must stay bit-unchanged on both sides) per op and in
+               blocks, optimistic and careful, and a launch of the
+               CoreMark-style kernel x 4096 right after a permutation, in
+               both memory modes.
                Then, in this
                process, one 256-step launch of fib(30) x 4096 in each
                encoding, one converged memory.fill + memory.copy launch
@@ -152,14 +159,14 @@ Phases:
                files through the port's scalar harness on the host
                (10,135 / 0 / 0, each file to its count); the tail-dispatch workload x 4096
                (run(seed, 700,000), about 3e7 instructions a lane;
-               divergent run(seed, 175,000)) in
+               divergent run(seed, 87,500)) in
                both modes through VM.execute_batch, every lane equal to
                the numpy model, the call depth 0 after every launch,
                every converged warp entry uniform and no divergent one,
                each careful too, and the converged run with flat fuel and
                with weighted gas; fib(30) x 4096 through VM.execute_batch in the
-               default encoding (B2 blocks), then per-op ("none") and with
-               block_fusion False (B6), each once more under
+               default encoding (B2 blocks), then fib(27) per-op ("none")
+               and with block_fusion False (B6), each once more under
                torch.profiler; a divergent fib mix x 4096; CoreMark(200)
                and CoreMark(4096) x 4096 with one 64 KiB page per lane
                (CoreMark(4096) in blocks and per-op, profiled); WASI echo x
@@ -174,12 +181,13 @@ Phases:
                model, its warp passes counted); the SIMD spec corpus
                (tests/spec/simd.wast) through run_corpus_batched on the
                card, strict, every launch in B2 blocks; vloop(1,000,000) x
-               4096 (bench_simd.py's shape) in blocks and with
-               block_fusion False (per-op), every lane's result and retired
+               4096 (bench_simd.py's shape) in blocks and, at 250,000,
+               with block_fusion False (per-op), every lane's result and retired
                count checked, each profiled; BASELINE config 2
                (bench_memory.py's shape): mem_checksum(8192) with 64 passes
                and coremark(65536) x 4096, stacks 128 / 64, one page, in
-               blocks and per-op, windows on (the default) and off, every
+               blocks and per-op (mem_checksum per op at 2048 words),
+               windows on (the default) and off, every
                lane against its oracle, each profiled.  Every memory
                workload runs with the windows (the default) and once more
                with mem_hbm False.  Everything runs optimistic (B3, the
@@ -209,7 +217,21 @@ Phases:
                a quota on one), run_until_idle: every future equal to its
                model, rounds, recycled lanes, requests/s, latency p50 and
                p99, instr/s, and (profiled once more) the kernel's share
-               of the wall;
+               of the wall.  Lane compaction (conf.batch.compact, the
+               default knobs): the divergent fib mix through
+               VM.execute_batch with it on and once more with
+               compact_narrow False, the straddling config-5 mix through
+               run_mixed and the serving run, each equal to the same
+               call's uncompacted run (results, traps, retired; serving:
+               every future its model), profiled, with the compactor's
+               fires, moved lanes, launch widths, dispatch slots, the
+               gathers' ms and the boundaries' host ms; checkpoint round
+               trips (batch/checkpoint.py): the compacted fib mix saved
+               after a boundary that permuted its lanes (lane_src) and
+               config 2's coremark(65536) after its first launch, each
+               loaded into a fresh engine and finished equal to the
+               uninterrupted run, the file's bytes and the save and load
+               seconds printed;
   4. report  - phase times, kernel times (CUDA events), retired
                instructions and instructions per second, registers and
                spills of each build, the card's name and power limit, one
@@ -258,6 +280,11 @@ SIMD_N = 1_000_000  # bench_simd.py's N_ITERS
 # BASELINE config 2 (bench_memory.py:19-27, :80-92): mem_checksum(N_WORDS)
 # with PASSES passes and coremark(COREMARK_N), stacks 128 / 64, one page
 MEM_N, MEM_PASSES, MEM_COREMARK_N = 8192, 64, 65536
+# the main path's runs that are not its default path (the per-op kernel,
+# B6) run at a smaller depth: fib(PER_OP_FIB_N), and a PER_OP_CUT-th of
+# vloop's iterations and of mem_checksum's words
+PER_OP_FIB_N = 27
+PER_OP_CUT = 4
 MEM_STACKS = dict(value_stack_depth=128, call_stack_depth=64,
                   memory_pages_per_lane=1)
 SPEC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -277,7 +304,9 @@ CORPUS_DEPTHS = dict(call_stack_depth=2048, value_stack_depth=8192)
 
 
 def fail(msg: str) -> None:
+    # on both streams: a caller that keeps only one of them sees why
     print(f"chip_smoke: FAILED: {msg}", flush=True)
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -659,12 +688,12 @@ def scalar_jobs() -> list:
         ("coremark", build_coremark_kernel(), "coremark",
          [np.arange(L) % 20 + 1], 256, None),
         ("coremark_fuel", build_coremark_kernel(), "coremark",
-         [np.arange(L) % 20 + 1], 13, 501),
+         [np.arange(L) % 10 + 1], 13, 501),
         ("oob_mix", build_oob_mix(), "oob", oob_args(L, SEED), 13, None),
         ("mem_checksum", build_memory_workload(), "mem_checksum",
          [np.arange(L) % 30 + 1], 256, None),
         ("window_walk", build_window_walk(), "edgewalk",
-         [np.arange(L) % 120 + 3], 64, None),
+         [np.arange(L) % 60 + 3], 64, None),
         ("bulk_fill", build_bulk_zoo(), "fill",
          bulk_zoo_args(L, "fill", SEED), 64, None),
         ("bulk_copy", build_bulk_zoo(), "copy",
@@ -745,7 +774,7 @@ def fused_fixtures(L: int):
         ("coremark", build_coremark_kernel(), "coremark",
          [np.arange(L) % 20 + 1], 256, None, kn, False),
         ("coremark_fuel", build_coremark_kernel(), "coremark",
-         [np.arange(L) % 20 + 1], 13, 501, kn, False),
+         [np.arange(L) % 10 + 1], 13, 501, kn, False),
         ("traps_grow_memory", build_trap_zoo(), "zoo", zoo_args(L, SEED),
          64, None, kn, False),
         ("guard_mix", build_guard_mix(), "guard",
@@ -761,7 +790,7 @@ def fused_fixtures(L: int):
         ("vloop", build_simd_loop(), "vloop", [np.arange(L) % 40], 256, None,
          kv, True),
         ("window_walk", build_window_walk(), "edgewalk",
-         [np.arange(L) % 120 + 3], 64, None, kn, False),
+         [np.arange(L) % 60 + 3], 64, None, kn, False),
         ("window_pingpong", build_window_pingpong(), "pingpong",
          window_pingpong_args(L, SEED), 64, None, kv, True),
     ]
@@ -998,7 +1027,7 @@ def rows_jobs() -> list:
 
 # worker processes of the kernel phase: its comparisons are independent,
 # and each one's plain side runs on the CPU
-WORKERS = 6
+WORKERS = 8
 
 
 def run_job(job):
@@ -1467,7 +1496,7 @@ def phase_tier0_kernel_vs_plain(fusion="none", only=None) -> int:
 # the main path's divergent tail dispatch (ten times slower a step than
 # the converged one) runs a quarter of TAIL_DISPATCH_N steps, to keep the
 # script's time
-TAIL_DIVERGENT_CUT = 4
+TAIL_DIVERGENT_CUT = 8
 TAIL_SMALL_N = 12
 TAIL_FUEL = 412
 
@@ -2160,24 +2189,28 @@ def phase_main():
     vm.validate()
     vm.instantiate()
 
-    # fib(30): B2 blocks (the default), the per-op kernel, B6
+    # fib(30): B2 blocks (the default); the per-op kernel and B6 (not the
+    # default path) at fib(PER_OP_FIB_N)
     for suffix, fusion, bf, need in ENCODINGS:
         vm.conf.batch.block_fusion = bf
-        run = run_main(vm, "fib", [np.full(L, 30)], 1 << 20, need, fusion)
+        n = PER_OP_FIB_N if suffix else 30
+        run = run_main(vm, "fib", [np.full(L, n)], 1 << 20, need, fusion)
         res, counts = run[0], run[4]
         if counts["simd"] or counts["bulk"]:
-            fail(f"fib(30) ran a kernel instantiation with bulk or v128 "
+            fail(f"fib({n}) ran a kernel instantiation with bulk or v128 "
                  f"cases: {counts}")
         if not (res.trap == -1).all() or \
-                not (res.results[0] == 832040).all():
-            fail(f"fib(30) x {L} [{counts['encoding']}]: traps "
+                not (res.results[0] == fib_py(n)).all():
+            fail(f"fib({n}) x {L} [{counts['encoding']}]: traps "
                  f"{np.unique(res.trap)}, results "
                  f"{np.unique(res.results[0])[:5]}")
         retired = int(res.retired.astype(np.int64).sum())
-        key = "fib30" + suffix
-        out[key] = report_main(f"fib(30) x {L}, all 832040", run, retired)
-        check_uniform(out[key], f"fib(30) [{counts['encoding']}]", True)
-        out[key]["profile"] = profile_run(vm, "fib", [np.full(L, 30)],
+        key = ("fib30" if n == 30 else "fib") + suffix
+        out[key] = report_main(f"fib({n}) x {L}, all {fib_py(n)}", run,
+                               retired)
+        out[key]["n"] = n
+        check_uniform(out[key], f"fib({n}) [{counts['encoding']}]", True)
+        out[key]["profile"] = profile_run(vm, "fib", [np.full(L, n)],
                                           retired, fusion)
     vm.conf.batch.block_fusion = None
 
@@ -2199,6 +2232,7 @@ def phase_main():
 
     run = run_main(vm, "fib", [ns], 1 << 20, ("interp", "block"))
     mix_check(run[0])
+    UNCOMPACTED["fib_mix"] = [run[0]]
     retired = int(run[0].retired.astype(np.int64).sum())
     out["fib_mix"] = report_main(f"fib(20 + lane % 11) x {L}, matches", run,
                                  retired)
@@ -2277,29 +2311,58 @@ def profile_fn(label: str, fn, retired):
     """fn() once more under torch.profiler: the interpreter kernel's
     device time and launches, the wall, the host<->device copies' device
     time, the card's idle share and (`retired` given) instr/s over the
-    kernel time.  Returns (fn(), record)."""
+    kernel time.  CUDA events also bracket every kernel launch of the
+    run (the engine's run_chunk): the trace can drop device events, so
+    when it holds fewer interpreter kernels than there were launches,
+    the kernel's time is the events' ("kernel_from" says which;
+    "event_kernel_ms" is theirs in any case).  Returns (fn(), record)."""
     from torch.profiler import ProfilerActivity, profile
+    from wasmedge_tpu_torch.batch import engine as engine_mod
+
+    launch, marks = engine_mod.run_chunk, []
+
+    def timed(*args, **kwargs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = launch(*args, **kwargs)
+        ev[1].record()
+        marks.append(ev)
+        return out
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    engine_mod.run_chunk = timed
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        engine_mod.run_chunk = launch
     kern = [e for e in prof.key_averages() if "interp_kernel" in e.key]
     dev_us = sum(getattr(e, "device_time_total", 0) or
                  getattr(e, "cuda_time_total", 0) for e in kern)
-    if not kern or dev_us <= 0:
-        fail(f"profile {label}: the trace shows no interpreter kernel time")
-    kernel_s = dev_us / 1e6
+    if not marks:
+        fail(f"profile {label}: the run launched no interpreter kernel")
+    event_s = sum(a.elapsed_time(b) for a, b in marks) / 1e3
+    traced = sum(e.count for e in kern)
+    if traced == len(marks) and dev_us > 0:
+        kernel_s, source = dev_us / 1e6, "profiler"
+    else:
+        kernel_s, source = event_s, "events"
+        print(f"profile {label}: the trace holds {traced} of the "
+              f"{len(marks)} interpreter kernel launches "
+              f"({dev_us / 1e3:.3f} ms); the kernel's time is from the "
+              f"CUDA events around them", flush=True)
     # host <-> device copies (the serve rounds' memory chunks and stack
     # rows, set-up's planes): device time of the Memcpy entries
     copy_s = sum(getattr(e, "device_time_total", 0) or
                  getattr(e, "cuda_time_total", 0)
                  for e in prof.key_averages() if "Memcpy" in e.key) / 1e6
-    return out, dict(kernel_ms=kernel_s * 1e3,
-                     launches=sum(e.count for e in kern), wall_s=wall,
+    return out, dict(kernel_ms=kernel_s * 1e3, kernel_from=source,
+                     event_kernel_ms=event_s * 1e3, launches=len(marks),
+                     wall_s=wall,
                      setup_host_ms=(wall - kernel_s) * 1e3,
                      copy_ms=copy_s * 1e3, idle_share=1.0 - kernel_s / wall,
                      instr_per_s_kernel=None if retired is None
@@ -2329,7 +2392,7 @@ def profile_run(vm, func, args, retired: int, fusion=None):
           f"{retired / kernel_s:.4g} wasm instr/s over kernel time",
           flush=True)
     return dict(encoding=eng.tables.fusion, kernel_ms=rec["kernel_ms"],
-                launches=count, wall_s=wall,
+                kernel_from=rec["kernel_from"], launches=count, wall_s=wall,
                 setup_host_ms=rec["setup_host_ms"],
                 serve_rounds=stats["serve_rounds"], serve_ms=serve_s * 1e3,
                 stdout_flushes=stats["stdout_flushes"],
@@ -2713,34 +2776,38 @@ def phase_main_simd():
     want_retired = base + per * SIMD_N
     want = simd_loop_model(SIMD_N)
     out = dict(n=SIMD_N, retired_per_lane=want_retired, per_iteration=per)
+    n = SIMD_N
     # B2 blocks (the default) and, with block_fusion False, the per-op
     # kernel (a module with v128 ops runs no superinstructions)
     def check(res):
         if not (res.trap == -1).all() or \
                 not ((res.results[0] & 0xFFFFFFFF) == want).all():
-            fail(f"vloop({SIMD_N}) x {L}: traps {np.unique(res.trap)}, "
+            fail(f"vloop({n}) x {L}: traps {np.unique(res.trap)}, "
                  f"results {np.unique(res.results[0])[:5]}, model {want}")
         if not (res.retired.astype(np.int64) == want_retired).all():
-            fail(f"vloop({SIMD_N}) x {L}: retired "
+            fail(f"vloop({n}) x {L}: retired "
                  f"{np.unique(res.retired)[:5]}, expected {want_retired} "
                  f"per lane")
 
     for suffix, bf, need in (("", None, ("interp", "simd", "block")),
                              ("_none", False, ("interp", "simd", "op"))):
         vm.conf.batch.block_fusion = bf
-        run = run_main(vm, "vloop", [np.full(L, SIMD_N)], 1 << 20,
+        # the per-op kernel (not the default path) at a PER_OP_CUT-th
+        n = SIMD_N // PER_OP_CUT if suffix else SIMD_N
+        want, want_retired = simd_loop_model(n), base + per * n
+        run = run_main(vm, "vloop", [np.full(L, n)], 1 << 20,
                        need + ("window",))
         res, counts = run[0], run[4]
         check(res)
         retired = int(res.retired.astype(np.int64).sum())
         rec = report_main(
-            f"vloop({SIMD_N}) x {L}, every lane {want} (the model), retired "
+            f"vloop({n}) x {L}, every lane {want} (the model), retired "
             f"{want_retired} per lane ({base} + {per} per iteration)", run,
             retired)
-        check_uniform(rec, f"vloop({SIMD_N}){suffix}", True)
+        rec["n"] = n
+        check_uniform(rec, f"vloop({n}){suffix}", True)
         rec["simd_launches"] = counts["simd"]
-        rec["profile"] = profile_run(vm, "vloop", [np.full(L, SIMD_N)],
-                                     retired)
+        rec["profile"] = profile_run(vm, "vloop", [np.full(L, n)], retired)
         if not suffix:
             # the default encoding once more on the plane directly, and
             # with the careful kernel
@@ -2792,10 +2859,17 @@ def phase_main_memory():
             ("coremark", build_coremark_kernel(), MEM_COREMARK_N,
              coremark_py(MEM_COREMARK_N))):
         vm = config2_vm(data)
-        args = [np.full(L, n)]
         base, per = retired_model(vm, name) \
             if name == "mem_checksum" else (None, None)
+        n_full = n
         for suffix, fusion, _, need in ENCODINGS[:2]:
+            # mem_checksum per op (not the default path) at a
+            # PER_OP_CUT-th of its words
+            n = n_full // PER_OP_CUT if suffix and per is not None \
+                else n_full
+            if per is not None:
+                want = memory_workload_model(n, MEM_PASSES)
+            args = [np.full(L, n)]
             for mem_hbm in (None, False):
                 vm.conf.batch.mem_hbm = mem_hbm
                 tag = mode_tag(fusion or "blocks", mem_hbm is None)
@@ -2826,6 +2900,7 @@ def phase_main_memory():
                 label = (f"config 2 {name}({n}) x {L}, every lane {want}"
                          f"{'' if mem_hbm is None else ', mem_hbm False'}")
                 out[key] = report_main(label, run, retired)
+                out[key]["n"] = n
                 check_uniform(out[key], f"config 2 {name}{tag}", True)
                 out[key]["profile"] = profile_run(vm, name, args, retired,
                                                   fusion)
@@ -3666,6 +3741,7 @@ def mix_case(label: str, lanes: dict, ns: dict, in_image: bool = False
         retired = int(res.retired.astype(np.int64).sum())
         prof = profile_fn(f"{label} {name} alone", run, retired)[1]
         solo[name] = res
+        UNCOMPACTED.setdefault(label, []).append(res)
         rec[name] = dict(retired=retired, launches=counts["interp"],
                          wall_s=wall, event_ms=ev_ms,
                          kernel_ms=prof["kernel_ms"],
@@ -3771,23 +3847,27 @@ def phase_main_mix() -> dict:
                                  STRADDLE_N)}
 
 
-def serve_once(profile: bool) -> dict:
+def serve_once(profile: bool, compact: bool = False) -> dict:
     """One serving run: BatchServer(engine=MultiModuleBatchEngine(the four
     config-5 modules, MAIN_LANES lanes)), SERVE_CHUNK steps a launch,
     SERVE_REQUESTS seeded requests (serve_load) over four tenants with
     SERVE_WEIGHTS and SERVE_QUOTAS, all submitted, then run_until_idle.
     Every future equal to its model, every request completed.  With
-    `profile`, under torch.profiler (the kernel's device time)."""
+    `profile`, under torch.profiler (the kernel's device time); with
+    `compact`, lane compaction on (the server's boundary pass, the default
+    knobs), its figures and its rounds' host ms in the record."""
     from wasmedge_tpu_torch.batch.multitenant import MultiModuleBatchEngine
     from wasmedge_tpu_torch.models.fixtures import (
         CONFIG5, serve_load, serve_model)
     from wasmedge_tpu_torch.serve import BatchServer
 
-    conf = mix_conf(steps_per_launch=SERVE_CHUNK)
+    conf = mix_conf(steps_per_launch=SERVE_CHUNK, compact=compact)
     modules = [(name, *mix_instance(mix_module(name), conf))
                for name, _, _ in CONFIG5]
     eng = MultiModuleBatchEngine(modules, conf=conf, lanes=MAIN_LANES)
     srv = BatchServer(engine=eng, weights=SERVE_WEIGHTS, quotas=SERVE_QUOTAS)
+    if compact != (srv._compactor is not None):
+        fail(f"serving: compact {compact}, compactor {srv._compactor}")
     load = serve_load(SERVE_REQUESTS, SEED)
 
     def drive():
@@ -3832,6 +3912,11 @@ def serve_once(profile: bool) -> dict:
                                           if tt == t)
                                    for t in SERVE_WEIGHTS},
                counters=dict(c))
+    if compact:
+        if not srv._compactor.stats["fires"]:
+            fail("serving with compaction: no permutation fired")
+        rec.update(compact=compact_numbers(srv._compactor),
+                   compact_round_ms=srv.compact_s * 1e3)
     return rec
 
 
@@ -3869,7 +3954,7 @@ def mix_job_specs(name: str) -> list:
     if name == "c10":
         d = np.arange(40, dtype=np.int64) % 6
         return [(build_grow_tenant(m), "g", [d], 40) for m in C10_MAX_PAGES]
-    top = {"fib": 13, "fac": 21, "loop_sum": 300, "coremark": 40}
+    top = {"fib": 11, "fac": 21, "loop_sum": 120, "coremark": 24}
     return [(mix_module(n), f, [np.arange(MIX_JOB_LANES[n], dtype=np.int64)
                                 % top[n]], MIX_JOB_LANES[n])
             for n, f, _ in CONFIG5]
@@ -3962,6 +4047,386 @@ def mix_builds() -> list:
     conf = mix_conf()
     out += [t.engine.tables for t in mix_tenants(
         conf, config5_specs(dict.fromkeys(MIX_N, 2), MIX_N), "cpu")]
+    return out
+
+
+# Lane compaction (batch/compact.py) on the card.  UNCOMPACTED holds the
+# uncompacted runs of the main path the compacted ones are held to: the
+# divergent fib mix (phase_main) and each config-5 mix's solo tenants
+# (mix_case), by label.
+UNCOMPACTED = {}
+NARROW_WIDTHS = (64, 1024)  # the narrowed kernel jobs' launch widths
+NARROW_STEPS = 128
+
+
+def compact_numbers(comp) -> dict:
+    """A compactor's figures: its stats, the width of each launch (runs
+    of equal widths as [width, launches]), its narrowed launches, the
+    gathers' ms and the boundaries' host ms."""
+    runs = []
+    for w in comp.widths:
+        if runs and runs[-1][0] == w:
+            runs[-1][1] += 1
+        else:
+            runs.append([w, 1])
+    return dict(comp.stats, widths=runs,
+                narrowed=sum(1 for w in comp.widths if w < comp.lanes),
+                permute_ms=comp.permute_ms, boundary_host_ms=comp.host_s * 1e3)
+
+
+def narrow_vs_plain(name, fusion, optimistic, width) -> int:
+    """A narrowed launch, kernel against plain: fib(10 + lane % 11) x
+    MAIN_LANES (stacks 256, fib's main-path builds), two launches of
+    NARROW_STEPS steps over the first `width` lanes, the plain side on a
+    copy on the card with its own per-warp state.  Every lane is live, so
+    the lanes at and beyond `width` would run if launched: both sides
+    must leave them bit-unchanged.  Every plane and the per-warp state
+    equal after each launch.  Returns the max abs err."""
+    from wasmedge_tpu_torch.batch import interp, interp_ref
+    from wasmedge_tpu_torch.models import build_fib
+
+    L = MAIN_LANES
+    eng, inst = make_engine(build_fib(), L, fusion=fusion,
+                            optimistic=optimistic, value_stack_depth=256,
+                            call_stack_depth=256)
+    st = eng.initial_state(inst.exports["fib"][1],
+                           [10 + np.arange(L) % 11])
+    st0, ref = st.clone(), st.clone()
+    wk, wp = new_warps(eng), new_warps(eng)
+    before = dict(interp.LAUNCHES)
+    worst = 0
+    for launch in range(2):
+        interp.run_chunk(eng.tables, st, NARROW_STEPS, False, wk,
+                         width=width)
+        interp_ref.run_chunk(eng.tables, ref, NARROW_STEPS, False, wp,
+                             width=width)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(st, ref), warp_err(wk, wp))
+        beyond = max(int((a[..., width:].to(torch.int64)
+                          - b[..., width:].to(torch.int64)).abs().max())
+                     for a, b in zip(st.planes().values(),
+                                     st0.planes().values()))
+        worst = max(worst, err, beyond)
+        if err or beyond:
+            fail(f"{name} launch {launch}: kernel != plain (max abs err "
+                 f"{err}) or a lane at or beyond width {width} changed "
+                 f"({beyond})")
+    moved = int((st.retired[:width] != 0).sum())
+    ran = {k: interp.LAUNCHES[k] - before[k] for k in before}
+    if moved != width or ran["narrow"] != 2 or ran["interp"] != 2 or \
+            ran["optimistic"] != (2 if eng.tables.optimistic else 0):
+        fail(f"{name}: {moved} of {width} lanes ran, launches {ran}")
+    print(f"kernel_vs_plain {name}: 2 launches of width {width} of {L} "
+          f"equal, the {L - width} lanes beyond untouched, warps "
+          f"{wk.stats() if wk is not None else {}}", flush=True)
+    return worst
+
+
+def permuted_vs_plain(name, fusion, optimistic, mem_hbm) -> int:
+    """A launch right after a permutation, kernel against plain: the
+    CoreMark-style kernel x MAIN_LANES at lane-dependent sizes (stacks
+    256, one page a lane), launches through the kernel until a boundary
+    of a compactor with the policy held open fires (its permutation
+    moving lanes whose windows were written back at the last launch's
+    exit), then one
+    launch through the kernel and through the plain version (a copy on
+    the card; the per-warp state copied too): every plane, the per-warp
+    state and, with the windows, the misses and ways written back equal.
+    Returns the max abs err."""
+    from wasmedge_tpu_torch.batch import interp, interp_ref, memwin
+    from wasmedge_tpu_torch.batch.compact import LaneCompactor
+    from wasmedge_tpu_torch.batch.optimistic import WarpState
+    from wasmedge_tpu_torch.models import build_coremark_kernel
+    from wasmedge_tpu_torch.models.fixtures import COMPACT_FORCED
+
+    L = MAIN_LANES
+    eng, inst = make_engine(build_coremark_kernel(), L, fusion=fusion,
+                            optimistic=optimistic, mem_hbm=mem_hbm,
+                            value_stack_depth=256, call_stack_depth=256,
+                            **COMPACT_FORCED)
+    if eng.tables.mem_window != bool(mem_hbm):
+        fail(f"{name}: mem_window {eng.tables.mem_window}")
+    st = eng.initial_state(inst.exports["coremark"][1],
+                           [1 + (np.arange(L) * 7919) % 13])
+    wk = new_warps(eng)
+    comp = LaneCompactor(eng)
+    plan = None
+    for _ in range(8):   # kernel launches until the lanes part ways
+        interp.run_chunk(eng.tables, st, NARROW_STEPS, False, wk)
+        plan = comp.plan_boundary(eng, st)
+        if plan is not None:
+            break
+    if plan is None:
+        fail(f"{name}: no boundary fired")
+    comp.permute_state(st, plan[1])
+    moved = comp.stats["moved_lanes"]
+    ref = st.clone()
+    wp = None if wk is None else WarpState(
+        **{f: getattr(wk, f).clone() for f in WarpState.COUNTERS},
+        snap_max=wk.snap_max)
+    torch.cuda.synchronize()
+    interp.clear_counts()
+    memwin.clear_counts()
+    interp.run_chunk(eng.tables, st, NARROW_STEPS, False, wk)
+    interp_ref.run_chunk(eng.tables, ref, NARROW_STEPS, False, wp)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(st, ref), warp_err(wk, wp))
+    if eng.tables.mem_window:
+        wc = interp.window_counts(eng.tables, clear=True)
+        if (wc["misses"], wc["ways_written_back"]) != (
+                memwin.COUNTS["misses"], memwin.COUNTS["ways_written_back"]):
+            fail(f"{name}: window counts kernel {wc}, plain "
+                 f"{memwin.COUNTS}")
+        WINDOW_WORST[0] = max(WINDOW_WORST[0], err)
+    if err or not moved:
+        fail(f"{name}: after a permutation of {moved} lanes, kernel != "
+             f"plain: max abs err {err}")
+    print(f"kernel_vs_plain {name}: a launch after a permutation of {moved} "
+          f"of {L} lanes equal, traps "
+          f"{sorted(set(st.trap.cpu().tolist()))}", flush=True)
+    return err
+
+
+def compact_jobs() -> list:
+    """The compaction kernel jobs: narrowed launches (widths 64 and 1024
+    of MAIN_LANES) per op and in B2, optimistic and careful; a launch
+    right after a permutation in both memory modes (B2 optimistic, per
+    op careful)."""
+    jobs = [("narrow_vs_plain",
+             (f"narrow.fib{mode_tag(f, None)}, {'kOpt' if o is None else 'careful'}, width {w}",
+              f, o, w), {})
+            for f in ("none", "blocks") for o in (None, False)
+            for w in NARROW_WIDTHS]
+    jobs += [("permuted_vs_plain",
+              (f"permuted.coremark{mode_tag(f, m)}, "
+               f"{'kOpt' if o is None else 'careful'}", f, o, m), {})
+             for f, o in (("blocks", None), ("none", False))
+             for m in (True, False)]
+    return jobs
+
+
+def phase_compact_fib_mix() -> dict:
+    """The divergent fib mix fib(20 + lane % 11) x MAIN_LANES (stacks 256,
+    2^20 steps a launch, B2 blocks, optimistic) through VM.execute_batch
+    with compaction on (the default knobs) and once more with
+    compact_narrow False; results, trap and retired equal to phase_main's
+    uncompacted run of the same call and to the Python fib table; each
+    profiled."""
+    from wasmedge_tpu_torch.common.configure import Configure
+    from wasmedge_tpu_torch.models import build_fib
+    from wasmedge_tpu_torch.vm.vm import VM
+
+    L = MAIN_LANES
+    conf = Configure()
+    conf.batch.lanes = L
+    conf.batch.value_stack_depth = 256
+    conf.batch.call_stack_depth = 256
+    conf.batch.compact = True
+    vm = VM(conf)
+    vm.load_wasm(build_fib())
+    vm.validate()
+    vm.instantiate()
+    ns = 20 + np.arange(L) % 11
+    off = UNCOMPACTED["fib_mix"][0]
+    out = {}
+    for narrow in (True, False):
+        vm.conf.batch.compact_narrow = narrow
+        run = run_main(vm, "fib", [ns], 1 << 20, ("interp", "block"))
+        res = run[0]
+        if not (np.array_equal(res.results[0], off.results[0])
+                and np.array_equal(res.trap, off.trap)
+                and np.array_equal(res.retired, off.retired)):
+            fail(f"compacted fib mix (narrow {narrow}) differs from the "
+                 f"uncompacted run")
+        comp = vm.last_engine.compactor
+        if comp is None or not comp.stats["fires"]:
+            fail(f"compacted fib mix (narrow {narrow}): no permutation")
+        if (run[4]["narrow"] > 0) != narrow or \
+                run[4]["narrow"] != sum(w < L for w in comp.widths):
+            fail(f"compacted fib mix (narrow {narrow}): "
+                 f"{run[4]['narrow']} narrowed launches, widths "
+                 f"{comp.widths}")
+        retired = int(res.retired.astype(np.int64).sum())
+        key = "on" if narrow else "on_no_narrow"
+        rec = report_main(f"fib(20 + lane % 11) x {L}, compaction on, "
+                          f"compact_narrow {narrow}, equal to the "
+                          f"uncompacted run", run, retired)
+        rec["compact"] = compact_numbers(comp)
+        rec["narrow_launches"] = run[4]["narrow"]
+        rec["profile"] = profile_run(vm, "fib", [ns], retired)
+        print(f"  compaction: {json.dumps(rec['compact'])}", flush=True)
+        out[key] = rec
+    return out
+
+
+def phase_compact_straddle() -> dict:
+    """The straddling config-5 mix through run_mixed with compaction on
+    (the default knobs): each tenant's results, trap and retired equal to
+    its solo run of mix_case (to which the uncompacted mix was held);
+    profiled on a MultiTenantBatchEngine built by hand over the same
+    tenants, whose compactor and per-warp counters give the figures."""
+    from wasmedge_tpu_torch.batch.multitenant import (
+        MultiTenantBatchEngine, run_mixed)
+    from wasmedge_tpu_torch.models.fixtures import CONFIG5
+
+    label = "straddling mix"
+    mconf = mix_conf(compact=True)
+    specs = config5_specs(STRADDLE_LANES, STRADDLE_N)
+    rspecs = [(*mix_instance(data, mconf), func, args, n)
+              for data, func, args, n in specs]
+    solo = UNCOMPACTED[label]
+
+    def same(res, how):
+        for r, s, (name, _, _) in zip(res, solo, CONFIG5):
+            if not (np.array_equal(r.trap, s.trap)
+                    and np.array_equal(r.retired, s.retired)
+                    and np.array_equal(r.results[0], s.results[0])):
+                fail(f"{label} compacted, {how}: tenant {name} differs "
+                     f"from its uncompacted run")
+
+    res, counts, wall, ev_ms = counted(
+        f"{label}, compacted",
+        lambda: run_mixed(rspecs, mconf, 10**9, device="cuda"),
+        ("interp", "block", "window", "optimistic"))
+    same(res, "run_mixed")
+    retired = int(sum(r.retired.astype(np.int64).sum() for r in res))
+    mt = MultiTenantBatchEngine(mix_tenants(mconf, specs), conf=mconf,
+                                device="cuda")
+    w0 = warp_counters(mt.warps)
+    pres, prof = profile_fn(f"{label}, compacted",
+                            lambda: mt.run_tenants(max_steps=10**9), retired)
+    same(pres, "profiled")
+    d = warp_deltas(mt.warps, w0)
+    rec = dict(retired=retired, launches=counts["interp"],
+               block_launches=counts["block"],
+               narrow_launches=counts["narrow"], wall_s=wall,
+               event_ms=ev_ms, kernel_ms=prof["kernel_ms"],
+               idle_share=prof["idle_share"],
+               profiled_wall_s=prof["wall_s"],
+               instr_per_s_wall=retired / wall,
+               instr_per_s_kernel=prof["instr_per_s_kernel"],
+               uniform=int(d["uniform"].sum()),
+               entered=int(d["entered"].sum()),
+               rollbacks=int(d["rollbacks"].sum()),
+               compact=compact_numbers(mt.compactor))
+    print(f"  {label} x {sum(STRADDLE_LANES.values())} compacted through "
+          f"run_mixed: every tenant equal to its uncompacted run; "
+          f"{counts['interp']} launches ({counts['narrow']} narrowed), wall "
+          f"{wall:.3f} s, {retired / wall:.4g} instr/s over wall; "
+          f"profiled: kernel {prof['kernel_ms']:.1f} ms, "
+          f"{prof['instr_per_s_kernel']:.4g} instr/s over kernel; B3 "
+          f"entries {rec['uniform']} uniform of {rec['entered']}, "
+          f"{rec['rollbacks']} rollbacks; compaction "
+          f"{json.dumps(rec['compact'])}", flush=True)
+    return rec
+
+
+def phase_compact_checkpoint() -> dict:
+    """Checkpoint round trips (batch/checkpoint.py) on the card: the
+    compacted fib mix driven launch by launch until a boundary has
+    permuted the lanes (lane_src not the identity), saved, loaded into a
+    fresh engine with compaction on, finished, its results (in lane
+    order) equal to the uncompacted run's; config 2's coremark(65536)
+    saved after its first launch, loaded into a fresh engine, finished,
+    every lane equal to the Python reference.  The files go to a
+    temporary directory; their bytes and the save and load seconds are
+    printed."""
+    from wasmedge_tpu_torch.batch import checkpoint
+    from wasmedge_tpu_torch.batch.compact import arm
+    from wasmedge_tpu_torch.models import build_coremark_kernel, build_fib
+
+    L = MAIN_LANES
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as d:
+        def round_trip(key, engine_of, func, args, until, want):
+            eng = engine_of()
+            comp = arm(eng)
+            st, total = eng.initial_state(eng.export_func_idx(func),
+                                          args), 0
+            while not until(eng, st):
+                st, total = eng.run_from_state(st, total, total + 1)
+            path = os.path.join(d, f"{key}.npz")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save(path, eng, st, total)
+            save_s = time.perf_counter() - t0
+            eng2 = engine_of()
+            arm(eng2)
+            t0 = time.perf_counter()
+            st2, total2 = checkpoint.load(path, eng2)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            if total2 != total or (comp is not None and not np.array_equal(
+                    eng2.compactor.src, comp.src)):
+                fail(f"checkpoint {key}: total or lane_src not restored")
+            st2, total2 = eng2.run_from_state(st2, total2, 10**9)
+            lo = st2.stack_lo[0].cpu().numpy()
+            order = None if eng2.compactor is None \
+                else eng2.compactor.restore_order()
+            got = lo if order is None else lo[order]
+            if not (st2.trap == -1).all() or \
+                    not np.array_equal(got.astype(np.int64) & 0xFFFFFFFF,
+                                       np.asarray(want) & 0xFFFFFFFF):
+                fail(f"checkpoint {key}: the resumed run differs")
+            out[key] = dict(bytes=os.path.getsize(path), save_s=save_s,
+                            load_s=load_s, total_at_save=total,
+                            lane_src=comp is not None and not comp.identity)
+            print(f"  checkpoint {key}: saved at step {total} "
+                  f"({'lane_src journaled' if out[key]['lane_src'] else 'no lane_src'}), "
+                  f"{out[key]['bytes']} B, save {save_s:.3f} s, load "
+                  f"{load_s:.3f} s; the resumed run equals the "
+                  f"uninterrupted one", flush=True)
+
+        def fib_engine():
+            return make_engine(build_fib(), L, value_stack_depth=256,
+                               call_stack_depth=256,
+                               steps_per_launch=1 << 20, compact=True)[0]
+
+        off = UNCOMPACTED["fib_mix"][0]
+        round_trip("fib_mix", fib_engine, "fib", [20 + np.arange(L) % 11],
+                   lambda e, st: not e.compactor.identity,
+                   off.results[0])
+
+        def coremark_engine():
+            return make_engine(build_coremark_kernel(), L,
+                               steps_per_launch=1 << 20, **MEM_STACKS)[0]
+
+        round_trip("coremark", coremark_engine, "coremark",
+                   [np.full(L, MEM_COREMARK_N)],
+                   lambda e, st: bool((st.retired != 0).any()),
+                   np.full(L, coremark_py(MEM_COREMARK_N)))
+    return out
+
+
+def phase_compact(main_out: dict) -> dict:
+    """Lane compaction on the main path: the divergent fib mix, the
+    straddling config-5 mix and serving with compaction on, beside the
+    same call's uncompacted runs, and the checkpoint round trips."""
+    out = {"fib_mix": phase_compact_fib_mix(),
+           "straddle": phase_compact_straddle()}
+    srv = serve_once(False, compact=True)
+    prof = serve_once(True, compact=True)
+    srv.update(kernel_ms=prof["kernel_ms"], profiled_wall_s=prof["wall_s"],
+               kernel_share=prof["kernel_ms"] / 1e3 / prof["wall_s"])
+    base = main_out["serve"]
+    print(f"  serving compacted: {srv['rounds']} rounds, "
+          f"{srv['recycled_lanes']} recycled lanes, wall "
+          f"{srv['wall_s']:.3f} s, {srv['requests_per_s']:.1f} requests/s, "
+          f"latency p50 {srv['latency_p50_ms']:.1f} ms, p99 "
+          f"{srv['latency_p99_ms']:.1f} ms, kernel {srv['kernel_ms']:.1f} "
+          f"ms ({srv['kernel_share']:.3f} of {srv['profiled_wall_s']:.3f} "
+          f"s), B3 entries {srv['uniform']} uniform of {srv['entered']}, "
+          f"{srv['rollbacks']} rollbacks; compaction "
+          f"{json.dumps(srv['compact'])}, its rounds "
+          f"{srv['compact_round_ms']:.1f} ms of host time | uncompacted "
+          f"(phase serve): {base['rounds']} rounds, wall "
+          f"{base['wall_s']:.3f} s, {base['requests_per_s']:.1f} "
+          f"requests/s, p50 {base['latency_p50_ms']:.1f} ms, p99 "
+          f"{base['latency_p99_ms']:.1f} ms, kernel {base['kernel_ms']:.1f} "
+          f"ms, B3 {base['uniform']} / {base['entered']}, "
+          f"{base['rollbacks']} rollbacks", flush=True)
+    out["serve"] = srv
+    out["checkpoint"] = phase_compact_checkpoint()
     return out
 
 
@@ -4382,11 +4847,13 @@ def main() -> int:
                   "opt": opt_jobs() + host_jobs(
                       "none", ("wasi_echo", "window_host")),
                   "tier0": tier0_jobs("none") + tier0_jobs("blocks")
-                  + tier0_jobs("super"), "tables": table_jobs()})
+                  + tier0_jobs("super"), "tables": table_jobs(),
+                  "compact": compact_jobs()})
     worst, simd_worst, fused_worst, opt_worst, rows_worst, t0_worst = (
         w["scalar"], w["simd"], w["fused"], w["opt"], w["rows"], w["tier0"])
     tables_worst, linked_worst, mix_worst = w["tables"], w["linked"], \
         w["mix"]
+    compact_worst = w["compact"]
     t_jobs = time.perf_counter() - t0
     timing = {f: phase_time_one_launch(f) for f in ("none", "blocks", "super")}
     bulk_timing = phase_time_bulk()
@@ -4398,8 +4865,9 @@ def main() -> int:
     t_kernel = time.perf_counter() - t0
     print(f"phase kernel_vs_plain: {t_kernel:.2f} s (comparisons "
           f"{t_jobs:.2f} s on {WORKERS} workers), max abs err "
-          f"{max(worst, simd_worst, fused_worst, opt_worst, rows_worst, t0_worst, tables_worst, linked_worst, mix_worst)}"
-          f" (tier 0 {t0_worst}; tables {tables_worst}; linked program "
+          f"{max(worst, simd_worst, fused_worst, opt_worst, rows_worst, t0_worst, tables_worst, linked_worst, mix_worst, compact_worst)}"
+          f" (tier 0 {t0_worst}; tables {tables_worst}; narrowed and "
+          f"permuted launches {compact_worst}; linked program "
           f"{linked_worst}; concatenated images {mix_worst}; "
           f"warp bulk pass and stack rows {rows_worst}; window cache "
           f"{WINDOW_WORST[0]}; optimistic against plain "
@@ -4420,12 +4888,12 @@ def main() -> int:
     t0 = time.perf_counter()
     main_out = phase_main()
     scalar = regs.get("interp_kernel<kBulk=0, kSimd=0>", {})
-    print(f"fib(30) x {MAIN_LANES} per-op ran interp_kernel<kBulk=0, "
+    print(f"fib({PER_OP_FIB_N}) x {MAIN_LANES} per-op ran interp_kernel<kBulk=0, "
           f"kSimd=0> ({scalar.get('registers')} registers, "
           f"{scalar.get('spill_stores', 0)} B spill stores): wall "
-          f"{main_out['fib30_none']['wall_s']:.3f} s; blocks "
-          f"{main_out['fib30']['wall_s']:.3f} s, super "
-          f"{main_out['fib30_super']['wall_s']:.3f} s", flush=True)
+          f"{main_out['fib_none']['wall_s']:.3f} s; fib(30) in blocks "
+          f"{main_out['fib30']['wall_s']:.3f} s, fib({PER_OP_FIB_N}) in super "
+          f"{main_out['fib_super']['wall_s']:.3f} s", flush=True)
     main_out["tables"] = phase_main_tables()
     main_out["linked"] = phase_main_linked()
     main_out["scalar_corpus"] = phase_scalar_corpus()
@@ -4437,6 +4905,7 @@ def main() -> int:
     main_out["config2"] = phase_main_memory()
     main_out["mix"] = phase_main_mix()
     main_out["serve"] = phase_serve()
+    main_out["compact"] = phase_compact(main_out)
     t_main = time.perf_counter() - t0
     print(f"phase main: {t_main:.2f} s", flush=True)
 
@@ -4498,14 +4967,39 @@ def main() -> int:
     # and the serving run: B2 blocks, windows, optimistic (the defaults)
     mx = {k: main_out["mix"][k]["mix"] for k in ("config5", "straddle")}
     sv = main_out["serve"]
+    # lane compaction's runs (B2 blocks, windows where a memory is,
+    # optimistic; the launch width an argument of both launch entries):
+    # their launches, narrowed launches and kernel ms beside the same
+    # call's uncompacted runs
+    cp = main_out["compact"]
+    fm = cp["fib_mix"]
+    compacted = dict(
+        fib_mix_launches=fm["on"]["block_launches"],
+        fib_mix_narrowed_launches=fm["on"]["narrow_launches"],
+        fib_mix_kernel_ms=fm["on"]["profile"]["kernel_ms"],
+        fib_mix_no_narrow_launches=fm["on_no_narrow"]["block_launches"],
+        fib_mix_no_narrow_kernel_ms=fm["on_no_narrow"]["profile"][
+            "kernel_ms"],
+        fib_mix_uncompacted_kernel_ms=main_out["fib_mix"]["profile"][
+            "kernel_ms"],
+        straddle_launches=cp["straddle"]["block_launches"],
+        straddle_narrowed_launches=cp["straddle"]["narrow_launches"],
+        straddle_kernel_ms=cp["straddle"]["kernel_ms"],
+        serve_launches=cp["serve"]["block_launches"],
+        serve_kernel_ms=cp["serve"]["kernel_ms"],
+        narrowed_and_permuted_jobs_max_abs_err=compact_worst)
     record = launch_record(
         "wasm_interp", "wasmedge_tpu_torch/csrc/interp.cu",
         "wasmedge_tpu/batch/pallas_engine.py:3825",
-        main_out["fib30_none"]["op_launches"], timing["none"],
-        max(worst, rows_worst, mix_worst), main_out["fib30_none"]["profile"],
+        main_out["fib_none"]["op_launches"], timing["none"],
+        max(worst, rows_worst, mix_worst, compact_worst),
+        main_out["fib_none"]["profile"],
         # memory.grow reads its page ceiling from its instruction's b (a
         # tenant's own in a concatenated image)
         memgrow_ceiling="b",
+        # the lanes launched are an argument (lane compaction narrows it);
+        # the jobs held launches of width 64 and 1024 of MAIN_LANES
+        launch_width="argument", narrowed_widths=list(NARROW_WIDTHS),
         timed_launch=dict(fib_launch, retired=timing["none"]["retired"]),
         # the linked program's per-op launches (0: its run is B2 blocks),
         # and the B2 launches whose call_indirect runs this kernel's
@@ -4523,7 +5017,8 @@ def main() -> int:
         "block", "wasmedge_tpu_torch/csrc/fused.cuh",
         "wasmedge_tpu/batch/pallas_engine.py:2758",
         main_out["fib30"]["block_launches"], timing["blocks"],
-        max(fused_worst, linked_worst), main_out["fib30"]["profile"],
+        max(fused_worst, linked_worst, compact_worst),
+        main_out["fib30"]["profile"],
         careful_main_ms_per_launch=per_launch(
             main_out["fib30_careful"]["profile"]),
         timed_launch=dict(fib_launch, retired=timing["blocks"]["retired"]),
@@ -4543,12 +5038,12 @@ def main() -> int:
         mix_main_ms_per_launch=mx["config5"]["kernel_ms"]
         / mx["config5"]["profiled_launches"],
         straddle_launches=mx["straddle"]["block_launches"],
-        serve_launches=sv["block_launches"])
+        serve_launches=sv["block_launches"], compacted=compacted)
     super_record = launch_record(
         "super", "wasmedge_tpu_torch/csrc/fused.cuh",
         "wasmedge_tpu/batch/pallas_engine.py:2472",
-        main_out["fib30_super"]["super_launches"], timing["super"],
-        fused_worst, main_out["fib30_super"]["profile"],
+        main_out["fib_super"]["super_launches"], timing["super"],
+        fused_worst, main_out["fib_super"]["profile"],
         timed_launch=dict(fib_launch, retired=timing["super"]["retired"]),
         generator="wasmedge_tpu_torch/batch/fusegen.py")
     # h_memfill / h_memcopy are cases of the same kernel: "ms",
@@ -4660,9 +5155,9 @@ def main() -> int:
         uniform_entries={k: dict(uniform=r["uniform"],
                                  entered=r["warps"]["entered"])
                          for k, r in (("fib30", fib30),
-                                      ("fib30_none", main_out["fib30_none"]),
-                                      ("fib30_super",
-                                       main_out["fib30_super"]),
+                                      ("fib_none", main_out["fib_none"]),
+                                      ("fib_super",
+                                       main_out["fib_super"]),
                                       ("fib_mix", main_out["fib_mix"]),
                                       ("vloop", vb),
                                       ("mem_checksum", c2["mem_checksum"]),

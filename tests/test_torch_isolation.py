@@ -1,7 +1,7 @@
 """The port stands alone: nothing under wasmedge_tpu_torch/ (its host
 modules under host/ and runtime/hostfunc.py, the v128 ops, the text
-front-end, the corpus runner, the multi-tenant engines and the serving
-layer included) and nothing in chip_smoke.py
+front-end, the corpus runner, the multi-tenant engines, the serving
+layer, lane compaction, its divergence scores and checkpoints included) and nothing in chip_smoke.py
 imports JAX or the JAX package, no entry point defaults to the CPU, and
 the CUDA source's ids, v128 family offsets and trap codes equal the
 Python package's, and no generated fused-kernel source is kept outside
@@ -40,7 +40,8 @@ def test_source_walk_covers_the_host_modules():
               "executor/engine.py", "executor/numeric.py",
               "executor/simd.py", "vm/async_.py", "vm/vm.py",
               "batch/multitenant.py", "serve/queue.py", "serve/recycle.py",
-              "serve/server.py"):
+              "serve/server.py", "analysis/cfg.py", "analysis/analyzer.py",
+              "batch/compact.py", "batch/checkpoint.py", "utils/fsio.py"):
         assert f in rel, f
 
 

@@ -48,6 +48,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from wasmedge_tpu_torch.batch.compact import arm, restore_mirrors
 from wasmedge_tpu_torch.batch.hostcall import (
     flush_stdout_buffers, serve_batch_state)
 from wasmedge_tpu_torch.batch.image import (
@@ -299,7 +300,17 @@ def resolve_device(device) -> torch.device:
 
 
 class BatchEngine:
-    """Runs one instantiated module's exports over `lanes` lanes."""
+    """Runs one instantiated module's exports over `lanes` lanes.
+
+    Lane compaction (`conf.batch.compact`, batch/compact.py): `run` arms
+    a fresh `LaneCompactor` as `compactor` (None with the knob off), which
+    `run_slice` asks before each launch to permute and narrow the lanes,
+    and through which `run` gathers the results back to their lanes.  A
+    server marks its engine `_compact_external` and compacts at its own
+    boundaries."""
+
+    compactor = None
+    _compact_external = False
 
     def __init__(self, inst, store=None, conf: Optional[Configure] = None,
                  lanes: Optional[int] = None, device="cuda"):
@@ -464,15 +475,16 @@ class BatchEngine:
     def run(self, func_name: str, args_lanes,
             max_steps: int = 10_000_000) -> BatchResult:
         func_idx = check_batch_entry(self.inst, func_name)
+        arm(self)   # a fresh lane mapping a run (None: compaction off)
         state = self.initial_state(func_idx, args_lanes)
         state, total = self.run_from_state(state, 0, max_steps)
         nres = int(self.inst.lowered.funcs[func_idx].nresults)
-        lo = state.stack_lo[:max(nres, 1)].cpu().numpy()
-        hi = state.stack_hi[:max(nres, 1)].cpu().numpy()
+        lo, hi, trap, retired = restore_mirrors(
+            self.compactor, state.stack_lo[:max(nres, 1)].cpu().numpy(),
+            state.stack_hi[:max(nres, 1)].cpu().numpy(),
+            state.trap.cpu().numpy(), state.retired.cpu().numpy())
         return BatchResult(results=decode_results(lo, hi, nres),
-                           trap=state.trap.cpu().numpy(),
-                           retired=state.retired.cpu().numpy(),
-                           steps=total)
+                           trap=trap, retired=retired, steps=total)
 
     def run_from_state(self, state: BatchState, total: int, max_steps: int):
         """`run_slice` without the read-back's result rows: returns
@@ -492,20 +504,30 @@ class BatchEngine:
         base, the buffered stdout is flushed before each serve round and
         at the end, and the run's tier-0 calls are counted.  Each launch
         reads trap, retired and the first `rows` result rows back in one
-        copy.  Returns (state, total, the last launch's HostPlanes; None
-        when no launch ran)."""
+        copy.  With a compactor armed, each launch is preceded by its
+        boundary (which may permute the state's planes, in this state
+        object, and narrow the launch width) and counted by it.  Returns
+        (state, total, the last launch's HostPlanes; None when no launch
+        ran)."""
         chunk = self.cfg.steps_per_launch
         fuel_on = self.cfg.fuel_per_launch is not None
         t0_on = state.t0_ctr is not None
         if t0_on:
             ctr_in = state.t0_ctr.to(torch.int64).sum(1)
+        comp = self.compactor
         host = None
         while total < max_steps:
+            kw = {}
+            if comp is not None:
+                state = comp.boundary(self, state)
+                kw["width"] = comp.width
             before = state.retired.clone()
             run_chunk(self.tables, state, chunk, fuel_on, self.warps,
-                      t0_time=t0_time_planes() if t0_on else None)
+                      t0_time=t0_time_planes() if t0_on else None, **kw)
             host, done = self._read_back(state, before, rows)
             total += done
+            if comp is not None:
+                comp.note_launch(done)
             if (host.trap == TRAP_HOSTCALL).any():
                 serve_batch_state(self, state, host.trap)
                 continue

@@ -367,6 +367,11 @@ class DeviceImage:
     table_size_init: int  # table 0's true size (table0 is padded to >= 1)
     has_table_mut: bool  # any table.set / grow / fill / copy / init
     has_table_grow: bool
+    # the static analysis of the lowered module (analysis/analyzer.py), as
+    # a thunk run on the first read of `analysis` (the JAX image's
+    # `analysis_builder`, batch/image.py:380-400); None for images made
+    # otherwise (a concatenated image, one carried across by convert.py)
+    analysis_builder: object = None
 
     NUMPY_FIELDS = ("cls", "sub", "a", "b", "c", "imm_lo", "imm_hi",
                     "br_table", "f_entry", "f_nparams", "f_nlocals",
@@ -380,6 +385,21 @@ class DeviceImage:
                      "table_size_init", "has_table_mut", "has_table_grow")
     BOOL_FIELDS = ("has_memory", "has_simd", "t0_fdwrite_safe",
                    "has_table_mut", "has_table_grow")
+
+    @property
+    def analysis(self):
+        """The module's ModuleAnalysis, built on first read and kept;
+        None without a builder or when the analyzer fails (lane
+        compaction then sorts without divergence scores)."""
+        if "_analysis" not in self.__dict__:
+            out = None
+            if self.analysis_builder is not None:
+                try:
+                    out = self.analysis_builder()
+                except Exception:
+                    out = None
+            self.__dict__["_analysis"] = out
+        return self.__dict__["_analysis"]
 
 
 def build_device_image(image: LoweredModule, memories=None, globals_=None,
@@ -649,6 +669,11 @@ def build_device_image(image: LoweredModule, memories=None, globals_=None,
         lim = mod.tables[0].limit
         table_max = lim.max if lim.max is not None else 0
 
+    def analysis_builder(_image=image):
+        from wasmedge_tpu_torch.analysis.analyzer import analyze_module
+
+        return analyze_module(_image)
+
     return DeviceImage(
         cls=cls, sub=sub, a=a, b=b, c=c, imm_lo=imm_lo, imm_hi=imm_hi,
         br_table=np.asarray(image.arrays["br_table"], np.int32),
@@ -665,4 +690,5 @@ def build_device_image(image: LoweredModule, memories=None, globals_=None,
         data_len=data_len, table_max=int(table_max),
         table_cap=len(table0), table_size_init=table_size,
         has_table_mut=bool(np.isin(cls, TABLE_MUT_CLASSES).any()),
-        has_table_grow=bool((cls == CLS_TABLE_GROW).any()))
+        has_table_grow=bool((cls == CLS_TABLE_GROW).any()),
+        analysis_builder=analysis_builder)

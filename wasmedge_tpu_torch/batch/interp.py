@@ -430,11 +430,12 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # through the window cache (B4, "window"), those of the kernels with
 # optimistic convergence (B3, "optimistic"), those of the builds that
 # serve tier-0 host calls in the kernel ("tier0"), those of the builds
-# with the table, segment, tail-call and ref.func handlers ("tables") and
-# those that charged weighted gas ("gas").
+# with the table, segment, tail-call and ref.func handlers ("tables"),
+# those that charged weighted gas ("gas") and those launched over fewer
+# lanes than the state's (lane compaction's narrowing, "narrow").
 LAUNCHES = {"interp": 0, "bulk": 0, "hostcall": 0, "simd": 0, "block": 0,
             "super": 0, "window": 0, "optimistic": 0, "tier0": 0,
-            "tables": 0, "gas": 0}
+            "tables": 0, "gas": 0, "narrow": 0}
 
 _libs = {}  # build key -> loaded ctypes library
 _lib_lock = threading.Lock()
@@ -653,7 +654,7 @@ def build_kernels(tables_list=(), per_op=((False, False, False),)) -> dict:
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * (
                 _N_PTRS + extra + _N_OPT + _N_T0_PTRS + _N_A3_PTRS) + \
-                [ctypes.c_int] * (_N_INTS + _N_T0_INTS + _N_A3_INTS) + \
+                [ctypes.c_int] * (_N_INTS + _N_T0_INTS + _N_A3_INTS + 1) + \
                 [ctypes.c_void_p]
             _libs[key] = lib
         return {key: _libs[key] for key in jobs}
@@ -843,7 +844,9 @@ _N_T0_INTS = 9
 # (state), the element and data segment snapshots and the gas planes
 # (tables); their ints after tier 0's: on (a build with the table
 # handlers), the table plane's rows, the element segments, the data
-# segments, the flat element and data word counts, and gas on
+# segments, the flat element and data word counts, and gas on.  The last
+# int, before the stream, is the launch width: the lanes launched, at most
+# L (L stays every plane's pitch)
 _A3_PTRS = ("tab", "tsize", "edrop", "ddrop", "efl", "eoff", "elen",
             "dwords", "doff", "dlen", "cost", "gcum")
 _N_A3_PTRS = len(_A3_PTRS)
@@ -863,9 +866,12 @@ def _check(name, t, device, shape):
 
 
 def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool,
-              warps: Optional[WarpState] = None, t0_time=None) -> None:
-    """Run every live lane for up to `chunk` instructions, in place on
-    the state `st` (a `batch.engine.BatchState`).  CUDA tensors launch
+              warps: Optional[WarpState] = None, t0_time=None,
+              width: Optional[int] = None) -> None:
+    """Run every live lane below `width` (the state's lanes when None)
+    for up to `chunk` instructions, in place on the state `st` (a
+    `batch.engine.BatchState`); lanes at or beyond `width` are not
+    touched (lane compaction's narrowed launches).  CUDA tensors launch
     the kernel of the tables' encoding (and memory mode: with
     `mem_window` the window-cache instantiation, or an error; with
     `optimistic` the instantiation with optimistic convergence, which
@@ -874,6 +880,10 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool,
     `engine.t0_time_planes` reads it); CPU tensors run the plain
     interpreter."""
     device = st.pc.device
+    L = st.pc.shape[0]
+    width = L if width is None else int(width)
+    if not 0 < width <= L:
+        raise ValueError(f"launch width {width} is not in [1, {L}]")
     if (tables.t0k is None) != (st.t0_ctr is None):
         raise ValueError("tier-0 tables need a state with the tier-0 "
                          "planes, and only they do")
@@ -884,7 +894,8 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool,
     if device.type == "cpu":
         from wasmedge_tpu_torch.batch import interp_ref
 
-        interp_ref.run_chunk(tables, st, chunk, fuel_on, warps, t0_time)
+        interp_ref.run_chunk(tables, st, chunk, fuel_on, warps, t0_time,
+                             width)
         return
     if device.type != "cuda":
         raise ValueError(f"no interpreter for device {device}")
@@ -896,7 +907,8 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool,
     launch = lib.wasm_fused_launch if tables.fusion != "none" \
         else lib.wasm_interp_launch
     stream = torch.cuda.current_stream(device).cuda_stream
-    ptrs, ints = launch_args(tables, st, chunk, fuel_on, warps, t0_time)
+    ptrs, ints = launch_args(tables, st, chunk, fuel_on, warps, t0_time,
+                             width)
     with torch.cuda.device(device):
         err = launch(*ptrs, *ints, stream)
     if err != 0:
@@ -913,6 +925,7 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool,
     LAUNCHES["tier0"] += tables.t0k is not None
     LAUNCHES["tables"] += tables.a3
     LAUNCHES["gas"] += tables.gcum is not None and bool(fuel_on)
+    LAUNCHES["narrow"] += width < L
 
 
 def _check_launch(tables: Tables, st, warps, device) -> None:
@@ -985,11 +998,13 @@ def _check_a3(tables: Tables, st, device) -> None:
 
 
 def launch_args(tables: Tables, st, chunk: int, fuel_on: bool,
-                warps: Optional[WarpState], t0_time=None):
+                warps: Optional[WarpState], t0_time=None,
+                width: Optional[int] = None):
     """The pointer and int arguments of `wasm_interp_launch` (or, for a
     fused encoding, `wasm_fused_launch`) before the stream, in their
     order (the shadow planes allocated here on the first optimistic
-    launch; `t0_time` the launch's tier-0 time base, [2, 2] int32)."""
+    launch; `t0_time` the launch's tier-0 time base, [2, 2] int32;
+    `width` the lanes launched, the state's lanes when None)."""
     def ptr(t):
         return None if t is None else t.data_ptr()
 
@@ -1032,4 +1047,5 @@ def launch_args(tables: Tables, st, chunk: int, fuel_on: bool,
              0 if tables.efl is None else tables.efl.shape[0],
              0 if tables.dwords is None else tables.dwords.shape[0],
              int(tables.gcum is not None)]
+    ints.append(L if width is None else int(width))
     return ptrs, ints

@@ -105,7 +105,7 @@ from wasmedge_tpu_torch.batch.interp import (
     H_VTEST_BASE, NUM_HANDLERS, Tables)
 from wasmedge_tpu_torch.batch.memwin import MemWindows
 from wasmedge_tpu_torch.batch.optimistic import (
-    DEFER_ACCESS, DEFER_BULK, OptRun, WarpState)
+    DEFER_ACCESS, DEFER_BULK, OptRun, WarpState, n_warps)
 from wasmedge_tpu_torch.common.errors import ErrCode
 
 I32 = torch.int32
@@ -115,10 +115,18 @@ _NUM_ALU1 = len(ALU1_SUB)
 
 
 def run_chunk(t: Tables, st, chunk: int, fuel_on: bool,
-              warps: WarpState = None, t0_time=None) -> None:
+              warps: WarpState = None, t0_time=None, width=None) -> None:
     """`warps`: the per-warp state of optimistic tables (a fresh one
     when None); `t0_time`: the launch's tier-0 time base ([2, 2] int32,
-    needed with `t.t0k`)."""
+    needed with `t.t0k`); `width`: the lanes launched (all when None).
+    A narrowed launch runs a copy of the lanes below `width` (and of
+    their warps' counters) as a launch of `width` lanes and writes them
+    back: the lanes beyond it are not touched, as in the kernel, whose
+    grid covers `width` lanes."""
+    L = st.pc.shape[0]
+    if width is not None and int(width) < L:
+        _run_prefix(t, st, chunk, fuel_on, warps, t0_time, int(width))
+        return
     # steps each lane has left in this launch (a fused dispatch takes
     # several at once)
     left = torch.full_like(st.pc, int(chunk))
@@ -141,6 +149,28 @@ def run_chunk(t: Tables, st, chunk: int, fuel_on: bool,
         win.flush()
     if opt is not None:
         opt.close()
+
+
+def _run_prefix(t: Tables, st, chunk, fuel_on, warps, t0_time, width):
+    """run_chunk over lanes [0, width) of `st`: their columns (and, with
+    optimistic tables, their warps' counters) copied out, run, and
+    written back in place."""
+    planes = st.planes()
+    sub = type(st)(**{f: p[..., :width].clone() for f, p in planes.items()})
+    sw = None
+    if t.optimistic:
+        if warps is None:
+            warps = WarpState.new(st.pc.shape[0], st.pc.device)
+        nw = n_warps(width)
+        sw = WarpState(**{f: getattr(warps, f)[:nw].clone()
+                          for f in WarpState.COUNTERS},
+                       snap_max=warps.snap_max)
+    run_chunk(t, sub, chunk, fuel_on, sw, t0_time)
+    for f, p in planes.items():
+        p[..., :width] = getattr(sub, f)
+    if sw is not None:
+        for f in WarpState.COUNTERS:
+            getattr(warps, f)[:nw] = getattr(sw, f)
 
 
 def _step(t: Tables, st, lanes, fuel_on, left, win, opt=None, t0_time=None):

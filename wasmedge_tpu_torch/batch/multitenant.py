@@ -22,8 +22,14 @@ Left out, with the reasons:
   `fuse_patterns`, `tier_fn`): the port has neither planner; its B2 and
   B6 planners (`batch/fusion.py`) run over the concatenated image as
   over any image;
-- the segment cache, the mesh argument, lane compaction and the
-  recorder wait for their subsystems.
+- the segment cache, the mesh argument and the recorder wait for their
+  subsystems.
+
+Lane compaction (`conf.batch.compact`, batch/compact.py): `run_tenants`
+arms a compactor as `BatchEngine.run` does; its permutations cross the
+tenants' slices, and `results_from_state` gathers the planes back to the
+lanes' order before it cuts them per tenant.  The concatenated image has
+no analysis, so the sort keys on (function, pc).
 
 A concatenated image carries no tier-0 plane, so `t0_effective_kinds` is
 None and every tenant's host calls are served between launches through
@@ -40,6 +46,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from wasmedge_tpu_torch.batch.compact import arm, restore_mirrors
 from wasmedge_tpu_torch.batch.engine import (
     BatchEngine, BatchResult, BatchState, a3_plane_rows,
     check_batch_entry, decode_results, memory_words, pack_lane_args,
@@ -344,20 +351,23 @@ class MultiTenantBatchEngine(BatchEngine):
 
     def run_tenants(self, max_steps: int = 10_000_000) -> List[BatchResult]:
         """Run the whole mixed batch; one BatchResult per tenant."""
+        arm(self)   # a fresh lane mapping a run (None: compaction off)
         state, total = self.run_from_state(self.initial_state(), 0,
                                            max_steps)
         return self.results_from_state(state, total)
 
     def results_from_state(self, state: BatchState, total: int
                            ) -> List[BatchResult]:
-        """One BatchResult per tenant from a final state."""
+        """One BatchResult per tenant from a final state; a permutation
+        of lane compaction crosses the tenants' slices, so the planes are
+        put back in their lanes' order before the slices are taken."""
         nres = [entry_meta(t.inst, t.func_name, f"tenant {ti}")[1].nresults
                 for ti, t in enumerate(self.tenants)]
         R = max(max(nres), 1)
-        lo = state.stack_lo[:R].cpu().numpy()
-        hi = state.stack_hi[:R].cpu().numpy()
-        trap = state.trap.cpu().numpy()
-        retired = state.retired.cpu().numpy()
+        lo, hi, trap, retired = restore_mirrors(
+            self.compactor, state.stack_lo[:R].cpu().numpy(),
+            state.stack_hi[:R].cpu().numpy(), state.trap.cpu().numpy(),
+            state.retired.cpu().numpy())
         out = []
         for sl, n in zip(self._tenant_slices, nres):
             out.append(BatchResult(

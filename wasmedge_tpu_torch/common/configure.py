@@ -141,6 +141,27 @@ class BatchConfigure:
     # kernel services inline; longer requests park on tier 1.
     tier0_write_max: int = 256
     tier0_random_max: int = 64
+    # --- divergence-aware lane compaction (batch/compact.py) ---
+    # At launch boundaries, sort the live lanes by (function, divergence
+    # score, pc) with one gather over every lane plane, dead lanes to the
+    # tail; fixed-cohort runs also narrow the launch width to the live
+    # prefix.  Off (the default) runs the uncompacted path: nothing is
+    # read back, permuted or narrowed.  Results are bit-identical either
+    # way for guests whose output does not depend on their lane index
+    # (tier-0 random_get seeds its stream by the physical lane).
+    compact: bool = False
+    # At least this many launch boundaries between two compactions.
+    compact_min_interval: int = 2
+    # A sort fires only when the adjacent-key breaks it removes exceed
+    # this fraction of the live lanes.
+    compact_trigger: float = 0.05
+    # Cost model: removable breaks x steps per launch must reach this
+    # factor x lanes; 0 fires at every eligible boundary (tests).
+    compact_cost_factor: float = 4.0
+    # Narrow the launch width to the smallest power of two covering the
+    # live prefix (fixed-cohort runs), never below the floor.
+    compact_narrow: bool = True
+    compact_width_floor: int = 64
 
 
 @dataclasses.dataclass

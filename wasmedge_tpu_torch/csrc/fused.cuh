@@ -232,7 +232,8 @@ int fused_launch(const Params& p, int bulk, int simd, int win, int opt,
       WASM_A3_PTR_ARGS, int code_len, int nf, int n_brt, int tsize, int nv,    \
       int L, int D, int CD, int NG, int W, int chunk, int fuel_on,             \
       int max_local_zeros, int bulk, int simd, int win, int opt,               \
-      int snap_max, WASM_T0_INT_ARGS, WASM_A3_INT_ARGS, void* stream) {        \
+      int snap_max, WASM_T0_INT_ARGS, WASM_A3_INT_ARGS, int width,             \
+      void* stream) {                                                          \
     Params p{hid,       a,         b,        c,         ilo,                   \
              ihi,       fent,      fnpar,    fnloc,     ftop,                  \
              ftyp,      brt,       tbl,      pc,        sp,                    \
@@ -246,6 +247,7 @@ int fused_launch(const Params& p, int bulk, int simd, int win, int opt,
              fc,        filo,      fihi,     WASM_OPT_FIELDS, snap_max};       \
     p.t0 = WASM_T0_FIELDS;                                                     \
     p.a3 = WASM_A3_FIELDS;                                                     \
+    p.width = width;                                                           \
     return fused_launch<KBULK, KSIMD, KWIN, KOPT, FUSED>(p, bulk, simd, win,  \
                                                          opt, stream);         \
   }                                                                            \

@@ -354,6 +354,9 @@ struct Params {
   T0Args t0;
   // tables, segments and weighted gas (WASM_TABLES, WASM_GAS builds)
   A3Args a3;
+  // the lanes launched (lane compaction's narrowed launches): lanes
+  // [0, width) run, L stays the pitch of every plane
+  int width;
 };
 
 // Threads per block of every launch: one warp, so that 4096 lanes are 128
@@ -2831,8 +2834,8 @@ template <bool kBulk, bool kSimd, class F = NoFusion, bool kWin = false,
 __global__ void __launch_bounds__(BLOCK_THREADS) interp_kernel(const Params p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned mask = 0;
-  if constexpr (kOpt) mask = __ballot_sync(0xffffffffu, lane < p.L);
-  if (lane >= p.L) return;
+  if constexpr (kOpt) mask = __ballot_sync(0xffffffffu, lane < p.width);
+  if (lane >= p.width) return;
   const int trap0 = p.trap[lane];
   if constexpr (!kOpt) {
     if (trap0 != 0) return;
@@ -3036,7 +3039,8 @@ int launch_kernel(const Params& p, cudaStream_t st) {
   // a build without the split runs only depths whose rows all fit on chip
   if (!kStackSplit && stack_rows<kSimd, kWin>(p.D) < p.D)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (p.L + BLOCK_THREADS - 1) / BLOCK_THREADS;
+  if (p.width < 0 || p.width > p.L) return (int)cudaErrorInvalidValue;
+  const int blocks = (p.width + BLOCK_THREADS - 1) / BLOCK_THREADS;
   if (blocks <= 0) return 0;
   size_t smem;
   const auto k = interp_kernel<kBulk, kSimd, F, kWin, kOpt>;
@@ -3166,7 +3170,8 @@ extern "C" int wasm_interp_launch(
     WASM_T0_PTR_ARGS, WASM_A3_PTR_ARGS, int code_len, int nf, int n_brt,
     int tsize, int nv, int L, int D, int CD, int NG, int W, int chunk,
     int fuel_on, int max_local_zeros, int bulk, int simd, int win, int opt,
-    int snap_max, WASM_T0_INT_ARGS, WASM_A3_INT_ARGS, void* stream) {
+    int snap_max, WASM_T0_INT_ARGS, WASM_A3_INT_ARGS, int width,
+    void* stream) {
   Params p{hid, a, b, c, ilo, ihi, fent, fnpar, fnloc, ftop, ftyp, brt, tbl,
            pc, sp, fp, opbase, call_depth, trap, retired, fuel, mem_pages,
            stack_lo, stack_hi, fr_ret_pc, fr_fp, fr_opbase, glob_lo, glob_hi,
@@ -3176,6 +3181,7 @@ extern "C" int wasm_interp_launch(
            WASM_OPT_FIELDS, snap_max};
   p.t0 = WASM_T0_FIELDS;
   p.a3 = WASM_A3_FIELDS;
+  p.width = width;
   constexpr bool kWin = WASM_MEM_WINDOW != 0;
   constexpr bool kOpt = WASM_OPTIMISTIC != 0;
   cudaStream_t st = (cudaStream_t)stream;

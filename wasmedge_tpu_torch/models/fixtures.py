@@ -2274,3 +2274,28 @@ def serve_load(requests: int, seed: int, tenants=("t0", "t1", "t2", "t3"),
 def serve_model(func: str, n) -> np.ndarray:
     """The model of a config-5 request `module:func` over arguments."""
     return {f"{m}:{f}": model for m, f, model in CONFIG5}[func](n)
+
+
+# lane compaction (batch/compact.py): the knobs that hold the policy fully
+# open, so that tiny test mixes fire at every boundary (the JAX tests'
+# `make_conf(forced=True)`, tests/test_compact.py:56-74)
+COMPACT_FORCED = {"compact": True, "compact_min_interval": 1,
+                  "compact_trigger": 0.0, "compact_cost_factor": 0.0,
+                  "compact_width_floor": 4}
+
+
+def compact_conf(conf, **knobs):
+    """`conf` with lane compaction on and its policy held open
+    (COMPACT_FORCED), then the batch knobs `knobs` set; returns `conf`."""
+    for k, v in dict(COMPACT_FORCED, **knobs).items():
+        setattr(conf.batch, k, v)
+    return conf
+
+
+def div_args(lanes: int, lo: int = 4, hi: int = 11, seed: int = 3
+             ) -> np.ndarray:
+    """Divergent fib arguments: lo + lane % (hi - lo + 1), shuffled by a
+    seeded generator (tests/test_compact.py `div_args`)."""
+    ns = (lo + np.arange(lanes) % (hi - lo + 1)).astype(np.int64)
+    np.random.default_rng(seed).shuffle(ns)
+    return ns

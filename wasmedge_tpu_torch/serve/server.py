@@ -26,10 +26,19 @@ and harvest; a round without host calls copies from the
 device once.  `engine=` takes a prebuilt engine, such as a
 `MultiModuleBatchEngine` over several modules (`module:func` names).
 
+Lane compaction (`conf.batch.compact`, batch/compact.py): the server
+owns the boundary pass (`_compact_round`, after admission, while lanes
+are bound), with narrowing off (serving lanes are capacity, not a fixed
+cohort); its engine is marked `_compact_external`, so the engine never
+permutes under the bindings.  Each permutation remaps the bindings, the
+pending kills, the free lanes and the recycling history.
+
 Left out until their subsystems are ported (each is off by default in
-the reference server): lane virtualization, lane compaction, guest
-suspend and resume (effects), resharding and the mesh, checkpoints,
-recovery, lineage and integrity audits, autotune and the recorder.
+the reference server): lane virtualization, guest suspend and resume
+(effects), resharding and the mesh, checkpoints, recovery, lineage and
+integrity audits, autotune and the recorder (with them, the parts of
+`_compact_round` that remap hv's tables, the checkpoint journal and the
+stdout cursor).
 Without recovery, a failed launch fails the server: every in-flight and
 queued future is rejected with the error (`_fail`), with no retry.  The
 recorder's admission events are kept as a plain list, `admissions`:
@@ -46,6 +55,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from wasmedge_tpu_torch.batch.compact import LaneCompactor
 from wasmedge_tpu_torch.batch.image import TRAP_DONE
 from wasmedge_tpu_torch.common.errors import ErrCode, WasmError
 from wasmedge_tpu_torch.serve.queue import (
@@ -75,6 +85,13 @@ class BatchServer:
                                       lanes=lanes, device=device)
         self.k = self.conf.serve
         self.lanes = self.engine.lanes
+        # lane compaction: the server's own compactor, never the engine's
+        self.engine._compact_external = True
+        self.engine.compactor = None
+        self._compactor = None
+        self.compact_s = 0.0
+        if self.conf.batch.compact:
+            self._compactor = LaneCompactor(self.engine, narrow=False)
         self.queue = FairQueue(self.k.queue_capacity, weights=weights,
                                quotas=quotas)
         self.recycler = LaneRecycler(self.engine)
@@ -182,6 +199,8 @@ class BatchServer:
             now = time.monotonic()
             self._expire_queued(now)
             admitted = self._admit(now)
+            if self._compactor is not None and self._bindings:
+                self._compact_round()
             run_from = (self.state, self.total) if self._bindings else None
         # the launch slice runs outside the lock, so that submit() and
         # shutdown() from other threads do not wait for it; only the
@@ -371,6 +390,35 @@ class BatchServer:
         self._rows = max(self._rows, nres)
         self.counters["admitted"] += len(picks)
         return len(picks)
+
+    def _compact_round(self):
+        """Lane compaction's boundary pass (under the lock, before the
+        launch): when the policy fires, one gather permutes the lanes, and
+        every lane-keyed structure of the server follows its lane: the
+        bindings, the pending kills, the free lanes and the recycling
+        history.  The policy reads the state after this round's installs.
+        A launch's read-back (HostPlanes) lives only from that launch to
+        the harvest of its round, after this pass, so no mirror taken
+        before a permutation feeds a harvest.  `compact_s` sums the
+        rounds' host seconds."""
+        if self.state is None:
+            return
+        t0 = time.perf_counter()
+        comp = self._compactor
+        plan = comp.plan_boundary(self.engine, self.state)
+        if plan is not None:
+            d, perm = plan
+            self.state = comp.permute_state(self.state, perm)
+            inv = np.empty(perm.size, np.int64)
+            inv[perm] = np.arange(perm.size)
+            self._bindings = {int(inv[lane]): req
+                              for lane, req in self._bindings.items()}
+            self._kills = {int(inv[lane]): exc
+                           for lane, exc in self._kills.items()}
+            self._served_before = self._served_before[perm]
+            self._free = sorted(int(inv[lane]) for lane in self._free)
+            comp.fired(d)
+        self.compact_s += time.perf_counter() - t0
 
     def _enforce(self, now: float, host):
         """Deadlines and the per-request step budget on in-flight lanes

@@ -4,7 +4,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases:
   1. build   - compile every kernel the script runs, one nvcc process per
-               source, all started together: the per-op warp-interpreter
+               source: those of the main phase (3) all started together,
+               the rest queued to run in the background, seven at a time
+               at the lowest CPU priority, while the main phase runs,
+               and every one still queued when it ends started together
+               then: the per-op warp-interpreter
                (csrc/interp.cu, four instantiations, a library each with
                direct memory access and with the B4 window cache,
                csrc/memwin.cuh, with and without B3 optimistic
@@ -21,11 +25,11 @@ Phases:
                superinstructions), the spec corpus's modules and config
                5's concatenated image included;
                print each build's instance cases, seconds, shapes, mean
-               shape length, SASS bytes and indirect branches (BRX;
-               the main path's fib(30) and vloop builds against the same
-               modules with no block case: what the pc switch compiled
-               to), registers and spills, and what the CUDA runtime
-               reports of
+               shape length, registers and spills, the SASS bytes and
+               indirect branches (BRX) of the main path's fib(30) and
+               vloop builds against the same modules with no block case
+               (what the pc switch compiled to), and what the CUDA
+               runtime reports of
                the per-op instantiations and config 2's fused builds
                (registers, local bytes, shared memory per block, blocks
                per SM);
@@ -130,8 +134,9 @@ Phases:
                blocks, optimistic and careful, and a launch of the
                CoreMark-style kernel x 4096 right after a permutation, in
                both memory modes.
-               Then, in this
-               process, one 256-step launch of fib(30) x 4096 in each
+               Then, in a spawned process of their own (what the main
+               phase left in this process slowed them), one 256-step
+               launch of fib(30) x 4096 in each
                encoding, one converged memory.fill + memory.copy launch
                (also as PyTorch tensor calls, its warp passes counted),
                one 256-step vloop launch x 4096 (blocks, the main path,
@@ -146,7 +151,9 @@ Phases:
                weighted gas and flat fuel (the gas kernel against its
                plain version, the fuel it spent against its
                instructions' weights);
-  3. main    - at full size: the linked program x 4096 through
+  3. main    - (run after the main phase's builds and before the kernel
+               phase, each part's seconds printed) at full size: the
+               linked program x 4096 through
                VM.register_module -> load_wasm -> validate -> instantiate
                (its start function on the host's scalar engine, timed)
                -> execute_batch, run(n, k) with k = lane and n = 160,000 +
@@ -1057,6 +1064,36 @@ def run_job(job):
                               mix=dict(MIX_RECORDS)), None
 
 
+def timed_launch_phases():
+    """The one-launch timings (each kernel and its plain version on one
+    launch of TIMED_STEPS steps), and this process's window and
+    optimistic worst errors."""
+    out = ({f: phase_time_one_launch(f) for f in ("none", "blocks", "super")},
+           phase_time_bulk(), phase_time_simd_launch("blocks"),
+           phase_time_simd_launch("none"), phase_time_mem_launch(),
+           phase_time_tier0(), phase_time_tables())
+    return out, WINDOW_WORST[0], dict(OPT_WORST)
+
+
+def timed_launches() -> tuple:
+    """`timed_launch_phases` in a spawned process of its own, so that
+    what the main phase left in this process (its profiler sessions,
+    engines and caches) does not time with them: run here after the main
+    phase, the plain versions took about twice as long and the short
+    launches up to 65 % longer.  Its worst errors are merged into this
+    process's."""
+    import concurrent.futures
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as ex:
+        out, window, opt = ex.submit(timed_launch_phases).result()
+    WINDOW_WORST[0] = max(WINDOW_WORST[0], window)
+    for k in OPT_WORST:
+        OPT_WORST[k] = max(OPT_WORST[k], opt[k])
+    return out
+
+
 def run_jobs(groups: dict) -> dict:
     """Every job of `groups` (group name -> jobs) on WORKERS worker
     processes (spawned; each builds nothing: the libraries exist); the
@@ -1508,13 +1545,16 @@ def table_fixtures(L: int) -> list:
     models.fixtures.table_cases on the table zoo (per-op and blocks: its
     super encoding was cut to keep the script's time, PERF.md;
     `agree` must roll back: lanes that call one index of tables that
-    differ), and the tail-dispatch workload at TAIL_SMALL_N steps in
-    both modes (per-op and blocks; "converged" every warp uniform and no
-    rollback, "divergent" none uniform), and with weighted gas and a
-    budget that runs out (blocks)."""
+    differ), every case of table_terminal_cases (blocks: B2 instance
+    cases that run call_indirect, return_call(_indirect) and div / rem
+    terminals chained to a call, with every trap of each, a literal-zero
+    rem_u and div_s of INT_MIN by -1), and the tail-dispatch workload at
+    TAIL_SMALL_N steps in both modes (per-op and blocks; "converged"
+    every warp uniform and no rollback, "divergent" none uniform), and
+    with weighted gas and a budget that runs out (blocks)."""
     from wasmedge_tpu_torch.models.fixtures import (
         TABLE_ZOO_CAP, build_table_zoo, build_tail_dispatch, table_cases,
-        tail_cost_table, tail_dispatch_args)
+        table_terminal_cases, tail_cost_table, tail_dispatch_args)
 
     zoo = build_table_zoo()
     knobs = dict(value_stack_depth=64, call_stack_depth=16,
@@ -1523,6 +1563,10 @@ def table_fixtures(L: int) -> list:
             dict(knobs, table_elems_per_lane=TABLE_ZOO_CAP),
             True if case == "agree" else None, None, ("none", "blocks"))
            for case, (func, args) in table_cases(L, SEED).items()]
+    out += [(f"tables.term_{case}", zoo, func, args, 64, None,
+             dict(knobs, table_elems_per_lane=TABLE_ZOO_CAP), None, None,
+             ("blocks",))
+            for case, (func, args) in table_terminal_cases(L, SEED).items()]
     tail = build_tail_dispatch()
     for mode in ("converged", "divergent"):
         args = tail_dispatch_args(L, mode, TAIL_SMALL_N)
@@ -1539,12 +1583,8 @@ def table_fixtures(L: int) -> list:
 
 def table_builds() -> list:
     """The tables (CPU) of the table, segment, tail-call and weighted-gas
-    builds the script runs: the zoo's and the tail-dispatch jobs' (each
-    encoding, B3 mode and memory mode), and the main path's tail dispatch
-    (blocks, the default depths, optimistic and careful, and with
-    weighted gas)."""
-    from wasmedge_tpu_torch.models.fixtures import tail_cost_table
-
+    builds the kernel phase's table jobs run: the zoo's and the
+    tail-dispatch jobs' (each encoding, B3 mode and memory mode)."""
     out = []
     for name, data, _, _, _, fuel, kn, _, _, fusions in table_fixtures(2):
         for fusion in fusions:
@@ -1553,10 +1593,17 @@ def table_builds() -> list:
                         data, 2, device="cpu", fusion=fusion, mem_hbm=m,
                         optimistic=opt, fuel_per_launch=fuel, **kn)):
                     out.append(eng.tables)
-    out += [e.tables for e in tail_engines(2, device="cpu")]
-    out.append(tail_engines(2, device="cpu", fuel_per_launch=1,
-                            cost_table=tail_cost_table())[0].tables)
     return out
+
+
+def tail_builds() -> list:
+    """The tables (CPU) of the main path's tail dispatch: blocks, the
+    default depths, optimistic and careful, and with weighted gas."""
+    from wasmedge_tpu_torch.models.fixtures import tail_cost_table
+
+    return [e.tables for e in tail_engines(2, device="cpu")] + [
+        tail_engines(2, device="cpu", fuel_per_launch=1,
+                     cost_table=tail_cost_table())[0].tables]
 
 
 def table_jobs() -> list:
@@ -2042,6 +2089,19 @@ def counted(label: str, fn, need=("interp",)):
     return out, counts, wall, e0.elapsed_time(e1)
 
 
+def terminal_counts(tables) -> dict:
+    """The terminals that the B2 instance cases of `tables`' generated
+    source run in the case, by kind, and the calls chained after a div
+    or rem (batch/fusegen.py `terminal_counts`); empty for another
+    encoding."""
+    from wasmedge_tpu_torch.batch import fusegen
+
+    if tables.fusion != "blocks":
+        return {}
+    return {k: v for k, v in fusegen.terminal_counts(
+        tables.fused_source).items() if v}
+
+
 def run_main(vm, func, args, steps_per_launch, need=("interp",),
              fusion=None):
     """One run (run_vm) with every launch count set to 0 before and read
@@ -2082,6 +2142,7 @@ def run_main(vm, func, args, steps_per_launch, need=("interp",),
     counts["build"] = fused_build(eng.tables)
     counts["bulk_ops"] = interp.bulk_counts(eng.tables) \
         if eng.tables.has_bulk else {}
+    counts["terminals"] = terminal_counts(eng.tables)
     return res, counts["interp"], wall, ev_ms, counts
 
 
@@ -2103,7 +2164,8 @@ def report_main(label, res_launches_wall_ev_counts, retired) -> dict:
           f"{ev_ms:.1f} ms, retired {retired}{shape}; warps "
           f"{counts['warps']}, uniform {counts['uniform']}"
           f"{'; entry ' + str(counts['entry']) if counts['entry'] else ''}"
-          f"{'; windows ' + str(counts['window_counts']) if counts['window_counts'] else ''}",
+          f"{'; windows ' + str(counts['window_counts']) if counts['window_counts'] else ''}"
+          f"{'; in-case terminals ' + str(counts['terminals']) if counts['terminals'] else ''}",
           flush=True)
     return dict(encoding=counts["encoding"], launches=launches,
                 tables_launches=counts["tables"], gas_launches=counts["gas"],
@@ -2116,7 +2178,8 @@ def report_main(label, res_launches_wall_ev_counts, retired) -> dict:
                 window_counts=counts["window_counts"],
                 mem_window=counts["mem_window"],
                 wall_s=wall, event_ms=ev_ms, retired=retired,
-                instr_per_s_wall=retired / wall, build=build)
+                instr_per_s_wall=retired / wall, build=build,
+                in_case_terminals=counts["terminals"])
 
 
 def check_uniform(rec: dict, label: str, every: bool) -> None:
@@ -3200,7 +3263,9 @@ def phase_time_tables() -> dict:
         fail(f"weighted-gas tail dispatch launch: kernel != plain (max abs "
              f"err {gerr}) or fuel spent {spent}, not the {want} its "
              f"{retired} instructions weigh")
-    print(f"  tail dispatch launch: retired {retired}, bound {bound_ms:.6f} "
+    terms = terminal_counts(eng.tables)
+    print(f"  tail dispatch launch: in-case terminals {terms}, retired "
+          f"{retired}, bound {bound_ms:.6f} "
           f"ms by {by} ({bytes_} B: stack rows {max_sp}, code tables "
           f"{table_bytes} B, segments {segments} B; operations "
           f"{bound_ops_ms:.6f} ms); weighted gas {gas['gas'][0]:.4f} ms, "
@@ -3209,6 +3274,7 @@ def phase_time_tables() -> dict:
           f"{int(one.retired.sum())} instructions", flush=True)
     return dict(t, bound_ms=bound_ms, careful_bound_ms=bound_ms,
                 bound_by=by, retired=retired, bound_bytes=bytes_,
+                in_case_terminals=terms,
                 gas_ms=gas["gas"][0], fuel_ms=gas["fuel"][0],
                 gas_max_abs_err=gerr, gas_fuel_spent=spent,
                 max_abs_err=max(t["max_abs_err"], gerr))
@@ -4395,6 +4461,94 @@ def phase_compact_checkpoint() -> dict:
                    [np.full(L, MEM_COREMARK_N)],
                    lambda e, st: bool((st.retired != 0).any()),
                    np.full(L, coremark_py(MEM_COREMARK_N)))
+        out["stdout_cursor"] = stdout_cursor_round_trip(d)
+    return out
+
+
+# the stdout cursor's round trip: lanes, steps per launch, and the step
+# counts at which it saves and at which it restores
+CURSOR_LANES = 64
+CURSOR_CHUNK = 40
+CURSOR_STEPS = (40, 120)
+
+
+def stdout_cursor_round_trip(d) -> dict:
+    """The exactly-once stdout cursor (ROADMAP C11) on the card: a tier-0
+    echo batch (echo's main-path build: blocks, windows, optimistic; 3-6
+    iterations a lane, CURSOR_LANES lanes) run to a launch boundary (its
+    records flushed), saved, run on (more records flushed), restored from
+    the checkpoint and finished; the same on the plain version; and both
+    again with lane compaction forced on (COMPACT_FORCED: the cursor moves
+    with the lanes, after the restore too).  Each record is printed once
+    (the bytes are every lane's messages, the uninterrupted count), the
+    card's bytes, journaled `stdout_pos` and final planes equal the plain
+    version's, and the restore replayed flushed records (the high-water
+    mark above the restored position)."""
+    from wasmedge_tpu_torch.batch import checkpoint
+    from wasmedge_tpu_torch.batch.compact import arm
+    from wasmedge_tpu_torch.batch.hostcall import _stdout_cursor
+    from wasmedge_tpu_torch.models import build_echo
+    from wasmedge_tpu_torch.models.fixtures import COMPACT_FORCED
+    from wasmedge_tpu_torch.models.programs import ECHO_MESSAGE
+    from wasmedge_tpu_torch.vm.vm import make_engine as vm_engine
+
+    L = CURSOR_LANES
+    iters = 3 + np.arange(L) % 4
+    calls = int(2 * iters.sum())
+
+    def run(dev, compact):
+        tag = f"{dev}_{'compact' if compact else 'plain'}"
+        path = os.path.join(d, f"echo_{tag}.out")
+        ck = os.path.join(d, f"echo_{tag}.npz")
+        fd = os.open(path, os.O_RDWR | os.O_CREAT | os.O_TRUNC)
+        try:
+            vm = wasi_vm(build_echo(), fd)
+            vm.conf.batch.lanes = L
+            vm.conf.batch.steps_per_launch = CURSOR_CHUNK
+            for k, v in (COMPACT_FORCED if compact else {}).items():
+                setattr(vm.conf.batch, k, v)
+            eng = vm_engine(vm._active, vm.store, vm.conf, device=dev)
+            comp = arm(eng)
+            st = eng.initial_state(eng.export_func_idx("echo"), [iters])
+            st, total = eng.run_from_state(st, 0, CURSOR_STEPS[0])
+            checkpoint.save(ck, eng, st, total)
+            st, total = eng.run_from_state(st, total, CURSOR_STEPS[1])
+            st, total = checkpoint.load(ck, eng)
+            pos, hw = _stdout_cursor(eng, L)
+            replay = int((hw - pos).sum())
+            st, total = eng.run_from_state(st, total, 10**9)
+        finally:
+            os.close(fd)
+        with np.load(ck) as z:
+            spos = np.asarray(z["stdout_pos"])
+        with open(path, "rb") as f:
+            moved = 0 if comp is None else comp.stats["moved_lanes"]
+            return f.read(), replay, spos, on_cpu(st), moved
+
+    out = {}
+    for compact in (False, True):
+        (got, replay, spos, st, moved), (want, _, wpos, wst, _) = \
+            run("cuda", compact), run("cpu", compact)
+        err = max_abs_err(st, wst)
+        kind = "compacted" if compact else "uncompacted"
+        if got != want or len(got) != calls * len(ECHO_MESSAGE) or \
+                got.count(ECHO_MESSAGE) != calls or replay <= 0 or \
+                not np.array_equal(spos, wpos) or err != 0 or \
+                (compact and moved == 0):
+            fail(f"stdout cursor, {kind}: card {len(got)} B, plain "
+                 f"{len(want)} B, {calls} records of {len(ECHO_MESSAGE)} B "
+                 f"expected, replayed {replay} B, stdout_pos equal "
+                 f"{np.array_equal(spos, wpos)}, max abs err {err}, "
+                 f"{moved} lanes moved")
+        print(f"  checkpoint stdout cursor, {kind}: echo x {L} saved at "
+              f"step {CURSOR_STEPS[0]}, restored after step "
+              f"{CURSOR_STEPS[1]}: {replay} B replayed below the high-water "
+              f"mark and skipped, {len(got)} B printed ({calls} records "
+              f"once), {moved} lane moves, equal to the plain version",
+              flush=True)
+        out[kind] = dict(bytes=len(got), records=calls,
+                         replayed_bytes=replay, moved_lanes=moved,
+                         max_abs_err=err)
     return out
 
 
@@ -4664,14 +4818,25 @@ def instance_cases(tables) -> int:
                          tables.fused_source).group(1))
 
 
+# nvcc processes that build, in the background, the kernels only the
+# kernel phase runs while the main phase runs (one core left for it)
+BACKGROUND_BUILDS = 7
+
+
 def prebuild() -> dict:
-    """Build every kernel the script runs, all nvcc processes at once:
-    the per-op kernel (direct access and window cache, a library each)
-    and the fused kernel of each module, encoding and memory mode (the
-    fused fixtures, the main-path modules, the SIMD corpus module).  The
-    generated source depends only on the module, the encoding and the
-    memory mode, so tables made on the CPU name the same builds as the
-    card's."""
+    """Start every build the script runs and finish those of the main
+    phase: the per-op kernel (direct access and window cache, a library
+    each) and the fused kernel of each module, encoding and memory mode
+    (the fused fixtures, the main-path modules, the SIMD corpus module).
+    The main phase's builds (the per-op libraries, the main-path modules,
+    the tail dispatch, the linked program, the concatenated images and
+    the corpora) run all at once in the foreground; the rest, which only
+    the kernel phase and the pc-switch lines use, are queued to run in
+    the background, BACKGROUND_BUILDS at a time at the lowest CPU
+    priority, while the main phase runs (`finish_builds` takes them).
+    The generated source depends only on the module, the encoding and
+    the memory mode, so tables made on the CPU name the same builds as
+    the card's."""
     from wasmedge_tpu_torch.batch import interp
     from wasmedge_tpu_torch.models import (
         build_bulk_workload, build_coremark_kernel, build_echo, build_fib,
@@ -4689,19 +4854,19 @@ def prebuild() -> dict:
     def encs(simd):
         return ("blocks",) if simd else ("blocks", "super")
 
+    env, wasi = (env_import,), (lambda: wasi_import(1),)
+    main_mods = [(build_fib(), False, (), encs(False), 256),
+                 (build_coremark_kernel(), False, (), ("blocks",), 256),
+                 (build_simd_loop(), True, (), ("blocks",), 64),
+                 (build_bulk_workload(), False, (), ("blocks",), 64),
+                 (build_memory_workload(passes=MEM_PASSES), False, (),
+                  ("blocks",), MEM_STACKS["value_stack_depth"])]
     mods = [(data, simd, (), encs(simd), kn["value_stack_depth"],
              kn.get("instance_cap"))
             for _, data, _, _, _, _, kn, simd in fused_fixtures(2)]
     mods += [(data, simd, (), encs(simd), kn["value_stack_depth"], None)
              for _, data, _, _, _, kn, simd, _ in opt_fixtures(2)]
-    env, wasi = (env_import,), (lambda: wasi_import(1),)
-    mods += [(build_fib(), False, (), encs(False), 256),
-             (build_coremark_kernel(), False, (), ("blocks",), 256),
-             (build_simd_loop(), True, (), ("blocks",), 64),
-             (build_bulk_workload(), False, (), ("blocks",), 64),
-             (build_memory_workload(passes=MEM_PASSES), False, (),
-              ("blocks",), MEM_STACKS["value_stack_depth"]),
-             (build_host_double(), False, env, encs(False), 64),
+    mods += [(build_host_double(), False, env, encs(False), 64),
              (build_window_host(), False, env, encs(False), 64),
              (build_bulk_warp(), False, (), ("blocks",), 64),
              (build_uniform_probe(), False, (), ("blocks",),
@@ -4712,34 +4877,41 @@ def prebuild() -> dict:
     # the WASI modules with tier 0 on (the default) and off, and the
     # tier-0 fixtures (per-op: the per-op libraries with the tier-0
     # handlers)
-    t0mods = [(build_echo(), encs(False), (True, False)),
-              (build_wasi_hello(), ("blocks",), (True, False)),
-              (build_tier0_zoo(), ("none",) + encs(False), (True,)),
+    main_t0mods = [(build_echo(), encs(False), (True, False)),
+                   (build_wasi_hello(), ("blocks",), (True, False))]
+    t0mods = [(build_tier0_zoo(), ("none",) + encs(False), (True,)),
               (build_tier0_unsafe(), ("none",), (True,))]
-    tables = []
-    for data, simd, imports, fusions, depth, *cap in mods:
-        for fusion in fusions:
-            for opt in (None, False):
-                for _, (eng, _) in memory_modes(lambda m: make_engine(
-                        data, 2, device="cpu", imports=[f() for f in imports],
-                        fusion=fusion, mem_hbm=m, optimistic=opt,
-                        value_stack_depth=depth,
-                        instance_cap=(cap or [None])[0])):
-                    tables.append(eng.tables)
-    for data, fusions, t0s in t0mods:
-        for fusion in fusions:
-            for opt in (None, False):
-                for t0 in t0s:
+
+    def of(mods, t0mods):
+        out = []
+        for data, simd, imports, fusions, depth, *cap in mods:
+            for fusion in fusions:
+                for opt in (None, False):
                     for _, (eng, _) in memory_modes(lambda m: make_engine(
-                            data, 2, device="cpu", imports=[wasi[0]()],
-                            fusion=fusion, mem_hbm=m, optimistic=opt,
-                            value_stack_depth=64, tier0_hostcalls=t0)):
-                        tables.append(eng.tables)
-    tables += table_builds()
-    tables += linked_builds()
-    tables += mix_builds()
-    tables += corpus_tables([SIMD_WAST])
-    tables += corpus_tables(corpus_files(), corpus_conf())
+                            data, 2, device="cpu",
+                            imports=[f() for f in imports], fusion=fusion,
+                            mem_hbm=m, optimistic=opt,
+                            value_stack_depth=depth,
+                            instance_cap=(cap or [None])[0])):
+                        out.append(eng.tables)
+        for data, fusions, t0s in t0mods:
+            for fusion in fusions:
+                for opt in (None, False):
+                    for t0 in t0s:
+                        for _, (eng, _) in memory_modes(
+                                lambda m: make_engine(
+                                    data, 2, device="cpu",
+                                    imports=[wasi[0]()], fusion=fusion,
+                                    mem_hbm=m, optimistic=opt,
+                                    value_stack_depth=64,
+                                    tier0_hostcalls=t0)):
+                            out.append(eng.tables)
+        return out
+
+    main = of(main_mods, main_t0mods) + tail_builds() + linked_builds() \
+        + mix_builds() + corpus_tables([SIMD_WAST]) \
+        + corpus_tables(corpus_files(), corpus_conf())
+    rest = of(mods, t0mods) + table_builds()
     # the main path's fib(30) and vloop blocks builds, kOpt and careful,
     # and each module once more with no block case (every pc through the
     # hid plane): the difference in BRX says what the pc switch compiled
@@ -4755,20 +4927,43 @@ def prebuild() -> dict:
             base = without_cases(eng.tables, eng.img)
             mains[f"{name}_blocks_{'kopt' if opt is None else 'careful'}"] \
                 = (eng.tables, base)
-            tables.append(base)
-
-    t0 = time.perf_counter()
+            rest.append(base)
     # the per-op build for every memory and B3 mode (every per-op run of
     # the script has a depth whose rows all fit on chip)
-    interp.build_kernels(tables, per_op=[
-        (w, o, False) for w in (False, True) for o in (False, True)])
+    per_op = [(w, o, False) for w in (False, True) for o in (False, True)]
+    in_main = {interp.fused_kernel_key(t) for t in main
+               if t.fusion != "none"}
+    queued = interp.start_builds(
+        [t for t in rest if t.fusion == "none"
+         or interp.fused_kernel_key(t) not in in_main],
+        at_once=BACKGROUND_BUILDS)
+    t0 = time.perf_counter()
+    interp.build_kernels(main, per_op=per_op)
+    return dict(wall_s=time.perf_counter() - t0, queued=queued,
+                tables=main + rest, per_op=per_op, mains=mains)
+
+
+def finish_builds(pre: dict) -> dict:
+    """Wait for (and start what is still queued of) every build
+    `prebuild` started, then print each fused build's instance cases,
+    seconds, shapes, mean shape length, registers and spills, and the
+    SASS bytes and indirect branches of the main path's fib(30) and vloop
+    builds against the same modules with no block case (what the pc
+    switch compiled to)."""
+    from wasmedge_tpu_torch.batch import interp
+
+    t0 = time.perf_counter()
+    interp.build_kernels(pre["tables"], per_op=pre["per_op"])
     wall = time.perf_counter() - t0
+    tables, mains = pre["tables"], pre["mains"]
     cases = {interp.fused_kernel_key(t): instance_cases(t) for t in tables
              if t.fusion != "none"}
     infos = interp.BUILD_INFO["fused"]
+    dumped = [interp.fused_kernel_key(t) for pair in mains.values()
+              for t in pair]
     with ThreadPoolExecutor(8) as pool:
-        sass = dict(zip(infos, pool.map(lambda i: sass_of(i["path"]),
-                                        infos.values())))
+        sass = dict(zip(dumped, pool.map(
+            lambda k: sass_of(infos[k]["path"]), dumped)))
     # the main path's pc switches: a jump table adds one BRX per dispatch
     # loop over the same module with no block case, a compare tree none
     switches = {}
@@ -4786,29 +4981,35 @@ def prebuild() -> dict:
     builds = {}
     for key, info in infos.items():
         rows = parse_ptxas(info.get("ptxas", ""))
-        ss = sass_stats(sass[key])
-        code = next(iter(ss.values()), {})
+        code = next(iter(sass_stats(sass[key]).values()), {}) \
+            if key in sass else {}
         builds[key] = dict(fusion=info.get("fusion"),
                            shapes=info.get("shapes"),
                            mean_len=info.get("mean_len"),
                            mem_window=info.get("mem_window"),
                            optimistic=info.get("optimistic"),
                            instance_cases=cases.get(key),
-                           seconds=info.get("seconds"), ptxas=rows,
+                           seconds=info.get("seconds"),
+                           background=info.get("background"), ptxas=rows,
                            sass_bytes=code.get("sass_bytes"),
                            brx=code.get("brx"), shfl=code.get("shfl"),
                            warpsync=code.get("warpsync"))
+        sass_line = (f", SASS {code.get('sass_bytes')} B, {code.get('brx')} "
+                     f"BRX, {code.get('shfl')} SHFL, {code.get('warpsync')} "
+                     f"WARPSYNC") if code else ""
         print(f"  fused build {key} [{info.get('fusion')}"
               f"{', windows' if info.get('mem_window') else ''}"
               f"{', optimistic' if info.get('optimistic') else ''}]: "
               f"{cases.get(key)} instance cases, {info.get('shapes')} block "
               f"shapes, mean length {info.get('mean_len') or 0:.2f}, nvcc "
-              f"{info.get('seconds') or 0:.1f} s, SASS "
-              f"{code.get('sass_bytes')} B, {code.get('brx')} BRX, "
-              f"{code.get('shfl')} SHFL, {code.get('warpsync')} WARPSYNC",
-              flush=True)
+              f"{info.get('seconds') or 0:.1f} s"
+              f"{' (background)' if info.get('background') else ''}"
+              f"{sass_line}", flush=True)
         print_registers(key, rows)
     return dict(wall_s=wall, n_fused=len(builds), fused=builds,
+                background=sum(bool(b["background"])
+                               for b in builds.values()),
+                waited_s=dict(interp.BUILD_INFO["waited"]),
                 pc_switches=switches)
 
 
@@ -4824,18 +5025,64 @@ def main() -> int:
           f"cuda {torch.version.cuda}, card: {card}", flush=True)
 
     t0 = time.perf_counter()
-    builds = prebuild()
+    pre = prebuild()
     t_build = time.perf_counter() - t0
     per_op_s = {k: round(v.get("seconds", 0), 2)
                 for k, v in interp.BUILD_INFO["per_op"].items()}
-    print(f"phase build: {t_build:.2f} s (per-op nvcc {per_op_s}, "
-          f"{builds['n_fused']} fused builds, all at once)", flush=True)
+    print(f"phase build: {t_build:.2f} s (per-op nvcc {per_op_s}, the main "
+          f"phase's {len(interp.BUILD_INFO['fused'])} fused builds, all at "
+          f"once; {pre['queued']} builds queued for the background)",
+          flush=True)
     per_op_regs = {interp.per_op_label(w, o): kernel_registers(w, o)
                    for o in (False, True) for w in (False, True)}
     for label, rows in per_op_regs.items():
         print_registers(f"per-op, {label}", rows)
     regs = per_op_regs[interp.per_op_label(False, False)]
     win_regs = per_op_regs[interp.per_op_label(True, False)]
+
+    # the main phase, while the kernel phase's builds run in the
+    # background; each part's seconds
+    main_s = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        main_s[name] = round(time.perf_counter() - t, 2)
+        return out
+
+    t0 = time.perf_counter()
+    main_out = part("main", phase_main)
+    scalar = regs.get("interp_kernel<kBulk=0, kSimd=0>", {})
+    print(f"fib({PER_OP_FIB_N}) x {MAIN_LANES} per-op ran interp_kernel<kBulk=0, "
+          f"kSimd=0> ({scalar.get('registers')} registers, "
+          f"{scalar.get('spill_stores', 0)} B spill stores): wall "
+          f"{main_out['fib_none']['wall_s']:.3f} s; fib(30) in blocks "
+          f"{main_out['fib30']['wall_s']:.3f} s, fib({PER_OP_FIB_N}) in super "
+          f"{main_out['fib_super']['wall_s']:.3f} s", flush=True)
+    main_out["tables"] = part("tables", phase_main_tables)
+    main_out["linked"] = part("linked", phase_main_linked)
+    main_out["scalar_corpus"] = part("scalar_corpus", phase_scalar_corpus)
+    main_out.update(part("wasi", phase_main_wasi))
+    main_out["bulk"] = part("bulk", phase_main_bulk)
+    main_out["simd_corpus"] = part("simd_corpus", phase_simd_corpus)
+    main_out["spec_corpus"] = part("spec_corpus", phase_spec_corpus)
+    main_out["vloop"] = part("vloop", phase_main_simd)
+    main_out["config2"] = part("config2", phase_main_memory)
+    main_out["mix"] = part("mix", phase_main_mix)
+    main_out["serve"] = part("serve", phase_serve)
+    main_out["compact"] = part("compact", phase_compact, main_out)
+    t_main = time.perf_counter() - t0
+    print(f"phase main: {t_main:.2f} s ({json.dumps(main_s)}; background "
+          f"builds running beside it)", flush=True)
+
+    t0 = time.perf_counter()
+    builds = finish_builds(pre)
+    t_build_rest = time.perf_counter() - t0
+    print(f"phase build, the rest: {t_build_rest:.2f} s after the main "
+          f"phase ({builds['n_fused']} fused builds in all, "
+          f"{builds['background']} of them started in the background; the "
+          f"main phase waited for {len(builds['waited_s'])} background "
+          f"builds, {sum(builds['waited_s'].values()):.1f} s)", flush=True)
     attrs = window_attributes()
     geometry = phase_geometry()
 
@@ -4855,13 +5102,8 @@ def main() -> int:
         w["mix"]
     compact_worst = w["compact"]
     t_jobs = time.perf_counter() - t0
-    timing = {f: phase_time_one_launch(f) for f in ("none", "blocks", "super")}
-    bulk_timing = phase_time_bulk()
-    simd_timing = phase_time_simd_launch("blocks")
-    simd_op_timing = phase_time_simd_launch("none")
-    mem_timing = phase_time_mem_launch()
-    t0_timing = phase_time_tier0()
-    tables_timing = phase_time_tables()
+    (timing, bulk_timing, simd_timing, simd_op_timing, mem_timing,
+     t0_timing, tables_timing) = timed_launches()
     t_kernel = time.perf_counter() - t0
     print(f"phase kernel_vs_plain: {t_kernel:.2f} s (comparisons "
           f"{t_jobs:.2f} s on {WORKERS} workers), max abs err "
@@ -4885,29 +5127,6 @@ def main() -> int:
           flush=True)
     print(f"concatenated-image jobs: {json.dumps(MIX_RECORDS)}", flush=True)
 
-    t0 = time.perf_counter()
-    main_out = phase_main()
-    scalar = regs.get("interp_kernel<kBulk=0, kSimd=0>", {})
-    print(f"fib({PER_OP_FIB_N}) x {MAIN_LANES} per-op ran interp_kernel<kBulk=0, "
-          f"kSimd=0> ({scalar.get('registers')} registers, "
-          f"{scalar.get('spill_stores', 0)} B spill stores): wall "
-          f"{main_out['fib_none']['wall_s']:.3f} s; fib(30) in blocks "
-          f"{main_out['fib30']['wall_s']:.3f} s, fib({PER_OP_FIB_N}) in super "
-          f"{main_out['fib_super']['wall_s']:.3f} s", flush=True)
-    main_out["tables"] = phase_main_tables()
-    main_out["linked"] = phase_main_linked()
-    main_out["scalar_corpus"] = phase_scalar_corpus()
-    main_out.update(phase_main_wasi())
-    main_out["bulk"] = phase_main_bulk()
-    main_out["simd_corpus"] = phase_simd_corpus()
-    main_out["spec_corpus"] = phase_spec_corpus()
-    main_out["vloop"] = phase_main_simd()
-    main_out["config2"] = phase_main_memory()
-    main_out["mix"] = phase_main_mix()
-    main_out["serve"] = phase_serve()
-    main_out["compact"] = phase_compact(main_out)
-    t_main = time.perf_counter() - t0
-    print(f"phase main: {t_main:.2f} s", flush=True)
 
     def per_launch(prof):
         return prof["kernel_ms"] / prof["launches"]
@@ -4956,6 +5175,7 @@ def main() -> int:
         idle_share=lk["profile"]["idle_share"],
         uniform=lk["uniform"], entered=lk["warps"]["entered"],
         rollbacks=lk["warps"]["rollbacks"],
+        in_case_terminals=lk["in_case_terminals"],
         instantiate_s=lk["instantiate_s"], start_s=lk["start_s"],
         model_s=lk["model_s"], gas_cost_limit=lk["gas"]["cost_limit"],
         gas_start_cost=lk["gas"]["start_cost"],
@@ -5229,8 +5449,17 @@ def main() -> int:
     # the same launch with weighted gas / flat fuel; "launches" counts the
     # main path's converged run's launches of the build with the table
     # handlers, "main_ms_per_launch" their kernel device time, and the
-    # divergent, careful and gas runs' beside it
+    # divergent, careful and gas runs' beside it, "main_bound_ms" the
+    # bound of one of its launches
     tt = main_out["tables"]
+    # the main path's launch's bound: the timed launch's bytes (the same
+    # rows, program bytes, tables and segments) and its own instructions
+    main_ops_ms = (tt["converged"]["retired"] / tt["converged"]["launches"]
+                   * OPS_PER_INSTR / OPS_PER_S * 1e3)
+    main_bytes_ms = tables_timing["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+    print(f"  tail dispatch main-path launch bound: "
+          f"{max(main_ops_ms, main_bytes_ms):.6f} ms (operations "
+          f"{main_ops_ms:.6f} ms, bytes {main_bytes_ms:.6f} ms)", flush=True)
     tables_record = launch_record(
         "tables", "wasmedge_tpu_torch/csrc/interp.cu",
         "wasmedge_tpu/batch/engine.py:1156-1307 and :1464-1505 (the JAX "
@@ -5253,12 +5482,18 @@ def main() -> int:
         gas_launches=tt["gas"]["gas_launches"],
         gas_main_ms_per_launch=per_launch(tt["gas"]["profile"]),
         fuel_main_ms_per_launch=per_launch(tt["fuel"]["profile"]),
+        in_case_terminals=tt["converged"]["in_case_terminals"],
+        main_bound_ms=max(main_ops_ms, main_bytes_ms),
+        main_bound_by="operations" if main_ops_ms >= main_bytes_ms
+        else "bytes",
         timed_launch={"workload": "tail dispatch, converged",
                       "lanes": MAIN_LANES, "steps": TIMED_STEPS,
                       "encoding": "blocks",
                       "retired": tables_timing["retired"]})
-    print(json.dumps({"phases_s": {"build": t_build, "kernel": t_kernel,
-                                   "main": t_main},
+    print(json.dumps({"phases_s": {"build": t_build, "main": t_main,
+                                   "build_rest": t_build_rest,
+                                   "kernel": t_kernel},
+                      "main_parts_s": main_s,
                       "tier0_fixtures": TIER0_FIXTURES,
                       "tier0_launch": t0_timing,
                       "tables_launch": tables_timing,

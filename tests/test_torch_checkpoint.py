@@ -121,8 +121,10 @@ def test_checkpoint_save_is_atomic(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="collides"):
         save(tmp_path / "x.ckpt", eng, state, total,
              extra_arrays={"state_pc": np.zeros(1)})
-    with pytest.raises(ValueError, match="stdout_pos"):
-        save(tmp_path / "x.ckpt", eng, state, total, stdout_pos=[0])
+    # no tier-0 stdout buffer: a stdout position has nothing to journal
+    save(tmp_path / "x.ckpt", eng, state, total, stdout_pos=[0])
+    with np.load(tmp_path / "x.ckpt", allow_pickle=False) as z:
+        assert "stdout_pos" not in z.files
 
 
 def test_checkpoint_refuses_corrupt_control_planes(tmp_path):

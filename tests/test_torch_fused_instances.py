@@ -32,7 +32,8 @@ from wasmedge_tpu_torch.batch import fusegen, interp_ref
 from wasmedge_tpu_torch.batch.convert import state_from_reference
 from wasmedge_tpu_torch.batch.fusion import H_BLOCK_BASE
 from wasmedge_tpu_torch.batch.interp import (
-    H_BR, H_BRNZ, H_CALL, H_RETURN, device_tables, run_chunk)
+    H_BR, H_BRNZ, H_CALL, H_CALL_INDIRECT, H_RETURN, device_tables,
+    run_chunk)
 from wasmedge_tpu_torch.common.errors import ErrCode
 from wasmedge_tpu_torch.models import (
     build_coremark_kernel, build_fib, build_memory_workload,
@@ -134,9 +135,12 @@ def test_instance_cases_read_no_code_plane(name):
 
 
 def test_terminals_run_in_their_case():
-    """A block ending in br, brnz, return or call runs it in its case
-    (FUSED_DONE, n counting the terminal); any other terminal is left to
-    the per-op code (its handler id returned, n the block's ops)."""
+    """A block ending in br, brnz, return or a call (direct, indirect or
+    tail; an indirect or tail call through `call_op`) runs it in its
+    case (FUSED_DONE, n counting the terminal), and so
+    does one ending in a div or rem (its result row written, n counting
+    it on a trap too); any other terminal is left to the per-op code
+    (its handler id returned, n the block's ops)."""
     seen = set()
     for build in (build_block_terminals, build_trap_zoo, build_fib,
                   build_vmix):
@@ -148,10 +152,23 @@ def test_terminals_run_in_their_case():
                 seen.add(term)
                 assert f"n = {len(shape)};\n        return FUSED_DONE;" \
                     in text, (pc, term)
+            elif term in fusegen._CALLS:
+                # through the per-op step's call body, never returned to
+                # the per-op code
+                seen.add(term)
+                assert "call_op<kSimd>(" in text, (pc, term)
+                assert f"n = {len(shape)};\n        return FUSED_DONE;" \
+                    in text, (pc, term)
+                assert f"return {term};" not in text, (pc, term)
+            elif term in fusegen._DIVS:
+                seen.add("div")
+                assert "s.put(sp - 2, r" in text, (pc, term)
+                assert f"n = {len(shape)};" in text, (pc, term)
+                assert f"return {term};" not in text, (pc, term)
             elif term is not None:
                 assert f"return {term};" in text, (pc, term)
                 assert f"n = {len(shape) - 1};" in text
-    assert seen == {H_BR, H_BRNZ, H_RETURN, H_CALL}
+    assert seen == {H_BR, H_BRNZ, H_RETURN, H_CALL, H_CALL_INDIRECT, "div"}
     src = _tables(build_block_terminals()).fused_source
     for part in ("opt_save_frame(p, s.lane, cd, os.o.fhi)", "E_CALL_STACK",
                  "E_STACK_OVERFLOW", "TRAP_DONE", "w.agree((u32)p.fr_ret_pc",

@@ -21,9 +21,11 @@ Lane compaction (batch/compact.py): when the engine's compactor has
 moved lanes, the mapping is saved as `lane_src`, and `load` rolls the
 engine's compactor back to it (`restore_lane_src`); an engine with
 compaction off, or managed outside it (a serving engine), refuses such a
-snapshot.  The JAX package's `stdout_pos` (the exactly-once stdout
-cursor) is not ported: `save` refuses the argument rather than drop it,
-and the tier-0 stdout buffer is saved as a plane like any other.
+snapshot.  With a tier-0 stdout buffer, each lane's logical stdout
+position (`batch/hostcall.py` `_stdout_cursor`) is saved as
+`stdout_pos`, and `load` rewinds the engine's position to it while the
+engine's written high-water mark only grows, so records flushed after
+the snapshot are not printed again (exactly once in one process).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import numpy as np
 from wasmedge_tpu_torch.batch.compact import restore_lane_src
 from wasmedge_tpu_torch.batch.engine import (
     SIMD_FIELDS, T0_FIELDS, BatchState, a3_plane_rows)
+from wasmedge_tpu_torch.batch.hostcall import _stdout_cursor
 from wasmedge_tpu_torch.batch.image import (
     CLS_HOSTCALL, T0_FD_WRITE, TRAP_HOSTCALL)
 from wasmedge_tpu_torch.utils.fsio import atomic_write_bytes
@@ -84,11 +87,9 @@ def save(path, engine, state: BatchState, total_steps: int,
     the image hash alone cannot tell f(30) from f(31).  `extra_arrays`
     ({name: ndarray}) ride beside the planes; names must not collide
     with the `state_` prefix; `load` ignores them, `read_extra_arrays`
-    reads them back.  `stdout_pos` (the JAX package's exactly-once
-    stdout cursor) is refused: the cursor is not ported."""
-    if stdout_pos is not None:
-        raise ValueError("stdout_pos is not supported: the exactly-once "
-                         "stdout cursor is not ported")
+    reads them back.  `stdout_pos` (each lane's logical stdout
+    position; None: the engine's cursor) is saved when the state has a
+    tier-0 stdout buffer."""
     meta = {
         "format": FORMAT_VERSION,
         "image_sha256": image_fingerprint(engine.img),
@@ -103,6 +104,13 @@ def save(path, engine, state: BatchState, total_steps: int,
     arrays = {f"state_{name}": plane
               for name, plane in state.to_numpy().items()
               if plane is not None}
+    # the stdout cursor's logical positions rewind with the state on
+    # restore; saved (zeros) before the first flush too, or the first
+    # flush after a restore to such a snapshot would not be suppressed
+    if state.so_buf is not None:
+        if stdout_pos is None:
+            stdout_pos = _stdout_cursor(engine, int(state.so_off.shape[0]))[0]
+        arrays["stdout_pos"] = np.asarray(stdout_pos, np.int64)
     # the lane compaction mapping rolls back with the state on restore,
     # or results would come back lane-shuffled
     comp = getattr(engine, "compactor", None)
@@ -196,9 +204,36 @@ def load(path, engine) -> Tuple[BatchState, int]:
                     "checkpoint refused: the engine serves tier-0 host "
                     f"calls but the checkpoint lacks planes {missing}")
         _validate_planes(fields, engine)
-        restore_lane_src(engine, np.asarray(z["lane_src"], np.int64)
-                         if "lane_src" in z.files else None)
+        src = np.asarray(z["lane_src"], np.int64) \
+            if "lane_src" in z.files else None
+        # the journaled position replaces the engine's; the written mark
+        # only grows (output flushed after this snapshot stays suppressed
+        # in this process)
+        if "stdout_pos" in z.files:
+            journaled = np.asarray(z["stdout_pos"], np.int64)
+            pos, hw = _stdout_cursor(engine, journaled.size)
+            pos[:] = journaled
+            hw[:] = _marks_at(engine, hw, src)
+            np.maximum(hw, journaled, out=hw)
+        restore_lane_src(engine, src)
     return BatchState.from_numpy(fields, engine.device), meta["total_steps"]
+
+
+def _marks_at(engine, hw, src):
+    """The engine's written marks `hw` (in its lanes' present order)
+    moved to the snapshot's lane order `src` (None: identity): a lane
+    that the compactor moved after the snapshot takes its mark back
+    with it.  The JAX package's `load` leaves the marks in place, so
+    there a lane that moved after the snapshot is held to another lane's
+    mark (ROADMAP C12)."""
+    comp = getattr(engine, "compactor", None)
+    now = None if comp is None or comp.src.size != hw.size else comp.src
+    if now is None and src is None:
+        return hw
+    ident = np.arange(hw.size)
+    by_lane = np.empty_like(hw)
+    by_lane[ident if now is None else now] = hw
+    return by_lane[ident if src is None else src]
 
 
 def _validate_planes(fields, engine):

@@ -253,6 +253,7 @@ class LaneCompactor:
     width of each launch."""
 
     def __init__(self, engine, narrow: Optional[bool] = None):
+        self.engine = engine
         self.cfg = engine.cfg
         self.lanes = int(engine.lanes)
         allow = bool(self.cfg.compact_narrow)
@@ -354,9 +355,11 @@ class LaneCompactor:
     def permute_state(self, state, perm: np.ndarray):
         """Apply one boundary permutation: one gather along the lane axis
         of every lane plane into a new int32 contiguous tensor on the
-        plane's device (for a moment each plane is held twice), and the
-        composed src mapping.  The state object is updated and returned;
-        the gathers' time goes to permute_ms (CUDA events on the card)."""
+        plane's device (for a moment each plane is held twice), the
+        engine's exactly-once stdout cursor (`batch/hostcall.py`
+        `_stdout_cursor`, host arrays) and the composed src mapping.  The
+        state object is updated and returned; the gathers' time goes to
+        permute_ms (CUDA events on the card)."""
         dev = state.pc.device
         idx = torch.as_tensor(perm, dtype=torch.int64, device=dev)
         if dev.type == "cuda":
@@ -374,6 +377,10 @@ class LaneCompactor:
         else:
             self.permute_ms += (time.perf_counter() - t0) * 1e3
         self.src = self.src[perm]
+        cur = getattr(self.engine, "_stdout_cursor", None)
+        if cur is not None and cur[0].size == self.lanes:
+            cur[0][:] = cur[0][perm]
+            cur[1][:] = cur[1][perm]
         self.stats["moved_lanes"] += int((perm
                                           != np.arange(perm.size)).sum())
         return state

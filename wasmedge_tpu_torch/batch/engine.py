@@ -50,7 +50,7 @@ import torch
 
 from wasmedge_tpu_torch.batch.compact import arm, restore_mirrors
 from wasmedge_tpu_torch.batch.hostcall import (
-    flush_stdout_buffers, serve_batch_state)
+    flush_stdout_buffers, serve_batch_state, stdout_cursor_reset)
 from wasmedge_tpu_torch.batch.image import (
     CLS_DATA_DROP, CLS_ELEM_DROP, CLS_MEMGROW, CLS_MEMINIT, CLS_TABLE_GROW,
     CLS_TABLE_INIT, T0_FD_WRITE, T0_NEEDS_MEMORY, TRAP_DONE, TRAP_HOSTCALL,
@@ -476,6 +476,7 @@ class BatchEngine:
             max_steps: int = 10_000_000) -> BatchResult:
         func_idx = check_batch_entry(self.inst, func_name)
         arm(self)   # a fresh lane mapping a run (None: compaction off)
+        stdout_cursor_reset(self)  # a fresh run is a fresh output stream
         state = self.initial_state(func_idx, args_lanes)
         state, total = self.run_from_state(state, 0, max_steps)
         nres = int(self.inst.lowered.funcs[func_idx].nresults)

@@ -18,20 +18,26 @@ interpreter switches on the pc (no hid or flen load); the case tests the
 lane's step budget and fuel against its literal length and runs the
 head's own op when they do not cover it.  A block that ends in br,
 brnz, return or a direct call runs that terminal in the same case, with
-literal targets, keep counts and callees; any other terminal is left to
-the per-op code, as before.  Heads beyond the cap keep a case per block
-shape in `Fused::step`, reached through the hid plane, with its operands
-from the code planes at pc0 + j.  B6 superinstructions (`img` None): one
-case of `Fused::step` per superinstruction id present, dispatched by hid.
-The text depends on the module, the kBulk/kSimd/kWin/kOpt flags (kWin:
-memory through the window cache, `csrc/memwin.cuh`; kOpt: optimistic
-convergence, `csrc/optimistic.cuh`), whether the stack splits between
-shared and global memory (WASM_STACK_SPLIT) and the handlers compiled in
-on request (WASM_TIER0, WASM_TABLES; WASM_GAS with weighted gas, where an
-instance case tests the fuel against its ops' literal weight sum, so a
-lane without the fuel for the whole block runs it per op and runs out on
-the right one; the table, segment and tail-call classes always end a
-block and run per op).
+literal targets, keep counts and callees; one that ends in
+call_indirect, return_call or return_call_indirect runs it through
+interp.cu's `call_op` (the per-op step's body); one that ends in a div
+or rem runs it (its trap test decided here for a literal divisor) and,
+if a lone call follows it (`chains`: the case's length counts it), a
+direct one too, while any other call is left to the per-op code, which
+runs it in the same turn; any other terminal is left to the per-op
+code, as before.  Heads beyond the cap
+keep a case per block shape in `Fused::step`, reached through the hid
+plane, with its operands from the code planes at pc0 + j.  B6
+superinstructions (`img` None): one case of `Fused::step` per
+superinstruction id present, dispatched by hid.  The text depends on the
+module, the kBulk/kSimd/kWin/kOpt flags (kWin: memory through the window
+cache, `csrc/memwin.cuh`; kOpt: optimistic convergence,
+`csrc/optimistic.cuh`), whether the stack splits between shared and
+global memory (WASM_STACK_SPLIT) and the handlers compiled in on request
+(WASM_TIER0, WASM_TABLES; WASM_GAS with weighted gas, where an instance
+case tests the fuel against its ops' literal weight sum, so a lane
+without the fuel for the whole block runs it per op and runs out on the
+right one; the table and segment classes end a block and run per op).
 
 What a block does, per op: a push names a new cell; a pop takes the top
 cell, or reads the row below the block's entry sp; local and global
@@ -40,9 +46,11 @@ ordinal; v128 ops are force-inlined bodies chosen by their literal sub
 (`v2_fn`, `v1_fn`, ...: no out-of-line `v2_op` / `v1_op` call); guards,
 inline loads and stores exit with the cells live at that point written to
 their rows; at the end the live cells are written, and then the terminal
-runs.  Every decision (a guard's or branch's condition, an inline
-access's address, a return's frame row, a superinstruction's branch) goes
-through the warp's `w`, which under kOpt takes lane 0's; an inline access
+runs (a div or rem also writes its result row, and a call its frame row,
+its slid arguments and zeroed locals, as the per-op steps do).  Every
+decision (a guard's or branch's condition, an inline access's address, a
+return's frame row, a superinstruction's branch) goes through the warp's
+`w`, which under kOpt takes lane 0's; an inline access
 that asks for a commit (OPT_DEFER) exits before it with the ops ahead of
 it retired.  `batch/interp_ref.py` runs the same shapes op by op with the
 same flush rule, and its per-op step runs the terminal.
@@ -50,13 +58,15 @@ same flush rule, and its per-op step runs the terminal.
 
 from __future__ import annotations
 
+import re
+
 from wasmedge_tpu_torch.batch.fusion import (
-    H_BLOCK_BASE, SUPER_LEN, super_family)
+    _DIV32_SUBS, _DIV64_SUBS, H_BLOCK_BASE, SUPER_LEN, super_family)
 from wasmedge_tpu_torch.batch.interp import (
-    H_BR, H_BRNZ, H_CALL, H_FUSE_A2R_BASE, H_FUSE_GBR,
-    H_FUSE_GCA_BASE, H_FUSE_GCB_BASE, H_FUSE_GCC_BASE, H_FUSE_GCS_BASE,
-    H_FUSE_GGA_BASE, H_FUSE_GGBNZ_BASE, H_FUSE_GGBZ_BASE, H_FUSE_GGS_BASE,
-    H_RETURN)
+    H_ALU2_BASE, H_BR, H_BRNZ, H_CALL, H_CALL_INDIRECT, H_FUSE_A2R_BASE,
+    H_FUSE_GBR, H_FUSE_GCA_BASE, H_FUSE_GCB_BASE, H_FUSE_GCC_BASE,
+    H_FUSE_GCS_BASE, H_FUSE_GGA_BASE, H_FUSE_GGBNZ_BASE, H_FUSE_GGBZ_BASE,
+    H_FUSE_GGS_BASE, H_RETCALL, H_RETCALL_INDIRECT, H_RETURN)
 
 # Instance cases per build.  Each is straight-line code inlined into the
 # dispatch loop (twice under kOpt: the warp-leader and the careful loop),
@@ -67,10 +77,25 @@ from wasmedge_tpu_torch.batch.interp import (
 # most 96 heads.
 MAX_INSTANCE_CASES = 1024
 
+# the call family, and the div and rem ops (the only ALU2 ops that end a
+# block: they can trap).  A call chained after a div or rem runs in the
+# per-op code, in the same turn: inlined in every case, it ran once per
+# case a divergent warp held (the loop's top reconverges a warp every
+# turn), and the divergent tail dispatch took 45 % longer on an H100
+# (PERF.md).
+_CALLS = (H_CALL, H_CALL_INDIRECT, H_RETCALL, H_RETCALL_INDIRECT)
+_DIVS = frozenset(H_ALU2_BASE + sub for sub in _DIV32_SUBS | _DIV64_SUBS)
+_DIV_S = (H_ALU2_BASE + 3, H_ALU2_BASE + 28)  # i32.div_s, i64.div_s
+_TERM_NAMES = {H_BR: "br", H_BRNZ: "brnz", H_RETURN: "return",
+               H_CALL: "call", H_CALL_INDIRECT: "call_indirect",
+               H_RETCALL: "return_call",
+               H_RETCALL_INDIRECT: "return_call_indirect"}
+
 # terminals an instance case runs itself (no block ends in a brz: it
 # comes only from `if`, always forward, and the planner makes every such
-# brz a guard)
-_IN_CASE_TERMINALS = (H_BR, H_BRNZ, H_RETURN, H_CALL)
+# brz a guard); a div or rem among them also runs a lone call at the
+# next pc (`chains`)
+_IN_CASE_TERMINALS = frozenset((H_BR, H_BRNZ, H_RETURN) + _CALLS) | _DIVS
 
 _HEAD = """\
 // Generated by wasmedge_tpu_torch/batch/fusegen.py: the fused dispatch of
@@ -186,6 +211,7 @@ def cuda_source(hid, shapes, bulk: bool, simd: bool,
     "blocks" encoding), the block heads get instance cases dispatched by
     pc."""
     hid = [int(h) for h in hid]
+    chain = chains(hid, hid0, shapes) if img is not None else {}
     supers = sorted({h for h in hid if super_family(h)})
     heads = [pc for pc, h in enumerate(hid) if h >= H_BLOCK_BASE] \
         if img is not None else []
@@ -211,7 +237,7 @@ def cuda_source(hid, shapes, bulk: bool, simd: bool,
         code = _Code(img, hid0, cost)
         for pc in inst:
             out.append(_Block(shapes[hid[pc] - H_BLOCK_BASE], simd,
-                              code, pc).instance_case())
+                              code, pc).instance_case(chain.get(pc)))
         default = _AT_PC_DEFAULT_STEP if sids else _AT_PC_DEFAULT
         if cost is not None:
             default = default.replace("fuel <= len",
@@ -219,6 +245,50 @@ def cuda_source(hid, shapes, bulk: bool, simd: bool,
         out.append(default)
     out.append(_TAIL.format(**flags))
     return "".join(out)
+
+
+def chains(hid, hid0, shapes) -> dict:
+    """{head pc: the pc of the call it chains} over a blocks encoding
+    (the fused hid plane `hid`, the original `hid0`): the instance heads
+    (the first MAX_INSTANCE_CASES) whose block ends in a div or rem
+    followed by a call, call_indirect, return_call or
+    return_call_indirect that heads no block.  Such a case runs the
+    terminal, and the call runs in the same turn of the loop
+    (`_Block.div_terminal`); its fused length, in `Tables.flen` and its
+    budget test, counts the call."""
+    hid = [int(h) for h in hid]
+    heads = [pc for pc, h in enumerate(hid)
+             if h >= H_BLOCK_BASE][:MAX_INSTANCE_CASES]
+    out = {}
+    for pc in heads:
+        shape = shapes[hid[pc] - H_BLOCK_BASE]
+        th = shape[-1][1] if shape[-1][0] == "term" else None
+        t1 = pc + len(shape)
+        if th in _DIVS and th in _IN_CASE_TERMINALS and t1 < len(hid) \
+                and int(hid0[t1]) in _CALLS and hid[t1] < H_BLOCK_BASE:
+            out[pc] = t1
+    return out
+
+
+def terminal_counts(src: str) -> dict:
+    """The terminals the instance cases of a generated source run in
+    the case, by kind ("br", "brnz", "return", "call", "call_indirect",
+    "return_call", "return_call_indirect", "div_rem"), and "chained":
+    the lone calls their div or rem cases also run."""
+    out = dict.fromkeys(list(_TERM_NAMES.values()) + ["div_rem", "chained"],
+                        0)
+    at = src.find("at_pc(")
+    if at < 0:
+        return out
+    # a case that runs its terminal notes its rows below sp first
+    for h, body in re.findall(r"^      case \d+: \{  //[^\n]* term:(-?\d+)\n"
+                              r"(.*?)\n      \}\n", src[at:], re.M | re.S):
+        if "\n        s.note(sp);\n" in body:
+            h = int(h)
+            out["div_rem" if h in _DIVS else _TERM_NAMES[h]] += 1
+    out["chained"] = len(re.findall(r"^ +// chained call at \d+",
+                                    src[at:], re.M))
+    return out
 
 
 class _Code:
@@ -271,6 +341,7 @@ class _Block:
         self.pend_l = {}     # local ordinal -> cell last read or written
         self.pend_g = {}     # global ordinal -> scalar cell last written
         self.k = 0
+        self.lits = {}       # cell name -> its literal value (a const)
         self.shape = shape
 
     # -- operands ------------------------------------------------------------
@@ -384,12 +455,14 @@ class _Block:
         return (f"      case {h}: {{  // {self.desc()}\n"
                 + "\n".join(self.lines) + "\n      }\n")
 
-    def instance_case(self):
+    def instance_case(self, chain=None):
         """The case of the block headed at pc0: the budget test against
         its literal length (else the head's own op), its ops, and its
-        terminal in the case or left to the per-op code."""
+        terminal in the case or left to the per-op code; `chain`: the pc
+        of the lone call the case runs after its div or rem terminal
+        (`chains`), counted in the length."""
         nops, pc0 = len(self.ops), self.pc0
-        length = len(self.shape)
+        length = len(self.shape) + (chain is not None)
         self.emit(f"if (left < {length} || (p.fuel_on && fuel <= "
                   f"{self.code.gas(pc0, length)}))")
         self.emit(f"  return {int(self.code.hid0[pc0])};")
@@ -398,13 +471,19 @@ class _Block:
         self.emit(f"sp = {self.sp_of(snap)};")
         t = pc0 + nops
         th = self.shape[-1][1] if self.term else None
-        if th in _IN_CASE_TERMINALS:
+        if th in _DIVS and th in _IN_CASE_TERMINALS:
+            self.emit("s.note(sp);")
+            self.div_terminal(th, t, snap, chain)
+        elif th in _IN_CASE_TERMINALS:
             # the live cells are in their rows; rows below this sp hold
             # what the terminal's per-op step would read
             self.emit("s.note(sp);")
-            self.terminal(th, t, snap)
-            self.emit(f"n = {nops + 1};")
-            self.emit("return FUSED_DONE;")
+            if th in _CALLS[1:]:
+                self.call_op_terminal(th, t, self.cell_at(0, snap)[1], nops)
+            else:
+                self.terminal(th, t, snap)
+                self.emit(f"n = {nops + 1};")
+                self.emit("return FUSED_DONE;")
         else:
             self.emit(f"pc = {t};")
             self.emit(f"n = {nops};")
@@ -424,6 +503,15 @@ class _Block:
             return whole, f"(u32)lo64({name})"
         row = _sp0(len(items) - nbelow - 1 - k)
         return f"s.getc({row})", f"(u32)s.get({row})"
+
+    def scalar_at(self, k, snap):
+        """(expression of the k-th cell's 64 scalar bits, its literal
+        value or None)."""
+        items, nbelow = snap
+        if k < len(items):
+            name = items[-1 - k][0]
+            return f"lo64({name})", self.lits.get(name)
+        return f"s.get({_sp0(len(items) - nbelow - 1 - k)})", None
 
     def terminal(self, th, t, snap):
         c = self.code
@@ -463,33 +551,117 @@ class _Block:
             emit("}")
         else:
             assert th == H_CALL
-            entry, npar, nloc, ftop = c.func(a)
-            zeros = min(max(nloc - npar, 0), int(c.img.max_local_zeros))
-            emit(f"const int fp_new = sp - {npar};")
-            # a call that runs out of both stacks traps E_STACK_OVERFLOW,
-            # as the per-op step and the reference decide
-            emit(f"if (fp_new + {ftop} > p.D) {{")
-            emit(f"  pc = {t};")
-            emit("  trap = E_STACK_OVERFLOW;")
-            emit("} else if (cd >= p.CD - 1) {")
-            emit(f"  pc = {t};")
-            emit("  trap = E_CALL_STACK;")
-            emit("} else {")
-            emit("  if constexpr (Wp::kLead) opt_save_frame(p, s.lane, cd, "
-                 "os.o.fhi);")
-            emit("  const size_t r = s.at(cd, p.CD);")
-            emit(f"  p.fr_ret_pc[r] = {t + 1};")
-            emit("  p.fr_fp[r] = fp;")
-            emit("  p.fr_opbase[r] = ob;")
-            if zeros:
-                emit(f"  for (int k = 0; k < {zeros}; ++k) "
-                     f"s.put(fp_new + {npar} + k, 0);")
-            emit(f"  pc = {entry};")
-            emit("  fp = fp_new;")
-            emit(f"  ob = fp_new + {nloc};")
-            emit("  sp = ob;")
-            emit("  cd = cd + 1;")
+            self.direct_call(a, t)
+
+    def direct_call(self, a, t):
+        """A direct call of callee a at pc t, its callee's entry, frame
+        and locals literals."""
+        c, emit = self.code, self.emit
+        entry, npar, nloc, ftop = c.func(a)
+        zeros = min(max(nloc - npar, 0), int(c.img.max_local_zeros))
+        emit(f"const int fp_new = sp - {npar};")
+        # a call that runs out of both stacks traps E_STACK_OVERFLOW, as
+        # the per-op step and the reference decide
+        emit(f"if (fp_new + {ftop} > p.D) {{")
+        emit(f"  pc = {t};")
+        emit("  trap = E_STACK_OVERFLOW;")
+        emit("} else if (cd >= p.CD - 1) {")
+        emit(f"  pc = {t};")
+        emit("  trap = E_CALL_STACK;")
+        emit("} else {")
+        emit("  if constexpr (Wp::kLead) opt_save_frame(p, s.lane, cd, "
+             "os.o.fhi);")
+        emit("  const size_t r = s.at(cd, p.CD);")
+        emit(f"  p.fr_ret_pc[r] = {t + 1};")
+        emit("  p.fr_fp[r] = fp;")
+        emit("  p.fr_opbase[r] = ob;")
+        if zeros:
+            emit(f"  for (int k = 0; k < {zeros}; ++k) "
+                 f"s.put(fp_new + {npar} + k, 0);")
+        emit(f"  pc = {entry};")
+        emit("  fp = fp_new;")
+        emit(f"  ob = fp_new + {nloc};")
+        emit("  sp = ob;")
+        emit("  cd = cd + 1;")
+        emit("}")
+
+    def call_op_terminal(self, h, t, index, n):
+        """call_indirect, return_call or return_call_indirect at pc t after
+        n ops of the case, through interp.cu's `call_op` (the per-op
+        step's body) with its type index or callee, table size and base
+        literals and its table index `index` (an expression: a register or
+        the row below sp).  On a trap pc and sp are the op's own."""
+        c, emit = self.code, self.emit
+        indirect = h in (H_CALL_INDIRECT, H_RETCALL_INDIRECT)
+        tail = h in (H_RETCALL, H_RETCALL_INDIRECT)
+        emit("int npc, nfp, nob, nsp, ncd;")
+        emit(f"const int code = call_op<kSimd>(p, s, w, os, CallLit{{"
+             f"{c.at('b', t)}, {c.at('c', t)}, "
+             f"{index if indirect else '0u'}}}, {str(indirect).lower()}, "
+             f"{str(tail).lower()}, {c.at('a', t)}, {t}, sp, fp, ob, cd, "
+             f"npc, nfp, nob, nsp, ncd);")
+        emit("if (code != 0) {")
+        emit(f"  pc = {t};")
+        emit("  trap = code;")
+        emit("} else {")
+        emit("  pc = npc;")
+        emit("  fp = nfp;")
+        emit("  ob = nob;")
+        emit("  sp = nsp;")
+        emit("  cd = ncd;")
+        emit("}")
+        emit(f"n = {n + 1};")
+        emit("return FUSED_DONE;")
+
+    def div_terminal(self, th, t, snap, chain):
+        """A div or rem at pc t: its result written to its row (on a trap
+        too, as the per-op step writes it), then its trap test: none for
+        a literal divisor that cannot trap, always E_DIV_ZERO for a
+        literal 0, the per-op test and its agreement otherwise (div_s by
+        a literal -1 keeps it for INT_MIN).  Then pc t + 1, or the lone
+        call there (`chain`): a direct call in the case, any other left
+        to the per-op code, which runs it in the same turn."""
+        emit, nops = self.emit, len(self.ops)
+        sub = th - H_ALU2_BASE
+        y, lit = self.scalar_at(0, snap)
+        x = self.scalar_at(1, snap)[0]
+        ones = 0xFFFFFFFF if sub < 25 else (1 << 64) - 1  # -1, all bits
+        if lit is not None:
+            lit &= ones
+        r = f"r{self.k}"
+        self.k += 1
+        emit(f"int {r}t = 0;")
+        emit(f"const u64 {r} = alu2({sub}, {x}, {y}, {r}t);")
+        emit(f"s.put(sp - 2, {r});")
+        done = [f"pc = {t};", f"n = {nops + 1};", "return FUSED_DONE;"]
+        if lit == 0:
+            for line in done[:1] + ["trap = E_DIV_ZERO;"] + done[1:]:
+                emit(line)
+            return
+        if lit is None or (th in _DIV_S and lit == ones):
+            emit(f"{r}t = (int)w.agree((u32){r}t);")
+            emit(f"if ({r}t != 0) {{")
+            for line in done[:1] + [f"trap = {r}t;"] + done[1:]:
+                emit("  " + line)
             emit("}")
+        emit("sp = sp - 1;")
+        if chain is None:
+            emit(f"pc = {t + 1};")
+            emit(f"n = {nops + 1};")
+            emit("return FUSED_DONE;")
+            return
+        h1 = int(self.code.hid0[chain])
+        emit(f"// chained call at {chain}: {h1}")
+        if h1 != H_CALL:
+            # the per-op code runs it in this turn, once for every lane of
+            # the warp at a call (_CALLS)
+            emit(f"pc = {chain};")
+            emit(f"n = {nops + 1};")
+            emit(f"return {h1};")
+            return
+        self.direct_call(self.code.at("a", chain), chain)
+        emit(f"n = {nops + 2};")
+        emit("return FUSED_DONE;")
 
     # -- ops -----------------------------------------------------------------
     def op(self, j, op):
@@ -505,7 +677,10 @@ class _Block:
                 lo = self.code.at("imm_lo", self.pc0 + j) & 0xFFFFFFFF
                 hi = self.code.at("imm_hi", self.pc0 + j) & 0xFFFFFFFF
                 expr = f"0x{(hi << 32) | lo:016x}ull"
-            self.items.append(self.new("s", expr))
+            cell = self.new("s", expr)
+            if self.code is not None:
+                self.lits[cell[0]] = (hi << 32) | lo
+            self.items.append(cell)
         elif kind == "lget":
             # a local read or written earlier in the block: that cell
             cell = self.pend_l.get(op[1])

@@ -28,9 +28,14 @@ in-device stdout buffer (`so_buf`: a header `fd << 28 | len`, then the
 payload padded to words); the flush writes them to the WASI environ's
 fds, lane by lane within each fd and fd by fd in sorted order, before
 every serve round (a tier-1 call must see the bytes written before it)
-and at the end of a run, and sets each lane's fill (`so_off`) to 0.  The
-reference's exactly-once cursor and effects stream serve checkpoints
-and its gateway, which the port does not have.
+and at the end of a run, and sets each lane's fill (`so_off`) to 0.
+Exactly once across restores (the reference's :134-164): each lane's
+records advance its logical stream position, and bytes below the
+engine's written high-water mark are a replay of output already flushed
+and are skipped (`_stdout_cursor`; `batch/checkpoint.py` journals the
+position).  The reference's effects stream (gateway request streams,
+also fed by tier-1 fd_write, :165-213) is not ported, so only tier-0
+records move the cursor, as in the reference without it.
 """
 
 from __future__ import annotations
@@ -107,15 +112,54 @@ def wasi_env_of(engine):
     return None
 
 
+def _stdout_cursor(engine, lanes: int):
+    """Each lane's stdout stream cursor, behind exactly-once flushing
+    across restores (the reference's hostcall.py:134-149).
+
+    `pos[lane]` is the lane's logical stream position: the payload bytes
+    its tier-0 fd_write records have reached in this run's replay order.
+    `hw[lane]` is the high-water mark of the bytes written to the host
+    fds.  A restore rewinds `pos` (checkpoint.load sets it to the
+    journaled one) while `hw` stays on the engine, so replayed records
+    are skipped up to the mark instead of written again."""
+    cur = getattr(engine, "_stdout_cursor", None)
+    if cur is None or cur[0].size != lanes:
+        cur = (np.zeros(lanes, np.int64), np.zeros(lanes, np.int64))
+        engine._stdout_cursor = cur
+    return cur
+
+
+def stdout_cursor_reset(engine, keep_highwater: bool = False):
+    """Set the logical stream position to 0 (a fresh run, or a restore
+    to the initial state).  `keep_highwater`: keep the written mark, so
+    that a replay of the same run from its start prints nothing it has
+    already flushed; False starts a new stream."""
+    cur = getattr(engine, "_stdout_cursor", None)
+    if cur is None:
+        return
+    cur[0][:] = 0
+    if not keep_highwater:
+        cur[1][:] = 0
+
+
 def stdout_bytes(buf: np.ndarray, so_off: np.ndarray) -> dict:
     """fd -> the bytes of the stdout records in buf [rows, L] (each lane's
-    rows below its fill so_off), lane after lane.  When every lane with
+    rows below its fill so_off), lane after lane."""
+    return _records(buf, so_off)[0]
+
+
+def _records(buf: np.ndarray, so_off: np.ndarray, skip=None):
+    """(fd -> record bytes lane after lane, each lane's payload bytes
+    [L]) of the records in buf [rows, L] below each lane's fill so_off;
+    `skip` [L]: the payload bytes at the head of each lane's records
+    left out (a replay below the high-water mark).  When every lane with
     records holds them at the same rows with the same headers (the same
-    lengths to the same fds), they are cut out of the planes for all
-    lanes at once; otherwise lane by lane."""
+    lengths to the same fds) and none skips, they are cut out of the
+    planes for all lanes at once; otherwise lane by lane."""
+    lens = np.zeros(so_off.shape[0], np.int64)
     lanes = np.nonzero(so_off > 0)[0]
     if lanes.size == 0:
-        return {}
+        return {}, lens
     cols = buf[:, lanes]
     first = cols[:, 0]
     layout = []  # lane 0's records: (header row, fd, length)
@@ -125,31 +169,44 @@ def stdout_bytes(buf: np.ndarray, so_off: np.ndarray) -> dict:
         layout.append((off, hdr >> 28, hdr & 0x0FFFFFFF))
         off += 1 + ((hdr & 0x0FFFFFFF) + 3) // 4
     hrows = [r for r, _, _ in layout]
-    if (so_off[lanes] == end).all() and \
+    if (skip is None or not skip[lanes].any()) and \
+            (so_off[lanes] == end).all() and \
             (cols[hrows] == first[hrows][:, None]).all():
         parts = {}
         for r, fd, ln in layout:
             words = np.ascontiguousarray(cols[r + 1:r + 1 + (ln + 3) // 4].T)
             parts.setdefault(fd, []).append(words.view(np.uint8)[:, :ln])
+        lens[lanes] = sum(ln for _, _, ln in layout)
         return {fd: np.concatenate(p, axis=1).tobytes()
-                for fd, p in parts.items()}
+                for fd, p in parts.items()}, lens
     out = {}
     for i, lane in enumerate(lanes):
+        k = 0 if skip is None else int(skip[lane])
         off, end = 0, int(so_off[lane])
         while off < end:
             hdr = int(np.uint32(cols[off, i]))
             ln = hdr & 0x0FFFFFFF
             nw = (ln + 3) // 4
-            out.setdefault(hdr >> 28, []).append(np.ascontiguousarray(
-                cols[off + 1:off + 1 + nw, i]).tobytes()[:ln])
+            s = min(k, ln)
+            k -= s
+            if s < ln:
+                out.setdefault(hdr >> 28, []).append(np.ascontiguousarray(
+                    cols[off + 1:off + 1 + nw, i]).tobytes()[s:ln])
+            lens[lane] += ln
             off += 1 + nw
-    return {fd: b"".join(p) for fd, p in out.items()}
+    return {fd: b"".join(p) for fd, p in out.items()}, lens
 
 
 def flush_stdout_buffers(engine, state) -> int:
     """Drain the tier-0 stdout records of `state` to the WASI environ's
     fds (one download of the rows below the largest fill, one write per
-    fd) and set every lane's fill to 0.  Returns the bytes written."""
+    fd) and set every lane's fill to 0, exactly once across restores:
+    the records advance each lane's stream position, and bytes below the
+    engine's written high-water mark are a replay of output a flush
+    before the restore wrote, and are skipped (the reference's
+    hostcall.py:214-283; payloads are deterministic unless a guest
+    writes clock values, where the replayed window is printed at least
+    once).  Returns the bytes written."""
     if state.so_buf is None:
         return 0
     so_off = state.so_off.cpu().numpy()
@@ -157,7 +214,11 @@ def flush_stdout_buffers(engine, state) -> int:
     if rows == 0:
         return 0
     t0 = time.perf_counter()
-    per_fd = stdout_bytes(state.so_buf[:rows].cpu().numpy(), so_off)
+    pos, hw = _stdout_cursor(engine, so_off.size)
+    per_fd, lens = _records(state.so_buf[:rows].cpu().numpy(), so_off,
+                            np.maximum(hw - pos, 0))
+    pos += lens
+    np.maximum(hw, pos, out=hw)
     env = wasi_env_of(engine)
     nbytes = 0
     for fd in sorted(per_fd):

@@ -46,10 +46,12 @@ runs the plain PyTorch interpreter of `batch/interp_ref.py`.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import dataclasses
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 import time
@@ -243,7 +245,9 @@ class Tables:
     holds the fused ids at the head slots, `hid0` the original hid plane
     (a head slot whose fused dispatch does not fit the lane's budget runs
     its original op), `flen` the instructions a fused dispatch retires in
-    full (0 at other slots), `shapes` the block shapes, and, for "super",
+    full (0 at other slots; a block whose case also runs the lone call
+    after its div or rem terminal counts it, `fusegen.chains`), `shapes`
+    the block shapes, and, for "super",
     `fa` ... `fihi` the rewritten operand planes that the superinstruction
     handlers read at their head slots.  `mem_window`: memory accesses go
     through each lane's window cache (B4; `batch/engine.py`
@@ -396,7 +400,13 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
         tables.filo, tables.fihi = t(filo), t(fihi)
     tables.hid0 = tables.hid
     tables.hid = t(fhid)
-    tables.flen = t(fused_lengths(fhid, shapes))
+    flen = fused_lengths(fhid, shapes)
+    if fusion == "blocks":
+        # a case that runs its div or rem terminal and the lone call
+        # after it retires the call too (fusegen.chains)
+        for pc in fusegen.chains(fhid, hid, shapes):
+            flen[pc] += 1
+    tables.flen = t(flen)
     tables.shapes = shapes
     tables.fused_source = fusegen.cuda_source(
         fhid, shapes, tables.has_bulk, tables.has_simd, tables.mem_window,
@@ -440,10 +450,12 @@ LAUNCHES = {"interp": 0, "bulk": 0, "hostcall": 0, "simd": 0, "block": 0,
 _libs = {}  # build key -> loaded ctypes library
 _lib_lock = threading.Lock()
 # "per_op" maps each per-op build (`per_op_label`) to its "path",
-# "seconds" and "ptxas" (its -v output); "fused" maps each fused build's
-# key to the same three and "fusion", "shapes", "mean_len", "mem_window",
-# "optimistic", "tier0", "tables" and "gas".
-BUILD_INFO = {"fused": {}, "per_op": {}}
+# "seconds", "ptxas" (its -v output) and "background" (started by
+# `start_builds`' queue); "fused" maps each fused build's key to the same
+# four and "fusion", "shapes", "mean_len", "mem_window", "optimistic",
+# "tier0", "tables" and "gas"; "waited" maps the key of each background
+# build that `build_kernels` had to wait for to the seconds it waited.
+BUILD_INFO = {"fused": {}, "per_op": {}, "waited": {}}
 
 
 def per_op_label(win: bool, opt: bool, split: bool = False,
@@ -556,6 +568,138 @@ def _new_job(tables: Optional[Tables], win: bool, opt: bool, split: bool,
     return key, os.path.join(_BUILD_DIR, f"libfused_{key}.so"), cu
 
 
+def _plan(tables_list, per_op) -> dict:
+    """key -> (library path, source path, fused Tables or None, per-op
+    flags) of the per-op builds `per_op`, of the per-op builds that run
+    the "none" tables of `tables_list` and of the fused build of each
+    other tables."""
+    jobs = {}
+    builds = {_per_op_flags(f) for f in per_op}
+    for tb in tables_list:
+        if tb.fusion == "none":
+            builds.add((tb.mem_window, tb.optimistic, tb.stack_split,
+                        one_key(tb)))
+    for flags in sorted(builds, key=str):
+        key, so, src = _job(None, *flags)
+        jobs[key] = (so, src, None, flags)
+    for tb in tables_list:
+        if tb.fusion == "none":
+            continue  # one of the per-op builds above
+        key, so, src = _job(tb)
+        jobs.setdefault(key, (so, src, tb, (
+            tb.mem_window, tb.optimistic, tb.stack_split, one_key(tb))))
+    return jobs
+
+
+@dataclasses.dataclass
+class _Nvcc:
+    """One nvcc process: its output library while it builds, its start
+    and (stamped by the reaper) end, its log file, and whether it was
+    started in the background."""
+    proc: subprocess.Popen
+    tmp: str
+    t0: float
+    log: object
+    background: bool
+    end: Optional[float] = None
+
+
+# nvcc processes that `build_kernels` has not taken yet (key -> _Nvcc),
+# the builds `start_builds` queued (key -> _plan's job), how many of
+# those may run at once, and the thread that stamps each process's end
+# and starts queued builds
+_running = {}
+_queued = {}
+_at_once = [1]
+_reaper = [None]
+_run_lock = threading.Lock()
+
+
+def _spawn(key, job, background: bool) -> None:
+    """Start nvcc on `job` (the caller holds _run_lock); a background
+    build runs at the lowest CPU priority where `nice` exists."""
+    so, src, tb, flags = job
+    tmp = f"{so}.{os.getpid()}.tmp"
+    if tb is not None:
+        with open(f"{src}.{os.getpid()}.tmp", "w") as f:
+            f.write(tb.fused_source)
+        os.replace(f"{src}.{os.getpid()}.tmp", src)
+    defines = _defines(*flags) if tb is None else ()
+    nice = shutil.which("nice") if background else None
+    cmd = [*([nice, "-n", "19"] if nice else []), _nvcc(), *NVCC_FLAGS,
+           *defines, "-Xptxas", "-v", "-I", _CSRC, "-o", tmp, src]
+    # nvcc's output goes to a file: a full pipe would stall it
+    log = open(f"{tmp}.log", "w+")
+    _running[key] = _Nvcc(subprocess.Popen(cmd, stdout=log, stderr=log),
+                          tmp, time.perf_counter(), log, background)
+
+
+def _reap() -> None:
+    """Stamp each nvcc's end and start queued builds while fewer than
+    `_at_once[0]` background builds run; return when nothing runs or
+    waits."""
+    while True:
+        with _run_lock:
+            now = time.perf_counter()
+            for r in _running.values():
+                if r.end is None and r.proc.poll() is not None:
+                    r.end = now
+            busy = sum(r.background and r.end is None
+                       for r in _running.values())
+            while _queued and busy < _at_once[0]:
+                key = next(iter(_queued))
+                _spawn(key, _queued.pop(key), True)
+                busy += 1
+            if not _queued and all(r.end is not None
+                                   for r in _running.values()):
+                _reaper[0] = None
+                return
+        time.sleep(0.05)
+
+
+def _ensure_reaper() -> None:
+    """Start the reaper unless it runs (the caller holds _run_lock)."""
+    if _reaper[0] is None:
+        _reaper[0] = threading.Thread(target=_reap, daemon=True)
+        _reaper[0].start()
+
+
+def _stop_builds() -> None:
+    """Drop the queue and kill every nvcc still running (at exit, and
+    when a wait for builds is interrupted)."""
+    with _run_lock:
+        _queued.clear()
+        for r in _running.values():
+            if r.proc.poll() is None:
+                r.proc.kill()
+                r.proc.wait()
+
+
+atexit.register(_stop_builds)
+
+
+def start_builds(tables_list=(), per_op=(), at_once: int = 1) -> int:
+    """Queue the builds of `tables_list` and `per_op` (as `build_kernels`
+    names them) that are neither built, running nor queued, to run in the
+    background: at most `at_once` nvcc processes at a time, each at the
+    lowest CPU priority, so that the caller's own work keeps its cores
+    meanwhile.  `build_kernels` starts a queued build at once when it
+    needs it, and waits for a running one.  Returns the builds queued."""
+    with _run_lock:
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        _at_once[0] = max(1, at_once)
+        n = 0
+        for key, job in _plan(tables_list, per_op).items():
+            if key in _libs or key in _running or key in _queued or \
+                    os.path.exists(job[0]):
+                continue
+            _queued[key] = job
+            n += 1
+        if n:
+            _ensure_reaper()
+    return n
+
+
 def build_kernels(tables_list=(), per_op=((False, False, False),)) -> dict:
     """Build, all nvcc processes at once, the per-op kernel
     (`csrc/interp.cu`, four instantiations, a library for each (window,
@@ -567,66 +711,53 @@ def build_kernels(tables_list=(), per_op=((False, False, False),)) -> dict:
     `csrc/fused.cuh` and the generated dispatch of its blocks or
     superinstructions, one instantiation), each into a shared library
     under `_build/` keyed by the hash of its sources and flags, and load
-    them.  Returns {key: library}; `BUILD_INFO` records paths, build
-    seconds and ptxas output.  Raises if any build fails."""
+    them.  A build that `start_builds` queued starts now with the others;
+    one it started is waited for (BUILD_INFO["waited"]: key -> seconds
+    waited for a background build still running).  Returns {key:
+    library}; `BUILD_INFO` records paths, build seconds and ptxas
+    output.  Raises if any build fails."""
     with _lib_lock:
         os.makedirs(_BUILD_DIR, exist_ok=True)
-        jobs = {}
-        builds = {_per_op_flags(f) for f in per_op}
-        for tb in tables_list:
-            if tb.fusion == "none":
-                builds.add((tb.mem_window, tb.optimistic, tb.stack_split,
-                            one_key(tb)))
-        for flags in sorted(builds, key=str):
-            key, so, src = _job(None, *flags)
-            jobs[key] = (so, src, None, flags)
-        for tb in tables_list:
-            if tb.fusion == "none":
-                continue  # one of the per-op builds above
-            key, so, src = _job(tb)
-            jobs.setdefault(key, (so, src, tb, (
-                tb.mem_window, tb.optimistic, tb.stack_split,
-                one_key(tb))))
-        procs = {}
-        for key, (so, src, tb, flags) in jobs.items():
-            if key in _libs or os.path.exists(so):
-                continue
-            tmp = f"{so}.{os.getpid()}.tmp"
-            if tb is not None:
-                with open(f"{src}.{os.getpid()}.tmp", "w") as f:
-                    f.write(tb.fused_source)
-                os.replace(f"{src}.{os.getpid()}.tmp", src)
-            defines = _defines(*flags) if tb is None else ()
-            cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-Xptxas", "-v", "-I",
-                   _CSRC, "-o", tmp, src]
-            # nvcc's output goes to a file: a full pipe would stall it
-            log = open(f"{tmp}.log", "w+")
-            procs[key] = (subprocess.Popen(cmd, stdout=log, stderr=log),
-                          tmp, time.perf_counter(), log)
-        # each build's own seconds: poll until every nvcc has ended
-        ended, logs = {}, {}
+        jobs = _plan(tables_list, per_op)
+        with _run_lock:
+            for key, job in jobs.items():
+                if key in _libs or key in _running or \
+                        os.path.exists(job[0]):
+                    continue
+                _queued.pop(key, None)
+                _spawn(key, job, False)
+            mine = {k: _running[k] for k in jobs if k in _running}
+            late = [k for k, r in mine.items()
+                    if r.background and r.end is None]
+            if mine:
+                _ensure_reaper()
+        # each build's own seconds: the reaper stamps every nvcc's end
+        t0 = time.perf_counter()
         try:
-            while len(ended) < len(procs):
-                for key, (proc, _, t0, _) in procs.items():
-                    if key not in ended and proc.poll() is not None:
-                        ended[key] = time.perf_counter() - t0
+            while any(r.end is None for r in mine.values()):
                 time.sleep(0.05)
-        finally:
-            for key, (proc, _, _, log) in procs.items():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-                log.seek(0)
-                logs[key] = log.read()
-                log.close()
-                os.remove(log.name)
-        for key, (proc, tmp, _, _) in procs.items():
+        except BaseException:
+            _stop_builds()
+            raise
+        for key in late:
+            BUILD_INFO["waited"][key] = mine[key].end - t0
+        with _run_lock:
+            for key in mine:
+                del _running[key]
+        logs = {}
+        for key, r in mine.items():
+            r.log.seek(0)
+            logs[key] = r.log.read()
+            r.log.close()
+            os.remove(r.log.name)
+        for key, r in mine.items():
             so, src, tb, flags = jobs[key]
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+            if r.proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({r.proc.returncode}) on "
                                    f"{src}:\n{logs[key]}")
-            os.replace(tmp, so)
-            info = {"path": so, "seconds": ended[key], "ptxas": logs[key]}
+            os.replace(r.tmp, so)
+            info = {"path": so, "seconds": r.end - r.t0,
+                    "ptxas": logs[key], "background": r.background}
             if tb is not None:
                 BUILD_INFO["fused"][key] = info
             else:
@@ -744,9 +875,11 @@ BULK_COUNTS = ("warp_passes", "warp_lanes", "lane_walks")
 WINDOW_COUNTS = ("hits", "misses", "ways_written_back", "rows_written_back",
                  "rows_filled")
 ENTRY_COUNTS = ("compares", "cycles")
+TURN_COUNTS = ("lane_turns", "warp_turns")
 _COUNTERS = {"wasm_bulk_counts": BULK_COUNTS,
              "wasm_win_counts": WINDOW_COUNTS,
-             "wasm_entry_counts": ENTRY_COUNTS}
+             "wasm_entry_counts": ENTRY_COUNTS,
+             "wasm_turn_counts": TURN_COUNTS}
 
 
 def _lib_counts(lib, fn: str, clear: bool) -> dict:
@@ -795,12 +928,23 @@ def entry_counts(tables: Tables, clear: bool = False) -> dict:
     return _device_counts(tables, "wasm_entry_counts", clear)
 
 
+def turn_counts(tables: Tables, clear: bool = False) -> dict:
+    """The dispatch loop's turns in the counting build that runs `tables`
+    (a fused source with WASM_TURN_COUNTS defined, `tools/tail_probe.py`)
+    since they were last cleared: "lane_turns" (each lane's turns,
+    summed: the sum of `__popc(__activemask())` over the warps' turns)
+    and "warp_turns" (the turns that lanes ran together, counted once);
+    set to 0 after the read when `clear`."""
+    return _device_counts(tables, "wasm_turn_counts", clear)
+
+
 def clear_counts() -> None:
-    """Set the bulk, window and entry counts of every loaded library
-    to 0."""
+    """Set the bulk, window, entry and (in counting builds) turn counts
+    of every loaded library to 0."""
     for lib in _libs.values():
         for fn in _COUNTERS:
-            _lib_counts(lib, fn, True)
+            if hasattr(lib, fn):
+                _lib_counts(lib, fn, True)
 
 
 def fused_kernel_key(tables: Tables) -> str:

@@ -203,7 +203,11 @@ def _run_fused(t, st, lanes, pc, h, fuel_on, left, win, opt=None,
                t0_time=None):
     """One fused dispatch (a block or a superinstruction) on the lanes at
     fused id h, then the terminal op, per op, on the lanes it leaves at
-    one."""
+    one; a block whose fused length counts one op more than its shape
+    (a div or rem terminal chained to the lone call after it,
+    `fusegen.chains`) runs that call too, per op, on the lanes the
+    terminal left at it, as the kernel's case runs all three in one
+    turn of its loop."""
     g = _Fused(t, st, lanes, pc, fuel_on, win, opt)
     if h >= H_BLOCK_BASE:
         g.block(t.shapes[h - H_BLOCK_BASE])
@@ -212,8 +216,26 @@ def _run_fused(t, st, lanes, pc, h, fuel_on, left, win, opt=None,
     g.commit_fused()
     left[lanes] -= g.n
     tl = lanes[g.term]
-    if tl.numel() == 0:
+    ran = _run_terms(t, st, tl, fuel_on, left, win, opt, t0_time)
+    if h < H_BLOCK_BASE or ran.numel() == 0:
         return
+    n = len(t.shapes[h - H_BLOCK_BASE])
+    if not bool((t.flen[pc.long()] > n).any()):
+        return
+    head = torch.full_like(st.pc, -1)
+    head[lanes] = pc
+    hp = head[ran]
+    call = (t.flen[hp.long()] > n) & (st.pc[ran] == hp + n) & \
+        (st.trap[ran] == 0)
+    _run_terms(t, st, ran[call], fuel_on, left, win, opt, t0_time)
+
+
+def _run_terms(t, st, tl, fuel_on, left, win, opt, t0_time):
+    """One op, per op, on the lanes `tl` at their pcs; returns the lanes
+    that ran it (not those waiting for a commit)."""
+    out = []
+    if tl.numel() == 0:
+        return tl
     tpc = st.pc[tl].clamp(0, t.hid.shape[0] - 1)
     th = t.hid[tpc.long()]
     for h2 in torch.unique(th).tolist():
@@ -221,6 +243,8 @@ def _run_fused(t, st, lanes, pc, h, fuel_on, left, win, opt=None,
         ran = _Group(t, st, tl[m], tpc[m], fuel_on, win, opt,
                      t0_time).run(int(h2))
         left[ran] -= 1
+        out.append(ran)
+    return torch.cat(out)
 
 
 def _gas(t, pc, n):

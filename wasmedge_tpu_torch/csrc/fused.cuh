@@ -27,7 +27,10 @@
 // dependent instructions, loads and taken branches, one warp per SM
 // scheduler with nothing to hide it, and a literal takes the operand
 // load, the hid and flen loads and the second dispatch of a terminal off
-// that chain.  The case runs br, brnz, return and direct calls itself;
+// that chain.  The case runs br, brnz, return and direct calls itself,
+// call_indirect, return_call and return_call_indirect (interp.cu
+// call_op), and a div or rem terminal, with the lone call after it in the
+// same turn (a direct one in the case, any other in the per-op code);
 // v128 ops are force-inlined by their literal sub (interp.cu v2_fn,
 // v1_fn), shuffles literal byte permutes.  Heads beyond the generator's
 // cap, and B6 superinstructions, keep `Fused::step`, dispatched by the

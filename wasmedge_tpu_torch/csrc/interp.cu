@@ -2224,6 +2224,100 @@ __device__ __forceinline__ int simd_step(const Params& p,
   return 0;
 }
 
+// Where a call's table operands and its table index come from: the code
+// planes at its pc and the stack row below sp (the per-op step), or
+// literals and a register (a B2 instance case, batch/fusegen.py).
+template <bool kSimd>
+struct CallAtPc {
+  const Params& p;
+  const Lane<kSimd>& s;
+  int pc, sp;
+  __device__ __forceinline__ int b() const { return __ldg(&p.b[pc]); }
+  __device__ __forceinline__ int c() const { return __ldg(&p.c[pc]); }
+  __device__ __forceinline__ u32 index() const { return (u32)s.get(sp - 1); }
+};
+struct CallLit {
+  int b_, c_;
+  u32 index_;
+  __device__ __forceinline__ int b() const { return b_; }
+  __device__ __forceinline__ int c() const { return c_; }
+  __device__ __forceinline__ u32 index() const { return index_; }
+};
+
+// The call family's one body, for the per-op step and a B2 instance
+// case's terminal alike: call, call_indirect, return_call and
+// return_call_indirect (`indirect`, `tail`) at pc with sp, `a` the callee
+// or the type index.  call_indirect goes through table 0 of size b at
+// base c, or (WASM_TABLES, an image that mutates its table) through the
+// lane's own table [tcap, L] and size, its index and handle agreed:
+// lanes with one index can reach different callees.  Traps, the last
+// one set winning: E_UNDEF_ELEM, E_UNINIT_ELEM, E_SIG_MISMATCH,
+// E_CALL_STACK (not for a tail call), E_STACK_OVERFLOW.  A tail call
+// replaces the frame: fp stays, the arguments slide down to it
+// (ascending: they lie at or above the operand base), no frame row is
+// written and only the value stack is checked.  Returns the trap code;
+// the new control registers are written either way (the caller takes
+// them on 0), the rows only when the call enters.
+template <bool kSimd, class Wp, class Src>
+__device__ __forceinline__ int call_op(const Params& p, const Lane<kSimd>& s,
+                                       Wp& w, OptRun& os, const Src& src,
+                                       const bool indirect, const bool tail,
+                                       const int a, const int pc, const int sp,
+                                       const int fp, const int ob, const int cd,
+                                       int& new_pc, int& new_fp, int& new_ob,
+                                       int& new_sp, int& new_cd) {
+  const int lane = s.lane;
+  int callee, sp_eff = sp, code = 0;
+  if (!indirect) {
+    callee = clampi(a, 0, p.nf - 1);
+  } else {
+    const int b = src.b(), c = src.c();
+    const i32 idx = (i32)w.agree(src.index());
+#if WASM_TABLES
+    const int size = p.a3.tsize ? p.a3.tsize[lane] : b;
+    const int ti = c + clampi(idx, 0, size - 1 > 0 ? size - 1 : 0);
+    const int handle =
+        p.a3.tab ? (int)w.agree((u32)p.a3.tab[(size_t)clampi(ti, 0, p.a3.tcap - 1) * p.L + lane])
+                 : __ldg(&p.tbl[clampi(ti, 0, p.tsize - 1)]);
+    const bool oob = !((u32)idx < (u32)size);
+#else
+    const int ti = clampi(c + clampi(idx, 0, b - 1 > 0 ? b - 1 : 0), 0,
+                          p.tsize - 1);
+    const int handle = __ldg(&p.tbl[ti]);
+    const bool oob = !((u32)idx < (u32)b);
+#endif
+    const bool null_ref = !oob && handle == 0;
+    callee = clampi(handle - 1, 0, p.nf - 1);
+    if (oob) code = E_UNDEF_ELEM;
+    if (null_ref) code = E_UNINIT_ELEM;
+    if (!oob && !null_ref && __ldg(&p.ftyp[callee]) != a) code = E_SIG_MISMATCH;
+    sp_eff = sp - 1;
+  }
+  const int npar = __ldg(&p.fnpar[callee]), nloc = __ldg(&p.fnloc[callee]);
+  const int fp_new = tail ? fp : sp_eff - npar, ob_new = fp_new + nloc;
+  if (!tail && cd >= p.CD - 1) code = E_CALL_STACK;
+  if (fp_new + __ldg(&p.ftop[callee]) > p.D) code = E_STACK_OVERFLOW;
+  if (code == 0) {
+    if (tail) {
+      for (int k = 0; k < npar; ++k) s.putc(fp + k, s.getc(sp_eff - npar + k));
+    } else {
+      if constexpr (Wp::kLead) opt_save_frame(p, lane, cd, os.o.fhi);
+      const size_t r = s.at(cd, p.CD);
+      p.fr_ret_pc[r] = pc + 1;
+      p.fr_fp[r] = fp;
+      p.fr_opbase[r] = ob;
+    }
+    for (int k = 0; k < nloc - npar && k < p.max_local_zeros; ++k)
+      s.put(fp_new + npar + k, 0);
+  }
+  new_pc = __ldg(&p.fent[callee]);
+  new_fp = fp_new;
+  new_ob = ob_new;
+  new_sp = ob_new;
+  new_cd = tail ? cd : cd + 1;
+  return code;
+}
+
 // kBulk: the image holds memory.fill / memory.copy.  An image without
 // them runs the instantiation that has no bulk loop, as the reference
 // SIMT step compiles its bulk path only for such images (HAS_BULK,
@@ -2282,6 +2376,30 @@ struct NoFusion {
 // code (not a handler id).
 constexpr int FUSED_DONE = -1;
 
+// WASM_TURN_COUNTS 1: the counting build of tools/tail_probe.py, whose
+// dispatch loop counts its turns: each lane its own (summed over lanes:
+// the sum of __popc(__activemask()) over the warps' turns) and, for the
+// lanes that run a turn together, the lowest of them one (the warps'
+// turns); added to g_turn_counts when the loop returns.  Undefined in
+// every other build, whose code it leaves as it was.
+#ifndef WASM_TURN_COUNTS
+#define WASM_TURN_COUNTS 0
+#endif
+#if WASM_TURN_COUNTS
+__device__ unsigned long long g_turn_counts[2];
+struct TurnCount {
+  unsigned long long lane = 0, warp = 0;
+  __device__ __forceinline__ void turn() {
+    ++lane;
+    if ((int)(threadIdx.x & 31u) == __ffs(__activemask()) - 1) ++warp;
+  }
+  __device__ __forceinline__ ~TurnCount() {
+    atomicAdd(&g_turn_counts[0], lane);
+    atomicAdd(&g_turn_counts[1], warp);
+  }
+};
+#endif
+
 template <bool kBulk, bool kSimd, class F, bool kWin, class Wp>
 __device__ __forceinline__ void dispatch_loop(const Params& p,
                                               const Lane<kSimd>& s,
@@ -2292,13 +2410,19 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
   int &pc = r.pc, &sp = r.sp, &fp = r.fp, &ob = r.ob, &cd = r.cd;
   int &retired = r.retired, &fuel = r.fuel, &pages = r.pages;
   int &trap = r.trap, &step = r.step;
+#if WASM_TURN_COUNTS
+  TurnCount turns;
+#endif
   for (; step < lim; ++step) {
+#if WASM_TURN_COUNTS
+    turns.turn();
+#endif
     int pcc = clampi(pc, 0, p.code_len - 1);
     int h;
     if constexpr (F::kByPc) {
       // B2 blocks: the generated switch on pc runs a block head's own
       // case (its budget test, its ops and, for br / brnz / return /
-      // call, its terminal, every immediate a literal), or returns the
+      // call / call_indirect / tail call / div / rem, its terminal, every immediate a literal), or returns the
       // handler the per-op code below runs at pc: a pc that heads no
       // block, a head whose block the budget does not cover (its own
       // op), a terminal left to the per-op code (after the block's n
@@ -2499,106 +2623,22 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
           break;
         }
 #if WASM_TABLES
-        case H_CALL:
-        case H_CALL_INDIRECT:
         case H_RETCALL:
-        case H_RETCALL_INDIRECT: {
-          // a tail call (return_call, return_call_indirect) replaces the
-          // frame: fp stays, the arguments slide down to it (ascending:
-          // they lie at or above the operand base), no frame row is
-          // written and only the value stack is checked
-          const bool tail = h == H_RETCALL || h == H_RETCALL_INDIRECT;
-          const int a = __ldg(&p.a[pcc]);
-          int callee, sp_eff = sp, code = 0;
-          if (h == H_CALL || h == H_RETCALL) {
-            callee = clampi(a, 0, p.nf - 1);
-          } else {
-            // through the lane's own table where the image mutates it
-            // (its handle agreed: lanes with one index can reach
-            // different callees), else table 0 of size b
-            const int b = __ldg(&p.b[pcc]), c = __ldg(&p.c[pcc]);
-            const i32 idx = (i32)w.agree((u32)s.get(sp - 1));
-            const int size = p.a3.tsize ? p.a3.tsize[lane] : b;
-            const int ti = c + clampi(idx, 0, size - 1 > 0 ? size - 1 : 0);
-            const int handle =
-                p.a3.tab ? (int)w.agree((u32)p.a3.tab[(size_t)clampi(ti, 0, p.a3.tcap - 1) * p.L + lane])
-                         : __ldg(&p.tbl[clampi(ti, 0, p.tsize - 1)]);
-            const bool oob = !((u32)idx < (u32)size);
-            const bool null_ref = !oob && handle == 0;
-            callee = clampi(handle - 1, 0, p.nf - 1);
-            if (oob) code = E_UNDEF_ELEM;
-            if (null_ref) code = E_UNINIT_ELEM;
-            if (!oob && !null_ref && __ldg(&p.ftyp[callee]) != a) code = E_SIG_MISMATCH;
-            sp_eff = sp - 1;
-          }
-          const int npar = __ldg(&p.fnpar[callee]), nloc = __ldg(&p.fnloc[callee]);
-          const int fp_new = tail ? fp : sp_eff - npar, ob_new = fp_new + nloc;
-          if (!tail && cd >= p.CD - 1) code = E_CALL_STACK;
-          if (fp_new + __ldg(&p.ftop[callee]) > p.D) code = E_STACK_OVERFLOW;
-          if (code == 0) {
-            if (tail) {
-              for (int k = 0; k < npar; ++k) s.putc(fp + k, s.getc(sp_eff - npar + k));
-            } else {
-              if constexpr (Wp::kLead) opt_save_frame(p, lane, cd, os.o.fhi);
-              const size_t r = s.at(cd, p.CD);
-              p.fr_ret_pc[r] = pcc + 1;
-              p.fr_fp[r] = fp;
-              p.fr_opbase[r] = ob;
-            }
-            for (int k = 0; k < nloc - npar && k < p.max_local_zeros; ++k)
-              s.put(fp_new + npar + k, 0);
-          }
-          ntrap = code;
-          new_pc = __ldg(&p.fent[callee]);
-          new_fp = fp_new;
-          new_ob = ob_new;
-          new_sp = ob_new;
-          new_cd = tail ? cd : cd + 1;
-          break;
-        }
-#else
+        case H_RETCALL_INDIRECT:
+#endif
         case H_CALL:
         case H_CALL_INDIRECT: {
-          const int a = __ldg(&p.a[pcc]);
-          int callee, sp_eff = sp, code = 0;
-          if (h == H_CALL) {
-            callee = clampi(a, 0, p.nf - 1);
-          } else {
-            const int b = __ldg(&p.b[pcc]), c = __ldg(&p.c[pcc]);
-            const i32 idx = (i32)w.agree((u32)s.get(sp - 1));
-            const int ti = clampi(c + clampi(idx, 0, b - 1 > 0 ? b - 1 : 0), 0,
-                                  p.tsize - 1);
-            const int handle = __ldg(&p.tbl[ti]);
-            const bool oob = !((u32)idx < (u32)b);
-            const bool null_ref = !oob && handle == 0;
-            callee = clampi(handle - 1, 0, p.nf - 1);
-            if (oob) code = E_UNDEF_ELEM;
-            if (null_ref) code = E_UNINIT_ELEM;
-            if (!oob && !null_ref && __ldg(&p.ftyp[callee]) != a) code = E_SIG_MISMATCH;
-            sp_eff = sp - 1;
-          }
-          const int npar = __ldg(&p.fnpar[callee]), nloc = __ldg(&p.fnloc[callee]);
-          const int fp_new = sp_eff - npar, ob_new = fp_new + nloc;
-          if (cd >= p.CD - 1) code = E_CALL_STACK;
-          if (fp_new + __ldg(&p.ftop[callee]) > p.D) code = E_STACK_OVERFLOW;
-          if (code == 0) {
-            if constexpr (Wp::kLead) opt_save_frame(p, lane, cd, os.o.fhi);
-            const size_t r = s.at(cd, p.CD);
-            p.fr_ret_pc[r] = pcc + 1;
-            p.fr_fp[r] = fp;
-            p.fr_opbase[r] = ob;
-            for (int k = 0; k < nloc - npar && k < p.max_local_zeros; ++k)
-              s.put(fp_new + npar + k, 0);
-          }
-          ntrap = code;
-          new_pc = __ldg(&p.fent[callee]);
-          new_fp = fp_new;
-          new_ob = ob_new;
-          new_sp = ob_new;
-          new_cd = cd + 1;
+#if WASM_TABLES
+          const bool tail = h == H_RETCALL || h == H_RETCALL_INDIRECT;
+          const bool indirect = h == H_CALL_INDIRECT || h == H_RETCALL_INDIRECT;
+#else
+          const bool tail = false, indirect = h != H_CALL;
+#endif
+          ntrap = call_op<kSimd>(p, s, w, os, CallAtPc<kSimd>{p, s, pcc, sp}, indirect,
+                                 tail, __ldg(&p.a[pcc]), pcc, sp, fp, ob, cd, new_pc,
+                                 new_fp, new_ob, new_sp, new_cd);
           break;
         }
-#endif  // WASM_TABLES
         case H_MEMSIZE:
           s.put(sp, cell32((u32)pages));
           new_sp = sp + 1;
@@ -3147,6 +3187,12 @@ extern "C" int wasm_win_counts(unsigned long long* out, int clear) {
 extern "C" int wasm_entry_counts(unsigned long long* out, int clear) {
   return read_counts(g_entry_counts, out, clear);
 }
+#if WASM_TURN_COUNTS
+// The dispatch loop's turns (g_turn_counts: lane turns, warp turns).
+extern "C" int wasm_turn_counts(unsigned long long* out, int clear) {
+  return read_counts(g_turn_counts, out, clear);
+}
+#endif
 
 #ifndef WASM_FUSED_BUILD
 // The shared per-op build: interp.cu alone, with WASM_MEM_WINDOW 0

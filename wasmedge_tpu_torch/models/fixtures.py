@@ -1770,6 +1770,64 @@ TABLE_ZOO_WAT = r"""(module
       (i32.add (table.size)
         (call_indirect (type $v)
           (i32.and (local.get $x) (i32.const 1))))))
+  (func $big (type $ii)
+    (local i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64)
+    (local i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64)
+    (local i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64)
+    (local i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64 i64)
+    (local.get 0))
+  (func $rec (type $ii)
+    (if (result i32) (i32.eqz (local.get 0))
+      (then (i32.const 7))
+      (else (i32.add (call_indirect (type $ii)
+                       (i32.sub (local.get 0) (i32.const 1)) (i32.const 4))
+                     (i32.const 1)))))
+  (elem $e3 func $big $rec)
+  (func $slots
+    (drop (table.grow (ref.null func) (i32.const 4)))
+    (table.set (i32.const 1) (ref.null func))
+    (table.set (i32.const 2) (ref.func $g))
+    (table.set (i32.const 3) (ref.func $big))
+    (table.set (i32.const 4) (ref.func $rec)))
+  (func (export "ci") (param $i i32) (param $x i32) (result i32)
+    (call $slots)
+    (call_indirect (type $ii) (i32.add (local.get $x) (i32.const 3))
+      (i32.and (local.get $i) (i32.const 255))))
+  (func (export "rci") (param $i i32) (param $x i32) (result i32)
+    (call $slots)
+    (return_call_indirect (type $ii) (i32.add (local.get $x) (i32.const 5))
+      (i32.and (local.get $i) (i32.const 255))))
+  (func (export "remz") (param $x i32) (result i32)
+    (i32.rem_u (i32.add (local.get $x) (i32.const 1)) (i32.const 0)))
+  (func (export "divm") (param $x i32) (result i32)
+    (i32.div_s (i32.sub (local.get $x) (i32.const 1)) (i32.const -1)))
+  (func (export "remz64") (param $x i32) (result i32)
+    (i32.wrap_i64 (i64.rem_u (i64.extend_i32_s (local.get $x))
+                             (i64.const 0))))
+  (func (export "divm64") (param $x i32) (result i32)
+    (i32.wrap_i64 (i64.shr_u
+      (i64.div_s (i64.shl (i64.extend_i32_s (local.get $x)) (i64.const 32))
+                 (i64.const -1))
+      (i64.const 32))))
+  (func (export "divw64") (param $x i32) (result i32)
+    (i32.add
+      (i32.wrap_i64 (i64.div_s
+        (i64.shl (i64.extend_i32_s (local.get $x)) (i64.const 33))
+        (i64.const 0x100000000)))
+      (i32.wrap_i64 (i64.rem_u (i64.extend_i32_u (local.get $x))
+                               (i64.const 0xffffffff)))))
+  (func (export "chain") (param $x i32) (result i32)
+    (call $slots)
+    (call_indirect (type $ii) (local.get $x)
+      (i32.rem_u (local.get $x) (i32.const 9))))
+  (func (export "tchain") (param $x i32) (result i32)
+    (call $slots)
+    (return_call_indirect (type $ii) (local.get $x)
+      (i32.rem_u (local.get $x) (i32.const 9))))
+  (func (export "dchain") (param $x i32) (param $y i32) (result i32)
+    (call $g (i32.div_u (local.get $x) (local.get $y))))
+  (func (export "rchain") (param $x i32) (param $y i32) (result i32)
+    (return_call $g (i32.rem_s (local.get $x) (local.get $y))))
 )"""
 
 
@@ -1791,7 +1849,21 @@ def build_table_zoo() -> bytes:
     trap), `agree(k, n)` (lanes of one warp calling one index of tables that
     differ, after a launch boundary: B3's handle agreement) and `refs(x)`
     (ref.func, table.size).  Each result folds the table (`$sum`) or the
-    memory it touched."""
+    memory it touched.  `table_terminal_cases` runs its exports whose
+    blocks end in a call_indirect, a return_call(_indirect) or a div or
+    rem chained to the lone call after it (B2 instance cases run them in
+    the case): after `$slots` grows the table to 8 (0 `$f0`, of another
+    type; 2 `$g`; 3 `$big`, whose frame does not fit a 64-row stack; 4
+    `$rec`, n nested call_indirects; 1 and 5-7 null; 8 and up out of
+    range), `ci(i, x)` / `rci(i, x)` (call_indirect /
+    return_call_indirect of slot i), `chain(x)` / `tchain(x)` (the same
+    through slot x % 9 after a rem_u by 9), `remz(x)` (rem_u by a
+    literal 0), `divm(x)` (div_s of x - 1 by a literal -1), their i64
+    forms `remz64(x)` (rem_u by 0) and `divm64(x)` (div_s of x << 32 by
+    -1: INT64_MIN at x = INT32_MIN), `divw64(x)` (i64 divisors
+    0x1_0000_0000 and 0xffff_ffff, whose low or high word alone would
+    read as 0 or -1: no trap), `dchain(x, y)` (a direct call after a div_u by y) and `rchain(x, y)`
+    (a return_call after a rem_s by y)."""
     return parse_wat(TABLE_ZOO_WAT)
 
 
@@ -1828,6 +1900,37 @@ def table_cases(lanes: int, seed: int) -> dict:
                                   pick([0, 1, 2, 5, 20])]),
         "agree": ("agree", [lane // 3, pick([1, 5, 30])]),
         "refs": ("refs", [lane]),
+    }
+
+
+def table_terminal_cases(lanes: int, seed: int) -> dict:
+    """(export, per-lane args) of the table zoo's terminal cases (see
+    build_table_zoo) at `lanes` lanes, from a seed: every trap of the
+    call terminals (UndefinedElement, UninitializedElement,
+    IndirectCallTypeMismatch, CallStackExhausted past a 16-frame call
+    stack, StackOverflow; a tail call all but CallStackExhausted), a
+    literal-zero rem_u, div_s of INT_MIN by -1 (i32 and i64 both), i64
+    literal divisors that do not trap, and divisors of 0 before a chained
+    call."""
+    rng = np.random.default_rng(seed)
+
+    def pick(vals):
+        return np.asarray(vals, np.int64)[rng.integers(0, len(vals), lanes)]
+
+    x = rng.integers(-2**31, 2**31, lanes).astype(np.int64)
+    slots = [0, 1, 2, 3, 4, 5, 7, 8, 9, -1]
+    return {
+        "ci": ("ci", [pick(slots), x]),
+        "rci": ("rci", [pick(slots), x]),
+        "remz": ("remz", [x]),
+        "divm": ("divm", [pick([-2**31 + 1, 0, 5, -7, 2**31 - 1])]),
+        "remz64": ("remz64", [x]),
+        "divm64": ("divm64", [pick([-2**31, 0, 5, -7, 2**31 - 1])]),
+        "divw64": ("divw64", [x]),
+        "chain": ("chain", [np.arange(lanes, dtype=np.int64) % 36]),
+        "tchain": ("tchain", [np.arange(lanes, dtype=np.int64)[::-1] % 36]),
+        "dchain": ("dchain", [x, pick([0, 2, 7])]),
+        "rchain": ("rchain", [x, pick([0, 3, -1])]),
     }
 
 

@@ -238,12 +238,25 @@ Phases:
                config 2's coremark(65536) after its first launch, each
                loaded into a fresh engine and finished equal to the
                uninterrupted run, the file's bytes and the save and load
-               seconds printed;
+               seconds printed.  Tier 0's stdout flush runs through its
+               kernel (csrc/stdout_flush.cu) on the card: every flush
+               of the script's CUDA tensors (the tier-0 jobs, echo and
+               hello, the stdout cursor's round trips, compacted and
+               not) is recorded with a copy of its inputs and held
+               against the plain version, `_records`: the bytes on each
+               fd and each lane's payload count (the cursor's advance);
+               the tier-0 jobs and the round trips compare the cursors
+               too.  The B6 builds ("super") are instance cases by pc,
+               as B2's: each super job holds them against the plain
+               version at every launch;
   4. report  - phase times, kernel times (CUDA events), retired
                instructions and instructions per second, registers and
                spills of each build, the card's name and power limit, one
                JSON line of kernel records (with "mem_window", B4,
-               "optimistic", B3, "tier0" and "tables"; the mix's, the
+               "optimistic", B3, "tier0", "stdout_flush" (its device
+               time on echo's records, the whole flush, the plain path's
+               parts, torch.masked_select as its yardstick) and
+               "tables"; the mix's, the
                straddling mix's and the serving run's launches beside
                K/B1, B2, B3 and B4; the summary line before it has the
                "linked" record and the main path's "mix" and "serve"),
@@ -1050,12 +1063,17 @@ def run_job(job):
     UNIFORM_FIXTURES.clear()
     TIER0_FIXTURES.clear()
     MIX_RECORDS.clear()
+    install_flush_check()
+    FLUSH.update(checked=0, bytes=0)
     try:
         worst = globals()[name](*args, **kwargs)
+        check_flushes(f"{name} {args[0] if args else ''}")
     except SystemExit:
         return group, None, None, f"{name} {args[0] if args else ''}" \
             f"{kwargs.get('only') or ''}"
     return group, worst, dict(window=WINDOW_WORST[0], opt=dict(OPT_WORST),
+                              flushes=FLUSH["checked"],
+                              flush_bytes=FLUSH["bytes"],
                               opt_fixtures=dict(OPT_FIXTURES),
                               bulk=dict(BULK_FIXTURES),
                               windows=dict(WINDOW_FIXTURES),
@@ -1122,6 +1140,8 @@ def run_jobs(groups: dict) -> dict:
             UNIFORM_FIXTURES.update(rec["uniform"])
             TIER0_FIXTURES.update(rec["tier0"])
             MIX_RECORDS.update(rec["mix"])
+            FLUSH["checked"] += rec["flushes"]
+            FLUSH["bytes"] += rec["flush_bytes"]
     if bad:
         fail(f"{len(bad)} kernel phase jobs failed: {bad[:5]}")
     return worst
@@ -1301,11 +1321,12 @@ def host_fixture_vs_plain(name, data, func, args, want_out, fusion, mem_hbm,
     from wasmedge_tpu_torch.batch import interp, interp_ref
     from wasmedge_tpu_torch.batch.engine import t0_time_planes
     from wasmedge_tpu_torch.batch.hostcall import (
-        flush_stdout_buffers, serve_batch_state)
+        _stdout_cursor, flush_stdout_buffers, serve_batch_state)
     from wasmedge_tpu_torch.common.errors import ErrCode
 
     L = len(np.asarray(args[0]))
     hello_codes = np.arange(L) % 3
+    flushes = 0  # flushes of the card's side held against the plain one
     worst = 0
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as td:
@@ -1341,6 +1362,12 @@ def host_fixture_vs_plain(name, data, func, args, want_out, fusion, mem_hbm,
                 if flush_stdout_buffers(engs[0], st) != \
                         flush_stdout_buffers(engs[1], ref):
                     fail(f"{name}: the two flushes wrote different bytes")
+                if tier0 and any(not np.array_equal(a, b) for a, b in zip(
+                        _stdout_cursor(engs[0], L),
+                        _stdout_cursor(engs[1], L))):
+                    fail(f"{name}: the stdout cursors differ after the "
+                         f"flush of launch {launches}")
+                flushes += tier0 and check_flushes(name) > 0
                 err = max(err, max_abs_err(st, ref))
                 worst = max(worst, err)
                 if mem_hbm:
@@ -1392,7 +1419,8 @@ def host_fixture_vs_plain(name, data, func, args, want_out, fusion, mem_hbm,
     if tier0:
         TIER0_FIXTURES[f"{name}{tag}"] = dict(
             t0_ctr=calls, serve_rounds=rounds,
-            stdout_bytes=engs[0].hostcall_stats["stdout_bytes"])
+            stdout_bytes=engs[0].hostcall_stats["stdout_bytes"],
+            kernel_flushes_checked=int(flushes))
     print(f"kernel_vs_plain {name}{tag}: "
           f"{launches} launches and {rounds} serve rounds equal, traps "
           f"{sorted(set(trap.tolist()))}, stdout {len(outs[0])} B "
@@ -1478,6 +1506,212 @@ TIER0_FIXTURES = {}
 # the encodings each tier-0 fixture runs in (per-op, blocks, super)
 TIER0_ENCODINGS = {"tier0.wasi_hello": ("none", "blocks"),
                    "tier0.unsafe": ("none",)}
+
+# The stdout flush kernel held against its plain version: every flush on
+# the card's tensors (hostcall.stdout_records) is recorded with a copy of
+# its inputs and checked by `check_flushes`; "checked" flushes and
+# "bytes" compared, "overhead_s" the host seconds the recording added to
+# the flushes it watched, "pending" the flushes not checked yet.
+FLUSH = {"checked": 0, "bytes": 0, "overhead_s": 0.0, "pending": []}
+
+
+def install_flush_check() -> None:
+    """Record every flush of CUDA tensors through the flush kernel: its
+    inputs (a copy on the card) and its bytes and lens."""
+    from wasmedge_tpu_torch.batch import hostcall
+
+    real = hostcall.stdout_records
+    if getattr(real, "checked", False):
+        return
+
+    def checked(so_buf, so_off, skip):
+        out = real(so_buf, so_off, skip)
+        if so_buf.device.type == "cuda":
+            t0 = time.perf_counter()
+            FLUSH["pending"].append((
+                so_buf.clone(), so_off.clone(), np.array(skip, np.int64),
+                None if out is None else (
+                    {fd: bytes(b) for fd, b in out[0].items() if len(b)},
+                    out[1].copy())))
+            FLUSH["overhead_s"] += time.perf_counter() - t0
+        return out
+
+    checked.checked = True
+    hostcall.stdout_records = checked
+
+
+def check_flushes(what: str) -> int:
+    """Hold each recorded flush against `_records` on a CPU copy of its
+    inputs: the bytes on each fd and each lane's payload count (the
+    cursor's advance) equal.  Returns the flushes checked."""
+    from wasmedge_tpu_torch.batch.hostcall import _records
+
+    n = 0
+    for so_buf, so_off, skip, got in FLUSH["pending"]:
+        off = so_off.cpu().numpy()
+        rows = int(off.max(initial=0))
+        if rows == 0:
+            if got is not None:
+                fail(f"{what}: the flush kernel found records in an empty "
+                     f"buffer")
+        else:
+            want, lens = _records(so_buf[:rows].cpu().numpy(), off, skip)
+            want = {fd: b for fd, b in want.items() if b}
+            if got is None or got[0] != want or \
+                    not np.array_equal(got[1], lens):
+                fail(f"{what}: the flush kernel's bytes or lens differ from "
+                     f"the plain version's (kernel "
+                     f"{None if got is None else {k: len(v) for k, v in got[0].items()}}"
+                     f", plain {({k: len(v) for k, v in want.items()})})")
+            FLUSH["bytes"] += sum(len(b) for b in want.values())
+        n += 1
+    FLUSH["checked"] += n
+    FLUSH["pending"].clear()
+    return n
+
+
+def flush_plain_split(eng, st, skip) -> dict:
+    """The plain flush path on the card's planes, as flush_stdout_buffers
+    ran before the flush kernel, seconds per part: the so_off download,
+    the download of the so_buf rows below the largest fill, `_records`,
+    the fd writes."""
+    from wasmedge_tpu_torch.batch.hostcall import _records, wasi_env_of
+    from wasmedge_tpu_torch.host.wasi.vectorized import _write_all
+
+    env = wasi_env_of(eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    off = st.so_off.cpu().numpy()
+    t1 = time.perf_counter()
+    buf = st.so_buf[:int(off.max())].cpu().numpy()
+    t2 = time.perf_counter()
+    per_fd, _ = _records(buf, off, skip)
+    t3 = time.perf_counter()
+    for fd in sorted(per_fd):
+        _write_all(env.fds[fd], per_fd[fd])
+    t4 = time.perf_counter()
+    return dict(so_off_download=t1 - t0, so_buf_download=t2 - t1,
+                records=t3 - t2, writes=t4 - t3, whole=t4 - t0,
+                rows=int(off.max()),
+                bytes=sum(len(v) for v in per_fd.values()))
+
+
+def flush_kernel_split(eng, st, skip) -> dict:
+    """The kernel flush path's parts, seconds each: the launch (host),
+    the counts' read-back (the wait for the kernel in it), the copy of
+    the bytes into pinned memory, the fd writes; and CUDA events around
+    the launch (on an idle card these take in the host's enqueue)."""
+    from wasmedge_tpu_torch.batch import stdout_flush
+    from wasmedge_tpu_torch.batch.hostcall import wasi_env_of
+    from wasmedge_tpu_torch.host.wasi.vectorized import _write_all
+
+    env = wasi_env_of(eng)
+    sk = torch.from_numpy(np.asarray(skip, np.int32)).cuda()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    meta, out = stdout_flush.launch(st.so_buf, st.so_off, sk)
+    e1.record()
+    t1 = time.perf_counter()
+    m = meta.cpu().numpy()
+    t2 = time.perf_counter()
+    n = int(m[0]) + int(m[1])
+    host = stdout_flush._host_buffer(n)
+    host[:n].copy_(out[:n])
+    t3 = time.perf_counter()
+    view = memoryview(host.numpy())
+    for fd, a, b in ((1, 0, int(m[0])), (2, int(m[0]), n)):
+        if b > a:
+            _write_all(env.fds[fd], view[a:b])
+    t4 = time.perf_counter()
+    return dict(events_ms=e0.elapsed_time(e1), launch=t1 - t0,
+                counts_readback=t2 - t1, bytes_copy=t3 - t2, writes=t4 - t3,
+                parts_whole=t4 - t0, bytes=n)
+
+
+def flush_device_ms(st, skip, reps: int = 21) -> float:
+    """The flush kernel's device time (median ms of `reps`): CUDA events
+    around one launch queued behind a spin of the card
+    (`torch.cuda._sleep`, about 1 ms), so that they time its kernels and
+    not the host's enqueue, which events around an idle card's launch
+    take in (`flush_kernel_split`'s "events_ms")."""
+    from wasmedge_tpu_torch.batch import stdout_flush
+
+    sk = torch.from_numpy(np.asarray(skip, np.int32)).cuda()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1 << 21)
+        e0.record()
+        stdout_flush.launch(st.so_buf, st.so_off, sk)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times))
+
+
+def flush_library_ms(st, reps: int = 21) -> dict:
+    """The library yardstick of the flush: torch.masked_select over a
+    uint8 view of the transposed planes with a mask of the payload bytes
+    (the stream of a batch whose lanes hold one layout), ms, and the
+    transpose before it; its stream must be the records' (one fd)."""
+    from wasmedge_tpu_torch.batch.hostcall import _records
+
+    off = st.so_off.cpu().numpy()
+    rows = int(off.max())
+    if not (off == rows).all():
+        fail("the flush's library yardstick needs one layout in every lane")
+    col = st.so_buf[:rows, 0].cpu().numpy()
+    keep = np.zeros(rows * 4, bool)
+    r = 0
+    while r < rows:
+        ln = int(np.uint32(col[r])) & 0x0FFFFFFF
+        keep[4 * (r + 1):4 * (r + 1) + ln] = True
+        r += 1 + (ln + 3) // 4
+    L = st.so_buf.shape[1]
+    mask = torch.from_numpy(np.broadcast_to(keep, (L, rows * 4)).copy()) \
+        .cuda()
+
+    def transpose():
+        return st.so_buf[:rows].t().contiguous().view(torch.uint8)
+
+    planes = transpose()
+    out = {}
+    for name, fn in (("masked_select", lambda: torch.masked_select(planes,
+                                                                   mask)),
+                     ("transpose", transpose)):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            res = fn()
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        out[name] = float(np.median(times))
+        if name == "masked_select":
+            want = _records(st.so_buf[:rows].cpu().numpy(), off)[0]
+            if len(want) != 1 or \
+                    res.cpu().numpy().tobytes() != next(iter(want.values())):
+                fail("masked_select's stream differs from the records'")
+            out["stream_bytes"] = int(res.numel())
+    return out
+
+
+def flush_bound(st, nbytes: int) -> tuple:
+    """(bound ms, bytes) of one flush of `st`'s records: the rows below
+    each lane's fill, the fills and skips read, the stream and each
+    lane's count written, at the HBM rate."""
+    L = st.so_off.shape[0]
+    nb = int(st.so_off.sum()) * 4 + 2 * 4 * L + nbytes + 4 * L
+    return nb / HBM_BYTES_PER_S * 1e3, nb
 
 
 def tier0_jobs(fusion="none") -> list:
@@ -2516,17 +2750,20 @@ def phase_main_wasi():
                for p in paths]
         try:
             vm = wasi_vm(build_echo(), fds[0])
+            overhead = FLUSH["overhead_s"]
             res, launches, wall, ev_ms, counts = run_main(
                 vm, "echo", [ECHO_ITERS], 1 << 20,
-                need=("interp", "hostcall", "block", "window", "tier0"))
+                need=("interp", "hostcall", "block", "window", "tier0",
+                      "stdout_flush"))
             stats = dict(vm.last_engine.hostcall_stats)
+            check_ms = (FLUSH["overhead_s"] - overhead) * 1e3
             retired = int(res.retired.astype(np.int64).sum())
             prof = profile_run(wasi_vm(build_echo(), fds[1]), "echo",
                                [ECHO_ITERS], retired)
             direct = direct_run(wasi_vm(build_echo(), fds[2]), "echo",
                                 [ECHO_ITERS], 1 << 20,
-                                ("interp", "hostcall", "block", "tier0"),
-                                check)
+                                ("interp", "hostcall", "block", "tier0",
+                                 "stdout_flush"), check)
             off = wasi_vm(build_echo(), fds[3], tier0=False)
             res_off, launches_off, wall_off, ev_off, counts_off = run_main(
                 off, "echo", [ECHO_ITERS], 1 << 20,
@@ -2542,6 +2779,7 @@ def phase_main_wasi():
         if got != want:
             fail(f"echo x {L} ({k}): stdout is {len(got)} B, expected "
                  f"{len(want)} B of the message")
+    n_checked = check_flushes("main echo")
     check(res)
     check(res_off)
     if stats["serve_rounds"] != 0 or stats["tier1_calls"] != 0 or \
@@ -2556,7 +2794,9 @@ def phase_main_wasi():
         fail(f"echo x {L} with tier 0 off: {stats_off['tier1_calls']} host "
              f"calls served, expected {calls}")
     out["echo"] = dict(launches=launches, hostcall_launches=counts[
-        "hostcall"], tier0_launches=counts["tier0"], wall_s=wall,
+        "hostcall"], tier0_launches=counts["tier0"],
+        stdout_flush_launches=counts["stdout_flush"],
+        flushes_checked=n_checked, flush_check_ms=check_ms, wall_s=wall,
         event_ms=ev_ms, retired=retired, host_calls=calls,
         host_calls_per_s=calls / wall, stdout_bytes=len(want),
         flush_ms=stats["flush_s"] * 1e3, profile=prof, direct=direct,
@@ -2568,7 +2808,10 @@ def phase_main_wasi():
           f"fd_write calls retired in the kernel "
           f"({stats['tier0_fd_write']}), {stats['serve_rounds']} serve "
           f"rounds, {stats['stdout_flushes']} flush of "
-          f"{stats['stdout_bytes']} B in {stats['flush_s'] * 1e3:.3f} ms, "
+          f"{stats['stdout_bytes']} B in {stats['flush_s'] * 1e3:.3f} ms "
+          f"(the flush kernel, {counts['stdout_flush']} launches; its "
+          f"check's copies {check_ms:.3f} ms of it; {n_checked} flushes of "
+          f"the echo runs held against the plain version), "
           f"stdout exact, all lanes done with 0, {launches} launches, wall "
           f"{wall:.3f} s, {calls / wall:.4g} host calls/s; tier 0 off: "
           f"{launches_off} launches, {stats_off['serve_rounds']} serve "
@@ -2594,7 +2837,8 @@ def phase_main_wasi():
             vm = wasi_vm(build_wasi_hello(), fd)
             res, launches, wall, ev_ms, counts = run_main(
                 vm, "hello", [codes], 1 << 20,
-                need=("interp", "hostcall", "block", "window", "tier0"))
+                need=("interp", "hostcall", "block", "window", "tier0",
+                      "stdout_flush"))
             eng = vm.last_engine
             hstats = dict(eng.hostcall_stats)
             # the exit codes: proc_exit's argument in each stopped frame
@@ -2620,6 +2864,8 @@ def phase_main_wasi():
              f"kernel (expected {L}), {hstats['tier1_calls']} served "
              f"(expected {3 * L})")
     out["hello"] = dict(launches=launches, wall_s=wall, event_ms=ev_ms,
+                        stdout_flush_launches=counts["stdout_flush"],
+                        flushes_checked=check_flushes("main hello"),
                         serve_rounds=hstats["serve_rounds"],
                         tier1_calls=hstats["tier1_calls"],
                         tier0_sys=hstats["tier0_sys"])
@@ -3095,7 +3341,6 @@ def phase_time_tier0() -> dict:
     (4 B) and the record (20 B); per launch its argument cells."""
     from wasmedge_tpu_torch.batch import interp, interp_ref
     from wasmedge_tpu_torch.batch.engine import t0_time_planes
-    from wasmedge_tpu_torch.batch.hostcall import flush_stdout_buffers
     from wasmedge_tpu_torch.models import build_echo
 
     L, chunk = MAIN_LANES, 1 << 20
@@ -3160,12 +3405,10 @@ def phase_time_tier0() -> dict:
             parked = int((out_off.trap == -2).sum())
             if parked != L:
                 fail(f"tier-0-off echo launch: {parked} lanes parked")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            nbytes = flush_stdout_buffers(eng, out_k)
-            flush_ms = (time.perf_counter() - t0) * 1e3
+            flush = phase_time_flush(eng, out_k)
         finally:
             os.close(fd)
+    flush_ms, nbytes = flush["flush_ms"], flush["flush_bytes"]
     n_args = (len(interp._TABLE_FIELDS) + len(interp._STATE_FIELDS)
               + len(interp._FUSED_FIELDS) + interp._N_OPT
               + interp._N_T0_PTRS) * 8 + \
@@ -3179,10 +3422,83 @@ def phase_time_tier0() -> dict:
           f"{flush_ms:.3f} ms; bound {bound_ms:.6f} ms by bytes "
           f"({bound_bytes} B)", flush=True)
     return dict(ms=ms, careful_ms=careful_ms, plain_ms=plain_ms,
-                tier0_off_ms=off_ms, flush_ms=flush_ms, flush_bytes=nbytes,
-                calls=calls, bound_ms=bound_ms, bound_bytes=bound_bytes,
-                bound_by="bytes", max_abs_err=err,
-                warps=w_k.stats(), uniform=int(w_k.uniform.sum()))
+                tier0_off_ms=off_ms, calls=calls, bound_ms=bound_ms,
+                bound_bytes=bound_bytes, bound_by="bytes", max_abs_err=err,
+                warps=w_k.stats(), uniform=int(w_k.uniform.sum()),
+                flush=flush, **{k: flush[k] for k in ("flush_ms",
+                                                      "flush_bytes")})
+
+
+# the flush's timed repetitions (medians)
+FLUSH_REPS = 3
+
+
+def phase_time_flush(eng, st) -> dict:
+    """Tier 0's stdout flush of `st` (echo's records after its one
+    launch), FLUSH_REPS times each (medians): `flush_stdout_buffers`
+    whole (the flush kernel, the counts' read-back, one copy of the
+    bytes, the writes; on a copy of the fills, the cursor reset), its
+    parts (`flush_kernel_split`: the kernel's device ms by CUDA events),
+    and the plain path as the flush ran before the kernel
+    (`flush_plain_split`: the so_off and so_buf downloads, `_records`, the
+    writes); the kernel's device time (`flush_device_ms`);
+    `torch.masked_select` over the transposed planes (the
+    library yardstick); the kernel's bytes and lens against `_records`;
+    the bound (bytes at the HBM rate)."""
+    from wasmedge_tpu_torch.batch import stdout_flush
+    from wasmedge_tpu_torch.batch.hostcall import (
+        _records, flush_stdout_buffers, stdout_cursor_reset)
+
+    L = st.so_off.shape[0]
+    skip = np.zeros(L, np.int64)
+    whole = []
+    for _ in range(FLUSH_REPS + 1):
+        stdout_cursor_reset(eng)
+        s = st.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = flush_stdout_buffers(eng, s)
+        whole.append((time.perf_counter() - t0) * 1e3)
+    kern = [flush_kernel_split(eng, st, skip) for _ in range(FLUSH_REPS)]
+    plain = [flush_plain_split(eng, st, skip) for _ in range(FLUSH_REPS)]
+
+    def med(rows, k, scale=1e3):
+        return float(np.median([r[k] for r in rows])) * scale
+
+    ksplit = {k: med(kern, k) for k in ("launch", "counts_readback",
+                                        "bytes_copy", "writes",
+                                        "parts_whole")}
+    ksplit["events_ms"] = med(kern, "events_ms", 1)
+    kernel_ms = flush_device_ms(st, skip)
+    psplit = {k: med(plain, k) for k in ("so_off_download",
+                                         "so_buf_download", "records",
+                                         "writes", "whole")}
+    lib = flush_library_ms(st)
+    got = stdout_flush.records(st.so_buf, st.so_off, skip)
+    off = st.so_off.cpu().numpy()
+    want, lens = _records(st.so_buf[:int(off.max())].cpu().numpy(), off)
+    if {fd: bytes(b) for fd, b in got[0].items() if len(b)} != \
+            {fd: b for fd, b in want.items() if b} or \
+            not np.array_equal(got[1], lens) or nbytes != plain[0]["bytes"]:
+        fail("tier-0 echo flush: the flush kernel differs from the plain "
+             "version")
+    bound_ms, bound_bytes = flush_bound(st, nbytes)
+    out = dict(flush_ms=float(np.median(whole[1:])), flush_bytes=nbytes,
+               kernel_ms=kernel_ms, kernel_split_ms=ksplit,
+               plain_ms=psplit["records"], plain_split_ms=psplit,
+               plain_flush_ms=psplit["whole"], library_ms=lib["masked_select"],
+               library=lib, bound_ms=bound_ms, bound_bytes=bound_bytes,
+               rows=plain[0]["rows"], max_abs_err=0)
+    print(f"timed tier-0 echo flush x {L} ({nbytes} B, {plain[0]['rows']} "
+          f"rows): flush_stdout_buffers {out['flush_ms']:.4f} ms (the flush "
+          f"kernel {kernel_ms:.4f} ms of device time; parts "
+          f"{json.dumps({k: round(v, 4) for k, v in ksplit.items()})} ms); "
+          f"the plain path {psplit['whole']:.4f} ms (parts "
+          f"{json.dumps({k: round(v, 4) for k, v in psplit.items()})} ms); "
+          f"masked_select {lib['masked_select']:.4f} ms (transpose "
+          f"{lib['transpose']:.4f}); bound {bound_ms:.6f} ms by bytes "
+          f"({bound_bytes} B); kernel == plain", flush=True)
+    return out
 
 
 def tail_engines(L: int, **knobs):
@@ -4517,23 +4833,26 @@ def stdout_cursor_round_trip(d) -> dict:
             pos, hw = _stdout_cursor(eng, L)
             replay = int((hw - pos).sum())
             st, total = eng.run_from_state(st, total, 10**9)
+            cur = np.concatenate(_stdout_cursor(eng, L))
         finally:
             os.close(fd)
         with np.load(ck) as z:
             spos = np.asarray(z["stdout_pos"])
         with open(path, "rb") as f:
             moved = 0 if comp is None else comp.stats["moved_lanes"]
-            return f.read(), replay, spos, on_cpu(st), moved
+            return f.read(), replay, spos, on_cpu(st), moved, cur
 
     out = {}
     for compact in (False, True):
-        (got, replay, spos, st, moved), (want, _, wpos, wst, _) = \
-            run("cuda", compact), run("cpu", compact)
-        err = max_abs_err(st, wst)
         kind = "compacted" if compact else "uncompacted"
+        (got, replay, spos, st, moved, cur) = run("cuda", compact)
+        flushes = check_flushes(f"stdout cursor, {kind}")
+        (want, _, wpos, wst, _, wcur) = run("cpu", compact)
+        err = max_abs_err(st, wst)
         if got != want or len(got) != calls * len(ECHO_MESSAGE) or \
                 got.count(ECHO_MESSAGE) != calls or replay <= 0 or \
                 not np.array_equal(spos, wpos) or err != 0 or \
+                not np.array_equal(cur, wcur) or flushes == 0 or \
                 (compact and moved == 0):
             fail(f"stdout cursor, {kind}: card {len(got)} B, plain "
                  f"{len(want)} B, {calls} records of {len(ECHO_MESSAGE)} B "
@@ -4544,11 +4863,12 @@ def stdout_cursor_round_trip(d) -> dict:
               f"step {CURSOR_STEPS[0]}, restored after step "
               f"{CURSOR_STEPS[1]}: {replay} B replayed below the high-water "
               f"mark and skipped, {len(got)} B printed ({calls} records "
-              f"once), {moved} lane moves, equal to the plain version",
-              flush=True)
+              f"once), {moved} lane moves, equal to the plain version; "
+              f"{flushes} flushes of the flush kernel held against the "
+              f"plain version, the cursor after the run equal", flush=True)
         out[kind] = dict(bytes=len(got), records=calls,
                          replayed_bytes=replay, moved_lanes=moved,
-                         max_abs_err=err)
+                         max_abs_err=err, flushes_checked=flushes)
     return out
 
 
@@ -4812,9 +5132,9 @@ def without_cases(tables, img):
 
 
 def instance_cases(tables) -> int:
-    """The B2 instance cases of the fused build of `tables` (its generated
-    source's count)."""
-    return int(re.search(r"\((\d+) block instance cases",
+    """The instance cases (B2 block heads or B6 superinstructions) of the
+    fused build of `tables` (its generated source's count)."""
+    return int(re.search(r"\((\d+) instance cases",
                          tables.fused_source).group(1))
 
 
@@ -4837,7 +5157,7 @@ def prebuild() -> dict:
     The generated source depends only on the module, the encoding and
     the memory mode, so tables made on the CPU name the same builds as
     the card's."""
-    from wasmedge_tpu_torch.batch import interp
+    from wasmedge_tpu_torch.batch import interp, stdout_flush
     from wasmedge_tpu_torch.models import (
         build_bulk_workload, build_coremark_kernel, build_echo, build_fib,
         build_memory_workload, build_simd_loop, build_wasi_hello)
@@ -4917,15 +5237,17 @@ def prebuild() -> dict:
     # hid plane): the difference in BRX says what the pc switch compiled
     # to
     mains = {}
-    for name, data, depth in (("fib", build_fib(), 256),
-                              ("vloop", build_simd_loop(), 64)):
+    for name, data, depth, fusion in (
+            ("fib", build_fib(), 256, "blocks"),
+            ("vloop", build_simd_loop(), 64, "blocks"),
+            ("fib", build_fib(), 256, "super")):
         for opt in (None, False):
-            eng = make_engine(data, 2, device="cpu", fusion="blocks",
+            eng = make_engine(data, 2, device="cpu", fusion=fusion,
                               optimistic=opt, value_stack_depth=depth,
                               call_stack_depth=16,
                               memory_pages_per_lane=1)[0]
             base = without_cases(eng.tables, eng.img)
-            mains[f"{name}_blocks_{'kopt' if opt is None else 'careful'}"] \
+            mains[f"{name}_{fusion}_{'kopt' if opt is None else 'careful'}"] \
                 = (eng.tables, base)
             rest.append(base)
     # the per-op build for every memory and B3 mode (every per-op run of
@@ -4938,7 +5260,15 @@ def prebuild() -> dict:
          or interp.fused_kernel_key(t) not in in_main],
         at_once=BACKGROUND_BUILDS)
     t0 = time.perf_counter()
-    interp.build_kernels(main, per_op=per_op)
+    # the stdout flush kernel (one small source) beside them
+    with ThreadPoolExecutor(1) as ex:
+        flush = ex.submit(stdout_flush.build)
+        interp.build_kernels(main, per_op=per_op)
+        flush.result()
+    print(f"  stdout flush kernel: nvcc "
+          f"{stdout_flush.BUILD_INFO['seconds']:.1f} s; ptxas "
+          f"{' | '.join(stdout_flush.BUILD_INFO['ptxas'].split(chr(10)))}",
+          flush=True)
     return dict(wall_s=time.perf_counter() - t0, queued=queued,
                 tables=main + rest, per_op=per_op, mains=mains)
 
@@ -4947,9 +5277,9 @@ def finish_builds(pre: dict) -> dict:
     """Wait for (and start what is still queued of) every build
     `prebuild` started, then print each fused build's instance cases,
     seconds, shapes, mean shape length, registers and spills, and the
-    SASS bytes and indirect branches of the main path's fib(30) and vloop
-    builds against the same modules with no block case (what the pc
-    switch compiled to)."""
+    SASS bytes and indirect branches of the main path's fib(30) (blocks
+    and super) and vloop builds against the same modules with no case
+    (what the pc switch compiled to)."""
     from wasmedge_tpu_torch.batch import interp
 
     t0 = time.perf_counter()
@@ -5020,6 +5350,7 @@ def main() -> int:
         return 2
     from wasmedge_tpu_torch.batch import interp
 
+    install_flush_check()
     card = gpu_name_and_power()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, card: {card}", flush=True)
@@ -5071,6 +5402,7 @@ def main() -> int:
     main_out["mix"] = part("mix", phase_main_mix)
     main_out["serve"] = part("serve", phase_serve)
     main_out["compact"] = part("compact", phase_compact, main_out)
+    check_flushes("the main phase")
     t_main = time.perf_counter() - t0
     print(f"phase main: {t_main:.2f} s ({json.dumps(main_s)}; background "
           f"builds running beside it)", flush=True)
@@ -5441,6 +5773,37 @@ def main() -> int:
         "timed_launch": {"workload": f"echo({ECHO_ITERS})",
                          "lanes": MAIN_LANES, "encoding": "blocks"},
     }
+    # Tier 0's stdout flush kernel (csrc/stdout_flush.cu): "ms" its device
+    # time on echo's records after the timed launch (MAIN_LANES lanes,
+    # 2 x ECHO_ITERS records each), "plain_ms" `_records` on the same
+    # records on the host ("plain_flush_ms" the whole plain path: the
+    # downloads, `_records`, the writes, as the flush ran before the
+    # kernel), "flush_ms" flush_stdout_buffers whole, "library_ms"
+    # torch.masked_select over the transposed planes (the uniform layout's
+    # stream); "launches" counts the main path's echo run's flushes, and
+    # every flush on the card in the script was held against the plain
+    # version ("flushes_checked")
+    tf = t0_timing["flush"]
+    flush_record = {
+        "name": "stdout_flush",
+        "route": "cuda",
+        "source": "wasmedge_tpu_torch/csrc/stdout_flush.cu",
+        "replaces": "wasmedge_tpu/batch/pallas_engine.py:1520 (h_hostcall; "
+                    "the tier-0 flush, its host half, is "
+                    "wasmedge_tpu/batch/hostcall.py:214)",
+        "launches": eo["stdout_flush_launches"],
+        "max_abs_err": tf["max_abs_err"],
+        "ms": tf["kernel_ms"], "plain_ms": tf["plain_ms"],
+        "bound_ms": tf["bound_ms"], "bound_by": "bytes",
+        "library_ms": tf["library_ms"],
+        "flush_ms": tf["flush_ms"], "plain_flush_ms": tf["plain_flush_ms"],
+        "kernel_split_ms": tf["kernel_split_ms"],
+        "plain_split_ms": tf["plain_split_ms"],
+        "flush_bytes": tf["flush_bytes"], "bound_bytes": tf["bound_bytes"],
+        "flushes_checked": FLUSH["checked"], "bytes_checked": FLUSH["bytes"],
+        "main_flush_ms": eo["flush_ms"],
+        "main_flush_check_ms": eo["flush_check_ms"],
+    }
     # Tables, segments, tail calls and weighted gas: the handlers of the
     # main path's tail-dispatch build (a3_step, the tail calls and
     # call_indirect through the lane's table); "ms", "careful_ms",
@@ -5510,7 +5873,8 @@ def main() -> int:
           flush=True)
     print(json.dumps({"kernels": [record, block_record, super_record,
                                   bulk_record, simd_record, window_record,
-                                  opt_record, t0_record, tables_record]}),
+                                  opt_record, t0_record, flush_record,
+                                  tables_record]}),
           flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,8 +28,16 @@ runs it in the same turn; any other terminal is left to the per-op
 code, as before.  Heads beyond the cap
 keep a case per block shape in `Fused::step`, reached through the hid
 plane, with its operands from the code planes at pc0 + j.  B6
-superinstructions (`img` None): one case of `Fused::step` per
-superinstruction id present, dispatched by hid.  The text depends on the
+superinstructions (`img` and their rewritten operand planes `sops`
+given): one case of `Fused::at_pc` per superinstruction pc, up to the
+same cap, dispatched by pc, every operand a literal (the local
+offsets, the constant as one u64, the stored local, branch targets and
+keep counts, the budget's length), GCC's direct call and A2R's return
+run in the case through the B2 terminals' code; pcs beyond the cap keep
+their id's case of `Fused::step`, reached through the hid plane.  With no
+image, every block shape and superinstruction id has its case of
+`Fused::step`, dispatched by hid (the form before instance cases, the
+pc switch's yardstick).  The text depends on the
 module, the kBulk/kSimd/kWin/kOpt flags (kWin: memory through the window
 cache, `csrc/memwin.cuh`; kOpt: optimistic convergence,
 `csrc/optimistic.cuh`), whether the stack splits between shared and
@@ -61,7 +69,7 @@ from __future__ import annotations
 import re
 
 from wasmedge_tpu_torch.batch.fusion import (
-    _DIV32_SUBS, _DIV64_SUBS, H_BLOCK_BASE, SUPER_LEN, super_family)
+    _DIV32_SUBS, _DIV64_SUBS, H_BLOCK_BASE, super_family)
 from wasmedge_tpu_torch.batch.interp import (
     H_ALU2_BASE, H_BR, H_BRNZ, H_CALL, H_CALL_INDIRECT, H_FUSE_A2R_BASE,
     H_FUSE_GBR, H_FUSE_GCA_BASE, H_FUSE_GCB_BASE, H_FUSE_GCC_BASE,
@@ -99,7 +107,7 @@ _IN_CASE_TERMINALS = frozenset((H_BR, H_BRNZ, H_RETURN) + _CALLS) | _DIVS
 
 _HEAD = """\
 // Generated by wasmedge_tpu_torch/batch/fusegen.py: the fused dispatch of
-// one module ({ninst} block instance cases, {nblocks} block shape cases,
+// one module ({ninst} instance cases, {nblocks} block shape cases,
 // {nsuper} superinstruction ids, kBulk = {bulk}, kSimd = {simd}, kWin =
 // {win}, kOpt = {opt}, stack split {split}).  Built into _build/ at first
 // use.
@@ -146,11 +154,11 @@ _STEP_TAIL = """\
 """
 
 _AT_PC_HEAD = """\
-  // The dispatch at the clamped pc pcc (kByPc: B2 builds), with `left`
-  // steps of the launch and `fuel` left: a block head's instance case,
-  // else by the hid plane; returns the handler the per-op code runs at pc
-  // next (after the n ops retired here), or FUSED_DONE.  trap as for
-  // step.
+  // The dispatch at the clamped pc pcc (kByPc), with `left` steps of the
+  // launch and `fuel` left: a block head's or a superinstruction's
+  // instance case, else by the hid plane; returns the handler the
+  // per-op code runs at pc next (after the n ops retired here), or
+  // FUSED_DONE.  trap as for step.
   template <bool kSimd, bool kWin, class Wp>
   __device__ static __forceinline__ int at_pc(
       const Params& p, const Lane<kSimd>& s, Mem<kWin>& m, Wp& w,
@@ -181,6 +189,12 @@ _AT_PC_DEFAULT_STEP = """\
   }
 """
 
+# a superinstruction build's default: the hid of a pc that is no
+# superinstruction's head goes to the per-op code
+_NOT_SUPER = ("if ((unsigned)(h - H_FUSE_GCA_BASE) > "
+              "(unsigned)(H_FUSE_GBR - H_FUSE_GCA_BASE))\n"
+              "          return h;")
+
 _AT_PC_DEFAULT = """\
       default:
         return __ldg(&p.hid[pcc]);
@@ -200,24 +214,34 @@ WASM_FUSED_LAUNCH({bulk}, {simd}, {win}, {opt}, Fused)
 def cuda_source(hid, shapes, bulk: bool, simd: bool,
                 win: bool = False, opt: bool = False,
                 split: bool = True, t0: bool = False, img=None,
-                hid0=None, a3: bool = False, cost=None) -> str:
+                hid0=None, a3: bool = False, cost=None, sops=None) -> str:
     """The CUDA source of the fused dispatch for a fused hid plane and
     its block shapes (deterministic); `split`: the build for stacks
     deeper than the rows on chip (csrc/interp.cu WASM_STACK_SPLIT); `t0`:
     the build with the tier-0 handlers (WASM_TIER0, defined only then);
     `a3`: with the table, segment and tail-call handlers (WASM_TABLES);
     `cost`: each pc's gas weight (weighted gas, WASM_GAS), None for flat
-    gas.  With the image `img` and its original hid plane `hid0` (a
-    "blocks" encoding), the block heads get instance cases dispatched by
-    pc."""
+    gas.  With the image `img` and its original hid plane `hid0`, the
+    block heads of a "blocks" encoding, or the superinstructions of a
+    "super" one (`sops`: its rewritten operand planes fa ... fihi), get
+    instance cases dispatched by pc."""
     hid = [int(h) for h in hid]
-    chain = chains(hid, hid0, shapes) if img is not None else {}
-    supers = sorted({h for h in hid if super_family(h)})
-    heads = [pc for pc, h in enumerate(hid) if h >= H_BLOCK_BASE] \
-        if img is not None else []
+    chain = chains(hid, hid0, shapes) if img is not None and sops is None \
+        else {}
+    if img is None:
+        heads = []
+    elif sops is None:
+        heads = [pc for pc, h in enumerate(hid) if h >= H_BLOCK_BASE]
+    else:
+        heads = [pc for pc, h in enumerate(hid) if super_family(h)]
     inst, rest = heads[:MAX_INSTANCE_CASES], heads[MAX_INSTANCE_CASES:]
-    sids = sorted({hid[pc] - H_BLOCK_BASE for pc in rest}) \
-        if img is not None else range(len(shapes))
+    if img is None:
+        sids, supers = range(len(shapes)), sorted(
+            {h for h in hid if super_family(h)})
+    elif sops is None:
+        sids, supers = sorted({hid[pc] - H_BLOCK_BASE for pc in rest}), []
+    else:
+        sids, supers = [], sorted({hid[pc] for pc in rest})
     flags = dict(bulk=str(bool(bulk)).lower(), simd=str(bool(simd)).lower(),
                  win=str(bool(win)).lower(), opt=str(bool(opt)).lower())
     defines = "".join(f"#define {d} 1\n" for d, on in (
@@ -236,9 +260,21 @@ def cuda_source(hid, shapes, bulk: bool, simd: bool,
         out.append(_AT_PC_HEAD)
         code = _Code(img, hid0, cost)
         for pc in inst:
-            out.append(_Block(shapes[hid[pc] - H_BLOCK_BASE], simd,
-                              code, pc).instance_case(chain.get(pc)))
-        default = _AT_PC_DEFAULT_STEP if sids else _AT_PC_DEFAULT
+            if sops is None:
+                out.append(_Block(shapes[hid[pc] - H_BLOCK_BASE], simd,
+                                  code, pc).instance_case(chain.get(pc)))
+            else:
+                out.append(_super_instance(code, sops, pc, hid[pc]))
+        if not rest:
+            default = _AT_PC_DEFAULT
+        elif sops is None:
+            default = _AT_PC_DEFAULT_STEP
+        else:
+            default = _AT_PC_DEFAULT_STEP.replace(
+                "if (h < NUM_HANDLERS) return h;", _NOT_SUPER).replace(
+                "a block head\n        // beyond the cap through its shape's "
+                "case", "a\n        // superinstruction beyond the cap "
+                "through its id's case")
         if cost is not None:
             default = default.replace("fuel <= len",
                                       "fuel <= gas_run(p, pcc, len)")
@@ -835,67 +871,132 @@ def _sp0(k: int) -> str:
     return "sp0" if k == 0 else f"sp0 + {k}" if k > 0 else f"sp0 - {-k}"
 
 
-# Superinstructions: operands from the rewritten planes fa ... fihi at the
-# head slot.  Only images without v128 ops run them (two-word cells).
-_FA = "__ldg(&p.fa[pc0])"
-_FB = "__ldg(&p.fb[pc0])"
-_FC = "__ldg(&p.fc[pc0])"
-_FILO = "__ldg(&p.filo[pc0])"
-_FIHI = "__ldg(&p.fihi[pc0])"
-_GC = (f"s.get(fp + {_FA})", f"pack({_FILO}, {_FIHI})")  # local, imm
-_GG = (f"s.get(fp + {_FA})", f"s.get(fp + {_FC})")       # local, local
-_GGB = (f"s.get(fp + {_FILO})", f"s.get(fp + {_FIHI})")  # branch forms
+# Superinstructions: a shape case (`Fused::step`, by the fused id) takes
+# its operands from the rewritten planes fa ... fihi at the head slot; an
+# instance case (`Fused::at_pc`, by the pc) has them as literals.  Only
+# images without v128 ops run them (two-word cells).
+_SUPER_PLANES = ("fa", "fb", "fc", "filo", "fihi")
+_M32 = 0xFFFFFFFF
+_SUPER_NAMES = {H_FUSE_GCA_BASE: "GCA", H_FUSE_GCB_BASE: "GCB",
+                H_FUSE_A2R_BASE: "A2R", H_FUSE_GCC_BASE: "GCC",
+                H_FUSE_GCS_BASE: "GCS", H_FUSE_GGA_BASE: "GGA",
+                H_FUSE_GGS_BASE: "GGS", H_FUSE_GGBZ_BASE: "GGBZ",
+                H_FUSE_GGBNZ_BASE: "GGBNZ", H_FUSE_GBR: "GBR"}
+
+
+def _super_lines(h, lit=None):
+    """(lines, n, terminal) of superinstruction h: the lines compute and
+    write what it writes and set sp and pc (`sp0` and `pc0` its entry's);
+    n is the ops it retires before its terminal, which is the per-op
+    code's or an instance case's to run (H_CALL after GCC, H_RETURN after
+    A2R, else None).  `lit`: None (operands loaded from the rewritten
+    planes at pc0) or {plane: int} (an instance case's literals, pc0 its
+    literal pc)."""
+    base, sub = super_family(h)
+    if lit is None:
+        op = {k: f"__ldg(&p.{k}[pc0])" for k in _SUPER_PLANES}
+        imm = f"pack({op['filo']}, {op['fihi']})"
+        pc0 = "pc0"
+    else:
+        op = {k: str(v) for k, v in lit.items()}
+        imm = f"0x{((lit['fihi'] & _M32) << 32) | (lit['filo'] & _M32):016x}ull"
+        pc0 = lit["pc"]
+
+    def at(k):
+        return f"pc0 + {k}" if lit is None else str(pc0 + k)
+
+    def keep(src, ind=""):
+        # a branch's kept value and its sp: nk and pt at run time, or
+        # folded when they are literals
+        if lit is None:
+            return [f"{ind}const int nk = {op['fb']}, pt = {op['fc']};",
+                    f"{ind}if (nk == 1) s.putc(ob + pt, {src});",
+                    f"{ind}sp = ob + pt + nk;"]
+        nk, pt = lit["fb"], lit["fc"]
+        return ([f"{ind}s.putc(ob + {pt}, {src});"] if nk == 1 else []) + \
+            [f"{ind}sp = ob + {pt + nk};"]
+
+    if base == H_FUSE_GBR:
+        return (keep(f"s.getc(fp + {op['filo']})") + [f"pc = {op['fa']};"],
+                2, None)
+    if base == H_FUSE_A2R_BASE:
+        x, y = "s.get(sp0 - 2)", "s.get(sp0 - 1)"
+    elif base in (H_FUSE_GGA_BASE, H_FUSE_GGS_BASE):
+        x, y = f"s.get(fp + {op['fa']})", f"s.get(fp + {op['fc']})"
+    elif base in (H_FUSE_GGBZ_BASE, H_FUSE_GGBNZ_BASE):
+        x, y = f"s.get(fp + {op['filo']})", f"s.get(fp + {op['fihi']})"
+    else:
+        x, y = f"s.get(fp + {op['fa']})", imm
+    body = [f"const u64 res = fused_alu2({sub}, {x}, {y});"]
+    if base in (H_FUSE_GCA_BASE, H_FUSE_GGA_BASE, H_FUSE_GCC_BASE):
+        # the result is pushed; GCC's call is its terminal
+        body += ["s.put(sp0, res);", "sp = sp0 + 1;", f"pc = {at(3)};"]
+        return body, 3, H_CALL if base == H_FUSE_GCC_BASE else None
+    if base == H_FUSE_A2R_BASE:
+        # the result goes where the return moves it; the return is its
+        # terminal, which finds it on top at fp (an instance case's
+        # return writes it there itself)
+        return body + (["s.put(fp, res);"] if lit is None else []) + \
+            ["sp = fp + 1;", f"pc = {at(1)};"], 1, H_RETURN
+    if base in (H_FUSE_GCS_BASE, H_FUSE_GGS_BASE):
+        return body + [f"s.put(fp + {op['fb']}, res);", f"pc = {at(4)};"], \
+            4, None
+    if base in (H_FUSE_GCB_BASE, H_FUSE_GGBZ_BASE):
+        tgt = op["fb"] if base == H_FUSE_GCB_BASE else op["fa"]
+        return body + [f"pc = !w.nz((u32)res) ? {tgt} : {at(4)};"], 4, None
+    assert base == H_FUSE_GGBNZ_BASE
+    return body + ["if (w.nz((u32)res)) {"] + keep("s.getc(sp0 - 1)", "  ") + \
+        [f"  pc = {op['fa']};", "} else {", f"  pc = {at(4)};", "}"], 4, None
+
+
+def _super_desc(h):
+    base, sub = super_family(h)
+    return _SUPER_NAMES[base] + ("" if sub is None else f" alu2:{sub}")
 
 
 def _super_case(h: int) -> str:
-    base, sub = super_family(h)
-    if base == H_FUSE_GBR:
-        body = [f"const int nk = {_FB}, pt = {_FC};",
-                f"if (nk == 1) s.putc(ob + pt, s.getc(fp + {_FILO}));",
-                "sp = ob + pt + nk;", f"pc = {_FA};", "n = 2;",
-                "return false;"]
-        return _case(h, "GBR", body)
-    n = SUPER_LEN[base]
-    if base == H_FUSE_A2R_BASE:
-        x, y = "s.get(sp0 - 2)", "s.get(sp0 - 1)"
-    else:
-        x, y = {H_FUSE_GGA_BASE: _GG, H_FUSE_GGS_BASE: _GG,
-                H_FUSE_GGBZ_BASE: _GGB, H_FUSE_GGBNZ_BASE: _GGB}.get(
-                    base, _GC)
-    body = [f"const u64 r = fused_alu2({sub}, {x}, {y});"]
-    if base in (H_FUSE_GCA_BASE, H_FUSE_GGA_BASE, H_FUSE_GCC_BASE):
-        # the result is pushed; GCC leaves its call to the per-op code
-        body += ["s.put(sp0, r);", "sp = sp0 + 1;", "pc = pc0 + 3;",
-                 "n = 3;",
-                 f"return {'true' if base == H_FUSE_GCC_BASE else 'false'};"]
-        name = {H_FUSE_GCA_BASE: "GCA", H_FUSE_GGA_BASE: "GGA",
-                H_FUSE_GCC_BASE: "GCC"}[base]
-    elif base == H_FUSE_A2R_BASE:
-        # the result goes where the return moves it; the return itself is
-        # left to the per-op code, which finds it on top at fp
-        body += ["s.put(fp, r);", "sp = fp + 1;", "pc = pc0 + 1;", "n = 1;",
-                 "return true;"]
-        name = "A2R"
-    elif base in (H_FUSE_GCS_BASE, H_FUSE_GGS_BASE):
-        body += [f"s.put(fp + {_FB}, r);", "pc = pc0 + 4;", "n = 4;",
-                 "return false;"]
-        name = "GCS" if base == H_FUSE_GCS_BASE else "GGS"
-    elif base in (H_FUSE_GCB_BASE, H_FUSE_GGBZ_BASE):
-        tgt = _FB if base == H_FUSE_GCB_BASE else _FA
-        body += [f"pc = !w.nz((u32)r) ? {tgt} : pc0 + 4;", "n = 4;",
-                 "return false;"]
-        name = "GCB" if base == H_FUSE_GCB_BASE else "GGBZ"
-    else:
-        assert base == H_FUSE_GGBNZ_BASE
-        body += ["if (w.nz((u32)r)) {",
-                 f"  const int nk = {_FB}, pt = {_FC};",
-                 "  if (nk == 1) s.putc(ob + pt, s.getc(sp0 - 1));",
-                 "  sp = ob + pt + nk;", f"  pc = {_FA};",
-                 "} else {", "  pc = pc0 + 4;", "}", "n = 4;",
-                 "return false;"]
-        name = "GGBNZ"
-    assert len(body) and n in (2, 3, 4)
-    return _case(h, f"{name} alu2:{sub}", body)
+    """The shape case of superinstruction id h in `Fused::step`: operands
+    from the planes at pc0; returns true when its terminal (GCC's call,
+    A2R's return) is left to the per-op code."""
+    lines, n, term = _super_lines(h)
+    return _case(h, _super_desc(h), lines + [
+        f"n = {n};", f"return {'true' if term is not None else 'false'};"])
+
+
+def _super_instance(code, sops, pc0, h):
+    """The instance case of the superinstruction at pc0 in `Fused::at_pc`
+    (its fused id h; `sops`: the rewritten planes fa ... fihi that
+    `fuse_image` gave):
+    the budget test against its literal length, its lines with every
+    operand a literal, and GCC's call or A2R's return in the case, through
+    `_Block`'s instance terminals (the per-op steps' semantics: C9's
+    order, a frame row saved for a B3 rollback, agreed return rows)."""
+    lit = {k: int(v[pc0]) for k, v in zip(_SUPER_PLANES, sops)}
+    lit["pc"] = pc0
+    lines, n, term = _super_lines(h, lit)
+    length = n + (term is not None)
+    blk = _Block((("nop",),), False, code, pc0)
+    blk.emit(f"if (left < {length} || (p.fuel_on && fuel <= "
+             f"{code.gas(pc0, length)}))")
+    blk.emit(f"  return {int(code.hid0[pc0])};")
+    if any("sp0" in line for line in lines):
+        blk.emit("const int sp0 = sp;")
+    for line in lines:
+        blk.emit(line)
+    t = pc0 + n
+    if term is not None:
+        # the terminal's rows below this sp hold what its per-op step
+        # would read: GCC's pushed result, A2R's at fp
+        blk.emit("s.note(sp);")
+        if term == H_CALL:
+            blk.direct_call(code.at("a", t), t)
+        else:
+            blk.terminal(H_RETURN, t, ([("res", "s")], 0))
+    blk.emit(f"n = {length};")
+    blk.emit("return FUSED_DONE;")
+    desc = _super_desc(h) + ("" if term is None else f" term:{term}")
+    return (f"      case {pc0}: {{  // {desc}\n"
+            + "\n".join(blk.lines) + "\n      }\n")
 
 
 def _case(h, desc, body):

@@ -28,7 +28,10 @@ in-device stdout buffer (`so_buf`: a header `fd << 28 | len`, then the
 payload padded to words); the flush writes them to the WASI environ's
 fds, lane by lane within each fd and fd by fd in sorted order, before
 every serve round (a tier-1 call must see the bytes written before it)
-and at the end of a run, and sets each lane's fill (`so_off`) to 0.
+and at the end of a run, and sets each lane's fill (`so_off`) to 0.  On
+the card the records are cut out by a kernel (`csrc/stdout_flush.cu`,
+`batch/stdout_flush.py`) and come down as one copy of the bytes; on the
+CPU by `_records`, its plain version.
 Exactly once across restores (the reference's :134-164): each lane's
 records advance its logical stream position, and bytes below the
 engine's written high-water mark are a replay of output already flushed
@@ -197,26 +200,46 @@ def _records(buf: np.ndarray, so_off: np.ndarray, skip=None):
     return {fd: b"".join(p) for fd, p in out.items()}, lens
 
 
+def stdout_records(so_buf: torch.Tensor, so_off: torch.Tensor,
+                   skip: np.ndarray) -> Optional[tuple]:
+    """(fd -> the bytes of its records lane after lane, each lane's
+    payload bytes [L] int64) of the records in the stdout plane so_buf
+    [SW, L] below each lane's fill so_off, with each lane's first
+    skip[lane] payload bytes left out; None when no lane has a record.
+    CUDA tensors: the flush kernel (`batch/stdout_flush.py`, which raises
+    when it cannot build or launch); CPU tensors: the plain version,
+    `_records` over the rows below the largest fill."""
+    if so_buf.device.type == "cuda":
+        from wasmedge_tpu_torch.batch import stdout_flush
+
+        return stdout_flush.records(so_buf, so_off, skip)
+    if so_buf.device.type != "cpu":
+        raise ValueError(f"no stdout flush for device {so_buf.device}")
+    off = so_off.numpy()
+    rows = int(off.max(initial=0))
+    if rows == 0:
+        return None
+    return _records(so_buf[:rows].numpy(), off, skip)
+
+
 def flush_stdout_buffers(engine, state) -> int:
     """Drain the tier-0 stdout records of `state` to the WASI environ's
-    fds (one download of the rows below the largest fill, one write per
-    fd) and set every lane's fill to 0, exactly once across restores:
-    the records advance each lane's stream position, and bytes below the
-    engine's written high-water mark are a replay of output a flush
-    before the restore wrote, and are skipped (the reference's
-    hostcall.py:214-283; payloads are deterministic unless a guest
-    writes clock values, where the replayed window is printed at least
-    once).  Returns the bytes written."""
+    fds (`stdout_records`: on the card the flush kernel and one copy of
+    the bytes to the host; one write per fd) and set every lane's fill to
+    0, exactly once across restores: the records advance each lane's
+    stream position, and bytes below the engine's written high-water mark
+    are a replay of output a flush before the restore wrote, and are
+    skipped (the reference's hostcall.py:214-283; payloads are
+    deterministic unless a guest writes clock values, where the replayed
+    window is printed at least once).  Returns the bytes written."""
     if state.so_buf is None:
         return 0
-    so_off = state.so_off.cpu().numpy()
-    rows = int(so_off.max(initial=0))
-    if rows == 0:
-        return 0
     t0 = time.perf_counter()
-    pos, hw = _stdout_cursor(engine, so_off.size)
-    per_fd, lens = _records(state.so_buf[:rows].cpu().numpy(), so_off,
-                            np.maximum(hw - pos, 0))
+    pos, hw = _stdout_cursor(engine, int(state.so_off.shape[0]))
+    res = stdout_records(state.so_buf, state.so_off, np.maximum(hw - pos, 0))
+    if res is None:
+        return 0
+    per_fd, lens = res
     pos += lens
     np.maximum(hw, pos, out=hw)
     env = wasi_env_of(engine)

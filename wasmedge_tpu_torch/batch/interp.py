@@ -387,6 +387,7 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
         tables.cost, tables.gcum = (t(x) for x in gas_planes(cost))
     if fusion == "none":
         return tables
+    sops = None  # the superinstructions' rewritten operand planes
     if fusion == "blocks":
         fhid, shapes = fuse_blocks(hid, img)
     else:
@@ -396,6 +397,7 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
         fhid, fa, fb, fc, filo, fihi = fuse_image(
             hid, img.a, img.b, img.c, img.imm_lo, img.imm_hi, img)
         shapes = ()
+        sops = (fa, fb, fc, filo, fihi)
         tables.fa, tables.fb, tables.fc = t(fa), t(fb), t(fc)
         tables.filo, tables.fihi = t(filo), t(fihi)
     tables.hid0 = tables.hid
@@ -411,8 +413,8 @@ def device_tables(img: DeviceImage, device, fusion: str = "none",
     tables.fused_source = fusegen.cuda_source(
         fhid, shapes, tables.has_bulk, tables.has_simd, tables.mem_window,
         tables.optimistic, tables.stack_split, tables.t0k is not None,
-        a3=tables.a3, cost=cost,
-        **(dict(img=img, hid0=hid) if fusion == "blocks" else {}))
+        a3=tables.a3, cost=cost, img=img, hid0=hid,
+        sops=sops)
     return tables
 
 
@@ -442,10 +444,12 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # serve tier-0 host calls in the kernel ("tier0"), those of the builds
 # with the table, segment, tail-call and ref.func handlers ("tables"),
 # those that charged weighted gas ("gas") and those launched over fewer
-# lanes than the state's (lane compaction's narrowing, "narrow").
+# lanes than the state's (lane compaction's narrowing, "narrow"); and the
+# launches of tier 0's stdout flush kernel ("stdout_flush",
+# batch/stdout_flush.py), which are not the interpreter's.
 LAUNCHES = {"interp": 0, "bulk": 0, "hostcall": 0, "simd": 0, "block": 0,
             "super": 0, "window": 0, "optimistic": 0, "tier0": 0,
-            "tables": 0, "gas": 0, "narrow": 0}
+            "tables": 0, "gas": 0, "narrow": 0, "stdout_flush": 0}
 
 _libs = {}  # build key -> loaded ctypes library
 _lib_lock = threading.Lock()

@@ -32,9 +32,12 @@
 // call_op), and a div or rem terminal, with the lone call after it in the
 // same turn (a direct one in the case, any other in the per-op code);
 // v128 ops are force-inlined by their literal sub (interp.cu v2_fn,
-// v1_fn), shuffles literal byte permutes.  Heads beyond the generator's
-// cap, and B6 superinstructions, keep `Fused::step`, dispatched by the
-// fused id in the hid plane, operands from the code planes.
+// v1_fn), shuffles literal byte permutes.  B6 superinstructions the
+// same: one case per superinstruction pc, its operands literals, and
+// GCC's call and A2R's return run in the case (the B2 terminals' code).
+// Heads and superinstructions beyond the generator's cap keep
+// `Fused::step`, dispatched by the fused id in the hid plane, operands
+// from the code planes.
 //
 // Under kOpt a block's decisions (its guard and branch conditions, the
 // addresses of its inline loads and stores, a return's frame row, a

@@ -2334,11 +2334,13 @@ __device__ __forceinline__ int call_op(const Params& p, const Lane<kSimd>& s,
 // steps in the launch and, with fuel on, its remaining fuel cover the
 // whole fused length, so a launch stops at the same instruction as the
 // per-op loop; otherwise the lane runs the head slot's original op
-// (hid0) and goes on one op at a time.  B2 builds (F::kByPc) switch on
-// the pc: F::at_pc runs a block head's case, which may run its terminal
-// too (any other pc takes the hid plane, a block beyond the instance cap
-// F::step), and returns the handler the per-op code runs next or
-// FUSED_DONE; B6 builds load the hid and run F::step at a fused id.
+// (hid0) and goes on one op at a time.  B2 and B6 builds (F::kByPc)
+// switch on the pc: F::at_pc runs a block head's or superinstruction's
+// case, which may run its terminal too (any other pc takes the hid plane,
+// a block or superinstruction beyond the instance cap F::step), and
+// returns the handler the per-op code runs next or FUSED_DONE; a build
+// generated without instance cases (fusegen.cuda_source with no image)
+// loads the hid and runs F::step at a fused id.
 // Either retires n ops (their writes committed, the live cells of its
 // virtual stack flushed) and may leave a terminal op at pc to the per-op
 // code below.
@@ -2420,12 +2422,14 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
     int pcc = clampi(pc, 0, p.code_len - 1);
     int h;
     if constexpr (F::kByPc) {
-      // B2 blocks: the generated switch on pc runs a block head's own
-      // case (its budget test, its ops and, for br / brnz / return /
-      // call / call_indirect / tail call / div / rem, its terminal, every immediate a literal), or returns the
-      // handler the per-op code below runs at pc: a pc that heads no
-      // block, a head whose block the budget does not cover (its own
-      // op), a terminal left to the per-op code (after the block's n
+      // B2 blocks and B6 superinstructions: the generated switch on pc
+      // runs a block head's or a superinstruction's own case (its budget
+      // test, its ops and, for br / brnz / return / call /
+      // call_indirect / tail call / div / rem, or a superinstruction's
+      // call or return, its terminal, every immediate a literal), or
+      // returns the handler the per-op code below runs at pc: a pc that
+      // heads no case, a head whose case the budget does not cover (its
+      // own op), a terminal left to the per-op code (after the case's n
       // ops).  FUSED_DONE: nothing left for the per-op code.
       int n = 0, xtrap = 0;
       h = F::template at_pc<kSimd, kWin>(p, s, m, w, os, pcc,
@@ -2463,10 +2467,12 @@ __device__ __forceinline__ void dispatch_loop(const Params& p,
       h = __ldg(&p.hid[pcc]);
     }
     if constexpr (F::kOn && !F::kByPc) {
-      // B6 superinstructions: dispatched by the hid plane.  One hook for
-      // both encodings (B6 through at_pc's default) ran fib(30) in super
-      // 5.9 % slower on an H100 (PERF.md): a second test on every
-      // per-op instruction's path.
+      // A build without instance cases (blocks or superinstructions
+      // dispatched by the hid plane, fusegen.cuda_source with no image:
+      // the pc switch's yardstick).  Routing B6 through at_pc's default
+      // test alone ran fib(30) in super 5.9 % slower on an H100
+      // (PERF.md): a second test on every per-op instruction's path; its
+      // instance cases take the hid test off the path.
       if ((unsigned)(h - H_FUSE_GCA_BASE) <= (unsigned)(H_FUSE_GBR - H_FUSE_GCA_BASE) ||
           h >= NUM_HANDLERS) {
         const int len = __ldg(&p.flen[pcc]);

@@ -248,7 +248,25 @@ Phases:
                the tier-0 jobs and the round trips compare the cursors
                too.  The B6 builds ("super") are instance cases by pc,
                as B2's: each super job holds them against the plain
-               version at every launch;
+               version at every launch.  Supervision (phase_supervise,
+               batch/supervisor.py and the server's recovery): the fib
+               mix under BatchSupervisor with a checkpoint every 4
+               launches and one injected launch fault after the second
+               checkpoint; coremark(4096) x 4096 with windows, a
+               checkpoint every 4 launches of 8192 steps and a launch
+               fault that corrupts the newest member first (the lineage
+               falls back); the fib mix with max_retries + 1 faults in a
+               row (demoted to the per-op "none" tables, finishing from
+               the lineage); lanes 0 and 11 poisoned (terminated: under
+               an engine on the card the supervisor runs nothing on the
+               host); VM.execute_batch(supervised=True,
+               resume=True) adopting the first run's lineage; the
+               compacted serving run with a checkpoint every 32 rounds
+               and one launch fault: each equal to its unsupervised run
+               (results, traps, retired; serving: every future), each
+               run's wall, every checkpoint's save and load ms and bytes,
+               the replay, and the demoted rung's time against the
+               blocks rung's over the same steps;
   4. report  - phase times, kernel times (CUDA events), retired
                instructions and instructions per second, registers and
                spills of each build, the card's name and power limit, one
@@ -271,6 +289,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -350,7 +369,6 @@ def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
     before `data` is instantiated."""
     from wasmedge_tpu_torch.batch import fusegen
     from wasmedge_tpu_torch.batch.engine import BatchEngine
-    from wasmedge_tpu_torch.batch.interp import device_tables
     from wasmedge_tpu_torch.common.configure import Configure, Proposal
     from wasmedge_tpu_torch.executor import Executor
     from wasmedge_tpu_torch.loader import Loader
@@ -378,13 +396,7 @@ def make_engine(data: bytes, lanes: int, device="cuda", imports=(),
         if instance_cap is not None:
             fusegen.MAX_INSTANCE_CASES = instance_cap
         try:
-            eng.fusion = fusion
-            eng.tables = device_tables(eng.img, eng.device, fusion,
-                                       mem_window=eng.mem_window,
-                                       optimistic=eng.optimistic,
-                                       stack_depth=eng.cfg.value_stack_depth,
-                                       t0kinds=eng.t0kinds,
-                                       t0=eng.tables.t0, cost=eng.cost)
+            eng.set_encoding(fusion)
         finally:
             fusegen.MAX_INSTANCE_CASES = cap
     return eng, inst
@@ -2272,17 +2284,10 @@ def run_vm(vm, func, args, fusion=None):
     (result, engine)."""
     if fusion is None:
         return vm.execute_batch(func, args, max_steps=10**9), vm.last_engine
-    from wasmedge_tpu_torch.batch.interp import device_tables
     from wasmedge_tpu_torch.vm.vm import make_engine as vm_engine
 
     eng = vm_engine(vm._active, vm.store, vm.conf, device="cuda")
-    eng.fusion = fusion
-    eng.tables = device_tables(eng.img, eng.device, fusion,
-                               mem_window=eng.mem_window,
-                               optimistic=eng.optimistic,
-                               stack_depth=eng.cfg.value_stack_depth,
-                               t0kinds=eng.t0kinds, t0=eng.tables.t0,
-                               cost=eng.cost)
+    eng.set_encoding(fusion)
     return eng.run(func, list(args), max_steps=10**9), eng
 
 
@@ -4229,7 +4234,11 @@ def phase_main_mix() -> dict:
                                  STRADDLE_N)}
 
 
-def serve_once(profile: bool, compact: bool = False) -> dict:
+SERVED = {}  # the futures' results of serving runs, by key
+
+
+def serve_once(profile: bool, compact: bool = False, key=None,
+               faults=None, ckdir=None, every_rounds=None) -> dict:
     """One serving run: BatchServer(engine=MultiModuleBatchEngine(the four
     config-5 modules, MAIN_LANES lanes)), SERVE_CHUNK steps a launch,
     SERVE_REQUESTS seeded requests (serve_load) over four tenants with
@@ -4237,17 +4246,24 @@ def serve_once(profile: bool, compact: bool = False) -> dict:
     Every future equal to its model, every request completed.  With
     `profile`, under torch.profiler (the kernel's device time); with
     `compact`, lane compaction on (the server's boundary pass, the default
-    knobs), its figures and its rounds' host ms in the record."""
+    knobs), its figures and its rounds' host ms in the record.  `key`
+    keeps the futures' results in SERVED; `faults`, `ckdir` and
+    `every_rounds` give the server a FaultInjector, a checkpoint
+    directory and a cadence (the record then has its retries, failures
+    and seam counts)."""
     from wasmedge_tpu_torch.batch.multitenant import MultiModuleBatchEngine
     from wasmedge_tpu_torch.models.fixtures import (
         CONFIG5, serve_load, serve_model)
     from wasmedge_tpu_torch.serve import BatchServer
 
     conf = mix_conf(steps_per_launch=SERVE_CHUNK, compact=compact)
+    conf.serve.checkpoint_every_rounds = every_rounds
+    conf.serve.backoff_base_s = 0.0
     modules = [(name, *mix_instance(mix_module(name), conf))
                for name, _, _ in CONFIG5]
     eng = MultiModuleBatchEngine(modules, conf=conf, lanes=MAIN_LANES)
-    srv = BatchServer(engine=eng, weights=SERVE_WEIGHTS, quotas=SERVE_QUOTAS)
+    srv = BatchServer(engine=eng, weights=SERVE_WEIGHTS, quotas=SERVE_QUOTAS,
+                      faults=faults, checkpoint_dir=ckdir)
     if compact != (srv._compactor is not None):
         fail(f"serving: compact {compact}, compactor {srv._compactor}")
     load = serve_load(SERVE_REQUESTS, SEED)
@@ -4269,6 +4285,8 @@ def serve_once(profile: bool, compact: bool = False) -> dict:
     if c["completed"] != SERVE_REQUESTS or c["killed"] or c["trapped"]:
         fail(f"serving: counters {c}")
     got = np.array([f.result(0)[0] for f in futs], np.int64)
+    if key is not None:
+        SERVED[key] = got
     funcs = np.array([f for _, f, _ in load])
     ns = np.array([n for _, _, n in load], np.int64)
     for name, func, model in CONFIG5:
@@ -4294,6 +4312,11 @@ def serve_once(profile: bool, compact: bool = False) -> dict:
                                           if tt == t)
                                    for t in SERVE_WEIGHTS},
                counters=dict(c))
+    if faults is not None:
+        rec.update(retries=srv.retries,
+                   failures=[f.fault_class for f in srv.failures],
+                   seams=dict(faults.counts),
+                   lineage=[m.steps for m in srv._lineage.members])
     if compact:
         if not srv._compactor.stats["fires"]:
             fail("serving with compaction: no permutation fired")
@@ -4878,7 +4901,7 @@ def phase_compact(main_out: dict) -> dict:
     same call's uncompacted runs, and the checkpoint round trips."""
     out = {"fib_mix": phase_compact_fib_mix(),
            "straddle": phase_compact_straddle()}
-    srv = serve_once(False, compact=True)
+    srv = serve_once(False, compact=True, key="compacted")
     prof = serve_once(True, compact=True)
     srv.update(kernel_ms=prof["kernel_ms"], profiled_wall_s=prof["wall_s"],
                kernel_share=prof["kernel_ms"] / 1e3 / prof["wall_s"])
@@ -4901,6 +4924,352 @@ def phase_compact(main_out: dict) -> dict:
           f"{base['rollbacks']} rollbacks", flush=True)
     out["serve"] = srv
     out["checkpoint"] = phase_compact_checkpoint()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Supervision (batch/supervisor.py, serve/server.py) on the card
+# ---------------------------------------------------------------------------
+# the fib mix: a checkpoint every SUP_CADENCE steps (4 launches of 1 << 20),
+# the fault at launch SUP_FAULT_AT (after the checkpoints at 4 and 8
+# launches), the demotion's max_retries + 1 faults from launch
+# SUP_DEMOTE_AT (right after the checkpoint at 20 launches), the poisoned
+# lanes' two faults from launch SUP_POISON_AT
+SUP_FIB_BASE = 20           # the mix: fib(SUP_FIB_BASE + lane % 11)
+SUP_FIB_CHUNK = 1 << 20     # its steps a launch, as phase_main runs it
+SUP_CADENCE = 4 * SUP_FIB_CHUNK
+SUP_FAULT_AT = 10
+SUP_DEMOTE_AT = 20
+SUP_POISON_AT = 12
+SUP_POISON_LANES = (0, 11)
+# CoreMark: 8192 steps a launch, a checkpoint every four (each save of
+# its page plane took about 2 s on the card), the fault at launch 8 (after
+# the checkpoints at 32,768 and 65,536 steps)
+SUP_CM_CHUNK = 8192
+SUP_CM_CADENCE = 4 * SUP_CM_CHUNK
+SUP_CM_FAULT_AT = 8
+# serving: a checkpoint every 32 rounds, the fault at launch 40
+SUP_SERVE_ROUNDS = 32
+SUP_SERVE_FAULT_AT = 40
+
+
+class CheckpointTimes:
+    """Wraps batch/checkpoint.py's save and load (the supervisor and the
+    server call them through the module) while active: each call's kind,
+    file, steps, milliseconds (the device synchronized before and
+    after), bytes and end time (perf_counter)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __enter__(self):
+        from wasmedge_tpu_torch.batch import checkpoint
+
+        self._mod = checkpoint
+        self._save, self._load = checkpoint.save, checkpoint.load
+
+        def timed(kind, fn):
+            def call(path, *a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ok = False
+                try:
+                    out = fn(path, *a, **k)
+                    torch.cuda.synchronize()
+                    ok = True
+                    return out
+                finally:
+                    end = time.perf_counter()
+                    m = re.search(r"(\d+)\.npz$", os.fspath(path))
+                    self.rows.append(dict(
+                        kind=kind, file=os.path.basename(path), ok=ok,
+                        steps=int(m.group(1)) if m else None,
+                        ms=(end - t) * 1e3, end=end,
+                        bytes=os.path.getsize(path)
+                        if os.path.exists(path) else 0))
+            return call
+
+        checkpoint.save = timed("save", self._save)
+        checkpoint.load = timed("load", self._load)
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.save, self._mod.load = self._save, self._load
+
+    def summary(self) -> dict:
+        out = {}
+        for kind in ("save", "load"):
+            rows = [r for r in self.rows if r["kind"] == kind and r["ok"]]
+            out[kind] = dict(n=len(rows),
+                             ms=[round(r["ms"], 3) for r in rows],
+                             bytes=[r["bytes"] for r in rows])
+        out["refused"] = [r["file"] for r in self.rows if not r["ok"]]
+        return out
+
+
+def sup_fault(point, at, times=1, lanes=(), before=None, log=None):
+    """A Fault whose exception is made by a factory that notes the
+    arrival's context (the step total) and time in `log`."""
+    from wasmedge_tpu_torch.testing.faults import Fault, InjectedFault
+
+    def exc(ctx):
+        if log is not None:
+            log.append(dict(total=ctx.get("total"), t=time.perf_counter()))
+        return InjectedFault(ctx["point"], ctx["index"], lanes=lanes)
+    return Fault(point=point, at=at, times=times, lanes=lanes,
+                 before=before, exc=exc)
+
+
+def member_steps(path) -> int:
+    return int(re.search(r"(\d+)\.npz$", path).group(1))
+
+
+def same_result(label, res, want):
+    """Fail unless `res` equals `want` in results, traps and retired."""
+    if not all(np.array_equal(a, b) for a, b in
+               zip(res.results, want.results)) or \
+            not np.array_equal(res.trap, want.trap) or \
+            not np.array_equal(res.retired, want.retired):
+        fail(f"{label}: differs from the unsupervised run (traps "
+             f"{np.unique(res.trap)}, results differ on "
+             f"{int((res.results[0] != want.results[0]).sum())} lanes)")
+
+
+def phase_supervise(main_out: dict) -> dict:
+    """Supervised runs at MAIN_LANES lanes (module docstring, phase 3),
+    each against its unsupervised counterpart of this call."""
+    from wasmedge_tpu_torch.batch.supervisor import BatchSupervisor
+    from wasmedge_tpu_torch.common.configure import Configure
+    from wasmedge_tpu_torch.common.errors import ErrCode
+    from wasmedge_tpu_torch.models import build_coremark_kernel, build_fib
+    from wasmedge_tpu_torch.testing.faults import (
+        FaultInjector, corrupt_checkpoint)
+    from wasmedge_tpu_torch.vm.vm import VM, make_engine as vm_engine
+
+    L = MAIN_LANES
+    out = {}
+    ns = (SUP_FIB_BASE + np.arange(L) % 11).astype(np.int64)
+    want = UNCOMPACTED["fib_mix"][0]
+    base = main_out["fib_mix"]
+    conf = Configure()
+    conf.batch.lanes = L
+    conf.batch.value_stack_depth = 256
+    conf.batch.call_stack_depth = 256
+    conf.batch.steps_per_launch = SUP_FIB_CHUNK
+    conf.supervisor.checkpoint_every_steps = SUP_CADENCE
+    conf.supervisor.backoff_base_s = 0.0
+    vm = VM(conf)
+    vm.load_wasm(build_fib())
+    vm.validate()
+    vm.instantiate()
+    root = tempfile.mkdtemp(prefix="chip-smoke-sup-")
+
+    def supervised(label, faults, ckdir, need=("interp", "block"), **knobs):
+        """One supervised fib mix run on a fresh engine of the VM's
+        instance: (supervisor, result, wall s, counts, checkpoint
+        times)."""
+        old = {k: getattr(vm.conf.supervisor, k) for k in knobs}
+        for k, v in knobs.items():
+            setattr(vm.conf.supervisor, k, v)
+        try:
+            eng = vm_engine(vm._active, vm.store, vm.conf)
+            sup = BatchSupervisor(eng, stats=vm.statistics(),
+                                  faults=FaultInjector(faults),
+                                  checkpoint_dir=ckdir)
+            with CheckpointTimes() as ck:
+                res, counts, wall, _ = counted(
+                    label, lambda: sup.run("fib", [ns], max_steps=10**9),
+                    need)
+        finally:
+            for k, v in old.items():
+                setattr(vm.conf.supervisor, k, v)
+        print(f"  {label}: wall {wall:.3f} s ({base['wall_s']:.3f} s "
+              f"unsupervised), {counts['interp']} launches, incidents "
+              f"{[(f.fault_class, f.lanes) for f in sup.failures]}, "
+              f"checkpoints {json.dumps(ck.summary())}", flush=True)
+        return sup, res, wall, counts, ck
+
+    # 1. one launch fault after the second checkpoint
+    log = []
+    d1 = os.path.join(root, "fib")
+    sup, res, wall, counts, ck = supervised(
+        f"supervised fib({SUP_FIB_BASE} + lane % 11) x {L}, one launch "
+        f"fault",
+        [sup_fault("launch", SUP_FAULT_AT, log=log)], d1)
+    same_result("the supervised fib mix", res, want)
+    restored = member_steps(sup._restored_from)
+    if [f.fault_class for f in sup.failures] != ["launch"] or \
+            restored != 2 * SUP_CADENCE:
+        fail(f"supervised fib mix: incidents {sup.failures}, restored from "
+             f"{sup._restored_from}")
+    out["fib_mix"] = dict(
+        wall_s=wall, unsupervised_wall_s=base["wall_s"],
+        launches=counts["interp"], unsupervised_launches=base["launches"],
+        fault_at_steps=log[0]["total"], restored_steps=restored,
+        replayed_steps=log[0]["total"] - restored,
+        checkpoints=ck.summary())
+    saves1 = {r["steps"]: r["end"] for r in ck.rows if r["kind"] == "save"}
+    end1 = time.perf_counter()
+
+    # 2. max_retries + 1 faults in a row: the per-op rung finishes from
+    # the newest member
+    retries = vm.conf.supervisor.max_retries
+    sup, res, wall, counts, ck = supervised(
+        f"supervised fib mix x {L}, {retries + 1} faults in a row "
+        f"(demoted)", [sup_fault("launch", SUP_DEMOTE_AT, retries + 1)],
+        os.path.join(root, "demote"))
+    mono_end = time.monotonic()
+    same_result("the demoted fib mix", res, want)
+    demote = [f for f in sup.failures if f.fault_class == "demote"]
+    adopted = member_steps(sup._restored_from)
+    op_launches = counts["interp"] - counts["block"] - counts["super"]
+    if sup.tier != "cuda_unfused" or len(demote) != 1 or \
+            sup.engine.tables.fusion != "none" or not op_launches:
+        fail(f"demoted fib mix: rung {sup.tier}, incidents "
+             f"{[f.fault_class for f in sup.failures]}")
+    # the per-op rung's time (from the demotion's record, its adoption of
+    # the newest member included, to the end) against run 1's time in
+    # blocks over the same steps (from its save at `adopted` to its end)
+    unfused_s = mono_end - demote[0].mono_s
+    out["demote"] = dict(
+        wall_s=wall, launches=counts["interp"],
+        op_launches=op_launches,
+        block_launches=counts["block"], adopted_steps=adopted,
+        final_steps=int(res.steps), unfused_span_s=unfused_s,
+        blocks_span_s=end1 - saves1[adopted] if adopted in saves1 else None,
+        checkpoints=ck.summary())
+
+    # 3. lanes 0 and 11 poisoned: terminated, since under an engine on
+    # the card no lane is re-run on the host; every other lane equal
+    sup, res, wall, counts, ck = supervised(
+        f"supervised fib mix x {L}, lanes {SUP_POISON_LANES} poisoned",
+        [sup_fault("launch", SUP_POISON_AT, 2, SUP_POISON_LANES)],
+        os.path.join(root, "poison"), poison_lane_retries=2)
+    others = np.setdiff1d(np.arange(L), SUP_POISON_LANES)
+    poisoned = np.asarray(SUP_POISON_LANES)
+    if not all(np.array_equal(a[others], b[others])
+               for a, b in zip(res.results, want.results)) or \
+            not np.array_equal(res.trap[others], want.trap[others]) or \
+            not np.array_equal(res.retired[others], want.retired[others]):
+        fail("the fib mix with poisoned lanes: the other lanes differ "
+             "from the unsupervised run")
+    if not (res.trap[poisoned] == int(ErrCode.Terminated)).all():
+        fail(f"poisoned lanes: traps {res.trap[poisoned]}, expected "
+             f"Terminated")
+    poison = [f for f in sup.failures if f.fault_class == "poison_lane"]
+    if len(poison) != 1 or poison[0].lanes != SUP_POISON_LANES or \
+            poison[0].tier != "cuda":
+        fail(f"poisoned lanes: incidents {sup.failures}")
+    out["poison"] = dict(wall_s=wall, launches=counts["interp"],
+                         checkpoints=ck.summary())
+
+    # 4. another process's supervisor: VM.execute_batch resumes run 1's
+    # lineage
+    with CheckpointTimes() as ck:
+        res, counts, wall, _ = counted(
+            "resumed fib mix", lambda: vm.execute_batch(
+                "fib", [ns], max_steps=10**9, supervised=True, resume=True,
+                checkpoint_dir=d1), ("interp", "block"))
+    same_result("the resumed fib mix", res, want)
+    loads = [r for r in ck.rows if r["kind"] == "load"]
+    if len(loads) != 1 or not loads[0]["ok"]:
+        fail(f"resume: loads {loads}")
+    out["resume"] = dict(wall_s=wall, launches=counts["interp"],
+                         adopted_steps=loads[0]["steps"],
+                         checkpoints=ck.summary())
+    print(f"  resumed fib mix (VM.execute_batch(supervised=True, "
+          f"resume=True)): from step {loads[0]['steps']}, "
+          f"{counts['interp']} launches, wall {wall:.3f} s, equal",
+          flush=True)
+
+    # 5. coremark(COREMARK_N) with windows: the newest member corrupted
+    # before the fault, the lineage falls back
+    conf_cm = Configure()
+    conf_cm.batch.lanes = L
+    conf_cm.batch.value_stack_depth = 256
+    conf_cm.batch.call_stack_depth = 256
+    conf_cm.batch.memory_pages_per_lane = 1
+    conf_cm.batch.steps_per_launch = SUP_CM_CHUNK
+    conf_cm.supervisor.checkpoint_every_steps = SUP_CM_CADENCE
+    conf_cm.supervisor.backoff_base_s = 0.0
+    vm_cm = VM(conf_cm)
+    vm_cm.load_wasm(build_coremark_kernel())
+    vm_cm.validate()
+    vm_cm.instantiate()
+    args = [np.full(L, COREMARK_N)]
+    need = ("interp", "block", "window")
+    cm_want, counts0, wall0, _ = counted(
+        "coremark, unsupervised", lambda: vm_cm.execute_batch(
+            "coremark", args, max_steps=10**9), need)
+    if not (cm_want.trap == -1).all() or not (
+            (cm_want.results[0] & 0xFFFFFFFF) == coremark_py(COREMARK_N)
+    ).all():
+        fail(f"coremark({COREMARK_N}) x {L}: off the Python reference")
+    d_cm = os.path.join(root, "coremark")
+
+    def corrupt_newest():
+        newest = sorted(f for f in os.listdir(d_cm) if f.endswith(".npz"))
+        if len(newest) < 2:
+            fail("coremark: the fault fired before two checkpoints")
+        corrupt_checkpoint(os.path.join(d_cm, newest[-1]), mode="truncate")
+
+    eng = vm_engine(vm_cm._active, vm_cm.store, vm_cm.conf)
+    sup = BatchSupervisor(eng, faults=FaultInjector([sup_fault(
+        "launch", SUP_CM_FAULT_AT, before=corrupt_newest)]),
+        checkpoint_dir=d_cm)
+    with CheckpointTimes() as ck:
+        res, counts, wall, _ = counted(
+            "supervised coremark", lambda: sup.run(
+                "coremark", args, max_steps=10**9), need)
+    same_result("the supervised coremark", res, cm_want)
+    classes = [f.fault_class for f in sup.failures]
+    if classes != ["launch", "checkpoint"] or \
+            member_steps(sup._restored_from) != SUP_CM_CADENCE:
+        fail(f"supervised coremark: incidents {classes}, restored from "
+             f"{sup._restored_from}")
+    out["coremark"] = dict(wall_s=wall, unsupervised_wall_s=wall0,
+                           launches=counts["interp"],
+                           unsupervised_launches=counts0["interp"],
+                           restored_steps=SUP_CM_CADENCE,
+                           checkpoints=ck.summary())
+    print(f"  supervised coremark({COREMARK_N}) x {L} [windows], "
+          f"{SUP_CM_CHUNK} steps a launch, the newest member corrupted: "
+          f"wall {wall:.3f} s ({wall0:.3f} s unsupervised), "
+          f"{counts['interp']} launches ({counts0['interp']}), incidents "
+          f"{classes}, restored from step {SUP_CM_CADENCE}; checkpoints "
+          f"{json.dumps(ck.summary())}", flush=True)
+
+    # 6. the compacted serving run with a cadence and one launch fault
+    with CheckpointTimes() as ck:
+        inj = FaultInjector([sup_fault("launch", SUP_SERVE_FAULT_AT)])
+        rec = serve_once(False, compact=True, key="supervised", faults=inj,
+                         ckdir=os.path.join(root, "serve"),
+                         every_rounds=SUP_SERVE_ROUNDS)
+    if not np.array_equal(SERVED["supervised"], SERVED["compacted"]):
+        fail("supervised serving: futures differ from the unfaulted run's")
+    if rec["failures"] != ["launch"] or rec["seams"].get(
+            "checkpoint_load") != 1:
+        fail(f"supervised serving: {rec['failures']}, seams {rec['seams']}")
+    base_srv = main_out["compact"]["serve"]
+    out["serve"] = dict(wall_s=rec["wall_s"],
+                        unsupervised_wall_s=base_srv["wall_s"],
+                        rounds=rec["rounds"],
+                        unsupervised_rounds=base_srv["rounds"],
+                        launches=rec["launches"], retries=rec["retries"],
+                        lineage=rec["lineage"], checkpoints=ck.summary())
+    print(f"  supervised serving x {L} (compacted), a checkpoint every "
+          f"{SUP_SERVE_ROUNDS} rounds, one launch fault: every future equal "
+          f"to the unfaulted run's; wall {rec['wall_s']:.3f} s "
+          f"({base_srv['wall_s']:.3f} s), {rec['rounds']} rounds "
+          f"({base_srv['rounds']}), checkpoints "
+          f"{json.dumps(ck.summary())}", flush=True)
+    d = out["demote"]
+    print(f"  supervision: fib mix replayed {out['fib_mix']['replayed_steps']}"
+          f" steps after its fault; demoted rung {d['unfused_span_s']:.3f} s "
+          f"for steps [{d['adopted_steps']}, {d['final_steps']}] per op "
+          f"against {d['blocks_span_s'] or 0:.3f} s in blocks (run 1)",
+          flush=True)
+    shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -5402,6 +5771,7 @@ def main() -> int:
     main_out["mix"] = part("mix", phase_main_mix)
     main_out["serve"] = part("serve", phase_serve)
     main_out["compact"] = part("compact", phase_compact, main_out)
+    main_out["supervise"] = part("supervise", phase_supervise, main_out)
     check_flushes("the main phase")
     t_main = time.perf_counter() - t0
     print(f"phase main: {t_main:.2f} s ({json.dumps(main_s)}; background "

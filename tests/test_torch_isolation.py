@@ -1,7 +1,8 @@
 """The port stands alone: nothing under wasmedge_tpu_torch/ (its host
 modules under host/ and runtime/hostfunc.py, the v128 ops, the text
 front-end, the corpus runner, the multi-tenant engines, the serving
-layer, lane compaction, its divergence scores and checkpoints included) and nothing in chip_smoke.py
+layer, lane compaction, its divergence scores, checkpoints, the
+supervisor, the lineage and the fault seams included) and nothing in chip_smoke.py
 imports JAX or the JAX package, no entry point defaults to the CPU, and
 the CUDA source's ids, v128 family offsets and trap codes equal the
 Python package's, and no generated fused-kernel source is kept outside
@@ -41,7 +42,9 @@ def test_source_walk_covers_the_host_modules():
               "executor/simd.py", "vm/async_.py", "vm/vm.py",
               "batch/multitenant.py", "serve/queue.py", "serve/recycle.py",
               "serve/server.py", "analysis/cfg.py", "analysis/analyzer.py",
-              "batch/compact.py", "batch/checkpoint.py", "utils/fsio.py"):
+              "batch/compact.py", "batch/checkpoint.py", "utils/fsio.py",
+              "batch/lineage.py", "batch/supervisor.py",
+              "testing/faults.py"):
         assert f in rel, f
 
 

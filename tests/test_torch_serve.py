@@ -8,7 +8,7 @@ in-flight deadline kills and the step budget.  One seeded script runs
 through the JAX server and the port's: results, admission order and
 counters equal.  A server over a `MultiModuleBatchEngine` (two modules,
 and config 5's four), `VM.serve`, the background serving thread, and a launch
-failure that fails the server.  (The launch after an install round,
+failure that fails the server once its retries are spent.  (The launch after an install round,
 kernel against plain, is in test_torch_serve_card.py.)
 """
 
@@ -19,7 +19,7 @@ from wasmedge_tpu.common.configure import Configure as RefConfigure
 from wasmedge_tpu.serve import BatchServer as RefServer
 from wasmedge_tpu_torch.batch.multitenant import MultiModuleBatchEngine
 from wasmedge_tpu_torch.common.configure import Configure
-from wasmedge_tpu_torch.common.errors import ErrCode, WasmError
+from wasmedge_tpu_torch.common.errors import EngineFailure, ErrCode, WasmError
 from wasmedge_tpu_torch.models import (
     build_coremark_kernel, build_fac, build_fib, build_loop_sum)
 from wasmedge_tpu_torch.models.fixtures import (
@@ -328,7 +328,16 @@ def test_background_thread_and_shutdown():
 
 
 def test_launch_failure_fails_the_server():
-    srv = _server(lanes=2)
+    """A launch that keeps failing fails the server once its retries are
+    spent: each of the first `max_retries` failures is recovered (the
+    in-flight request goes back to the queue), the next fails the server
+    with EngineFailure, which every in-flight and queued future gets
+    (tests/test_torch_serve_recovery.py holds recovery against the JAX
+    server)."""
+    conf = _conf()
+    conf.serve.backoff_base_s = 0.0
+    conf.serve.max_retries = 2
+    srv = _server(conf, lanes=2)
     running = srv.submit("fib", [12])
     srv.step()
     queued = [srv.submit("fib", [3]) for _ in range(3)]
@@ -337,13 +346,17 @@ def test_launch_failure_fails_the_server():
         raise RuntimeError("launch failed")
 
     srv.engine.run_slice = broken
-    with pytest.raises(RuntimeError):
+    for _ in range(2):
+        assert srv.step()   # recovered; the work waits in the queue
+        assert srv.failed is None and not running.done
+    with pytest.raises(EngineFailure):
         srv.step()
-    assert isinstance(srv.failed, RuntimeError)
+    assert isinstance(srv.failed, EngineFailure)
+    assert [f.fault_class for f in srv.failures] == ["launch"] * 3
     for f in [running] + queued:
-        assert isinstance(f.error, RuntimeError)
+        assert isinstance(f.error, EngineFailure)
     assert not srv.step()
-    with pytest.raises(RuntimeError):
+    with pytest.raises(EngineFailure):
         srv.submit("fib", [3])
     c = srv.counters
     assert c["submitted"] == c["completed"] + c["killed"] + c["rejected"]

@@ -258,9 +258,17 @@ def _validate_planes(fields, engine):
     # the TRAP_HOSTCALL sentinel re-enters host serving on resume: it is
     # legitimate only when the lane really sits at a host-call stub
     at_stub = img.cls[np.clip(pc, 0, img.code_len - 1)] == CLS_HOSTCALL
+    # a lane that stopped never runs from these pointers again (a
+    # server's install writes them anew): once its entry function has
+    # returned, sp sits at its results, below the operand base, so only
+    # their bounds are held there (the JAX package holds the order on
+    # every lane and refuses such a snapshot: ROADMAP C14)
+    runs = (trap == 0) | (trap == TRAP_HOSTCALL)
+    in_bounds = (fp >= 0) & (ob >= 0) & (sp >= 0) & (ob <= D) & (sp <= D)
     checks = [
         ("pc", (pc >= 0) & (pc < img.code_len)),
-        ("stack pointers", (fp >= 0) & (fp <= ob) & (ob <= sp) & (sp <= D)),
+        ("stack pointers", in_bounds
+         & (~runs | ((fp <= ob) & (ob <= sp)))),
         ("call_depth", (cd >= 0) & (cd <= CD)),
         ("mem_pages", (pages >= 0) & (pages <= max(img.mem_pages_max, 0))),
         ("trap", (trap >= TRAP_HOSTCALL) & (trap < 256)

@@ -374,17 +374,26 @@ class BatchEngine:
         self.t0kinds = t0_effective_kinds(img, self.cfg)
         # weighted gas: each pc's weight, None for flat gas
         self.cost = cost_plane(img, self.cfg)
-        self.tables = device_tables(
-            img, self.device, fusion=self.fusion, mem_window=self.mem_window,
-            optimistic=self.optimistic, stack_depth=self.cfg.value_stack_depth,
-            t0kinds=self.t0kinds,
-            t0=None if self.t0kinds is None else t0_statics(self.cfg),
-            cost=self.cost)
+        self.set_encoding(self.fusion)
         # per-warp state of optimistic convergence (its shadow planes are
         # allocated at the first run)
         self.warps = WarpState.new(self.lanes, self.device) \
             if self.optimistic else None
         self.hostcall_stats = new_hostcall_stats()
+
+    def set_encoding(self, fusion: str) -> None:
+        """Build the code tables in the encoding `fusion` ("none",
+        "blocks", "super") with the engine's memory mode, B3 mode, stack
+        depth, tier-0 kinds and gas weights.  The supervisor's demoted
+        rung is a shallow copy of an engine with the per-op "none"
+        tables; a state runs on either."""
+        self.fusion = fusion
+        self.tables = device_tables(
+            self.img, self.device, fusion=fusion, mem_window=self.mem_window,
+            optimistic=self.optimistic, stack_depth=self.cfg.value_stack_depth,
+            t0kinds=self.t0kinds,
+            t0=None if self.t0kinds is None else t0_statics(self.cfg),
+            cost=self.cost)
 
     @property
     def optimistic_stats(self) -> dict:
@@ -507,9 +516,13 @@ class BatchEngine:
         reads trap, retired and the first `rows` result rows back in one
         copy.  With a compactor armed, each launch is preceded by its
         boundary (which may permute the state's planes, in this state
-        object, and narrow the launch width) and counted by it.  Returns
-        (state, total, the last launch's HostPlanes; None when no launch
-        ran)."""
+        object, and narrow the launch width) and counted by it.  A
+        supervisor or server arms `_fault_hook` (testing/faults.py): it
+        fires "launch" before each launch and "serve" before each serve
+        round inside the loop, so that injected faults raise where real
+        ones would.  Returns (state, total, the last launch's HostPlanes;
+        None when no launch ran)."""
+        fault = getattr(self, "_fault_hook", None)
         chunk = self.cfg.steps_per_launch
         fuel_on = self.cfg.fuel_per_launch is not None
         t0_on = state.t0_ctr is not None
@@ -523,6 +536,8 @@ class BatchEngine:
                 state = comp.boundary(self, state)
                 kw["width"] = comp.width
             before = state.retired.clone()
+            if fault is not None:
+                fault("launch", total=total)
             run_chunk(self.tables, state, chunk, fuel_on, self.warps,
                       t0_time=t0_time_planes() if t0_on else None, **kw)
             host, done = self._read_back(state, before, rows)
@@ -530,6 +545,8 @@ class BatchEngine:
             if comp is not None:
                 comp.note_launch(done)
             if (host.trap == TRAP_HOSTCALL).any():
+                if fault is not None:
+                    fault("serve", total=total)
                 serve_batch_state(self, state, host.trap)
                 continue
             if done == 0 or not (host.trap == 0).any():

@@ -462,6 +462,13 @@ _lib_lock = threading.Lock()
 BUILD_INFO = {"fused": {}, "per_op": {}, "waited": {}}
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel that did not build or load (nvcc failed or is missing, or
+    its library would not load): a fault of the installation that no
+    retry of a launch mends, so the supervisor and the server let it
+    through instead of retrying it."""
+
+
 def per_op_label(win: bool, opt: bool, split: bool = False,
                  one: Optional[tuple] = None) -> str:
     """The name of the per-op build with or without the window cache,
@@ -719,7 +726,16 @@ def build_kernels(tables_list=(), per_op=((False, False, False),)) -> dict:
     one it started is waited for (BUILD_INFO["waited"]: key -> seconds
     waited for a background build still running).  Returns {key:
     library}; `BUILD_INFO` records paths, build seconds and ptxas
-    output.  Raises if any build fails."""
+    output.  Raises KernelBuildError if any build fails."""
+    try:
+        return _build_kernels(tables_list, per_op)
+    except KernelBuildError:
+        raise
+    except Exception as e:
+        raise KernelBuildError(f"kernel build failed: {e!r}") from e
+
+
+def _build_kernels(tables_list, per_op) -> dict:
     with _lib_lock:
         os.makedirs(_BUILD_DIR, exist_ok=True)
         jobs = _plan(tables_list, per_op)
@@ -757,8 +773,9 @@ def build_kernels(tables_list=(), per_op=((False, False, False),)) -> dict:
         for key, r in mine.items():
             so, src, tb, flags = jobs[key]
             if r.proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({r.proc.returncode}) on "
-                                   f"{src}:\n{logs[key]}")
+                raise KernelBuildError(
+                    f"nvcc failed ({r.proc.returncode}) on {src}:\n"
+                    f"{logs[key]}")
             os.replace(r.tmp, so)
             info = {"path": so, "seconds": r.end - r.t0,
                     "ptxas": logs[key], "background": r.background}

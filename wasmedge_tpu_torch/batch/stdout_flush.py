@@ -43,36 +43,49 @@ BUILD_INFO = {}
 
 def build():
     """Build the flush kernel into `_build/` unless it is there, load it
-    and return the library; raises when nvcc fails."""
+    and return the library; raises KernelBuildError when nvcc fails or
+    the library does not load."""
     with _lock:
         if _lib[0] is not None:
             return _lib[0]
-        flags = interp.NVCC_FLAGS
-        key = hashlib.sha256(interp._read(_SRC) + " ".join(flags).encode()) \
-            .hexdigest()[:16]
-        so = os.path.join(interp._BUILD_DIR, f"libstdout_flush_{key}.so")
-        info = {"path": so, "seconds": 0.0, "ptxas": ""}
-        if not os.path.exists(so):
-            os.makedirs(interp._BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            r = subprocess.run([interp._nvcc(), *flags, "-Xptxas", "-v",
-                                "-o", tmp, _SRC],
-                               capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({r.returncode}) on "
-                                   f"{_SRC}:\n{r.stdout}{r.stderr}")
-            os.replace(tmp, so)
-            info.update(seconds=time.perf_counter() - t0,
-                        ptxas=r.stdout + r.stderr)
-        lib = ctypes.CDLL(so)
-        fn = lib.wasm_stdout_flush
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + \
-            [ctypes.c_void_p] * 4
-        BUILD_INFO.update(info)
-        _lib[0] = lib
-        return lib
+        try:
+            return _build()
+        except interp.KernelBuildError:
+            raise
+        except Exception as e:
+            raise interp.KernelBuildError(
+                f"kernel build failed: {e!r}") from e
+
+
+def _build():
+    """build()'s work, under its lock."""
+    flags = interp.NVCC_FLAGS
+    key = hashlib.sha256(interp._read(_SRC) + " ".join(flags).encode()) \
+        .hexdigest()[:16]
+    so = os.path.join(interp._BUILD_DIR, f"libstdout_flush_{key}.so")
+    info = {"path": so, "seconds": 0.0, "ptxas": ""}
+    if not os.path.exists(so):
+        os.makedirs(interp._BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        r = subprocess.run([interp._nvcc(), *flags, "-Xptxas", "-v",
+                            "-o", tmp, _SRC],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise interp.KernelBuildError(
+                f"nvcc failed ({r.returncode}) on {_SRC}:\n"
+                f"{r.stdout}{r.stderr}")
+        os.replace(tmp, so)
+        info.update(seconds=time.perf_counter() - t0,
+                    ptxas=r.stdout + r.stderr)
+    lib = ctypes.CDLL(so)
+    fn = lib.wasm_stdout_flush
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + \
+        [ctypes.c_void_p] * 4
+    BUILD_INFO.update(info)
+    _lib[0] = lib
+    return lib
 
 
 def _host_buffer(n: int) -> torch.Tensor:

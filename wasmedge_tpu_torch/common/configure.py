@@ -165,12 +165,60 @@ class BatchConfigure:
 
 
 @dataclasses.dataclass
+class SupervisorConfigure:
+    """Knobs of supervised batch execution (batch/supervisor.py), the JAX
+    package's `SupervisorConfigure`: periodic checkpoints, retry with
+    backoff from the newest good snapshot, and the degradation ladder
+    (the CUDA engine as built, the same engine with per-op tables, and on
+    an engine on the CPU only the gas-metered scalar engine);
+    FailureRecords land in common/statistics.py.  The checkpoint
+    directory and `resume` are parameters of `BatchSupervisor` and
+    `VM.execute_batch`, not knobs.
+
+    Left out: `use_kernel_tier`, since the port has one CUDA engine that
+    both runs and checkpoints (the JAX package's separate kernel tier, the
+    knob's subject, has no counterpart); `allow_scalar_tier`, since the
+    scalar rung follows the engine's device (never under an engine on the
+    card); and the mesh knobs (`use_shard_drive`, `max_device_retries`,
+    `eject_devices`), which come with more than one card."""
+
+    # --- checkpoint cadence (batch/checkpoint.py snapshots) ---
+    # Take a checkpoint every N retired steps (slices land on
+    # steps_per_launch boundaries).  None = no step cadence.
+    checkpoint_every_steps: Optional[int] = None
+    # ... or every S seconds of wall clock, whichever fires first.
+    checkpoint_every_s: Optional[float] = None
+    # Lineage depth: older snapshots beyond this count are pruned.  A
+    # corrupt newest snapshot falls back to the next in the lineage.
+    keep_checkpoints: int = 2
+    # --- retry / backoff ---
+    # Consecutive failed attempts (no forward progress) before the
+    # current rung is abandoned and the run demotes a rung.
+    max_retries: int = 3
+    # Exponential backoff between retries: min(backoff_max_s,
+    # backoff_base_s * backoff_factor**(attempt-1)).
+    backoff_base_s: float = 0.05
+    backoff_factor: float = 2.0
+    backoff_max_s: float = 2.0
+    # --- per-lane quarantine ---
+    # A failure attributed to a lane set (an exception carrying `.lanes`)
+    # that repeats this many times quarantines those lanes: to the scalar
+    # engine when the engine is on the CPU and the module has no host
+    # imports, else terminated with ErrCode.Terminated.
+    poison_lane_retries: int = 2
+    # A lane still running after retiring this many instructions is
+    # terminated (ErrCode.Terminated) and recorded as a "runaway".  None
+    # disables the cap.
+    lane_step_cap: Optional[int] = None
+
+
+@dataclasses.dataclass
 class ServeConfigure:
     """Knobs of the continuous-batching serving layer (serve/) that the
     port reads: a BatchServer holds a bounded request queue, installs
     queued requests into lanes and recycles each lane as soon as it
-    retires.  (The reference's checkpoint, backoff and autotune knobs
-    come with their subsystems.)"""
+    retires, checkpoints its state and recovers from a failed launch.
+    (The reference's autotune knobs come with the recorder.)"""
 
     # Bounded request queue: submit() beyond this many queued (not yet
     # admitted) requests is rejected with QueueSaturated (backpressure,
@@ -180,6 +228,19 @@ class ServeConfigure:
     # past it is terminated with CostLimitExceeded (the serving loop has
     # no max_steps to drain to).
     max_steps_per_request: int = 10_000_000
+    # Checkpoint the serving state every N serving rounds (each round is
+    # one steps_per_launch slice).  None = only on demand.  Where the
+    # snapshots land is BatchServer's `checkpoint_dir` parameter.
+    checkpoint_every_rounds: Optional[int] = None
+    keep_checkpoints: int = 2
+    # Retry budget for launch and serve failures before the server gives
+    # up and fails the in-flight futures (each retry restores the newest
+    # good checkpoint, else re-queues the in-flight requests from
+    # scratch).
+    max_retries: int = 3
+    backoff_base_s: float = 0.05
+    backoff_factor: float = 2.0
+    backoff_max_s: float = 2.0
 
 
 @dataclasses.dataclass
@@ -193,6 +254,8 @@ class Configure:
         default_factory=StatisticsConfigure)
     batch: BatchConfigure = dataclasses.field(default_factory=BatchConfigure)
     serve: ServeConfigure = dataclasses.field(default_factory=ServeConfigure)
+    supervisor: SupervisorConfigure = dataclasses.field(
+        default_factory=SupervisorConfigure)
 
     def add_proposal(self, p: Proposal) -> "Configure":
         self.proposals.add(p)

@@ -169,5 +169,18 @@ class TrapError(WasmError):
     """Runtime trap: unwinds execution, maps 1:1 to a per-lane trap code."""
 
 
+class EngineFailure(WasmError):
+    """Supervised batch execution exhausted its retry budget and its
+    engine-degradation ladder (batch/supervisor.py), or a server its
+    retries (serve/server.py).  Carries the structured FailureRecord list
+    of everything that was attempted, so callers can export the incident
+    taxonomy."""
+
+    def __init__(self, msg: str = "", failures=()):
+        super().__init__(ErrCode.ExecutionFailed, msg or
+                         "supervised execution exhausted retries")
+        self.failures = list(failures)
+
+
 def trap(code: ErrCode, msg: str = ""):
     raise TrapError(code, msg)

@@ -6,11 +6,20 @@ cost table with a limit (gas) whose excess traps `CostLimitExceeded`, and
 the Wasm-vs-host time split.  The scalar engine counts into it
 instruction by instruction; `VM.execute_batch` turns its cost limit and
 table into the lanes' fuel and weights (`vm.vm.batch_conf_with_gas`).
+
+`FailureRecord` is the failure taxonomy of supervised execution
+(batch/supervisor.py, serve/server.py): every recovered or degraded
+incident (a failed launch, a host-serve exception, a corrupt checkpoint,
+a poisoned or runaway lane, a rung given up on) lands on a Statistics
+instance or in the process-wide bounded log.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
+from collections import deque
+from typing import Optional, Tuple
 
 from wasmedge_tpu_torch.common.errors import ErrCode, TrapError
 from wasmedge_tpu_torch.common.opcodes import NUM_OPCODES
@@ -18,6 +27,64 @@ from wasmedge_tpu_torch.common.opcodes import NUM_OPCODES
 # The cost table covers lowered pseudo-ops (BR/BRZ/BRNZ) appended after the
 # wasm opcode space by validator/image.py.
 _NUM_COST_SLOTS = NUM_OPCODES + 3
+
+
+@dataclasses.dataclass
+class FailureRecord:
+    """One supervised-execution incident.
+
+    fault_class: "launch" (a kernel launch failed), "serve" (the host-side
+    serve round raised), "checkpoint" (an unreadable or corrupt snapshot
+    skipped in the lineage, or a failed save), "poison_lane" (a lane set
+    repeatedly faulting the kernel, demoted or terminated), "runaway" (a
+    lane past the per-lane step cap, terminated), "demote" (an engine rung
+    given up on) or "scalar_rerun" (a host-side error inside the scalar
+    bottom rung).
+    """
+
+    fault_class: str
+    error: str = ""
+    lanes: Tuple[int, ...] = ()      # affected lanes; () = whole batch
+    retry: int = 0                   # retry count when the incident fired
+    checkpoint: Optional[str] = None  # checkpoint lineage member involved
+    tier: str = ""                   # the rung: "cuda", "cuda_unfused",
+    #                                  "scalar", or "serve" for a server
+    # Event timestamp (wall clock, time.time()) for humans and logs;
+    # durations between incidents come from `mono_s`, the
+    # time.monotonic() stamp, which survives wall-clock steps.
+    time_s: float = 0.0
+    mono_s: float = 0.0
+
+    def asdict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["lanes"] = [int(x) for x in self.lanes]
+        return d
+
+    def stamp(self) -> "FailureRecord":
+        """Fill any unset clocks (idempotent)."""
+        if not self.time_s:
+            self.time_s = time.time()
+        if not self.mono_s:
+            self.mono_s = time.monotonic()
+        return self
+
+
+# Process-wide bounded failure log: a supervisor or server given no
+# Statistics records here; Statistics instances mirror into it, so one
+# export point sees all.
+_FAILURE_LOG: deque = deque(maxlen=256)
+
+
+def record_failure(rec: FailureRecord):
+    _FAILURE_LOG.append(rec.stamp())
+
+
+def recent_failures() -> list:
+    return list(_FAILURE_LOG)
+
+
+def clear_failures():
+    _FAILURE_LOG.clear()
 
 
 class Statistics:
@@ -37,6 +104,13 @@ class Statistics:
         self.host_ns = 0
         self._wasm_t0 = None
         self._host_t0 = None
+        self.failures = []  # FailureRecords from supervised runs
+
+    def add_failure(self, rec: FailureRecord):
+        """Attach a supervised-execution incident to this run's stats and
+        mirror it into the process-wide log."""
+        self.failures.append(rec)
+        record_failure(rec)
 
     # -- counters ----------------------------------------------------------
     def inc_instr(self, n: int = 1):
@@ -79,10 +153,13 @@ class Statistics:
         return self.instr_count / (self.wasm_ns / 1e9)
 
     def dump(self) -> dict:
-        return {
+        out = {
             "instr_count": self.instr_count,
             "total_cost": self.total_cost,
             "wasm_ns": self.wasm_ns,
             "host_ns": self.host_ns,
             "instr_per_second": self.instr_per_second,
         }
+        if self.failures:
+            out["failures"] = [r.asdict() for r in self.failures]
+        return out

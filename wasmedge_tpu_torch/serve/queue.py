@@ -1,8 +1,10 @@
 """Request queue of the continuous-batching serving layer.
 
 A copy of `wasmedge_tpu/serve/queue.py` without the seams of the
-subsystems the port does not have yet (checkpoint journals, the fleet's
-future mirrors, the gateway's request-id adoption and retry hint).  One `ServeRequest`
+subsystems the port does not have yet (the fleet's future mirrors, the
+gateway's id peek and retry hint); the checkpoint journal's entries
+(`asdict`, `from_journal`, `advance_request_ids`) and the recovery
+requeue (`push_front`) are here.  One `ServeRequest`
 is one device lane's worth of work: an exported function and one
 argument tuple, owned by a tenant, optionally with a deadline.
 Requests wait in a bounded `FairQueue` (a FIFO per tenant, drained by
@@ -119,6 +121,20 @@ def _next_request_id() -> int:
         return next(_req_ids)
 
 
+def advance_request_ids(past_id: int):
+    """Move the process-global request-id counter past `past_id`.
+
+    A cross-process resume adopts journaled requests that keep their
+    original (higher) ids; without this, fresh submits in the adopting
+    process would restart at 1, inverting the id-ordered crash-recovery
+    requeue and eventually duplicating an adopted id in a later
+    checkpoint journal."""
+    global _req_ids
+    with _req_ids_lock:
+        nxt = next(_req_ids)
+        _req_ids = itertools.count(max(nxt, int(past_id) + 1))
+
+
 INT64_MIN = -(1 << 63)
 INT64_MAX = (1 << 63) - 1
 
@@ -132,8 +148,10 @@ class ServeRequest:
     def __init__(self, func_name: str, args: Tuple[int, ...],
                  tenant: str = "default",
                  deadline: Optional[float] = None,
-                 t_submit: float = 0.0):
-        self.id = _next_request_id()
+                 t_submit: float = 0.0,
+                 request_id: Optional[int] = None):
+        self.id = int(request_id) if request_id is not None \
+            else _next_request_id()
         self.func_name = func_name
         args = tuple(int(a) for a in args)
         for a in args:
@@ -150,6 +168,21 @@ class ServeRequest:
         self.deadline = deadline      # monotonic stamp, None = none
         self.t_submit = t_submit      # monotonic stamp (admission latency)
         self.future = ServeFuture(self.id)
+
+    def asdict(self) -> dict:
+        """JSON-serializable journal entry (a checkpoint's binding
+        record).  Deadlines are monotonic stamps and futures are
+        process-local: neither survives a process, so neither is
+        journaled."""
+        return {"id": self.id, "func": self.func_name,
+                "args": [int(a) for a in self.args],
+                "tenant": self.tenant}
+
+    @classmethod
+    def from_journal(cls, rec: dict) -> "ServeRequest":
+        return cls(rec["func"], tuple(rec["args"]),
+                   tenant=rec.get("tenant", "default"),
+                   request_id=rec["id"])
 
 
 class FairQueue:
@@ -199,6 +232,23 @@ class FairQueue:
         if req.deadline is not None:
             self._deadlined[req.tenant] = \
                 self._deadlined.get(req.tenant, 0) + 1
+
+    def push_front(self, reqs: List[ServeRequest]):
+        """Re-queue requests at the head of their tenants' FIFOs (crash
+        recovery: in-flight work goes back first, in its order).
+        Capacity is not enforced: dropping recovered work to
+        backpressure would turn a transient fault into data loss."""
+        for req in reversed(reqs):
+            q = self._q.get(req.tenant)
+            if q is None:
+                q = self._q[req.tenant] = deque()
+                self._order.append(req.tenant)
+                self._deficit[req.tenant] = 0.0
+            q.appendleft(req)
+            self.size += 1
+            if req.deadline is not None:
+                self._deadlined[req.tenant] = \
+                    self._deadlined.get(req.tenant, 0) + 1
 
     def expire(self, now: float) -> List[ServeRequest]:
         """Remove and return queued requests whose deadline passed.

@@ -235,28 +235,55 @@ class VM:
     def execute_batch(self, func_name: str, args_lanes: Sequence,
                       lanes: Optional[int] = None,
                       max_steps: int = 10_000_000,
-                      device="cuda") -> BatchResult:
+                      device="cuda", supervised: bool = False,
+                      resume: bool = False,
+                      checkpoint_dir: Optional[str] = None) -> BatchResult:
         """Run the instantiated module's export over N lanes and return
-        the per-lane results, traps and retired counts."""
+        the per-lane results, traps and retired counts.
+
+        `supervised=True` runs the batch under batch/supervisor.py:
+        periodic checkpoints into `checkpoint_dir` (a temporary directory
+        when None), retry with backoff from the newest good snapshot, and
+        the cuda -> cuda_unfused ladder (then scalar, for an engine on the
+        CPU only), with FailureRecords landing on this VM's Statistics
+        (`conf.supervisor` holds the knobs).  `resume=True` also adopts
+        the lineage in `checkpoint_dir` at startup (a cross-process
+        resume) and implies `supervised`."""
         with self._lock:
             if self._active is None or self.stage != VMStage.Instantiated:
                 raise WasmError(ErrCode.WrongVMWorkflow,
                                 "no instantiated module")
             inst = self._active
+        # only the supervisor owns the checkpoint lineage: a resume is
+        # never silently ignored
+        if resume:
+            supervised = True
         conf = batch_conf_with_gas(self.conf, self.stat)
         eng = make_engine(inst, self.store, conf, lanes=lanes, device=device)
         self.last_engine = eng  # its hostcall_stats outlive the call
+        if supervised:
+            from wasmedge_tpu_torch.batch.supervisor import BatchSupervisor
+
+            sup = BatchSupervisor(eng, conf=conf, stats=self.stat,
+                                  checkpoint_dir=checkpoint_dir,
+                                  resume=resume)
+            return sup.run(func_name, list(args_lanes), max_steps=max_steps)
         return eng.run(func_name, list(args_lanes), max_steps=max_steps)
 
     def serve(self, lanes: Optional[int] = None, weights=None, quotas=None,
-              device="cuda"):
+              device="cuda", checkpoint_dir: Optional[str] = None,
+              resume: bool = False):
         """Continuous-batching serving over the instantiated module
         (serve/): returns a BatchServer whose submit() queues one request
         a call and whose serving loop recycles retired lanes with queued
         requests instead of draining the batch.  `conf.serve` holds its
-        knobs; `weights` / `quotas` set per-tenant fair admission; a
+        knobs (queue capacity, per-request budget, checkpoint cadence,
+        retries); `weights` / `quotas` set per-tenant fair admission; a
         `Statistics` cost limit becomes each lane's fuel, as in
-        `execute_batch`."""
+        `execute_batch`.  The server checkpoints into `checkpoint_dir` (a
+        temporary directory when None); `resume=True` adopts the serving
+        lineage there: in-flight requests come back under fresh futures
+        (`server.adopted`)."""
         from wasmedge_tpu_torch.serve import BatchServer
 
         with self._lock:
@@ -266,7 +293,9 @@ class VM:
             inst = self._active
         conf = batch_conf_with_gas(self.conf, self.stat)
         return BatchServer(inst, store=self.store, conf=conf, lanes=lanes,
-                           weights=weights, quotas=quotas, device=device)
+                           stats=self.stat, weights=weights, quotas=quotas,
+                           checkpoint_dir=checkpoint_dir, resume=resume,
+                           device=device)
 
     # -- introspection -------------------------------------------------------
     def get_function_list(self) -> List[Tuple[str, ast.FunctionType]]:

@@ -126,7 +126,10 @@ Phases:
                (two memory.grow tenants whose memories declare max 1 and
                max 4, four pages a lane) per op and one launch from a
                serving state just after an install round (four modules,
-               idle TRAP_DONE lanes beside the installed ones); lane
+               idle TRAP_DONE lanes beside the installed ones), and
+               another over the gateway's generation 2 (the five modules
+               through its registry, echo lanes parked at fd_write by
+               the launch); lane
                compaction (compact_jobs, the plain side on the card):
                narrowed launches of fib(10 + lane % 11) x 4096 at widths
                64 and 1024 (every lane live: the lanes beyond the width
@@ -266,7 +269,23 @@ Phases:
                (results, traps, retired; serving: every future), each
                run's wall, every checkpoint's save and load ms and bytes,
                the replay, and the demoted rung's time against the
-               blocks rung's over the same steps;
+               blocks rung's over the same steps.  The HTTP gateway
+               (phase_gateway, gateway/ and imagestore/): a
+               GatewayService on the card over config 5's four modules
+               at 4096 lanes (its fused build phase_serve's), real HTTP
+               on 127.0.0.1 from 64 client threads, 4096 seeded
+               requests sync and async with polling; under that traffic
+               a POST of the WASI echo module faulted at its generation
+               build (503 with Retry-After, generation 1 serving on) and
+               its re-POST, which lowers nothing and swaps in generation
+               2 (the five modules; its kernel, queued first in the
+               background builds, taken in the timed build) while
+               generation 1 drains; 1024 requests more over all five
+               modules; every result its model's, requests/s, p50 / p99
+               through HTTP, the swap's build and drain seconds, the
+               launches by kind; then a durable gateway at 512 lanes
+               killed with async requests in flight and resumed from its
+               state_dir, every id its model's value, /healthz healthy;
   4. report  - phase times, kernel times (CUDA events), retired
                instructions and instructions per second, registers and
                spills of each build, the card's name and power limit, one
@@ -4251,6 +4270,7 @@ def serve_once(profile: bool, compact: bool = False, key=None,
     `every_rounds` give the server a FaultInjector, a checkpoint
     directory and a cadence (the record then has its retries, failures
     and seam counts)."""
+    from wasmedge_tpu_torch.batch import interp
     from wasmedge_tpu_torch.batch.multitenant import MultiModuleBatchEngine
     from wasmedge_tpu_torch.models.fixtures import (
         CONFIG5, serve_load, serve_model)
@@ -4297,6 +4317,7 @@ def serve_once(profile: bool, compact: bool = False, key=None,
     lat = np.array([f.t_done - t for f, t in zip(futs, t_sub)])
     stats = eng.warps.stats()
     rec = dict(requests=SERVE_REQUESTS, rounds=rounds,
+               fused_key=interp.fused_kernel_key(eng.tables),
                recycled_lanes=c["recycled_lanes"],
                retired=c["retired_instructions"], wall_s=wall,
                event_ms=ev_ms, launches=counts["interp"],
@@ -4374,7 +4395,7 @@ def mix_job_knobs(name: str) -> dict:
     return kn
 
 
-def serve_state_vs_plain(name: str) -> int:
+def serve_state_vs_plain(name: str, echo: bool = False) -> int:
     """A serving state just after an install round, kernel against plain:
     a BatchServer over the four config-5 modules at KERNEL_LANES lanes
     (small arguments) fills every lane and steps three rounds, then
@@ -4382,28 +4403,44 @@ def serve_state_vs_plain(name: str) -> int:
     TRAP_DONE lanes beside them); one launch from that state through the
     kernel and through the plain version (a copy on the card), every
     plane equal, and the kernel's windows written back at the last
-    launch's exit (the install wrote the plane).  Returns the max abs
-    err."""
+    launch's exit (the install wrote the plane).  With `echo`, the
+    gateway's generation 2 at the gateway phase's shape: its five modules
+    through the gateway's registry under the gateway's conf (echo's
+    stdout sunk, every fifth request echo's) at MAIN_LANES lanes, so the
+    fused build is the gateway phase's (`main` holds the keys
+    equal); the rounds before the install run the gateway's
+    SERVE_CHUNK-step launches, the compared launch MIX_JOB_CHUNK steps
+    (the plain version's time grows with the steps).  Returns the max
+    abs err."""
     from wasmedge_tpu_torch.batch import interp, interp_ref
     from wasmedge_tpu_torch.batch.multitenant import MultiModuleBatchEngine
     from wasmedge_tpu_torch.batch.optimistic import WarpState
     from wasmedge_tpu_torch.models.fixtures import CONFIG5, serve_load
     from wasmedge_tpu_torch.serve import BatchServer
 
-    conf = mix_conf(steps_per_launch=MIX_JOB_CHUNK)
-    modules = [(n, *mix_instance(mix_module(n), conf)) for n, _, _ in CONFIG5]
-    eng = MultiModuleBatchEngine(modules, conf=conf, lanes=KERNEL_LANES)
+    if echo:
+        lanes, conf = MAIN_LANES, gateway_conf()
+        reg = gateway_registry(True, conf)
+        eng = reg.build_engine(conf, lanes)
+    else:
+        lanes, conf = KERNEL_LANES, mix_conf(steps_per_launch=MIX_JOB_CHUNK)
+        modules = [(n, *mix_instance(mix_module(n), conf))
+                   for n, _, _ in CONFIG5]
+        eng = MultiModuleBatchEngine(modules, conf=conf, lanes=lanes)
     srv = BatchServer(engine=eng)
-    load = serve_load(KERNEL_LANES + KERNEL_LANES // 8, SEED, ranges={
+    load = serve_load(lanes + lanes // 8, SEED, ranges={
         "fib": (3, 14), "fac": (1, 20), "loop_sum": (1, 400),
         "coremark": (1, 40)})
+    if echo:
+        load = [("t0", "echo:echo", k % 6) if k % GW_ECHO_EVERY == 0
+                else r for k, r in enumerate(load)]
     # every lane busy, three rounds (lanes retire and park), then the
     # last eighth of the requests into the lowest freed lanes
-    for t, f, n in load[:KERNEL_LANES]:
+    for t, f, n in load[:lanes]:
         srv.submit(f, [n], tenant=t)
     for _ in range(3):
         srv.step()
-    for t, f, n in load[KERNEL_LANES:]:
+    for t, f, n in load[lanes:]:
         srv.submit(f, [n], tenant=t)
     with srv._lock:
         installed = srv._admit(time.monotonic())
@@ -4419,7 +4456,14 @@ def serve_state_vs_plain(name: str) -> int:
     if err or not installed or not idle:
         fail(f"{name}: after an install round of {installed} lanes beside "
              f"{idle} idle ones, kernel != plain: max abs err {err}")
-    MIX_RECORDS[name] = dict(installed=installed, idle=idle, err=err)
+    MIX_RECORDS[name] = dict(lanes=lanes, installed=installed, idle=idle,
+                             err=err)
+    if echo:
+        MIX_RECORDS[name].update(
+            key=interp.fused_kernel_key(eng.tables),
+            hostcall_lanes=int((st.trap == -2).sum()))
+        if not MIX_RECORDS[name]["hostcall_lanes"]:
+            fail(f"{name}: no echo lane parked at its host call")
     print(f"kernel_vs_plain {name}: {installed} lanes installed beside "
           f"{idle} idle TRAP_DONE lanes, one launch equal", flush=True)
     return err
@@ -4436,7 +4480,9 @@ def mix_jobs() -> list:
                                  MIX_JOB_CHUNK, None, mix_job_knobs(n)),
              dict(fusion=f, lanes=None, plain_on_card=True))
             for n in ("config5", "c10") for f in ("none", "blocks")]
-    return jobs + [("serve_state_vs_plain", ("mix.serve_state",), {})]
+    return jobs + [("serve_state_vs_plain", ("mix.serve_state",), {}),
+                   ("serve_state_vs_plain", ("mix.gateway_generation2",),
+                    dict(echo=True))]
 
 
 def mix_builds() -> list:
@@ -5273,6 +5319,426 @@ def phase_supervise(main_out: dict) -> dict:
     return out
 
 
+# The HTTP gateway (gateway/) on the card: generation 1 is config 5's four
+# modules at MAIN_LANES lanes under the serving run's knobs (its fused build
+# is phase_serve's), generation 2 the same four and the WASI echo module
+# (its build queued first in the background by prebuild)
+GW_REQUESTS = 4096      # config-5 requests before and across the swap
+GW_AFTER = 1024         # requests over all five modules after the swap
+GW_ECHO_EVERY = 5       # every fifth request after the swap is echo's
+GW_CLIENTS = 64         # client threads
+GW_SWAP_AT = GW_REQUESTS // 4   # requests sent when the echo POST starts
+GW_KILL_LANES = 512
+GW_KILL_REQUESTS = 512
+GW_KILL_CADENCE = 4     # the kill gateway's serve checkpoint every N rounds
+
+
+def gateway_conf(**serve):
+    """The gateway's template: the serving run's Configure."""
+    conf = mix_conf(steps_per_launch=SERVE_CHUNK)
+    for k, v in serve.items():
+        setattr(conf.serve, k, v)
+    return conf
+
+
+def gateway_modules(echo: bool) -> list:
+    """(name, bytes) of generation 1 (config 5, in CONFIG5 order) or 2
+    (and echo)."""
+    from wasmedge_tpu_torch.models import build_echo
+    from wasmedge_tpu_torch.models.fixtures import CONFIG5
+
+    out = [(name, mix_module(name)) for name, _, _ in CONFIG5]
+    return out + [("echo", build_echo())] if echo else out
+
+
+def gateway_registry(echo: bool, conf, device="cuda"):
+    """A ModuleRegistry holding a generation's modules (stdout sunk)."""
+    from wasmedge_tpu_torch.gateway.registry import ModuleRegistry
+
+    reg = ModuleRegistry(conf=conf, device=device)
+    for name, data in gateway_modules(echo):
+        reg.add_wasm(name, data, source="boot")
+    return reg
+
+
+def gateway_builds() -> list:
+    """The tables (CPU) of generation 2's build: the same source as the
+    gateway's, since the generated source depends on the modules and the
+    knobs only."""
+    reg = gateway_registry(True, gateway_conf(), device="cpu")
+    tables = reg.build_engine(gateway_conf(), 2).tables
+    reg.close()
+    return [tables]
+
+
+def gateway_load(n: int, seed: int, echo: bool) -> list:
+    """[(tenant, module, func, n, async)]: serve_load's seeded stream, every
+    GW_ECHO_EVERY-th request echo's with `echo`, every other one async."""
+    from wasmedge_tpu_torch.models.fixtures import serve_load
+
+    out = []
+    for k, (tenant, qual, arg) in enumerate(serve_load(n, seed)):
+        module, _, func = qual.partition(":")
+        if echo and k % GW_ECHO_EVERY == 0:
+            module, func, arg = "echo", "echo", k % 8
+        out.append((tenant, module, func, arg, k % 2 == 1))
+    return out
+
+
+def gateway_model(module: str, func: str, args) -> np.ndarray:
+    """Each request's expected result cell (echo: its last errno, 0)."""
+    from wasmedge_tpu_torch.models.fixtures import serve_model
+
+    if module == "echo":
+        return np.zeros(len(args), np.int64)
+    want = serve_model(f"{module}:{func}", np.asarray(args, np.int64))
+    return np.asarray(want, np.int64)
+
+
+def http_call(host, port, method, path, body=None, headers=None,
+              timeout=300.0):
+    """(status, JSON body, headers) of one HTTP call."""
+    from http.client import HTTPConnection
+
+    c = HTTPConnection(host, port, timeout=timeout)
+    try:
+        data = json.dumps(body).encode() if isinstance(body, dict) else body
+        c.request(method, path, body=data, headers=headers or {})
+        r = c.getresponse()
+        raw = r.read()
+        hdrs = dict(r.getheaders())
+    finally:
+        c.close()
+    try:
+        return r.status, json.loads(raw), hdrs
+    except ValueError:
+        return r.status, raw, hdrs
+
+
+class GatewayClient:
+    """Sends requests to a gateway (from a pool of threads) and gives, per
+    request, a record of its send and answer times (`time.monotonic`, the
+    clock of the gateway's own stamps), the status and the body (an async
+    request's body is its poll's final answer).  `one` polls its own
+    async id right after the 202 and adds `gateway_s`, the gateway's span
+    of the request: from `GatewayService.submit` to the future's
+    resolution (the rest of the client's time is the HTTP layer's, the
+    client's and, for an async id, the poll's)."""
+
+    def __init__(self, gw):
+        self.gw = gw
+
+    def send(self, req):
+        tenant, module, func, arg, is_async = req
+        health = self.gw.service.health(fresh=False)
+        if health["status"] == "unhealthy":
+            fail(f"gateway unhealthy: {health['checks']}")
+        t0 = time.monotonic()
+        st, doc, _ = http_call(self.gw.host, self.gw.port, "POST",
+                               "/v1/invoke", {"module": module, "func": func,
+                                              "args": [arg], "tenant": tenant,
+                                              "async": is_async})
+        t1 = time.monotonic()
+        return dict(req=req, t_sent=t0, t_answer=t1, status=st, body=doc)
+
+    def one(self, req):
+        rec = self.send(req)
+        if rec["status"] == 202:
+            self.poll(rec)
+        rid = rec["body"].get("request_id") \
+            if isinstance(rec["body"], dict) else None
+        r = self.gw.service._requests.get(rid)
+        if r is not None and r.future.t_done is not None:
+            rec["gateway_s"] = r.future.t_done - r.t_recv
+        return rec
+
+    def poll(self, rec, timeout_s=300.0):
+        """Poll an accepted async request to its end; fails at once when
+        the gateway says it is unhealthy (a serving thread died)."""
+        rid = rec["body"]["request_id"]
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            health = self.gw.service.health(fresh=False)
+            if health["status"] == "unhealthy":
+                fail(f"gateway unhealthy while request {rid} is pending: "
+                     f"{health['checks']}")
+            st, doc, _ = http_call(self.gw.host, self.gw.port, "GET",
+                                   f"/v1/requests/{rid}")
+            if not (isinstance(doc, dict) and doc.get("status") == "pending"):
+                rec.update(status=st, body=doc, t_done=time.monotonic())
+                return rec
+            time.sleep(0.01)
+        fail(f"gateway: request {rid} still pending after {timeout_s} s")
+
+
+def check_gateway_results(label: str, records) -> int:
+    """Every request answered 200 and equal to its model; returns the
+    count."""
+    bad = [r for r in records if r["status"] != 200
+           or not r["body"].get("ok")]
+    if bad:
+        fail(f"{label}: {len(bad)} requests not answered 200 ok, e.g. "
+             f"{bad[0]['status']} {bad[0]['body']}")
+    by = {}
+    for r in records:
+        _, module, func, arg, _ = r["req"]
+        by.setdefault((module, func), []).append(
+            (arg, r["body"]["result"][0]))
+    for (module, func), rows in by.items():
+        args = np.array([a for a, _ in rows], np.int64)
+        got = np.array([g for _, g in rows], np.int64)
+        want = gateway_model(module, func, args)
+        if module != "fac":
+            got, want = got & 0xFFFFFFFF, want & 0xFFFFFFFF
+        if not (got == want).all():
+            fail(f"{label}: {int((got != want).sum())} {module} requests "
+                 f"off the model")
+    return len(records)
+
+
+def phase_gateway_kill_resume(root: str) -> dict:
+    """A durable gateway (generation 1's modules at GW_KILL_LANES lanes, a
+    serve checkpoint every GW_KILL_CADENCE rounds) takes GW_KILL_REQUESTS
+    async requests over HTTP and is killed with requests in flight; a
+    GatewayService(resume=True) over its state_dir answers every id with
+    its model's value, and /healthz says healthy."""
+    from wasmedge_tpu_torch.gateway import Gateway, GatewayService
+
+    d = os.path.join(root, "state")
+    conf = gateway_conf(checkpoint_every_rounds=GW_KILL_CADENCE)
+    svc = GatewayService(conf=conf, lanes=GW_KILL_LANES, state_dir=d)
+    svc.preload(gateway_modules(False))
+    gw = Gateway(svc, port=0).start()
+    client = GatewayClient(gw)
+    load = [(t, m, f, n, True) for t, m, f, n, _ in
+            gateway_load(GW_KILL_REQUESTS, SEED + 1, False)]
+    with ThreadPoolExecutor(GW_CLIENTS) as pool:
+        recs = list(pool.map(client.send, load))
+    if any(r["status"] != 202 for r in recs):
+        fail("gateway kill: an async request was not accepted")
+    # in flight at the kill: wait for a checkpoint, not for the end
+    srv = svc.current.server
+    deadline = time.monotonic() + 120.0
+    while not srv._lineage.members and time.monotonic() < deadline:
+        time.sleep(0.01)
+    before = dict(srv.counters)
+    t0 = time.perf_counter()
+    gw.kill()
+    kill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svc2 = GatewayService(conf=conf, lanes=GW_KILL_LANES, state_dir=d,
+                          resume=True)
+    resume_s = time.perf_counter() - t0
+    gw2 = Gateway(svc2, port=0).start()
+    try:
+        client2 = GatewayClient(gw2)
+        for r in recs:
+            client2.poll(r)
+        n = check_gateway_results("gateway kill and resume", recs)
+        st, health, _ = http_call(gw2.host, gw2.port, "GET", "/healthz")
+        if st != 200 or health["status"] != "healthy":
+            fail(f"gateway after resume: /healthz {st} {health}")
+        c2 = dict(svc2.counters)
+        adopted = len(svc2.current.server.adopted)
+    finally:
+        gw2.shutdown()
+    return dict(requests=n, completed_before_kill=before["completed"],
+                resumed=c2["resumed"], adopted_in_flight=adopted,
+                restarts=c2["restarts"], kill_s=kill_s, resume_s=resume_s,
+                health=health["status"])
+
+
+def phase_gateway(main_out: dict) -> dict:
+    """The HTTP gateway on the card (gateway/, imagestore/): generation 1
+    (config 5 at MAIN_LANES lanes, its fused key phase_serve's) serves
+    GW_REQUESTS seeded requests through real HTTP on 127.0.0.1 from
+    GW_CLIENTS client threads, sync and async with polling; after
+    GW_SWAP_AT of them a POST of the echo module draws 503 with
+    Retry-After (a generation_build fault: the rollback, generation 1
+    serving on), the re-POST lowers nothing and swaps in generation 2
+    (its kernel built in the timed build) while requests are in flight;
+    requests answered before the swap ran on generation 1, which drains
+    and shuts down; then GW_AFTER requests over all five modules.  Every
+    result equal to its model; the launch counts of the whole traffic.
+    Then kill and resume (phase_gateway_kill_resume)."""
+    from wasmedge_tpu_torch.batch import interp
+    from wasmedge_tpu_torch.gateway import Gateway, GatewayService
+    from wasmedge_tpu_torch.testing.faults import Fault, FaultInjector
+
+    card = gpu_name_and_power()
+    root = tempfile.mkdtemp(prefix="chip-smoke-gateway-")
+    inj = FaultInjector([Fault(point="generation_build", at=1)])
+    t0 = time.perf_counter()
+    svc = GatewayService(conf=gateway_conf(), lanes=MAIN_LANES, faults=inj)
+    svc.preload(gateway_modules(False))
+    boot_s = time.perf_counter() - t0
+    gen1 = svc.current
+    key1 = interp.fused_kernel_key(gen1.engine.tables)
+    serve_key = main_out["serve"]["fused_key"]
+    print(f"  gateway: generation 1 fused key {key1}, phase_serve's "
+          f"{serve_key}", flush=True)
+    if key1 != serve_key:
+        fail(f"gateway: generation 1's build {key1} is not phase_serve's "
+             f"{serve_key}")
+    gw = Gateway(svc, port=0).start()
+    client = GatewayClient(gw)
+    load = gateway_load(GW_REQUESTS, SEED, False)
+    after = gateway_load(GW_AFTER, SEED + 2, True)
+    echo_bytes = gateway_modules(True)[-1][1]
+    swap = {}
+
+    def register():
+        # the faulted POST, then the re-POST, while requests are in flight
+        lowered = svc.registry.lowered_count
+        swap["t_start"] = time.monotonic()
+        st, doc, hdrs = http_call(
+            gw.host, gw.port, "POST", "/v1/modules?name=echo", echo_bytes,
+            {"Content-Type": "application/wasm"})
+        if st != 503 or hdrs.get("Retry-After") is None \
+                or not doc["err"]["retryable"]:
+            fail(f"gateway: the faulted registration answered {st} {doc}")
+        swap["rollback"] = dict(status=st, retry_after=hdrs["Retry-After"],
+                                generation=svc.generation,
+                                lowered=svc.registry.lowered_count - lowered)
+        lowered = svc.registry.lowered_count
+        t = time.monotonic()
+        st, doc, _ = http_call(
+            gw.host, gw.port, "POST", "/v1/modules?name=echo", echo_bytes,
+            {"Content-Type": "application/wasm"})
+        swap["t_done"] = time.monotonic()
+        swap["post_s"] = swap["t_done"] - t
+        if st != 201 or doc["generation"] != 2:
+            fail(f"gateway: the re-POST answered {st} {doc}")
+        if svc.registry.lowered_count != lowered:
+            fail("gateway: the re-POST lowered the module again")
+
+    for k in interp.LAUNCHES:
+        interp.LAUNCHES[k] = 0
+    # the traffic's seconds are its two send windows, each from its first
+    # send to its last answer (async ids polled by their own clients);
+    # the wait for the registration and the drain between them is not
+    # traffic
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(GW_CLIENTS) as pool:
+        first = list(pool.map(client.one, load[:GW_SWAP_AT]))
+        fut = pool.submit(register)
+        rest = list(pool.map(client.one, load[GW_SWAP_AT:]))
+        t_rest = time.monotonic()
+        fut.result()
+        gen2 = svc.current
+        # generation 1 drains and shuts down
+        deadline = time.monotonic() + 300.0
+        while svc.status()["draining_generations"] \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        t_drain = dict(svc.drains).get(1)
+        if t_drain is None or gen1.server._thread is not None:
+            fail(f"gateway: generation 1 did not drain ({svc.drains})")
+        t_late = time.monotonic()
+        late = list(pool.map(client.one, after))
+        t_end = time.monotonic()
+    wall = t_end - t0
+    traffic_s = (t_rest - t0) + (t_end - t_late)
+    counts = dict(interp.LAUNCHES)
+    n = check_gateway_results("gateway", first + rest + late)
+    # requests answered before the swap began ran on generation 1, those
+    # sent after it on generation 2
+    pre = [r for r in first + rest if r["t_answer"] < swap["t_start"]]
+    post = [r for r in first + rest + late if r["t_sent"] > swap["t_done"]]
+    if any(r["body"]["generation"] != 1 for r in pre) \
+            or any(r["body"]["generation"] != 2 for r in post) \
+            or not post:
+        fail("gateway: a request ran on the wrong generation")
+    for k in ("interp", "block", "window", "optimistic", "hostcall"):
+        if counts[k] == 0:
+            fail(f"gateway: no {k} launch of the CUDA kernel")
+    key2 = interp.fused_kernel_key(gen2.engine.tables)
+    st, health, _ = http_call(gw.host, gw.port, "GET", "/healthz")
+    status = svc.status()
+    gw.shutdown()
+    every = first + rest + late
+    sync = np.array([r["t_answer"] - r["t_sent"]
+                     for r in every if not r["req"][4]])
+    async_ = np.array([r["t_done"] - r["t_sent"]
+                       for r in every if r["req"][4]])
+    # the client's time against the gateway's span of the same request:
+    # what is left is the HTTP layer's (and the client's, and the poll's)
+    spans = [(r.get("t_done", r["t_answer"]) - r["t_sent"], r["gateway_s"],
+              r["req"][4]) for r in every if "gateway_s" in r]
+    if len(spans) < n // 2:
+        fail(f"gateway: only {len(spans)} of {n} requests still in the "
+             f"gateway's stash after their answer")
+
+    def split(is_async):
+        c = np.array([a for a, _, k in spans if k == is_async])
+        g = np.array([b for _, b, k in spans if k == is_async])
+        return dict(n=len(c),
+                    gateway_p50_ms=float(np.percentile(g, 50)) * 1e3,
+                    gateway_p99_ms=float(np.percentile(g, 99)) * 1e3,
+                    outside_p50_ms=float(np.percentile(c - g, 50)) * 1e3,
+                    outside_share=float((c - g).sum() / c.sum()))
+
+    rec = dict(requests=n, wall_s=wall, traffic_s=traffic_s,
+               requests_per_s=n / traffic_s,
+               sync_p50_ms=float(np.percentile(sync, 50)) * 1e3,
+               sync_p99_ms=float(np.percentile(sync, 99)) * 1e3,
+               async_p50_ms=float(np.percentile(async_, 50)) * 1e3,
+               async_p99_ms=float(np.percentile(async_, 99)) * 1e3,
+               split_sync=split(False), split_async=split(True),
+               generation1_key=key1, generation2_key=key2,
+               boot_s=boot_s, boot_build_s=gen1.build_s,
+               boot_kernel_s=gen1.kernel_s, swap_post_s=swap["post_s"],
+               swap_build_s=gen2.build_s, swap_kernel_s=gen2.kernel_s,
+               drain_s=t_drain, rollback=swap["rollback"],
+               before_swap=len(pre), after_swap=len(post),
+               launches=counts["interp"], block_launches=counts["block"],
+               window_launches=counts["window"],
+               optimistic_launches=counts["optimistic"],
+               hostcall_launches=counts["hostcall"],
+               health=health["status"], http=status["http"],
+               gateway=status["gateway"], card=card)
+    if st != 200 or health["status"] != "healthy":
+        fail(f"gateway: /healthz {st} {health}")
+    ss, sa = rec["split_sync"], rec["split_async"]
+    print(f"  gateway x {MAIN_LANES} lanes, {n} HTTP requests from "
+          f"{GW_CLIENTS} closed-loop clients (half async, each polled by its "
+          f"client) over config 5, then echo too: every result equal to its "
+          f"model; {rec['requests_per_s']:.1f} requests/s over the "
+          f"{traffic_s:.3f} s of the two send windows ({wall:.3f} s with "
+          f"the registration's and the drain's wait), sync "
+          f"p50 {rec['sync_p50_ms']:.1f} ms, p99 {rec['sync_p99_ms']:.1f} "
+          f"ms, async (to the poll's answer) p50 {rec['async_p50_ms']:.1f} "
+          f"ms, p99 {rec['async_p99_ms']:.1f} ms; inside the gateway (submit "
+          f"to resolution) sync p50 {ss['gateway_p50_ms']:.1f} / p99 "
+          f"{ss['gateway_p99_ms']:.1f} ms, async p50 "
+          f"{sa['gateway_p50_ms']:.1f} / p99 {sa['gateway_p99_ms']:.1f} ms; "
+          f"outside it (HTTP, client, poll) p50 {ss['outside_p50_ms']:.2f} "
+          f"ms sync, {sa['outside_p50_ms']:.2f} ms async, "
+          f"{ss['outside_share']:.4f} / {sa['outside_share']:.4f} of the "
+          f"clients' time ({ss['n']} + {sa['n']} requests); "
+          f"boot {boot_s:.3f} s "
+          f"(kernel build {gen1.kernel_s:.3f} s); the faulted POST 503 "
+          f"Retry-After {swap['rollback']['retry_after']}, the re-POST "
+          f"{swap['post_s']:.3f} s (build {gen2.build_s:.3f} s, of it the "
+          f"kernel {gen2.kernel_s:.3f} s), generation 1 drained "
+          f"{t_drain:.3f} s after the swap; {len(pre)} requests answered "
+          f"before the swap on generation 1, {len(post)} sent after it on "
+          f"generation 2; {counts['interp']} launches ({counts['block']} "
+          f"B2, {counts['window']} windowed, {counts['optimistic']} "
+          f"optimistic, {counts['hostcall']} with the host-call handler); "
+          f"{card}", flush=True)
+    rec["kill_resume"] = kr = phase_gateway_kill_resume(root)
+    print(f"  gateway kill and resume x {GW_KILL_LANES} lanes: "
+          f"{kr['requests']} async ids, {kr['completed_before_kill']} "
+          f"completed before the kill, {kr['adopted_in_flight']} adopted in "
+          f"flight from the checkpoint, {kr['resumed']} resumed, each equal "
+          f"to its model; kill {kr['kill_s']:.3f} s, resume "
+          f"{kr['resume_s']:.3f} s; /healthz {kr['health']}; {card}",
+          flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
 def parse_ptxas(text: str) -> dict:
     """Registers, stack frame and spills of each kernel instantiation and
     out-of-line device function in `ptxas -v` output."""
@@ -5624,7 +6090,12 @@ def prebuild() -> dict:
     per_op = [(w, o, False) for w in (False, True) for o in (False, True)]
     in_main = {interp.fused_kernel_key(t) for t in main
                if t.fusion != "none"}
-    queued = interp.start_builds(
+    # the gateway's generation 2 first in the background queue: the
+    # gateway phase's timed build then finds it built
+    gateway = gateway_builds()
+    queued = interp.start_builds(gateway, at_once=BACKGROUND_BUILDS)
+    rest += gateway
+    queued += interp.start_builds(
         [t for t in rest if t.fusion == "none"
          or interp.fused_kernel_key(t) not in in_main],
         at_once=BACKGROUND_BUILDS)
@@ -5772,6 +6243,7 @@ def main() -> int:
     main_out["serve"] = part("serve", phase_serve)
     main_out["compact"] = part("compact", phase_compact, main_out)
     main_out["supervise"] = part("supervise", phase_supervise, main_out)
+    main_out["gateway"] = part("gateway", phase_gateway, main_out)
     check_flushes("the main phase")
     t_main = time.perf_counter() - t0
     print(f"phase main: {t_main:.2f} s ({json.dumps(main_s)}; background "
@@ -5828,6 +6300,10 @@ def main() -> int:
     print(f"tier-0 calls per fixture: {json.dumps(TIER0_FIXTURES)}",
           flush=True)
     print(f"concatenated-image jobs: {json.dumps(MIX_RECORDS)}", flush=True)
+    gw_job_key = MIX_RECORDS["mix.gateway_generation2"]["key"]
+    if gw_job_key != main_out["gateway"]["generation2_key"]:
+        fail(f"the gateway's generation-2 kernel job ran build {gw_job_key}, "
+             f"the gateway phase {main_out['gateway']['generation2_key']}")
 
 
     def per_launch(prof):
@@ -5889,6 +6365,10 @@ def main() -> int:
     # and the serving run: B2 blocks, windows, optimistic (the defaults)
     mx = {k: main_out["mix"][k]["mix"] for k in ("config5", "straddle")}
     sv = main_out["serve"]
+    # the HTTP gateway's traffic (phase_gateway): generations 1 and 2 of
+    # the concatenated image, B2 blocks, windows, optimistic; echo's host
+    # calls park through K/B1's host-call handler inside those launches
+    gwy = main_out["gateway"]
     # lane compaction's runs (B2 blocks, windows where a memory is,
     # optimistic; the launch width an argument of both launch entries):
     # their launches, narrowed launches and kernel ms beside the same
@@ -5927,7 +6407,8 @@ def main() -> int:
         # and the B2 launches whose call_indirect runs this kernel's
         # per-op handler inside the fused kernel
         linked_op_launches=lk["op_launches"],
-        linked_block_launches_with_per_op_call=linked["block_launches"])
+        linked_block_launches_with_per_op_call=linked["block_launches"],
+        gateway_hostcall_launches=gwy["hostcall_launches"])
     # B2 and B6: the fused kernel of fib's module, its launches in the
     # main path's fib(30) run with block_fusion None (blocks) and False
     # (superinstructions)
@@ -5960,7 +6441,8 @@ def main() -> int:
         mix_main_ms_per_launch=mx["config5"]["kernel_ms"]
         / mx["config5"]["profiled_launches"],
         straddle_launches=mx["straddle"]["block_launches"],
-        serve_launches=sv["block_launches"], compacted=compacted)
+        serve_launches=sv["block_launches"], compacted=compacted,
+        gateway_launches=gwy["block_launches"])
     super_record = launch_record(
         "super", "wasmedge_tpu_torch/csrc/fused.cuh",
         "wasmedge_tpu/batch/pallas_engine.py:2472",
@@ -6051,6 +6533,7 @@ def main() -> int:
         mix_launches=mx["config5"]["window_launches"],
         straddle_launches=mx["straddle"]["window_launches"],
         serve_launches=sv["window_launches"],
+        gateway_launches=gwy["window_launches"],
         timed_launch={"workload": f"mem_checksum({MEM_N}), {MEM_PASSES} "
                       f"passes", "lanes": MAIN_LANES, "steps": TIMED_STEPS,
                       "from_step": mem_timing["first_step"],
@@ -6091,6 +6574,7 @@ def main() -> int:
         straddle_launches=mx["straddle"]["optimistic_launches"],
         mix_entries={k: mx[k]["b3"] for k in mx},
         serve_launches=sv["optimistic_launches"],
+        gateway_launches=gwy["optimistic_launches"],
         serve_entries=dict(uniform=sv["uniform"], entered=sv["entered"],
                            rollbacks=sv["rollbacks"]),
         entry_compare={k: dict(cycles_per_warp=t["entry_compare_cycles_per_warp"],

@@ -290,12 +290,17 @@ def t0_time_planes() -> np.ndarray:
 
 def resolve_device(device) -> torch.device:
     """Entry points run on the card unless the caller asks for the CPU;
-    a card that is asked for (or left as the default) must exist."""
+    a card that is asked for (or left as the default) must exist.  A card
+    without an index is resolved to the current one, so that a thread
+    that later launches on the engine's tensors (a server's) can select
+    that card."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch interpreter")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -402,6 +402,42 @@ class DeviceImage:
         return self.__dict__["_analysis"]
 
 
+def image_fingerprint(img: DeviceImage) -> str:
+    """Content fingerprint of an image's planes and scalars (sha256), the
+    JAX package's `image_fingerprint` over the fields the port's image
+    has.  The image store's segment cache (imagestore/segments.py) keys
+    rebased segments on it: two engines lowered from the same bytes under
+    the same knobs fingerprint alike.  Kept on the image after the first
+    call (its planes are fixed once the engine has set it up)."""
+    import hashlib
+
+    cached = img.__dict__.get("_fingerprint")
+    if cached is not None:
+        return cached
+    h = hashlib.sha256()
+    for name in ("cls", "sub", "a", "b", "c", "imm_lo", "imm_hi", "op_id",
+                 "br_table", "f_entry", "f_nparams", "f_nlocals",
+                 "f_nresults", "f_frame_top", "f_type", "table0",
+                 "globals_lo", "globals_hi", "mem_init", "v128",
+                 "t0kind", "elem_flat", "elem_off", "elem_len",
+                 "data_words", "data_off", "data_len"):
+        arr = getattr(img, name, None)
+        h.update(name.encode())
+        if arr is None:
+            h.update(b"\x00")
+            continue
+        arr = np.ascontiguousarray(arr)
+        h.update(str(arr.dtype).encode() + str(arr.shape).encode())
+        h.update(arr.tobytes())
+    for scalar in (img.mem_pages_init, img.mem_pages_max,
+                   int(img.has_memory), img.max_local_zeros, img.code_len,
+                   int(img.has_simd), img.table_cap, img.table_size_init,
+                   int(img.has_table_mut), int(img.has_table_grow)):
+        h.update(str(int(scalar)).encode() + b",")
+    img.__dict__["_fingerprint"] = h.hexdigest()
+    return img.__dict__["_fingerprint"]
+
+
 def build_device_image(image: LoweredModule, memories=None, globals_=None,
                        table0=None, mod=None, elem_segs=None,
                        data_segs=None) -> DeviceImage:

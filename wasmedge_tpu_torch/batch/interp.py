@@ -450,6 +450,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"interp": 0, "bulk": 0, "hostcall": 0, "simd": 0, "block": 0,
             "super": 0, "window": 0, "optimistic": 0, "tier0": 0,
             "tables": 0, "gas": 0, "narrow": 0, "stdout_flush": 0}
+LAUNCHES_LOCK = threading.Lock()
 
 _libs = {}  # build key -> loaded ctypes library
 _lib_lock = threading.Lock()
@@ -1079,18 +1080,21 @@ def run_chunk(tables: Tables, st, chunk: int, fuel_on: bool,
     if err != 0:
         raise RuntimeError(f"interpreter kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["interp"] += 1
-    LAUNCHES["bulk"] += tables.has_bulk
-    LAUNCHES["hostcall"] += tables.has_hostcall
-    LAUNCHES["simd"] += tables.has_simd
-    LAUNCHES["block"] += tables.fusion == "blocks"
-    LAUNCHES["super"] += tables.fusion == "super"
-    LAUNCHES["window"] += tables.mem_window
-    LAUNCHES["optimistic"] += tables.optimistic
-    LAUNCHES["tier0"] += tables.t0k is not None
-    LAUNCHES["tables"] += tables.a3
-    LAUNCHES["gas"] += tables.gcum is not None and bool(fuel_on)
-    LAUNCHES["narrow"] += width < L
+    # under a lock: two servers' threads launch at once while a gateway's
+    # old generation drains beside its new one
+    with LAUNCHES_LOCK:
+        LAUNCHES["interp"] += 1
+        LAUNCHES["bulk"] += tables.has_bulk
+        LAUNCHES["hostcall"] += tables.has_hostcall
+        LAUNCHES["simd"] += tables.has_simd
+        LAUNCHES["block"] += tables.fusion == "blocks"
+        LAUNCHES["super"] += tables.fusion == "super"
+        LAUNCHES["window"] += tables.mem_window
+        LAUNCHES["optimistic"] += tables.optimistic
+        LAUNCHES["tier0"] += tables.t0k is not None
+        LAUNCHES["tables"] += tables.a3
+        LAUNCHES["gas"] += tables.gcum is not None and bool(fuel_on)
+        LAUNCHES["narrow"] += width < L
 
 
 def _check_launch(tables: Tables, st, warps, device) -> None:

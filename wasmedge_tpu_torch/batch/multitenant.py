@@ -22,8 +22,13 @@ Left out, with the reasons:
   `fuse_patterns`, `tier_fn`): the port has neither planner; its B2 and
   B6 planners (`batch/fusion.py`) run over the concatenated image as
   over any image;
-- the segment cache, the mesh argument and the recorder wait for their
-  subsystems.
+- the mesh argument and the recorder wait for their subsystems.
+
+The gateway (gateway/registry.py) hands `MultiModuleBatchEngine` the
+one-lane engines it built at registration (`engines=`), so that a
+generation swap lowers nothing again, and an image store's
+`SegmentCache` (`segment_cache=`, imagestore/segments.py), so that
+`concat_images` rebases only the segments it has not built before.
 
 Lane compaction (`conf.batch.compact`, batch/compact.py): `run_tenants`
 arms a compactor as `BatchEngine.run` does; its permutations cross the
@@ -162,15 +167,24 @@ def build_segment(t: Tenant, off: dict) -> Segment:
                    g_hi=img.globals_hi, v128=img.v128, advance=advance)
 
 
-def concat_images(tenants: Sequence[Tenant]) -> Tuple[DeviceImage, list]:
+def concat_images(tenants: Sequence[Tenant], cache=None
+                  ) -> Tuple[DeviceImage, list]:
     """Concatenate the tenants' DeviceImages into one image.  Returns
     (image, bases): bases[i] holds tenant i's index-space offsets
-    (pc/func/glob/type/brt/table/eseg/dseg)."""
+    (pc/func/glob/type/brt/table/eseg/dseg).  `cache` (an image store
+    `SegmentCache`, or None) keeps the rebased segments: a segment is a
+    pure function of its tenant's image and its offsets, so appending a
+    module to a generation rebuilds only the new module's segment, and
+    the image is the same as without a cache."""
     off = dict(pc=0, func=0, glob=0, type=0, brt=0, table=0, v128=0,
                eseg=0, eflat=0, dseg=0, dbyte=0)
     segments: List[Segment] = []
     for t in tenants:
-        seg = build_segment(t, off)
+        seg = cache.lookup(t.img, off) if cache is not None else None
+        if seg is None:
+            seg = build_segment(t, off)
+            if cache is not None:
+                cache.store(t.img, off, seg)
         segments.append(seg)
         for k, v in seg.advance.items():
             off[k] += v
@@ -232,7 +246,7 @@ class MultiTenantBatchEngine(BatchEngine):
 
     def __init__(self, tenants: Sequence[Tenant],
                  conf: Optional[Configure] = None, device="cuda",
-                 lanes: Optional[int] = None):
+                 lanes: Optional[int] = None, segment_cache=None):
         if not tenants:
             raise ValueError("no tenants")
         self.tenants = list(tenants)
@@ -242,7 +256,7 @@ class MultiTenantBatchEngine(BatchEngine):
             sum(t.lanes for t in self.tenants)
         self.device = resolve_device(device)
         self.inst = None  # no single instance: see resolve_func
-        img, self.bases = concat_images(self.tenants)
+        img, self.bases = concat_images(self.tenants, cache=segment_cache)
         self._func_owner = np.concatenate(
             [np.full(len(t.img.f_entry), ti, np.int64)
              for ti, t in enumerate(self.tenants)])
@@ -393,27 +407,36 @@ class MultiModuleBatchEngine(MultiTenantBatchEngine):
     module name to a snapshot overlay dict (`mem`, `mem_pages`,
     `glob_lo` / `glob_hi`, `tab`, `tsize`, `edrop`, `ddrop`) that
     replaces its template state, and `snapshot_counts` counts the lanes
-    admitted onto one."""
+    admitted onto one.  `engines` gives the modules' one-lane
+    BatchEngines, in order (the gateway's registry keeps one a module),
+    so that a generation lowers none of them again; else each is built
+    here.  `segment_cache` is an image store `SegmentCache` for
+    `concat_images`."""
 
     def __init__(self, modules: Sequence[Tuple[str, object, object]],
                  conf: Optional[Configure] = None,
                  lanes: Optional[int] = None, init_overlays=None,
-                 snapshot_counts=None, device="cuda"):
+                 snapshot_counts=None, device="cuda", engines=None,
+                 segment_cache=None):
         if not modules:
             raise ValueError("no modules")
         names = [name for name, _, _ in modules]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate module names in {names}")
         conf = conf or Configure()
+        if engines is not None and len(engines) != len(modules):
+            raise ValueError(f"{len(engines)} engines for {len(modules)} "
+                             f"modules")
         tenants = []
-        for name, inst, store in modules:
+        for k, (name, inst, store) in enumerate(modules):
             # the module's own image (only the image is used: lanes=1)
-            eng = BatchEngine(inst, store=store, conf=conf, lanes=1,
-                              device=device)
+            eng = engines[k] if engines is not None else BatchEngine(
+                inst, store=store, conf=conf, lanes=1, device=device)
             tenants.append(Tenant(engine=eng, func_name="", args_lanes=[],
                                   lanes=0))
         super().__init__(tenants, conf=conf, device=device,
-                         lanes=int(lanes) if lanes else conf.batch.lanes)
+                         lanes=int(lanes) if lanes else conf.batch.lanes,
+                         segment_cache=segment_cache)
         self._init_overlays = dict(init_overlays) if init_overlays else {}
         self.snapshot_counts = snapshot_counts \
             if snapshot_counts is not None else {}

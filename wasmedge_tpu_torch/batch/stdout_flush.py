@@ -141,7 +141,8 @@ def launch(so_buf: torch.Tensor, so_off: torch.Tensor, skip: torch.Tensor):
     if err != 0:
         raise RuntimeError(f"stdout flush kernel launch failed: CUDA error "
                            f"{err}")
-    interp.LAUNCHES["stdout_flush"] += 1
+    with interp.LAUNCHES_LOCK:
+        interp.LAUNCHES["stdout_flush"] += 1
     return meta, out
 
 

@@ -6,7 +6,8 @@ registers, the runtime limits the validator and the scalar engine read
 (memory pages, call depth), the `Statistics` settings (instruction
 counting, gas, timers), and the `BatchConfigure` knobs the CUDA
 warp-interpreter and its host launch loop read, and the
-`ServeConfigure` knobs of the serving layer.
+`ServeConfigure` knobs of the serving layer and the `ImagestoreConfigure`
+knobs of the gateway's image store.
 """
 
 from __future__ import annotations
@@ -244,6 +245,37 @@ class ServeConfigure:
 
 
 @dataclasses.dataclass
+class ImagestoreConfigure:
+    """Knobs of the image store (imagestore/), the JAX package's
+    `ImagestoreConfigure`: segmented generation images and pre-initialized
+    lane snapshots, both off by default (the off configuration concatenates
+    every segment inline and admits every lane through template init).
+
+    The persistent compile cache needs an ahead-of-time image format the
+    port does not have yet (ROADMAP A7.7): `compile_cache` is here so that
+    a gateway refuses it; its directory comes with the tier."""
+
+    # Memoize per-module image segments across generation builds: a swap
+    # reuses every segment already built and builds only the new module's.
+    segmented: bool = False
+    # Not in the port yet (A7.7): a GatewayService refuses True.
+    compile_cache: bool = False
+    # Run a module's nullary _initialize / _start once at registration on
+    # its one-lane engine, keep the post-init columns, and admit its lanes
+    # from them instead of template init.
+    snapshots: bool = False
+    # Snapshot SwapStore spill directory (None = host memory only).
+    snapshot_dir: Optional[str] = None
+    # Step budget of the registration's init run; past it (or on a trap
+    # or a host call) the module gets no snapshot.
+    snapshot_init_max_steps: int = 2_000_000
+
+    @property
+    def active(self) -> bool:
+        return self.segmented or self.compile_cache or self.snapshots
+
+
+@dataclasses.dataclass
 class Configure:
     proposals: set = dataclasses.field(
         default_factory=lambda: set(DEFAULT_PROPOSALS))
@@ -256,6 +288,8 @@ class Configure:
     serve: ServeConfigure = dataclasses.field(default_factory=ServeConfigure)
     supervisor: SupervisorConfigure = dataclasses.field(
         default_factory=SupervisorConfigure)
+    imagestore: ImagestoreConfigure = dataclasses.field(
+        default_factory=ImagestoreConfigure)
 
     def add_proposal(self, p: Proposal) -> "Configure":
         self.proposals.add(p)

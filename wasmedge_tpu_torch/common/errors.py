@@ -125,7 +125,15 @@ TRAP_MESSAGES = {
 class WasmError(Exception):
     """Base for all phase errors; carries an ErrCode and an ErrInfo record
     chain (reference: include/common/errinfo.h:1-299 — context records
-    attached as the error unwinds)."""
+    attached as the error unwinds).
+
+    `retryable` is the machine-readable half of the rejection contract:
+    True means the SAME request can succeed later (transient
+    backpressure: QueueSaturated sets it), False means retrying verbatim
+    can never help (traps, permanent admission blocks, deadline expiry).
+    The gateway maps it onto HTTP 429 / 503 against a terminal status."""
+
+    retryable: bool = False
 
     def __init__(self, code: ErrCode, msg: str = "", offset: int | None = None):
         self.code = ErrCode(code)
@@ -184,3 +192,33 @@ class EngineFailure(WasmError):
 
 def trap(code: ErrCode, msg: str = ""):
     raise TrapError(code, msg)
+
+
+def rejection_info(exc: BaseException) -> dict:
+    """Structured machine-readable view of a rejection: the stable ErrCode
+    value and name, the retryable flag, an optional retry-after hint and
+    sub-taxonomy `detail`, and the human message (clients must never
+    parse it).  Any other exception maps to ExecutionFailed,
+    non-retryable, so that every failure path yields the same shape."""
+    if isinstance(exc, WasmError):
+        out = {
+            "code": int(exc.code),
+            "name": exc.code.name,
+            "retryable": bool(getattr(exc, "retryable", False)),
+            "message": str(exc),
+        }
+        after = getattr(exc, "retry_after_s", None)
+        if after is not None:
+            out["retry_after_s"] = float(after)
+        detail = getattr(exc, "detail", None)
+        if detail:
+            # a stable token inside one ErrCode (a pruned async id is
+            # NotFound like an unknown one, "shed" marks load shedding)
+            out["detail"] = str(detail)
+        return out
+    return {
+        "code": int(ErrCode.ExecutionFailed),
+        "name": ErrCode.ExecutionFailed.name,
+        "retryable": False,
+        "message": f"{type(exc).__name__}: {exc}",
+    }

@@ -35,8 +35,12 @@ class QueueSaturated(WasmError):
 
     retryable = True
 
-    def __init__(self, msg: str = "serve queue saturated"):
+    def __init__(self, msg: str = "serve queue saturated",
+                 retry_after_s: Optional[float] = None):
         super().__init__(ErrCode.CostLimitExceeded, msg)
+        # an optional hint of when capacity is expected (the gateway
+        # forwards it as HTTP Retry-After)
+        self.retry_after_s = retry_after_s
 
 
 class DeadlineExceeded(WasmError):

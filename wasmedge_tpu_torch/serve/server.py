@@ -155,6 +155,11 @@ class BatchServer:
         self._consecutive = 0
         self._pending_backoff = 0.0
         self.retries = 0
+        # checkpoint-write health: consecutive failed snapshot saves since
+        # the last good one, and the last error (the gateway's /healthz
+        # reads them: a server that cannot persist its state is degraded)
+        self.checkpoint_fail_streak = 0
+        self.last_checkpoint_error: Optional[BaseException] = None
         self.failures: List[FailureRecord] = []
         self.failed: Optional[BaseException] = None
         self._draining = False
@@ -174,10 +179,14 @@ class BatchServer:
 
     # -- submission --------------------------------------------------------
     def submit(self, func_name: str, args=(), tenant: str = "default",
-               deadline_s: Optional[float] = None) -> ServeFuture:
+               deadline_s: Optional[float] = None,
+               request_id: Optional[int] = None) -> ServeFuture:
         """Queue one request; returns its future.  Raises QueueSaturated
         when the bounded queue is full, KeyError for an unknown export,
-        and the server's terminal error once it has failed."""
+        and the server's terminal error once it has failed.
+        `request_id` re-queues a journaled request under its original id
+        (the gateway's resume); the process-wide id counter moves past
+        it."""
         with self._lock:
             if self.failed is not None:
                 raise self.failed
@@ -199,7 +208,10 @@ class BatchServer:
             req = ServeRequest(
                 func_name, tuple(int(a) for a in args), tenant=tenant,
                 deadline=(now + float(deadline_s))
-                if deadline_s is not None else None, t_submit=now)
+                if deadline_s is not None else None, t_submit=now,
+                request_id=request_id)
+            if request_id is not None:
+                advance_request_ids(req.id)
             self.queue.push(req)   # raises QueueSaturated on backpressure
             self.counters["submitted"] += 1
             self._wake.notify_all()
@@ -724,8 +736,12 @@ class BatchServer:
         except (KeyboardInterrupt, SystemExit):
             raise
         except Exception as e:
+            self.checkpoint_fail_streak += 1
+            self.last_checkpoint_error = e
             self._record("checkpoint", e, checkpoint=path)
             return None
+        self.checkpoint_fail_streak = 0
+        self.last_checkpoint_error = None
         # the same total gives the same path: Lineage.add replaces the
         # member instead of stacking one the prune would unlink while
         # others still name the file

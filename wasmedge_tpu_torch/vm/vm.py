@@ -297,6 +297,36 @@ class VM:
                            checkpoint_dir=checkpoint_dir, resume=resume,
                            device=device)
 
+    def gateway(self, host: str = "127.0.0.1", port: int = 0,
+                lanes: Optional[int] = None, tenants=None,
+                module_name: str = "main",
+                state_dir: Optional[str] = None, device="cuda"):
+        """The network-facing serving gateway over the instantiated module
+        (gateway/): returns an UNSTARTED Gateway whose HTTP surface
+        serves POST /v1/invoke (sync or async with polling), runtime
+        module registration (POST /v1/modules: more guests join the
+        concatenated image at generation swaps), /v1/status and a
+        truthful /healthz.  This VM's module is registered as
+        `module_name`; the gateway's generations run on `device`.
+        `tenants` is a gateway.GatewayTenants policy table; `state_dir`
+        makes runtime registrations and async request ids survive a
+        restart (this instance-registered module has no bytes to keep: a
+        resume restores only wasm-registered modules).  Call `.start()`
+        on the result and `.shutdown()` to drain."""
+        from wasmedge_tpu_torch.gateway import Gateway, GatewayService
+
+        with self._lock:
+            if self._active is None or self.stage != VMStage.Instantiated:
+                raise WasmError(ErrCode.WrongVMWorkflow,
+                                "no instantiated module")
+            inst = self._active
+        conf = batch_conf_with_gas(self.conf, self.stat)
+        svc = GatewayService(conf=conf, lanes=lanes or 64, tenants=tenants,
+                             state_dir=state_dir, device=device)
+        svc.register_module(module_name, inst=inst, store=self.store,
+                            source="vm")
+        return Gateway(svc, host=host, port=port)
+
     # -- introspection -------------------------------------------------------
     def get_function_list(self) -> List[Tuple[str, ast.FunctionType]]:
         if self._active is None:
